@@ -1,0 +1,68 @@
+"""Params between numpy and the port, keyed like the reference's checkpoints.
+
+Keys are the "/"-joined pytree paths that ``repro/train/checkpoint.py``'s
+``_flatten`` writes (``embed``, ``ln_f``, ``layers/wq``, ...).  So a JAX
+params pytree flattened to numpy and the reference's ``state.npz``
+checkpoints (whose params sit under ``params/``: pass ``prefix="params/"``)
+both load, and both packages can run the same weights.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceArg, resolve_device, torch_dtype
+from repro_torch.dist.sharding import iter_decls, set_path
+from repro_torch.models import model as model_lib
+from repro_torch.models.config import ModelConfig
+
+
+def _to_tensor(arr: np.ndarray) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":     # ml_dtypes' bfloat16 (JAX arrays)
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))   # owned, writable
+
+
+def params_from_numpy(cfg: ModelConfig, flat: Dict[str, np.ndarray],
+                      device: DeviceArg = None, prefix: str = ""):
+    """Nested params dict of ``cfg.param_dtype`` tensors on ``device`` from
+    ``flat[prefix + path]``.  Every declared tensor must be present with its
+    declared shape."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.param_dtype)
+    out: Dict = {}
+    for path, decl in iter_decls(model_lib.decls(cfg)):
+        key = prefix + path
+        if key not in flat:
+            raise KeyError(f"params_from_numpy: {key!r} missing")
+        arr = flat[key]
+        if tuple(arr.shape) != decl.shape:
+            raise ValueError(f"params_from_numpy: {key!r} has shape "
+                             f"{tuple(arr.shape)}, {cfg.name} declares "
+                             f"{decl.shape}")
+        set_path(out, path, _to_tensor(arr).to(device=dev, dtype=dtype))
+    return out
+
+
+def params_to_numpy(params, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Inverse of ``params_from_numpy``.  bfloat16 tensors come back as
+    float32 arrays (exact: every bfloat16 is a float32), since numpy has no
+    bfloat16 of its own."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(tree, path):
+        if isinstance(tree, torch.Tensor):
+            t = tree.detach().cpu()
+            if t.dtype == torch.bfloat16:
+                t = t.float()
+            flat[prefix + path] = t.numpy()
+            return
+        for k in sorted(tree):
+            walk(tree[k], f"{path}/{k}" if path else k)
+
+    walk(params, "")
+    return flat

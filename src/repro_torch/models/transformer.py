@@ -1,0 +1,223 @@
+"""Decoder-only transformer, dense family (counterpart of
+``repro/models/transformer.py``).
+
+* Parameters are stacked over layers (leading ``layers`` dim), as in the
+  reference; a Python loop over the layer index takes the place of
+  ``lax.scan``.  ``cfg.remat`` only matters for a backward pass, which
+  this inference slice does not take.
+* The same ``forward`` serves full-sequence scoring and prefill (returns
+  the KV cache); ``decode`` runs one token against the cache.
+* ``attn_impl="kernel"`` runs the flash-attention kernel and, at the
+  residual seam between attention and FFN, the fused add+RMSNorm kernel;
+  any other impl takes the plain path for both.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import torch_dtype
+from repro_torch.dist.sharding import Decl
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+
+# --- declarations ---------------------------------------------------------------
+
+def layer_decls(cfg: ModelConfig, stacked: bool = True) -> Dict[str, Decl]:
+    """One decoder layer; ``stacked`` prepends the layers dim."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    d, hd = cfg.d_model, cfg.hd
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    pre = (cfg.n_layers,) if stacked else ()
+    pax = ("layers",) if stacked else ()
+
+    def decl(shape, axes, **kw):
+        return Decl(pre + tuple(shape), pax + tuple(axes), **kw)
+
+    out: Dict[str, Decl] = {
+        "ln1": decl((d,), ("embed",), init="ones"),
+        "ln2": decl((d,), ("embed",), init="ones"),
+        "wq": decl((d, h, hd), ("embed", "heads", None), scale_dim=-3),
+        "wk": decl((d, kv, hd), ("embed", "kv_heads", None), scale_dim=-3),
+        "wv": decl((d, kv, hd), ("embed", "kv_heads", None), scale_dim=-3),
+        "wo": decl((h, hd, d), ("heads", None, "embed"), scale_dim=-2),
+    }
+    if cfg.qkv_bias:
+        out["bq"] = decl((h, hd), ("heads", None), init="zeros")
+        out["bk"] = decl((kv, hd), ("kv_heads", None), init="zeros")
+        out["bv"] = decl((kv, hd), ("kv_heads", None), init="zeros")
+    if cfg.ffn_act == "swiglu":
+        out.update({
+            "w_gate": decl((d, cfg.d_ff), ("embed", "ff"), scale_dim=-2),
+            "w_up": decl((d, cfg.d_ff), ("embed", "ff"), scale_dim=-2),
+            "w_down": decl((cfg.d_ff, d), ("ff", "embed"), scale_dim=-2),
+        })
+    else:
+        out.update({
+            "w_up": decl((d, cfg.d_ff), ("embed", "ff"), scale_dim=-2),
+            "w_down": decl((cfg.d_ff, d), ("ff", "embed"), scale_dim=-2),
+        })
+    return out
+
+
+def decls(cfg: ModelConfig) -> Dict[str, Any]:
+    d = {
+        "embed": Decl((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                      init="embed"),
+        "ln_f": Decl((cfg.d_model,), ("embed",), init="ones"),
+        "layers": layer_decls(cfg),
+    }
+    if not cfg.tie_embeddings:
+        d["lm_head"] = Decl((cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
+                            scale_dim=-2)
+    return d
+
+
+# --- layer forward ---------------------------------------------------------------
+
+def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matmul."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def _proj_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul."""
+    h, k, d = w.shape
+    return o.reshape(*o.shape[:-2], h * k) @ w.reshape(h * k, d)
+
+
+def _qkv(cfg: ModelConfig, p, x, positions):
+    q = _proj_in(x, p["wq"])
+    k = _proj_in(x, p["wk"])
+    v = _proj_in(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_delta(cfg: ModelConfig, p, x, positions, impl: str):
+    """The attention sub-block's residual delta (un-added)."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, h, positions)
+    o = L.attention(q, k, v, impl=impl, causal=True, window=cfg.window,
+                    q_pos=positions, k_pos=positions)
+    return _proj_out(o, p["wo"]), (k, v)
+
+
+def _ffn(cfg: ModelConfig, p, h):
+    """FFN applied to an already-normed hidden state."""
+    if cfg.ffn_act == "swiglu":
+        return L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    if cfg.ffn_act == "gelu":    # jax.nn.gelu's default is the tanh form
+        act = lambda u: F.gelu(u, approximate="tanh")  # noqa: E731
+    elif cfg.ffn_act == "relu2":
+        act = lambda u: torch.square(F.relu(u))  # noqa: E731
+    else:
+        raise ValueError(f"unknown ffn_act {cfg.ffn_act!r}")
+    return act(h @ p["w_up"]) @ p["w_down"]
+
+
+def decoder_block(cfg: ModelConfig, p, x, positions, impl: str):
+    """Attention then FFN sub-blocks with the residual seam between them fused:
+    the post-attention add and the FFN's pre-norm run as one kernel pass
+    when ``impl == "kernel"``; identical math on the plain path."""
+    delta, kv = attn_delta(cfg, p, x, positions, impl)
+    h, x = L.rms_norm_residual(
+        x, delta, p["ln2"], cfg.norm_eps,
+        impl="kernel" if impl == "kernel" else "jnp")
+    return x + _ffn(cfg, p, h), kv
+
+
+def _layer(params, i: int) -> Dict[str, torch.Tensor]:
+    return {name: w[i] for name, w in params["layers"].items()}
+
+
+def _head(cfg: ModelConfig, params, x):
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (x @ head.to(x.dtype)).float()
+
+
+# --- full-sequence forward (scoring / prefill) ------------------------------------
+
+def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
+            return_cache: bool = False, attn_impl: Optional[str] = None):
+    """Returns logits (B,S,V) and optionally the KV cache (ring for SWA)."""
+    tokens = batch["tokens"]
+    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    impl = attn_impl or L.pick_attn_impl(cfg.attn_impl, s, x.device)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, (k, v) = decoder_block(cfg, _layer(params, i), x, positions, impl)
+        if return_cache:
+            if cfg.window and s > cfg.window:
+                k, v = k[:, -cfg.window:], v[:, -cfg.window:]
+            ks.append(k)
+            vs.append(v)
+    logits = _head(cfg, params, x)
+    if return_cache:
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs), "len": s}
+        return logits, cache
+    return logits
+
+
+# --- decode ----------------------------------------------------------------------
+
+def cache_decls(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Decl]:
+    """KV cache stand-ins (SWA archs cap the cache at the window)."""
+    s = min(max_len, cfg.window) if cfg.window else max_len
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    shp = (cfg.n_layers, batch, s, kv, hd)
+    axes = ("layers", None, "kv_seq", "kv_heads", None)
+    return {"k": Decl(shp, axes, init="zeros"),
+            "v": Decl(shp, axes, init="zeros"),
+            "len": Decl((), (), init="zeros")}
+
+
+def decode(cfg: ModelConfig, params, cache, tokens: torch.Tensor):
+    """One decode step. tokens: (B, 1). Returns (logits, cache).
+
+    ``cache["len"]`` is a Python int: every row sits at the same position
+    (the lockstep batch).  Where the reference's ``dynamic_update_slice``
+    returns a new cache, the port writes the new K/V row into the cache
+    tensors in place and returns them with ``len + 1``; a slot past the
+    buffer raises instead of being clamped into it.
+    """
+    pos = cache["len"]
+    if isinstance(pos, torch.Tensor):
+        if pos.dim() > 0:
+            raise NotImplementedError("decode: per-row cache lengths are "
+                                      "not ported yet (continuous batching)")
+        pos = int(pos)
+    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    positions = torch.tensor([pos], device=x.device)   # absolute, for RoPE
+    k_all, v_all = cache["k"], cache["v"]
+    cache_size = k_all.shape[2]
+    # SWA: ring buffer; slot p % window holds position p
+    slot = pos % cache_size if cfg.window else pos
+    if slot >= cache_size:
+        raise IndexError(f"decode: position {pos} is past the cache's "
+                         f"{cache_size} slots")
+    valid = min(pos + 1, cache_size)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = _qkv(cfg, lp, h, positions)
+        k_all[i, :, slot] = k[:, 0].to(k_all.dtype)
+        v_all[i, :, slot] = v[:, 0].to(v_all.dtype)
+        o = L.attn_decode(q, k_all[i], v_all[i], cache_len=valid, window=0)
+        delta = _proj_out(o.to(x.dtype), lp["wo"])
+        h, x = L.rms_norm_residual(x, delta, lp["ln2"], cfg.norm_eps)
+        x = x + _ffn(cfg, lp, h)
+    return _head(cfg, params, x), {"k": k_all, "v": v_all, "len": pos + 1}
