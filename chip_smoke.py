@@ -5,22 +5,37 @@
 
 Phases, each printed as it runs; any failure exits non-zero:
 
-1. card    the card's name and power limit (nvidia-smi); TF32 off for
-           matmuls and cuDNN, so float32 is float32.
-2. build   compile every CUDA source of the port with nvcc, timed.
-3. kernels hold each kernel against its plain PyTorch version on the card
-           (bf16 2e-2, fp32 2e-5) at the serving shapes and the edge cases,
-           and time kernel, plain version and, where one exists, the
-           PyTorch library call computing the same function.
-4. serve   smollm-360M at its published widths (32 layers, bf16, seeded
-           random weights) through ``BatchedServer``: 16 requests, prompts
-           of 256-509 tokens, 32 new tokens each, batch 8.  Both kernels
-           must show 32 launches per prefill; the prefill's last-token
-           logits are held against the port's plain path.  Prefill and
-           decode are timed, then profiled (device time by kernel group,
-           and the device's busy share of the wall time).
-5. result  one JSON line of kernel figures, the card line, then
-           ``{"ok": true, "device": {...}}`` as the last line.
+1. card      the card's name and power limit (nvidia-smi); TF32 off for
+             matmuls and cuDNN, so float32 is float32.
+2. build     compile every CUDA source of the port with nvcc, in parallel.
+3. kernels   hold each of the six kernels against its plain PyTorch version
+             on the card (bf16 2e-2, fp32 2e-5; SSD y 4e-2 / 1e-4 and state
+             1e-2 / 1e-4) at the main paths' shapes and the edge cases, and
+             time kernel, plain version and, where one exists, the PyTorch
+             library call computing the same function.
+4. models    a 2-layer fp32 model, kernel path vs plain path; the reduced
+             smollm config (head_dim 16, ``attn_impl="auto"``) prefills
+             through the attention kernel.
+5. serve     smollm-360M at its published widths (32 layers, bf16, seeded
+             random weights) through ``BatchedServer``: 16 requests, prompts
+             of 256-509 tokens, 32 new tokens each, batch 8.  The two
+             prefill kernels must show 32 launches per prefill and the
+             other four none; the prefill's last-token logits are held
+             against the port's plain path.  Prefill and decode are timed,
+             then profiled (device time by kernel group, busy share).
+6. calibrate ``calibrate_kernels("H100", bf16 and fp32)`` at smollm-360M's
+             widths, the table scored on held-out shapes against the
+             roofline (``bench.kernels_bench.cost_table_accuracy``), and
+             ``JobProfile`` prices of one smollm-360M layer with and
+             without the table beside the serve phase's device time.
+7. fused     ``bench.kernels_bench.fused_vs_unfused``: the fused kernel
+             against the add kernel + the RMSNorm kernel.
+8. result    one JSON line of kernel figures, the card line, then
+             ``{"ok": true, "device": {...}}`` as the last line.
+
+Each of phases 5-7 is a main path: the launch counts are set to 0 just
+before it and read just after, and each kernel must have launched on the
+path that runs it.
 
 Without a CUDA device, or run outside a checkout of the repository, it
 exits non-zero and prints no result.
@@ -29,7 +44,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
 import os
 import statistics
 import subprocess
@@ -43,19 +57,29 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.bench import kernels_bench  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.profiler import kernel_costs  # noqa: E402
+from repro_torch.core.profiler import measured  # noqa: E402
+from repro_torch.core.profiler.analytic import (JobProfile, ServeJob,  # noqa: E402
+                                                TrainJob)
+from repro_torch.core.profiler.hw_specs import get_accelerator  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import add as add_mod  # noqa: E402
+from repro_torch.kernels import autotune as at  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused as fused_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.serve import kv_cache  # noqa: E402
 from repro_torch.serve.serve_step import BatchedServer, Request  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM rate, bf16 tensor-core
-# rate, float32 rate outside the tensor cores
-HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the card's HBM rate and dense bf16 tensor-core rate from the port's
+# catalog; float32 outside the tensor cores from the H100 SXM data sheet
+H100 = get_accelerator("H100")
+PEAK_FLOPS = {torch.bfloat16: H100.peak_flops, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # tests/test_kernels.py
 SOURCES = {
     "flash_attention": dict(
@@ -64,7 +88,37 @@ SOURCES = {
     "fused_add_rmsnorm": dict(
         source="src/repro_torch/csrc/fused_add_rmsnorm.cu",
         replaces="src/repro/kernels/fused.py:31"),
+    "flash_attention_decode": dict(
+        source="src/repro_torch/csrc/flash_decode.cu",
+        replaces="src/repro/kernels/flash_attention.py:164"),
+    "rmsnorm": dict(
+        source="src/repro_torch/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm.py:34"),
+    "ssd_scan": dict(
+        source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd.py:33"),
+    "add": dict(
+        source="src/repro_torch/csrc/add.cu",
+        replaces="benchmarks/kernels_bench.py:116"),
 }
+SERVE_KERNELS = ("flash_attention", "fused_add_rmsnorm")
+CALIBRATE_KERNELS = ("flash_attention", "fused_add_rmsnorm",
+                     "flash_attention_decode", "rmsnorm", "ssd_scan")
+FUSED_KERNELS = ("fused_add_rmsnorm", "rmsnorm", "add")
+SSD_TOL = {torch.bfloat16: (4e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
+# calibration grids at smollm-360M's widths: 120 = 8 rows x 15 heads,
+# d_model 960; SSD at mamba2-130m's (24 heads, P 64, N 128)
+CAL_GRID = dict(
+    attn_shapes=((120, 256, 64), (120, 512, 64), (120, 1024, 64),
+                 (120, 2048, 64)),
+    decode_shapes=((120, 256, 64), (120, 1024, 64), (120, 4096, 64)),
+    norm_shapes=((8, 960), (512, 960), (4096, 960), (16384, 960)),
+    ssd_shapes=((1, 512, 24, 64, 128), (4, 2048, 24, 64, 128)))
+HELD_OUT = [("flash_attention", (120, 384, 384, 64, 1)),
+            ("flash_attention", (120, 768, 768, 64, 1)),
+            ("flash_decode", (120, 549, 64)), ("flash_decode", (120, 2048, 64)),
+            ("rmsnorm", (1024, 960)), ("rmsnorm", (8192, 960)),
+            ("ssd_scan", (2, 1024, 24, 64, 128))]
 # serve phase (smollm-360M, published widths)
 ARCH = "smollm_360m"
 N_REQUESTS, BATCH, MAX_NEW = 16, 8, 32
@@ -86,38 +140,23 @@ def log(msg: str) -> None:
 
 # --- timing ------------------------------------------------------------------------
 
-def time_ms(fn, reps: int = 5, n: int = 10) -> float:
-    """Median over ``reps`` of the mean device time of ``n`` back-to-back
-    calls, from CUDA events.  A sleep kernel queued first keeps the device
-    busy while the host enqueues the calls, so short kernels are timed
-    without the host's launch gaps (where the host is slower than the
-    device, as for the plain versions, the gaps count)."""
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        end.synchronize()
-        out.append(start.elapsed_time(end) / n)
-    return statistics.median(out)
+def time_ms(fn, iters: int = 20) -> float:
+    """Median device ms of one call, each from a cold L2: the timer the
+    cost table is built with (``kernels.autotune.bench_time``), so the
+    kernel line and the table read the same clock."""
+    return at.bench_time(fn, iters=iters, device="cuda") * 1e3
 
 
 def bound(nbytes: float, flops: float, dtype: torch.dtype):
-    t_bytes = nbytes / HBM_BYTES_S
+    t_bytes = nbytes / H100.mem_bw
     t_ops = flops / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
-                dtype: torch.dtype) -> float:
-    tol = TOL[dtype]
+                dtype: torch.dtype, tol: float = None) -> float:
+    tol = TOL[dtype] if tol is None else tol
     g, w = got.float(), want.float()
     if not torch.isfinite(g).all():
         raise AssertionError(f"{name}: non-finite kernel output")
@@ -192,7 +231,7 @@ def attention_case(gen, label, b, sq, sk, h, kh, d, causal, dtype,
         row["ms"] = time_ms(lambda: fa.flash_attention_cuda(
             q, k, v, causal=causal, block_q=block_q or fa.BLOCK_Q))
         row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(
-            q, k, v, causal=causal), reps=3, n=2)
+            q, k, v, causal=causal), iters=3)
         row["library_ms"] = time_ms(lambda: _sdpa(q, k, v, causal))
     log(f"[kernels] flash_attention {json.dumps(row)}")
     return row
@@ -222,6 +261,112 @@ def fused_case(gen, label, rows, d, dtype, timed=False):
     return row
 
 
+def _dname(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def decode_case(gen, label, b, s, h, kh, d, n, dtype, timed=False):
+    q = torch.randn(b, 1, h, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(dtype)
+    n_dev = torch.tensor(n, dtype=torch.int32, device="cuda")
+    got = ops.flash_attention_decode(q, k, v, cache_len=n_dev)
+    want = fa.flash_attention_decode_plain(q, k, v, cache_len=n)
+    torch.cuda.synchronize()
+    err = check_close(f"flash_attention_decode {label}", got, want, dtype)
+    if n == 0 and got.float().abs().max().item() != 0.0:
+        raise AssertionError("flash_attention_decode: cache_len 0 must "
+                             "give zeros")
+    row = dict(label=label, shape=[b, s, h, kh, d], cache_len=n,
+               dtype=_dname(dtype), max_abs_err=err)
+    if timed:
+        es = q.element_size()
+        nv = min(n, s)
+        row["bound_ms"], row["bound_by"] = bound(
+            es * (2 * b * h * d + 2 * b * nv * kh * d),
+            4.0 * b * h * nv * d, dtype)
+        row["ms"] = time_ms(lambda: fa.flash_attention_decode_cuda(
+            q, k, v, cache_len=n_dev))
+        row["plain_ms"] = time_ms(lambda: fa.flash_attention_decode_plain(
+            q, k, v, cache_len=n_dev), iters=3)
+        qt = q.transpose(1, 2)
+        kt, vt = k[:, :nv].transpose(1, 2), v[:, :nv].transpose(1, 2)
+        row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True))
+    log(f"[kernels] flash_attention_decode {json.dumps(row)}")
+    return row
+
+
+def rmsnorm_case(gen, label, rows, d, dtype, timed=False):
+    x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+    sc = torch.randn(d, generator=gen, device="cuda").to(dtype)
+    got = ops.rmsnorm(x, sc)
+    want = rn.rmsnorm_plain(x, sc)
+    torch.cuda.synchronize()
+    err = check_close(f"rmsnorm {label}", got, want, dtype)
+    row = dict(label=label, shape=[rows, d], dtype=_dname(dtype),
+               max_abs_err=err)
+    if timed:
+        es = x.element_size()
+        row["bound_ms"], row["bound_by"] = bound(
+            es * (2 * rows * d + d), 4.0 * rows * d, dtype)
+        row["ms"] = time_ms(lambda: rn.rmsnorm_cuda(x, sc))
+        row["plain_ms"] = time_ms(lambda: rn.rmsnorm_plain(x, sc))
+        row["library_ms"] = time_ms(lambda: F.rms_norm(x, (d,), sc, 1e-5))
+    log(f"[kernels] rmsnorm {json.dumps(row)}")
+    return row
+
+
+def add_case(gen, label, rows, d, dtype, timed=False):
+    x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+    r = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+    got = ops.add(x, r)
+    want = add_mod.add_plain(x, r)
+    torch.cuda.synchronize()
+    err = check_close(f"add {label}", got, want, dtype)
+    row = dict(label=label, shape=[rows, d], dtype=_dname(dtype),
+               max_abs_err=err)
+    if timed:
+        row["bound_ms"], row["bound_by"] = bound(
+            x.element_size() * 3 * rows * d, 1.0 * rows * d, dtype)
+        row["ms"] = time_ms(lambda: add_mod.add_cuda(x, r))
+        row["plain_ms"] = time_ms(lambda: add_mod.add_plain(x, r))
+        row["library_ms"] = time_ms(lambda: torch.add(x, r))
+    log(f"[kernels] add {json.dumps(row)}")
+    return row
+
+
+def ssd_case(gen, label, b, s, h, p, n, dtype, chunk=None, timed=False):
+    x = torch.randn(b, s, h, p, generator=gen, device="cuda").to(dtype)
+    dt = 0.001 + 0.099 * torch.rand(b, s, h, generator=gen, device="cuda")
+    a = -(0.5 + 1.5 * torch.rand(h, generator=gen, device="cuda"))
+    bb = (0.5 * torch.randn(b, s, n, generator=gen, device="cuda")).to(dtype)
+    cc = (0.5 * torch.randn(b, s, n, generator=gen, device="cuda")).to(dtype)
+    ck = chunk or ssd_mod.CHUNK
+    y, st = ops.ssd_scan(x, dt, a, bb, cc, chunk=ck)
+    wy, wst = ssd_mod.ssd_scan_plain(x, dt, a, bb, cc, chunk=ck)
+    torch.cuda.synchronize()
+    ytol, stol = SSD_TOL[dtype]
+    err = max(check_close(f"ssd_scan {label} y", y, wy, dtype, ytol),
+              check_close(f"ssd_scan {label} state", st, wst, dtype, stol))
+    row = dict(label=label, shape=[b, s, h, p, n], chunk=ck,
+               dtype=_dname(dtype), max_abs_err=err)
+    if timed:
+        es = x.element_size()
+        nbytes = (2 * es * b * s * h * p + 4 * b * s * h + 4 * h
+                  + 2 * es * b * s * n + 4 * b * h * p * n)
+        flops, _ = kernel_costs.op_flops_bytes(
+            "ssd_scan", (b, s, h, p, n), _dname(dtype))
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
+        row["ms"] = time_ms(lambda: ssd_mod.ssd_scan_cuda(
+            x, dt, a, bb, cc, chunk=ck))
+        row["plain_ms"] = time_ms(lambda: ssd_mod.ssd_scan_plain(
+            x, dt, a, bb, cc, chunk=ck), iters=3)
+        row["library_ms"] = None    # no PyTorch call computes the scan
+    log(f"[kernels] ssd_scan {json.dumps(row)}")
+    return row
+
+
 def serve_requests(cfg, seed: int, n: int):
     rng = np.random.default_rng(seed)
     lens = rng.integers(PROMPT_MIN, PROMPT_MAX + 1, size=n)
@@ -237,6 +382,10 @@ def batch_lengths(reqs):
 
 
 def phase_kernels(main_lens):
+    """Every kernel against its plain version at the shapes of the main
+    paths that run it (serve, calibrate, fused) and at the edge cases;
+    returns, per kernel, the timed case, at a shape of the path whose
+    launches the kernel line reports."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     cfg = get_config(ARCH)
     h, kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -257,7 +406,13 @@ def phase_kernels(main_lens):
         attention_case(gen, "d80", 2, 200, 200, 6, 2, 80, True, bf16),
         attention_case(gen, "noncausal_257x300_f32", 2, 257, 300, 4, 2, 64,
                        False, f32),
+        attention_case(gen, "d16_reduced", 2, 77, 77, 4, 2, 16, True, bf16),
+        attention_case(gen, "d32_f32", 2, 150, 150, 4, 2, 32, False, f32),
     ]
+    # the calibrate path's attention: q (1, s, 120, 64), one KV head a head
+    bh = CAL_GRID["attn_shapes"][-1][0]
+    attn += [attention_case(gen, f"calibrate_s2048_{_dname(dt)}", 1, 2048,
+                            2048, bh, bh, d, True, dt) for dt in (bf16, f32)]
     dm = cfg.d_model
     norm = [fused_case(gen, "rows4096", BATCH * 512, dm, bf16, timed=True)]
     for s in sorted(set(main_lens)):
@@ -266,7 +421,46 @@ def phase_kernels(main_lens):
     norm += [fused_case(gen, "ragged_rows4071", 4071, dm, bf16),
              fused_case(gen, "f32_rows1000", 1000, dm, f32),
              fused_case(gen, "d8192", 64, 8192, bf16)]
-    return attn[0], norm[0]
+    # decode on the calibrate path: q (1, 1, 120, 64) against a (1, sk, 120,
+    # 64) cache (one KV head a head), at the grid's and held-out lengths;
+    # the timed case is the grid's longest cache
+    dec = [decode_case(gen, "calibrate_sk4096", 1, 4096, bh, bh, d, 4096,
+                       bf16, timed=True),
+           decode_case(gen, "calibrate_sk4096_f32", 1, 4096, bh, bh, d,
+                       4096, f32)]
+    dec += [decode_case(gen, f"calibrate_sk{sk}_{_dname(dt)}", 1, sk, bh, bh,
+                        d, sk, dt)
+            for sk in (256, 549, 1024, 2048) for dt in (bf16, f32)]
+    # the serve phase's decode shape: 8 rows, a 549-slot cache, GQA 15/5
+    smax = PROMPT_MAX + MAX_NEW + 8
+    dec += [decode_case(gen, f"serve_len{n}", BATCH, smax, h, kh, d, n, bf16)
+            for n in (0, 1, 300, smax)]
+    dec += [decode_case(gen, "f32", BATCH, smax, h, kh, d, 300, f32),
+            decode_case(gen, "d128", 2, 300, 4, 2, 128, 137, bf16),
+            decode_case(gen, "d16_mqa", 2, 130, 15, 1, 16, 77, f32)]
+    rms = [rmsnorm_case(gen, "rows4096", BATCH * 512, dm, bf16, timed=True),
+           rmsnorm_case(gen, "rows16384_f32", 16384, dm, f32),
+           rmsnorm_case(gen, "rows8", 8, dm, bf16),
+           rmsnorm_case(gen, "ragged_rows4071", 4071, dm, bf16),
+           rmsnorm_case(gen, "f32_rows1000", 1000, dm, f32),
+           rmsnorm_case(gen, "d8192", 64, 8192, bf16)]
+    # SSD at mamba2-130m's geometry (H=24, P=64, N=128): the calibrate
+    # grid's (4, 2048) and (1, 512), the held-out (2, 1024), and batch 1
+    ssd = [ssd_case(gen, "calibrate_b4_s2048", 4, 2048, 24, 64, 128, bf16,
+                    timed=True),
+           ssd_case(gen, "calibrate_b4_s2048_f32", 4, 2048, 24, 64, 128,
+                    f32),
+           ssd_case(gen, "calibrate_b1_s512", 1, 512, 24, 64, 128, f32),
+           ssd_case(gen, "held_out_b2_s1024", 2, 1024, 24, 64, 128, bf16),
+           ssd_case(gen, "mamba2_130m", 1, 2048, 24, 64, 128, bf16),
+           ssd_case(gen, "mamba2_130m_f32", 1, 2048, 24, 64, 128, f32),
+           ssd_case(gen, "ragged_s200", 1, 200, 24, 64, 128, bf16),
+           ssd_case(gen, "sweep_2x256x3", 2, 256, 3, 64, 64, f32, chunk=64)]
+    adds = [add_case(gen, "rows4096", BATCH * 512, dm, bf16, timed=True),
+            add_case(gen, "f32_4096x512", 4096, 512, f32)]
+    return {"flash_attention": attn[0], "fused_add_rmsnorm": norm[0],
+            "flash_attention_decode": dec[0], "rmsnorm": rms[0],
+            "ssd_scan": ssd[0], "add": adds[0]}
 
 
 def _timed(fn) -> float:
@@ -293,6 +487,30 @@ def phase_small_reference() -> None:
                              f"{err:.3e} > {SMALL_FP32_TOL}")
     log(f"[serve] small fp32 model, kernel vs plain path: max |dlogit| "
         f"{err:.3e} (tol {SMALL_FP32_TOL})")
+
+
+def phase_reduced() -> None:
+    """The reduced smollm config as it is (head_dim 16, attn_impl "auto"):
+    one prefill through the attention kernel on the card."""
+    cfg = get_config(ARCH).reduced()
+    if cfg.hd != 16 or cfg.attn_impl != "auto":
+        raise AssertionError(f"reduced {ARCH}: head_dim {cfg.hd}, "
+                             f"attn_impl {cfg.attn_impl!r}")
+    params = model_lib.init(cfg, 2, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (4, 100))).cuda()
+    ops.reset_launches()
+    got = model_lib.forward(cfg, params, {"tokens": toks})
+    launched = ops.LAUNCHES["flash_attention"]
+    want = model_lib.forward(cfg, params, {"tokens": toks},
+                             attn_impl="naive")
+    err = (got - want).abs().max().item()
+    if launched != cfg.n_layers or not err <= SMALL_FP32_TOL:
+        raise AssertionError(f"reduced model (head_dim 16): {launched} "
+                             f"attention launches, max |dlogit| {err:.3e}")
+    log(f"[reduced] {cfg.name}, head_dim {cfg.hd}, attn_impl auto: "
+        f"{launched} attention kernel launches, kernel vs plain path max "
+        f"|dlogit| {err:.3e} (tol {SMALL_FP32_TOL})")
 
 
 def _kernel_group(name: str) -> str:
@@ -341,7 +559,7 @@ def profile_window(label: str, fn, wall_ms: float, per: int) -> None:
     if not n_kernels:
         log(f"[profile] {label}: the trace holds no device kernels; "
             "device time not measured")
-        return
+        return None
     device_ms = sum(groups.values())
     log(f"[profile] {label} (per {'step' if per > 1 else 'call'}): "
         + json.dumps(dict(
@@ -349,6 +567,7 @@ def profile_window(label: str, fn, wall_ms: float, per: int) -> None:
             busy=device_ms / (wall_ms / per), kernels=n_kernels / per,
             by_group=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
             top=sorted(names.items(), key=lambda kv: -kv[1])[:5])))
+    return device_ms
 
 
 def phase_serve(reqs, warm):
@@ -373,10 +592,12 @@ def phase_serve(reqs, warm):
     launches = dict(ops.LAUNCHES)
     n_prefill = len(batch_lengths(reqs))
     for name, n in launches.items():
-        if n != cfg.n_layers * n_prefill:
+        want = cfg.n_layers * n_prefill if name in SERVE_KERNELS else 0
+        if n != want:
             raise AssertionError(
-                f"{name}: {n} launches in the serve run, expected "
-                f"{cfg.n_layers} per prefill x {n_prefill} prefills")
+                f"{name}: {n} launches in the serve run, expected {want} "
+                f"({cfg.n_layers} per prefill x {n_prefill} prefills for "
+                f"{', '.join(SERVE_KERNELS)}, none for the others)")
     if not all(r.done and len(r.output) == MAX_NEW for r in reqs):
         raise AssertionError("a request did not finish")
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
@@ -409,9 +630,10 @@ def phase_serve(reqs, warm):
                 cur = torch.argmax(lg, dim=-1)[:, None]
         decode_ms = statistics.median(
             _timed(lambda: decode_steps(1)) for _ in range(16))
-        profile_window("prefill", lambda: server._prefill(params, batch),
-                       prefill_ms, 1)
-        profile_window("decode", lambda: decode_steps(8), decode_ms * 8, 8)
+        dev_prefill = profile_window(
+            "prefill", lambda: server._prefill(params, batch), prefill_ms, 1)
+        dev_decode = profile_window("decode", lambda: decode_steps(8),
+                                    decode_ms * 8, 8)
     if logits.shape != (len(first), cfg.vocab_size) \
             or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
@@ -430,7 +652,83 @@ def phase_serve(reqs, warm):
                  decode_steps=server.decode_steps,
                  decode_row_steps=server.decode_row_steps)
     log(f"[serve] {json.dumps(stats)}")
+    return launches, dict(prefill_len=plen, prefill_device_ms=dev_prefill,
+                          decode_device_ms=dev_decode)
+
+
+def _path_launches(label: str, names) -> dict:
+    launches = dict(ops.LAUNCHES)
+    missing = [n for n in names if not launches[n]]
+    if missing:
+        raise AssertionError(f"{label}: no launch of {missing} on the path "
+                             f"({json.dumps(launches)})")
+    log(f"[{label}] launches on the path: {json.dumps(launches)}")
     return launches
+
+
+def phase_calibrate(serve_dev: dict) -> dict:
+    """Kernel calibration at full width, the table's held-out accuracy,
+    and what it does to the analytic price of a smollm-360M layer."""
+    cfg = get_config(ARCH)
+    path = os.path.join(ROOT, "build", "kernel-costs-H100.json")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    cal = measured.calibrate_kernels("H100", dtypes=("bfloat16", "float32"),
+                                     iters=10, path=path, **CAL_GRID)
+    t_cal = time.perf_counter() - t0
+    acc = kernels_bench.cost_table_accuracy(
+        cal.table, HELD_OUT, dtypes=("bfloat16", "float32"), iters=10)
+    launches = _path_launches("calibrate", CALIBRATE_KERNELS)
+    log(f"[calibrate] {cal.table.n_points()} points in {t_cal:.1f}s -> "
+        f"{path}")
+    for r in cal.points:
+        log(f"[calibrate] {json.dumps(r)}")
+    for dtype, res in acc.items():
+        for r in res["rows"]:
+            log(f"[accuracy] {dtype} {json.dumps(r)}")
+        log(f"[accuracy] {dtype} " + json.dumps(
+            {k: v for k, v in res.items() if k != "rows"}))
+
+    table = cal.table
+    train = JobProfile(TrainJob(cfg, seq_len=512, global_batch=8))
+    like = JobProfile(TrainJob(cfg, seq_len=serve_dev["prefill_len"],
+                               global_batch=BATCH))
+    serve = JobProfile(ServeJob(cfg, prompt_len=512, decode_batch=BATCH))
+    smax = PROMPT_MAX + MAX_NEW + 8
+
+    def prices():
+        return dict(
+            prefill_block_ms_s512=train.cost("block", "H100", 1, 8).fwd * 1e3,
+            prefill_block_ms_serve=like.cost("block", "H100", 1, BATCH).fwd
+            * 1e3,
+            decode_block_ms=serve.decode_cost("block", "H100", 1, BATCH,
+                                              smax) * 1e3)
+    kernel_costs.clear_kernel_tables()
+    roofline = prices()
+    kernel_costs.register_kernel_table(table)
+    with_table = prices()
+    per_layer = {k: (v / cfg.n_layers if v is not None else None)
+                 for k, v in (("prefill", serve_dev["prefill_device_ms"]),
+                              ("decode", serve_dev["decode_device_ms"]))}
+    log("[analytic] one smollm-360M block on 'H100' (ms): " + json.dumps(dict(
+        roofline=roofline, with_table=with_table,
+        serve_device_ms_per_layer=dict(
+            prefill=per_layer["prefill"], decode=per_layer["decode"],
+            prefill_batch=[BATCH, serve_dev["prefill_len"]],
+            decode_batch=BATCH, decode_cache=smax))))
+    kernel_costs.clear_kernel_tables()
+    return launches
+
+
+def phase_fused() -> dict:
+    """The reference's fused-vs-unfused benchmark, on the port's kernels."""
+    ops.reset_launches()
+    out = {}
+    for rows, d, dtype in ((4096, 512, "float32"), (4096, 960, "bfloat16")):
+        res = kernels_bench.fused_vs_unfused(rows, d, dtype, iters=20)
+        out[f"{rows}x{d}_{dtype}"] = res
+        log(f"[fused] {rows}x{d} {dtype}: {json.dumps(res)}")
+    return _path_launches("fused", FUSED_KERNELS)
 
 
 def main() -> int:
@@ -439,14 +737,25 @@ def main() -> int:
     cfg = get_config(ARCH)
     reqs = serve_requests(cfg, 0, N_REQUESTS)
     warm = serve_requests(cfg, 1, BATCH)
-    attn, norm = phase_kernels(batch_lengths(reqs))
+    rows = phase_kernels(batch_lengths(reqs))
     phase_small_reference()
-    launches = phase_serve(reqs, warm)
+    phase_reduced()
+    serve_launches, serve_dev = phase_serve(reqs, warm)
+    cal_launches = phase_calibrate(serve_dev)
+    fused_launches = phase_fused()
+    # launches: each kernel's count on the main path that runs it, which
+    # also runs the timed case's shape
+    path_of = {"flash_attention": "serve", "fused_add_rmsnorm": "serve",
+               "flash_attention_decode": "calibrate", "rmsnorm": "calibrate",
+               "ssd_scan": "calibrate", "add": "fused"}
+    counts = {"serve": serve_launches, "calibrate": cal_launches,
+              "fused": fused_launches}
     kernels = []
-    for name, row in (("flash_attention", attn), ("fused_add_rmsnorm", norm)):
+    for name, row in rows.items():
         kernels.append(dict(
-            name=name, route="cuda", **SOURCES[name],
-            launches=launches[name], max_abs_err=row["max_abs_err"],
+            name=name, route="cuda", **SOURCES[name], path=path_of[name],
+            launches=counts[path_of[name]][name],
+            max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["shape"], dtype=row["dtype"]))

@@ -5,11 +5,18 @@ easy to find.  It imports ``torch`` and never ``jax`` or ``repro``: what it
 needs from the reference it keeps as its own copy.  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"`` (see ``device.py``).
 
-Ported so far (the serving main path, dense family):
-  configs/           dense architecture configs
+Ported so far (the serving main path, dense family, and kernel
+calibration):
+  configs/           every architecture config (the model runs the dense family)
   models/            config, layers, transformer, model
   dist/sharding.py   ``Decl`` + seeded init
-  kernels/           flash attention + fused add+RMSNorm (CUDA C++ in csrc/)
+  kernels/           flash attention (prefill and decode), fused add+RMSNorm,
+                     RMSNorm, the SSD scan, add (CUDA C++ in csrc/); chip
+                     identity and kernel timing (autotune.py)
+  core/profiler/     accelerator catalog (+ "H100"), kernel cost tables, the
+                     analytic profile, kernel calibration
+  core/simulator/    network.py (collective time models)
+  bench/             fused-vs-unfused and cost-table accuracy benchmarks
   bridge.py          numpy <-> torch params, keyed like the reference's checkpoints
   serve/             kv_cache, serve_step (``BatchedServer``)
   launch/serve.py    serving CLI

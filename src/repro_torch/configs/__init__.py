@@ -1,8 +1,9 @@
 """Architecture registry of the port (counterpart of ``repro/configs``).
 
-``get_config(name)`` resolves the dense architectures the port runs; the
-other registered names raise ``NotImplementedError`` until their family is
-ported.  Each config module is a copy of the reference's.
+``get_config(name)`` resolves every registered architecture, as the
+reference's does; each config module is a copy of the reference's.  The
+analytic profiler prices every family; ``models.model.get_module`` raises
+for a family whose model is not ported yet.
 """
 from __future__ import annotations
 
@@ -26,10 +27,6 @@ ARCH_IDS: List[str] = [
 
 PAPER_IDS: List[str] = ["opt_350m", "gpt_neo_2_7b"]
 
-# dense decoder-only archs: the family the port runs so far
-PORTED: List[str] = ["smollm_360m", "qwen1_5_0_5b", "minitron_8b",
-                     "granite_20b", "opt_350m", "gpt_neo_2_7b"]
-
 _ALIASES = {
     "smollm-360m": "smollm_360m",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
@@ -48,11 +45,7 @@ _ALIASES = {
 
 def get_config(name: str) -> ModelConfig:
     mod_name = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
-    if mod_name not in PORTED:
-        if mod_name in ARCH_IDS or mod_name in PAPER_IDS:
-            raise NotImplementedError(
-                f"{name}: not ported yet (the port runs the dense family: "
-                f"{', '.join(PORTED)})")
+    if mod_name not in ARCH_IDS + PAPER_IDS:
         raise KeyError(f"unknown arch {name!r}; "
                        f"known: {ARCH_IDS + PAPER_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")

@@ -9,7 +9,10 @@
 // Layout.  q: (B, Sq, H, D), k/v: (B, Sk, KH, D), o: (B, Sq, H, D), each read
 // through its (batch, seq, head) strides with a contiguous last dim, so the
 // caller needs none of the reference's transposes.  GQA reads KV head
-// h / (H / KH) in place of the reference's jnp.repeat copy.
+// h / (H / KH) in place of the reference's jnp.repeat copy.  Head dims: every
+// multiple of 16 up to 128, each a template instantiation (D is a compile-time
+// loop bound), which covers every config of the repository and its reduced
+// test configs (head_dim 16).
 //
 // Design.  One block of 4 warps per (q tile of BQ = 4 * ROWS rows, head,
 // batch); each warp owns ROWS query rows.  The block loops over 64-key K/V
@@ -241,10 +244,12 @@ int dispatch_d(int d, int block_q, const void* q, const void* k,
                const Strides& qs, const Strides& ks, const Strides& vs,
                const Strides& os, float scale, int causal,
                cudaStream_t stream) {
-  switch (d) {
-    case 64: return dispatch_rows<T, 64>(block_q, q, k, v, o, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
-    case 80: return dispatch_rows<T, 80>(block_q, q, k, v, o, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
-    case 128: return dispatch_rows<T, 128>(block_q, q, k, v, o, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
+  switch (d) {  // every multiple of 16 up to 128, each its own instantiation
+#define REPRO_HEAD_DIM(D) \
+    case D: return dispatch_rows<T, D>(block_q, q, k, v, o, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
+    REPRO_HEAD_DIM(16) REPRO_HEAD_DIM(32) REPRO_HEAD_DIM(48) REPRO_HEAD_DIM(64)
+    REPRO_HEAD_DIM(80) REPRO_HEAD_DIM(96) REPRO_HEAD_DIM(112) REPRO_HEAD_DIM(128)
+#undef REPRO_HEAD_DIM
     default: return -3;
   }
 }

@@ -26,7 +26,7 @@ BLOCK_Q = 32                  # query rows per CUDA block (4 warps x 8 rows)
 BLOCK_K = 64                  # keys per K/V tile staged in shared memory
 BLOCK_Q_CHOICES = (16, 32)    # the tiles the kernel is compiled for
 BLOCK_K_CHOICES = (64,)
-HEAD_DIMS = (64, 80, 128)
+HEAD_DIMS = tuple(range(16, 129, 16))   # one kernel instantiation each
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ERRORS = {-1: "dtype", -2: "block_q", -3: "head dim", -4: "block_k"}
 _MAX_GRID_YZ = 65535
@@ -129,4 +129,130 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             block_q, block_k, *strides, int(causal), 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "flash_attention", _ERRORS)
+    return o
+
+
+# --- decode (q_len == 1 against a cache with a dynamic valid length) ------------
+#
+# The kernel (``csrc/flash_decode.cu``) replaces the Pallas
+# ``repro/kernels/flash_attention.py::_decode_kernel``.  q: (B, 1, H, D);
+# k, v: (B, S, KH, D) caches read in place through their strides;
+# ``cache_len`` an int or a 0-d integer tensor (on the card it is read by the
+# kernel itself, with no host sync), clamped to [0, S].
+
+_DECODE_ERRORS = {-1: "dtype", -3: "head dim", -4: "block_k", -5: "shape"}
+
+
+def check_decode_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      block_k: int) -> None:
+    """What the decode kernel takes, held for the plain version too."""
+    if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention_decode: q (B,1,H,D) and k/v "
+                         f"(B,S,KH,D) expected, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, _, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or h % k.shape[2] != 0:
+        raise ValueError(f"flash_attention_decode: k/v {tuple(k.shape)} do "
+                         f"not match q {tuple(q.shape)} (need H % KH == 0)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_decode: head dim {d} not "
+                         f"supported; the kernel takes {HEAD_DIMS}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention_decode: dtypes {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}; the kernel takes one of "
+                         f"{list(_DTYPE_CODE)} for all three")
+    if b < 1 or k.shape[1] < 1:
+        raise ValueError("flash_attention_decode: empty batch or cache")
+    if block_k not in BLOCK_K_CHOICES:
+        raise ValueError(f"flash_attention_decode: block_k={block_k}; the "
+                         f"kernel is built for {BLOCK_K_CHOICES}")
+
+
+def _length(cache_len, device: torch.device,
+            dtype: torch.dtype = torch.int64) -> torch.Tensor:
+    """``cache_len`` as a 0-d integer tensor on ``device`` (no copy when
+    it already is one of ``dtype`` there)."""
+    if isinstance(cache_len, torch.Tensor):
+        if cache_len.numel() != 1 or cache_len.is_floating_point():
+            raise ValueError(f"flash_attention_decode: cache_len must be one "
+                             f"integer, got {tuple(cache_len.shape)} "
+                             f"{cache_len.dtype}")
+        return cache_len.reshape(()).to(device=device, dtype=dtype)
+    return torch.tensor(int(cache_len), dtype=dtype, device=device)
+
+
+def flash_attention_decode_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, *, cache_len,
+                                 block_k: int = BLOCK_K) -> torch.Tensor:
+    """q: (B, 1, H, D); k, v: (B, S, KH, D) -> (B, 1, H, D) in q's dtype.
+
+    The kernel's tile loop: tiles wholly past ``cache_len`` leave the
+    running statistics untouched (a select, so a length on the card needs
+    no sync), so ``cache_len == 0`` gives zeros."""
+    b, _, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    n = _length(cache_len, q.device).clamp(0, s)
+    qs = (q.float() / math.sqrt(d)).to(q.dtype).float()   # scale, then round
+    qg = qs.reshape(b, kh, h // kh, d)                    # (B, KH, G, D)
+    kf = k.float().transpose(1, 2)                        # (B, KH, S, D)
+    vf = v.float().transpose(1, 2)
+    m = torch.full(qg.shape[:3], NEG_INF, device=q.device)
+    l = torch.zeros(qg.shape[:3], device=q.device)
+    acc = torch.zeros(qg.shape, device=q.device)
+    for k0 in range(0, s, block_k):
+        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        sc = qg @ kt.transpose(-1, -2)                    # (B, KH, G, T)
+        pos = torch.arange(k0, k0 + kt.shape[2], device=q.device)
+        sc = torch.where(pos >= n, NEG_INF, sc)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new[..., None])
+        live = n > k0
+        l = torch.where(live, l * corr + p.sum(dim=-1), l)
+        acc = torch.where(live, acc * corr[..., None] + p @ vt, acc)
+        m = torch.where(live, m_new, m)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+_DECODE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                    + [ctypes.c_longlong] * 10
+                    + [ctypes.c_float, ctypes.c_void_p])
+
+
+def flash_attention_decode_cuda(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *, cache_len,
+                                block_k: int = BLOCK_K) -> torch.Tensor:
+    """Launch the decode kernel on PyTorch's current stream; raises on any
+    tensor it does not take and on a refused launch."""
+    for t in (q, k, v):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError("flash_attention_decode_cuda: q, k, v must be "
+                             "CUDA tensors on one device")
+        if t.stride(-1) != 1:
+            raise ValueError("flash_attention_decode_cuda: the last dim must "
+                             "be contiguous")
+    b, _, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    if isinstance(cache_len, torch.Tensor):
+        if cache_len.device != q.device:
+            raise ValueError("flash_attention_decode_cuda: a tensor "
+                             "cache_len must lie on q's device")
+        n_dev = _length(cache_len, q.device, torch.int32)  # a view if int32
+        len_ptr, len_arg = n_dev.data_ptr(), 0
+    else:
+        n_dev, len_ptr, len_arg = None, None, max(0, min(int(cache_len), s))
+    o = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
+    lib = _build.load("flash_decode")
+    fn = lib.repro_flash_decode
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = _DECODE_ARGTYPES, ctypes.c_int
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), len_ptr,
+            len_arg, _DTYPE_CODE[q.dtype], q.device.index, b, s, h, kh, d,
+            block_k, q.stride(0), q.stride(2), k.stride(0), k.stride(1),
+            k.stride(2), v.stride(0), v.stride(1), v.stride(2), o.stride(0),
+            o.stride(2), math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, "flash_attention_decode", _DECODE_ERRORS)
+    del n_dev        # freed in stream order, after the kernel has read it
     return o

@@ -17,12 +17,17 @@ from typing import Dict, Tuple, Union
 
 import torch
 
+from repro_torch.kernels import add as add_mod
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused as fused_mod
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd as ssd_mod
 
 BlockArg = Union[int, str, None]
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "fused_add_rmsnorm": 0}
+LAUNCHES: Dict[str, int] = {
+    "flash_attention": 0, "fused_add_rmsnorm": 0,
+    "flash_attention_decode": 0, "rmsnorm": 0, "ssd_scan": 0, "add": 0}
 
 
 def reset_launches() -> None:
@@ -66,6 +71,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = fa.flash_attention_cuda(q, k, v, causal=causal, block_q=bq,
                                   block_k=bk)
     LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention_decode(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *,
+                           cache_len: Union[int, torch.Tensor],
+                           block_k: BlockArg = None) -> torch.Tensor:
+    """Decode-shaped attention: q: (B, 1, H, D); k, v: (B, S, K, D) caches;
+    ``cache_len`` the (dynamic) valid prefix, an int or a 0-d integer
+    tensor. -> (B, 1, H, D)."""
+    bk = _block(block_k, fa.BLOCK_K, "block_k")
+    fa.check_decode_args(q, k, v, bk)
+    if _on_cpu(q, k, v):
+        return fa.flash_attention_decode_plain(q, k, v, cache_len=cache_len,
+                                               block_k=bk)
+    out = fa.flash_attention_decode_cuda(q, k, v, cache_len=cache_len,
+                                         block_k=bk)
+    LAUNCHES["flash_attention_decode"] += 1
+    return out
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, *, chunk: BlockArg = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, H, P); dt: (B, S, H); a: (H,); b, c: (B, S, N).
+    Returns (y (B, S, H, P), final_state (B, H, P, N) fp32)."""
+    ck = _block(chunk, ssd_mod.CHUNK, "chunk")
+    ssd_mod.check_args(x, dt, a, b, c, ck)
+    if _on_cpu(x, dt, a, b, c):
+        return ssd_mod.ssd_scan_plain(x, dt, a, b, c, chunk=ck)
+    out = ssd_mod.ssd_scan_cuda(x, dt, a, b, c, chunk=ck)
+    LAUNCHES["ssd_scan"] += 1
+    return out
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
+            block_rows: BlockArg = None) -> torch.Tensor:
+    """x: (..., d); scale: (d,)."""
+    br = _block(block_rows, rn.BLOCK_ROWS, "block_rows")
+    rn.check_args(x, scale, br)
+    if _on_cpu(x, scale):
+        return rn.rmsnorm_plain(x, scale, eps=eps)
+    out = rn.rmsnorm_cuda(x, scale, eps=eps, block_rows=br)
+    LAUNCHES["rmsnorm"] += 1
+    return out
+
+
+def add(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """y = x + r in the inputs' dtype (the unfused baseline's add pass)."""
+    add_mod.check_args(x, r)
+    if _on_cpu(x, r):
+        return add_mod.add_plain(x, r)
+    out = add_mod.add_cuda(x, r)
+    LAUNCHES["add"] += 1
     return out
 
 

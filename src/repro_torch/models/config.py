@@ -1,8 +1,9 @@
 """Model architecture configuration (copy of ``repro/models/config.py``).
 
-One ``ModelConfig`` drives the port's model init/forward.  The dataclass is
-kept field for field as the reference has it, so the two packages read the
-same configs; ``ShapeConfig`` is not needed by the port yet.
+One ``ModelConfig`` drives the port's model init/forward and the analytic
+profiler.  The dataclass is kept field for field as the reference has it,
+so the two packages read the same configs; ``ShapeConfig`` is not needed by
+the port yet.
 
 Families:
   dense   - decoder-only transformer (GQA/MQA, RoPE, SwiGLU)

@@ -9,6 +9,8 @@ Attention implementations:
            kernel on the card, its plain version on the CPU)
 
 All softmax statistics are computed in float32 regardless of input dtype.
+``attn_decode(impl="kernel")`` takes the decode kernel for a scalar
+length and no window, as the reference's ``impl="pallas"`` does.
 Sliding-window prefill (``attn_window_linear``) and per-row decode lengths
 wait for their slices and raise ``NotImplementedError``.
 """
@@ -170,14 +172,18 @@ def attn_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
     ``cache_len`` is a scalar: the lockstep batch, all rows at the same
     position.  The per-row (B,) lengths of continuous batching wait for
-    that slice, as does the decode kernel (``impl="kernel"``).
+    that slice.  ``impl="kernel"`` with no window runs the decode kernel
+    (``kops.flash_attention_decode``); with a window it takes the plain
+    path, as the reference's ``impl="pallas"`` does.
     """
     if isinstance(cache_len, torch.Tensor) and cache_len.dim() > 0:
         raise NotImplementedError("attn_decode: per-row (B,) cache_len is "
                                   "not ported yet (continuous batching)")
-    if impl != "naive":
-        raise NotImplementedError(f"attn_decode: impl={impl!r} is not "
-                                  "ported yet (the decode kernel)")
+    if impl not in ("naive", "kernel"):
+        raise ValueError(f"attn_decode: unknown impl {impl!r}")
+    if impl == "kernel" and window == 0:
+        return kops.flash_attention_decode(q, k_cache, v_cache,
+                                           cache_len=cache_len)
     b, _, h, hd = q.shape
     n_kv = k_cache.shape[2]
     qg = _split_gqa(q, n_kv)[:, 0]                      # (B,K,G,hd)

@@ -1,0 +1,307 @@
+"""The port's profiler (catalog, kernel cost tables, analytic profile,
+kernel calibration) vs the reference's.
+
+The port keeps copies of ``hw_specs``, ``network``, ``kernel_costs`` and
+``analytic``; they must give the reference's numbers exactly (``==``: the
+same Python arithmetic on the same inputs), for every registered arch and
+accelerator, including the port's ``"H100"`` entry, which the tests add to
+the reference's catalog with ``monkeypatch`` (its file is not edited).
+Cost tables cross between the packages through their shared JSON schema.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget
+from repro.core.profiler import analytic as janalytic
+from repro.core.profiler import hw_specs as jhw
+from repro.core.profiler import kernel_costs as jkc
+from repro.core.profiler import measured as jmeasured
+from repro.core.simulator import network as jnet
+from repro_torch.bench import kernels_bench
+from repro_torch.configs import ARCH_IDS, PAPER_IDS
+from repro_torch.configs import get_config as tget
+from repro_torch.core.profiler import analytic as tanalytic
+from repro_torch.core.profiler import hw_specs as thw
+from repro_torch.core.profiler import kernel_costs as tkc
+from repro_torch.core.profiler import measured as tmeasured
+from repro_torch.core.simulator import network as tnet
+from repro_torch.kernels import autotune as tat
+
+ARCHS = ARCH_IDS + PAPER_IDS
+OP_SHAPES = {"flash_attention": [(4, 256, 256, 64, 1), (120, 512, 512, 64, 1),
+                                 (8, 130, 70, 80, 0)],
+             "flash_decode": [(4, 256, 64), (120, 549, 64)],
+             "rmsnorm": [(512, 256), (4096, 960)],
+             "fused_add_rmsnorm": [(512, 256), (4096, 960)],
+             "ssd_scan": [(1, 128, 2, 32, 16), (1, 2048, 24, 64, 128)]}
+
+
+@pytest.fixture(autouse=True)
+def _both_catalogs_and_clean_registries(monkeypatch):
+    monkeypatch.setitem(jhw.ACCELERATORS, "H100", jhw.AcceleratorSpec(
+        **dataclasses.asdict(thw.ACCELERATORS["H100"])))
+    jkc.clear_kernel_tables()
+    tkc.clear_kernel_tables()
+    yield
+    jkc.clear_kernel_tables()
+    tkc.clear_kernel_tables()
+
+
+# --- catalog and network ----------------------------------------------------------
+
+def test_catalog_is_the_reference_catalog_plus_h100():
+    h100 = thw.get_accelerator("H100")
+    assert (h100.peak_flops, h100.mem_bytes, h100.mem_bw, h100.intra_node_bw,
+            h100.chips_per_node, h100.efficiency) == \
+        (989e12, 80e9, 3.35e12, 900e9, 8, 0.45)
+    assert h100.price_per_hour > 0
+    assert sorted(thw.ACCELERATORS) == sorted(jhw.ACCELERATORS)
+    for name, spec in thw.ACCELERATORS.items():
+        assert dataclasses.asdict(spec) == \
+            dataclasses.asdict(jhw.ACCELERATORS[name])
+        assert spec.roofline_time(3e12, 5e9) == \
+            jhw.ACCELERATORS[name].roofline_time(3e12, 5e9)
+    assert {k: dataclasses.asdict(v) for k, v in thw.LINKS.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jhw.LINKS.items()}
+    assert str(thw.kernel_table_path("H100")) == \
+        str(jhw.kernel_table_path("H100"))
+
+
+@pytest.mark.parametrize("fn", ["all_reduce_time", "all_gather_time",
+                                "reduce_scatter_time", "all_to_all_time"])
+def test_network_models_equal(fn):
+    for link in thw.LINKS:
+        for nbytes in (0.0, 1e3, 7.5e8):
+            for k in (1, 2, 8):
+                assert getattr(tnet, fn)(thw.LINKS[link], nbytes, k) == \
+                    getattr(jnet, fn)(jhw.LINKS[link], nbytes, k)
+    assert tnet.hierarchical_all_reduce_time(
+        thw.LINKS["intra-node"], thw.LINKS["dcn"], 1e8, 4, 3) == \
+        jnet.hierarchical_all_reduce_time(
+            jhw.LINKS["intra-node"], jhw.LINKS["dcn"], 1e8, 4, 3)
+
+
+# --- kernel cost tables ------------------------------------------------------------
+
+@pytest.mark.parametrize("op", tkc.KERNEL_OPS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_op_roofline_equal(op, dtype):
+    for shape in OP_SHAPES[op]:
+        assert tkc.op_flops_bytes(op, shape, dtype) == \
+            jkc.op_flops_bytes(op, shape, dtype)
+        for chip in thw.ACCELERATORS:
+            assert tkc.roofline_time(op, shape, dtype,
+                                     thw.ACCELERATORS[chip]) == \
+                jkc.roofline_time(op, shape, dtype, jhw.ACCELERATORS[chip])
+    with pytest.raises(ValueError, match="unknown kernel op"):
+        tkc.op_flops_bytes("gemm", (1,), dtype)
+
+
+def _tables(seed=0):
+    """The same measured points in a reference and a port table."""
+    rng = np.random.default_rng(seed)
+    jt, tt = jkc.KernelCostTable(chip="H100"), tkc.KernelCostTable(chip="H100")
+    for op, shapes in OP_SHAPES.items():
+        for dtype in ("float32", "bfloat16"):
+            for shape in shapes:
+                for f in (0.5, 1.0, 3.0):
+                    sh = (max(1, int(shape[0] * f)),) + tuple(shape[1:])
+                    t = float(rng.uniform(1e-6, 1e-3))
+                    jt.add(op, sh, dtype, t)
+                    tt.add(op, sh, dtype, t)
+    return jt, tt
+
+
+def _probe_shapes():
+    for op, shapes in OP_SHAPES.items():
+        for shape in shapes:
+            for f in (0.25, 0.5, 0.7, 1.0, 1.9, 3.0, 5.0):
+                yield op, (max(1, int(shape[0] * f)),) + tuple(shape[1:])
+
+
+def test_lookup_equal():
+    jt, tt = _tables()
+    assert tt.n_points() == jt.n_points()
+    hits = 0
+    for op, shape in _probe_shapes():
+        for dtype in ("float32", "bfloat16", "float16"):
+            got = tt.lookup(op, shape, dtype)
+            assert got == jt.lookup(op, shape, dtype), (op, shape, dtype)
+            hits += got is not None
+    assert hits > 0
+
+
+def test_tables_round_trip_between_the_packages(tmp_path):
+    jt, tt = _tables(1)
+    tt.save(tmp_path / "port.json")
+    jt.save(tmp_path / "ref.json")
+    into_ref = jkc.KernelCostTable.load(tmp_path / "port.json")
+    into_port = tkc.KernelCostTable.load(tmp_path / "ref.json")
+    assert (tmp_path / "port.json").read_text() == \
+        (tmp_path / "ref.json").read_text()
+    assert into_ref.chip == into_port.chip == "H100"
+    for op, shape in _probe_shapes():
+        for dtype in ("float32", "bfloat16"):
+            want = jt.lookup(op, shape, dtype)
+            assert into_ref.lookup(op, shape, dtype) == want
+            assert into_port.lookup(op, shape, dtype) == want
+
+
+# --- the analytic profile -------------------------------------------------------
+
+def _profile_pairs(arch):
+    jcfg, tcfg = jget(arch), tget(arch)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    train = (janalytic.JobProfile(janalytic.TrainJob(jcfg, 512, 8)),
+             tanalytic.JobProfile(tanalytic.TrainJob(tcfg, 512, 8)))
+    serve = (janalytic.JobProfile(janalytic.ServeJob(jcfg, prompt_len=256)),
+             tanalytic.JobProfile(tanalytic.ServeJob(tcfg, prompt_len=256)))
+    return train, serve
+
+
+def _register_block_tables(*profiles):
+    """Exact hits at 3x the roofline for every kernel op the port's
+    ``profiles`` price, in both registries."""
+    jt, tt = (jkc.KernelCostTable(chip="H100"),
+              tkc.KernelCostTable(chip="H100"))
+    acc = thw.ACCELERATORS["H100"]
+    dtype = profiles[0].cfg.dtype
+    ops = set()
+    for prof in profiles:
+        for kind in ("block", "head"):
+            for tp in (1, 2):
+                for mbs in (1, 4, 8):
+                    ops.update(prof._layer_kernel_ops(kind, tp, mbs))
+                    ops.update(prof._decode_kernel_ops(kind, tp, mbs, 300))
+    for op, shape, _ in sorted(ops):
+        t = 3.0 * tkc.roofline_time(op, shape, dtype, acc)
+        jt.add(op, shape, dtype, t)
+        tt.add(op, shape, dtype, t)
+    jkc.register_kernel_table(jt)
+    tkc.register_kernel_table(tt)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("with_table", [False, True])
+def test_job_profile_equal(arch, with_table):
+    (jtr, ttr), (jsv, tsv) = _profile_pairs(arch)
+    if with_table:
+        _register_block_tables(ttr, tsv)
+    assert ttr.layer_kinds() == jtr.layer_kinds()
+    n = ttr.n_partition_units
+    for gpu in thw.ACCELERATORS:
+        for tp in (1, 2):
+            for mbs in (1, 4):
+                for kind in ("embed", "block", "head"):
+                    assert ttr.cost(kind, gpu, tp, mbs).__dict__ == \
+                        jtr.cost(kind, gpu, tp, mbs).__dict__
+                    assert tsv.decode_cost(kind, gpu, tp, mbs, 300) == \
+                        jsv.decode_cost(kind, gpu, tp, mbs, 300)
+                assert ttr.stage_cost(0, n, gpu, tp, mbs) == \
+                    jtr.stage_cost(0, n, gpu, tp, mbs)
+                assert ttr.replica_rate(1, n - 1, gpu, tp, mbs) == \
+                    jtr.replica_rate(1, n - 1, gpu, tp, mbs)
+                assert tsv.stage_decode_time(0, n, gpu, tp, mbs, 549) == \
+                    jsv.stage_decode_time(0, n, gpu, tp, mbs, 549)
+                assert tsv.stage_prefill_time(0, n, gpu, tp, mbs) == \
+                    jsv.stage_prefill_time(0, n, gpu, tp, mbs)
+    for mbs in (1, 4):
+        assert ttr.stage_params(0, n) == jtr.stage_params(0, n)
+        assert ttr.stage_act_store(0, n, mbs) == jtr.stage_act_store(0, n, mbs)
+        for phase in ("train", "serve"):
+            assert ttr.stage_act_work(0, n, mbs, 4, phase) == \
+                jtr.stage_act_work(0, n, mbs, 4, phase)
+        assert ttr.boundary_bytes(mbs) == jtr.boundary_bytes(mbs)
+
+
+def test_registered_table_moves_the_price():
+    """A table on the chip being priced changes ``cost`` and
+    ``decode_cost``; clearing it restores the roofline price."""
+    (jtr, ttr), (jsv, tsv) = _profile_pairs("smollm_360m")
+    base = ttr.cost("block", "H100", 1, 8).fwd
+    base_dec = tsv.decode_cost("block", "H100", 1, 8, 300)
+    _register_block_tables(ttr, tsv)
+    assert ttr.cost("block", "H100", 1, 8).fwd > base
+    assert tsv.decode_cost("block", "H100", 1, 8, 300) > base_dec
+    tkc.clear_kernel_tables()
+    assert ttr.cost("block", "H100", 1, 8).fwd == base
+
+
+# --- kernel calibration and the benchmark ----------------------------------------
+
+_GRID = dict(attn_shapes=((2, 64, 32),), decode_shapes=((2, 64, 32),),
+             norm_shapes=((64, 64), (256, 64)),
+             ssd_shapes=((1, 64, 1, 32, 16),))
+
+
+def test_calibrate_kernels_registers_and_saves(tmp_path):
+    p = tmp_path / "costs.json"
+    cal = tmeasured.calibrate_kernels("cpu-host", iters=1, register=True,
+                                      path=p, device="cpu", **_GRID)
+    assert cal.table.n_points() == 7   # fused rides with the norm grid
+    assert tkc.get_kernel_table("cpu-host") is cal.table
+    assert all(r["time_s"] > 0 and r["roofline_s"] > 0 for r in cal.points)
+    assert cal.table.lookup("rmsnorm", (128, 64), "float32") is not None
+    ref = jmeasured.calibrate_kernels("cpu-host", iters=1, register=False,
+                                      **_GRID)
+    assert {(op, dt, sh) for (op, dt), rows in cal.table.entries.items()
+            for sh, _ in rows} == \
+        {(op, dt, sh) for (op, dt), rows in ref.table.entries.items()
+         for sh, _ in rows}
+    assert [(r["op"], r["shape"], r["roofline_s"]) for r in cal.points] == \
+        [(r["op"], r["shape"], r["roofline_s"]) for r in ref.points]
+    loaded = jkc.KernelCostTable.load(p)          # the reference reads it
+    assert loaded.lookup("rmsnorm", (64, 64), "float32") == \
+        cal.table.lookup("rmsnorm", (64, 64), "float32")
+
+
+def test_calibrate_kernels_refuses_what_is_not_ported(monkeypatch):
+    with pytest.raises(NotImplementedError, match="autotuner"):
+        tmeasured.calibrate_kernels(device="cpu", autotune_blocks=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmeasured.calibrate_kernels("H100")
+
+
+def test_default_chip(monkeypatch):
+    assert tat.default_chip() == "cpu-host"
+    assert tat.default_chip("cpu") == "cpu-host"
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda *a: "NVIDIA H100 80GB HBM3")
+    assert tat.default_chip("cuda") == "H100"
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda *a: "NVIDIA A100-SXM4-80GB")
+    assert tat.default_chip("cuda") == "nvidia-a100-sxm4-80gb"
+
+
+def test_bench_time_on_the_cpu_is_a_median():
+    calls = []
+    t = tat.bench_time(lambda: calls.append(1), warmup=2, iters=5)
+    assert len(calls) == 7 and t >= 0
+
+
+def test_kernels_bench_on_the_cpu():
+    """The benchmark's two sections run end to end on the plain versions."""
+    fu = kernels_bench.fused_vs_unfused(64, 128, iters=1, device="cpu")
+    assert fu["fused_s"] > 0 and fu["unfused_s"] > 0
+    assert fu["speedup"] == fu["unfused_s"] / fu["fused_s"]
+    cal = tmeasured.calibrate_kernels("cpu-host", iters=1, register=False,
+                                      device="cpu", **{
+                                          **_GRID,
+                                          "attn_shapes": ((2, 64, 32),
+                                                          (2, 128, 32))})
+    acc = kernels_bench.cost_table_accuracy(
+        cal.table, [("flash_attention", (2, 96, 96, 32, 1)),
+                    ("rmsnorm", (128, 64)), ("fused_add_rmsnorm", (128, 64))],
+        iters=1, device="cpu")
+    res = acc["float32"]
+    assert len(res["rows"]) == 3
+    for key in ("median_table_err", "median_roofline_err",
+                "suite_table_err", "suite_roofline_err"):
+        assert np.isfinite(res[key]) and res[key] >= 0
+    with pytest.raises(ValueError, match="outside"):
+        kernels_bench.cost_table_accuracy(
+            cal.table, [("rmsnorm", (4096, 64))], iters=1, device="cpu")

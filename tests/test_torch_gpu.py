@@ -6,7 +6,8 @@ reference package, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: bf16 2e-2, fp32 2e-5 (the reference's kernel tolerances).
+Tolerances: bf16 2e-2, fp32 2e-5; SSD y 4e-2 / 1e-4 and state 1e-2 / 1e-4
+(the reference's kernel tolerances, ``tests/test_kernels.py``).
 """
 import dataclasses
 
@@ -14,9 +15,12 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import add as add_mod
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused as fused_mod
 from repro_torch.kernels import ops
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd as ssd_mod
 from repro_torch.models import model as tm
 
 pytestmark = pytest.mark.gpu
@@ -43,6 +47,9 @@ def _rand(gen, *shape, dtype):
     (1, 70, 130, 4, 4, 64, True),       # causal, sk > sq
     (1, 200, 200, 6, 2, 80, True),
     (2, 256, 256, 4, 2, 128, False),
+    (2, 77, 77, 4, 2, 16, True),        # reduced configs' head dim
+    (2, 150, 150, 4, 2, 32, False),
+    (1, 2048, 2048, 120, 120, 64, True),    # calibration: q (1, s, 120, 64)
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("block_q", [16, 32])
@@ -100,7 +107,136 @@ def test_model_kernel_path_matches_plain_path(cuda):
                          generator=cuda)
     ops.reset_launches()
     got = tm.forward(cfg, params, {"tokens": toks})
-    assert ops.LAUNCHES == {"flash_attention": cfg.n_layers,
+    assert ops.LAUNCHES == {**dict.fromkeys(ops.LAUNCHES, 0),
+                            "flash_attention": cfg.n_layers,
                             "fused_add_rmsnorm": cfg.n_layers}
     want = tm.forward(cfg, params, {"tokens": toks}, attn_impl="naive")
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def test_reduced_model_runs_the_kernel_at_head_dim_16(cuda):
+    """The reduced configs (head_dim 16) take the attention kernel under
+    ``attn_impl="auto"`` on the card and agree with the plain path."""
+    cfg = get_config("smollm_360m").reduced()
+    assert cfg.hd == 16 and cfg.attn_impl == "auto"
+    params = tm.init(cfg, 0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), device="cuda",
+                         generator=cuda)
+    ops.reset_launches()
+    got = tm.forward(cfg, params, {"tokens": toks})
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    want = tm.forward(cfg, params, {"tokens": toks}, attn_impl="naive")
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+# --- decode attention ------------------------------------------------------------
+
+def _close(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,s,h,kh,d", [
+    (8, 549, 15, 5, 64),                # the serve phase's decode shape
+    (2, 300, 4, 2, 128),
+    (3, 130, 4, 2, 16),
+    (2, 200, 15, 1, 64),                # MQA: a group of 15 spans two blocks
+    (1, 549, 120, 120, 64),             # calibration: one KV head a head
+    (1, 4096, 120, 120, 64),            # calibration's longest cache
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("frac", [0.0, 0.002, 0.5, 1.0, 1.5])
+def test_flash_decode_kernel_matches_plain(cuda, b, s, h, kh, d, dtype, frac):
+    q = _rand(cuda, b, 1, h, d, dtype=dtype)
+    k = _rand(cuda, b, s, kh, d, dtype=dtype)
+    v = _rand(cuda, b, s, kh, d, dtype=dtype)
+    n = max(int(frac * s), 1) if frac else 0
+    ops.reset_launches()
+    got = ops.flash_attention_decode(q, k, v, cache_len=n)
+    want = fa.flash_attention_decode_plain(q, k, v, cache_len=n)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_decode"] == 1
+    _close(got, want, TOL[dtype])
+    if n == 0:
+        assert not got.float().abs().any()    # the reference skips every tile
+
+
+def test_flash_decode_reads_a_device_length_and_strided_caches(cuda):
+    """``cache_len`` as a CUDA tensor (read by the kernel, no host sync),
+    and K/V as views of one wider cache buffer."""
+    kv = _rand(cuda, 4, 600, 2 * 5, 64, dtype=torch.bfloat16)
+    k, v = kv[:, :549, :5], kv[:, :549, 5:]
+    q = _rand(cuda, 4, 1, 15, 64, dtype=torch.bfloat16)
+    for n in (0, 1, 300, 549):
+        got = ops.flash_attention_decode(
+            q, k, v, cache_len=torch.tensor(n, device="cuda"))
+        want = fa.flash_attention_decode_plain(q, k.contiguous(),
+                                               v.contiguous(), cache_len=n)
+        _close(got, want, 2e-2)
+
+
+# --- RMSNorm, add, SSD --------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(4096, 960), (4071, 960), (7, 64),
+                                   (33, 8192), (1, 100), (4, 100, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
+    x = _rand(cuda, *shape, dtype=dtype)
+    sc = _rand(cuda, shape[-1], dtype=dtype)
+    ops.reset_launches()
+    got = ops.rmsnorm(x, sc)
+    want = rn.rmsnorm_plain(x, sc)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rmsnorm"] == 1 and got.shape == x.shape
+    _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", [(4096, 960), (4096, 512), (1001,),
+                                   (3, 5, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_kernel_matches_plain(cuda, shape, dtype):
+    x = _rand(cuda, *shape, dtype=dtype)
+    r = _rand(cuda, *shape, dtype=dtype)
+    ops.reset_launches()
+    got = ops.add(x, r)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["add"] == 1
+    assert torch.equal(got, add_mod.add_plain(x, r))   # one rounding each
+
+
+def test_add_kernel_takes_unaligned_views(cuda):
+    """A view that starts off a 16-byte boundary takes the scalar loop."""
+    x = _rand(cuda, 4097, dtype=torch.bfloat16)
+    r = _rand(cuda, 4097, dtype=torch.bfloat16)
+    assert torch.equal(ops.add(x[1:], r[1:]), add_mod.add_plain(x[1:], r[1:]))
+
+
+def _ssd_inputs(gen, b, s, h, p, n, dtype):
+    x = _rand(gen, b, s, h, p, dtype=dtype)
+    dt = 0.001 + 0.099 * torch.rand(b, s, h, generator=gen, device="cuda")
+    a = -(0.5 + 1.5 * torch.rand(h, generator=gen, device="cuda"))
+    bb = (0.5 * torch.randn(b, s, n, generator=gen, device="cuda")).to(dtype)
+    cc = (0.5 * torch.randn(b, s, n, generator=gen, device="cuda")).to(dtype)
+    return x, dt, a, bb, cc
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 128, 2, 32, 16, 32),
+    (2, 256, 3, 64, 64, 64),
+    (1, 256, 4, 64, 128, 128),
+    (1, 2048, 24, 64, 128, 128),        # mamba2-130m at batch 1
+    (1, 200, 2, 40, 16, 64),            # ragged S, P not a multiple of 16
+    (2, 200, 3, 64, 128, 128),          # ragged S against the default chunk
+    (4, 2048, 24, 64, 128, 128),        # calibration's largest point
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
+    args = _ssd_inputs(cuda, b, s, h, p, n, dtype)
+    ops.reset_launches()
+    y, st = ops.ssd_scan(*args, chunk=chunk)
+    wy, wst = ssd_mod.ssd_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == 1
+    assert y.dtype == dtype and st.dtype == torch.float32
+    bf16 = dtype == torch.bfloat16
+    _close(y, wy, 4e-2 if bf16 else 1e-4)
+    _close(st, wst, 1e-2 if bf16 else 1e-4)

@@ -4,17 +4,28 @@ The reference's ``repro.kernels.ops`` wrappers run the Pallas kernels in
 interpret mode on the CPU; the port's ``repro_torch.kernels.ops`` wrappers
 route CPU tensors to each kernel's plain PyTorch version.  Both get the
 same numpy inputs.  Tolerances are the reference's own
-(``tests/test_kernels.py``): fp32 2e-5, bf16 2e-2 (one bf16 ulp at |x|~4).
+(``tests/test_kernels.py``): fp32 2e-5, bf16 2e-2 (one bf16 ulp at |x|~4);
+SSD y 1e-4 / 4e-2 and state 1e-4 / 1e-2 (fp32 / bf16).
 """
+import os
+import sys
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import add as add_mod
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused as fused_mod
 from repro_torch.kernels import ops
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd as ssd_mod
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 RNG = np.random.default_rng(11)
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -77,6 +88,18 @@ def test_flash_attention_plain_non_divisible(sq, sk, causal):
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_small_head_dims(d, causal):
+    """Head dims 16 and 32 (the reduced configs and the calibration test's
+    grid) are kernel shapes too."""
+    (jq, tq), (jk, tk), (jv, tv) = _attn_inputs(2, 70, 70, 4, 2, d,
+                                                "float32")
+    want = jops.flash_attention(jq, jk, jv, causal=causal)
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.parametrize("block_q", [16, 32])
 def test_flash_attention_plain_block_q_invariant(block_q):
     """The q tile the kernel is launched with does not change the result."""
@@ -116,6 +139,111 @@ def test_fused_add_rmsnorm_keeps_the_kernel_rounding_order():
     assert torch.equal(y, y32.to(torch.bfloat16))
 
 
+# --- decode attention ------------------------------------------------------------
+
+@pytest.mark.parametrize("cache_len", [0, 1, 137, 300])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_plain_matches_pallas(cache_len, d, dtype):
+    """GQA 4/2 against the Pallas decode kernel in interpret mode;
+    ``cache_len=0`` gives zeros there (every tile skipped), and here."""
+    jq, tq = _pair(RNG.standard_normal((2, 1, 4, d)), dtype)
+    jk, tk = _pair(RNG.standard_normal((2, 300, 2, d)), dtype)
+    jv, tv = _pair(RNG.standard_normal((2, 300, 2, d)), dtype)
+    want = jops.flash_attention_decode(
+        jq, jk, jv, cache_len=jnp.asarray(cache_len, jnp.int32))
+    got = ops.flash_attention_decode(tq, tk, tv, cache_len=cache_len)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+    if cache_len == 0:
+        assert not got.float().abs().any()
+
+
+def test_flash_decode_plain_takes_a_tensor_length_and_clamps():
+    (_, tq), (_, tk), (_, tv) = _attn_inputs(2, 1, 50, 4, 2, 64, "float32")
+    want = ops.flash_attention_decode(tq, tk, tv, cache_len=37)
+    got = ops.flash_attention_decode(tq, tk, tv,
+                                     cache_len=torch.tensor(37))
+    assert torch.equal(got, want)
+    assert torch.equal(ops.flash_attention_decode(tq, tk, tv, cache_len=99),
+                       ops.flash_attention_decode(tq, tk, tv, cache_len=50))
+
+
+# --- RMSNorm, SSD, add ---------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(4, 100, 512), (1, 7, 64), (16, 2048)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_matches_pallas(shape, dtype):
+    jx, tx = _pair(RNG.standard_normal(shape), dtype)
+    js, ts = _pair(RNG.standard_normal(shape[-1:]), dtype)
+    want = jops.rmsnorm(jx, js)
+    got = ops.rmsnorm(tx, ts)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+    np.testing.assert_allclose(_np(got), _np(jref.rmsnorm_ref(jx, js)),
+                               **_tol(dtype))
+
+
+def test_rmsnorm_keeps_the_kernel_rounding_order():
+    """The scale multiplies in fp32 before the single cast
+    (``rmsnorm.py:39-42``), unlike ``layers.rms_norm`` (cast, then scale)."""
+    x = torch.tensor([[1.0, 2.0 ** -9, 3.0, -1.5]], dtype=torch.bfloat16)
+    sc = torch.tensor([1.5, 0.75, 1.25, 2.0], dtype=torch.bfloat16)
+    x32 = x.float()
+    want = (x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + 1e-5)
+            * sc.float()).to(torch.bfloat16)
+    assert torch.equal(ops.rmsnorm(x, sc), want)
+
+
+def _ssd_inputs(b, s, h, p, n, dtype):
+    """The reference sweep's draws: B and C scaled by 0.5."""
+    jx, tx = _pair(RNG.standard_normal((b, s, h, p)), dtype)
+    dt = RNG.uniform(0.001, 0.1, (b, s, h)).astype(np.float32)
+    a = -RNG.uniform(0.5, 2.0, (h,)).astype(np.float32)
+    jb, tb = _pair(RNG.standard_normal((b, s, n)) * 0.5, dtype)
+    jc, tc = _pair(RNG.standard_normal((b, s, n)) * 0.5, dtype)
+    return ((jx, jnp.asarray(dt), jnp.asarray(a), jb, jc),
+            (tx, torch.from_numpy(dt), torch.from_numpy(a), tb, tc))
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 128, 2, 32, 16, 32),
+    (2, 256, 3, 64, 64, 64),
+    (1, 256, 4, 64, 128, 128),   # mamba2-130m geometry
+    (1, 200, 2, 32, 16, 64),     # S not a multiple of the chunk
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_plain_matches_pallas_and_ref(b, s, h, p, n, chunk, dtype):
+    jargs, targs = _ssd_inputs(b, s, h, p, n, dtype)
+    y, st = ops.ssd_scan(*targs, chunk=chunk)
+    assert y.dtype == targs[0].dtype and st.dtype == torch.float32
+    assert tuple(st.shape) == (b, h, p, n)
+    bf16 = dtype == "bfloat16"
+    ytol = dict(rtol=4e-2, atol=4e-2) if bf16 else dict(rtol=1e-4, atol=1e-4)
+    stol = dict(rtol=1e-2, atol=1e-2) if bf16 else dict(rtol=1e-4, atol=1e-4)
+    for wy, wst in (jops.ssd_scan(*jargs, chunk=chunk),
+                    jref.ssd_ref(*jargs)):
+        np.testing.assert_allclose(_np(y), _np(wy), **ytol)
+        np.testing.assert_allclose(_np(st), _np(wst), **stol)
+
+
+@pytest.mark.parametrize("rows,d,br", [(64, 512, 16), (256, 960, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_add_plain_matches_pallas_add(rows, d, br, dtype):
+    """Against the benchmark's own Pallas add (``kernels_bench.py:116``)."""
+    sys.path.insert(0, ROOT)
+    try:
+        from benchmarks.kernels_bench import _pallas_add
+    finally:
+        sys.path.remove(ROOT)
+    jx, tx = _pair(RNG.standard_normal((rows, d)), dtype)
+    jr, tr = _pair(RNG.standard_normal((rows, d)), dtype)
+    want = jax.jit(_pallas_add, static_argnames=("br",))(jx, jr, br=br)
+    got = ops.add(tx, tr)
+    assert got.dtype == tx.dtype
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+
+
 # --- wrapper contract ----------------------------------------------------------
 
 def _t(*shape, dtype=torch.float32, device="cpu"):
@@ -137,7 +265,7 @@ def test_block_args():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(d=16),                           # head dim the kernel is not built for
+    dict(d=24),                           # head dim the kernel is not built for
     dict(dtype=torch.float16),
     dict(kh=3),                           # 4 query heads over 3 KV heads
 ])
@@ -157,6 +285,33 @@ def test_fused_rejects_what_the_kernel_does_not_take():
                               _t(64, dtype=torch.bfloat16))
 
 
+@pytest.mark.parametrize("call", [
+    lambda: ops.flash_attention_decode(_t(1, 1, 4, 24), _t(1, 8, 2, 24),
+                                       _t(1, 8, 2, 24), cache_len=3),
+    lambda: ops.flash_attention_decode(_t(1, 2, 4, 64), _t(1, 8, 2, 64),
+                                       _t(1, 8, 2, 64), cache_len=3),
+    lambda: ops.flash_attention_decode(_t(1, 1, 4, 64), _t(1, 8, 3, 64),
+                                       _t(1, 8, 3, 64), cache_len=3),
+    lambda: ops.flash_attention_decode(_t(1, 1, 4, 64), _t(1, 8, 2, 64),
+                                       _t(1, 8, 2, 64),
+                                       cache_len=torch.tensor(3.0)),
+    lambda: ops.rmsnorm(_t(2, 9000), _t(9000)),
+    lambda: ops.rmsnorm(_t(2, 64), _t(64, dtype=torch.bfloat16)),
+    lambda: ops.ssd_scan(_t(1, 8, 2, 16), _t(1, 8, 2), _t(2),
+                         _t(1, 8, 256), _t(1, 8, 256)),
+    lambda: ops.ssd_scan(_t(1, 8, 2, 16), _t(1, 8, 2, dtype=torch.bfloat16),
+                         _t(2), _t(1, 8, 16), _t(1, 8, 16)),
+    lambda: ops.ssd_scan(_t(1, 8, 2, 16), _t(1, 8, 2), _t(2),
+                         _t(1, 8, 16), _t(1, 8, 16), chunk=256),
+    lambda: ops.add(_t(2, 64), _t(2, 65)),
+    lambda: ops.add(_t(2, 64, dtype=torch.float16),
+                    _t(2, 64, dtype=torch.float16)),
+])
+def test_new_wrappers_reject_what_their_kernels_do_not_take(call):
+    with pytest.raises(ValueError):
+        call()
+
+
 def test_non_cpu_tensors_never_take_the_plain_version():
     """A tensor that is not on the CPU goes to the CUDA launch or raises."""
     ops.reset_launches()
@@ -166,7 +321,18 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     x = _t(2, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ops.fused_add_rmsnorm(x, x, _t(64, device="meta"))
-    assert ops.LAUNCHES == {"flash_attention": 0, "fused_add_rmsnorm": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention_decode(_t(1, 1, 2, 64, device="meta"), q, q,
+                                   cache_len=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.rmsnorm(x, _t(64, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.add(x, x)
+    x4, bc = _t(1, 8, 2, 16, device="meta"), _t(1, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ssd_scan(x4, _t(1, 8, 2, device="meta"), _t(2, device="meta"),
+                     bc, bc)
+    assert not any(ops.LAUNCHES.values())
 
 
 def test_cuda_launchers_raise_without_a_card(monkeypatch):
@@ -178,6 +344,15 @@ def test_cuda_launchers_raise_without_a_card(monkeypatch):
     x = _t(2, 64)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused_mod.fused_add_rmsnorm_cuda(x, x, _t(64))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_decode_cuda(_t(1, 1, 2, 64), q, q, cache_len=3)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rn.rmsnorm_cuda(x, _t(64))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        add_mod.add_cuda(x, x)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_mod.ssd_scan_cuda(_t(1, 8, 2, 16), _t(1, 8, 2), _t(2),
+                              _t(1, 8, 16), _t(1, 8, 16))
 
 
 def test_cpu_path_counts_no_launch():
@@ -185,7 +360,14 @@ def test_cpu_path_counts_no_launch():
     q = _t(1, 8, 2, 64)
     ops.flash_attention(q, q, q)
     ops.fused_add_rmsnorm(_t(2, 64), _t(2, 64), _t(64))
-    assert ops.LAUNCHES == {"flash_attention": 0, "fused_add_rmsnorm": 0}
+    ops.flash_attention_decode(q[:, :1], q, q, cache_len=4)
+    ops.rmsnorm(_t(2, 64), _t(64))
+    ops.add(_t(2, 64), _t(2, 64))
+    ops.ssd_scan(_t(1, 8, 2, 16), _t(1, 8, 2), _t(2), _t(1, 8, 16),
+                 _t(1, 8, 16))
+    assert ops.LAUNCHES == dict.fromkeys(
+        ["flash_attention", "fused_add_rmsnorm", "flash_attention_decode",
+         "rmsnorm", "ssd_scan", "add"], 0)
 
 
 def test_fused_block_threads():

@@ -151,12 +151,31 @@ def test_attn_decode(cache_len, window):
     _close(got, want)
 
 
+@pytest.mark.parametrize("cache_len,window", [(0, 0), (1, 0), (17, 0),
+                                              (30, 0), (25, 8)])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("dtype,tol", [("float32", F32), ("bfloat16", BF16)])
+def test_attn_decode_kernel_matches_pallas(cache_len, window, d, dtype, tol):
+    """``impl="kernel"`` against the reference's ``impl="pallas"``: the
+    decode kernel for a scalar length, the plain path under a window."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(3, 1, 30, 6, 2, d, dtype)
+    got = TL.attn_decode(tq, tk, tv, cache_len=cache_len, window=window,
+                         impl="kernel")
+    want = JL.attn_decode(jq, jk, jv, cache_len=jnp.asarray(cache_len),
+                          window=window, impl="pallas")
+    assert got.dtype == tq.dtype
+    _close(got, want, tol)
+
+
 def test_attn_decode_waits_for_later_slices():
     q, c = torch.zeros(2, 1, 4, 16), torch.zeros(2, 8, 2, 16)
     with pytest.raises(NotImplementedError, match="per-row"):
         TL.attn_decode(q, c, c, cache_len=torch.tensor([3, 4]))
-    with pytest.raises(NotImplementedError, match="decode kernel"):
-        TL.attn_decode(q, c, c, cache_len=3, impl="kernel")
+    with pytest.raises(NotImplementedError, match="per-row"):
+        TL.attn_decode(q, c, c, cache_len=torch.tensor([3, 4]),
+                       impl="kernel")
+    with pytest.raises(ValueError, match="unknown impl"):
+        TL.attn_decode(q, c, c, cache_len=3, impl="pallas")
     with pytest.raises(NotImplementedError):
         TL.attention(torch.zeros(1, 16, 2, 16), torch.zeros(1, 16, 2, 16),
                      torch.zeros(1, 16, 2, 16), impl="chunked", window=4)

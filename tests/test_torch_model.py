@@ -3,9 +3,10 @@
 Weights are drawn once from a seeded numpy generator (norm scales and
 biases too, so a dropped scale or bias shows) and handed to both packages:
 to JAX as a params pytree, to the port through ``bridge.params_from_numpy``.
-The reduced configs keep head_dim 64, a head dim the attention kernel is
-built for, so ``attn_impl="pallas"`` in the reference and ``"kernel"`` in
-the port run the kernel algorithm on both sides.
+The comparisons set head_dim 64 (the reduced configs' own 16 is covered
+by ``test_forward_kernel_at_small_head_dims``); ``attn_impl="pallas"`` in
+the reference and ``"kernel"`` in the port run the kernel algorithm on
+both sides.
 
 Tolerances: fp32 logits and caches agree to 2e-5 absolute (both sides
 compute fp32 expressions that differ only in summation order; measured
@@ -28,7 +29,7 @@ from repro.models import model as jm
 from repro.serve import kv_cache as jkv
 from repro.train.checkpoint import _unflatten
 from repro_torch import bridge
-from repro_torch.configs import PORTED
+from repro_torch.configs import ARCH_IDS, PAPER_IDS
 from repro_torch.configs import get_config as tget
 from repro_torch.dist.sharding import iter_decls
 from repro_torch.models import model as tm
@@ -79,7 +80,7 @@ def _np(x):
 
 # --- configs, declarations, init ------------------------------------------------
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ARCH_IDS + PAPER_IDS)
 def test_configs_are_the_reference_configs(arch):
     j, t = jget(arch), tget(arch)
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
@@ -88,10 +89,12 @@ def test_configs_are_the_reference_configs(arch):
 
 
 def test_unported_archs_raise():
+    """Every config resolves (the profiler prices every family); a family
+    whose model is not ported raises where the model is built."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tget("mixtral_8x22b")
+        tm.get_module(tget("mixtral_8x22b"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tget("mamba2-130m")
+        tm.init(tget("mamba2-130m"), 0, device="cpu")
     with pytest.raises(KeyError):
         tget("no_such_arch")
     with pytest.raises(NotImplementedError):
@@ -209,6 +212,22 @@ def test_forward_matches_reference(arch, impl_j, impl_t):
         np.testing.assert_allclose(_np(gc[name]), _np(wc[name]), rtol=0,
                                    atol=F32_ATOL)
     assert gc["len"] == int(wc["len"])
+
+
+@pytest.mark.parametrize("head_dim", [16, 32])
+def test_forward_kernel_at_small_head_dims(head_dim):
+    """The reduced configs' own head_dim 16, and 32: ``attn_impl="kernel"``
+    matches the reference's ``"pallas"`` (interpret mode) at fp32 2e-5."""
+    jcfg, tcfg = configs("smollm_360m")
+    jcfg, tcfg = (dataclasses.replace(c, head_dim=head_dim)
+                  for c in (jcfg, tcfg))
+    jp, tp = both_params(jcfg, tcfg, seed=7)
+    toks = np.random.default_rng(7).integers(0, jcfg.vocab_size, (2, 29))
+    want = jm.forward(jcfg, jp, {"tokens": jnp.asarray(toks)},
+                      attn_impl="pallas")
+    got = tm.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)},
+                     attn_impl="kernel")
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=F32_ATOL)
 
 
 def test_forward_gelu_family_matches_reference():
