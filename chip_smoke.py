@@ -12,7 +12,9 @@ Phases, each printed as it runs; any failure exits non-zero:
              on the card (bf16 2e-2, fp32 2e-5; SSD y 4e-2 / 1e-4 and state
              1e-2 / 1e-4) at the main paths' shapes and the edge cases, and
              time kernel, plain version and, where one exists, the PyTorch
-             library call computing the same function.
+             library call computing the same function.  Decode also runs
+             at forced split counts (one split, one tile a split) and is
+             timed at the serve shape beside the kernel line's case.
 4. models    a 2-layer fp32 model, kernel path vs plain path; the reduced
              smollm config (head_dim 16, ``attn_impl="auto"``) prefills
              through the attention kernel.
@@ -45,6 +47,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -187,6 +190,36 @@ def phase_card() -> str:
     return smi
 
 
+def ptxas_report(log: str):
+    """(entry function, registers, spill store bytes, spill load bytes) of
+    each kernel in an ``nvcc -Xptxas -v`` log."""
+    rows, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append((name, int(m.group(1)), *spill))
+            name = None
+    return rows
+
+
+def _decode_kernel_name(mangled: str) -> str:
+    """decode_split<bf16, D 64, heads 1> from its mangled name."""
+    dt = "bf16" if "__nv_bfloat16" in mangled else "f32"
+    m = re.search(r"decode_split.*?Li(\d+)ELi(\d+)E", mangled)
+    if m:
+        return f"decode_split<{dt}, D {m.group(1)}, heads {m.group(2)}>"
+    return f"decode_merge<{dt}>" if "decode_merge" in mangled else mangled
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     built = _build.build()
@@ -194,6 +227,11 @@ def phase_build() -> None:
         f"(nvcc {_build.FLAGS[1]}, one process per source)")
     for name, info in built.items():
         log(f"[build] {name}: {info['seconds']:.1f}s -> {info['path']}")
+        if name == "flash_decode":     # registers and spills of each kernel
+            for fn, regs, st, ld in ptxas_report(info["log"]):
+                log(f"[build]   {_decode_kernel_name(fn)}: {regs} registers,"
+                    f" spill stores {st} B, spill loads {ld} B")
+            continue
         for line in info["log"].splitlines():
             if "Used" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
@@ -265,30 +303,37 @@ def _dname(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-def decode_case(gen, label, b, s, h, kh, d, n, dtype, timed=False):
+def decode_case(gen, label, b, s, h, kh, d, n, dtype, timed=False,
+                n_splits=None):
     q = torch.randn(b, 1, h, d, generator=gen, device="cuda").to(dtype)
     k = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(dtype)
     v = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(dtype)
     n_dev = torch.tensor(n, dtype=torch.int32, device="cuda")
-    got = ops.flash_attention_decode(q, k, v, cache_len=n_dev)
-    want = fa.flash_attention_decode_plain(q, k, v, cache_len=n)
+    got = ops.flash_attention_decode(q, k, v, cache_len=n_dev,
+                                     n_splits=n_splits)
+    want = fa.flash_attention_decode_plain(q, k, v, cache_len=n,
+                                           n_splits=n_splits)
     torch.cuda.synchronize()
     err = check_close(f"flash_attention_decode {label}", got, want, dtype)
     if n == 0 and got.float().abs().max().item() != 0.0:
         raise AssertionError("flash_attention_decode: cache_len 0 must "
                              "give zeros")
+    ns, _, nh = fa.decode_plan(b, s, h, kh, n_splits)
     row = dict(label=label, shape=[b, s, h, kh, d], cache_len=n,
-               dtype=_dname(dtype), max_abs_err=err)
+               dtype=_dname(dtype), n_splits=ns,
+               blocks=b * kh * -(-(h // kh) // nh) * ns, max_abs_err=err)
     if timed:
         es = q.element_size()
         nv = min(n, s)
+        nbytes = es * (2 * b * h * d + 2 * b * nv * kh * d)
         row["bound_ms"], row["bound_by"] = bound(
-            es * (2 * b * h * d + 2 * b * nv * kh * d),
-            4.0 * b * h * nv * d, dtype)
+            nbytes, 4.0 * b * h * nv * d, dtype)
         row["ms"] = time_ms(lambda: fa.flash_attention_decode_cuda(
-            q, k, v, cache_len=n_dev))
+            q, k, v, cache_len=n_dev, n_splits=n_splits))
+        row["gb_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
         row["plain_ms"] = time_ms(lambda: fa.flash_attention_decode_plain(
-            q, k, v, cache_len=n_dev), iters=3)
+            q, k, v, cache_len=n_dev, n_splits=n_splits), iters=3)
         qt = q.transpose(1, 2)
         kt, vt = k[:, :nv].transpose(1, 2), v[:, :nv].transpose(1, 2)
         row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
@@ -433,11 +478,35 @@ def phase_kernels(main_lens):
             for sk in (256, 549, 1024, 2048) for dt in (bf16, f32)]
     # the serve phase's decode shape: 8 rows, a 549-slot cache, GQA 15/5
     smax = PROMPT_MAX + MAX_NEW + 8
-    dec += [decode_case(gen, f"serve_len{n}", BATCH, smax, h, kh, d, n, bf16)
+    # (the full cache is timed too, for PERF.md; the kernel line stays the
+    # calibrate case above)
+    dec += [decode_case(gen, f"serve_len{n}", BATCH, smax, h, kh, d, n, bf16,
+                        timed=n == smax)
             for n in (0, 1, 300, smax)]
     dec += [decode_case(gen, "f32", BATCH, smax, h, kh, d, 300, f32),
             decode_case(gen, "d128", 2, 300, 4, 2, 128, 137, bf16),
             decode_case(gen, "d16_mqa", 2, 130, 15, 1, 16, 77, f32)]
+    # forced split counts: one split (the split kernel writes the output, no
+    # merge) and one tile a split (the maximum), with lengths that leave the
+    # last splits empty; the two calibrate-shape cases are timed beside the
+    # helper's own count
+    tiles4096, tiles_serve = 4096 // fa.BLOCK_K, -(-smax // fa.BLOCK_K)
+    dec += [decode_case(gen, "calibrate_sk4096_splits1", 1, 4096, bh, bh, d,
+                        4096, bf16, timed=True, n_splits=1),
+            decode_case(gen, "calibrate_sk4096_splits64", 1, 4096, bh, bh, d,
+                        4096, bf16, timed=True, n_splits=tiles4096),
+            decode_case(gen, "calibrate_len2000_splits64_f32", 1, 4096, bh,
+                        bh, d, 2000, f32, n_splits=tiles4096),
+            decode_case(gen, "serve_len300_splits1", BATCH, smax, h, kh, d,
+                        300, bf16, n_splits=1),
+            decode_case(gen, f"serve_len100_splits{tiles_serve}", BATCH, smax,
+                        h, kh, d, 100, bf16, n_splits=tiles_serve),
+            decode_case(gen, "serve_len0_splits1", BATCH, smax, h, kh, d, 0,
+                        bf16, n_splits=1),
+            decode_case(gen, "d16_mqa_splits1_f32", 2, 130, 15, 1, 16, 77,
+                        f32, n_splits=1),
+            decode_case(gen, "d16_mqa_splits3_f32", 2, 130, 15, 1, 16, 60,
+                        f32, n_splits=3)]
     rms = [rmsnorm_case(gen, "rows4096", BATCH * 512, dm, bf16, timed=True),
            rmsnorm_case(gen, "rows16384_f32", 16384, dm, f32),
            rmsnorm_case(gen, "rows8", 8, dm, bf16),

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -139,8 +140,66 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # k, v: (B, S, KH, D) caches read in place through their strides;
 # ``cache_len`` an int or a 0-d integer tensor (on the card it is read by the
 # kernel itself, with no host sync), clamped to [0, S].
+#
+# Split-K (flash-decoding): the keys are cut into ``n_splits`` runs of whole
+# 64-key tiles, each run's partial (m, l, acc) is computed on its own, and a
+# merge combines them.  The plain version repeats the split and the merge.
 
-_DECODE_ERRORS = {-1: "dtype", -3: "head dim", -4: "block_k", -5: "shape"}
+_DECODE_ERRORS = {-1: "dtype", -3: "head dim", -4: "block_k", -5: "shape",
+                  -6: "split", -7: "heads per block"}
+DECODE_HEADS = (1, 2, 4, 8)   # query heads a block takes: one build each
+H100_SMS = 132
+BLOCKS_PER_SM = 4             # decode_splits' target grid: 4 blocks an SM
+
+
+def decode_heads(group: int) -> int:
+    """Query heads one decode block takes for a GQA group of ``group``:
+    the least of ``DECODE_HEADS`` that holds the group, at most 8 (a larger
+    group spans ``ceil(group / 8)`` head groups, each reading the K/V)."""
+    return next(n for n in DECODE_HEADS if n >= min(group, DECODE_HEADS[-1]))
+
+
+def decode_splits(b: int, kh: int, groups: int, s: int, *,
+                  sms: int = H100_SMS) -> int:
+    """How many splits of whole 64-key tiles the decode grid cuts an
+    S-key cache into, from host-known shapes only (never ``cache_len``, so
+    a length on the card costs no sync).
+
+    ``groups`` is the number of head groups (``ceil(G / decode_heads(G))``).
+    The count is the least that gives ``b * kh * groups * n`` at least
+    ``BLOCKS_PER_SM * sms`` blocks, capped at one tile a split, then lowered
+    while every split keeps the same whole-tile length so no split is empty
+    at ``cache_len == S``.  So ``1 <= n <= ceil(S / 64)``, and
+    ``n >= want / 2`` where ``want`` is that least count."""
+    tiles = -(-s // BLOCK_K)
+    base = b * kh * groups
+    want = -(-BLOCKS_PER_SM * sms // base)
+    n = max(1, min(want, tiles))
+    per = -(-tiles // n)
+    return -(-tiles // per)
+
+
+def split_keys(s: int, n_splits: int) -> int:
+    """Keys a split takes: ``ceil(tiles / n_splits)`` whole 64-key tiles.
+    Split i covers ``[i * split_keys, min((i + 1) * split_keys, S))``."""
+    return -(-(-(-s // BLOCK_K)) // n_splits) * BLOCK_K
+
+
+def decode_plan(b: int, s: int, h: int, kh: int,
+                n_splits: Optional[int] = None) -> Tuple[int, int, int]:
+    """(n_splits, split_keys, heads_per_block) of one decode call; an
+    explicit ``n_splits`` must lie in [1, ceil(S / 64)]."""
+    g = h // kh
+    nh = decode_heads(g)
+    tiles = -(-s // BLOCK_K)
+    if n_splits is None:
+        n_splits = decode_splits(b, kh, -(-g // nh), s)
+    elif (isinstance(n_splits, bool) or not isinstance(n_splits, int)
+          or not 1 <= n_splits <= tiles):
+        raise ValueError(f"flash_attention_decode: n_splits={n_splits!r}; "
+                         f"an int in [1, {tiles}] (one 64-key tile a split "
+                         f"at most) for S={s}")
+    return n_splits, split_keys(s, n_splits), nh
 
 
 def check_decode_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -183,48 +242,74 @@ def _length(cache_len, device: torch.device,
 
 def flash_attention_decode_plain(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, *, cache_len,
-                                 block_k: int = BLOCK_K) -> torch.Tensor:
+                                 block_k: int = BLOCK_K,
+                                 n_splits: Optional[int] = None
+                                 ) -> torch.Tensor:
     """q: (B, 1, H, D); k, v: (B, S, KH, D) -> (B, 1, H, D) in q's dtype.
 
-    The kernel's tile loop: tiles wholly past ``cache_len`` leave the
-    running statistics untouched (a select, so a length on the card needs
-    no sync), so ``cache_len == 0`` gives zeros."""
+    The kernel's algorithm: each split (``decode_plan``) runs the tile loop
+    on its own keys, where tiles wholly past ``cache_len`` leave the running
+    statistics untouched (a select, so a length on the card needs no sync);
+    then the merge, ``sum w_i acc_i / max(sum w_i l_i, 1e-30)`` with
+    ``w_i = exp(m_i - max m)``.  ``cache_len == 0`` gives zeros."""
     b, _, h, d = q.shape
     s, kh = k.shape[1], k.shape[2]
+    ns, sk, _ = decode_plan(b, s, h, kh, n_splits)
     n = _length(cache_len, q.device).clamp(0, s)
     qs = (q.float() / math.sqrt(d)).to(q.dtype).float()   # scale, then round
     qg = qs.reshape(b, kh, h // kh, d)                    # (B, KH, G, D)
     kf = k.float().transpose(1, 2)                        # (B, KH, S, D)
     vf = v.float().transpose(1, 2)
-    m = torch.full(qg.shape[:3], NEG_INF, device=q.device)
-    l = torch.zeros(qg.shape[:3], device=q.device)
-    acc = torch.zeros(qg.shape, device=q.device)
-    for k0 in range(0, s, block_k):
-        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
-        sc = qg @ kt.transpose(-1, -2)                    # (B, KH, G, T)
-        pos = torch.arange(k0, k0 + kt.shape[2], device=q.device)
-        sc = torch.where(pos >= n, NEG_INF, sc)
-        m_new = torch.maximum(m, sc.amax(dim=-1))
-        corr = torch.exp(m - m_new)
-        p = torch.exp(sc - m_new[..., None])
-        live = n > k0
-        l = torch.where(live, l * corr + p.sum(dim=-1), l)
-        acc = torch.where(live, acc * corr[..., None] + p @ vt, acc)
-        m = torch.where(live, m_new, m)
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    parts = []
+    for lo in range(0, ns * sk, sk):
+        m = torch.full(qg.shape[:3], NEG_INF, device=q.device)
+        l = torch.zeros(qg.shape[:3], device=q.device)
+        acc = torch.zeros(qg.shape, device=q.device)
+        for k0 in range(lo, min(lo + sk, s), block_k):
+            kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+            sc = qg @ kt.transpose(-1, -2)                # (B, KH, G, T)
+            pos = torch.arange(k0, k0 + kt.shape[2], device=q.device)
+            sc = torch.where(pos >= n, NEG_INF, sc)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new[..., None])
+            live = n > k0
+            l = torch.where(live, l * corr + p.sum(dim=-1), l)
+            acc = torch.where(live, acc * corr[..., None] + p @ vt, acc)
+            m = torch.where(live, m_new, m)
+        parts.append((m, l, acc))
+    m, l, acc = (torch.stack(t, dim=-1) for t in zip(*parts))
+    w = torch.exp(m - m.amax(dim=-1, keepdim=True))       # (B, KH, G, n)
+    out = ((acc * w[..., None, :]).sum(dim=-1)
+           / torch.clamp_min((l * w).sum(dim=-1), 1e-30)[..., None])
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
-_DECODE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+_DECODE_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
                     + [ctypes.c_longlong] * 10
                     + [ctypes.c_float, ctypes.c_void_p])
 
 
+def _check_16_bytes(t: torch.Tensor, name: str) -> None:
+    """The kernel reads 16 bytes a lane: the base and every stride of a
+    dim longer than 1 must be 16-byte multiples."""
+    es = t.element_size()
+    if t.data_ptr() % 16 or any(t.stride(i) * es % 16
+                                for i in range(3) if t.shape[i] > 1):
+        raise ValueError(f"flash_attention_decode_cuda: {name} must start "
+                         f"on a 16-byte boundary with 16-byte multiples for "
+                         f"its batch, seq and head strides (got strides "
+                         f"{t.stride()} of {es}-byte elements)")
+
+
 def flash_attention_decode_cuda(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, *, cache_len,
-                                block_k: int = BLOCK_K) -> torch.Tensor:
-    """Launch the decode kernel on PyTorch's current stream; raises on any
-    tensor it does not take and on a refused launch."""
+                                block_k: int = BLOCK_K,
+                                n_splits: Optional[int] = None
+                                ) -> torch.Tensor:
+    """Launch the split kernel and, with more than one split, the merge
+    kernel on PyTorch's current stream; raises on any tensor they do not
+    take (unaligned K/V included) and on a refused launch."""
     for t in (q, k, v):
         if not t.is_cuda or t.device != q.device:
             raise ValueError("flash_attention_decode_cuda: q, k, v must be "
@@ -232,8 +317,11 @@ def flash_attention_decode_cuda(q: torch.Tensor, k: torch.Tensor,
         if t.stride(-1) != 1:
             raise ValueError("flash_attention_decode_cuda: the last dim must "
                              "be contiguous")
+    _check_16_bytes(k, "k")
+    _check_16_bytes(v, "v")
     b, _, h, d = q.shape
     s, kh = k.shape[1], k.shape[2]
+    ns, sk, nh = decode_plan(b, s, h, kh, n_splits)
     if isinstance(cache_len, torch.Tensor):
         if cache_len.device != q.device:
             raise ValueError("flash_attention_decode_cuda: a tensor "
@@ -243,16 +331,24 @@ def flash_attention_decode_cuda(q: torch.Tensor, k: torch.Tensor,
     else:
         n_dev, len_ptr, len_arg = None, None, max(0, min(int(cache_len), s))
     o = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
+    part_acc = part_ml = None
+    if ns > 1:        # every split writes its partial; the merge reads all
+        part_acc = torch.empty((b, h, ns, d), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((b, h, ns, 2), dtype=torch.float32,
+                              device=q.device)
     lib = _build.load("flash_decode")
     fn = lib.repro_flash_decode
     if fn.argtypes is None:
         fn.argtypes, fn.restype = _DECODE_ARGTYPES, ctypes.c_int
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), len_ptr,
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if part_acc is None else part_acc.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(), len_ptr,
             len_arg, _DTYPE_CODE[q.dtype], q.device.index, b, s, h, kh, d,
-            block_k, q.stride(0), q.stride(2), k.stride(0), k.stride(1),
-            k.stride(2), v.stride(0), v.stride(1), v.stride(2), o.stride(0),
-            o.stride(2), math.sqrt(d),
+            block_k, ns, sk, nh, q.stride(0), q.stride(2), k.stride(0),
+            k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
+            o.stride(0), o.stride(2), math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "flash_attention_decode", _DECODE_ERRORS)
-    del n_dev        # freed in stream order, after the kernel has read it
+    del n_dev, part_acc, part_ml   # freed in stream order, after the kernels
     return o

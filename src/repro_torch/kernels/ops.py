@@ -13,7 +13,7 @@ waits for the autotuner's port and raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -77,17 +77,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_decode(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *,
                            cache_len: Union[int, torch.Tensor],
-                           block_k: BlockArg = None) -> torch.Tensor:
+                           block_k: BlockArg = None,
+                           n_splits: Optional[int] = None) -> torch.Tensor:
     """Decode-shaped attention: q: (B, 1, H, D); k, v: (B, S, K, D) caches;
     ``cache_len`` the (dynamic) valid prefix, an int or a 0-d integer
-    tensor. -> (B, 1, H, D)."""
+    tensor. -> (B, 1, H, D).  ``n_splits`` pins the split-K count (None:
+    ``flash_attention.decode_splits``); one call counts one launch."""
     bk = _block(block_k, fa.BLOCK_K, "block_k")
     fa.check_decode_args(q, k, v, bk)
     if _on_cpu(q, k, v):
         return fa.flash_attention_decode_plain(q, k, v, cache_len=cache_len,
-                                               block_k=bk)
+                                               block_k=bk, n_splits=n_splits)
     out = fa.flash_attention_decode_cuda(q, k, v, cache_len=cache_len,
-                                         block_k=bk)
+                                         block_k=bk, n_splits=n_splits)
     LAUNCHES["flash_attention_decode"] += 1
     return out
 

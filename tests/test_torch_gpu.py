@@ -174,6 +174,49 @@ def test_flash_decode_reads_a_device_length_and_strided_caches(cuda):
         _close(got, want, 2e-2)
 
 
+@pytest.mark.parametrize("b,s,h,kh,d", [
+    (8, 549, 15, 5, 64),
+    (1, 4096, 120, 120, 64),
+    (2, 300, 4, 2, 128),
+    (2, 130, 15, 1, 16),                # MQA, fp32 D 16: 4 lanes a key
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("forced", ["one", "max"])
+def test_flash_decode_forced_splits(cuda, b, s, h, kh, d, dtype, forced):
+    """One split (the output written by the split kernel, no merge) and one
+    tile a split, with a device length that leaves the last splits empty;
+    the plain version repeats the same split."""
+    q = _rand(cuda, b, 1, h, d, dtype=dtype)
+    k = _rand(cuda, b, s, kh, d, dtype=dtype)
+    v = _rand(cuda, b, s, kh, d, dtype=dtype)
+    ns = 1 if forced == "one" else -(-s // fa.BLOCK_K)
+    for n in (0, 1, 65, s // 2 + 3, s):
+        ops.reset_launches()
+        got = ops.flash_attention_decode(
+            q, k, v, cache_len=torch.tensor(n, device="cuda"), n_splits=ns)
+        want = fa.flash_attention_decode_plain(q, k, v, cache_len=n,
+                                               n_splits=ns)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_attention_decode"] == 1
+        _close(got, want, TOL[dtype])
+        if n == 0:
+            assert not got.float().abs().any()
+
+
+def test_flash_decode_refuses_unaligned_caches(cuda):
+    """The kernel reads 16 bytes a lane: a K view off a 16-byte boundary,
+    or with a stride that is not a 16-byte multiple, raises before any
+    launch (there is no scalar path)."""
+    q = _rand(cuda, 2, 1, 4, 64, dtype=torch.bfloat16)
+    buf = _rand(cuda, 2, 100, 2, 65, dtype=torch.bfloat16)
+    v = _rand(cuda, 2, 100, 2, 64, dtype=torch.bfloat16)
+    ops.reset_launches()
+    for k in (buf[..., 1:], buf[..., :64]):      # 2-byte offset; 130-byte rows
+        with pytest.raises(ValueError, match="16-byte"):
+            ops.flash_attention_decode(q, k, v, cache_len=50)
+    assert ops.LAUNCHES["flash_attention_decode"] == 0
+
+
 # --- RMSNorm, add, SSD --------------------------------------------------------------
 
 @pytest.mark.parametrize("shape", [(4096, 960), (4071, 960), (7, 64),

@@ -159,6 +159,72 @@ def test_flash_decode_plain_matches_pallas(cache_len, d, dtype):
         assert not got.float().abs().any()
 
 
+@pytest.mark.parametrize("n_splits", [1, 2, 3, None])
+@pytest.mark.parametrize("cache_len", [0, 1, 63, 64, 65, 200])
+@pytest.mark.parametrize("h,kh", [(4, 4), (4, 2), (12, 1)])
+@pytest.mark.parametrize("d,dtype", [(16, "float32"), (16, "bfloat16"),
+                                     (128, "float32"), (128, "bfloat16")])
+def test_flash_decode_split_plain_matches_pallas(n_splits, cache_len, h, kh,
+                                                 d, dtype):
+    """The split plain version (per-split partials, then the merge) against
+    the Pallas decode kernel in interpret mode.  S = 200 is 4 tiles: 2
+    splits of 128 keys leave the second empty below 129 keys, 3 splits of
+    128 leave the third empty at every length, and the helper's choice is
+    one tile a split; MHA, GQA and MQA with a group over 8 (two head groups
+    on the card)."""
+    jq, tq = _pair(RNG.standard_normal((2, 1, h, d)), dtype)
+    jk, tk = _pair(RNG.standard_normal((2, 200, kh, d)), dtype)
+    jv, tv = _pair(RNG.standard_normal((2, 200, kh, d)), dtype)
+    want = jops.flash_attention_decode(
+        jq, jk, jv, cache_len=jnp.asarray(cache_len, jnp.int32))
+    got = ops.flash_attention_decode(tq, tk, tv, cache_len=cache_len,
+                                     n_splits=n_splits)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+    if cache_len == 0:
+        assert not got.float().abs().any()
+
+
+@pytest.mark.parametrize("b,kh,g,s", [
+    (1, 120, 1, 4096),      # calibrate's longest cache: 120 (row, head) pairs
+    (1, 120, 1, 549),       # calibrate's held-out length
+    (1, 120, 1, 256),
+    (8, 5, 3, 549),         # the serve phase's decode: smollm 15/5, batch 8
+    (8, 1, 48, 549),        # MQA, granite-20b's 48 heads: 6 head groups
+    (2, 1, 12, 200),        # MQA with a group over 8, tiny
+    (1, 1, 1, 64),          # one tile
+    (1, 1, 1, 1),
+])
+def test_decode_splits_cover_the_cache_in_whole_tiles(b, kh, g, s):
+    nh = fa.decode_heads(g)
+    groups = -(-g // nh)
+    assert nh in fa.DECODE_HEADS and nh >= min(g, 8) and groups * nh >= g
+    n = fa.decode_splits(b, kh, groups, s)
+    per = fa.split_keys(s, n)
+    tiles = -(-s // 64)
+    assert per % 64 == 0 and per >= 64
+    bounds = [(i * per, min((i + 1) * per, s)) for i in range(n)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == s
+    assert all(a == c for (_, a), (c, _) in zip(bounds, bounds[1:]))
+    assert all(hi > lo for lo, hi in bounds)    # none empty at cache_len S
+    # stated limits: at most one tile a split; at least half the least count
+    # that gives BLOCKS_PER_SM blocks an SM, unless the tiles run out first
+    base = b * kh * groups
+    want = -(-fa.BLOCKS_PER_SM * fa.H100_SMS // base)
+    assert 1 <= n <= min(tiles, max(want, 1))
+    assert 2 * n >= min(want, tiles)
+    assert fa.decode_plan(b, s, kh * g, kh) == (n, per, nh)
+
+
+def test_decode_splits_at_the_main_shapes():
+    """The counts the kernel line and the tables are measured at."""
+    assert fa.decode_plan(1, 4096, 120, 120) == (5, 832, 1)     # 600 blocks
+    assert fa.decode_plan(8, 549, 15, 5) == (9, 64, 4)          # 360 blocks
+    assert fa.decode_plan(8, 549, 48, 1) == (9, 64, 8)
+    assert fa.decode_plan(1, 549, 120, 120, n_splits=9) == (9, 64, 1)
+    assert fa.decode_plan(1, 200, 4, 4, n_splits=3) == (3, 128, 1)
+
+
 def test_flash_decode_plain_takes_a_tensor_length_and_clamps():
     (_, tq), (_, tk), (_, tv) = _attn_inputs(2, 1, 50, 4, 2, 64, "float32")
     want = ops.flash_attention_decode(tq, tk, tv, cache_len=37)
@@ -306,6 +372,16 @@ def test_fused_rejects_what_the_kernel_does_not_take():
     lambda: ops.add(_t(2, 64), _t(2, 65)),
     lambda: ops.add(_t(2, 64, dtype=torch.float16),
                     _t(2, 64, dtype=torch.float16)),
+    # n_splits outside [1, ceil(S / 64)], or not an int
+    lambda: ops.flash_attention_decode(_t(1, 1, 4, 64), _t(1, 130, 2, 64),
+                                       _t(1, 130, 2, 64), cache_len=3,
+                                       n_splits=4),
+    lambda: ops.flash_attention_decode(_t(1, 1, 4, 64), _t(1, 130, 2, 64),
+                                       _t(1, 130, 2, 64), cache_len=3,
+                                       n_splits=0),
+    lambda: ops.flash_attention_decode(_t(1, 1, 4, 64), _t(1, 130, 2, 64),
+                                       _t(1, 130, 2, 64), cache_len=3,
+                                       n_splits=True),
 ])
 def test_new_wrappers_reject_what_their_kernels_do_not_take(call):
     with pytest.raises(ValueError):
