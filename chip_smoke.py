@@ -7,7 +7,9 @@ Phases, each printed as it runs; any failure exits non-zero:
 
 1. card      the card's name and power limit (nvidia-smi); TF32 off for
              matmuls and cuDNN, so float32 is float32.
-2. build     compile every CUDA source of the port with nvcc, in parallel.
+2. build     compile every CUDA source of the port with nvcc, in parallel;
+             registers, spills and shared memory of every instantiation of
+             the decode kernel and of the bf16 (wgmma) attention kernel.
 3. kernels   hold each of the six kernels against its plain PyTorch version
              on the card (bf16 2e-2, fp32 2e-5; SSD y 4e-2 / 1e-4 and state
              1e-2 / 1e-4) at the main paths' shapes and the edge cases, and
@@ -15,6 +17,10 @@ Phases, each printed as it runs; any failure exits non-zero:
              library call computing the same function.  Decode also runs
              at forced split counts (one split, one tile a split) and is
              timed at the serve shape beside the kernel line's case.
+             Prefill attention is timed at the serve shape and at the
+             calibrate path's (1, 2048, 120/120, 64), each beside the
+             CUDA-core kernel run on the same bf16 inputs
+             (``impl="cuda_core"``).
 4. models    a 2-layer fp32 model, kernel path vs plain path; the reduced
              smollm config (head_dim 16, ``attn_impl="auto"``) prefills
              through the attention kernel.
@@ -33,7 +39,11 @@ Phases, each printed as it runs; any failure exits non-zero:
 7. fused     ``bench.kernels_bench.fused_vs_unfused``: the fused kernel
              against the add kernel + the RMSNorm kernel.
 8. result    one JSON line of kernel figures, the card line, then
-             ``{"ok": true, "device": {...}}`` as the last line.
+             ``{"ok": true, "device": {...}}`` as the last line.  The
+             attention entry also carries its share of the bound, its
+             TFLOP/s, the CUDA-core kernel's time on the same inputs
+             (``earlier_ms``) and the same four figures at the calibrate
+             shape (``calibrate``).
 
 Each of phases 5-7 is a main path: the launch counts are set to 0 just
 before it and read just after, and each kernel must have launched on the
@@ -44,6 +54,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -128,9 +139,9 @@ N_REQUESTS, BATCH, MAX_NEW = 16, 8, 32
 PROMPT_MIN, PROMPT_MAX = 256, 509
 # Last-token logits, kernel path vs plain path (naive attention + unfused
 # norm), bf16 through 32 layers.  The two paths round at different places
-# (the kernel keeps P in fp32 for P V and normalises the fp32 sum; the
-# plain path casts P and y to bf16 first), each a relative 2^-9 per
-# rounding, compounding through the residual stream.  Logits of these
+# (the kernel keeps P to ~16 bits, two bf16 parts, for P V and normalises
+# the fp32 sum; the plain path casts P and y to bf16 first), each a
+# relative 2^-9 per rounding, compounding through the residual stream.  Logits of these
 # random weights have a spread of ~0.6; 0.1 allows ~1/6 of that and is
 # what a real indexing or masking fault (O(1) errors) cannot pass.
 LOGITS_TOL = 0.1
@@ -211,6 +222,24 @@ def ptxas_report(log: str):
     return rows
 
 
+def _wgmma_kernel_name(mangled: str):
+    """(D, block_q) of a flash_fwd_wgmma<D, warpgroups> instantiation, or
+    None for another kernel."""
+    m = re.search(r"flash_fwd_wgmmaILi(\d+)ELi(\d+)E", mangled)
+    return (int(m.group(1)), 64 * int(m.group(2))) if m else None
+
+
+def _cuda_core_kernel_name(mangled: str) -> str:
+    """flash_fwd<f32, D 64, block_q 32> from its mangled name (ROWS a warp,
+    4 warps a block)."""
+    m = re.search(r"flash_fwdI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", mangled)
+    if not m:
+        return mangled
+    dt = "f32" if m.group(1) == "f" else "bf16"
+    return (f"flash_fwd<{dt}, D {m.group(2)}, block_q "
+            f"{4 * int(m.group(3))}>")
+
+
 def _decode_kernel_name(mangled: str) -> str:
     """decode_split<bf16, D 64, heads 1> from its mangled name."""
     dt = "bf16" if "__nv_bfloat16" in mangled else "f32"
@@ -232,6 +261,20 @@ def phase_build() -> None:
                 log(f"[build]   {_decode_kernel_name(fn)}: {regs} registers,"
                     f" spill stores {st} B, spill loads {ld} B")
             continue
+        if name == "flash_attention":  # and of each wgmma instantiation
+            smem = _build.load(name).repro_flash_attention_wgmma_smem
+            smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+            for fn, regs, st, ld in ptxas_report(info["log"]):
+                shape = _wgmma_kernel_name(fn)
+                if shape is None:
+                    log(f"[build]   {_cuda_core_kernel_name(fn)}: {regs} "
+                        f"registers, spill stores {st} B, spill loads {ld} B")
+                    continue
+                log(f"[build]   flash_fwd_wgmma<D {shape[0]}, block_q "
+                    f"{shape[1]}>: {regs} registers, {smem(*shape)} B "
+                    f"dynamic shared memory, spill stores {st} B, spill "
+                    f"loads {ld} B")
+            continue
         for line in info["log"].splitlines():
             if "Used" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
@@ -250,26 +293,38 @@ def _sdpa(q, k, v, causal):
 
 
 def attention_case(gen, label, b, sq, sk, h, kh, d, causal, dtype,
-                   block_q=None, timed=False):
+                   block_q=None, timed=False, impl=None):
+    """One attention case against the plain version of the kernel it runs
+    (q's dtype's, or with ``impl="cuda_core"`` the CUDA-core kernel, called
+    directly so it counts no wrapper launch)."""
     q, k, v = _attn_inputs(gen, b, sq, sk, h, kh, d, dtype)
-    got = ops.flash_attention(q, k, v, causal=causal, block_q=block_q)
-    want = fa.flash_attention_plain(q, k, v, causal=causal,
-                                    block_q=block_q or fa.BLOCK_Q)
+    bq = block_q or fa.default_block_q(dtype, impl)
+    if impl is None:
+        got = ops.flash_attention(q, k, v, causal=causal, block_q=block_q)
+    else:
+        got = fa.flash_attention_cuda(q, k, v, causal=causal, block_q=bq,
+                                      impl=impl)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, block_q=bq,
+                                    impl=impl)
     torch.cuda.synchronize()
     err = check_close(f"flash_attention {label}", got, want, dtype)
     row = dict(label=label, shape=[b, sq, sk, h, kh, d], causal=causal,
-               dtype=str(dtype).replace("torch.", ""), max_abs_err=err)
+               dtype=str(dtype).replace("torch.", ""),
+               kernel=fa.kernel_for(dtype, impl), block_q=bq,
+               max_abs_err=err)
     if timed:
         es = q.element_size()
         pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
                  else sq * sk)
         nbytes = es * (2 * b * sq * h * d + 2 * b * sk * kh * d)
-        row["bound_ms"], row["bound_by"] = bound(
-            nbytes, 4.0 * d * pairs * b * h, dtype)
+        flops = 4.0 * d * pairs * b * h
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
         row["ms"] = time_ms(lambda: fa.flash_attention_cuda(
-            q, k, v, causal=causal, block_q=block_q or fa.BLOCK_Q))
+            q, k, v, causal=causal, block_q=bq, impl=impl))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
         row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(
-            q, k, v, causal=causal), iters=3)
+            q, k, v, causal=causal, block_q=bq, impl=impl), iters=3)
         row["library_ms"] = time_ms(lambda: _sdpa(q, k, v, causal))
     log(f"[kernels] flash_attention {json.dumps(row)}")
     return row
@@ -435,29 +490,62 @@ def phase_kernels(main_lens):
     cfg = get_config(ARCH)
     h, kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     bf16, f32 = torch.bfloat16, torch.float32
+    # the serve shape, timed for the wgmma kernel and for the CUDA-core
+    # kernel on the same bf16 inputs (the kernel line's "earlier_ms")
     attn = [attention_case(gen, "prefill_s512", BATCH, 512, 512, h, kh, d,
                            True, bf16, timed=True)]
+    gen_again = torch.Generator(device="cuda").manual_seed(0)
+    attn.append(attention_case(gen_again, "prefill_s512_cuda_core", BATCH,
+                               512, 512, h, kh, d, True, bf16, timed=True,
+                               impl="cuda_core"))
     for s in sorted(set(main_lens)):          # the serve phase's own shapes
         attn.append(attention_case(gen, f"serve_s{s}", BATCH, s, s, h, kh, d,
                                    True, bf16))
     attn += [
         attention_case(gen, "ragged_s509", BATCH, 509, 509, h, kh, d, True,
                        bf16),
-        attention_case(gen, "block_q16", BATCH, 509, 509, h, kh, d, True,
-                       bf16, block_q=16),
+        attention_case(gen, "block_q64", BATCH, 509, 509, h, kh, d, True,
+                       bf16, block_q=64),
+        attention_case(gen, "block_q16_f32", 2, 509, 509, h, kh, d, True,
+                       f32, block_q=16),
         attention_case(gen, "noncausal_130x70", 2, 130, 70, h, kh, d, False,
                        bf16),
         attention_case(gen, "d128_f32", 2, 256, 256, 4, 2, 128, True, f32),
+        attention_case(gen, "d128", 2, 256, 256, 4, 2, 128, True, bf16),
         attention_case(gen, "d80", 2, 200, 200, 6, 2, 80, True, bf16),
+        attention_case(gen, "d48_noncausal", 2, 130, 70, 6, 2, 48, False,
+                       bf16),
+        attention_case(gen, "d112", 2, 200, 200, 6, 2, 112, True, bf16,
+                       block_q=64),
         attention_case(gen, "noncausal_257x300_f32", 2, 257, 300, 4, 2, 64,
                        False, f32),
         attention_case(gen, "d16_reduced", 2, 77, 77, 4, 2, 16, True, bf16),
         attention_case(gen, "d32_f32", 2, 150, 150, 4, 2, 32, False, f32),
     ]
-    # the calibrate path's attention: q (1, s, 120, 64), one KV head a head
+    # the calibrate path's attention: q (1, s, 120, 64), one KV head a head;
+    # bf16 timed beside the CUDA-core kernel on the same inputs
     bh = CAL_GRID["attn_shapes"][-1][0]
-    attn += [attention_case(gen, f"calibrate_s2048_{_dname(dt)}", 1, 2048,
-                            2048, bh, bh, d, True, dt) for dt in (bf16, f32)]
+    cal_row = attention_case(gen, "calibrate_s2048_bfloat16", 1, 2048, 2048,
+                             bh, bh, d, True, bf16, timed=True)
+    gen_again = torch.Generator(device="cuda").manual_seed(1)
+    cal = attention_case(gen_again, "calibrate_s2048_bfloat16_cuda_core", 1,
+                         2048, 2048, bh, bh, d, True, bf16, timed=True,
+                         impl="cuda_core")
+    attn += [cal_row, cal,
+             attention_case(gen, "calibrate_s2048_float32", 1, 2048, 2048,
+                            bh, bh, d, True, f32)]
+    serve_row = attn[0]
+    serve_row["earlier_ms"] = attn[1]["ms"]
+    serve_row["calibrate"] = {key: cal_row[key] for key in (
+        "shape", "ms", "bound_ms", "bound_by", "share_of_bound", "tflops",
+        "library_ms", "max_abs_err")}
+    serve_row["calibrate"]["earlier_ms"] = cal["ms"]
+    for row, old in ((serve_row, attn[1]), (cal_row, cal)):
+        if not row["ms"] * 4 <= old["ms"]:
+            raise AssertionError(
+                f"flash_attention {row['label']}: the wgmma kernel "
+                f"({row['ms']:.4f} ms) is not 4x the CUDA-core kernel "
+                f"({old['ms']:.4f} ms) on the same inputs")
     dm = cfg.d_model
     norm = [fused_case(gen, "rows4096", BATCH * 512, dm, bf16, timed=True)]
     for s in sorted(set(main_lens)):
@@ -827,7 +915,10 @@ def main() -> int:
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
-            shape=row["shape"], dtype=row["dtype"]))
+            shape=row["shape"], dtype=row["dtype"],
+            **{key: row[key] for key in ("share_of_bound", "tflops",
+                                         "earlier_ms", "calibrate")
+               if key in row}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,26 @@
-"""Flash attention forward: the CUDA kernel's launcher and its plain version.
+"""Flash attention forward: the CUDA kernels' launcher and their plain version.
 
-The kernel (``csrc/flash_attention.cu``) replaces the Pallas
+The kernels (``csrc/flash_attention.cu``) replace the Pallas
 ``repro/kernels/flash_attention.py::_kernel``: FlashAttention-2 forward
-with fp32 online softmax, q/k/v read as fp32 for both products, scores
-scaled by 1/sqrt(d) after the product, a top-left aligned causal mask and
-the KV tail past ``sk`` masked.  Both functions here take the model's
-(B, S, H, D) layout and GQA (``H % KH == 0``) directly.
+with fp32 online softmax, scores scaled by 1/sqrt(d) after the product, a
+top-left aligned causal mask and the KV tail past ``sk`` masked.  Both
+functions here take the model's (B, S, H, D) layout and GQA
+(``H % KH == 0``) directly.  The dtype picks the kernel:
 
-``flash_attention_plain`` repeats the kernel's block algorithm in PyTorch:
+- bfloat16 -> ``"wgmma"``: both products on the tensor cores, q tiles of 64
+  or 128 rows (one or two warpgroups); P enters P V as two bf16 parts, its
+  rounding ``hi`` and the rounding of ``p - hi``.
+- float32 -> ``"cuda_core"``: fp32 products on the CUDA cores, as the Pallas
+  kernel computes them, q tiles of 16 or 32 rows.
+
+``impl="cuda_core"`` on ``flash_attention_cuda`` and the plain version pins
+the CUDA-core kernel for bf16 too, so a run can time the two on one card.
+
+``flash_attention_plain`` repeats the kernels' block algorithm in PyTorch:
 q tiles of ``block_q`` rows, a loop over ``block_k``-key tiles that stops
-at the tile's causal limit, the same online-softmax update.  The CPU path
-and the tests use it; on the card it is what the kernel is held against.
+at the tile's causal limit, the same online-softmax update and, for the
+``"wgmma"`` kernel, the same split of P.  The CPU path and the tests use
+it; on the card it is what the kernels are held against.
 """
 from __future__ import annotations
 
@@ -23,20 +33,38 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-BLOCK_Q = 32                  # query rows per CUDA block (4 warps x 8 rows)
 BLOCK_K = 64                  # keys per K/V tile staged in shared memory
-BLOCK_Q_CHOICES = (16, 32)    # the tiles the kernel is compiled for
 BLOCK_K_CHOICES = (64,)
+# q rows per CUDA block, by kernel: the tiles each is compiled for and the
+# default (wgmma: one or two 64-row warpgroups; cuda_core: 4 warps x 4 or 8)
+BLOCK_Q_CHOICES = {"wgmma": (64, 128), "cuda_core": (16, 32)}
+BLOCK_Q = {"wgmma": 128, "cuda_core": 32}
 HEAD_DIMS = tuple(range(16, 129, 16))   # one kernel instantiation each
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ERRORS = {-1: "dtype", -2: "block_q", -3: "head dim", -4: "block_k"}
+_IMPL_CODE = {None: 0, "cuda_core": 1}
+_ERRORS = {-1: "dtype", -2: "block_q", -3: "head dim", -4: "block_k",
+           -5: "impl"}
 _MAX_GRID_YZ = 65535
+
+
+def kernel_for(dtype: torch.dtype, impl: Optional[str] = None) -> str:
+    """The kernel a call of ``dtype`` runs: bf16 ``"wgmma"``, any other
+    ``"cuda_core"``; ``impl="cuda_core"`` pins the CUDA-core kernel."""
+    if impl not in _IMPL_CODE:
+        raise ValueError(f"flash_attention: impl={impl!r}; None (by dtype) "
+                         f"or 'cuda_core'")
+    return impl or ("wgmma" if dtype == torch.bfloat16 else "cuda_core")
+
+
+def default_block_q(dtype: torch.dtype, impl: Optional[str] = None) -> int:
+    return BLOCK_Q[kernel_for(dtype, impl)]
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                block_q: int, block_k: int) -> None:
-    """What the kernel takes; the plain version is held to the same rule so
-    a shape that passes on the CPU also runs on the card."""
+    """What the kernels take; the plain version is held to the same rule so
+    a shape that passes on the CPU also runs on the card.  ``block_q``
+    must be one of the tiles of q's dtype's kernel."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q (B,Sq,H,D) and k/v (B,Sk,KH,D) "
                          f"expected, got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -54,17 +82,25 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{list(_DTYPE_CODE)} for all three")
     if sq < 1 or k.shape[1] < 1:
         raise ValueError("flash_attention: empty sequence")
-    if block_q not in BLOCK_Q_CHOICES or block_k not in BLOCK_K_CHOICES:
+    kern = kernel_for(q.dtype)
+    if block_q not in BLOCK_Q_CHOICES[kern] or block_k not in BLOCK_K_CHOICES:
         raise ValueError(f"flash_attention: block_q={block_q}, "
-                         f"block_k={block_k}; the kernel is built for "
-                         f"block_q in {BLOCK_Q_CHOICES}, block_k in "
-                         f"{BLOCK_K_CHOICES}")
+                         f"block_k={block_k}; the {kern} kernel ({q.dtype}) "
+                         f"is built for block_q in {BLOCK_Q_CHOICES[kern]}, "
+                         f"block_k in {BLOCK_K_CHOICES}")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, block_q: int = BLOCK_Q,
-                          block_k: int = BLOCK_K) -> torch.Tensor:
-    """q: (B, Sq, H, D); k, v: (B, Sk, KH, D) -> (B, Sq, H, D) in q's dtype."""
+                          *, causal: bool = True,
+                          block_q: Optional[int] = None,
+                          block_k: int = BLOCK_K,
+                          impl: Optional[str] = None) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Sk, KH, D) -> (B, Sq, H, D) in q's dtype.
+    ``block_q`` None takes the kernel's default tile; the ``"wgmma"``
+    kernel's P enters P V as ``hi + lo``, each rounded to q's dtype (its
+    sum l is taken before the split)."""
+    split_p = kernel_for(q.dtype, impl) == "wgmma"
+    block_q = block_q or default_block_q(q.dtype, impl)
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     kv_head = torch.arange(h, device=q.device) // (h // kh)
@@ -91,22 +127,45 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             corr = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
             l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + p @ vf[:, :, k0:k0 + block_k]
+            if split_p:                         # exact in fp32: hi + lo
+                hi = p.to(q.dtype).float()
+                pv = hi + (p - hi).to(q.dtype).float()
+            else:
+                pv = p
+            acc = acc * corr[..., None] + pv @ vf[:, :, k0:k0 + block_k]
             m = m_new
         out[:, :, q0:q0 + n] = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
              + [ctypes.c_longlong] * 12
              + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 
 
+def _check_16_bytes(t: torch.Tensor, name: str, what: str) -> None:
+    """A kernel that reads 16 bytes a lane: the base and every stride of a
+    dim longer than 1 must be 16-byte multiples."""
+    es = t.element_size()
+    if t.data_ptr() % 16 or any(t.stride(i) * es % 16
+                                for i in range(3) if t.shape[i] > 1):
+        raise ValueError(f"{what}: {name} must start on a 16-byte boundary "
+                         f"with 16-byte multiples for its batch, seq and "
+                         f"head strides (got strides {t.stride()} of "
+                         f"{es}-byte elements)")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, block_q: int = BLOCK_Q,
-                         block_k: int = BLOCK_K) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream; raises on any
-    tensor it does not take and on a refused launch."""
+                         *, causal: bool = True,
+                         block_q: Optional[int] = None,
+                         block_k: int = BLOCK_K,
+                         impl: Optional[str] = None) -> torch.Tensor:
+    """Launch q's dtype's kernel (or, with ``impl="cuda_core"``, the
+    CUDA-core one) on PyTorch's current stream; raises on any tensor it
+    does not take (for the wgmma kernel, rows not on 16-byte boundaries)
+    and on a refused launch."""
+    kern = kernel_for(q.dtype, impl)
+    block_q = block_q or BLOCK_Q[kern]
     for t in (q, k, v):
         if not t.is_cuda or t.device != q.device:
             raise ValueError("flash_attention_cuda: q, k, v must be CUDA "
@@ -119,6 +178,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if h > _MAX_GRID_YZ or b > _MAX_GRID_YZ:
         raise ValueError(f"flash_attention_cuda: B={b}, H={h} exceed the "
                          f"grid limit {_MAX_GRID_YZ}")
+    if kern == "wgmma":                 # 16-byte cp.async copies
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_16_bytes(t, name, "flash_attention_cuda")
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lib = _build.load("flash_attention")
     fn = lib.repro_flash_attention_fwd
@@ -126,7 +188,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     strides = [t.stride(i) for t in (q, k, v, o) for i in range(3)]
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPE_CODE[q.dtype], q.device.index, b, sq, sk, h, kh, d,
+            _DTYPE_CODE[q.dtype], _IMPL_CODE[impl], q.device.index, b, sq,
+            sk, h, kh, d,
             block_q, block_k, *strides, int(causal), 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "flash_attention", _ERRORS)
@@ -290,18 +353,6 @@ _DECODE_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
                     + [ctypes.c_float, ctypes.c_void_p])
 
 
-def _check_16_bytes(t: torch.Tensor, name: str) -> None:
-    """The kernel reads 16 bytes a lane: the base and every stride of a
-    dim longer than 1 must be 16-byte multiples."""
-    es = t.element_size()
-    if t.data_ptr() % 16 or any(t.stride(i) * es % 16
-                                for i in range(3) if t.shape[i] > 1):
-        raise ValueError(f"flash_attention_decode_cuda: {name} must start "
-                         f"on a 16-byte boundary with 16-byte multiples for "
-                         f"its batch, seq and head strides (got strides "
-                         f"{t.stride()} of {es}-byte elements)")
-
-
 def flash_attention_decode_cuda(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, *, cache_len,
                                 block_k: int = BLOCK_K,
@@ -317,8 +368,8 @@ def flash_attention_decode_cuda(q: torch.Tensor, k: torch.Tensor,
         if t.stride(-1) != 1:
             raise ValueError("flash_attention_decode_cuda: the last dim must "
                              "be contiguous")
-    _check_16_bytes(k, "k")
-    _check_16_bytes(v, "v")
+    _check_16_bytes(k, "k", "flash_attention_decode_cuda")
+    _check_16_bytes(v, "v", "flash_attention_decode_cuda")
     b, _, h, d = q.shape
     s, kh = k.shape[1], k.shape[2]
     ns, sk, nh = decode_plan(b, s, h, kh, n_splits)

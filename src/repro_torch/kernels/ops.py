@@ -61,8 +61,10 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: BlockArg = None,
                     block_k: BlockArg = None) -> torch.Tensor:
-    """q: (B, S, H, D); k, v: (B, Sk, K, D) with H % K == 0 -> (B, S, H, D)."""
-    bq = _block(block_q, fa.BLOCK_Q, "block_q")
+    """q: (B, S, H, D); k, v: (B, Sk, K, D) with H % K == 0 -> (B, S, H, D).
+    bf16 runs the tensor-core kernel (``block_q`` 64 or 128), fp32 the
+    CUDA-core one (16 or 32); None takes the kernel's default."""
+    bq = _block(block_q, fa.default_block_q(q.dtype), "block_q")
     bk = _block(block_k, fa.BLOCK_K, "block_k")
     fa.check_args(q, k, v, bq, bk)
     if _on_cpu(q, k, v):

@@ -51,8 +51,10 @@ def _rand(gen, *shape, dtype):
     (2, 150, 150, 4, 2, 32, False),
     (1, 2048, 2048, 120, 120, 64, True),    # calibration: q (1, s, 120, 64)
 ])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("block_q", [16, 32])
+@pytest.mark.parametrize("dtype,block_q", [
+    (torch.float32, 16), (torch.float32, 32),       # the CUDA-core kernel
+    (torch.bfloat16, 64), (torch.bfloat16, 128),    # the wgmma kernel
+])
 def test_flash_attention_kernel_matches_plain(cuda, b, sq, sk, h, kh, d,
                                               causal, dtype, block_q):
     q = _rand(cuda, b, sq, h, d, dtype=dtype)
@@ -67,16 +69,68 @@ def test_flash_attention_kernel_matches_plain(cuda, b, sq, sk, h, kh, d,
                                atol=TOL[dtype])
 
 
-def test_flash_attention_kernel_reads_strided_views(cuda):
+@pytest.mark.parametrize("block_q", [64, 128])
+def test_flash_attention_kernel_reads_strided_views(cuda, block_q):
     """(B, S, H, D) views with non-packed strides (a slice of a wider
-    projection) are read in place."""
+    projection) are read in place, at both bf16 tiles."""
     qkv = _rand(cuda, 2, 100, 3 * 4, 64, dtype=torch.bfloat16)
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:]
-    got = ops.flash_attention(q, k, v, causal=True)
+    got = ops.flash_attention(q, k, v, causal=True, block_q=block_q)
     want = fa.flash_attention_plain(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal=True)
+                                    v.contiguous(), causal=True,
+                                    block_q=block_q)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("block_q", [64, 128])
+def test_flash_attention_wgmma_every_head_dim(cuda, d, block_q):
+    """Every bf16 head dim runs the wgmma kernel (ragged q and keys, GQA,
+    causal and not)."""
+    for sq, sk, causal in ((200, 200, True), (130, 70, False)):
+        q = _rand(cuda, 2, sq, 6, d, dtype=torch.bfloat16)
+        k = _rand(cuda, 2, sk, 2, d, dtype=torch.bfloat16)
+        v = _rand(cuda, 2, sk, 2, d, dtype=torch.bfloat16)
+        got = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                      block_q=block_q)
+        want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        block_q=block_q)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+def test_flash_attention_cuda_core_kernel_takes_bf16(cuda):
+    """``impl="cuda_core"`` runs the fp32 CUDA-core kernel on bf16 inputs
+    (keeping P in fp32), against the plain version of that arithmetic; a
+    direct launch counts no wrapper launch."""
+    q = _rand(cuda, 2, 509, 15, 64, dtype=torch.bfloat16)
+    k = _rand(cuda, 2, 509, 5, 64, dtype=torch.bfloat16)
+    v = _rand(cuda, 2, 509, 5, 64, dtype=torch.bfloat16)
+    ops.reset_launches()
+    got = fa.flash_attention_cuda(q, k, v, impl="cuda_core")
+    want = fa.flash_attention_plain(q, k, v, impl="cuda_core")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 0
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    with pytest.raises(RuntimeError, match="block_q"):
+        fa.flash_attention_cuda(q, k, v, impl="cuda_core", block_q=64)
+
+
+def test_flash_attention_wgmma_refuses_unaligned_rows(cuda):
+    """The wgmma kernel copies 16 bytes a lane: a view whose rows do not
+    start on 16-byte boundaries is refused before any launch."""
+    wide = _rand(cuda, 2, 64, 4, 68, dtype=torch.bfloat16)
+    q = wide[..., :64]                    # head stride 136 bytes
+    ok = _rand(cuda, 2, 64, 4, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(q, ok, ok)
+    flat = _rand(cuda, 2 * 64 * 4 * 64 + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 64, 4, 64)  # base 2 bytes past a boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(ok, shifted, ok)
 
 
 @pytest.mark.parametrize("rows,d", [(4096, 960), (4071, 960), (7, 64),

@@ -111,6 +111,79 @@ def test_flash_attention_plain_block_q_invariant(block_q):
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("b,sq,sk,h,kh,d,causal", [
+    (1, 128, 128, 15, 5, 64, True),     # smollm-360M's heads
+    (2, 77, 77, 15, 5, 64, True),       # ragged vs both bf16 tiles
+    (1, 509, 509, 15, 5, 64, True),
+    (2, 130, 70, 15, 5, 64, False),     # non-causal, unequal lengths
+    (2, 77, 77, 4, 2, 16, True),        # the reduced configs' head dim
+    (1, 130, 130, 6, 2, 80, True),
+    (1, 128, 128, 4, 2, 128, False),
+])
+def test_flash_attention_bf16_plain_matches_pallas(b, sq, sk, h, kh, d,
+                                                   causal):
+    """bf16 takes the tensor-core kernel's arithmetic (P split into two
+    bf16 parts for P V, 128-row q tiles); it stays within the bf16
+    tolerance of the Pallas kernel, which keeps P in fp32."""
+    (jq, tq), (jk, tk), (jv, tv) = _attn_inputs(b, sq, sk, h, kh, d,
+                                                "bfloat16")
+    want = jops.flash_attention(jq, jk, jv, causal=causal, block_q=64,
+                                block_k=64)
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert fa.kernel_for(tq.dtype) == "wgmma" and got.dtype == tq.dtype
+    np.testing.assert_allclose(_np(got), _np(want), **_tol("bfloat16"))
+
+
+@pytest.mark.parametrize("dtype,ok,refused", [
+    (torch.bfloat16, (64, 128), (16, 32, 48)),
+    (torch.float32, (16, 32), (48, 64, 128)),
+])
+def test_flash_attention_block_q_by_dtype(dtype, ok, refused):
+    """bf16 runs the wgmma kernel (one or two 64-row warpgroups), fp32 the
+    CUDA-core one; the plain version is held to the same tiles, and None
+    takes each kernel's default."""
+    q = _t(1, 40, 2, 64, dtype=dtype)
+    for bq in ok:
+        assert ops.flash_attention(q, q, q, block_q=bq).shape == q.shape
+    for bq in refused:
+        with pytest.raises(ValueError, match="block_q"):
+            ops.flash_attention(q, q, q, block_q=bq)
+    assert fa.default_block_q(dtype) == ok[-1]
+    assert fa.default_block_q(dtype, "cuda_core") == 32
+    with pytest.raises(ValueError, match="impl"):
+        fa.kernel_for(dtype, "tf32")
+
+
+def test_flash_attention_split_p_adds_little_error():
+    """The wgmma kernel feeds P to P V as two bf16 parts (hi, the rounding
+    of p - hi) instead of fp32 P (the Pallas kernel, and the plain version
+    under ``impl="cuda_core"``); both are held against float64 attention on
+    the same bf16 inputs at smollm's heads.  hi + lo is within 2^-17 p of
+    p, so before the output cast the two differ by at most 2^-17 max|v|.
+    Found: the max error is 7.7e-3 either way (one bf16 ulp of the output),
+    the mean errors agree to 1e-9 (1.45e-4), and 0.2% of the outputs round
+    to a neighbouring bf16 value; the bounds below are 1e-6 on the mean and
+    1% of the outputs."""
+    rng = np.random.default_rng(0)
+    b, s, h, kh, d = 2, 509, 15, 5, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)).bfloat16()
+               for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+    idx = torch.arange(h) // (h // kh)
+    qd, kd, vd = (t.double().transpose(1, 2)
+                  for t in (q, k[:, :, idx], v[:, :, idx]))
+    sc = (qd @ kd.transpose(-1, -2) / d ** 0.5).masked_fill(
+        torch.ones(s, s, dtype=torch.bool).triu(1), float("-inf"))
+    want = (torch.softmax(sc, -1) @ vd).transpose(1, 2)
+    split = fa.flash_attention_plain(q, k, v).double()
+    fp32_p = fa.flash_attention_plain(q, k, v, impl="cuda_core").double()
+    ulp = 2.0 ** -7 * want.abs().max().item()      # a bf16 ulp at the top
+    assert (split - want).abs().max() <= (fp32_p - want).abs().max() + ulp
+    assert abs((split - want).abs().mean() - (fp32_p - want).abs().mean()) \
+        <= 1e-6
+    assert (split != fp32_p).double().mean() <= 0.01
+    assert (split - want).abs().max() <= 2e-2
+
+
 @pytest.mark.parametrize("shape", [(4, 100, 512), (3, 87, 128), (16, 2048),
                                    (8, 61, 960)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
