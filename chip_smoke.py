@@ -9,12 +9,18 @@ Phases, each printed as it runs; any failure exits non-zero:
              matmuls and cuDNN, so float32 is float32.
 2. build     compile every CUDA source of the port with nvcc, in parallel;
              registers, spills and shared memory of every instantiation of
-             the decode kernel and of the bf16 (wgmma) attention kernel.
+             the decode kernel, the bf16 (wgmma) attention kernel, the
+             RMSNorm kernel and the SSD scan's passes.
 3. kernels   hold each of the six kernels against its plain PyTorch version
              on the card (bf16 2e-2, fp32 2e-5; SSD y 4e-2 / 1e-4 and state
              1e-2 / 1e-4) at the main paths' shapes and the edge cases, and
              time kernel, plain version and, where one exists, the PyTorch
-             library call computing the same function.  Decode also runs
+             library call computing the same function.  RMSNorm is timed
+             at 4096 and 16384 x 960 bf16 beside ``F.rms_norm``, and each
+             case checks which instantiation ran (16-byte or scalar loads,
+             on widths and views that are not 16-byte multiples).  The SSD
+             scan is held against the composition of its four passes' plain
+             versions, and each pass is timed alone (``passes_ms``).  Decode also runs
              at forced split counts (one split, one tile a split) and is
              timed at the serve shape beside the kernel line's case.
              Prefill attention is timed at the serve shape and at the
@@ -249,6 +255,49 @@ def _decode_kernel_name(mangled: str) -> str:
     return f"decode_merge<{dt}>" if "decode_merge" in mangled else mangled
 
 
+def _rmsnorm_kernel_name(mangled: str) -> str:
+    """rmsnorm<bf16, 4 values a lane, 16-byte loads> from its mangled name."""
+    m = re.search(r"rmsnormI(f|13__nv_bfloat16)Li(\d+)ELb([01])E", mangled)
+    if not m:
+        return mangled
+    return (f"rmsnorm<{'f32' if m.group(1) == 'f' else 'bf16'}, "
+            f"{m.group(2)} values a lane, "
+            f"{'16-byte' if m.group(3) == '1' else 'scalar'} loads>")
+
+
+SSD_PASSES = ("ssd_cb", "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")
+
+
+def _ssd_build_rows(info) -> None:
+    """Registers, dynamic shared memory (at chunk 128, N 128) and spills of
+    each pass's kernels."""
+    smem = _build.load("ssd_scan").repro_ssd_smem
+    smem.argtypes, smem.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    for fn, regs, st, ld in ptxas_report(info["log"]):
+        name = next((k for k in SSD_PASSES if k in fn), fn)
+        kind = "mma" if "_mma" in fn else "fma" if "_fma" in fn else ""
+        which = SSD_PASSES.index(name) + 1 if name in SSD_PASSES else 0
+        dyn = smem(which, 1 if kind == "mma" else 0, 128, 128)
+        log(f"[build]   {name}{'_' + kind if kind else ''}: {regs} registers, "
+            f"{dyn} B dynamic shared memory, spill stores {st} B, spill loads "
+            f"{ld} B")
+
+
+def _rmsnorm_build_rows(info) -> None:
+    """Registers and spills of each instantiation, and the width up to which
+    one warp holds a row (``rmsnorm.WARP_VALS`` 16-byte values a lane)."""
+    rows = ptxas_report(info["log"])
+    for fn, regs, st, ld in rows:
+        log(f"[build]   {_rmsnorm_kernel_name(fn)}: {regs} registers, spill "
+            f"stores {st} B, spill loads {ld} B")
+    one = [r for r in rows if f"Li{rn.WARP_VALS}ELb1E" in r[0]]
+    log(f"[build]   rmsnorm: one warp a row up to {32 * rn.WARP_VALS} 16-byte "
+        f"values (d <= {256 * rn.WARP_VALS} bf16, {128 * rn.WARP_VALS} fp32),"
+        f" wider rows 2-{rn.WARPS} warps; the 16-byte instantiations at "
+        f"{rn.WARP_VALS} values a lane: {[r[1] for r in one]} registers, "
+        f"{sum(r[2] + r[3] for r in one)} B spilled")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     built = _build.build()
@@ -274,6 +323,12 @@ def phase_build() -> None:
                     f"{shape[1]}>: {regs} registers, {smem(*shape)} B "
                     f"dynamic shared memory, spill stores {st} B, spill "
                     f"loads {ld} B")
+            continue
+        if name == "ssd_scan":
+            _ssd_build_rows(info)
+            continue
+        if name == "rmsnorm":
+            _rmsnorm_build_rows(info)
             continue
         for line in info["log"].splitlines():
             if "Used" in line or "spill" in line:
@@ -397,20 +452,32 @@ def decode_case(gen, label, b, s, h, kh, d, n, dtype, timed=False,
     return row
 
 
-def rmsnorm_case(gen, label, rows, d, dtype, timed=False):
-    x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+def rmsnorm_case(gen, label, rows, d, dtype, timed=False, offset=0,
+                 want_vector=None):
+    """``offset`` elements into a flat buffer: an offset that is not a
+    whole 16 bytes takes the scalar instantiation."""
+    flat = torch.randn(rows * d + offset, generator=gen,
+                       device="cuda").to(dtype)
+    x = flat[offset:].view(rows, d)
     sc = torch.randn(d, generator=gen, device="cuda").to(dtype)
     got = ops.rmsnorm(x, sc)
     want = rn.rmsnorm_plain(x, sc)
     torch.cuda.synchronize()
     err = check_close(f"rmsnorm {label}", got, want, dtype)
+    plan = rn.LAST_PLAN
+    if plan != rn.plan(x, sc) or (want_vector is not None
+                                  and plan.vector != want_vector):
+        raise AssertionError(f"rmsnorm {label}: ran {plan}, expected "
+                             f"{rn.plan(x, sc)} (16-byte loads: "
+                             f"{want_vector})")
     row = dict(label=label, shape=[rows, d], dtype=_dname(dtype),
-               max_abs_err=err)
+               plan=plan._asdict(), max_abs_err=err)
     if timed:
         es = x.element_size()
         row["bound_ms"], row["bound_by"] = bound(
             es * (2 * rows * d + d), 4.0 * rows * d, dtype)
         row["ms"] = time_ms(lambda: rn.rmsnorm_cuda(x, sc))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
         row["plain_ms"] = time_ms(lambda: rn.rmsnorm_plain(x, sc))
         row["library_ms"] = time_ms(lambda: F.rms_norm(x, (d,), sc, 1e-5))
     log(f"[kernels] rmsnorm {json.dumps(row)}")
@@ -437,6 +504,8 @@ def add_case(gen, label, rows, d, dtype, timed=False):
 
 
 def ssd_case(gen, label, b, s, h, p, n, dtype, chunk=None, timed=False):
+    """The kernel (four passes) against ``ssd_scan_passes_plain``; timed,
+    also each pass alone (``passes_ms``), on buffers of its own."""
     x = torch.randn(b, s, h, p, generator=gen, device="cuda").to(dtype)
     dt = 0.001 + 0.099 * torch.rand(b, s, h, generator=gen, device="cuda")
     a = -(0.5 + 1.5 * torch.rand(h, generator=gen, device="cuda"))
@@ -444,7 +513,7 @@ def ssd_case(gen, label, b, s, h, p, n, dtype, chunk=None, timed=False):
     cc = (0.5 * torch.randn(b, s, n, generator=gen, device="cuda")).to(dtype)
     ck = chunk or ssd_mod.CHUNK
     y, st = ops.ssd_scan(x, dt, a, bb, cc, chunk=ck)
-    wy, wst = ssd_mod.ssd_scan_plain(x, dt, a, bb, cc, chunk=ck)
+    wy, wst = ssd_mod.ssd_scan_passes_plain(x, dt, a, bb, cc, chunk=ck)
     torch.cuda.synchronize()
     ytol, stol = SSD_TOL[dtype]
     err = max(check_close(f"ssd_scan {label} y", y, wy, dtype, ytol),
@@ -460,9 +529,17 @@ def ssd_case(gen, label, b, s, h, p, n, dtype, chunk=None, timed=False):
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
         row["ms"] = time_ms(lambda: ssd_mod.ssd_scan_cuda(
             x, dt, a, bb, cc, chunk=ck))
-        row["plain_ms"] = time_ms(lambda: ssd_mod.ssd_scan_plain(
-            x, dt, a, bb, cc, chunk=ck), iters=3)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["plain_ms"] = time_ms(lambda: ssd_mod.ssd_scan_passes_plain(
+            x, dt, a, bb, cc, chunk=ck))
+        row["sequential_plain_ms"] = time_ms(lambda: ssd_mod.ssd_scan_plain(
+            x, dt, a, bb, cc, chunk=ck))
         row["library_ms"] = None    # no PyTorch call computes the scan
+        bufs = ssd_mod.ssd_buffers(x, bb, chunk=ck)
+        row["passes_ms"] = {
+            name: time_ms(lambda w=name: ssd_mod.ssd_run_cuda(
+                x, dt, a, bb, cc, bufs, chunk=ck, which=w))
+            for name in ("cb", "chunk_state", "state_pass", "chunk_scan")}
     log(f"[kernels] ssd_scan {json.dumps(row)}")
     return row
 
@@ -595,24 +672,45 @@ def phase_kernels(main_lens):
                         f32, n_splits=1),
             decode_case(gen, "d16_mqa_splits3_f32", 2, 130, 15, 1, 16, 60,
                         f32, n_splits=3)]
-    rms = [rmsnorm_case(gen, "rows4096", BATCH * 512, dm, bf16, timed=True),
+    rms = [rmsnorm_case(gen, "rows4096", BATCH * 512, dm, bf16, timed=True,
+                        want_vector=True),
+           rmsnorm_case(gen, "rows16384", 16384, dm, bf16, timed=True),
            rmsnorm_case(gen, "rows16384_f32", 16384, dm, f32),
            rmsnorm_case(gen, "rows8", 8, dm, bf16),
            rmsnorm_case(gen, "ragged_rows4071", 4071, dm, bf16),
            rmsnorm_case(gen, "f32_rows1000", 1000, dm, f32),
-           rmsnorm_case(gen, "d8192", 64, 8192, bf16)]
+           rmsnorm_case(gen, "d8192", 64, 8192, bf16),
+           rmsnorm_case(gen, "d8192_f32", 33, 8192, f32),
+           rmsnorm_case(gen, "d1000", 16, 1000, bf16),
+           rmsnorm_case(gen, "d1001_scalar", 16, 1001, bf16,
+                        want_vector=False),
+           rmsnorm_case(gen, "offset_2B_scalar", 300, dm, bf16, offset=1,
+                        want_vector=False)]
+    rms[0]["rows16384"] = {key: rms[1][key] for key in (
+        "shape", "ms", "bound_ms", "share_of_bound", "plain_ms",
+        "library_ms", "max_abs_err")}
     # SSD at mamba2-130m's geometry (H=24, P=64, N=128): the calibrate
     # grid's (4, 2048) and (1, 512), the held-out (2, 1024), and batch 1
     ssd = [ssd_case(gen, "calibrate_b4_s2048", 4, 2048, 24, 64, 128, bf16,
                     timed=True),
-           ssd_case(gen, "calibrate_b4_s2048_f32", 4, 2048, 24, 64, 128,
-                    f32),
            ssd_case(gen, "calibrate_b1_s512", 1, 512, 24, 64, 128, f32),
            ssd_case(gen, "held_out_b2_s1024", 2, 1024, 24, 64, 128, bf16),
-           ssd_case(gen, "mamba2_130m", 1, 2048, 24, 64, 128, bf16),
            ssd_case(gen, "mamba2_130m_f32", 1, 2048, 24, 64, 128, f32),
            ssd_case(gen, "ragged_s200", 1, 200, 24, 64, 128, bf16),
-           ssd_case(gen, "sweep_2x256x3", 2, 256, 3, 64, 64, f32, chunk=64)]
+           ssd_case(gen, "sweep_2x256x3", 2, 256, 3, 64, 64, f32, chunk=64),
+           ssd_case(gen, "chunk77_p40", 1, 200, 2, 40, 16, bf16, chunk=77),
+           ssd_case(gen, "chunk77_p40_f32", 1, 200, 2, 40, 16, f32,
+                    chunk=77),
+           ssd_case(gen, "chunk77", 2, 256, 3, 64, 64, bf16, chunk=77),
+           ssd_case(gen, "chunk32", 1, 128, 2, 32, 16, bf16, chunk=32)]
+    # mamba2-130m at batch 1 and the fp32 calibrate point, timed for PERF.md
+    for extra in (ssd_case(gen, "mamba2_130m_timed", 1, 2048, 24, 64, 128,
+                           bf16, timed=True),
+                  ssd_case(gen, "calibrate_b4_s2048_f32_timed", 4, 2048, 24,
+                           64, 128, f32, timed=True)):
+        ssd[0].setdefault("more", []).append({key: extra[key] for key in (
+            "label", "shape", "dtype", "ms", "bound_ms", "share_of_bound",
+            "plain_ms", "passes_ms")})
     adds = [add_case(gen, "rows4096", BATCH * 512, dm, bf16, timed=True),
             add_case(gen, "f32_4096x512", 4096, 512, f32)]
     return {"flash_attention": attn[0], "fused_add_rmsnorm": norm[0],
@@ -917,7 +1015,9 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["shape"], dtype=row["dtype"],
             **{key: row[key] for key in ("share_of_bound", "tflops",
-                                         "earlier_ms", "calibrate")
+                                         "earlier_ms", "calibrate",
+                                         "passes_ms", "sequential_plain_ms",
+                                         "rows16384", "more")
                if key in row}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -104,7 +104,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     ck = _block(chunk, ssd_mod.CHUNK, "chunk")
     ssd_mod.check_args(x, dt, a, b, c, ck)
     if _on_cpu(x, dt, a, b, c):
-        return ssd_mod.ssd_scan_plain(x, dt, a, b, c, chunk=ck)
+        return ssd_mod.ssd_scan_passes_plain(x, dt, a, b, c, chunk=ck)
     out = ssd_mod.ssd_scan_cuda(x, dt, a, b, c, chunk=ck)
     LAUNCHES["ssd_scan"] += 1
     return out

@@ -274,9 +274,15 @@ def test_flash_decode_refuses_unaligned_caches(cuda):
 # --- RMSNorm, add, SSD --------------------------------------------------------------
 
 @pytest.mark.parametrize("shape", [(4096, 960), (4071, 960), (7, 64),
-                                   (33, 8192), (1, 100), (4, 100, 512)])
+                                   (33, 8192), (1, 100), (4, 100, 512),
+                                   (8, 960), (16, 1000), (16, 1001),
+                                   (9, 2048), (5, 4104)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
+    """Each width runs the instantiation ``rmsnorm.plan`` picks: one warp a
+    row or several (bf16 past 1024, fp32 past 512); 16-byte loads or, where
+    the width is not a multiple of the vector (1001; 100 in bf16), one
+    element a load."""
     x = _rand(cuda, *shape, dtype=dtype)
     sc = _rand(cuda, shape[-1], dtype=dtype)
     ops.reset_launches()
@@ -284,7 +290,22 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     want = rn.rmsnorm_plain(x, sc)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["rmsnorm"] == 1 and got.shape == x.shape
+    assert rn.LAST_PLAN == rn.plan(x, sc)
     _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_rows", [None, 1, 3])
+def test_rmsnorm_kernel_takes_unaligned_views(cuda, dtype, block_rows):
+    """A view whose storage starts off a 16-byte boundary runs the scalar
+    instantiation; at any rows a block."""
+    flat = _rand(cuda, 300 * 960 + 1, dtype=dtype)
+    x = flat[1:].view(300, 960)
+    sc = _rand(cuda, 960, dtype=dtype)
+    got = ops.rmsnorm(x, sc, block_rows=block_rows)
+    torch.cuda.synchronize()
+    assert rn.LAST_PLAN == rn.plan(x, sc) and not rn.LAST_PLAN.vector
+    _close(got, rn.rmsnorm_plain(x, sc), TOL[dtype])
 
 
 @pytest.mark.parametrize("shape", [(4096, 960), (4096, 512), (1001,),
@@ -324,6 +345,8 @@ def _ssd_inputs(gen, b, s, h, p, n, dtype):
     (1, 200, 2, 40, 16, 64),            # ragged S, P not a multiple of 16
     (2, 200, 3, 64, 128, 128),          # ragged S against the default chunk
     (4, 2048, 24, 64, 128, 128),        # calibration's largest point
+    (1, 200, 2, 40, 16, 77),            # chunk 77: zero-filled to 80 rows
+    (2, 256, 3, 64, 64, 77),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_kernel_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
@@ -337,3 +360,45 @@ def test_ssd_scan_kernel_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
     bf16 = dtype == torch.bfloat16
     _close(y, wy, 4e-2 if bf16 else 1e-4)
     _close(st, wst, 1e-2 if bf16 else 1e-4)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 128, 2, 32, 16, 32),
+    (2, 256, 3, 64, 64, 64),
+    (1, 256, 4, 64, 128, 128),
+    (1, 200, 2, 40, 16, 64),
+    (2, 200, 3, 64, 128, 128),
+    (1, 200, 2, 40, 16, 77),
+    (2, 256, 3, 64, 64, 77),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_passes_match_their_plain_versions(cuda, b, s, h, p, n, chunk,
+                                               dtype):
+    """Each of the four passes alone, on the card, against its plain
+    version fed the same inputs (the kernel's own outputs of the passes
+    before it)."""
+    x, dt, a, bb, cc = _ssd_inputs(cuda, b, s, h, p, n, dtype)
+    bufs = ssd_mod.ssd_buffers(x, bb, chunk=chunk)
+    ops.reset_launches()
+    run = lambda which: ssd_mod.ssd_run_cuda(x, dt, a, bb, cc, bufs,
+                                            chunk=chunk, which=which)
+    run("cb")
+    want = ssd_mod.ssd_cb_plain(bb, cc, chunk=chunk)
+    low = torch.ones_like(want[0, 0], dtype=torch.bool).tril()
+    _close(bufs["cb"][..., low], want[..., low], 1e-5 if
+           dtype == torch.float32 else 1e-4)
+    run("chunk_state")
+    cum, local = ssd_mod.ssd_chunk_state_plain(x, dt, a, bb, chunk=chunk)
+    _close(bufs["cum"], cum, 1e-5)
+    _close(bufs["states"], local, 1e-4)
+    local = bufs["states"].clone()
+    run("state_pass")
+    entering, final = ssd_mod.ssd_state_pass_plain(local, bufs["cum"])
+    _close(bufs["states"], entering, 1e-5)
+    _close(bufs["state"], final, 1e-5)
+    run("chunk_scan")
+    y = ssd_mod.ssd_chunk_scan_plain(x, dt, cc, bufs["cb"].tril(),
+                                     bufs["cum"], bufs["states"], chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == 0      # direct launches count none
+    _close(bufs["y"], y, 4e-2 if dtype == torch.bfloat16 else 1e-4)

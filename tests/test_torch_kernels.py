@@ -350,6 +350,7 @@ def _ssd_inputs(b, s, h, p, n, dtype):
     (2, 256, 3, 64, 64, 64),
     (1, 256, 4, 64, 128, 128),   # mamba2-130m geometry
     (1, 200, 2, 32, 16, 64),     # S not a multiple of the chunk
+    (1, 200, 2, 32, 16, 77),     # a chunk not a multiple of 16, ragged S
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_scan_plain_matches_pallas_and_ref(b, s, h, p, n, chunk, dtype):
@@ -364,6 +365,91 @@ def test_ssd_scan_plain_matches_pallas_and_ref(b, s, h, p, n, chunk, dtype):
                     jref.ssd_ref(*jargs)):
         np.testing.assert_allclose(_np(y), _np(wy), **ytol)
         np.testing.assert_allclose(_np(st), _np(wst), **stol)
+
+
+@pytest.mark.parametrize("chunk", [32, 77, 128])
+def test_ssd_passes_entering_states_match_sequential(chunk):
+    """Pass 3's state entering chunk c equals the sequential scan's final
+    state over the first c chunks, state by state; and the passes' y and
+    final state equal the sequential scan's."""
+    _, (x, dt, a, b, c) = _ssd_inputs(2, 200, 3, 32, 16, "float32")
+    cum, local = ssd_mod.ssd_chunk_state_plain(x, dt, a, b, chunk=chunk)
+    entering, final = ssd_mod.ssd_state_pass_plain(local, cum)
+    q = min(chunk, 200)
+    assert entering.shape[2] == -(-200 // q)
+    assert not entering[:, :, 0].any()
+    for ci in range(1, entering.shape[2]):
+        s0 = ci * q
+        _, want = ssd_mod.ssd_scan_plain(x[:, :s0], dt[:, :s0], a, b[:, :s0],
+                                         c[:, :s0], chunk=chunk)
+        torch.testing.assert_close(entering[:, :, ci], want, rtol=1e-5,
+                                   atol=1e-6)
+    wy, wst = ssd_mod.ssd_scan_plain(x, dt, a, b, c, chunk=chunk)
+    y, st = ssd_mod.ssd_scan_passes_plain(x, dt, a, b, c, chunk=chunk)
+    torch.testing.assert_close(st, final)
+    torch.testing.assert_close(st, wst, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(y, wy, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_passes_stay_finite_past_exp_overflow(dtype):
+    """|sum dt a| over 88 in a chunk (fault R5: exp of the upper triangle
+    would overflow): every pass's output is finite and the composition
+    agrees with the sequential scan."""
+    _, (x, _, _, b, c) = _ssd_inputs(1, 256, 2, 32, 16, dtype)
+    dt = torch.full((1, 256, 2), 0.5)
+    a = torch.tensor([-2.0, -16.0])
+    cb = ssd_mod.ssd_cb_plain(b, c)
+    cum, local = ssd_mod.ssd_chunk_state_plain(x, dt, a, b)
+    assert cum[..., -1].abs().min() > 88
+    entering, final = ssd_mod.ssd_state_pass_plain(local, cum)
+    y = ssd_mod.ssd_chunk_scan_plain(x, dt, c, cb, cum, entering)
+    for t in (cb, cum, local, entering, final, y):
+        assert torch.isfinite(t.float()).all()
+    wy, wst = ssd_mod.ssd_scan_plain(x, dt, a, b, c)
+    torch.testing.assert_close(y.float(), wy.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(final, wst, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_buffers_have_the_plain_passes_shapes():
+    """The kernel's intermediates are laid out as the plain passes return
+    them: chunk 77 is zero-filled to 80 rows, S = 200 makes 3 chunks."""
+    _, (x, dt, a, b, c) = _ssd_inputs(2, 200, 3, 40, 16, "bfloat16")
+    bufs = ssd_mod.ssd_buffers(x, b, chunk=77)
+    cum, local = ssd_mod.ssd_chunk_state_plain(x, dt, a, b, chunk=77)
+    assert bufs["cb"].shape == ssd_mod.ssd_cb_plain(b, c, chunk=77).shape \
+        == (2, 3, 80, 80)
+    assert bufs["cum"].shape == cum.shape == (2, 3, 3, 80)
+    assert bufs["states"].shape == local.shape == (2, 3, 3, 40, 16)
+    assert bufs["y"].dtype == torch.bfloat16 and bufs["y"].shape == x.shape
+    assert bufs["state"].shape == (2, 3, 40, 16)
+
+
+@pytest.mark.parametrize("d,dtype,offset,want", [
+    (960, torch.bfloat16, 0, (True, 4, 1)),     # 120 vectors: 4 a lane
+    (960, torch.float32, 0, (True, 4, 2)),      # 240: two warps a row
+    (1024, torch.bfloat16, 0, (True, 4, 1)),    # the widest row of one warp
+    (2048, torch.bfloat16, 0, (True, 4, 2)),
+    (8192, torch.bfloat16, 0, (True, 4, 8)),
+    (8192, torch.float32, 0, (True, 8, 8)),     # 2048 vectors: 8 a lane
+    (1000, torch.bfloat16, 0, (True, 4, 1)),    # 125 vectors, masked tail
+    (1001, torch.bfloat16, 0, (False, 4, 1)),   # not a multiple of 8
+    (100, torch.bfloat16, 0, (False, 1, 1)),
+    (100, torch.float32, 0, (True, 1, 1)),
+    (960, torch.bfloat16, 1, (False, 4, 1)),    # 2 bytes off a boundary
+    (960, torch.float32, 4, (True, 4, 2)),      # 16 bytes off: aligned
+])
+def test_rmsnorm_plan_from_width_dtype_and_offset(d, dtype, offset, want):
+    """The wrapper's choice between the 16-byte and the scalar
+    instantiation, and of values a lane and warps a row."""
+    x = torch.zeros(3 * d + offset, dtype=dtype)[offset:].view(3, d)
+    sc = torch.zeros(d, dtype=dtype)
+    assert x.data_ptr() % 16 == (offset * x.element_size()) % 16
+    got = rn.plan(x, sc)
+    assert tuple(got) == want
+    per = 16 // x.element_size()
+    assert 32 * got.vals * got.warps_per_row * per >= d
+    assert rn.WARPS % got.warps_per_row == 0
 
 
 @pytest.mark.parametrize("rows,d,br", [(64, 512, 16), (256, 960, 64)])
