@@ -10,15 +10,18 @@ Phases, each printed as it runs; any failure exits non-zero:
 2. build     compile every CUDA source of the port with nvcc, in parallel;
              registers, spills and shared memory of every instantiation of
              the decode kernel, the bf16 (wgmma) attention kernel, the
-             RMSNorm kernel and the SSD scan's passes.
+             RMSNorm and fused add + RMSNorm kernels and the SSD scan's
+             passes.
 3. kernels   hold each of the six kernels against its plain PyTorch version
              on the card (bf16 2e-2, fp32 2e-5; SSD y 4e-2 / 1e-4 and state
              1e-2 / 1e-4) at the main paths' shapes and the edge cases, and
              time kernel, plain version and, where one exists, the PyTorch
              library call computing the same function.  RMSNorm is timed
-             at 4096 and 16384 x 960 bf16 beside ``F.rms_norm``, and each
-             case checks which instantiation ran (16-byte or scalar loads,
-             on widths and views that are not 16-byte multiples).  The SSD
+             at 4096 and 16384 x 960 bf16 beside ``F.rms_norm``, the fused
+             add + RMSNorm at the same shapes, and each case of both checks
+             which instantiation ran (16-byte or scalar loads, on widths
+             and views that are not 16-byte multiples); the fused
+             kernel's y must be its plain version's bit for bit.  The SSD
              scan is held against the composition of its four passes' plain
              versions, and each pass is timed alone (``passes_ms``).  Decode also runs
              at forced split counts (one split, one tile a split) and is
@@ -49,7 +52,8 @@ Phases, each printed as it runs; any failure exits non-zero:
              attention entry also carries its share of the bound, its
              TFLOP/s, the CUDA-core kernel's time on the same inputs
              (``earlier_ms``) and the same four figures at the calibrate
-             shape (``calibrate``).
+             shape (``calibrate``); the norm entries their plan, share of
+             the bound and the 16384-row case (``rows16384``).
 
 Each of phases 5-7 is a main path: the launch counts are set to 0 just
 before it and read just after, and each kernel must have launched on the
@@ -255,12 +259,14 @@ def _decode_kernel_name(mangled: str) -> str:
     return f"decode_merge<{dt}>" if "decode_merge" in mangled else mangled
 
 
-def _rmsnorm_kernel_name(mangled: str) -> str:
-    """rmsnorm<bf16, 4 values a lane, 16-byte loads> from its mangled name."""
-    m = re.search(r"rmsnormI(f|13__nv_bfloat16)Li(\d+)ELb([01])E", mangled)
+def _norm_kernel_name(mangled: str, kernel: str) -> str:
+    """rmsnorm<bf16, 4 values a lane, 16-byte loads> (or the same of
+    fused_add_rmsnorm) from its mangled name."""
+    m = re.search(rf"(?<![a-z_]){kernel}I(f|13__nv_bfloat16)Li(\d+)ELb([01])E",
+                  mangled)
     if not m:
         return mangled
-    return (f"rmsnorm<{'f32' if m.group(1) == 'f' else 'bf16'}, "
+    return (f"{kernel}<{'f32' if m.group(1) == 'f' else 'bf16'}, "
             f"{m.group(2)} values a lane, "
             f"{'16-byte' if m.group(3) == '1' else 'scalar'} loads>")
 
@@ -283,19 +289,20 @@ def _ssd_build_rows(info) -> None:
             f"{ld} B")
 
 
-def _rmsnorm_build_rows(info) -> None:
-    """Registers and spills of each instantiation, and the width up to which
-    one warp holds a row (``rmsnorm.WARP_VALS`` 16-byte values a lane)."""
+def _norm_build_rows(info, kernel: str, warp_vals: int) -> None:
+    """Registers and spills of each instantiation of a norm kernel, and
+    the width up to which one warp holds a row (``warp_vals`` 16-byte
+    values a lane: ``rmsnorm.WARP_VALS``, ``fused.WARP_VALS``)."""
     rows = ptxas_report(info["log"])
     for fn, regs, st, ld in rows:
-        log(f"[build]   {_rmsnorm_kernel_name(fn)}: {regs} registers, spill "
-            f"stores {st} B, spill loads {ld} B")
-    one = [r for r in rows if f"Li{rn.WARP_VALS}ELb1E" in r[0]]
-    log(f"[build]   rmsnorm: one warp a row up to {32 * rn.WARP_VALS} 16-byte "
-        f"values (d <= {256 * rn.WARP_VALS} bf16, {128 * rn.WARP_VALS} fp32),"
+        log(f"[build]   {_norm_kernel_name(fn, kernel)}: {regs} registers, "
+            f"spill stores {st} B, spill loads {ld} B")
+    one = [r for r in rows if f"Li{warp_vals}ELb1E" in r[0]]
+    log(f"[build]   {kernel}: one warp a row up to {32 * warp_vals} 16-byte "
+        f"values (d <= {256 * warp_vals} bf16, {128 * warp_vals} fp32),"
         f" wider rows 2-{rn.WARPS} warps; the 16-byte instantiations at "
-        f"{rn.WARP_VALS} values a lane: {[r[1] for r in one]} registers, "
-        f"{sum(r[2] + r[3] for r in one)} B spilled")
+        f"{warp_vals} values a lane: {[r[1] for r in one]} registers, "
+        f"{sum(r[2] + r[3] for r in rows)} B spilled in all")
 
 
 def phase_build() -> None:
@@ -328,7 +335,10 @@ def phase_build() -> None:
             _ssd_build_rows(info)
             continue
         if name == "rmsnorm":
-            _rmsnorm_build_rows(info)
+            _norm_build_rows(info, name, rn.WARP_VALS)
+            continue
+        if name == "fused_add_rmsnorm":
+            _norm_build_rows(info, name, fused_mod.WARP_VALS)
             continue
         for line in info["log"].splitlines():
             if "Used" in line or "spill" in line:
@@ -385,23 +395,45 @@ def attention_case(gen, label, b, sq, sk, h, kh, d, causal, dtype,
     return row
 
 
-def fused_case(gen, label, rows, d, dtype, timed=False):
-    x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
-    r = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
-    sc = torch.randn(d, generator=gen, device="cuda").to(dtype)
+def fused_case(gen, label, rows, d, dtype, timed=False, offset=None,
+               want_vector=None):
+    """``offset`` = (input, elements): that input ("x", "res" or "scale")
+    starts so many elements into a flat buffer; an offset that is not a
+    whole 16 bytes takes the scalar instantiation.  y must be the plain
+    version's bit for bit (one fp32 add, one rounding)."""
+    which, k = offset or (None, 0)
+
+    def rnd(name, *shape):
+        n = k if name == which else 0
+        flat = torch.randn(int(np.prod(shape)) + n, generator=gen,
+                           device="cuda").to(dtype)
+        return flat[n:].view(*shape)
+    x, r, sc = rnd("x", rows, d), rnd("res", rows, d), rnd("scale", d)
     h, y = ops.fused_add_rmsnorm(x, r, sc)
     wh, wy = fused_mod.fused_add_rmsnorm_plain(x, r, sc)
     torch.cuda.synchronize()
-    err = max(check_close(f"fused_add_rmsnorm {label} h", h, wh, dtype),
-              check_close(f"fused_add_rmsnorm {label} y", y, wy, dtype))
-    row = dict(label=label, shape=[rows, d],
-               dtype=str(dtype).replace("torch.", ""), max_abs_err=err)
+    err = check_close(f"fused_add_rmsnorm {label} h", h, wh, dtype)
+    if not torch.equal(y, wy):
+        raise AssertionError(f"fused_add_rmsnorm {label}: y is not the "
+                             "plain version's bit for bit")
+    plan = fused_mod.LAST_PLAN
+    want_plan = fused_mod.plan(x, r, sc)
+    if plan != want_plan or (want_vector is not None
+                             and plan.vector != want_vector):
+        raise AssertionError(f"fused_add_rmsnorm {label}: ran {plan}, "
+                             f"expected {want_plan} (16-byte loads: "
+                             f"{want_vector})")
+    row = dict(label=label, shape=[rows, d], dtype=_dname(dtype),
+               plan=plan._asdict(), max_abs_err=err)
+    if offset:
+        row["offset"] = [which, k * x.element_size()]
     if timed:
         es = x.element_size()
         row["bound_ms"], row["bound_by"] = bound(
             es * (4 * rows * d + d), 6.0 * rows * d, dtype)
         row["ms"] = time_ms(lambda: fused_mod.fused_add_rmsnorm_cuda(
             x, r, sc))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
         row["plain_ms"] = time_ms(lambda: fused_mod.fused_add_rmsnorm_plain(
             x, r, sc))
         row["library_ms"] = None    # no single PyTorch call returns (h, y)
@@ -624,13 +656,29 @@ def phase_kernels(main_lens):
                 f"({row['ms']:.4f} ms) is not 4x the CUDA-core kernel "
                 f"({old['ms']:.4f} ms) on the same inputs")
     dm = cfg.d_model
-    norm = [fused_case(gen, "rows4096", BATCH * 512, dm, bf16, timed=True)]
+    norm = [fused_case(gen, "rows4096", BATCH * 512, dm, bf16, timed=True,
+                       want_vector=True),
+            fused_case(gen, "rows16384", 16384, dm, bf16, timed=True)]
     for s in sorted(set(main_lens)):
         norm.append(fused_case(gen, f"serve_rows{BATCH * s}", BATCH * s, dm,
                                bf16))
     norm += [fused_case(gen, "ragged_rows4071", 4071, dm, bf16),
              fused_case(gen, "f32_rows1000", 1000, dm, f32),
-             fused_case(gen, "d8192", 64, 8192, bf16)]
+             fused_case(gen, "f32_4096x512", 4096, 512, f32),
+             fused_case(gen, "d2048", 64, 2048, bf16),
+             fused_case(gen, "d8192", 64, 8192, bf16),
+             fused_case(gen, "d8192_f32", 33, 8192, f32),
+             fused_case(gen, "d1001_scalar", 16, 1001, bf16,
+                        want_vector=False),
+             fused_case(gen, "offset_2B_x_scalar", 300, dm, bf16,
+                        offset=("x", 1), want_vector=False),
+             fused_case(gen, "offset_2B_res_scalar", 300, dm, bf16,
+                        offset=("res", 1), want_vector=False),
+             fused_case(gen, "offset_16B_res", 300, dm, bf16,
+                        offset=("res", 8), want_vector=True)]
+    norm[0]["rows16384"] = {key: norm[1][key] for key in (
+        "shape", "plan", "ms", "bound_ms", "share_of_bound", "plain_ms",
+        "max_abs_err")}
     # decode on the calibrate path: q (1, 1, 120, 64) against a (1, sk, 120,
     # 64) cache (one KV head a head), at the grid's and held-out lengths;
     # the timed case is the grid's longest cache
@@ -1017,7 +1065,7 @@ def main() -> int:
             **{key: row[key] for key in ("share_of_bound", "tflops",
                                          "earlier_ms", "calibrate",
                                          "passes_ms", "sequential_plain_ms",
-                                         "rows16384", "more")
+                                         "rows16384", "more", "plan")
                if key in row}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

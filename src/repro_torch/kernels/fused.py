@@ -6,26 +6,32 @@ The kernel (``csrc/fused_add_rmsnorm.cu``) replaces the Pallas
 the model's jnp path: ``y = fp32(x) + fp32(res)`` is stored once in the
 input dtype, and the norm is taken from the fp32 ``y``,
 ``h = (y * rsqrt(mean(y^2) + eps)) * fp32(scale)``, cast once.  It reads
-x and res once and writes ``h`` and ``y`` once.
+x and res once and writes ``h`` and ``y`` once, one warp (or, past 512
+bf16 / 256 fp32 elements, a few warps) a row; ``plan`` picks the
+instantiation with the RMSNorm kernel's planner.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels.rmsnorm import MAX_D, Plan
 
-BLOCK_ROWS = 1        # rows each CUDA block normalises, one after another
-MAX_D = 8192
-_VALS = 8             # row elements each thread holds (kVals in the source)
+BLOCK_ROWS = None     # rows a CUDA block takes; None: one a warp (or warp group)
+# 16-byte values a lane holds before a row takes more warps: half RMSNorm's,
+# since x, res and the scale are three rows of registers (see the source)
+WARP_VALS = 2
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ERRORS = {-1: "dtype", -2: "block width / block_rows"}
+_ERRORS = {-1: "dtype", -2: "plan / block_rows", -3: "16-byte alignment"}
+LAST_PLAN: Optional[Plan] = None   # the instantiation the last launch ran
 
 
 def check_args(x: torch.Tensor, res: torch.Tensor, scale: torch.Tensor,
-               block_rows: int) -> None:
+               block_rows: Optional[int]) -> None:
     """What the kernel takes, held for the plain version too."""
     d = x.shape[-1] if x.dim() else 0
     if x.shape != res.shape or x.dim() < 1 or tuple(scale.shape) != (d,):
@@ -40,7 +46,7 @@ def check_args(x: torch.Tensor, res: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"fused_add_rmsnorm: dtypes {x.dtype}, {res.dtype}, "
                          f"{scale.dtype}; the kernel takes one of "
                          f"{list(_DTYPE_CODE)} for all three")
-    if block_rows < 1:
+    if block_rows is not None and block_rows < 1:
         raise ValueError(f"fused_add_rmsnorm: block_rows={block_rows}")
 
 
@@ -54,23 +60,24 @@ def fused_add_rmsnorm_plain(x: torch.Tensor, res: torch.Tensor,
     return h.to(x.dtype), y.to(x.dtype)
 
 
-def block_threads(d: int) -> int:
-    """Threads per block: the power of two that lets ``_VALS`` elements a
-    thread cover d, between one warp and 1024."""
-    need = -(-d // _VALS)
-    return min(1024, max(32, 1 << (need - 1).bit_length()))
+def plan(x: torch.Tensor, res: torch.Tensor, scale: torch.Tensor) -> Plan:
+    """The instantiation for these inputs: ``rmsnorm.plan`` over x, res and
+    scale (all three must start on 16-byte boundaries for 16-byte accesses)
+    at ``WARP_VALS`` values a lane."""
+    return rn.plan(x, res, scale, warp_vals=WARP_VALS)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p])
 
 
 def fused_add_rmsnorm_cuda(x: torch.Tensor, res: torch.Tensor,
                            scale: torch.Tensor, *, eps: float = 1e-5,
-                           block_rows: int = BLOCK_ROWS
+                           block_rows: Optional[int] = BLOCK_ROWS
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on PyTorch's current stream; raises on any
     tensor it does not take and on a refused launch."""
+    global LAST_PLAN
     for t in (x, res, scale):
         if not t.is_cuda or t.device != x.device:
             raise ValueError("fused_add_rmsnorm_cuda: x, res, scale must be "
@@ -84,13 +91,16 @@ def fused_add_rmsnorm_cuda(x: torch.Tensor, res: torch.Tensor,
     y = torch.empty_like(x)
     if rows == 0:
         return h, y
+    pl = plan(x, res, scale)
+    rpb = block_rows or rn.WARPS // pl.warps_per_row
     lib = _build.load("fused_add_rmsnorm")
     fn = lib.repro_fused_add_rmsnorm
     if fn.argtypes is None:
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     rc = fn(x.data_ptr(), res.data_ptr(), scale.data_ptr(), h.data_ptr(),
             y.data_ptr(), _DTYPE_CODE[x.dtype], x.device.index, rows, d,
-            block_threads(d), block_rows, eps,
+            int(pl.vector), pl.vals, pl.warps_per_row, rpb, eps,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "fused_add_rmsnorm", _ERRORS)
+    LAST_PLAN = pl
     return h, y

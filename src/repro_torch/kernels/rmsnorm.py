@@ -16,12 +16,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused import MAX_D
 
 BLOCK_ROWS = None     # rows a CUDA block takes; None: one a warp (or warp group)
+MAX_D = 8192          # widest row the norm kernels take
 WARPS = 8             # warps a block (kWarps in the source)
 WARP_VALS = 4         # 16-byte values a lane holds before a row takes more warps
-MAX_VALS = 8          # ... and at most (kMaxVals), for fp32 rows past 4096
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ERRORS = {-1: "dtype", -2: "plan / block_rows", -3: "16-byte alignment"}
 LAST_PLAN: Optional["Plan"] = None   # the instantiation the last launch ran
@@ -63,24 +62,27 @@ def _pow2_at_least(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
 
 
-def plan(x: torch.Tensor, scale: torch.Tensor) -> Plan:
+def plan(x: torch.Tensor, *aligned: torch.Tensor,
+         warp_vals: int = WARP_VALS) -> Plan:
     """The instantiation for x's width, dtype and storage: 16-byte loads
-    when d is a multiple of the vector (8 bf16, 4 fp32) and x and scale
-    start on 16-byte boundaries (the output is a new allocation); one warp
-    a row up to ``32 * WARP_VALS`` vectors (1024 bf16, 512 fp32 elements),
-    else 2-8 warps of ``WARP_VALS`` values a lane, and 8 warps of
-    ``MAX_VALS`` past that (fp32 rows wider than 4096)."""
+    when d is a multiple of the vector (8 bf16, 4 fp32) and x and every
+    tensor of ``aligned`` (the other inputs; outputs are new allocations)
+    start on 16-byte boundaries; one warp a row up to ``32 * warp_vals``
+    vectors (``WARP_VALS``: 1024 bf16, 512 fp32 elements), else 2-8 warps
+    of ``warp_vals`` values a lane, and past that 8 warps of as many values
+    as cover d (8 for fp32 rows wider than 4096).  The fused add + RMSNorm
+    kernel shares this planner with its own ``warp_vals``."""
     d = x.shape[-1]
     per = 16 // x.element_size()
-    vector = (d % per == 0 and x.data_ptr() % 16 == 0
-              and scale.data_ptr() % 16 == 0)
+    vector = d % per == 0 and all(t.data_ptr() % 16 == 0
+                                  for t in (x, *aligned))
     units = -(-d // per)
-    if units <= 32 * WARP_VALS:
+    if units <= 32 * warp_vals:
         return Plan(vector, _pow2_at_least(-(-units // 32)), 1)
-    warps = _pow2_at_least(-(-units // (32 * WARP_VALS)))
+    warps = _pow2_at_least(-(-units // (32 * warp_vals)))
     if warps <= WARPS:
-        return Plan(vector, WARP_VALS, warps)
-    return Plan(vector, MAX_VALS, WARPS)
+        return Plan(vector, warp_vals, warps)
+    return Plan(vector, _pow2_at_least(-(-units // (32 * WARPS))), WARPS)
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8

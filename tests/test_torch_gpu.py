@@ -134,21 +134,48 @@ def test_flash_attention_wgmma_refuses_unaligned_rows(cuda):
 
 
 @pytest.mark.parametrize("rows,d", [(4096, 960), (4071, 960), (7, 64),
-                                    (33, 8192), (1, 100)])
+                                    (33, 8192), (1, 100), (16, 1001),
+                                    (9, 2048), (8, 512)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_add_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype):
+@pytest.mark.parametrize("block_rows", [None, 3])
+def test_fused_add_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype,
+                                                block_rows):
+    """Each width runs the instantiation ``fused.plan`` picks: one warp a
+    row or several, 16-byte accesses or (1001; 100 in bf16) one element an
+    access.  y is the plain version's bit for bit (one fp32 add, one
+    rounding); h is within the kernel tolerance."""
     x = _rand(cuda, rows, d, dtype=dtype)
     r = _rand(cuda, rows, d, dtype=dtype)
     sc = _rand(cuda, d, dtype=dtype)
     ops.reset_launches()
-    h, y = ops.fused_add_rmsnorm(x, r, sc, block_rows=3)
+    h, y = ops.fused_add_rmsnorm(x, r, sc, block_rows=block_rows)
     wh, wy = fused_mod.fused_add_rmsnorm_plain(x, r, sc)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["fused_add_rmsnorm"] == 1
+    assert fused_mod.LAST_PLAN == fused_mod.plan(x, r, sc)
+    assert torch.equal(y, wy)
     torch.testing.assert_close(h.float(), wh.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
-    torch.testing.assert_close(y.float(), wy.float(), rtol=TOL[dtype],
-                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("which", ["x", "res", "scale"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_add_rmsnorm_kernel_takes_unaligned_views(cuda, which, dtype):
+    """A view of x, res or scale whose storage starts one element (2 bytes
+    in bf16) off a 16-byte boundary runs the scalar instantiation."""
+    shapes = {"x": (300, 960), "res": (300, 960), "scale": (960,)}
+    t = {}
+    for name, shape in shapes.items():
+        k = 1 if name == which else 0
+        flat = _rand(cuda, int(torch.Size(shape).numel()) + k, dtype=dtype)
+        t[name] = flat[k:].view(shape)
+    h, y = ops.fused_add_rmsnorm(t["x"], t["res"], t["scale"])
+    wh, wy = fused_mod.fused_add_rmsnorm_plain(t["x"], t["res"], t["scale"])
+    torch.cuda.synchronize()
+    assert fused_mod.LAST_PLAN == fused_mod.plan(t["x"], t["res"], t["scale"])
+    assert not fused_mod.LAST_PLAN.vector
+    assert torch.equal(y, wy)
+    _close(h, wh, TOL[dtype])
 
 
 def test_model_kernel_path_matches_plain_path(cuda):

@@ -605,9 +605,48 @@ def test_cpu_path_counts_no_launch():
          "rmsnorm", "ssd_scan", "add"], 0)
 
 
-def test_fused_block_threads():
-    assert fused_mod.block_threads(960) == 128
-    assert fused_mod.block_threads(64) == 32
-    assert fused_mod.block_threads(8192) == 1024
-    for d in (1, 100, 960, 4097, 8192):
-        assert fused_mod.block_threads(d) * 8 >= d
+_BF16, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("d,dtype,which,offset,want", [
+    (960, _BF16, None, 0, (True, 2, 2)),      # 120 vectors: two warps of 2
+    (960, _F32, None, 0, (True, 2, 4)),       # 240: four warps a row
+    (512, _BF16, None, 0, (True, 2, 1)),      # the widest row of one warp
+    (1024, _BF16, None, 0, (True, 2, 2)),
+    (2048, _BF16, None, 0, (True, 2, 4)),
+    (8192, _BF16, None, 0, (True, 4, 8)),     # 1024 vectors: 8 warps of 4
+    (8192, _F32, None, 0, (True, 8, 8)),      # 2048 vectors: 8 warps of 8
+    (1001, _BF16, None, 0, (False, 2, 2)),    # not a multiple of 8
+    (1001, _F32, None, 0, (False, 2, 4)),     # not a multiple of 4
+    (100, _BF16, None, 0, (False, 1, 1)),
+    (100, _F32, None, 0, (True, 1, 1)),
+    (960, _BF16, "x", 2, (False, 2, 2)),      # 2 bytes off a boundary
+    (960, _BF16, "res", 2, (False, 2, 2)),
+    (960, _BF16, "scale", 2, (False, 2, 2)),
+    (960, _F32, "res", 4, (False, 2, 4)),
+    (960, _BF16, "x", 16, (True, 2, 2)),      # 16 bytes off: aligned
+    (960, _F32, "res", 16, (True, 2, 4)),
+    (960, _BF16, "scale", 16, (True, 2, 2)),
+])
+def test_fused_plan_from_width_dtype_and_offset(d, dtype, which, offset,
+                                                want):
+    """The fused kernel's choice between the 16-byte and the scalar
+    instantiation, and of values a lane and warps a row: RMSNorm's planner
+    over x, res and scale at ``fused.WARP_VALS`` values a lane."""
+    es = torch.tensor([], dtype=dtype).element_size()
+
+    def make(name, *shape):
+        n, k = int(np.prod(shape)), offset // es if name == which else 0
+        return torch.zeros(n + k, dtype=dtype)[k:].view(*shape)
+
+    x, r, sc = make("x", 3, d), make("res", 3, d), make("scale", d)
+    if which is not None:
+        t = {"x": x, "res": r, "scale": sc}[which]
+        assert t.data_ptr() % 16 == offset % 16
+    got = fused_mod.plan(x, r, sc)
+    assert tuple(got) == want
+    per = 16 // es
+    assert 32 * got.vals * got.warps_per_row * per >= d
+    assert rn.WARPS % got.warps_per_row == 0
+    assert got.vals == fused_mod.WARP_VALS \
+        or got.warps_per_row in (1, rn.WARPS)
