@@ -47,7 +47,19 @@ Phases, each printed as it runs; any failure exits non-zero:
              without the table beside the serve phase's device time.
 7. fused     ``bench.kernels_bench.fused_vs_unfused``: the fused kernel
              against the add kernel + the RMSNorm kernel.
-8. result    one JSON line of kernel figures, the card line, then
+8. train     smollm-360M at its published widths and 32 layers, bf16,
+             ``remat="full"``, through ``train_step.make_train_step`` on
+             ``SyntheticDataset`` batches (seq 1024, global batch 8, 2
+             microbatches): 8 AdamW steps on one repeated batch (the loss
+             must fall), then 3 timed steps on fresh batches (device ms a
+             step by CUDA events, host wall ms, tokens/s, peak memory) and
+             one profiled.  Per step the attention forward must launch
+             2 x 32 x 2 times (the forward runs again under remat) and each
+             backward kernel 32 x 2 times.  Then one microbatch's loss and
+             gradients through the kernels against the plain path
+             (``attn_impl="naive"``), at full width in bf16 and on a
+             2-layer fp32 model (1e-4 of max |g|).
+9. result    one JSON line of kernel figures, the card line, then
              ``{"ok": true, "device": {...}}`` as the last line.  The
              attention entry also carries its share of the bound, its
              TFLOP/s, the CUDA-core kernel's time on the same inputs
@@ -55,9 +67,12 @@ Phases, each printed as it runs; any failure exits non-zero:
              shape (``calibrate``); the norm entries their plan, share of
              the bound and the 16384-row case (``rows16384``).
 
-Each of phases 5-7 is a main path: the launch counts are set to 0 just
+Each of phases 5-8 is a main path: the launch counts are set to 0 just
 before it and read just after, and each kernel must have launched on the
-path that runs it.
+path that runs it.  Phase 3 also holds the two backward kernels
+(attention, fused add + RMSNorm) against their plain versions on the
+train path's shapes and edge cases, timed beside the backward of
+``F.scaled_dot_product_attention`` for attention.
 
 Without a CUDA device, or run outside a checkout of the repository, it
 exits non-zero and prints no result.
@@ -99,6 +114,9 @@ from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.serve import kv_cache  # noqa: E402
 from repro_torch.serve.serve_step import BatchedServer, Request  # noqa: E402
+from repro_torch.train import data as data_lib  # noqa: E402
+from repro_torch.train import optimizer as opt_lib  # noqa: E402
+from repro_torch.train import train_step as train_lib  # noqa: E402
 
 # the card's HBM rate and dense bf16 tensor-core rate from the port's
 # catalog; float32 outside the tensor cores from the H100 SXM data sheet
@@ -124,12 +142,24 @@ SOURCES = {
     "add": dict(
         source="src/repro_torch/csrc/add.cu",
         replaces="benchmarks/kernels_bench.py:116"),
+    # the backward of the Pallas kernel named (the reference has none)
+    "flash_attention_bwd": dict(
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:51"),
+    "fused_add_rmsnorm_bwd": dict(
+        source="src/repro_torch/csrc/fused_add_rmsnorm_bwd.cu",
+        replaces="src/repro/kernels/fused.py:31"),
 }
 SERVE_KERNELS = ("flash_attention", "fused_add_rmsnorm")
 CALIBRATE_KERNELS = ("flash_attention", "fused_add_rmsnorm",
                      "flash_attention_decode", "rmsnorm", "ssd_scan")
 FUSED_KERNELS = ("fused_add_rmsnorm", "rmsnorm", "add")
 SSD_TOL = {torch.bfloat16: (4e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
+# backward kernels vs their plain versions: max |kernel - plain| over max
+# |plain| (both sum in fp32 in other orders; bf16 outputs round once)
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+TRAIN_KERNELS = ("flash_attention", "fused_add_rmsnorm",
+                 "flash_attention_bwd", "fused_add_rmsnorm_bwd")
 # calibration grids at smollm-360M's widths: 120 = 8 rows x 15 heads,
 # d_model 960; SSD at mamba2-130m's (24 heads, P 64, N 128)
 CAL_GRID = dict(
@@ -156,6 +186,19 @@ PROMPT_MIN, PROMPT_MAX = 256, 509
 # what a real indexing or masking fault (O(1) errors) cannot pass.
 LOGITS_TOL = 0.1
 SMALL_FP32_TOL = 1e-4   # fp32, 2 layers: kernel path vs plain path
+# train phase (smollm-360M, published widths and depth, bf16)
+TRAIN_DATA = dict(seq_len=1024, global_batch=8, num_microbatches=2)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2)
+TRAIN_STEPS, TRAIN_TIMED = 8, 3
+# One microbatch's loss and gradients, kernel path vs plain path, full width
+# in bf16 through 32 layers.  The paths round at different places (the
+# kernels keep P to ~16 bits and take every backward sum in fp32 with one
+# cast; the plain path's autograd rounds each op's output to bf16), a
+# relative 2^-9 a rounding, compounding through 32 layers of the backward.
+# A gradient leaf must agree to 10% of its max |g| and in direction
+# (cosine >= 0.99): a wrong index, mask or missing term gives O(1) errors
+# and cosines far below that.  The fp32 2-layer check holds 1e-4 of max |g|.
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_COSINE = 2e-2, 0.1, 0.99
 
 
 def log(msg: str) -> None:
@@ -259,6 +302,22 @@ def _decode_kernel_name(mangled: str) -> str:
     return f"decode_merge<{dt}>" if "decode_merge" in mangled else mangled
 
 
+def _bwd_kernel_name(mangled: str) -> str:
+    """bwd_dkdv<bf16, D 64> (or fused_add_rmsnorm_bwd<bf16, 2 values a
+    lane, 16-byte loads>, dscale_reduce<bf16>) from its mangled name."""
+    dt = "bf16" if "__nv_bfloat16" in mangled else "f32"
+    m = re.search(r"(bwd_dkdv|bwd_dq)I(?:f|13__nv_bfloat16)Li(\d+)E",
+                  mangled)
+    if m:
+        return f"{m.group(1)}<{dt}, D {m.group(2)}>"
+    m = re.search(r"fused_add_rmsnorm_bwdI(?:f|13__nv_bfloat16)Li(\d+)ELb([01])E",
+                  mangled)
+    if m:
+        return (f"fused_add_rmsnorm_bwd<{dt}, {m.group(1)} values a lane, "
+                f"{'16-byte' if m.group(2) == '1' else 'scalar'} loads>")
+    return f"dscale_reduce<{dt}>" if "dscale_reduce" in mangled else mangled
+
+
 def _norm_kernel_name(mangled: str, kernel: str) -> str:
     """rmsnorm<bf16, 4 values a lane, 16-byte loads> (or the same of
     fused_add_rmsnorm) from its mangled name."""
@@ -339,6 +398,12 @@ def phase_build() -> None:
             continue
         if name == "fused_add_rmsnorm":
             _norm_build_rows(info, name, fused_mod.WARP_VALS)
+            continue
+        if name in ("flash_attention_bwd", "fused_add_rmsnorm_bwd"):
+            rows = ptxas_report(info["log"])
+            for fn, regs, st, ld in rows:
+                log(f"[build]   {_bwd_kernel_name(fn)}: {regs} registers, "
+                    f"spill stores {st} B, spill loads {ld} B")
             continue
         for line in info["log"].splitlines():
             if "Used" in line or "spill" in line:
@@ -443,6 +508,102 @@ def fused_case(gen, label, rows, d, dtype, timed=False, offset=None,
 
 def _dname(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
+
+
+def check_max(name: str, got: torch.Tensor, want: torch.Tensor,
+              tol: float) -> float:
+    """A gradient against its plain version: max |got - want| at most
+    ``tol`` times max |want| (elementwise relative bounds mean nothing for
+    the gradients' many near-zero entries)."""
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err, top = (g - w).abs().max().item(), w.abs().max().item()
+    if not err <= tol * top:
+        raise AssertionError(f"{name}: max |kernel - plain| {err:.3e} "
+                             f"exceeds {tol} x {top:.3e}")
+    return err
+
+
+def attention_bwd_case(gen, label, b, sq, sk, h, kh, d, causal, dtype,
+                       timed=False):
+    """The backward kernels against the plain backward on the same q, k,
+    v, dO and the kernel forward's LSE.  Timed: beside the backward
+    of ``F.scaled_dot_product_attention`` (enable_gqa) on the same q, k, v
+    and dO."""
+    q, k, v = _attn_inputs(gen, b, sq, sk, h, kh, d, dtype)
+    do = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dtype)
+    _, lse = fa.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    got = ops.flash_attention_bwd(q, k, v, do, lse, causal=causal)
+    want = fa.flash_attention_bwd_plain(q, k, v, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    err = max(check_max(f"flash_attention_bwd {label} {n}", g, w,
+                        BWD_TOL[dtype])
+              for n, g, w in zip(("dq", "dk", "dv"), got, want))
+    again = fa.flash_attention_bwd_cuda(q, k, v, do, lse, causal=causal)
+    if not all(torch.equal(a, g) for a, g in zip(again, got)):
+        raise AssertionError(f"flash_attention_bwd {label}: two runs differ")
+    row = dict(label=label, shape=[b, sq, sk, h, kh, d], causal=causal,
+               dtype=_dname(dtype), max_abs_err=err)
+    if timed:
+        es = q.element_size()
+        pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
+                 else sq * sk)
+        nbytes = (es * (3 * b * sq * h * d + 4 * b * sk * kh * d)
+                  + 4 * b * h * sq)           # q, dO, dQ; k, v, dK, dV; LSE
+        flops = 10.0 * d * pairs * b * h          # S, dP, dV, dK, dQ
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
+        row["ms"] = time_ms(lambda: fa.flash_attention_bwd_cuda(
+            q, k, v, do, lse, causal=causal))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+        row["plain_ms"] = time_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, do, lse, causal=causal), iters=3)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                             enable_gqa=True)
+        dot = do.transpose(1, 2)
+        row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True))
+    log(f"[kernels] flash_attention_bwd {json.dumps(row)}")
+    return row
+
+
+def fused_bwd_case(gen, label, rows, d, dtype, timed=False):
+    """The backward kernel against its plain version; dsum at the
+    forward's elementwise tolerance, dscale (a sum over every row) at
+    BWD_TOL of its max."""
+    x, r, dh, dy = (torch.randn(rows, d, generator=gen, device="cuda")
+                    .to(dtype) for _ in range(4))
+    sc = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+    dsum, dscale = ops.fused_add_rmsnorm_bwd(dh, dy, x, r, sc)
+    wsum, wscale = fused_mod.fused_add_rmsnorm_bwd_plain(dh, dy, x, r, sc)
+    torch.cuda.synchronize()
+    err = max(check_close(f"fused_add_rmsnorm_bwd {label} dsum", dsum, wsum,
+                          dtype),
+              check_max(f"fused_add_rmsnorm_bwd {label} dscale", dscale,
+                        wscale, BWD_TOL[dtype]))
+    again = fused_mod.fused_add_rmsnorm_bwd_cuda(dh, dy, x, r, sc)
+    if not (torch.equal(again[0], dsum) and torch.equal(again[1], dscale)):
+        raise AssertionError(f"fused_add_rmsnorm_bwd {label}: two runs "
+                             "differ")
+    pl = rn.plan(x, r, sc, dh, dy, warp_vals=fused_mod.WARP_VALS)
+    row = dict(label=label, shape=[rows, d], dtype=_dname(dtype),
+               plan=pl._asdict(), blocks=fused_mod.bwd_blocks(rows, pl)[0],
+               max_abs_err=err)
+    if timed:
+        es = x.element_size()
+        row["bound_ms"], row["bound_by"] = bound(
+            es * (5 * rows * d + 2 * d), 12.0 * rows * d, dtype)
+        row["ms"] = time_ms(lambda: fused_mod.fused_add_rmsnorm_bwd_cuda(
+            dh, dy, x, r, sc))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["plain_ms"] = time_ms(
+            lambda: fused_mod.fused_add_rmsnorm_bwd_plain(dh, dy, x, r, sc))
+        row["library_ms"] = None    # no single PyTorch call computes it
+    log(f"[kernels] fused_add_rmsnorm_bwd {json.dumps(row)}")
+    return row
 
 
 def decode_case(gen, label, b, s, h, kh, d, n, dtype, timed=False,
@@ -761,9 +922,39 @@ def phase_kernels(main_lens):
             "plain_ms", "passes_ms")})
     adds = [add_case(gen, "rows4096", BATCH * 512, dm, bf16, timed=True),
             add_case(gen, "f32_4096x512", 4096, 512, f32)]
+    # the backward kernels at the train path's shapes (micro batch 4 x 1024
+    # tokens: attention (4, 1024, 15/5, 64) causal, the norm 4096 x 960)
+    mb, sl = (TRAIN_DATA["global_batch"] // TRAIN_DATA["num_microbatches"],
+              TRAIN_DATA["seq_len"])
+    abwd = [attention_bwd_case(gen, "train_s1024", mb, sl, sl, h, kh, d,
+                               True, bf16, timed=True),
+            attention_bwd_case(gen, "train_s1024_f32", mb, sl, sl, h, kh, d,
+                               True, f32, timed=True),
+            attention_bwd_case(gen, "noncausal_s1000", 2, 1000, 1000, h, kh,
+                               d, False, bf16),
+            attention_bwd_case(gen, "noncausal_s1000_f32", 2, 1000, 1000, h,
+                               kh, d, False, f32),
+            attention_bwd_case(gen, "d16_reduced", 2, 77, 77, 4, 2, 16, True,
+                               bf16),
+            attention_bwd_case(gen, "d16_f32", 2, 77, 77, 4, 2, 16, True,
+                               f32)]
+    abwd[0]["f32"] = {key: abwd[1][key] for key in (
+        "ms", "bound_ms", "bound_by", "share_of_bound", "plain_ms",
+        "library_ms", "max_abs_err")}
+    nbwd = [fused_bwd_case(gen, "train_rows4096", mb * sl, dm, bf16,
+                           timed=True),
+            fused_bwd_case(gen, "rows16384", 16384, dm, bf16, timed=True),
+            fused_bwd_case(gen, "rows4096_f32", mb * sl, dm, f32),
+            fused_bwd_case(gen, "rows16384_f32", 16384, dm, f32),
+            fused_bwd_case(gen, "d1001_scalar", 37, 1001, bf16),
+            fused_bwd_case(gen, "d1001_f32", 37, 1001, f32)]
+    nbwd[0]["rows16384"] = {key: nbwd[1][key] for key in (
+        "shape", "ms", "bound_ms", "share_of_bound", "plain_ms",
+        "max_abs_err")}
     return {"flash_attention": attn[0], "fused_add_rmsnorm": norm[0],
             "flash_attention_decode": dec[0], "rmsnorm": rms[0],
-            "ssd_scan": ssd[0], "add": adds[0]}
+            "ssd_scan": ssd[0], "add": adds[0],
+            "flash_attention_bwd": abwd[0], "fused_add_rmsnorm_bwd": nbwd[0]}
 
 
 def _timed(fn) -> float:
@@ -820,6 +1011,10 @@ def _kernel_group(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in name:
         return "flash_attention kernel"
+    if "bwd_dkdv" in name or "bwd_dq" in name:
+        return "flash_attention_bwd kernel"
+    if "fused_add_rmsnorm_bwd" in name or "dscale_reduce" in name:
+        return "fused_add_rmsnorm_bwd kernel"
     if "fused_add_rmsnorm" in name:
         return "fused_add_rmsnorm kernel"
     if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "splitk",
@@ -1034,6 +1229,148 @@ def phase_fused() -> dict:
     return _path_launches("fused", FUSED_KERNELS)
 
 
+def _flat_grads(cfg, params, mb):
+    """Loss and fp32 gradient leaves of one microbatch (``loss_and_grads``
+    over a batch of one microbatch)."""
+    batch = {k: v[None] for k, v in mb.items()}
+    loss, grads = train_lib.loss_and_grads(cfg, params, batch)
+    return loss.item(), dict(opt_lib.tree_leaves(grads))
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Cosine of two gradient leaves, summed in float64 (an fp32 sum over
+    millions of elements is itself off in the fourth digit)."""
+    return F.cosine_similarity(a.double().flatten(), b.double().flatten(),
+                               dim=0).item()
+
+
+def _grad_agreement(label, cfg, params, mb, tol, cosine=None):
+    """One microbatch through the kernel path and the plain path
+    (``attn_impl="naive"``: naive attention and the unfused norm seam):
+    the losses and every gradient leaf, errors printed.  A bf16 model is
+    also run as fp32 on the plain path, and each bf16 path's cosine to
+    those gradients is printed (``cos_fp32``, ``plain_cos_fp32``): it says
+    which path the kernel-vs-plain difference comes from."""
+    kl, kg = _flat_grads(cfg, params, mb)
+    pl, pg = _flat_grads(dataclasses.replace(cfg, attn_impl="naive"),
+                         params, mb)
+    ref = None
+    if cfg.dtype != "float32":
+        f32 = dataclasses.replace(cfg, attn_impl="naive", dtype="float32",
+                                  param_dtype="float32")
+        up = opt_lib.tree_unflatten(
+            (k, p.float()) for k, p in opt_lib.tree_leaves(params))
+        ref = _flat_grads(f32, up, mb)[1]
+        del up
+    worst, rows = 0.0, {}
+    for name in kg:
+        g, w = kg[name], pg[name]
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"[train] {label}: non-finite grad {name}")
+        rel = ((g - w).abs().max() / w.abs().max()).item()
+        cos = _cosine(g, w)
+        rows[name] = dict(rel=rel, cos=cos)
+        if ref is not None:
+            rows[name].update(cos_fp32=_cosine(g, ref[name]),
+                              plain_cos_fp32=_cosine(w, ref[name]))
+        worst = max(worst, rel)
+        if not rel <= tol or (cosine is not None and not cos >= cosine):
+            raise AssertionError(
+                f"[train] {label}: grad {name} kernel vs plain path max "
+                f"|dg| / max|g| {rel:.3e} (tol {tol}), cosine {cos:.6f}"
+                f" (min {cosine})")
+    if not abs(kl - pl) <= TRAIN_LOSS_TOL * abs(pl):
+        raise AssertionError(f"[train] {label}: loss {kl} vs plain {pl}")
+    log(f"[train] {label}: kernel vs plain path: " + json.dumps(dict(
+        loss=kl, plain_loss=pl, max_rel_grad_err=worst,
+        min_cosine=min(r["cos"] for r in rows.values()), tol=tol,
+        cosine_min=cosine, leaves=rows)))
+    return worst
+
+
+def phase_train():
+    """smollm-360M, 32 layers, bf16, ``remat="full"``: training steps
+    through ``make_train_step``, a main path for the two forward kernels
+    and both backward kernels."""
+    cfg = dataclasses.replace(get_config(ARCH), remat="full")
+    dc = data_lib.DataConfig(**TRAIN_DATA)
+    ds = data_lib.SyntheticDataset(cfg, dc)
+    batches = [ds.batch(i) for i in range(1 + TRAIN_TIMED + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = model_lib.init(cfg, 0, device="cuda")
+    state = opt_lib.init_state(params)
+    step = train_lib.make_train_step(cfg, opt_lib.OptimizerConfig(
+        **TRAIN_OPT))
+    ops.reset_launches()
+    # (a) one repeated batch: the loss must fall
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        params, state, m = step(params, state, batches[0])
+        losses.append(m["loss"].item())
+    first_s = time.perf_counter() - t0
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] losses {losses}: not finite, or the "
+                             "last is not below the first")
+    # (b) fresh batches, timed: CUDA events around each step, host clock
+    dev_ms, wall_ms, timed_losses = [], [], []
+    for i in range(TRAIN_TIMED):
+        b = batches[1 + i]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        params, state, m = step(params, state, b)
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(start.elapsed_time(end))
+        timed_losses.append(m["loss"].item())
+    peak = torch.cuda.max_memory_allocated()
+    # (c) launches over (a) and (b), per step
+    launches = dict(ops.LAUNCHES)
+    n_steps = TRAIN_STEPS + TRAIN_TIMED
+    per_step = cfg.n_layers * dc.num_microbatches
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=2 * per_step, fused_add_rmsnorm=2 * per_step,
+                flash_attention_bwd=per_step, fused_add_rmsnorm_bwd=per_step)
+    for name, n in launches.items():
+        if n != want[name] * n_steps:
+            raise AssertionError(
+                f"[train] {name}: {n} launches in {n_steps} steps, expected "
+                f"{want[name]} a step ({cfg.n_layers} layers x "
+                f"{dc.num_microbatches} microbatches; the forward kernels "
+                f"run again under remat)")
+    log(f"[train] launches in {n_steps} steps: {json.dumps(launches)} "
+        f"(per step {json.dumps({k: v for k, v in want.items() if v})})")
+    tokens = dc.global_batch * dc.seq_len
+    stats = dict(
+        arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, remat=cfg.remat,
+        data=TRAIN_DATA, opt=TRAIN_OPT, losses=losses,
+        timed_losses=timed_losses, first_steps_s=first_s,
+        step_device_ms=statistics.median(dev_ms), step_device_ms_all=dev_ms,
+        step_wall_ms=statistics.median(wall_ms), step_wall_ms_all=wall_ms,
+        tokens_per_step=tokens,
+        tokens_per_s=tokens / (statistics.median(wall_ms) / 1e3),
+        peak_mem_gib=peak / 2**30)
+    log(f"[train] {json.dumps(stats)}")
+    profile_window("train_step", lambda: step(params, state, batches[-1]),
+                   statistics.median(wall_ms), 1)
+    # (d) kernel path vs plain path on one microbatch, on the card
+    mb = {k: v[0] for k, v in batches[0].items()}
+    _grad_agreement(f"{cfg.name} bf16, {cfg.n_layers} layers", cfg, params,
+                    mb,
+                    TRAIN_GRAD_TOL, TRAIN_COSINE)
+    small = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                                param_dtype="float32")
+    _grad_agreement(f"{cfg.name} widths fp32, 2 layers", small,
+                    model_lib.init(small, 1, device="cuda"), mb,
+                    SMALL_FP32_TOL)
+    return launches
+
+
 def main() -> int:
     smi = phase_card()
     phase_build()
@@ -1046,13 +1383,16 @@ def main() -> int:
     serve_launches, serve_dev = phase_serve(reqs, warm)
     cal_launches = phase_calibrate(serve_dev)
     fused_launches = phase_fused()
+    train_launches = phase_train()
     # launches: each kernel's count on the main path that runs it, which
     # also runs the timed case's shape
     path_of = {"flash_attention": "serve", "fused_add_rmsnorm": "serve",
                "flash_attention_decode": "calibrate", "rmsnorm": "calibrate",
-               "ssd_scan": "calibrate", "add": "fused"}
+               "ssd_scan": "calibrate", "add": "fused",
+               "flash_attention_bwd": "train",
+               "fused_add_rmsnorm_bwd": "train"}
     counts = {"serve": serve_launches, "calibrate": cal_launches,
-              "fused": fused_launches}
+              "fused": fused_launches, "train": train_launches}
     kernels = []
     for name, row in rows.items():
         kernels.append(dict(
@@ -1065,7 +1405,8 @@ def main() -> int:
             **{key: row[key] for key in ("share_of_bound", "tflops",
                                          "earlier_ms", "calibrate",
                                          "passes_ms", "sequential_plain_ms",
-                                         "rows16384", "more", "plan")
+                                         "rows16384", "more", "plan", "f32",
+                                         "blocks")
                if key in row}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,10 +1,12 @@
-"""Params between numpy and the port, keyed like the reference's checkpoints.
+"""Params and optimizer state between numpy and the port, keyed like the
+reference's checkpoints.
 
 Keys are the "/"-joined pytree paths that ``repro/train/checkpoint.py``'s
-``_flatten`` writes (``embed``, ``ln_f``, ``layers/wq``, ...).  So a JAX
-params pytree flattened to numpy and the reference's ``state.npz``
-checkpoints (whose params sit under ``params/``: pass ``prefix="params/"``)
-both load, and both packages can run the same weights.
+``_flatten`` writes (``embed``, ``ln_f``, ``layers/wq``, ...; the AdamW
+state's ``m/layers/wq``, ``v/...`` and ``step``).  So a JAX pytree
+flattened to numpy and the reference's ``state.npz`` checkpoints (whose
+params sit under ``params/``: pass ``prefix="params/"``) both load, and
+both packages can start from the same weights and optimizer state.
 """
 from __future__ import annotations
 
@@ -65,4 +67,41 @@ def params_to_numpy(params, prefix: str = "") -> Dict[str, np.ndarray]:
             walk(tree[k], f"{path}/{k}" if path else k)
 
     walk(params, "")
+    return flat
+
+
+def opt_state_from_numpy(cfg: ModelConfig, flat: Dict[str, np.ndarray],
+                         device: DeviceArg = None, prefix: str = ""):
+    """AdamW state (``train.optimizer.init_state``'s layout) from
+    ``flat[prefix + "m/" + path]``, ``[... "v/" + path]`` and
+    ``[prefix + "step"]``: fp32 moments of the declared shapes and a 0-d
+    int32 step on ``device``."""
+    dev = resolve_device(device)
+    state: Dict = {"m": {}, "v": {}}
+    for path, decl in iter_decls(model_lib.decls(cfg)):
+        for part in ("m", "v"):
+            key = f"{prefix}{part}/{path}"
+            if key not in flat:
+                raise KeyError(f"opt_state_from_numpy: {key!r} missing")
+            arr = np.asarray(flat[key])
+            if tuple(arr.shape) != decl.shape:
+                raise ValueError(f"opt_state_from_numpy: {key!r} has shape "
+                                 f"{tuple(arr.shape)}, {cfg.name} declares "
+                                 f"{decl.shape}")
+            set_path(state[part], path, _to_tensor(arr).to(
+                device=dev, dtype=torch.float32))
+    step = np.asarray(flat[prefix + "step"])
+    if step.shape != ():
+        raise ValueError(f"opt_state_from_numpy: step has shape {step.shape}")
+    state["step"] = torch.tensor(int(step), dtype=torch.int32, device=dev)
+    return state
+
+
+def opt_state_to_numpy(state, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Inverse of ``opt_state_from_numpy``: fp32 moments and an int32 0-d
+    step, under the reference's keys."""
+    flat = params_to_numpy(state["m"], prefix + "m/")
+    flat.update(params_to_numpy(state["v"], prefix + "v/"))
+    flat[prefix + "step"] = np.asarray(
+        int(state["step"].detach().cpu()), dtype=np.int32)
     return flat

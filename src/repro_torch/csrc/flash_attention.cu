@@ -20,6 +20,13 @@
 //               2e-5; TF32 or bf16 tensor-core products would not.
 // impl = 1 sends bf16 to flash_fwd too, so a run can time the two on one card.
 //
+// Row LSE.  With a non-null `lse` (fp32, (B, H, Sq)) both kernels also write
+// each row's log-sum-exp of its scaled, masked scores from the epilogue,
+// m + log(l) from the running max and sum they already hold: what the
+// backward (flash_attention_bwd.cu) needs to recompute P.  A null pointer
+// skips those stores and nothing else, so O is bit for bit what it is
+// without them.
+//
 // Bounds on the H100 (3.35 TB/s, 989 TFLOP/s bf16 dense):
 //   serve shape (8, 512, 15/5, 64) causal bf16: 21 MB of q, k, v, o (6.3 us)
 //   against 4.0 GFLOP of causal products (4.1 us): bound by bytes.
@@ -134,7 +141,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int D, int ROWS>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int sq, int sk,
           int group, Strides qs, Strides ks, Strides vs, Strides os,
           float scale, int causal) {
   constexpr int BQ = ROWS * kWarps;
@@ -253,14 +261,16 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       const int dd = lane + 32 * c;
       if (dd < D) ob[qp * os.s + dd] = from_f32<T>(acc[r][c] / denom);
     }
+    if (lse != nullptr && lane == 0)  // m is in the scaled units here
+      lse[((long long)batch * gridDim.y + head) * sq + qp] = m[r] + logf(l[r]);
   }
 }
 
 template <typename T, int D, int ROWS>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int sk, int h, int kh, const Strides& qs, const Strides& ks,
-           const Strides& vs, const Strides& os, float scale, int causal,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int sq, int sk, int h, int kh, const Strides& qs,
+           const Strides& ks, const Strides& vs, const Strides& os,
+           float scale, int causal, cudaStream_t stream) {
   constexpr int BQ = ROWS * kWarps;
   constexpr size_t smem = smem_bytes<D, ROWS>();
   auto kern = flash_fwd<T, D, ROWS>;
@@ -270,33 +280,33 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   dim3 grid((sq + BQ - 1) / BQ, h, b);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, h / kh, qs, ks,
-      vs, os, scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, h / kh, qs,
+      ks, vs, os, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int dispatch_rows(int block_q, const void* q, const void* k, const void* v,
-                  void* o, int b, int sq, int sk, int h, int kh,
+                  void* o, float* lse, int b, int sq, int sk, int h, int kh,
                   const Strides& qs, const Strides& ks, const Strides& vs,
                   const Strides& os, float scale, int causal,
                   cudaStream_t stream) {
   switch (block_q) {
-    case 16: return launch<T, D, 4>(q, k, v, o, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
-    case 32: return launch<T, D, 8>(q, k, v, o, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
+    case 16: return launch<T, D, 4>(q, k, v, o, lse, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
+    case 32: return launch<T, D, 8>(q, k, v, o, lse, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
     default: return -2;
   }
 }
 
 template <typename T>
 int dispatch_d(int d, int block_q, const void* q, const void* k,
-               const void* v, void* o, int b, int sq, int sk, int h, int kh,
-               const Strides& qs, const Strides& ks, const Strides& vs,
-               const Strides& os, float scale, int causal,
+               const void* v, void* o, float* lse, int b, int sq, int sk,
+               int h, int kh, const Strides& qs, const Strides& ks,
+               const Strides& vs, const Strides& os, float scale, int causal,
                cudaStream_t stream) {
   switch (d) {  // every multiple of 16 up to 128, each its own instantiation
 #define REPRO_HEAD_DIM(D) \
-    case D: return dispatch_rows<T, D>(block_q, q, k, v, o, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
+    case D: return dispatch_rows<T, D>(block_q, q, k, v, o, lse, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
     REPRO_HEAD_DIM(16) REPRO_HEAD_DIM(32) REPRO_HEAD_DIM(48) REPRO_HEAD_DIM(64)
     REPRO_HEAD_DIM(80) REPRO_HEAD_DIM(96) REPRO_HEAD_DIM(112) REPRO_HEAD_DIM(128)
 #undef REPRO_HEAD_DIM
@@ -604,7 +614,8 @@ __global__ void __launch_bounds__(WG * 128)
 flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ o, int sq, int sk, int group,
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int sq, int sk, int group,
                 Strides qs, Strides ks, Strides vs, Strides os,
                 float scale_log2, int causal) {
   constexpr int BQ = 64 * WG, NT = 128 * WG;
@@ -748,6 +759,12 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
   l_a = quad_sum(l_a);
   l_b = quad_sum(l_b);
   const float inv_a = 1.f / fmaxf(l_a, 1e-30f), inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  if (lse != nullptr && (lane & 3) == 0) {  // m, log2(l) in base-2 units
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* lrow = lse + ((long long)batch * gridDim.y + head) * sq;
+    if (row_a < sq) lrow[row_a] = (m_a + log2f(l_a)) * kLn2;
+    if (row_b < sq) lrow[row_b] = (m_b + log2f(l_b)) * kLn2;
+  }
   // Stage O in the freed ring (one stage a warpgroup, rows padded by 16
   // bytes so the 4 lanes of 8 rows hit 32 banks), then write whole 16-byte
   // pieces of each row: a warp stores full lines instead of 4-byte pairs.
@@ -775,10 +792,10 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D, int WG>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int sk, int h, int kh, const Strides& qs, const Strides& ks,
-           const Strides& vs, const Strides& os, float scale, int causal,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int sq, int sk, int h, int kh, const Strides& qs,
+           const Strides& ks, const Strides& vs, const Strides& os,
+           float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes(D, 64 * WG);
   auto kern = flash_fwd_wgmma<D, WG>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -787,32 +804,32 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   dim3 grid((sq + 64 * WG - 1) / (64 * WG), h, b);
   kern<<<grid, WG * 128, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq,
-      sk, h / kh, qs, ks, vs, os, scale * kLog2e, causal);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      sq, sk, h / kh, qs, ks, vs, os, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int dispatch_rows(int block_q, const void* q, const void* k, const void* v,
-                  void* o, int b, int sq, int sk, int h, int kh,
+                  void* o, float* lse, int b, int sq, int sk, int h, int kh,
                   const Strides& qs, const Strides& ks, const Strides& vs,
                   const Strides& os, float scale, int causal,
                   cudaStream_t stream) {
   switch (block_q) {
-    case 64: return launch<D, 1>(q, k, v, o, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
-    case 128: return launch<D, 2>(q, k, v, o, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
+    case 64: return launch<D, 1>(q, k, v, o, lse, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
+    case 128: return launch<D, 2>(q, k, v, o, lse, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
     default: return -2;
   }
 }
 
 int dispatch_d(int d, int block_q, const void* q, const void* k,
-               const void* v, void* o, int b, int sq, int sk, int h, int kh,
-               const Strides& qs, const Strides& ks, const Strides& vs,
-               const Strides& os, float scale, int causal,
+               const void* v, void* o, float* lse, int b, int sq, int sk,
+               int h, int kh, const Strides& qs, const Strides& ks,
+               const Strides& vs, const Strides& os, float scale, int causal,
                cudaStream_t stream) {
   switch (d) {
 #define REPRO_HEAD_DIM(D) \
-    case D: return dispatch_rows<D>(block_q, q, k, v, o, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
+    case D: return dispatch_rows<D>(block_q, q, k, v, o, lse, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
     REPRO_HEAD_DIM(16) REPRO_HEAD_DIM(32) REPRO_HEAD_DIM(48) REPRO_HEAD_DIM(64)
     REPRO_HEAD_DIM(80) REPRO_HEAD_DIM(96) REPRO_HEAD_DIM(112) REPRO_HEAD_DIM(128)
 #undef REPRO_HEAD_DIM
@@ -836,9 +853,11 @@ extern "C" {
 // -2 block_q, -3 head dim, -4 block_k, -5 impl.  dtype: 0 float32,
 // 1 bfloat16.  impl: 0 by dtype (bfloat16 -> flash_fwd_wgmma with block_q
 // 64 or 128, float32 -> flash_fwd with block_q 16 or 32), 1 flash_fwd for
-// either dtype (block_q 16 or 32).
+// either dtype (block_q 16 or 32).  lse: null, or fp32 (B, H, Sq) that
+// receives each row's log-sum-exp.
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
-                              void* o, int dtype, int impl, int device, int b,
+                              void* o, void* lse, int dtype, int impl,
+                              int device, int b,
                               int sq, int sk, int h, int kh, int d,
                               int block_q, int block_k, long long q_sb,
                               long long q_ss, long long q_sh, long long k_sb,
@@ -854,11 +873,12 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch_d<float>(d, block_q, q, k, v, o, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, st);
+    return dispatch_d<float>(d, block_q, q, k, v, o, l, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, st);
   if (impl == 1)
-    return dispatch_d<__nv_bfloat16>(d, block_q, q, k, v, o, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, st);
-  return wg::dispatch_d(d, block_q, q, k, v, o, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, st);
+    return dispatch_d<__nv_bfloat16>(d, block_q, q, k, v, o, l, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, st);
+  return wg::dispatch_d(d, block_q, q, k, v, o, l, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, st);
 }
 
 // Dynamic shared memory of one flash_fwd_wgmma block (0 for a shape it does

@@ -23,7 +23,7 @@ from typing import Dict, List, Optional, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("flash_attention", "fused_add_rmsnorm", "flash_decode", "rmsnorm",
-           "ssd_scan", "add")
+           "ssd_scan", "add", "flash_attention_bwd", "fused_add_rmsnorm_bwd")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

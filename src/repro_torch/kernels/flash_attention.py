@@ -94,11 +94,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           block_q: Optional[int] = None,
                           block_k: int = BLOCK_K,
-                          impl: Optional[str] = None) -> torch.Tensor:
+                          impl: Optional[str] = None,
+                          return_lse: bool = False):
     """q: (B, Sq, H, D); k, v: (B, Sk, KH, D) -> (B, Sq, H, D) in q's dtype.
     ``block_q`` None takes the kernel's default tile; the ``"wgmma"``
     kernel's P enters P V as ``hi + lo``, each rounded to q's dtype (its
-    sum l is taken before the split)."""
+    sum l is taken before the split).  ``return_lse`` also returns each
+    row's fp32 log-sum-exp of its scaled, masked scores, ``m + log(l)``,
+    shaped (B, H, Sq): what the backward needs to recompute P."""
     split_p = kernel_for(q.dtype, impl) == "wgmma"
     block_q = block_q or default_block_q(q.dtype, impl)
     b, sq, h, d = q.shape
@@ -109,6 +112,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = v.float()[:, :, kv_head].transpose(1, 2)
     scale = 1.0 / math.sqrt(d)
     out = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     for q0 in range(0, sq, block_q):
         qt = qf[:, :, q0:q0 + block_q]
         n = qt.shape[2]
@@ -135,10 +139,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             acc = acc * corr[..., None] + pv @ vf[:, :, k0:k0 + block_k]
             m = m_new
         out[:, :, q0:q0 + n] = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype)
+        lse[:, :, q0:q0 + n] = m + torch.log(l)
+    o = out.transpose(1, 2).to(q.dtype)
+    return (o, lse) if return_lse else o
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
              + [ctypes.c_longlong] * 12
              + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 
@@ -159,11 +165,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          block_q: Optional[int] = None,
                          block_k: int = BLOCK_K,
-                         impl: Optional[str] = None) -> torch.Tensor:
+                         impl: Optional[str] = None,
+                         return_lse: bool = False):
     """Launch q's dtype's kernel (or, with ``impl="cuda_core"``, the
     CUDA-core one) on PyTorch's current stream; raises on any tensor it
     does not take (for the wgmma kernel, rows not on 16-byte boundaries)
-    and on a refused launch."""
+    and on a refused launch.  ``return_lse`` also returns the rows' fp32
+    log-sum-exp (B, H, Sq), written by the kernel's epilogue; without it
+    the kernel gets a null pointer and writes O alone."""
     kern = kernel_for(q.dtype, impl)
     block_q = block_q or BLOCK_Q[kern]
     for t in (q, k, v):
@@ -182,18 +191,128 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for name, t in (("q", q), ("k", k), ("v", v)):
             _check_16_bytes(t, name, "flash_attention_cuda")
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = _build.load("flash_attention")
     fn = lib.repro_flash_attention_fwd
     if fn.argtypes is None:
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     strides = [t.stride(i) for t in (q, k, v, o) for i in range(3)]
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             _DTYPE_CODE[q.dtype], _IMPL_CODE[impl], q.device.index, b, sq,
             sk, h, kh, d,
             block_q, block_k, *strides, int(causal), 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "flash_attention", _ERRORS)
-    return o
+    return (o, lse) if return_lse else o
+
+
+# --- backward (FlashAttention-2) ------------------------------------------------
+#
+# The reference has no backward for its Pallas kernel (no custom_vjp): its
+# training differentiates the jnp attention.  The kernels in
+# ``csrc/flash_attention_bwd.cu`` are the FlashAttention-2 backward of the
+# forward above, from the fp32 row LSE it saved:
+#   P = exp(S * scale - LSE)  (masked entries 0);  dP = dO V^T
+#   delta = rowsum(P * dP);  dS = P * (dP - delta)
+#   dV = P^T dO;  dK = dS^T Q * scale;  dQ = dS K * scale
+# with GQA's dK/dV summed over the group's query heads.  delta is
+# rowsum(dO * O) in exact arithmetic; taken from P and dP it needs no O and
+# keeps each row of dS summing to zero, where the bf16-rounded O does not
+# (see the source).  All arithmetic is fp32 from the inputs' values; dQ,
+# dK, dV are cast once to q's dtype.
+
+BWD_BLOCK = 64                # q rows and keys per backward tile
+_BWD_ERRORS = {-1: "dtype", -3: "head dim", -5: "shape"}
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, do: torch.Tensor,
+                              lse: torch.Tensor, *, causal: bool = True
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The kernels' algorithm in PyTorch: q tiles of ``BWD_BLOCK`` rows
+    recompute P from the LSE and dP, take their rows' delta, add their
+    share of dK and dV (fp32, summed over the GQA group) and give their
+    rows of dQ.  Returns (dq, dk, dv) in q's dtype and the inputs'
+    layouts."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    kv_head = torch.arange(h, device=q.device) // g
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float().transpose(1, 2)                      # (B, H, Sq, D)
+    kf = k.float()[:, :, kv_head].transpose(1, 2)       # (B, H, Sk, D)
+    vf = v.float()[:, :, kv_head].transpose(1, 2)
+    dof = do.float().transpose(1, 2)
+    dq = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, h, sk, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((b, h, sk, d), dtype=torch.float32, device=q.device)
+    k_pos = torch.arange(sk, device=q.device)
+    for q0 in range(0, sq, BWD_BLOCK):
+        qt, dot = qf[:, :, q0:q0 + BWD_BLOCK], dof[:, :, q0:q0 + BWD_BLOCK]
+        n = qt.shape[2]
+        q_pos = torch.arange(q0, q0 + n, device=q.device)
+        s = (qt @ kf.transpose(-1, -2)) * scale
+        p = torch.exp(s - lse[:, :, q0:q0 + n, None])
+        if causal:
+            p = torch.where(k_pos[None, :] > q_pos[:, None], 0.0, p)
+        dv += p.transpose(-1, -2) @ dot
+        dp = dot @ vf.transpose(-1, -2)
+        ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+        dq[:, :, q0:q0 + n] = (ds @ kf) * scale
+        dk += (ds.transpose(-1, -2) @ qt) * scale
+    dk = dk.reshape(b, kh, g, sk, d).sum(dim=2)
+    dv = dv.reshape(b, kh, g, sk, d).sum(dim=2)
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(q.dtype),
+            dv.transpose(1, 2).to(q.dtype))
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, do: torch.Tensor,
+                             lse: torch.Tensor, *, causal: bool = True
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Launch the two backward kernels (dQ with delta, then dK/dV) on
+    PyTorch's current stream; raises on any tensor they do not take and on
+    a refused launch.  Inputs are made contiguous (a no-op on the model's
+    path); two calls on the same inputs agree bit for bit (no atomics)."""
+    for t in (q, k, v, do, lse):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError("flash_attention_bwd_cuda: q, k, v, do, lse "
+                             "must be CUDA tensors on one device")
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    if do.shape != q.shape or do.dtype != q.dtype \
+            or tuple(lse.shape) != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd_cuda: do {tuple(do.shape)} "
+                         f"{do.dtype} and lse {tuple(lse.shape)} {lse.dtype} "
+                         f"do not match q {tuple(q.shape)} {q.dtype}")
+    if h > _MAX_GRID_YZ or b > _MAX_GRID_YZ:
+        raise ValueError(f"flash_attention_bwd_cuda: B={b}, H={h} exceed "
+                         f"the grid limit {_MAX_GRID_YZ}")
+    q, k, v, do, lse = (t.contiguous() for t in (q, k, v, do, lse))
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.repro_flash_attention_bwd
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype],
+            q.device.index, b, sq, sk, h, kh, d, int(causal),
+            1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, "flash_attention_bwd", _BWD_ERRORS)
+    del delta     # freed in stream order, after the kernels
+    return dq, dk, dv
 
 
 # --- decode (q_len == 1 against a cache with a dynamic valid length) ------------

@@ -104,3 +104,92 @@ def fused_add_rmsnorm_cuda(x: torch.Tensor, res: torch.Tensor,
     _build.check(lib, rc, "fused_add_rmsnorm", _ERRORS)
     LAST_PLAN = pl
     return h, y
+
+
+# --- backward ---------------------------------------------------------------------
+#
+# The reference differentiates its jnp seam; the kernel in
+# ``csrc/fused_add_rmsnorm_bwd.cu`` is the backward of the function above.
+# With y = fp32(x) + fp32(res) (the kernel's fp32 sum, recomputed),
+# rstd = rsqrt(mean(y^2) + eps), n = y * rstd, and the casts of h and y
+# passed straight through:
+#   dn = dh * scale;  dsum = dy + rstd * (dn - n * mean(dn * n))
+#   dx = dres = dsum;  dscale = sum over rows of dh * n
+# dscale is reduced without atomics: each block writes its fp32 partial
+# row, and a second small pass sums the partials in a fixed order.
+
+BWD_BLOCKS = 264     # partial rows of dscale: two blocks an SM of the H100
+
+
+def fused_add_rmsnorm_bwd_plain(dh: torch.Tensor, dy: torch.Tensor,
+                                x: torch.Tensor, res: torch.Tensor,
+                                scale: torch.Tensor, *, eps: float = 1e-5
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (dsum in x's dtype, the gradient of both x and res;
+    dscale in scale's dtype), all arithmetic in fp32."""
+    d = x.shape[-1]
+    y = x.float() + res.float()
+    rstd = torch.rsqrt(torch.mean(torch.square(y), dim=-1, keepdim=True)
+                       + eps)
+    n = y * rstd
+    dhf = dh.float()
+    dn = dhf * scale.float()
+    dsum = dy.float() + rstd * (dn - n * torch.mean(dn * n, dim=-1,
+                                                    keepdim=True))
+    dscale = (dhf * n).reshape(-1, d).sum(dim=0)
+    return dsum.to(x.dtype), dscale.to(scale.dtype)
+
+
+def bwd_blocks(rows: int, pl: Plan) -> Tuple[int, int]:
+    """(blocks, rows a block) of the backward's first pass: about
+    ``BWD_BLOCKS`` blocks, each a whole number of its warps' row steps."""
+    step = rn.WARPS // pl.warps_per_row
+    per = -(-rows // BWD_BLOCKS)
+    per = -(-per // step) * step
+    return -(-rows // per), per
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def fused_add_rmsnorm_bwd_cuda(dh: torch.Tensor, dy: torch.Tensor,
+                               x: torch.Tensor, res: torch.Tensor,
+                               scale: torch.Tensor, *, eps: float = 1e-5
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the backward's two passes on PyTorch's current stream;
+    raises on any tensor they do not take and on a refused launch.  The
+    plan is ``rmsnorm.plan`` over all five inputs at ``WARP_VALS``."""
+    for t in (dh, dy, x, res, scale):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError("fused_add_rmsnorm_bwd_cuda: dh, dy, x, res, "
+                             "scale must be CUDA tensors on one device")
+        if not t.is_contiguous():
+            raise ValueError("fused_add_rmsnorm_bwd_cuda: tensors must be "
+                             "contiguous")
+    if dh.shape != x.shape or dy.shape != x.shape or dh.dtype != x.dtype \
+            or dy.dtype != x.dtype:
+        raise ValueError(f"fused_add_rmsnorm_bwd_cuda: dh {tuple(dh.shape)} "
+                         f"{dh.dtype}, dy {tuple(dy.shape)} {dy.dtype} do not "
+                         f"match x {tuple(x.shape)} {x.dtype}")
+    d = x.shape[-1]
+    rows = x.numel() // d
+    dsum = torch.empty_like(x)
+    dscale = torch.empty_like(scale)
+    if rows == 0:
+        return dsum, dscale.zero_()
+    pl = rn.plan(x, res, scale, dh, dy, warp_vals=WARP_VALS)
+    blocks, per = bwd_blocks(rows, pl)
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    lib = _build.load("fused_add_rmsnorm_bwd")
+    fn = lib.repro_fused_add_rmsnorm_bwd
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+    rc = fn(dh.data_ptr(), dy.data_ptr(), x.data_ptr(), res.data_ptr(),
+            scale.data_ptr(), dsum.data_ptr(), dscale.data_ptr(),
+            partial.data_ptr(), _DTYPE_CODE[x.dtype], x.device.index, rows,
+            d, int(pl.vector), pl.vals, pl.warps_per_row, per, blocks, eps,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "fused_add_rmsnorm_bwd", _ERRORS)
+    del partial   # freed in stream order, after the kernels
+    return dsum, dscale

@@ -7,6 +7,13 @@ raises if it cannot).  Nothing falls back from the card to the plain
 version.  ``LAUNCHES`` counts, per wrapper, the kernel launches it made,
 so a run can show that its main path went through the kernels.
 
+``flash_attention`` and ``fused_add_rmsnorm`` are differentiable: when a
+gradient will be taken (grad mode on and an input that requires one) they
+run as ``torch.autograd.Function``s whose backward is a kernel too
+(``flash_attention_bwd``, ``fused_add_rmsnorm_bwd``; the plain backward
+on the CPU).  Inputs that need no gradient keep the forward-only path,
+with no LSE buffer.
+
 Block sizes: ``None`` takes the kernel's default tile; an int pins it
 (the kernel is built for a few tiles, see ``check_args``).  ``"auto"``
 waits for the autotuner's port and raises.
@@ -27,7 +34,8 @@ BlockArg = Union[int, str, None]
 
 LAUNCHES: Dict[str, int] = {
     "flash_attention": 0, "fused_add_rmsnorm": 0,
-    "flash_attention_decode": 0, "rmsnorm": 0, "ssd_scan": 0, "add": 0}
+    "flash_attention_decode": 0, "rmsnorm": 0, "ssd_scan": 0, "add": 0,
+    "flash_attention_bwd": 0, "fused_add_rmsnorm_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -58,22 +66,68 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
                      f"CPU tensors (its plain version), got {sorted(kinds)}")
 
 
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: BlockArg = None,
                     block_k: BlockArg = None) -> torch.Tensor:
     """q: (B, S, H, D); k, v: (B, Sk, K, D) with H % K == 0 -> (B, S, H, D).
     bf16 runs the tensor-core kernel (``block_q`` 64 or 128), fp32 the
-    CUDA-core one (16 or 32); None takes the kernel's default."""
+    CUDA-core one (16 or 32); None takes the kernel's default.
+    Differentiable: see ``_FlashAttention``."""
     bq = _block(block_q, fa.default_block_q(q.dtype), "block_q")
     bk = _block(block_k, fa.BLOCK_K, "block_k")
     fa.check_args(q, k, v, bq, bk)
-    if _on_cpu(q, k, v):
+    cpu = _on_cpu(q, k, v)
+    if _wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, bq, bk, cpu)
+    return _flash_fwd(q, k, v, causal, bq, bk, cpu, return_lse=False)
+
+
+def _flash_fwd(q, k, v, causal, bq, bk, cpu, *, return_lse):
+    if cpu:
         return fa.flash_attention_plain(q, k, v, causal=causal, block_q=bq,
-                                        block_k=bk)
+                                        block_k=bk, return_lse=return_lse)
     out = fa.flash_attention_cuda(q, k, v, causal=causal, block_q=bq,
-                                  block_k=bk)
+                                  block_k=bk, return_lse=return_lse)
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, lse: torch.Tensor, *,
+                        causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of flash attention from its inputs, the output's
+    gradient dO and the forward's row LSE (B, H, Sq) fp32; one call counts
+    one launch (of two kernels)."""
+    if _on_cpu(q, k, v, do, lse):
+        return fa.flash_attention_bwd_plain(q, k, v, do, lse, causal=causal)
+    out = fa.flash_attention_bwd_cuda(q, k, v, do, lse, causal=causal)
+    LAUNCHES["flash_attention_bwd"] += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward with the row LSE saved beside q, k and v (the backward needs
+    no O); backward through ``flash_attention_bwd``.  CPU tensors take both
+    plain versions, so the CPU tests run this same wiring."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, bq, bk, cpu):
+        o, lse = _flash_fwd(q, k, v, causal, bq, bk, cpu, return_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, do.contiguous(), lse,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_decode(q: torch.Tensor, k: torch.Tensor,
@@ -136,12 +190,56 @@ def fused_add_rmsnorm(x: torch.Tensor, res: torch.Tensor,
                       scale: torch.Tensor, *, eps: float = 1e-5,
                       block_rows: BlockArg = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (rmsnorm(x + res) * scale, x + res) in one pass."""
+    """Returns (rmsnorm(x + res) * scale, x + res) in one pass.
+    Differentiable: see ``_FusedAddRMSNorm``."""
     br = _block(block_rows, fused_mod.BLOCK_ROWS, "block_rows")
     fused_mod.check_args(x, res, scale, br)
-    if _on_cpu(x, res, scale):
+    cpu = _on_cpu(x, res, scale)
+    if _wants_grad(x, res, scale):
+        return _FusedAddRMSNorm.apply(x, res, scale, eps, br, cpu)
+    return _fused_fwd(x, res, scale, eps, br, cpu)
+
+
+def _fused_fwd(x, res, scale, eps, br, cpu):
+    if cpu:
         return fused_mod.fused_add_rmsnorm_plain(x, res, scale, eps=eps)
     out = fused_mod.fused_add_rmsnorm_cuda(x, res, scale, eps=eps,
                                            block_rows=br)
     LAUNCHES["fused_add_rmsnorm"] += 1
     return out
+
+
+def fused_add_rmsnorm_bwd(dh: torch.Tensor, dy: torch.Tensor,
+                          x: torch.Tensor, res: torch.Tensor,
+                          scale: torch.Tensor, *, eps: float = 1e-5
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dsum, dscale) of the fused add + RMSNorm from the gradients of its
+    two outputs (h, y): dsum is the gradient of both x and res.  One call
+    counts one launch (of two kernels)."""
+    if _on_cpu(dh, dy, x, res, scale):
+        return fused_mod.fused_add_rmsnorm_bwd_plain(dh, dy, x, res, scale,
+                                                     eps=eps)
+    out = fused_mod.fused_add_rmsnorm_bwd_cuda(dh, dy, x, res, scale,
+                                               eps=eps)
+    LAUNCHES["fused_add_rmsnorm_bwd"] += 1
+    return out
+
+
+class _FusedAddRMSNorm(torch.autograd.Function):
+    """Forward saves x, res and scale (rstd is recomputed); backward
+    through ``fused_add_rmsnorm_bwd``.  Autograd hands an unused output's
+    gradient in as zeros."""
+
+    @staticmethod
+    def forward(ctx, x, res, scale, eps, br, cpu):
+        h, y = _fused_fwd(x, res, scale, eps, br, cpu)
+        ctx.save_for_backward(x, res, scale)
+        ctx.eps = eps
+        return h, y
+
+    @staticmethod
+    def backward(ctx, dh, dy):
+        x, res, scale = ctx.saved_tensors
+        dsum, dscale = fused_add_rmsnorm_bwd(dh.contiguous(), dy.contiguous(),
+                                             x, res, scale, eps=ctx.eps)
+        return dsum, dsum, dscale, None, None, None

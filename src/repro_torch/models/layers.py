@@ -6,7 +6,8 @@ Attention implementations:
   chunked  blockwise online softmax over KV chunks in plain PyTorch:
            O(Sq * block) live memory, the CPU default beyond 2048 tokens
   kernel   the flash-attention kernel in ``repro_torch.kernels`` (the CUDA
-           kernel on the card, its plain version on the CPU)
+           kernel on the card, its plain version on the CPU), with a
+           backward kernel when a gradient is taken
 
 All softmax statistics are computed in float32 regardless of input dtype.
 ``attn_decode(impl="kernel")`` takes the decode kernel for a scalar
@@ -16,11 +17,13 @@ wait for their slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 
@@ -121,9 +124,12 @@ def attn_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attn_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool = True,
                  window: int = 0, kv_len: Optional[int] = None,
-                 block: int = 1024) -> torch.Tensor:
+                 block: int = 1024, block_remat: bool = False) -> torch.Tensor:
     """Online softmax over KV chunks; numerically identical to attn_naive.
-    A Python loop over the chunks takes the place of ``lax.scan``."""
+    A Python loop over the chunks takes the place of ``lax.scan``.
+    ``block_remat``: each chunk's step runs under ``torch.utils.checkpoint``,
+    so the backward recomputes the score and probability blocks instead of
+    storing them (the reference's ``jax.checkpoint(step)``)."""
     b, sq, h, hd = q.shape
     sk, n_kv = k.shape[1], k.shape[2]
     block = min(block, sk)
@@ -136,13 +142,8 @@ def attn_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qg = _split_gqa(q, n_kv)
     scale = 1.0 / math.sqrt(hd)
     g = h // n_kv
-    o = torch.zeros((b, n_kv, g, sq, hd), dtype=torch.float32, device=q.device)
-    m = torch.full((b, n_kv, g, sq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, n_kv, g, sq), dtype=torch.float32, device=q.device)
-    for start in range(0, sk, block):
-        kc, vc = k[:, start:start + block], v[:, start:start + block]
-        kpc = k_pos[start:start + block]
+
+    def step(o, m, l, kc, vc, kpc):
         s = torch.einsum("bqkgh,bskh->bkgqs", qg, kc).float() * scale
         bias = _mask_bias(q_pos, kpc, causal, window, kv_len)
         if pad:   # the reference masks its pad only through causal/kv_len
@@ -153,8 +154,17 @@ def attn_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         pv = torch.einsum("bkgqs,bskh->bkgqh", p.to(vc.dtype), vc)
-        o = o * corr[..., None] + pv.float()
-        m = m_new
+        return o * corr[..., None] + pv.float(), m_new, l
+
+    if block_remat and torch.is_grad_enabled():
+        step = functools.partial(checkpoint, step, use_reentrant=False)
+    o = torch.zeros((b, n_kv, g, sq, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((b, n_kv, g, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, n_kv, g, sq), dtype=torch.float32, device=q.device)
+    for start in range(0, sk, block):
+        o, m, l = step(o, m, l, k[:, start:start + block],
+                       v[:, start:start + block], k_pos[start:start + block])
     o = o / torch.clamp_min(l[..., None], 1e-30)
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
@@ -202,8 +212,10 @@ def attn_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 def attention(q, k, v, *, impl: str = "chunked", causal: bool = True,
               window: int = 0, q_pos=None, k_pos=None,
-              kv_len: Optional[int] = None, block: int = 1024) -> torch.Tensor:
-    """Dispatch over implementations; q_pos/k_pos default to arange."""
+              kv_len: Optional[int] = None, block: int = 1024,
+              block_remat: bool = False) -> torch.Tensor:
+    """Dispatch over implementations; q_pos/k_pos default to arange.
+    ``block_remat`` checkpoints the chunked path's per-block step."""
     if q_pos is None:
         q_pos = torch.arange(q.shape[1], device=q.device)
     if k_pos is None:
@@ -225,7 +237,8 @@ def attention(q, k, v, *, impl: str = "chunked", causal: bool = True,
     if impl != "chunked":
         raise ValueError(f"attention: unknown impl {impl!r}")
     return attn_chunked(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
-                        window=window, kv_len=kv_len, block=block)
+                        window=window, kv_len=kv_len, block=block,
+                        block_remat=block_remat)
 
 
 def pick_attn_impl(cfg_impl: str, seq_len: int,

@@ -3,8 +3,11 @@
 
 * Parameters are stacked over layers (leading ``layers`` dim), as in the
   reference; a Python loop over the layer index takes the place of
-  ``lax.scan``.  ``cfg.remat`` only matters for a backward pass, which
-  this inference slice does not take.
+  ``lax.scan``.  The stacked tensors are unbound once a forward, so a
+  backward stacks the layers' gradients in one pass.
+* ``cfg.remat`` wraps each layer's body when a gradient will be taken
+  (``_remat``): ``none`` runs it plainly, ``full`` checkpoints it, ``dots``
+  keeps only the outputs of plain matrix products and recomputes the rest.
 * The same ``forward`` serves full-sequence scoring and prefill (returns
   the KV cache); ``decode`` runs one token against the cache.
 * ``attn_impl="kernel"`` runs the flash-attention kernel and, at the
@@ -13,10 +16,13 @@
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import torch_dtype
 from repro_torch.dist.sharding import Decl
@@ -109,7 +115,8 @@ def attn_delta(cfg: ModelConfig, p, x, positions, impl: str):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, h, positions)
     o = L.attention(q, k, v, impl=impl, causal=True, window=cfg.window,
-                    q_pos=positions, k_pos=positions)
+                    q_pos=positions, k_pos=positions,
+                    block_remat=cfg.attn_block_remat)
     return _proj_out(o, p["wo"]), (k, v)
 
 
@@ -141,30 +148,86 @@ def _layer(params, i: int) -> Dict[str, torch.Tensor]:
     return {name: w[i] for name, w in params["layers"].items()}
 
 
-def _head(cfg: ModelConfig, params, x):
+def _hidden(cfg: ModelConfig, params, x):
+    """(final-normed hidden, head projection (D, V))."""
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x, head
+
+
+def _head(cfg: ModelConfig, params, x):
+    x, head = _hidden(cfg, params, x)
     return (x @ head.to(x.dtype)).float()
 
 
-# --- full-sequence forward (scoring / prefill) ------------------------------------
+# the products ``dots_with_no_batch_dims_saveable`` keeps: 2-D matmuls
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, mode: str):
+    """``cfg.remat`` around one layer's body (the reference's ``_remat``
+    around the scan body): ``none`` as is, ``dots`` a selective checkpoint
+    that saves the outputs of matrix products without batch dims
+    (``aten.mm``/``aten.addmm``; the model's projections) and recomputes
+    the rest, any other mode a full checkpoint."""
+    if mode == "none":
+        return fn
+    kw = {}
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+def _needs_grad(params) -> bool:
+    if not torch.is_grad_enabled():
+        return False
+    stack = [params]
+    while stack:
+        t = stack.pop()
+        if isinstance(t, torch.Tensor):
+            if t.requires_grad:
+                return True
+        else:
+            stack.extend(t.values())
+    return False
+
+
+# --- full-sequence forward (train / scoring / prefill) -----------------------------
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
-            return_cache: bool = False, attn_impl: Optional[str] = None):
-    """Returns logits (B,S,V) and optionally the KV cache (ring for SWA)."""
+            return_cache: bool = False, attn_impl: Optional[str] = None,
+            return_hidden: bool = False):
+    """Returns logits (B,S,V) and optionally the KV cache (ring for SWA);
+    ``return_hidden`` returns (final-normed hidden (B,S,D), head (D,V))
+    for the chunked loss instead of the logits."""
     tokens = batch["tokens"]
     x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     impl = attn_impl or L.pick_attn_impl(cfg.attn_impl, s, x.device)
+
+    def body(x, lp):
+        x, (k, v) = decoder_block(cfg, lp, x, positions, impl)
+        if cfg.window and s > cfg.window:
+            k, v = k[:, -cfg.window:], v[:, -cfg.window:]
+        return (x, k, v) if return_cache else (x,)
+
+    step = _remat(body, cfg.remat) if _needs_grad(params) else body
+    stacked = {name: w.unbind(0) for name, w in params["layers"].items()}
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, (k, v) = decoder_block(cfg, _layer(params, i), x, positions, impl)
+        x, *kv = step(x, {name: w[i] for name, w in stacked.items()})
         if return_cache:
-            if cfg.window and s > cfg.window:
-                k, v = k[:, -cfg.window:], v[:, -cfg.window:]
-            ks.append(k)
-            vs.append(v)
+            ks.append(kv[0])
+            vs.append(kv[1])
+    if return_hidden:
+        return _hidden(cfg, params, x)
     logits = _head(cfg, params, x)
     if return_cache:
         cache = {"k": torch.stack(ks), "v": torch.stack(vs), "len": s}

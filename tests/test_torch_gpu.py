@@ -429,3 +429,154 @@ def test_ssd_passes_match_their_plain_versions(cuda, b, s, h, p, n, chunk,
     torch.cuda.synchronize()
     assert ops.LAUNCHES["ssd_scan"] == 0      # direct launches count none
     _close(bufs["y"], y, 4e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+# --- backward kernels and the train step -------------------------------------------
+
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # times max |plain|
+
+
+def _close_max(got, want, tol, what):
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    assert torch.isfinite(got.float()).all() and err <= tol * top, (
+        f"{what}: max |kernel - plain| {err:.3e} > {tol} * {top:.3e}")
+
+
+def _attn_bwd_inputs(gen, b, sq, sk, h, kh, d, causal, dtype):
+    q = _rand(gen, b, sq, h, d, dtype=dtype)
+    k = _rand(gen, b, sk, kh, d, dtype=dtype)
+    v = _rand(gen, b, sk, kh, d, dtype=dtype)
+    _, lse = fa.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    return q, k, v, _rand(gen, b, sq, h, d, dtype=dtype), lse
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kh,d,causal", [
+    (4, 1024, 1024, 15, 5, 64, True),   # the train path's shape
+    (2, 1000, 1000, 4, 2, 64, False),   # S not a multiple of the tile
+    (2, 77, 77, 4, 2, 16, True),        # the reduced configs' head dim
+    (1, 200, 200, 6, 2, 128, True),
+    (2, 130, 70, 4, 2, 48, False),      # unequal lengths
+    (1, 70, 130, 4, 4, 32, True),       # causal, sk > sq
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, b, sq, sk, h, kh, d,
+                                                  causal, dtype):
+    """The two backward kernels against the plain backward on the same
+    q, k, v, LSE (the kernel forward's) and dO."""
+    args = _attn_bwd_inputs(cuda, b, sq, sk, h, kh, d, causal, dtype)
+    ops.reset_launches()
+    got = ops.flash_attention_bwd(*args, causal=causal)
+    want = fa.flash_attention_bwd_plain(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_bwd"] == 1
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        _close_max(g, w, BWD_TOL[dtype], name)
+
+
+@pytest.mark.parametrize("dtype,impl", [(torch.bfloat16, None),
+                                        (torch.bfloat16, "cuda_core"),
+                                        (torch.float32, None)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_lse_leaves_o_bit_for_bit(cuda, dtype, impl, causal):
+    """Asking for the LSE changes no bit of O, in either forward kernel,
+    and the LSE matches the plain version's (fp32, atol 2e-4 at |LSE| ~ 5:
+    the wgmma kernel's exponentials are ex2.approx)."""
+    q = _rand(cuda, 2, 509, 15, 64, dtype=dtype)
+    k = _rand(cuda, 2, 509, 5, 64, dtype=dtype)
+    v = _rand(cuda, 2, 509, 5, 64, dtype=dtype)
+    o1 = fa.flash_attention_cuda(q, k, v, causal=causal, impl=impl)
+    o2, lse = fa.flash_attention_cuda(q, k, v, causal=causal, impl=impl,
+                                      return_lse=True)
+    _, want = fa.flash_attention_plain(q, k, v, causal=causal, impl=impl,
+                                       return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
+    assert lse.shape == (2, 15, 509) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want, rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("rows,d", [(4096, 960), (16384, 960), (4071, 960),
+                                    (7, 64), (33, 1001), (64, 8192)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_add_rmsnorm_bwd_kernel_matches_plain(cuda, rows, d, dtype):
+    x, r, dh, dy = (_rand(cuda, rows, d, dtype=dtype) for _ in range(4))
+    sc = (1 + 0.1 * torch.randn(d, generator=cuda, device="cuda")).to(dtype)
+    ops.reset_launches()
+    dsum, dscale = ops.fused_add_rmsnorm_bwd(dh, dy, x, r, sc)
+    want_sum, want_scale = fused_mod.fused_add_rmsnorm_bwd_plain(
+        dh, dy, x, r, sc)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_add_rmsnorm_bwd"] == 1
+    assert dsum.dtype == dtype and dscale.dtype == dtype
+    _close(dsum, want_sum, TOL[dtype])
+    _close_max(dscale, want_scale, BWD_TOL[dtype], "dscale")
+
+
+@pytest.mark.parametrize("which", ["x", "dh", "scale"])
+def test_fused_add_rmsnorm_bwd_takes_unaligned_views(cuda, which):
+    """An input 2 bytes off a 16-byte boundary takes the scalar plan."""
+    def make(name, *shape):
+        n = 1 if name == which else 0
+        flat = _rand(cuda, int(torch.tensor(shape).prod()) + n,
+                     dtype=torch.bfloat16)
+        return flat[n:].view(*shape)
+    t = {name: make(name, 300, 960) for name in ("x", "res", "dh", "dy")}
+    t["scale"] = make("scale", 960)
+    got = ops.fused_add_rmsnorm_bwd(t["dh"], t["dy"], t["x"], t["res"],
+                                    t["scale"])
+    want = fused_mod.fused_add_rmsnorm_bwd_plain(t["dh"], t["dy"], t["x"],
+                                                 t["res"], t["scale"])
+    _close(got[0], want[0], TOL[torch.bfloat16])
+    _close_max(got[1], want[1], BWD_TOL[torch.bfloat16], "dscale")
+
+
+def test_backward_kernels_agree_bit_for_bit_across_runs(cuda):
+    """No atomics: two runs of each backward on the same inputs agree."""
+    args = _attn_bwd_inputs(cuda, 2, 300, 300, 15, 5, 64, True,
+                            torch.bfloat16)
+    first = ops.flash_attention_bwd(*args)
+    again = ops.flash_attention_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    x, r, dh, dy = (_rand(cuda, 4096, 960, dtype=torch.bfloat16)
+                    for _ in range(4))
+    sc = _rand(cuda, 960, dtype=torch.bfloat16)
+    first = ops.fused_add_rmsnorm_bwd(dh, dy, x, r, sc)
+    again = ops.fused_add_rmsnorm_bwd(dh, dy, x, r, sc)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_train_step_kernel_path_matches_plain_path(cuda):
+    """fp32, 2 layers, head_dim 64, full remat: gradients through the
+    kernels (forward and backward) against the plain path's on the card
+    (1e-4 of max |g| a leaf), then one ``make_train_step`` step each from
+    the same weights: loss and grad_norm at rtol 1e-4."""
+    from repro_torch.train import data as tdata
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+    cfg = dataclasses.replace(get_config("smollm_360m").reduced(),
+                              head_dim=64, remat="full")
+    plain = dataclasses.replace(cfg, attn_impl="naive")
+    batch = tdata.SyntheticDataset(cfg, tdata.DataConfig(
+        seq_len=96, global_batch=4, num_microbatches=2)).batch(0)
+    params = tm.init(cfg, 0)
+    ops.reset_launches()
+    loss, grads = tts.loss_and_grads(cfg, params, batch)
+    n = cfg.n_layers * 2
+    assert ops.LAUNCHES["flash_attention"] == 2 * n   # forward, recompute
+    assert ops.LAUNCHES["flash_attention_bwd"] == n
+    assert ops.LAUNCHES["fused_add_rmsnorm_bwd"] == n
+    want_loss, want = tts.loss_and_grads(plain, params, batch)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
+    for (k, g), (_, w) in zip(topt.tree_leaves(grads),
+                              topt.tree_leaves(want)):
+        _close_max(g, w, 1e-4, k)
+    metrics = []
+    for c in (cfg, plain):
+        p = tm.init(cfg, 0)
+        step = tts.make_train_step(c, topt.OptimizerConfig(lr=1e-3))
+        metrics.append(step(p, topt.init_state(p), batch)[2])
+    for key in ("loss", "grad_norm", "lr"):
+        torch.testing.assert_close(metrics[0][key], metrics[1][key],
+                                   rtol=1e-4, atol=0)

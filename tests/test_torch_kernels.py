@@ -18,12 +18,14 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import layers as jlayers
 from repro_torch.kernels import add as add_mod
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused as fused_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import ssd as ssd_mod
+from repro_torch.models import layers as tlayers
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -600,9 +602,14 @@ def test_cpu_path_counts_no_launch():
     ops.add(_t(2, 64), _t(2, 64))
     ops.ssd_scan(_t(1, 8, 2, 16), _t(1, 8, 2), _t(2), _t(1, 8, 16),
                  _t(1, 8, 16))
+    q.requires_grad_()
+    ops.flash_attention(q, q, q).sum().backward()
+    x = _t(2, 64).requires_grad_()
+    sum(ops.fused_add_rmsnorm(x, x, _t(64))).sum().backward()
     assert ops.LAUNCHES == dict.fromkeys(
         ["flash_attention", "fused_add_rmsnorm", "flash_attention_decode",
-         "rmsnorm", "ssd_scan", "add"], 0)
+         "rmsnorm", "ssd_scan", "add", "flash_attention_bwd",
+         "fused_add_rmsnorm_bwd"], 0)
 
 
 _BF16, _F32 = torch.bfloat16, torch.float32
@@ -650,3 +657,143 @@ def test_fused_plan_from_width_dtype_and_offset(d, dtype, which, offset,
     assert rn.WARPS % got.warps_per_row == 0
     assert got.vals == fused_mod.WARP_VALS \
         or got.warps_per_row in (1, rn.WARPS)
+
+
+# --- backward (the reference has no backward kernel: jax.grad of its jnp paths) ----
+
+BWD_TOL = {"float32": 1e-4, "bfloat16": 4e-2}   # times max |reference grad|
+
+
+def _close_bwd(got, want, dtype, what):
+    w = np.asarray(want, np.float32)
+    err = np.abs(_np(got) - w).max()
+    assert err <= BWD_TOL[dtype] * np.abs(w).max(), (
+        f"{what}: {err:.3e} > {BWD_TOL[dtype]} * {np.abs(w).max():.3e}")
+
+
+@pytest.mark.parametrize("s", [77, 200])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_plain_matches_reference_grad(s, d, causal,
+                                                          dtype):
+    """GQA 4/2: the plain backward (from the plain forward's LSE)
+    against ``jax.vjp`` of the reference's ``attn_naive`` for one seeded
+    cotangent; the LSE against a logsumexp of the reference's scaled,
+    masked scores (fp32 scores of the same values, atol 2e-5)."""
+    (jq, tq), (jk, tk), (jv, tv) = _attn_inputs(2, s, s, 4, 2, d, dtype)
+    jdo, tdo = _pair(RNG.standard_normal((2, s, 4, d)), dtype)
+    pos = jnp.arange(s)
+    _, vjp = jax.vjp(lambda q, k, v: jlayers.attn_naive(
+        q, k, v, q_pos=pos, k_pos=pos, causal=causal), jq, jk, jv)
+    want = vjp(jdo)
+    _, lse = fa.flash_attention_plain(tq, tk, tv, causal=causal,
+                                      return_lse=True)
+    got = fa.flash_attention_bwd_plain(tq, tk, tv, tdo, lse, causal=causal)
+    for name, g, w, t in zip("qkv", got, want, (tq, tk, tv)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _close_bwd(g, w, dtype, f"d{name}")
+    qf, kf = (np.asarray(x.astype(jnp.float32)) for x in (jq, jk))
+    qg = qf.reshape(2, s, 2, 2, d)
+    sc = np.einsum("bqkgh,bskh->bkgqs", qg, kf) / np.sqrt(d)
+    if causal:
+        sc = np.where(np.arange(s)[None, :] > np.arange(s)[:, None],
+                      -np.inf, sc)
+    want_lse = jax.nn.logsumexp(jnp.asarray(sc), axis=-1)
+    np.testing.assert_allclose(_np(lse), np.asarray(want_lse).reshape(
+        2, 4, s), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [(37, 960), (2, 19, 1001)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_add_rmsnorm_bwd_plain_matches_reference_grad(shape, dtype):
+    """The plain backward against ``jax.vjp`` of the reference's
+    ``rms_norm_residual(impl="jnp")`` (res, delta, scale -> (h, y)) for
+    seeded cotangents of both outputs: dx = dres = d(res) = d(delta)."""
+    jx, tx = _pair(RNG.standard_normal(shape), dtype)
+    jr, tr = _pair(RNG.standard_normal(shape), dtype)
+    js, ts = _pair(1 + 0.1 * RNG.standard_normal(shape[-1:]), dtype)
+    jdh, tdh = _pair(RNG.standard_normal(shape), dtype)
+    jdy, tdy = _pair(RNG.standard_normal(shape), dtype)
+    _, vjp = jax.vjp(lambda x, r, sc: jlayers.rms_norm_residual(
+        x, r, sc, impl="jnp"), jx, jr, js)
+    wx, wr, ws = vjp((jdh, jdy))
+    dsum, dscale = fused_mod.fused_add_rmsnorm_bwd_plain(tdh, tdy, tx, tr, ts)
+    assert dsum.dtype == tx.dtype and dscale.shape == ts.shape
+    _close_bwd(dsum, wx, dtype, "dx")
+    _close_bwd(dsum, wr, dtype, "dres")
+    _close_bwd(dscale, ws, dtype, "dscale")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_function_grads_equal_attn_naive(causal):
+    """On the CPU the autograd Function runs the plain forward and backward:
+    gradients through ``ops.flash_attention`` equal those through the
+    port's ``attn_naive`` (fp32, 1e-5 of max |g|; 1e-4 on O for a non-
+    multiple-of-the-tile S with GQA 6/2)."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(*shape, generator=gen).requires_grad_()
+               for shape in ((2, 77, 6, 32), (2, 77, 2, 32), (2, 77, 2, 32)))
+    do = torch.randn(2, 77, 6, 32, generator=gen)
+    pos = torch.arange(77)
+    o1 = ops.flash_attention(q, k, v, causal=causal)
+    o2 = tlayers.attn_naive(q, k, v, q_pos=pos, k_pos=pos, causal=causal)
+    torch.testing.assert_close(o1, o2, rtol=0, atol=1e-5)
+    for g1, g2 in zip(torch.autograd.grad(o1, (q, k, v), do),
+                      torch.autograd.grad(o2, (q, k, v), do)):
+        assert (g1 - g2).abs().max() <= 1e-5 * g2.abs().max()
+
+
+def test_fused_function_grads_equal_the_jnp_seam():
+    """Gradients through ``ops.fused_add_rmsnorm`` (the Function, plain
+    versions on the CPU) equal those through ``rms_norm_residual``'s plain
+    path, fp32, with both outputs used."""
+    gen = torch.Generator().manual_seed(1)
+    x, r = (torch.randn(2, 13, 96, generator=gen).requires_grad_()
+            for _ in range(2))
+    sc = (1 + 0.1 * torch.randn(96, generator=gen)).requires_grad_()
+    dh, dy = torch.randn(2, 2, 13, 96, generator=gen)
+    got = torch.autograd.grad(tlayers.rms_norm_residual(
+        x, r, sc, impl="kernel"), (x, r, sc), (dh, dy))
+    want = torch.autograd.grad(tlayers.rms_norm_residual(
+        x, r, sc, impl="jnp"), (x, r, sc), (dh, dy))
+    for g1, g2 in zip(got, want):
+        assert (g1 - g2).abs().max() <= 1e-5 * g2.abs().max()
+
+
+def test_inputs_needing_no_grad_keep_the_forward_only_path(monkeypatch):
+    """No grad wanted (no input requires one, or grad mode off): the
+    wrappers run the forward alone, and attention asks for no LSE."""
+    asked = []
+    plain = fa.flash_attention_plain
+    monkeypatch.setattr(fa, "flash_attention_plain", lambda *a, **kw: (
+        asked.append(kw.get("return_lse", False)) or plain(*a, **kw)))
+    q = _t(1, 8, 2, 16)
+    assert ops.flash_attention(q, q, q).grad_fn is None
+    qg = q.clone().requires_grad_()
+    with torch.no_grad():
+        ops.flash_attention(qg, qg, qg)
+        assert ops.fused_add_rmsnorm(qg, qg, _t(16))[0].grad_fn is None
+    assert asked == [False, False]
+    assert ops.flash_attention(qg, qg, qg).grad_fn is not None
+    assert asked[-1] is True
+
+
+def test_backward_wrappers_never_take_the_plain_version_off_the_cpu():
+    """The backward wrappers route like the forward ones: a tensor off the
+    CPU goes to the CUDA launch, which raises here (no card, or a CPU
+    tensor handed to it directly)."""
+    q, lse = _t(1, 8, 2, 64, device="meta"), _t(1, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention_bwd(q, q, q, q, lse)
+    x = _t(2, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.fused_add_rmsnorm_bwd(x, x, x, x, _t(64, device="meta"))
+    c = _t(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_bwd_cuda(c, c, c, c, _t(1, 2, 8))
+    y = _t(2, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_mod.fused_add_rmsnorm_bwd_cuda(y, y, y, y, _t(64))
+    assert not ops.LAUNCHES["flash_attention_bwd"]
+    assert not ops.LAUNCHES["fused_add_rmsnorm_bwd"]
