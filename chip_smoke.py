@@ -9,9 +9,9 @@ Phases, each printed as it runs; any failure exits non-zero:
              matmuls and cuDNN, so float32 is float32.
 2. build     compile every CUDA source of the port with nvcc, in parallel;
              registers, spills and shared memory of every instantiation of
-             the decode kernel, the bf16 (wgmma) attention kernel, the
-             RMSNorm and fused add + RMSNorm kernels and the SSD scan's
-             passes.
+             the decode kernel, the bf16 (wgmma) attention kernels, forward
+             and backward, the RMSNorm and fused add + RMSNorm kernels and
+             the SSD scan's passes.
 3. kernels   hold each of the six kernels against its plain PyTorch version
              on the card (bf16 2e-2, fp32 2e-5; SSD y 4e-2 / 1e-4 and state
              1e-2 / 1e-4) at the main paths' shapes and the edge cases, and
@@ -71,8 +71,12 @@ Each of phases 5-8 is a main path: the launch counts are set to 0 just
 before it and read just after, and each kernel must have launched on the
 path that runs it.  Phase 3 also holds the two backward kernels
 (attention, fused add + RMSNorm) against their plain versions on the
-train path's shapes and edge cases, timed beside the backward of
-``F.scaled_dot_product_attention`` for attention.
+train path's shapes and edge cases, each run twice and compared bit for
+bit, timed beside the backward of ``F.scaled_dot_product_attention`` for
+attention.  The bf16 attention backward runs the tensor-core kernels and
+is timed beside the CUDA-core ones on the same inputs (``earlier_ms``,
+also held against their plain version) and at each pair of blocks
+(``blocks_ms``).
 
 Without a CUDA device, or run outside a checkout of the repository, it
 exits non-zero and prints no result.
@@ -302,10 +306,21 @@ def _decode_kernel_name(mangled: str) -> str:
     return f"decode_merge<{dt}>" if "decode_merge" in mangled else mangled
 
 
+def _bwd_wgmma_name(mangled: str):
+    """(kernel, D, block) of a bwd_dq_wgmma / bwd_dkdv_wgmma<D, warpgroups>
+    instantiation, or None for another kernel."""
+    m = re.search(r"(bwd_dq_wgmma|bwd_dkdv_wgmma)ILi(\d+)ELi(\d+)E", mangled)
+    return (m.group(1), int(m.group(2)), 64 * int(m.group(3))) if m else None
+
+
 def _bwd_kernel_name(mangled: str) -> str:
     """bwd_dkdv<bf16, D 64> (or fused_add_rmsnorm_bwd<bf16, 2 values a
     lane, 16-byte loads>, dscale_reduce<bf16>) from its mangled name."""
     dt = "bf16" if "__nv_bfloat16" in mangled else "f32"
+    wg = _bwd_wgmma_name(mangled)
+    if wg:
+        return (f"{wg[0]}<D {wg[1]}, "
+                f"block_{'q' if wg[0] == 'bwd_dq_wgmma' else 'k'} {wg[2]}>")
     m = re.search(r"(bwd_dkdv|bwd_dq)I(?:f|13__nv_bfloat16)Li(\d+)E",
                   mangled)
     if m:
@@ -400,10 +415,17 @@ def phase_build() -> None:
             _norm_build_rows(info, name, fused_mod.WARP_VALS)
             continue
         if name in ("flash_attention_bwd", "fused_add_rmsnorm_bwd"):
-            rows = ptxas_report(info["log"])
-            for fn, regs, st, ld in rows:
+            smem = None
+            if name == "flash_attention_bwd":   # and of each wgmma kernel
+                smem = _build.load(name).repro_flash_attention_bwd_wgmma_smem
+                smem.argtypes = [ctypes.c_int] * 3
+                smem.restype = ctypes.c_longlong
+            for fn, regs, st, ld in ptxas_report(info["log"]):
+                wg = _bwd_wgmma_name(fn)
+                dyn = (f"{smem(int(wg[0] == 'bwd_dkdv_wgmma'), wg[1], wg[2])}"
+                       f" B dynamic shared memory, " if wg else "")
                 log(f"[build]   {_bwd_kernel_name(fn)}: {regs} registers, "
-                    f"spill stores {st} B, spill loads {ld} B")
+                    f"{dyn}spill stores {st} B, spill loads {ld} B")
             continue
         for line in info["log"].splitlines():
             if "Used" in line or "spill" in line:
@@ -526,25 +548,37 @@ def check_max(name: str, got: torch.Tensor, want: torch.Tensor,
 
 
 def attention_bwd_case(gen, label, b, sq, sk, h, kh, d, causal, dtype,
-                       timed=False):
-    """The backward kernels against the plain backward on the same q, k,
-    v, dO and the kernel forward's LSE.  Timed: beside the backward
-    of ``F.scaled_dot_product_attention`` (enable_gqa) on the same q, k, v
-    and dO."""
+                       timed=False, impl=None):
+    """The backward kernels (q's dtype's, or with ``impl="cuda_core"`` the
+    CUDA-core ones, called directly so they count no wrapper launch)
+    against the plain backward with the same ``impl`` on the same q, k, v,
+    dO and the kernel forward's LSE, run twice and compared bit for bit.
+    Timed: beside the backward of ``F.scaled_dot_product_attention``
+    (enable_gqa) on the same q, k, v and dO; the tensor-core kernels also
+    beside the CUDA-core ones on the same inputs (``earlier_ms``) and at
+    each pair of blocks (``blocks_ms``, "block_q x block_k")."""
     q, k, v = _attn_inputs(gen, b, sq, sk, h, kh, d, dtype)
     do = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dtype)
     _, lse = fa.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
-    got = ops.flash_attention_bwd(q, k, v, do, lse, causal=causal)
-    want = fa.flash_attention_bwd_plain(q, k, v, do, lse, causal=causal)
+    kernel = fa.kernel_for(dtype, impl)
+    if impl is None:
+        got = ops.flash_attention_bwd(q, k, v, do, lse, causal=causal)
+    else:
+        got = fa.flash_attention_bwd_cuda(q, k, v, do, lse, causal=causal,
+                                          impl=impl)
+    want = fa.flash_attention_bwd_plain(q, k, v, do, lse, causal=causal,
+                                        impl=impl)
     torch.cuda.synchronize()
     err = max(check_max(f"flash_attention_bwd {label} {n}", g, w,
                         BWD_TOL[dtype])
               for n, g, w in zip(("dq", "dk", "dv"), got, want))
-    again = fa.flash_attention_bwd_cuda(q, k, v, do, lse, causal=causal)
+    again = fa.flash_attention_bwd_cuda(q, k, v, do, lse, causal=causal,
+                                        impl=impl)
     if not all(torch.equal(a, g) for a, g in zip(again, got)):
         raise AssertionError(f"flash_attention_bwd {label}: two runs differ")
     row = dict(label=label, shape=[b, sq, sk, h, kh, d], causal=causal,
-               dtype=_dname(dtype), max_abs_err=err)
+               dtype=_dname(dtype), kernel=kernel,
+               blocks=list(fa.BWD_BLOCKS[kernel]), max_abs_err=err)
     if timed:
         es = q.element_size()
         pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
@@ -554,11 +588,19 @@ def attention_bwd_case(gen, label, b, sq, sk, h, kh, d, causal, dtype,
         flops = 10.0 * d * pairs * b * h          # S, dP, dV, dK, dQ
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
         row["ms"] = time_ms(lambda: fa.flash_attention_bwd_cuda(
-            q, k, v, do, lse, causal=causal))
+            q, k, v, do, lse, causal=causal, impl=impl))
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+        if kernel == "wgmma":
+            row["earlier_ms"] = time_ms(lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, do, lse, causal=causal, impl="cuda_core"))
+            row["blocks_ms"] = {
+                f"{bq}x{bk}": time_ms(lambda: fa.flash_attention_bwd_cuda(
+                    q, k, v, do, lse, causal=causal, block_q=bq, block_k=bk))
+                for bq in fa.BWD_BLOCK_CHOICES[kernel]
+                for bk in fa.BWD_BLOCK_CHOICES[kernel]}
         row["plain_ms"] = time_ms(lambda: fa.flash_attention_bwd_plain(
-            q, k, v, do, lse, causal=causal), iters=3)
+            q, k, v, do, lse, causal=causal, impl=impl), iters=3)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
@@ -930,14 +972,29 @@ def phase_kernels(main_lens):
                                True, bf16, timed=True),
             attention_bwd_case(gen, "train_s1024_f32", mb, sl, sl, h, kh, d,
                                True, f32, timed=True),
+            attention_bwd_case(gen, "train_s1024_cuda_core", mb, sl, sl, h,
+                               kh, d, True, bf16, impl="cuda_core"),
             attention_bwd_case(gen, "noncausal_s1000", 2, 1000, 1000, h, kh,
                                d, False, bf16),
             attention_bwd_case(gen, "noncausal_s1000_f32", 2, 1000, 1000, h,
                                kh, d, False, f32),
+            attention_bwd_case(gen, "noncausal_s1000_cuda_core", 2, 1000,
+                               1000, h, kh, d, False, bf16,
+                               impl="cuda_core"),
             attention_bwd_case(gen, "d16_reduced", 2, 77, 77, 4, 2, 16, True,
                                bf16),
             attention_bwd_case(gen, "d16_f32", 2, 77, 77, 4, 2, 16, True,
-                               f32)]
+                               f32),
+            # the rest of the GPU tests' shapes: head dim 128, and unequal
+            # lengths, where the dK/dV kernel's transposed mask shows
+            attention_bwd_case(gen, "d128_s1000", 1, 1000, 1000, 4, 2, 128,
+                               True, bf16),
+            attention_bwd_case(gen, "d128_s200", 1, 200, 200, 6, 2, 128,
+                               True, bf16),
+            attention_bwd_case(gen, "sq130_sk70_d48", 2, 130, 70, 4, 2, 48,
+                               False, bf16),
+            attention_bwd_case(gen, "sq70_sk130_d32", 1, 70, 130, 4, 4, 32,
+                               True, bf16)]
     abwd[0]["f32"] = {key: abwd[1][key] for key in (
         "ms", "bound_ms", "bound_by", "share_of_bound", "plain_ms",
         "library_ms", "max_abs_err")}
@@ -1045,6 +1102,7 @@ def profile_window(label: str, fn, wall_ms: float, per: int) -> None:
         events = json.load(f).get("traceEvents", [])
     groups: dict = {}
     names: dict = {}
+    ported: dict = {}     # the port's own kernels by entry function
     n_kernels = 0
     for ev in events:
         if ev.get("cat") == "kernel" and ev.get("ph") == "X":
@@ -1053,6 +1111,9 @@ def profile_window(label: str, fn, wall_ms: float, per: int) -> None:
             groups[g] = groups.get(g, 0.0) + ms
             short = ev.get("name", "")[:60]
             names[short] = names.get(short, 0.0) + ms
+            if g.endswith(" kernel"):
+                fn = re.sub(r"^.*?(\w+)(<|\().*$", r"\1", ev.get("name", ""))
+                ported[fn] = ported.get(fn, 0.0) + ms
             n_kernels += 1
     if not n_kernels:
         log(f"[profile] {label}: the trace holds no device kernels; "
@@ -1064,6 +1125,7 @@ def profile_window(label: str, fn, wall_ms: float, per: int) -> None:
             wall_ms=wall_ms / per, device_ms=device_ms,
             busy=device_ms / (wall_ms / per), kernels=n_kernels / per,
             by_group=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+            port_kernels=dict(sorted(ported.items(), key=lambda kv: -kv[1])),
             top=sorted(names.items(), key=lambda kv: -kv[1])[:5])))
     return device_ms
 
@@ -1405,6 +1467,7 @@ def main() -> int:
             **{key: row[key] for key in ("share_of_bound", "tflops",
                                          "earlier_ms", "calibrate",
                                          "passes_ms", "sequential_plain_ms",
+                                         "blocks_ms",
                                          "rows16384", "more", "plan", "f32",
                                          "blocks")
                if key in row}))

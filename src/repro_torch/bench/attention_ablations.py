@@ -1,17 +1,22 @@
-"""Where the bf16 attention kernel's time goes: timed variants of its source.
+"""Where the bf16 attention kernels' time goes: timed variants of their sources.
 
-    python3 -m repro_torch.bench.attention_ablations     # from src/, on a GPU
+    python3 -m repro_torch.bench.attention_ablations         # from src/, on a GPU
+    python3 -m repro_torch.bench.attention_ablations bwd     # the backward's only
 
-Each variant is ``csrc/flash_attention.cu`` with one piece of the wgmma
-kernel's tile loop changed by a text substitution (the anchors are checked,
-so a variant that no longer applies fails loudly).  All variants build at
-once, one ``nvcc`` each, into ``build/attention_ablations/``; each then runs
-in its own process, so a fault in one cannot poison the others.  The
-``base`` variant is also held against the plain version; the others compute
-wrong values on purpose and are only timed.  Times are
-``autotune.bench_time`` (cold L2, median of 20) at the serve shape
-(8, 512, 15/5, 64) and the calibrate shape (1, 2048, 120/120, 64), causal,
-``block_q`` 128, one JSON line a variant.
+Each variant is ``csrc/flash_attention.cu`` (the forward's, named plainly)
+or ``csrc/flash_attention_bwd.cu`` (``bwd_*``) with one piece of the wgmma
+kernels changed by a text substitution (the anchors are checked, so a
+variant that no longer applies fails loudly).  All variants build at once,
+one ``nvcc`` each, into ``build/attention_ablations/``; each then runs in
+its own process, so a fault in one cannot poison the others.  The ``base``
+variants, and those that change only how P and dS are rounded, are also
+held against the plain version (the backward's with the same roundings);
+the others compute wrong values on purpose and are only timed.  Times are
+``autotune.bench_time`` (cold L2, median of 20), one JSON line a variant:
+the forward at the serve shape (8, 512, 15/5, 64) and the calibrate shape
+(1, 2048, 120/120, 64), causal, ``block_q`` 128; the backward at the train
+shape (4, 1024, 15/5, 64) and at (1, 2048, 16/16, 128), causal, its
+default blocks.
 """
 from __future__ import annotations
 
@@ -24,16 +29,32 @@ from pathlib import Path
 from typing import Dict
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as fa
 
 OUT = _build.BUILD_DIR.parent / "attention_ablations"
 SHAPES = ((8, 512, 15, 5, 64), (1, 2048, 120, 120, 64))
+BWD_SHAPES = ((4, 1024, 15, 5, 64), (1, 2048, 16, 16, 128))
 
 _COPY = "    if (j + kAhead < n_tiles) {                 // into tile j - 1's stage"
 _LOOP = "    if (j >= my_tiles) continue;                // uniform in the warpgroup"
-_QK = "      mma_ss_n64(s, desc(q_addr + 256 * kk, 128, GROUP_BYTES),"
-_PV = "    MmaRS<D>::run(acc, hi[kk], b);\n    MmaRS<D>::run(acc, lo[kk], b);\n"
+_QK = "    mma_scores<D>(s, q_addr, k_addr);           // S = Q K^T"
+_PV = "    mma_rs_tile<D, true>(acc, hi, lo,             // O += P V"
 _EXP = "ex2(fmaf("
 _STORE = "    if (qw + r < sq)\n      *reinterpret_cast<uint4*>"
+_SPLIT = ("constexpr bool kSplitPdV = {};", "constexpr bool kSplitDsDk = {};",
+          "constexpr bool kSplitDsDq = {};")
+_BWD_SPLIT = fa.WGMMA_BWD_SPLIT          # mirrors the source's kSplit*
+
+
+def _split(**parts) -> tuple:
+    """Substitutions that set the backward's kSplit* to ``parts`` (the
+    source's values where not given)."""
+    want = dict(_BWD_SPLIT, **parts)
+    return tuple((a.format(str(_BWD_SPLIT[k]).lower()),
+                  a.format(str(want[k]).lower()))
+                 for a, k in zip(_SPLIT, _BWD_SPLIT) if want[k] != _BWD_SPLIT[k])
+
+
 # (anchor, replacement) pairs of each variant
 VARIANTS: Dict[str, tuple] = {
     "base": (),
@@ -41,18 +62,40 @@ VARIANTS: Dict[str, tuple] = {
                          "constexpr int kAhead = 1;"),),
     "prefetch_4_tiles": (("constexpr int kAhead = 2;",
                           "constexpr int kAhead = 4;"),),
-    "single_bf16_p": ((_PV, "    MmaRS<D>::run(acc, hi[kk], b);\n"),),
+    "single_bf16_p": ((_PV, _PV.replace("true", "false")),),
     "no_kv_copies": ((_COPY, "    if (false) {"),),
     "copies_only": ((_LOOP, "    continue;"),),
-    "no_products": ((_QK, "      if (false) " + _QK.lstrip()),
-                    (_PV, "")),
+    "no_products": ((_QK, ""), (_PV, "    if (false) " + _PV.lstrip())),
     "no_exp": ((_EXP, "(fmaf("),),
     "no_output_store": ((_STORE, _STORE.replace("qw + r < sq", "false"),),),
+    # the backward: how P and dS enter their products (values right, the
+    # plain version told the same split), and where its time goes (pass 1
+    # of the dQ kernel streams its tiles but runs no products)
+    "bwd_base": (),
+    "bwd_one_rounding_all": _split(ds_dq=False),
+    "bwd_split_all": _split(p_dv=True, ds_dk=True),
+    "bwd_no_delta_pass": (("    if (j >= my_tiles) continue;                   "
+                           "// uniform in the warpgroup",
+                           "    if (j >= my_tiles || it < n_tiles) continue;"),),
+    "bwd_prefetch_1_tile": (("constexpr int kAhead = 2;          // tiles",
+                             "constexpr int kAhead = 1;          // tiles"),),
+}
+# what each backward variant rounds, for its plain version (None: wrong
+# values on purpose, timed only)
+BWD_PLAIN_SPLIT = {
+    "bwd_base": _BWD_SPLIT,
+    "bwd_one_rounding_all": dict(_BWD_SPLIT, ds_dq=False),
+    "bwd_split_all": dict(p_dv=True, ds_dk=True, ds_dq=True),
 }
 
 
+def _source(name: str) -> str:
+    return "flash_attention_bwd" if name.startswith("bwd_") \
+        else "flash_attention"
+
+
 def variant_source(name: str) -> str:
-    src = (_build.CSRC / "flash_attention.cu").read_text()
+    src = (_build.CSRC / f"{_source(name)}.cu").read_text()
     for anchor, new in VARIANTS[name]:
         if anchor not in src:
             raise RuntimeError(f"attention ablation {name!r}: anchor "
@@ -61,16 +104,18 @@ def variant_source(name: str) -> str:
     return src
 
 
-def build_all() -> Dict[str, Path]:
-    """One nvcc per variant, all started together."""
+def build_all(names) -> Dict[str, Path]:
+    """One nvcc per variant, all started together (``-I csrc`` for the
+    headers the sources include)."""
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = _build.nvcc_path()
     procs = {}
-    for name in VARIANTS:
+    for name in names:
         cu, so = OUT / f"{name}.cu", OUT / f"lib{name}.so"
         cu.write_text(variant_source(name))
         procs[name] = (subprocess.Popen(
-            [nvcc, *_build.FLAGS, "-o", str(so), str(cu)],
+            [nvcc, *_build.FLAGS, "-I", str(_build.CSRC), "-o", str(so),
+             str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     libs = {}
     for name, (proc, so) in procs.items():
@@ -83,21 +128,39 @@ def build_all() -> Dict[str, Path]:
 
 def run_variant(name: str, so: str) -> dict:
     """Time one built variant (in this process) through the port's
-    launcher; ``base`` is also held against the plain version."""
+    launcher; ``base`` and the backward's rounding variants are also held
+    against the plain version."""
     import torch
 
     from repro_torch.kernels import autotune
-    from repro_torch.kernels import flash_attention as fa
     lib = ctypes.CDLL(so)
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    _build._libs["flash_attention"] = lib
+    _build._libs[_source(name)] = lib
+    bwd = name.startswith("bwd_")
     gen = torch.Generator(device="cuda").manual_seed(0)
     row = {"variant": name, "card": torch.cuda.get_device_name(0)}
-    for b, s, h, kh, d in SHAPES:
+    for b, s, h, kh, d in BWD_SHAPES if bwd else SHAPES:
         q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda")
                    .to(torch.bfloat16) for n in (h, kh, kh))
         key = f"ms_{b}x{s}x{h}/{kh}x{d}"
+        if bwd:
+            do = torch.randn(b, s, h, d, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+            _, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+            args = (q, k, v, do, lse)
+            row[key] = autotune.bench_time(
+                lambda: fa.flash_attention_bwd_cuda(*args), iters=20,
+                device="cuda") * 1e3
+            if name in BWD_PLAIN_SPLIT:
+                got = fa.flash_attention_bwd_cuda(*args)
+                want = fa.flash_attention_bwd_plain(
+                    *args, split=BWD_PLAIN_SPLIT[name])
+                row[f"max_err_of_max_{b}x{s}"] = max(
+                    ((x.float() - y.float()).abs().max()
+                     / y.float().abs().max()).item()
+                    for x, y in zip(got, want))
+            continue
         row[key] = autotune.bench_time(
             lambda: fa.flash_attention_cuda(q, k, v), iters=20,
             device="cuda") * 1e3
@@ -113,7 +176,9 @@ def main() -> int:
     if len(sys.argv) == 3:                      # one variant, in a child
         print(json.dumps(run_variant(sys.argv[1], sys.argv[2])), flush=True)
         return 0
-    libs = build_all()
+    names = [n for n in VARIANTS
+             if sys.argv[1:] != ["bwd"] or n.startswith("bwd_")]
+    libs = build_all(names)
     env = dict(os.environ, PYTHONPATH=str(_build.CSRC.parents[1]))
     for name, so in libs.items():
         out = subprocess.run([sys.executable, "-m",

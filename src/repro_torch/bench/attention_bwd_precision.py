@@ -9,13 +9,20 @@ captures the attention backward's inputs (q, k, v, dO, LSE) of the layers
 at the top, the middle and the bottom of the stack.  For each it prints
 one JSON line: the relative error (||x - ref|| / ||ref||) and the cosine
 of dQ, dK and dV against float64 attention on the same bf16 inputs, for
-- ``kernel``: ``flash_attention_bwd_cuda`` (delta = rowsum(P * dP));
+- ``kernel``: ``flash_attention_bwd_cuda``, the tensor-core kernels (delta
+  = rowsum(P * dP); P and dS in bf16 as ``WGMMA_BWD_SPLIT`` says);
+- ``kernel_cuda_core``: the CUDA-core kernels (``impl="cuda_core"``, P and
+  dS in fp32);
+- ``one_<part>``: the plain version with every A operand as hi + lo
+  except ``<part>`` (``p_dv``, ``ds_dk``, ``ds_dq``), which takes one bf16
+  rounding, so each product's own rounding shows alone; ``split_all`` and
+  ``one_all`` with every operand as hi + lo, or as one rounding;
 - ``delta_from_o``: the same algorithm with FlashAttention-2's delta,
   rowsum(dO * O) from the forward kernel's bf16 O (the plain backward's
   formula with that one change, in fp32);
 - ``naive``: autograd through ``layers.attn_naive`` in bf16, the plain
   path's attention;
-and the kernel against its plain version.  The same at the untrained
+and each kernel against its plain version.  The same at the untrained
 weights first.  One H100 call of about two minutes with the build.
 """
 from __future__ import annotations
@@ -104,21 +111,31 @@ def _report(label, captured):
         q, k, v, do, lse = captured[li]
         o, _ = fa.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
         ref = _float64_grads(q, k, v, do)
-        got = fa.flash_attention_bwd_cuda(q, k, v, do, lse)
-        plain = fa.flash_attention_bwd_plain(q, k, v, do, lse)
-        old = _delta_from_o_grads(q, k, v, o, do, lse)
+        runs = {"kernel": fa.flash_attention_bwd_cuda(q, k, v, do, lse),
+                "kernel_cuda_core": fa.flash_attention_bwd_cuda(
+                    q, k, v, do, lse, impl="cuda_core")}
+        parts = tuple(fa.WGMMA_BWD_SPLIT)
+        for name, one in ([(f"one_{p}", (p,)) for p in parts]
+                          + [("split_all", ()), ("one_all", parts)]):
+            runs[name] = fa.flash_attention_bwd_plain(
+                q, k, v, do, lse, split={p: p not in one for p in parts})
+        runs["delta_from_o"] = _delta_from_o_grads(q, k, v, o, do, lse)
         qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
         pos = torch.arange(q.shape[1], device=q.device)
-        naive = torch.autograd.grad(
+        runs["naive"] = torch.autograd.grad(
             L.attn_naive(qq, kk, vv, q_pos=pos, k_pos=pos, causal=True),
             (qq, kk, vv), do)
-        row = dict(weights=label, layer_from_top=li, shape=list(q.shape))
-        for name, grads in (("kernel", got), ("delta_from_o", old),
-                            ("naive", naive)):
+        row = dict(weights=label, layer_from_top=li, shape=list(q.shape),
+                   split=fa.WGMMA_BWD_SPLIT)
+        for name, grads in runs.items():
             row[name] = {g: dict(rel=_rel(x, r), cos=_cos(x, r))
                          for g, x, r in zip(("dq", "dk", "dv"), grads, ref)}
-        row["kernel_vs_plain_rel"] = {
-            g: _rel(x, y) for g, x, y in zip(("dq", "dk", "dv"), got, plain)}
+        for name, impl in (("kernel", None), ("kernel_cuda_core",
+                                              "cuda_core")):
+            plain = fa.flash_attention_bwd_plain(q, k, v, do, lse, impl=impl)
+            row[f"{name}_vs_plain_rel"] = {
+                g: _rel(x, y)
+                for g, x, y in zip(("dq", "dk", "dv"), runs[name], plain)}
         print(json.dumps(row), flush=True)
 
 

@@ -61,6 +61,8 @@
 //   plain version repeats the split.
 //   The output is staged in the freed ring and written as whole 16-byte
 //   pieces of rows.
+//   The wgmma, cp.async and tile-copy helpers are in wgmma.cuh, shared
+//   with the backward.
 //   Shared memory layout: the no-swizzle ("interleave") core-matrix layout
 //   for every head dim.  A core matrix is 8 rows x 16 bytes, stored as 128
 //   contiguous bytes; the 8-row groups of a tile follow each other, D * 16
@@ -94,6 +96,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -319,296 +323,19 @@ int dispatch_d(int d, int block_q, const void* q, const void* k,
 
 namespace wg {
 
+using namespace hopper;
+
 constexpr int kAhead = 2;                  // K/V tiles copying while one computes
 constexpr int kStages = kAhead + 1;        // ring: tile j and the copies
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; ok == false copies nothing and
-// writes 16 zero bytes
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
-                                            bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>   // until at most N committed groups are pending
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-// the copies were generic-proxy writes; wgmma reads through the async proxy
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Pins a register's value to this point of the program, so the compiler
-// moves no read or write of an accumulator across a wgmma fence or wait.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-// Shared-memory matrix descriptor, no-swizzle layout (type 0, base offset 0):
-// start address, leading byte offset (between core matrices along K) and
-// stride byte offset (between core matrices along M or N), each >> 4.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((addr >> 4) & 0x3FFF)
-         | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
-         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
-}
-
-#define REPRO_F8(i)                                                   \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// S (64 x 64, fp32) (+)= A (64 x 16) B (16 x 64), both from shared memory,
-// both K-major; accumulate == 0 overwrites S.
-__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
-                                           uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : REPRO_F8(0), REPRO_F8(8), REPRO_F8(16), REPRO_F8(24)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// O (64 x N, fp32) += A (64 x 16, bf16 in registers) B (16 x N), B from
-// shared memory MN-major (transpose bit set).
-template <int N>
-struct MmaRS;
-
-template <>
-struct MmaRS<16> {
-  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : REPRO_F8(0)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct MmaRS<32> {
-  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : REPRO_F8(0), REPRO_F8(8)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct MmaRS<48> {
-  static __device__ __forceinline__ void run(float (&d)[24], const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23"
-        "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-        : REPRO_F8(0), REPRO_F8(8), REPRO_F8(16)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct MmaRS<64> {
-  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : REPRO_F8(0), REPRO_F8(8), REPRO_F8(16), REPRO_F8(24)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct MmaRS<80> {
-  static __device__ __forceinline__ void run(float (&d)[40], const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39"
-        "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-        : REPRO_F8(0), REPRO_F8(8), REPRO_F8(16), REPRO_F8(24), REPRO_F8(32)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct MmaRS<96> {
-  static __device__ __forceinline__ void run(float (&d)[48], const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47"
-        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-        : REPRO_F8(0), REPRO_F8(8), REPRO_F8(16), REPRO_F8(24), REPRO_F8(32), REPRO_F8(40)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct MmaRS<112> {
-  static __device__ __forceinline__ void run(float (&d)[56], const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55"
-        "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
-        : REPRO_F8(0), REPRO_F8(8), REPRO_F8(16), REPRO_F8(24), REPRO_F8(32), REPRO_F8(40), REPRO_F8(48)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct MmaRS<128> {
-  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : REPRO_F8(0), REPRO_F8(8), REPRO_F8(16), REPRO_F8(24), REPRO_F8(32), REPRO_F8(40), REPRO_F8(48), REPRO_F8(56)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-#undef REPRO_F8
-
-// Copy ROWS x D bf16 rows [row0, row0 + ROWS) of src (row stride `stride`
-// elements) into the interleaved layout at dst; rows at or past `limit`
-// become zeros.  Copy i is 16-byte piece i % (D / 8) of row i / (D / 8), so
-// the lanes of a warp read whole rows (one L2 request a 128-byte line); the
-// piece lands in its core matrix, 128 bytes from its row's neighbours.
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long stride, int row0,
-                                          int limit, int tid) {
-  constexpr int PIECES = D / 8;
-  const uint32_t base = smem_addr(dst);
-#pragma unroll
-  for (int i = tid; i < ROWS * PIECES; i += NT) {
-    const int r = i / PIECES, c = i % PIECES, row = row0 + r;
-    const bool ok = row < limit;
-    cp_async_16(base + (r >> 3) * D * 16 + c * 128 + (r & 7) * 16,
-                ok ? src + row * stride + c * 8 : src, ok);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo, low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x, one MUFU op; -inf -> 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // dynamic shared memory of a block: the Q tile and the K/V ring
 constexpr size_t smem_bytes(int d, int block_q) {
   return sizeof(__nv_bfloat16) * (size_t)d * (block_q + kStages * 2 * kBlockK);
 }
 
-// O += P V for one 64-key tile: 4 k-steps of 16 keys (2 row groups each),
-// each with P's bf16 high part and then its bf16 remainder.
-template <int D>
-__device__ __forceinline__ void mma_pv(float (&acc)[D / 2],
-                                       uint32_t (&hi)[4][4],
-                                       uint32_t (&lo)[4][4], uint32_t v_addr) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t b = desc(v_addr + 2 * D * 16 * kk, D * 16, 128);
-    MmaRS<D>::run(acc, hi[kk], b);
-    MmaRS<D>::run(acc, lo[kk], b);
-  }
-}
-
-// Accumulator fragment of a 64 x N wgmma: thread t of the warpgroup (warp
-// w = t / 32, lane l) holds rows 16 w + l / 4 (registers 4 j, 4 j + 1) and
-// that + 8 (4 j + 2, 4 j + 3), columns 8 j + 2 (l % 4) and + 1.  Keys
-// 16 kk .. 16 kk + 15 of S, registers 8 kk .. 8 kk + 7, are then the A
-// fragment of P V's k-step kk.
+// Keys 16 kk .. 16 kk + 15 of S, registers 8 kk .. 8 kk + 7 of its
+// accumulator fragment (wgmma.cuh), are the A fragment of P V's k-step kk.
 template <int D, int WG>
 __global__ void __launch_bounds__(WG * 128)
 flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
@@ -620,7 +347,6 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
                 float scale_log2, int causal) {
   constexpr int BQ = 64 * WG, NT = 128 * WG;
   constexpr int KV_TILE = kBlockK * D;          // elements of one K or V tile
-  constexpr uint32_t GROUP_BYTES = D * 16;      // one 8-row group
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* kv_s = q_s + BQ * D;           // stage s: K, then V
@@ -681,10 +407,7 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
     pin(s);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)         // 16 dims = 2 core matrices
-      mma_ss_n64(s, desc(q_addr + 256 * kk, 128, GROUP_BYTES),
-                 desc(k_addr + 256 * kk, 128, GROUP_BYTES), kk > 0);
+    mma_scores<D>(s, q_addr, k_addr);           // S = Q K^T
     wgmma_commit();
     wgmma_wait_all();
     pin(s);
@@ -729,28 +452,15 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
       acc[4 * i + 2] *= corr_b;
       acc[4 * i + 3] *= corr_b;
     }
-    // P = hi + lo, both bf16: hi its rounding, lo the rounding of p - hi
-    // (exact in fp32), so P V keeps P to about 16 bits
+    // P = hi + lo, both bf16, so P V keeps P to about 16 bits
     uint32_t hi[4][4], lo[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x0 = s[8 * kk + 2 * e], x1 = s[8 * kk + 2 * e + 1];
-        const uint32_t h = pack_bf16(x0, x1);
-        hi[kk][e] = h;
-        lo[kk][e] = pack_bf16(x0 - __uint_as_float(h << 16),
-                              x1 - __uint_as_float(h & 0xffff0000u));
-      }
+    to_a<true>(s, hi, lo);
     pin(acc);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pin(hi[kk]);
-      pin(lo[kk]);
-    }
+    pin_a<true>(hi, lo);
     wgmma_fence();
-    mma_pv<D>(acc, hi, lo, smem_addr(kv_s + (j % kStages) * 2 * KV_TILE
-                                     + KV_TILE));
+    mma_rs_tile<D, true>(acc, hi, lo,             // O += P V
+                         smem_addr(kv_s + (j % kStages) * 2 * KV_TILE
+                                   + KV_TILE));
     wgmma_commit();
     wgmma_wait_all();
     pin(acc);

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own into ``build/repro_torch_kernels/lib<name>-<digest>.so`` at the
-repository root, at first use.  The digest covers the source and the
-flags, so an edited source never loads a stale library.  ``build`` starts
-one ``nvcc`` per source, all at once.
+repository root, at first use.  The digest covers the source, every
+``csrc`` header it includes (``#include "x.cuh"``, followed through the
+headers) and the flags, so an edited source or header never loads a stale
+library.  ``build`` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import: the CPU tests import every module of the
 port, and a machine without a GPU usually has no ``nvcc``.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -44,10 +46,30 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every local header it includes, directly or
+    through another header, each once, in the order first reached."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1()
+    for path in sources_of(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Sequence[str] = SOURCES) -> Dict[str, dict]:

@@ -90,6 +90,15 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"block_k in {BLOCK_K_CHOICES}")
 
 
+def _rounded(x: torch.Tensor, dtype: torch.dtype, split: bool
+             ) -> torch.Tensor:
+    """fp32 ``x`` as a tensor-core A operand: its ``dtype`` rounding
+    ``hi``, plus with ``split`` the rounding of ``x - hi`` (exact in
+    fp32)."""
+    hi = x.to(dtype).float()
+    return hi + (x - hi).to(dtype).float() if split else hi
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           block_q: Optional[int] = None,
@@ -131,11 +140,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             corr = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
             l = l * corr + p.sum(dim=-1)
-            if split_p:                         # exact in fp32: hi + lo
-                hi = p.to(q.dtype).float()
-                pv = hi + (p - hi).to(q.dtype).float()
-            else:
-                pv = p
+            pv = _rounded(p, q.dtype, True) if split_p else p
             acc = acc * corr[..., None] + pv @ vf[:, :, k0:k0 + block_k]
             m = m_new
         out[:, :, q0:q0 + n] = acc / torch.clamp_min(l, 1e-30)[..., None]
@@ -220,23 +225,47 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # with GQA's dK/dV summed over the group's query heads.  delta is
 # rowsum(dO * O) in exact arithmetic; taken from P and dP it needs no O and
 # keeps each row of dS summing to zero, where the bf16-rounded O does not
-# (see the source).  All arithmetic is fp32 from the inputs' values; dQ,
-# dK, dV are cast once to q's dtype.
+# (see the source).  Every sum is fp32 from the inputs' values; dQ, dK, dV
+# are cast once to q's dtype.  The dtype picks the kernels, as in the
+# forward (``kernel_for``):
+#
+# - bfloat16 -> ``"wgmma"``: the products on the tensor cores, P and dS
+#   entering them in bf16, as one rounding or as hi + lo
+#   (``WGMMA_BWD_SPLIT``); blocks of 64 or 128 q rows (dQ) and keys (dK/dV).
+# - float32 -> ``"cuda_core"``: fp32 products on the CUDA cores, 64 x 64
+#   tiles.  ``impl="cuda_core"`` pins these for bf16 too.
 
-BWD_BLOCK = 64                # q rows and keys per backward tile
-_BWD_ERRORS = {-1: "dtype", -3: "head dim", -5: "shape"}
+BWD_BLOCK = 64                # q rows and keys per tile of a warpgroup or block
+# q rows (dQ kernel) and keys (dK/dV kernel) a block, by kernel: the
+# choices each is built for and the defaults (the wgmma pair chosen by
+# ``chip_smoke.py``'s timing of all four at the train shape, ``blocks_ms``)
+BWD_BLOCK_CHOICES = {"wgmma": (64, 128), "cuda_core": (64,)}
+BWD_BLOCKS = {"wgmma": (128, 128), "cuda_core": (64, 64)}
+# How the tensor-core kernels' bf16 A operands enter their products: True
+# is hi + lo (two bf16 parts, two products), False one bf16 rounding.  The
+# source's kSplit* constants; chosen per product on a trained model's
+# inputs (``bench/attention_bwd_precision.py``).
+WGMMA_BWD_SPLIT = {"p_dv": False, "ds_dk": False, "ds_dq": True}
+_BWD_ERRORS = {-1: "dtype", -2: "block_q", -3: "head dim", -4: "block_k",
+               -5: "shape", -6: "impl"}
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, do: torch.Tensor,
-                              lse: torch.Tensor, *, causal: bool = True
+                              lse: torch.Tensor, *, causal: bool = True,
+                              impl: Optional[str] = None,
+                              split: Optional[dict] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """The kernels' algorithm in PyTorch: q tiles of ``BWD_BLOCK`` rows
     recompute P from the LSE and dP, take their rows' delta, add their
     share of dK and dV (fp32, summed over the GQA group) and give their
-    rows of dQ.  Returns (dq, dk, dv) in q's dtype and the inputs'
-    layouts."""
+    rows of dQ.  For the ``"wgmma"`` kernels (``kernel_for(q.dtype,
+    impl)``) P and dS enter their products rounded as the kernels round
+    them: ``split`` (default ``WGMMA_BWD_SPLIT``) says which take hi + lo.
+    Returns (dq, dk, dv) in q's dtype and the inputs' layouts."""
+    wgmma = kernel_for(q.dtype, impl) == "wgmma"
+    split = split or WGMMA_BWD_SPLIT
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -250,6 +279,9 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     dk = torch.zeros((b, h, sk, d), dtype=torch.float32, device=q.device)
     dv = torch.zeros((b, h, sk, d), dtype=torch.float32, device=q.device)
     k_pos = torch.arange(sk, device=q.device)
+
+    def operand(x, part):
+        return _rounded(x, q.dtype, split[part]) if wgmma else x
     for q0 in range(0, sq, BWD_BLOCK):
         qt, dot = qf[:, :, q0:q0 + BWD_BLOCK], dof[:, :, q0:q0 + BWD_BLOCK]
         n = qt.shape[2]
@@ -258,30 +290,45 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
         p = torch.exp(s - lse[:, :, q0:q0 + n, None])
         if causal:
             p = torch.where(k_pos[None, :] > q_pos[:, None], 0.0, p)
-        dv += p.transpose(-1, -2) @ dot
+        dv += operand(p, "p_dv").transpose(-1, -2) @ dot
         dp = dot @ vf.transpose(-1, -2)
         ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
-        dq[:, :, q0:q0 + n] = (ds @ kf) * scale
-        dk += (ds.transpose(-1, -2) @ qt) * scale
+        dq[:, :, q0:q0 + n] = (operand(ds, "ds_dq") @ kf) * scale
+        dk += (operand(ds, "ds_dk").transpose(-1, -2) @ qt) * scale
     dk = dk.reshape(b, kh, g, sk, d).sum(dim=2)
     dv = dv.reshape(b, kh, g, sk, d).sum(dim=2)
     return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(q.dtype),
             dv.transpose(1, 2).to(q.dtype))
 
 
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
                  + [ctypes.c_float, ctypes.c_void_p])
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, do: torch.Tensor,
-                             lse: torch.Tensor, *, causal: bool = True
+                             lse: torch.Tensor, *, causal: bool = True,
+                             impl: Optional[str] = None,
+                             block_q: Optional[int] = None,
+                             block_k: Optional[int] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """Launch the two backward kernels (dQ with delta, then dK/dV) on
-    PyTorch's current stream; raises on any tensor they do not take and on
-    a refused launch.  Inputs are made contiguous (a no-op on the model's
-    path); two calls on the same inputs agree bit for bit (no atomics)."""
+    """Launch q's dtype's two backward kernels (or, with
+    ``impl="cuda_core"``, the CUDA-core ones) on PyTorch's current stream:
+    dQ with delta, then dK/dV.  ``block_q`` / ``block_k`` (None: the
+    kernels' defaults, ``BWD_BLOCKS``) are the q rows and keys a block
+    takes.  Raises on any tensor they do not take (for the wgmma kernels,
+    rows not on 16-byte boundaries) and on a refused launch.  Inputs are
+    made contiguous (a no-op on the model's path); two calls on the same
+    inputs agree bit for bit (no atomics)."""
+    kern = kernel_for(q.dtype, impl)
+    bq, bk = BWD_BLOCKS[kern]
+    block_q, block_k = block_q or bq, block_k or bk
+    if block_q not in BWD_BLOCK_CHOICES[kern] \
+            or block_k not in BWD_BLOCK_CHOICES[kern]:
+        raise ValueError(f"flash_attention_bwd_cuda: block_q={block_q}, "
+                         f"block_k={block_k}; the {kern} kernels are built "
+                         f"for {BWD_BLOCK_CHOICES[kern]}")
     for t in (q, k, v, do, lse):
         if not t.is_cuda or t.device != q.device:
             raise ValueError("flash_attention_bwd_cuda: q, k, v, do, lse "
@@ -297,6 +344,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention_bwd_cuda: B={b}, H={h} exceed "
                          f"the grid limit {_MAX_GRID_YZ}")
     q, k, v, do, lse = (t.contiguous() for t in (q, k, v, do, lse))
+    if kern == "wgmma":                 # 16-byte cp.async copies of rows
+        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+            _check_16_bytes(t, name, "flash_attention_bwd_cuda")
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -308,8 +358,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype],
-            q.device.index, b, sq, sk, h, kh, d, int(causal),
-            1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+            _IMPL_CODE[impl], q.device.index, b, sq, sk, h, kh, d, block_q,
+            block_k, int(causal), 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "flash_attention_bwd", _BWD_ERRORS)
     del delta     # freed in stream order, after the kernels
     return dq, dk, dv

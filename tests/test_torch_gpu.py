@@ -459,20 +459,59 @@ def _attn_bwd_inputs(gen, b, sq, sk, h, kh, d, causal, dtype):
     (2, 130, 70, 4, 2, 48, False),      # unequal lengths
     (1, 70, 130, 4, 4, 32, True),       # causal, sk > sq
 ])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype,impl", [
+    (torch.float32, None),                          # the CUDA-core kernels
+    (torch.bfloat16, None),                         # the tensor-core kernels
+    (torch.bfloat16, "cuda_core")])                 # CUDA-core, pinned
 def test_flash_attention_bwd_kernel_matches_plain(cuda, b, sq, sk, h, kh, d,
-                                                  causal, dtype):
-    """The two backward kernels against the plain backward on the same
-    q, k, v, LSE (the kernel forward's) and dO."""
+                                                  causal, dtype, impl):
+    """The two backward kernels against the plain backward (with the same
+    ``impl``, so the same roundings) on the same q, k, v, LSE (the kernel
+    forward's) and dO; the wrapper counts the launch."""
     args = _attn_bwd_inputs(cuda, b, sq, sk, h, kh, d, causal, dtype)
     ops.reset_launches()
-    got = ops.flash_attention_bwd(*args, causal=causal)
-    want = fa.flash_attention_bwd_plain(*args, causal=causal)
+    got = (ops.flash_attention_bwd(*args, causal=causal) if impl is None
+           else fa.flash_attention_bwd_cuda(*args, causal=causal, impl=impl))
+    want = fa.flash_attention_bwd_plain(*args, causal=causal, impl=impl)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_attention_bwd"] == 1
+    assert ops.LAUNCHES["flash_attention_bwd"] == (impl is None)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dtype and g.shape == w.shape
         _close_max(g, w, BWD_TOL[dtype], name)
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("block_q,block_k", [(64, 64), (128, 128),
+                                             (64, 128)])
+def test_flash_attention_bwd_wgmma_every_head_dim_and_block(cuda, d, block_q,
+                                                            block_k):
+    """Every instantiation of the tensor-core kernels (eight head dims, one
+    or two warpgroups a block) against the plain version, causal GQA 6/2
+    with S a multiple of neither tile."""
+    args = _attn_bwd_inputs(cuda, 2, 200, 200, 6, 2, d, True, torch.bfloat16)
+    got = fa.flash_attention_bwd_cuda(*args, block_q=block_q, block_k=block_k)
+    want = fa.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _close_max(g, w, BWD_TOL[torch.bfloat16], name)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "do"])
+def test_flash_attention_bwd_wgmma_refuses_unaligned_rows(cuda, which):
+    """A bf16 input two bytes off a 16-byte boundary: the tensor-core
+    kernels' 16-byte copies cannot take it, and the wrapper raises rather
+    than fall back to the CUDA-core kernels or the plain version."""
+    args = list(_attn_bwd_inputs(cuda, 1, 64, 64, 2, 2, 64, True,
+                                 torch.bfloat16))
+    i = ("q", "k", "v", "do").index(which)
+    flat = torch.empty(args[i].numel() + 1, dtype=torch.bfloat16,
+                       device="cuda")
+    args[i] = flat[1:].view(args[i].shape).copy_(args[i])
+    assert args[i].data_ptr() % 16 == 2
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention_bwd(*args)
+    assert ops.LAUNCHES["flash_attention_bwd"] == 0
 
 
 @pytest.mark.parametrize("dtype,impl", [(torch.bfloat16, None),
@@ -533,12 +572,16 @@ def test_fused_add_rmsnorm_bwd_takes_unaligned_views(cuda, which):
 
 
 def test_backward_kernels_agree_bit_for_bit_across_runs(cuda):
-    """No atomics: two runs of each backward on the same inputs agree."""
-    args = _attn_bwd_inputs(cuda, 2, 300, 300, 15, 5, 64, True,
-                            torch.bfloat16)
-    first = ops.flash_attention_bwd(*args)
-    again = ops.flash_attention_bwd(*args)
-    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    """No atomics: two runs of each backward on the same inputs agree
+    (attention: the tensor-core kernels at two shapes, the CUDA-core ones
+    on bf16 at the first)."""
+    for shape, impls in (((2, 300, 300, 15, 5, 64), (None, "cuda_core")),
+                         ((1, 1000, 1000, 4, 2, 128), (None,))):
+        args = _attn_bwd_inputs(cuda, *shape, True, torch.bfloat16)
+        for impl in impls:
+            first = fa.flash_attention_bwd_cuda(*args, impl=impl)
+            again = fa.flash_attention_bwd_cuda(*args, impl=impl)
+            assert all(torch.equal(a, b) for a, b in zip(first, again))
     x, r, dh, dy = (_rand(cuda, 4096, 960, dtype=torch.bfloat16)
                     for _ in range(4))
     sc = _rand(cuda, 960, dtype=torch.bfloat16)

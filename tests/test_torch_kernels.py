@@ -8,7 +8,10 @@ same numpy inputs.  Tolerances are the reference's own
 SSD y 1e-4 / 4e-2 and state 1e-4 / 1e-2 (fp32 / bf16).
 """
 import os
+import re
+import shutil
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -671,16 +674,19 @@ def _close_bwd(got, want, dtype, what):
         f"{what}: {err:.3e} > {BWD_TOL[dtype]} * {np.abs(w).max():.3e}")
 
 
+@pytest.mark.parametrize("impl", [None, "cuda_core"])
 @pytest.mark.parametrize("s", [77, 200])
 @pytest.mark.parametrize("d", [16, 64])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_plain_matches_reference_grad(s, d, causal,
-                                                          dtype):
+                                                          dtype, impl):
     """GQA 4/2: the plain backward (from the plain forward's LSE)
     against ``jax.vjp`` of the reference's ``attn_naive`` for one seeded
     cotangent; the LSE against a logsumexp of the reference's scaled,
-    masked scores (fp32 scores of the same values, atol 2e-5)."""
+    masked scores (fp32 scores of the same values, atol 2e-5).  bf16 with
+    ``impl`` None repeats the tensor-core kernels' roundings of P and dS;
+    ``"cuda_core"`` (and fp32 either way) keeps them in fp32."""
     (jq, tq), (jk, tk), (jv, tv) = _attn_inputs(2, s, s, 4, 2, d, dtype)
     jdo, tdo = _pair(RNG.standard_normal((2, s, 4, d)), dtype)
     pos = jnp.arange(s)
@@ -689,7 +695,8 @@ def test_flash_attention_bwd_plain_matches_reference_grad(s, d, causal,
     want = vjp(jdo)
     _, lse = fa.flash_attention_plain(tq, tk, tv, causal=causal,
                                       return_lse=True)
-    got = fa.flash_attention_bwd_plain(tq, tk, tv, tdo, lse, causal=causal)
+    got = fa.flash_attention_bwd_plain(tq, tk, tv, tdo, lse, causal=causal,
+                                       impl=impl)
     for name, g, w, t in zip("qkv", got, want, (tq, tk, tv)):
         assert g.dtype == t.dtype and g.shape == t.shape
         _close_bwd(g, w, dtype, f"d{name}")
@@ -702,6 +709,81 @@ def test_flash_attention_bwd_plain_matches_reference_grad(s, d, causal,
     want_lse = jax.nn.logsumexp(jnp.asarray(sc), axis=-1)
     np.testing.assert_allclose(_np(lse), np.asarray(want_lse).reshape(
         2, 4, s), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,impl,kernel", [
+    (torch.float32, None, "cuda_core"), (torch.bfloat16, None, "wgmma"),
+    (torch.bfloat16, "cuda_core", "cuda_core"),
+    (torch.float32, "cuda_core", "cuda_core")])
+def test_flash_attention_bwd_routes_by_dtype_and_impl(dtype, impl, kernel):
+    """fp32 takes the CUDA-core kernels, bf16 the tensor-core ones, and
+    ``impl="cuda_core"`` pins the CUDA-core ones: the plain version rounds
+    P and dS (as ``WGMMA_BWD_SPLIT`` says) exactly when the kernel does,
+    and the launcher takes only its kernel's blocks.  An unknown ``impl``
+    raises in both."""
+    assert fa.kernel_for(dtype, impl) == kernel
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn(1, 70, 4, 32, generator=gen).to(dtype)
+                   for _ in range(4))
+    k, v = k[:, :, :2], v[:, :, :2]
+    _, lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+    got = fa.flash_attention_bwd_plain(q, k, v, do, lse, impl=impl)
+    fp32_ops = fa.flash_attention_bwd_plain(q, k, v, do, lse,
+                                            impl="cuda_core")
+    split, one = (fa.flash_attention_bwd_plain(
+        q, k, v, do, lse, impl=impl,
+        split=dict.fromkeys(fa.WGMMA_BWD_SPLIT, part)) for part in (True,
+                                                                    False))
+    same = [all(torch.equal(a, b) for a, b in zip(x, fp32_ops))
+            for x in (got, split, one)]
+    if kernel == "cuda_core":       # nothing rounds, whatever split says
+        assert same == [True, True, True]
+    else:                           # rounded, and the split counts
+        assert same == [False, False, False]
+        assert not all(torch.equal(a, b) for a, b in zip(split, one))
+    with pytest.raises(ValueError, match="block_q=32"):
+        fa.flash_attention_bwd_cuda(q, k, v, do, lse, impl=impl, block_q=32)
+    if kernel == "cuda_core":       # 128 is a tensor-core block only
+        with pytest.raises(ValueError, match="block_k=128"):
+            fa.flash_attention_bwd_cuda(q, k, v, do, lse, impl=impl,
+                                        block_k=128)
+    else:                           # taken: the CPU tensors are refused
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fa.flash_attention_bwd_cuda(q, k, v, do, lse, impl=impl,
+                                        block_k=64)
+    for fn in (fa.flash_attention_bwd_plain, fa.flash_attention_bwd_cuda):
+        with pytest.raises(ValueError, match="impl='tiled'"):
+            fn(q, k, v, do, lse, impl="tiled")
+
+
+def test_library_digest_covers_included_headers(tmp_path, monkeypatch):
+    """Both attention sources include ``wgmma.cuh``: an edit to the header
+    changes their libraries' names (so no stale build loads) and leaves a
+    source that does not include it alone."""
+    from repro_torch.kernels import _build
+    for f in _build.CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build.sources_of("flash_attention_bwd")] == [
+        "flash_attention_bwd.cu", "wgmma.cuh"]
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    header = tmp_path / "wgmma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in _build.SOURCES}
+    changed = {n for n in _build.SOURCES if before[n] != after[n]}
+    assert changed == {"flash_attention", "flash_attention_bwd"}
+
+
+def test_wgmma_bwd_split_mirrors_the_source():
+    """The plain version's ``WGMMA_BWD_SPLIT`` is the tensor-core kernels'
+    ``kSplit*`` constants, product by product."""
+    src = (Path(fa.__file__).parents[1] / "csrc"
+           / "flash_attention_bwd.cu").read_text()
+    names = {"p_dv": "kSplitPdV", "ds_dk": "kSplitDsDk", "ds_dq": "kSplitDsDq"}
+    assert set(fa.WGMMA_BWD_SPLIT) == set(names)
+    for part, const in names.items():
+        m = re.search(rf"constexpr bool {const} = (true|false);", src)
+        assert m and (m.group(1) == "true") == fa.WGMMA_BWD_SPLIT[part], part
 
 
 @pytest.mark.parametrize("shape", [(37, 960), (2, 19, 1001)])
