@@ -313,9 +313,17 @@ def _bwd_wgmma_name(mangled: str):
     return (m.group(1), int(m.group(2)), 64 * int(m.group(3))) if m else None
 
 
+def _sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+_BWD_NORM = re.compile(r"fused_add_rmsnorm_bwdI(f|13__nv_bfloat16)Li(\d+)ELb([01])"
+                       r"ELb([01])E")
+
+
 def _bwd_kernel_name(mangled: str) -> str:
-    """bwd_dkdv<bf16, D 64> (or fused_add_rmsnorm_bwd<bf16, 2 values a
-    lane, 16-byte loads>, dscale_reduce<bf16>) from its mangled name."""
+    """bwd_dkdv<bf16, D 64> (or fused_add_rmsnorm_bwd<bf16, 4 values a
+    lane, bulk copies>) from its mangled name."""
     dt = "bf16" if "__nv_bfloat16" in mangled else "f32"
     wg = _bwd_wgmma_name(mangled)
     if wg:
@@ -325,12 +333,31 @@ def _bwd_kernel_name(mangled: str) -> str:
                   mangled)
     if m:
         return f"{m.group(1)}<{dt}, D {m.group(2)}>"
-    m = re.search(r"fused_add_rmsnorm_bwdI(?:f|13__nv_bfloat16)Li(\d+)ELb([01])E",
-                  mangled)
+    m = _BWD_NORM.search(mangled)
     if m:
-        return (f"fused_add_rmsnorm_bwd<{dt}, {m.group(1)} values a lane, "
-                f"{'16-byte' if m.group(2) == '1' else 'scalar'} loads>")
-    return f"dscale_reduce<{dt}>" if "dscale_reduce" in mangled else mangled
+        how = ("bulk copies" if m.group(4) == "1" else "16-byte loads"
+               if m.group(3) == "1" else "scalar loads")
+        return f"fused_add_rmsnorm_bwd<{dt}, {m.group(2)} values a lane, {how}>"
+    return mangled
+
+
+def _bwd_norm_smem(mangled: str) -> str:
+    """The dynamic shared memory (the source's own count) of
+    ``fused.bwd_plan``'s launch of an instantiation of the fused-norm
+    backward at the widest row it takes with one warp (8 warps past
+    ``BWD_WARP_VALS`` values a lane), 16384 rows."""
+    m = _BWD_NORM.search(mangled)
+    es = 4 if m.group(1) == "f" else 2
+    vals, vec = int(m.group(2)), m.group(3) == "1"
+    wpr = 1 if vals <= fused_mod.BWD_WARP_VALS else rn.WARPS
+    d = 32 * vals * (16 // es) * wpr
+    bp = fused_mod.bwd_plan(16384, d, es, rn.Plan(vec, vals, wpr), _sms())
+    smem = _build.load("fused_add_rmsnorm_bwd").repro_fused_add_rmsnorm_bwd_smem
+    smem.argtypes, smem.restype = [ctypes.c_int] * 7, ctypes.c_longlong
+    dyn = smem(int(vec), es, d, wpr, bp.rows_per_step, bp.stages, bp.blocks)
+    ring = (f"a ring of {bp.stages} stages of {bp.rows_per_step} rows"
+            if bp.stages else "register loads")
+    return f"{dyn} B dynamic shared memory at d {d} ({ring}), "
 
 
 def _norm_kernel_name(mangled: str, kernel: str) -> str:
@@ -423,7 +450,9 @@ def phase_build() -> None:
             for fn, regs, st, ld in ptxas_report(info["log"]):
                 wg = _bwd_wgmma_name(fn)
                 dyn = (f"{smem(int(wg[0] == 'bwd_dkdv_wgmma'), wg[1], wg[2])}"
-                       f" B dynamic shared memory, " if wg else "")
+                       f" B dynamic shared memory, " if wg
+                       else _bwd_norm_smem(fn) if _BWD_NORM.search(fn)
+                       else "")
                 log(f"[build]   {_bwd_kernel_name(fn)}: {regs} registers, "
                     f"{dyn}spill stores {st} B, spill loads {ld} B")
             continue
@@ -615,13 +644,20 @@ def attention_bwd_case(gen, label, b, sq, sk, h, kh, d, causal, dtype,
 def fused_bwd_case(gen, label, rows, d, dtype, timed=False):
     """The backward kernel against its plain version; dsum at the
     forward's elementwise tolerance, dscale (a sum over every row) at
-    BWD_TOL of its max."""
+    BWD_TOL of its max.  The launch must leave the stream's ticket
+    counters zero; the row carries ``bwd_plan``'s plan for these inputs."""
     x, r, dh, dy = (torch.randn(rows, d, generator=gen, device="cuda")
                     .to(dtype) for _ in range(4))
     sc = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
     dsum, dscale = ops.fused_add_rmsnorm_bwd(dh, dy, x, r, sc)
     wsum, wscale = fused_mod.fused_add_rmsnorm_bwd_plain(dh, dy, x, r, sc)
     torch.cuda.synchronize()
+    pl = rn.plan(x, r, sc, dh, dy, warp_vals=fused_mod.BWD_WARP_VALS)
+    bp = fused_mod.bwd_plan(rows, d, x.element_size(), pl, _sms())
+    stream = torch.cuda.current_stream()
+    if fused_mod._counter(stream.device, stream).any():
+        raise AssertionError(f"fused_add_rmsnorm_bwd {label}: left its "
+                             "ticket counters set")
     err = max(check_close(f"fused_add_rmsnorm_bwd {label} dsum", dsum, wsum,
                           dtype),
               check_max(f"fused_add_rmsnorm_bwd {label} dscale", dscale,
@@ -630,10 +666,8 @@ def fused_bwd_case(gen, label, rows, d, dtype, timed=False):
     if not (torch.equal(again[0], dsum) and torch.equal(again[1], dscale)):
         raise AssertionError(f"fused_add_rmsnorm_bwd {label}: two runs "
                              "differ")
-    pl = rn.plan(x, r, sc, dh, dy, warp_vals=fused_mod.WARP_VALS)
     row = dict(label=label, shape=[rows, d], dtype=_dname(dtype),
-               plan=pl._asdict(), blocks=fused_mod.bwd_blocks(rows, pl)[0],
-               max_abs_err=err)
+               plan=bp._asdict(), blocks=bp.blocks, max_abs_err=err)
     if timed:
         es = x.element_size()
         row["bound_ms"], row["bound_by"] = bound(
@@ -845,13 +879,16 @@ def phase_kernels(main_lens):
                          impl="cuda_core")
     attn += [cal_row, cal,
              attention_case(gen, "calibrate_s2048_float32", 1, 2048, 2048,
-                            bh, bh, d, True, f32)]
+                            bh, bh, d, True, f32, timed=True)]
     serve_row = attn[0]
     serve_row["earlier_ms"] = attn[1]["ms"]
     serve_row["calibrate"] = {key: cal_row[key] for key in (
         "shape", "ms", "bound_ms", "bound_by", "share_of_bound", "tflops",
         "library_ms", "max_abs_err")}
     serve_row["calibrate"]["earlier_ms"] = cal["ms"]
+    serve_row["calibrate_f32"] = {key: attn[-1][key] for key in (
+        "shape", "kernel", "ms", "bound_ms", "bound_by", "share_of_bound",
+        "tflops", "plain_ms", "library_ms", "max_abs_err")}
     for row, old in ((serve_row, attn[1]), (cal_row, cal)):
         if not row["ms"] * 4 <= old["ms"]:
             raise AssertionError(
@@ -888,7 +925,10 @@ def phase_kernels(main_lens):
     dec = [decode_case(gen, "calibrate_sk4096", 1, 4096, bh, bh, d, 4096,
                        bf16, timed=True),
            decode_case(gen, "calibrate_sk4096_f32", 1, 4096, bh, bh, d,
-                       4096, f32)]
+                       4096, f32, timed=True)]
+    dec[0]["f32"] = {key: dec[1][key] for key in (
+        "shape", "n_splits", "ms", "bound_ms", "bound_by", "share_of_bound",
+        "gb_s", "plain_ms", "library_ms", "max_abs_err")}
     dec += [decode_case(gen, f"calibrate_sk{sk}_{_dname(dt)}", 1, sk, bh, bh,
                         d, sk, dt)
             for sk in (256, 549, 1024, 2048) for dt in (bf16, f32)]
@@ -1004,9 +1044,13 @@ def phase_kernels(main_lens):
             fused_bwd_case(gen, "rows4096_f32", mb * sl, dm, f32),
             fused_bwd_case(gen, "rows16384_f32", 16384, dm, f32),
             fused_bwd_case(gen, "d1001_scalar", 37, 1001, bf16),
-            fused_bwd_case(gen, "d1001_f32", 37, 1001, f32)]
+            fused_bwd_case(gen, "d1001_f32", 37, 1001, f32),
+            fused_bwd_case(gen, "d8192", 64, 8192, bf16),
+            fused_bwd_case(gen, "d8192_f32", 33, 8192, f32),
+            fused_bwd_case(gen, "rows1", 1, dm, bf16),
+            fused_bwd_case(gen, "rows7", 7, dm, bf16)]
     nbwd[0]["rows16384"] = {key: nbwd[1][key] for key in (
-        "shape", "ms", "bound_ms", "share_of_bound", "plain_ms",
+        "shape", "plan", "ms", "bound_ms", "share_of_bound", "plain_ms",
         "max_abs_err")}
     return {"flash_attention": attn[0], "fused_add_rmsnorm": norm[0],
             "flash_attention_decode": dec[0], "rmsnorm": rms[0],
@@ -1070,7 +1114,7 @@ def _kernel_group(name: str) -> str:
         return "flash_attention kernel"
     if "bwd_dkdv" in name or "bwd_dq" in name:
         return "flash_attention_bwd kernel"
-    if "fused_add_rmsnorm_bwd" in name or "dscale_reduce" in name:
+    if "fused_add_rmsnorm_bwd" in name:
         return "fused_add_rmsnorm_bwd kernel"
     if "fused_add_rmsnorm" in name:
         return "fused_add_rmsnorm kernel"
@@ -1101,6 +1145,7 @@ def profile_window(label: str, fn, wall_ms: float, per: int) -> None:
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
     groups: dict = {}
+    counts: dict = {}     # kernels by group
     names: dict = {}
     ported: dict = {}     # the port's own kernels by entry function
     n_kernels = 0
@@ -1109,6 +1154,7 @@ def profile_window(label: str, fn, wall_ms: float, per: int) -> None:
             ms = ev.get("dur", 0.0) / 1e3 / per
             g = _kernel_group(ev.get("name", ""))
             groups[g] = groups.get(g, 0.0) + ms
+            counts[g] = counts.get(g, 0) + 1 / per
             short = ev.get("name", "")[:60]
             names[short] = names.get(short, 0.0) + ms
             if g.endswith(" kernel"):
@@ -1125,6 +1171,8 @@ def profile_window(label: str, fn, wall_ms: float, per: int) -> None:
             wall_ms=wall_ms / per, device_ms=device_ms,
             busy=device_ms / (wall_ms / per), kernels=n_kernels / per,
             by_group=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+            kernels_by_group=dict(sorted(counts.items(),
+                                         key=lambda kv: -kv[1])),
             port_kernels=dict(sorted(ported.items(), key=lambda kv: -kv[1])),
             top=sorted(names.items(), key=lambda kv: -kv[1])[:5])))
     return device_ms
@@ -1468,8 +1516,8 @@ def main() -> int:
                                          "earlier_ms", "calibrate",
                                          "passes_ms", "sequential_plain_ms",
                                          "blocks_ms",
-                                         "rows16384", "more", "plan", "f32",
-                                         "blocks")
+                                         "calibrate_f32", "rows16384",
+                                         "more", "plan", "f32", "blocks")
                if key in row}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

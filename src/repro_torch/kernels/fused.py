@@ -13,7 +13,8 @@ instantiation with the RMSNorm kernel's planner.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -115,19 +116,78 @@ def fused_add_rmsnorm_cuda(x: torch.Tensor, res: torch.Tensor,
 # passed straight through:
 #   dn = dh * scale;  dsum = dy + rstd * (dn - n * mean(dn * n))
 #   dx = dres = dsum;  dscale = sum over rows of dh * n
-# dscale is reduced without atomics: each block writes its fp32 partial
-# row, and a second small pass sums the partials in a fixed order.
+# One kernel a call: a persistent grid (``bwd_plan``) whose blocks walk
+# contiguous runs of rows through a shared-memory ring fed by bulk async
+# copies, each block writing an fp32 partial row of dscale; the last 16
+# blocks to draw a ticket from an int32 counter add the partial rows, a
+# slice of the columns each, in a fixed order (groups of 16 blocks in
+# block order, then the groups in order) in the same launch.  No atomics
+# on data, so two runs agree bit for bit.  The settings below are the
+# ablations' (``bench/fused_bwd_plans.py``, which varies the source's own
+# constants by text).
 
-BWD_BLOCKS = 264     # partial rows of dscale: two blocks an SM of the H100
+BWD_WARP_VALS = rn.WARP_VALS   # one warp a row up to 1024 bf16 / 512 fp32
+BWD_STAGES = 2                 # ring stages a block (1-4)
+BWD_ROWS_PER_STEP = 8          # rows a step at one warp a row; w warps: / w
+BWD_BLOCKS_PER_SM = 1
+BWD_REDUCERS = 16              # the source's kReducers, for the grid rule
+SM_SMEM = 233472               # shared memory of an H100 SM (228 KB)
+BLOCK_SMEM = 232448            # the most one block may take (227 KB)
+STATIC_SMEM = 256              # the kernel's own barriers and sums
+_BWD_ERRORS = {-1: "dtype", -2: "plan", -3: "16-byte alignment",
+               -4: "grid (more blocks than SMs, a reducer on every SM)"}
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def fused_add_rmsnorm_bwd_plain(dh: torch.Tensor, dy: torch.Tensor,
-                                x: torch.Tensor, res: torch.Tensor,
-                                scale: torch.Tensor, *, eps: float = 1e-5
-                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (dsum in x's dtype, the gradient of both x and res;
-    dscale in scale's dtype), all arithmetic in fp32."""
-    d = x.shape[-1]
+class BwdPlan(NamedTuple):
+    """One launch of the backward: the row plan (``rmsnorm.Plan``'s three
+    fields), the ring (stages, 0 on the scalar plan's register loads; rows
+    a step) and the persistent grid (rows a block, blocks)."""
+    vector: bool
+    vals: int
+    warps_per_row: int
+    stages: int
+    rows_per_step: int
+    rows_per_block: int
+    blocks: int
+
+
+def bwd_plan(rows: int, d: int, elem: int, pl: Plan, sms: int) -> BwdPlan:
+    """The launch for ``rows`` rows of ``d`` elements of ``elem`` bytes
+    under row plan ``pl`` on a card of ``sms`` SMs, at the module's
+    ``BWD_*``.  A ring stage holds a step's rows of x, res, dh and dy; rows
+    a step and then stages shrink until ``BWD_BLOCKS_PER_SM`` blocks'
+    rings fit in an SM's shared memory (a single row that does not fit at
+    two blocks an SM takes one), and a block has no more stages than
+    steps.  The grid has at most ``sms * BWD_BLOCKS_PER_SM`` blocks and at
+    most one a step: every block gets a whole number of steps and at least
+    one row.  A card with no more SMs than ``BWD_REDUCERS`` takes one block
+    an SM, so the reducers' wait cannot hold every SM (the C entry refuses
+    such a grid)."""
+    stages, bps = BWD_STAGES, BWD_BLOCKS_PER_SM
+    step = max(1, BWD_ROWS_PER_STEP // pl.warps_per_row)
+    if not 1 <= stages <= 4 or bps < 1 or step < 1 or rows < 1 or sms < 1:
+        raise ValueError(f"bwd_plan: stages={stages}, blocks_per_sm={bps}, "
+                         f"rows_per_step={step}, rows={rows}, sms={sms}")
+    if sms <= BWD_REDUCERS:
+        bps = 1
+    row = 4 * d * elem               # a row of x, res, dh and dy
+    budget = min(BLOCK_SMEM, SM_SMEM // bps - 1024) - STATIC_SMEM
+    if pl.vector and row > budget:
+        bps, budget = 1, BLOCK_SMEM - STATIC_SMEM
+    if pl.vector:
+        step = min(step, budget // row)
+    steps = -(-rows // step)
+    per = -(-steps // (sms * bps))   # steps a block
+    blocks = -(-steps // per)
+    # no more stages than fit, nor than the block has steps
+    stages = min(stages, budget // (step * row), per) if pl.vector else 0
+    return BwdPlan(pl.vector, pl.vals, pl.warps_per_row, stages, step,
+                   per * step, blocks)
+
+
+def _bwd_rows(dh, dy, x, res, scale, eps):
+    """(dsum, dh * n), both fp32 (..., d)."""
     y = x.float() + res.float()
     rstd = torch.rsqrt(torch.mean(torch.square(y), dim=-1, keepdim=True)
                        + eps)
@@ -136,20 +196,36 @@ def fused_add_rmsnorm_bwd_plain(dh: torch.Tensor, dy: torch.Tensor,
     dn = dhf * scale.float()
     dsum = dy.float() + rstd * (dn - n * torch.mean(dn * n, dim=-1,
                                                     keepdim=True))
-    dscale = (dhf * n).reshape(-1, d).sum(dim=0)
+    return dsum, dhf * n
+
+
+def fused_add_rmsnorm_bwd_plain(dh: torch.Tensor, dy: torch.Tensor,
+                                x: torch.Tensor, res: torch.Tensor,
+                                scale: torch.Tensor, *, eps: float = 1e-5
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (dsum in x's dtype, the gradient of both x and res;
+    dscale in scale's dtype), all arithmetic in fp32."""
+    dsum, dhn = _bwd_rows(dh, dy, x, res, scale, eps)
+    dscale = dhn.reshape(-1, x.shape[-1]).sum(dim=0)
     return dsum.to(x.dtype), dscale.to(scale.dtype)
 
 
-def bwd_blocks(rows: int, pl: Plan) -> Tuple[int, int]:
-    """(blocks, rows a block) of the backward's first pass: about
-    ``BWD_BLOCKS`` blocks, each a whole number of its warps' row steps."""
-    step = rn.WARPS // pl.warps_per_row
-    per = -(-rows // BWD_BLOCKS)
-    per = -(-per // step) * step
-    return -(-rows // per), per
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+def _counter(device: torch.device, stream) -> torch.Tensor:
+    """The stream's two ticket counters: allocated and zeroed once, on the
+    stream; every launch leaves them zero."""
+    key = (device.index, stream.cuda_stream)
+    if key not in _COUNTERS:
+        with torch.cuda.stream(stream):
+            _COUNTERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _COUNTERS[key]
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
                  + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -157,9 +233,10 @@ def fused_add_rmsnorm_bwd_cuda(dh: torch.Tensor, dy: torch.Tensor,
                                x: torch.Tensor, res: torch.Tensor,
                                scale: torch.Tensor, *, eps: float = 1e-5
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the backward's two passes on PyTorch's current stream;
-    raises on any tensor they do not take and on a refused launch.  The
-    plan is ``rmsnorm.plan`` over all five inputs at ``WARP_VALS``."""
+    """Launch the backward kernel on PyTorch's current stream, at
+    ``bwd_plan`` over ``rmsnorm.plan`` of all five inputs at
+    ``BWD_WARP_VALS``; raises on any tensor it does not take and on a
+    refused launch."""
     for t in (dh, dy, x, res, scale):
         if not t.is_cuda or t.device != x.device:
             raise ValueError("fused_add_rmsnorm_bwd_cuda: dh, dy, x, res, "
@@ -178,18 +255,24 @@ def fused_add_rmsnorm_bwd_cuda(dh: torch.Tensor, dy: torch.Tensor,
     dscale = torch.empty_like(scale)
     if rows == 0:
         return dsum, dscale.zero_()
-    pl = rn.plan(x, res, scale, dh, dy, warp_vals=WARP_VALS)
-    blocks, per = bwd_blocks(rows, pl)
-    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    bp = bwd_plan(
+        rows, d, x.element_size(),
+        rn.plan(x, res, scale, dh, dy, warp_vals=BWD_WARP_VALS),
+        _sm_count(x.device.index))
+    partial = torch.empty((bp.blocks, d), dtype=torch.float32,
+                          device=x.device)
+    stream = torch.cuda.current_stream(x.device)
+    counter = _counter(x.device, stream)
     lib = _build.load("fused_add_rmsnorm_bwd")
     fn = lib.repro_fused_add_rmsnorm_bwd
     if fn.argtypes is None:
         fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
     rc = fn(dh.data_ptr(), dy.data_ptr(), x.data_ptr(), res.data_ptr(),
             scale.data_ptr(), dsum.data_ptr(), dscale.data_ptr(),
-            partial.data_ptr(), _DTYPE_CODE[x.dtype], x.device.index, rows,
-            d, int(pl.vector), pl.vals, pl.warps_per_row, per, blocks, eps,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "fused_add_rmsnorm_bwd", _ERRORS)
-    del partial   # freed in stream order, after the kernels
+            partial.data_ptr(), counter.data_ptr(), _DTYPE_CODE[x.dtype],
+            x.device.index, rows, d, int(bp.vector), bp.vals,
+            bp.warps_per_row, bp.rows_per_step, bp.rows_per_block, bp.blocks,
+            bp.stages, eps, stream.cuda_stream)
+    _build.check(lib, rc, "fused_add_rmsnorm_bwd", _BWD_ERRORS)
+    del partial   # freed in stream order, after the kernel
     return dsum, dscale

@@ -215,7 +215,7 @@ def fused_add_rmsnorm_bwd(dh: torch.Tensor, dy: torch.Tensor,
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dsum, dscale) of the fused add + RMSNorm from the gradients of its
     two outputs (h, y): dsum is the gradient of both x and res.  One call
-    counts one launch (of two kernels)."""
+    is one kernel launch (dscale's sum across blocks included)."""
     if _on_cpu(dh, dy, x, res, scale):
         return fused_mod.fused_add_rmsnorm_bwd_plain(dh, dy, x, res, scale,
                                                      eps=eps)

@@ -10,6 +10,7 @@ Tolerances: bf16 2e-2, fp32 2e-5; SSD y 4e-2 / 1e-4 and state 1e-2 / 1e-4
 (the reference's kernel tolerances, ``tests/test_kernels.py``).
 """
 import dataclasses
+import json
 
 import pytest
 import torch
@@ -536,21 +537,96 @@ def test_flash_attention_lse_leaves_o_bit_for_bit(cuda, dtype, impl, causal):
     torch.testing.assert_close(lse, want, rtol=0, atol=2e-4)
 
 
+def _norm_bwd_inputs(gen, rows, d, dtype):
+    x, r, dh, dy = (_rand(gen, rows, d, dtype=dtype) for _ in range(4))
+    sc = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+    return dh, dy, x, r, sc
+
+
+def _norm_bwd_close(got, args):
+    want = fused_mod.fused_add_rmsnorm_bwd_plain(*args)
+    torch.cuda.synchronize()
+    dtype = args[2].dtype
+    assert got[0].dtype == dtype and got[1].dtype == dtype
+    _close(got[0], want[0], TOL[dtype])
+    _close_max(got[1], want[1], BWD_TOL[dtype], "dscale")
+
+
 @pytest.mark.parametrize("rows,d", [(4096, 960), (16384, 960), (4071, 960),
-                                    (7, 64), (33, 1001), (64, 8192)])
+                                    (7, 64), (33, 1001), (64, 8192),
+                                    (1, 960), (7, 960)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_add_rmsnorm_bwd_kernel_matches_plain(cuda, rows, d, dtype):
-    x, r, dh, dy = (_rand(cuda, rows, d, dtype=dtype) for _ in range(4))
-    sc = (1 + 0.1 * torch.randn(d, generator=cuda, device="cuda")).to(dtype)
+    """The one-launch kernel against the plain backward (1 and 7 rows: one
+    block, fewer rows than a step)."""
+    args = _norm_bwd_inputs(cuda, rows, d, dtype)
     ops.reset_launches()
-    dsum, dscale = ops.fused_add_rmsnorm_bwd(dh, dy, x, r, sc)
-    want_sum, want_scale = fused_mod.fused_add_rmsnorm_bwd_plain(
-        dh, dy, x, r, sc)
-    torch.cuda.synchronize()
+    got = ops.fused_add_rmsnorm_bwd(*args)
     assert ops.LAUNCHES["fused_add_rmsnorm_bwd"] == 1
-    assert dsum.dtype == dtype and dscale.dtype == dtype
-    _close(dsum, want_sum, TOL[dtype])
-    _close_max(dscale, want_scale, BWD_TOL[dtype], "dscale")
+    _norm_bwd_close(got, args)
+
+
+@pytest.mark.parametrize("setting", [
+    dict(BWD_STAGES=1), dict(BWD_STAGES=2), dict(BWD_STAGES=4),
+    dict(BWD_ROWS_PER_STEP=4), dict(BWD_ROWS_PER_STEP=16),
+    dict(BWD_ROWS_PER_STEP=3), dict(BWD_BLOCKS_PER_SM=2),
+    dict(BWD_BLOCKS_PER_SM=2, BWD_ROWS_PER_STEP=4)])
+@pytest.mark.parametrize("rows,dtype", [(4071, torch.bfloat16),
+                                        (1000, torch.float32)])
+def test_fused_add_rmsnorm_bwd_every_setting(cuda, monkeypatch, setting,
+                                             rows, dtype):
+    """Each ablation setting of ``bwd_plan``'s module constants (stages,
+    rows a step, blocks an SM) against the plain backward at d 960."""
+    for k, v in setting.items():
+        monkeypatch.setattr(fused_mod, k, v)
+    args = _norm_bwd_inputs(cuda, rows, 960, dtype)
+    got = fused_mod.fused_add_rmsnorm_bwd_cuda(*args)
+    _norm_bwd_close(got, args)
+
+
+def test_fused_add_rmsnorm_bwd_counters_rearm(cuda):
+    """The ticket counters are zeroed once a (device, stream) and every
+    launch leaves them zero: calls back to back at different shapes on one
+    stream, then on a side stream, each right."""
+    cases = [(4096, 960, torch.bfloat16), (7, 960, torch.bfloat16),
+             (16384, 960, torch.bfloat16), (33, 1001, torch.bfloat16),
+             (1000, 960, torch.float32), (64, 8192, torch.bfloat16),
+             (1, 960, torch.bfloat16)]
+    inputs = [_norm_bwd_inputs(cuda, *c) for c in cases]
+    outs = [ops.fused_add_rmsnorm_bwd(*args) for args in inputs]
+    for got, args in zip(outs, inputs):
+        _norm_bwd_close(got, args)
+    main = torch.cuda.current_stream()
+    assert not fused_mod._counter(main.device, main).any()
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        got = [ops.fused_add_rmsnorm_bwd(*args) for args in inputs[:2]]
+    side.synchronize()
+    for g, args in zip(got, inputs[:2]):
+        _norm_bwd_close(g, args)
+    assert not fused_mod._counter(side.device, side).any()
+
+
+def test_fused_add_rmsnorm_bwd_is_one_kernel(cuda, tmp_path):
+    """A ``torch.profiler`` trace of one call (after a warm call, which
+    allocates the stream's counters) holds one kernel, the backward's
+    (read from the Chrome trace, which keeps kernels launched outside
+    PyTorch's operators)."""
+    from torch.profiler import ProfilerActivity, profile
+    args = _norm_bwd_inputs(cuda, 4096, 960, torch.bfloat16)
+    ops.fused_add_rmsnorm_bwd(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ops.fused_add_rmsnorm_bwd(*args)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    kernels = [e["name"] for e in events
+               if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    assert len(kernels) == 1 and "fused_add_rmsnorm_bwd" in kernels[0], (
+        kernels)
 
 
 @pytest.mark.parametrize("which", ["x", "dh", "scale"])
@@ -572,9 +648,10 @@ def test_fused_add_rmsnorm_bwd_takes_unaligned_views(cuda, which):
 
 
 def test_backward_kernels_agree_bit_for_bit_across_runs(cuda):
-    """No atomics: two runs of each backward on the same inputs agree
-    (attention: the tensor-core kernels at two shapes, the CUDA-core ones
-    on bf16 at the first)."""
+    """No atomics on data (the fused norm's counters only choose which
+    block adds the partial rows): two runs of each backward on the same
+    inputs agree (attention: the tensor-core kernels at two shapes, the
+    CUDA-core ones on bf16 at the first)."""
     for shape, impls in (((2, 300, 300, 15, 5, 64), (None, "cuda_core")),
                          ((1, 1000, 1000, 4, 2, 128), (None,))):
         args = _attn_bwd_inputs(cuda, *shape, True, torch.bfloat16)

@@ -807,6 +807,234 @@ def test_fused_add_rmsnorm_bwd_plain_matches_reference_grad(shape, dtype):
     _close_bwd(dscale, ws, dtype, "dscale")
 
 
+# --- the fused norm backward's launch plan and order of summation ------------------
+
+_PLAN_SHAPES = [(1, 960), (7, 960), (8, 960), (9, 960), (4071, 960),
+                (4096, 960), (16384, 960), (100_000, 960), (33, 1001),
+                (64, 8192), (5, 64), (2053, 512)]
+_BWD_SRC = (Path(fused_mod.__file__).parents[1] / "csrc"
+            / "fused_add_rmsnorm_bwd.cu").read_text()
+_BWD_CONST = dict(re.findall(r"constexpr (?:int|bool) (k\w+) = (\w+);",
+                             _BWD_SRC))
+_GROUP_BLOCKS = int(_BWD_CONST["kGroupBlocks"])
+
+
+def _row_plan(d, dtype, offset=0):
+    """``rmsnorm.plan`` of the backward's five inputs, x ``offset``
+    elements off a 16-byte boundary."""
+    x = torch.zeros(d + offset, dtype=dtype)[offset:].view(1, d)
+    z = torch.zeros(1, d, dtype=dtype)
+    return rn.plan(x, z, z[0], z, z, warp_vals=fused_mod.BWD_WARP_VALS)
+
+
+def _bwd_blocks(dh, dy, x, res, scale, bp, group_blocks=_GROUP_BLOCKS,
+                eps=1e-5):
+    """The plain backward with dscale added in the kernel's order under
+    launch ``bp``: in each block, row group k (its warps) takes step row
+    i when i % (rows a step) % (row groups) == k and adds dh * n over its
+    rows in row order; the group rows are added in group order into the
+    block's fp32 partial row; the partial rows of each run of
+    ``group_blocks`` blocks are added in block order, then those sums in
+    order (the kernel splits the columns over its reducers, which changes
+    no sum).  Not bit for bit the kernel's: it takes no fused multiply-add
+    and PyTorch's rsqrt."""
+    d = x.shape[-1]
+    dsum, dhn = fused_mod._bwd_rows(dh, dy, x, res, scale, eps)
+    dhn = dhn.reshape(-1, d)
+    groups = rn.WARPS // bp.warps_per_row
+    parts = []
+    for b in range(bp.blocks):
+        run = dhn[b * bp.rows_per_block:(b + 1) * bp.rows_per_block]
+        acc = torch.zeros(groups, d)
+        for i, row in enumerate(run):
+            k = i % bp.rows_per_step % groups
+            acc[k] = acc[k] + row
+        part = torch.zeros(d)
+        for k in range(groups):
+            part = part + acc[k]
+        parts.append(part)
+    sums = []
+    for g0 in range(0, bp.blocks, group_blocks):
+        t = torch.zeros(d)
+        for part in parts[g0:g0 + group_blocks]:
+            t = t + part
+        sums.append(t)
+    total = torch.zeros(d)
+    for t in sums:
+        total = total + t
+    return dsum.to(x.dtype), total.to(scale.dtype)
+
+
+@pytest.mark.parametrize("rows,d", _PLAN_SHAPES)
+@pytest.mark.parametrize("dtype", [_BF16, _F32])
+@pytest.mark.parametrize("sms", [132, 114, 3])
+def test_fused_bwd_plan_covers_every_row_once(rows, d, dtype, sms):
+    """The persistent grid: at most one block an SM (``BWD_BLOCKS_PER_SM``)
+    and one a step, every block a whole number of steps and at least one
+    row, the runs covering the rows exactly once (1 and 7 rows: one block);
+    a ring on the 16-byte plan only, no more stages than a block has steps,
+    and the ring within one block's shared memory."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    pl = _row_plan(d, dtype)
+    bp = fused_mod.bwd_plan(rows, d, es, pl, sms)
+    assert tuple(bp[:3]) == tuple(pl)
+    assert bp.vals in ((1, 2, 4) if dtype == _BF16 else (1, 2, 4, 8))
+    steps = -(-rows // bp.rows_per_step)
+    assert 1 <= bp.blocks <= min(sms * fused_mod.BWD_BLOCKS_PER_SM, steps)
+    assert bp.rows_per_block % bp.rows_per_step == 0
+    runs = [(b * bp.rows_per_block, min(rows, (b + 1) * bp.rows_per_block))
+            for b in range(bp.blocks)]
+    assert all(lo < hi for lo, hi in runs)            # no block without rows
+    assert runs[0][0] == 0 and runs[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+    if rows <= bp.rows_per_step:
+        assert bp.blocks == 1
+    per = bp.rows_per_block // bp.rows_per_step
+    if pl.vector:
+        assert 1 <= bp.stages <= min(fused_mod.BWD_STAGES, per)
+    else:
+        assert bp.stages == 0
+    ring = bp.stages * bp.rows_per_step * 4 * d * es
+    assert ring <= fused_mod.BLOCK_SMEM - fused_mod.STATIC_SMEM
+    assert bp.blocks <= sms or fused_mod.BWD_REDUCERS < sms
+
+
+@pytest.mark.parametrize("setting,sms,want", [
+    (dict(BWD_STAGES=1), 132, dict(stages=1, rows_per_step=8)),
+    (dict(BWD_STAGES=4), 132, dict(stages=3, rows_per_step=8)),  # 3 fit
+    (dict(BWD_ROWS_PER_STEP=16), 132,
+     dict(stages=1, rows_per_step=16)),                          # 123 KB
+    (dict(BWD_ROWS_PER_STEP=4, BWD_STAGES=4), 132,
+     dict(stages=4, rows_per_step=4)),
+    (dict(BWD_BLOCKS_PER_SM=2), 132, dict(stages=1, blocks=256)),
+    (dict(BWD_BLOCKS_PER_SM=2, BWD_ROWS_PER_STEP=4), 132,
+     dict(stages=2, blocks=256)),
+    (dict(BWD_BLOCKS_PER_SM=2), 17, dict(stages=1, blocks=32)),
+    (dict(BWD_BLOCKS_PER_SM=2), 16, dict(stages=2, blocks=16)),
+])
+def test_fused_bwd_plan_settings(monkeypatch, setting, sms, want):
+    """The ablation settings at the train shape, 4096 x 960 bf16: stages
+    and rows a step shrink to what fits in 227 KB (115 KB a block at two
+    blocks an SM); a card with no more SMs than the kernel's reducers
+    takes one block an SM, so no grid can leave a waiting reducer on
+    every SM while blocks wait for one."""
+    for k, v in setting.items():
+        monkeypatch.setattr(fused_mod, k, v)
+    bp = fused_mod.bwd_plan(4096, 960, 2, _row_plan(960, _BF16), sms)
+    assert {k: getattr(bp, k) for k in want} == want
+    assert bp.blocks <= sms or fused_mod.BWD_REDUCERS < sms
+
+
+def test_fused_bwd_plan_fits_one_row_at_two_blocks_an_sm(monkeypatch):
+    """An fp32 row of 8192 (128 KB over x, res, dh, dy) does not fit two
+    blocks an SM: the plan takes one, one stage of one row."""
+    monkeypatch.setattr(fused_mod, "BWD_BLOCKS_PER_SM", 2)
+    bp = fused_mod.bwd_plan(64, 8192, 4, _row_plan(8192, _F32), 132)
+    assert (bp.stages, bp.rows_per_step, bp.blocks) == (1, 1, 64)
+    assert bp.stages * bp.rows_per_step * 4 * 8192 * 4 == 131072
+    monkeypatch.setattr(fused_mod, "BWD_STAGES", 5)
+    with pytest.raises(ValueError, match="stages=5"):
+        fused_mod.bwd_plan(64, 960, 2, _row_plan(960, _BF16), 132)
+
+
+def test_fused_bwd_plan_mirrors_the_source():
+    """The planner's warps a block, largest ring, spans a stage and
+    reducers are the kernel's ``kWarps``, ``kMaxStages``, ``kSpans`` and
+    ``kReducers``; the 16-byte plan is built with bulk copies only; the C
+    entry refuses a grid that could hang (-4); one kernel, no second."""
+    assert int(_BWD_CONST["kWarps"]) == rn.WARPS
+    assert int(_BWD_CONST["kMaxStages"]) == 4
+    assert int(_BWD_CONST["kSpans"]) == 4
+    assert int(_BWD_CONST["kReducers"]) == fused_mod.BWD_REDUCERS
+    assert _BWD_CONST["kBulk"] == "true"
+    assert "launch_vals<T, true, kBulk>" in _BWD_SRC
+    assert "launch_vals<T, true, false>" not in _BWD_SRC
+    assert "return -4;" in _BWD_SRC and -4 in fused_mod._BWD_ERRORS
+    assert _BWD_SRC.count("<<<") == 1 and "dscale_reduce" not in _BWD_SRC
+
+
+@pytest.mark.parametrize("rows,d", [(37, 960), (1000, 96), (4071, 960),
+                                    (9, 1001), (300, 8192), (2053, 64)])
+@pytest.mark.parametrize("setting,group_blocks", [
+    ({}, _GROUP_BLOCKS), ({}, 1), ({}, 1 << 30),
+    (dict(BWD_ROWS_PER_STEP=3), _GROUP_BLOCKS)])
+def test_fused_bwd_block_order_matches_plain(monkeypatch, rows, d, setting,
+                                             group_blocks):
+    """The kernel's order of summation for dscale (per row group in row
+    order, the groups into a block's fp32 partial row, the partial rows in
+    block order within groups of blocks, then the groups in order), on
+    rows that are no multiple of the step: dsum is the plain backward's
+    bit for bit, dscale within 1e-6 of its max."""
+    for k, v in setting.items():
+        monkeypatch.setattr(fused_mod, k, v)
+    gen = torch.Generator().manual_seed(rows + d)
+    x, r, dh, dy = (torch.randn(rows, d, generator=gen) for _ in range(4))
+    sc = 1 + 0.1 * torch.randn(d, generator=gen)
+    bp = fused_mod.bwd_plan(rows, d, 4, _row_plan(d, _F32), 132)
+    got = _bwd_blocks(dh, dy, x, r, sc, bp, group_blocks)
+    want = fused_mod.fused_add_rmsnorm_bwd_plain(dh, dy, x, r, sc)
+    assert torch.equal(got[0], want[0])
+    assert (got[1] - want[1]).abs().max() <= 1e-6 * want[1].abs().max()
+
+
+@pytest.mark.parametrize("shape", [(37, 960), (2, 19, 1001), (9, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_bwd_block_order_matches_reference_grad(monkeypatch, shape,
+                                                      dtype):
+    """The kernel's order of summation against ``jax.vjp`` of the
+    reference's ``rms_norm_residual(impl="jnp")``, as the plain backward
+    is held (``BWD_TOL`` of max |reference grad|)."""
+    jx, tx = _pair(RNG.standard_normal(shape), dtype)
+    jr, tr = _pair(RNG.standard_normal(shape), dtype)
+    js, ts = _pair(1 + 0.1 * RNG.standard_normal(shape[-1:]), dtype)
+    jdh, tdh = _pair(RNG.standard_normal(shape), dtype)
+    jdy, tdy = _pair(RNG.standard_normal(shape), dtype)
+    _, vjp = jax.vjp(lambda x, r, sc: jlayers.rms_norm_residual(
+        x, r, sc, impl="jnp"), jx, jr, js)
+    wx, wr, ws = vjp((jdh, jdy))
+    rows, d = int(np.prod(shape[:-1])), shape[-1]
+    monkeypatch.setattr(fused_mod, "BWD_ROWS_PER_STEP", 2)
+    bp = fused_mod.bwd_plan(rows, d, tx.element_size(),
+                            _row_plan(d, tx.dtype), 4)
+    assert bp.blocks > 1
+    dsum, dscale = _bwd_blocks(tdh, tdy, tx, tr, ts, bp)
+    assert dsum.dtype == tx.dtype and dscale.dtype == ts.dtype
+    _close_bwd(dsum, wx, dtype, "dx")
+    _close_bwd(dsum, wr, dtype, "dres")
+    _close_bwd(dscale, ws, dtype, "dscale")
+
+
+def test_no_path_reaches_the_block_order_mirror(monkeypatch):
+    """The mirror lives in the tests: no module of the port and not
+    ``chip_smoke.py`` names it; the CPU path takes the plain backward, and
+    a tensor off the CPU goes to the launch (here a stand-in), never to
+    the plain version."""
+    pkg = Path(fused_mod.__file__).parents[1]
+    users = {p.relative_to(pkg).as_posix() for p in pkg.rglob("*.py")
+             if "bwd_blocks" in p.read_text()}
+    assert users == set()
+    assert "bwd_blocks" not in Path(ROOT, "chip_smoke.py").read_text()
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain backward was called")
+    plain, real = [], fused_mod.fused_add_rmsnorm_bwd_plain
+    monkeypatch.setattr(fused_mod, "fused_add_rmsnorm_bwd_plain",
+                        lambda *a, **kw: plain.append(1) or real(*a, **kw))
+    x = _t(3, 64).requires_grad_()
+    sum(ops.fused_add_rmsnorm(x, x, _t(64))).sum().backward()
+    assert plain == [1] and x.grad is not None
+    launched = []
+    monkeypatch.setattr(fused_mod, "fused_add_rmsnorm_bwd_plain", refuse)
+    monkeypatch.setattr(fused_mod, "fused_add_rmsnorm_bwd_cuda",
+                        lambda *a, **kw: launched.append(1) or (a[0], a[4]))
+    monkeypatch.setattr(ops, "_on_cpu", lambda *t: False)
+    ops.reset_launches()
+    y = _t(3, 64)
+    ops.fused_add_rmsnorm_bwd(y, y, y, y, _t(64))
+    assert launched == [1] and ops.LAUNCHES["fused_add_rmsnorm_bwd"] == 1
+    ops.reset_launches()        # a stand-in launched: no count survives it
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_function_grads_equal_attn_naive(causal):
     """On the CPU the autograd Function runs the plain forward and backward:
