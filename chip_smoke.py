@@ -18,7 +18,9 @@ Phases, each printed as it runs; any failure exits non-zero:
              time kernel, plain version and, where one exists, the PyTorch
              library call computing the same function.  RMSNorm is timed
              at 4096 and 16384 x 960 bf16 beside ``F.rms_norm``, the fused
-             add + RMSNorm at the same shapes, and each case of both checks
+             add + RMSNorm at the same shapes; fp32 at the calibrate
+             points (RMSNorm 4096 and 16384 x 960, the fused norm 4096 x
+             960, add 4096 x 512, under ``f32``); each case of both checks
              which instantiation ran (16-byte or scalar loads, on widths
              and views that are not 16-byte multiples); the fused
              kernel's y must be its plain version's bit for bit.  The SSD
@@ -29,7 +31,9 @@ Phases, each printed as it runs; any failure exits non-zero:
              Prefill attention is timed at the serve shape and at the
              calibrate path's (1, 2048, 120/120, 64), each beside the
              CUDA-core kernel run on the same bf16 inputs
-             (``impl="cuda_core"``).
+             (``impl="cuda_core"``): the wgmma kernel must be faster at the
+             byte-bound serve shape and 4x faster at the operation-bound
+             calibrate shape.  fp32 is timed at the calibrate shape.
 4. models    a 2-layer fp32 model, kernel path vs plain path; the reduced
              smollm config (head_dim 16, ``attn_impl="auto"``) prefills
              through the attention kernel.
@@ -286,15 +290,14 @@ def _wgmma_kernel_name(mangled: str):
     return (int(m.group(1)), 64 * int(m.group(2))) if m else None
 
 
-def _cuda_core_kernel_name(mangled: str) -> str:
-    """flash_fwd<f32, D 64, block_q 32> from its mangled name (ROWS a warp,
-    4 warps a block)."""
+def _cuda_core_kernel_name(mangled: str):
+    """(dtype code, D, block_q) of a flash_fwd<T, D, block_q>
+    instantiation (dtype 0 float32, 1 bfloat16), or None for another
+    kernel."""
     m = re.search(r"flash_fwdI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", mangled)
     if not m:
-        return mangled
-    dt = "f32" if m.group(1) == "f" else "bf16"
-    return (f"flash_fwd<{dt}, D {m.group(2)}, block_q "
-            f"{4 * int(m.group(3))}>")
+        return None
+    return (0 if m.group(1) == "f" else 1, int(m.group(2)), int(m.group(3)))
 
 
 def _decode_kernel_name(mangled: str) -> str:
@@ -418,19 +421,26 @@ def phase_build() -> None:
                 log(f"[build]   {_decode_kernel_name(fn)}: {regs} registers,"
                     f" spill stores {st} B, spill loads {ld} B")
             continue
-        if name == "flash_attention":  # and of each wgmma instantiation
-            smem = _build.load(name).repro_flash_attention_wgmma_smem
+        if name == "flash_attention":  # and of each instantiation of both
+            lib = _build.load(name)
+            smem = lib.repro_flash_attention_wgmma_smem
             smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+            cc_smem = lib.repro_flash_attention_cuda_core_smem
+            cc_smem.argtypes = [ctypes.c_int] * 3
+            cc_smem.restype = ctypes.c_longlong
             for fn, regs, st, ld in ptxas_report(info["log"]):
                 shape = _wgmma_kernel_name(fn)
-                if shape is None:
-                    log(f"[build]   {_cuda_core_kernel_name(fn)}: {regs} "
-                        f"registers, spill stores {st} B, spill loads {ld} B")
-                    continue
-                log(f"[build]   flash_fwd_wgmma<D {shape[0]}, block_q "
-                    f"{shape[1]}>: {regs} registers, {smem(*shape)} B "
-                    f"dynamic shared memory, spill stores {st} B, spill "
-                    f"loads {ld} B")
+                cc = _cuda_core_kernel_name(fn)
+                if shape is not None:
+                    what, dyn = (f"flash_fwd_wgmma<D {shape[0]}, block_q "
+                                 f"{shape[1]}>", smem(*shape))
+                elif cc is not None:
+                    what, dyn = (f"flash_fwd<{('f32', 'bf16')[cc[0]]}, D "
+                                 f"{cc[1]}, block_q {cc[2]}>", cc_smem(*cc))
+                else:
+                    what, dyn = fn, "?"
+                log(f"[build]   {what}: {regs} registers, {dyn} B dynamic "
+                    f"shared memory, spill stores {st} B, spill loads {ld} B")
             continue
         if name == "ssd_scan":
             _ssd_build_rows(info)
@@ -813,6 +823,17 @@ def ssd_case(gen, label, b, s, h, p, n, dtype, chunk=None, timed=False):
     return row
 
 
+def _labelled(rows, label: str) -> dict:
+    return next(row for row in rows if row["label"] == label)
+
+
+def _f32_point(row: dict) -> dict:
+    """A timed fp32 case's figures, for its kernel's line."""
+    return {key: row[key] for key in (
+        "shape", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+        "max_abs_err") if key in row}
+
+
 def serve_requests(cfg, seed: int, n: int):
     rng = np.random.default_rng(seed)
     lens = rng.integers(PROMPT_MIN, PROMPT_MAX + 1, size=n)
@@ -852,8 +873,8 @@ def phase_kernels(main_lens):
                        bf16),
         attention_case(gen, "block_q64", BATCH, 509, 509, h, kh, d, True,
                        bf16, block_q=64),
-        attention_case(gen, "block_q16_f32", 2, 509, 509, h, kh, d, True,
-                       f32, block_q=16),
+        attention_case(gen, "block_q128_f32", 2, 509, 509, h, kh, d, True,
+                       f32, block_q=128),
         attention_case(gen, "noncausal_130x70", 2, 130, 70, h, kh, d, False,
                        bf16),
         attention_case(gen, "d128_f32", 2, 256, 256, 4, 2, 128, True, f32),
@@ -889,12 +910,19 @@ def phase_kernels(main_lens):
     serve_row["calibrate_f32"] = {key: attn[-1][key] for key in (
         "shape", "kernel", "ms", "bound_ms", "bound_by", "share_of_bound",
         "tflops", "plain_ms", "library_ms", "max_abs_err")}
-    for row, old in ((serve_row, attn[1]), (cal_row, cal)):
-        if not row["ms"] * 4 <= old["ms"]:
+    # The calibrate shape is bound by operations (tensor cores against fp32
+    # units: 0.065 against 0.962 ms), so the wgmma kernel must be 4x the
+    # CUDA-core one there.  The serve shape is bound by bytes (6.3 us) and
+    # both kernels by latency, so there it must only be faster.
+    for row, old, factor in ((serve_row, attn[1], 1), (cal_row, cal, 4)):
+        log(f"[kernels] flash_attention {row['label']}: wgmma "
+            f"{row['ms']:.4f} ms, CUDA-core {old['ms']:.4f} ms on the same "
+            f"bf16 inputs, {old['ms'] / row['ms']:.2f}x (needs {factor}x)")
+        if not row["ms"] * factor < old["ms"]:
             raise AssertionError(
                 f"flash_attention {row['label']}: the wgmma kernel "
-                f"({row['ms']:.4f} ms) is not 4x the CUDA-core kernel "
-                f"({old['ms']:.4f} ms) on the same inputs")
+                f"({row['ms']:.4f} ms) is not {factor}x faster than the "
+                f"CUDA-core kernel ({old['ms']:.4f} ms) on the same inputs")
     dm = cfg.d_model
     norm = [fused_case(gen, "rows4096", BATCH * 512, dm, bf16, timed=True,
                        want_vector=True),
@@ -905,6 +933,8 @@ def phase_kernels(main_lens):
     norm += [fused_case(gen, "ragged_rows4071", 4071, dm, bf16),
              fused_case(gen, "f32_rows1000", 1000, dm, f32),
              fused_case(gen, "f32_4096x512", 4096, 512, f32),
+             fused_case(gen, "rows4096_f32", BATCH * 512, dm, f32,
+                        timed=True),
              fused_case(gen, "d2048", 64, 2048, bf16),
              fused_case(gen, "d8192", 64, 8192, bf16),
              fused_case(gen, "d8192_f32", 33, 8192, f32),
@@ -919,6 +949,7 @@ def phase_kernels(main_lens):
     norm[0]["rows16384"] = {key: norm[1][key] for key in (
         "shape", "plan", "ms", "bound_ms", "share_of_bound", "plain_ms",
         "max_abs_err")}
+    norm[0]["f32"] = _f32_point(_labelled(norm, "rows4096_f32"))
     # decode on the calibrate path: q (1, 1, 120, 64) against a (1, sk, 120,
     # 64) cache (one KV head a head), at the grid's and held-out lengths;
     # the timed case is the grid's longest cache
@@ -966,7 +997,9 @@ def phase_kernels(main_lens):
     rms = [rmsnorm_case(gen, "rows4096", BATCH * 512, dm, bf16, timed=True,
                         want_vector=True),
            rmsnorm_case(gen, "rows16384", 16384, dm, bf16, timed=True),
-           rmsnorm_case(gen, "rows16384_f32", 16384, dm, f32),
+           rmsnorm_case(gen, "rows16384_f32", 16384, dm, f32, timed=True),
+           rmsnorm_case(gen, "rows4096_f32", BATCH * 512, dm, f32,
+                        timed=True),
            rmsnorm_case(gen, "rows8", 8, dm, bf16),
            rmsnorm_case(gen, "ragged_rows4071", 4071, dm, bf16),
            rmsnorm_case(gen, "f32_rows1000", 1000, dm, f32),
@@ -980,6 +1013,8 @@ def phase_kernels(main_lens):
     rms[0]["rows16384"] = {key: rms[1][key] for key in (
         "shape", "ms", "bound_ms", "share_of_bound", "plain_ms",
         "library_ms", "max_abs_err")}
+    rms[0]["f32"] = dict(_f32_point(_labelled(rms, "rows4096_f32")),
+                         rows16384=_f32_point(_labelled(rms, "rows16384_f32")))
     # SSD at mamba2-130m's geometry (H=24, P=64, N=128): the calibrate
     # grid's (4, 2048) and (1, 512), the held-out (2, 1024), and batch 1
     ssd = [ssd_case(gen, "calibrate_b4_s2048", 4, 2048, 24, 64, 128, bf16,
@@ -1003,7 +1038,8 @@ def phase_kernels(main_lens):
             "label", "shape", "dtype", "ms", "bound_ms", "share_of_bound",
             "plain_ms", "passes_ms")})
     adds = [add_case(gen, "rows4096", BATCH * 512, dm, bf16, timed=True),
-            add_case(gen, "f32_4096x512", 4096, 512, f32)]
+            add_case(gen, "f32_4096x512", 4096, 512, f32, timed=True)]
+    adds[0]["f32"] = _f32_point(_labelled(adds, "f32_4096x512"))
     # the backward kernels at the train path's shapes (micro batch 4 x 1024
     # tokens: attention (4, 1024, 15/5, 64) causal, the norm 4096 x 960)
     mb, sl = (TRAIN_DATA["global_batch"] // TRAIN_DATA["num_microbatches"],

@@ -1,12 +1,15 @@
-"""Where the bf16 attention kernels' time goes: timed variants of their sources.
+"""Where the attention kernels' time goes: timed variants of their sources.
 
     python3 -m repro_torch.bench.attention_ablations         # from src/, on a GPU
     python3 -m repro_torch.bench.attention_ablations bwd     # the backward's only
+    python3 -m repro_torch.bench.attention_ablations f32     # the fp32 forward's only
+    python3 src/repro_torch/bench/attention_ablations.py --f32-default-only
 
-Each variant is ``csrc/flash_attention.cu`` (the forward's, named plainly)
-or ``csrc/flash_attention_bwd.cu`` (``bwd_*``) with one piece of the wgmma
-kernels changed by a text substitution (the anchors are checked, so a
-variant that no longer applies fails loudly).  All variants build at once,
+Each variant is ``csrc/flash_attention.cu`` (the bf16 forward's, named
+plainly; the fp32 CUDA-core forward's, ``f32_*``) or
+``csrc/flash_attention_bwd.cu`` (``bwd_*``) with one piece of a kernel
+changed by a text substitution (the anchors are checked, so a variant
+that no longer applies fails loudly).  All variants build at once,
 one ``nvcc`` each, into ``build/attention_ablations/``; each then runs in
 its own process, so a fault in one cannot poison the others.  The ``base``
 variants, and those that change only how P and dS are rounded, are also
@@ -16,7 +19,14 @@ the others compute wrong values on purpose and are only timed.  Times are
 the forward at the serve shape (8, 512, 15/5, 64) and the calibrate shape
 (1, 2048, 120/120, 64), causal, ``block_q`` 128; the backward at the train
 shape (4, 1024, 15/5, 64) and at (1, 2048, 16/16, 128), causal, its
-default blocks.
+default blocks; the fp32 forward at the forward's shapes in fp32, at
+``block_q`` 64 and, for ``f32_base``, 128 too.
+
+``--f32-default-only`` times only the wrapper's own fp32 launch at the
+forward's shapes (default ``block_q``, checked against the plain version)
+with whatever ``repro_torch`` ``PYTHONPATH`` finds first: run it with an
+older tree's ``src`` to time that tree's kernel on the same card in the
+same call.
 """
 from __future__ import annotations
 
@@ -44,6 +54,9 @@ _STORE = "    if (qw + r < sq)\n      *reinterpret_cast<uint4*>"
 _SPLIT = ("constexpr bool kSplitPdV = {};", "constexpr bool kSplitDsDk = {};",
           "constexpr bool kSplitDsDq = {};")
 _BWD_SPLIT = fa.WGMMA_BWD_SPLIT          # mirrors the source's kSplit*
+_MASK = "      if (k0 + kBlockK > sk || (causal && k0 + kBlockK - 1 > wrow)) {"
+_CORR = "        const float corr = ex2(m[r] - m_new);"
+_P = "          s[r][i] = ex2(fmaf(s[r][i], scale_log2, -m_new));"
 
 
 def _split(**parts) -> tuple:
@@ -79,7 +92,21 @@ VARIANTS: Dict[str, tuple] = {
                            "    if (j >= my_tiles || it < n_tiles) continue;"),),
     "bwd_prefetch_1_tile": (("constexpr int kAhead = 2;          // tiles",
                              "constexpr int kAhead = 1;          // tiles"),),
+    # the fp32 CUDA-core forward: a second K/V stage (a copy in flight in
+    # the block, two blocks an SM), its mask only where it bites, the
+    # copies' addresses computed afresh for every piece, its exponential
+    # (each keeps the values, so each is checked)
+    "f32_base": (),
+    "f32_two_stages": (("constexpr int kKvStages = 1;",
+                        "constexpr int kKvStages = 2;"),),
+    "f32_mask_every_tile": ((_MASK, "      if (true) {"),),
+    "f32_generic_copy": (("  if constexpr (NT % PIECES == 0) {",
+                          "  if constexpr (false) {"),),
+    "f32_expf": ((_CORR, _CORR.replace("ex2(m[r] - m_new)",
+                                       "expf(kLn2 * (m[r] - m_new))")),
+                 (_P, _P.replace("ex2(", "expf(kLn2 * "))),
 }
+F32_BLOCK_Q = {"f32_base": (64, 128)}    # the others at block_q 64 only
 # what each backward variant rounds, for its plain version (None: wrong
 # values on purpose, timed only)
 BWD_PLAIN_SPLIT = {
@@ -161,6 +188,12 @@ def run_variant(name: str, so: str) -> dict:
                      / y.float().abs().max()).item()
                     for x, y in zip(got, want))
             continue
+        if name.startswith("f32_"):
+            q, k, v = (t.float() for t in (q, k, v))
+            for bq in F32_BLOCK_Q.get(name, (64,)):
+                row[f"{key}_bq{bq}"] = _time_checked(q, k, v, bq, row,
+                                                     f"{b}x{s}_bq{bq}")
+            continue
         row[key] = autotune.bench_time(
             lambda: fa.flash_attention_cuda(q, k, v), iters=20,
             device="cuda") * 1e3
@@ -172,12 +205,52 @@ def run_variant(name: str, so: str) -> dict:
     return row
 
 
+def _time_checked(q, k, v, block_q, row: dict, tag: str) -> float:
+    """ms of one fp32 forward at ``block_q`` (None: the wrapper's default),
+    after holding it against the plain version (max error into ``row``)."""
+    import torch
+
+    from repro_torch.kernels import autotune
+    got = fa.flash_attention_cuda(q, k, v, block_q=block_q)
+    want = fa.flash_attention_plain(q, k, v, block_q=block_q)
+    err = (got - want).abs().max().item()
+    if not bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all()):
+        raise AssertionError(f"fp32 forward {tag}: max |kernel - plain| "
+                             f"{err:.3e} exceeds 2e-5")
+    row[f"max_abs_err_{tag}"] = err
+    torch.cuda.synchronize()
+    return autotune.bench_time(
+        lambda: fa.flash_attention_cuda(q, k, v, block_q=block_q), iters=20,
+        device="cuda") * 1e3
+
+
+def default_only() -> dict:
+    """The installed tree's fp32 forward at the forward's shapes."""
+    import subprocess as sp
+
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    smi = sp.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                  "--format=csv,noheader"], capture_output=True, text=True,
+                 check=True).stdout.strip().splitlines()[0]
+    row = {"variant": "f32_default_only", "module": fa.__file__, "card": smi}
+    for b, s, h, kh, d in SHAPES:
+        q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda")
+                   for n in (h, kh, kh))
+        row[f"ms_{b}x{s}x{h}/{kh}x{d}"] = _time_checked(q, k, v, None, row,
+                                                        f"{b}x{s}")
+    return row
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--f32-default-only"]:
+        print(json.dumps(default_only()), flush=True)
+        return 0
     if len(sys.argv) == 3:                      # one variant, in a child
         print(json.dumps(run_variant(sys.argv[1], sys.argv[2])), flush=True)
         return 0
-    names = [n for n in VARIANTS
-             if sys.argv[1:] != ["bwd"] or n.startswith("bwd_")]
+    only = sys.argv[1] + "_" if sys.argv[1:] in (["bwd"], ["f32"]) else ""
+    names = [n for n in VARIANTS if n.startswith(only)]
     libs = build_all(names)
     env = dict(os.environ, PYTHONPATH=str(_build.CSRC.parents[1]))
     for name, so in libs.items():

@@ -83,14 +83,40 @@
 //   softmax changed little or nothing.  A TMA producer warp with setmaxnreg,
 //   ping-pong between warpgroups and a persistent grid are the next stages.
 //
-// flash_fwd (fp32).  One block of 4 warps per (q tile of BQ = 4 * ROWS rows,
-// head, batch); each warp owns ROWS query rows.  The block loops over 64-key
-// K/V tiles staged in shared memory as fp32 and stops at the causal limit of
-// its q tile.  A lane owns keys lane and lane + 32 of a tile for the scores
-// and output dims lane + 32 * c for the P V product.  K rows are read as
-// float4 and reused by all ROWS rows of a warp; the K/V tiles are padded by
-// 4 floats a row so the float4 reads of 8 lanes hit distinct banks.  It is
-// bound by operations at the 67 TFLOP/s fp32 rate.
+// flash_fwd (fp32 FMAs on the CUDA cores).  Bound by operations: 64.5 GFLOP
+// at the calibrate shape is 0.962 ms at the 67 TFLOP/s fp32 rate, so the
+// design keeps the FMA pipe fed from registers.
+//   A block of 2 * BQ threads (BQ / 16 warps) owns a q tile of BQ = 64 or
+//   128 rows; warp w owns rows 16 w .. 16 w + 15, and a thread (half h =
+//   lane / 16, key group g = lane % 16) the 8 rows 16 w + 2 r + h in both
+//   products, so m, l and the rescale of its O rows stay in its registers.
+//   S: the thread holds 8 rows x 4 keys (g + 16 i).  Each 4-wide d step
+//   reads 8 q float4s (a broadcast: 16 lanes share a row) and 4 K float4s
+//   for 128 FMAs.  A row's max takes 4 shuffles inside the half-warp; l is
+//   kept per thread and summed once, in the epilogue.
+//   O += P V: the thread holds the same 8 rows x D / 16 dims (chunks of 4,
+//   2 or 1 consecutive dims, 16 lanes side by side, so every V read is a
+//   whole line); P goes through shared memory (rows private to the warp,
+//   so __syncwarp suffices), and each 4-key step reads 8 broadcast P
+//   float4s and 4 V rows for 8 x 4 x D / 16 FMAs.  Staged rows are padded
+//   by 16 bytes, so the 16 distinct K rows a read touches, and the two q
+//   or P rows of a warp, fall on distinct banks.
+//   K and V arrive by 16-byte cp.async copies (wgmma.cuh's; rows past sk
+//   zero-filled by a source size of 0), each thread copying the same piece
+//   of every few rows.  One stage (kKvStages): at block_q 64 and D <= 64 a
+//   block takes at most 71 KB and 170 registers a thread, so three blocks
+//   share an SM and one block's copy overlaps the others' products.  Tile
+//   j + 1 in flight inside the block (two stages, 105 KB at D 64, two
+//   blocks an SM) and a thread tile of 8 x 8 (nearly every register a
+//   thread may have) both timed slower.  bf16 under impl = 1 stages the
+//   bf16 bytes and converts when it reads them.
+//   Only the diagonal tiles and the tile holding sk take the mask; a
+//   causal warp skips the tiles wholly past its last row.  One FFMA and
+//   one ex2.approx a score, as in flash_fwd_wgmma (the max is taken on the
+//   raw scores; tile 0, which holds key 0, comes first, so the running max
+//   is finite); the LSE goes back to natural-log units in the epilogue.
+//   Grid (q tiles, H, B), the q tile fastest, a causal head's heaviest tile
+//   first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,8 +127,6 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr int kBlockK = 64;
 constexpr float kNegInf = -1e30f;
 
@@ -110,182 +134,302 @@ struct Strides {
   long long b, s, h;  // elements; the last dim is contiguous
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// --- flash_fwd: fp32 FMAs on the CUDA cores ------------------------------------
+
+namespace cc {
+
+using namespace hopper;
+
+constexpr int kRows = 8;             // query rows a thread owns
+constexpr int kKvStages = 1;         // K/V tiles staged (see the header)
+constexpr int kPLd = kBlockK + 16;   // P row stride: rows 2r, 2r + 1 16 banks apart
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// dynamic shared memory of a block: the Q tile and the K/V stages, rows
+// padded by 16 bytes, then P (fp32)
 template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
+constexpr size_t smem_bytes(int d, int block_q) {
+  return sizeof(T) * (size_t)(d + 16 / sizeof(T))
+             * (block_q + kKvStages * 2 * kBlockK)
+         + sizeof(float) * (size_t)block_q * kPLd;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
+__device__ __forceinline__ float half_max(float x) {  // over the 16 lanes of a half-warp
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float half_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// N consecutive staged values as fp32 (one 4N- or 2N-byte shared load)
+template <int N>
+__device__ __forceinline__ void ld(const float* p, float* out) {
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+  } else if constexpr (N == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    out[0] = x.x; out[1] = x.y;
+  } else {
+    out[0] = *p;
+  }
+}
+__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+template <int N>
+__device__ __forceinline__ void ld(const __nv_bfloat16* p, float* out) {
+  if constexpr (N == 4) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    out[0] = bf16_lo(x.x); out[1] = bf16_hi(x.x);
+    out[2] = bf16_lo(x.y); out[3] = bf16_hi(x.y);
+  } else if constexpr (N == 2) {
+    const uint32_t x = *reinterpret_cast<const uint32_t*>(p);
+    out[0] = bf16_lo(x); out[1] = bf16_hi(x);
+  } else {
+    out[0] = __bfloat162float(*p);
+  }
+}
+
+// N consecutive outputs, rounded to T (nearest even, as torch's cast)
+template <int N>
+__device__ __forceinline__ void st(float* p, const float* x) {
+  if constexpr (N == 4) *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  else if constexpr (N == 2) *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  else *p = x[0];
+}
+template <int N>
+__device__ __forceinline__ void st(__nv_bfloat16* p, const float* x) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]));
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16(x[0], x[1]);
+  } else {
+    *p = __float2bfloat16(x[0]);
+  }
+}
+
+// Rows row0 .. row0 + ROWS - 1 of a (seq, D) slice with row stride
+// `stride` into shared memory at a row stride of LD elements, by 16-byte
+// cp.async copies; rows at or past `limit` are zero-filled.  Where the
+// threads cover whole rows (NT a multiple of the pieces a row), a thread
+// copies the same piece of every RP-th row, so its addresses step by a
+// constant.
+template <typename T, int D, int LD, int ROWS, int NT>
+__device__ __forceinline__ void copy_rows(T* dst, const T* src,
+                                          long long stride, int row0,
+                                          int limit, int tid) {
+  constexpr int E = 16 / sizeof(T), PIECES = D / E;
+  const uint32_t base = smem_addr(dst);
+  if constexpr (NT % PIECES == 0) {
+    constexpr int RP = NT / PIECES;
+    const int r0 = tid / PIECES, c = tid % PIECES;
+    if (RP > ROWS && r0 >= ROWS) return;
+    const T* s = src + (row0 + r0) * stride + c * E;
+    const uint32_t d = base + (uint32_t)((r0 * LD + c * E) * sizeof(T));
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+    for (int n = 0; n < (ROWS + RP - 1) / RP; ++n) {
+      const bool ok = row0 + r0 + n * RP < limit;
+      cp_async_16(d + (uint32_t)(n * RP * LD * sizeof(T)),
+                  ok ? s + n * RP * stride : src, ok);
+    }
+  } else {
+#pragma unroll
+    for (int i = tid; i < ROWS * PIECES; i += NT) {
+      const int r = i / PIECES, c = i - r * PIECES, row = row0 + r;
+      const bool ok = row < limit;
+      cp_async_16(base + (uint32_t)((r * LD + c * E) * sizeof(T)),
+                  ok ? src + row * stride + c * E : src, ok);
+    }
+  }
 }
 
-template <int D, int ROWS>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(ROWS * kWarps * D        // q tile
-                                  + 2 * kBlockK * (D + 4)  // K and V tiles
-                                  + kWarps * ROWS * kBlockK);  // probabilities
-}
-
-template <typename T, int D, int ROWS>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int D, int BQ>
+__global__ void __launch_bounds__(2 * BQ, BQ == 64 && D <= 64 ? 3 : 1)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o,
-          float* __restrict__ lse, int sq, int sk,
-          int group, Strides qs, Strides ks, Strides vs, Strides os,
-          float scale, int causal) {
-  constexpr int BQ = ROWS * kWarps;
-  constexpr int LD = D + 4;            // padded row stride of the K/V tiles
-  constexpr int DPL = (D + 31) / 32;   // output dims per lane
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // BQ x D
-  float* k_s = q_s + BQ * D;                     // kBlockK x LD
-  float* v_s = k_s + kBlockK * LD;               // kBlockK x LD
-  float* p_s = v_s + kBlockK * LD;               // kWarps x ROWS x kBlockK
+          float* __restrict__ lse, int sq, int sk, int group,
+          Strides qs, Strides ks, Strides vs, Strides os,
+          float scale_log2, int causal) {
+  constexpr int NT = 2 * BQ;
+  constexpr int LD = D + 16 / (int)sizeof(T);   // staged row stride (elements)
+  constexpr int KV_TILE = kBlockK * LD;
+  constexpr int N = D / 16;                     // O dims a thread owns
+  constexpr int VW = N % 4 == 0 ? 4 : N % 2 == 0 ? 2 : 1;
+  constexpr int NC = N / VW;                    // chunks of VW dims, 16 VW apart
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* kv_s = q_s + BQ * LD;                      // stage s: K, then V
+  float* p_s = reinterpret_cast<float*>(kv_s + kKvStages * 2 * KV_TILE);
 
+  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int head = blockIdx.y, batch = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * BQ, head = blockIdx.y, batch = blockIdx.z;
-  const int kv_head = head / group;
+  const int half = lane >> 4, kg = lane & 15;
+  const int q0 = tile * BQ, kv_head = head / group;
   const T* qb = q + batch * qs.b + head * qs.h;
   const T* kb = k + batch * ks.b + kv_head * ks.h;
   const T* vb = v + batch * vs.b + kv_head * vs.h;
 
-  for (int i = tid; i < BQ * D; i += kThreads) {  // rows past sq stay zero
-    const int r = i / D, c = i - r * D, qp = q0 + r;
-    q_s[i] = qp < sq ? to_f32(qb[qp * qs.s + c]) : 0.f;
-  }
+  const int k_end = causal ? min(sk, q0 + BQ) : sk;
+  const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
+  const int wrow = q0 + 16 * warp;              // this warp's first row
+  // a causal warp stops at the tile that holds its last row's key
+  const int my_tiles =
+      causal ? min(n_tiles, (wrow + 15) / kBlockK + 1) : n_tiles;
 
-  float m[ROWS], l[ROWS], acc[ROWS][DPL];
+  auto fetch = [&](int j) {                     // K/V tile j into its stage
+    T* st_kv = kv_s + (j % kKvStages) * 2 * KV_TILE;
+    copy_rows<T, D, LD, kBlockK, NT>(st_kv, kb, ks.s, j * kBlockK, sk, tid);
+    copy_rows<T, D, LD, kBlockK, NT>(st_kv + KV_TILE, vb, vs.s, j * kBlockK,
+                                     sk, tid);
+    cp_async_commit();
+  };
+  copy_rows<T, D, LD, BQ, NT>(q_s, qb, qs.s, q0, sq, tid);  // rows past sq: 0
+  fetch(0);
+
+  float acc[kRows][N], m[kRows], l[kRows];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
+  for (int r = 0; r < kRows; ++r) {
     m[r] = kNegInf;
     l[r] = 0.f;
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
+    for (int n = 0; n < N; ++n) acc[r][n] = 0.f;
   }
-  const float* q_w = q_s + warp * ROWS * D;
-  float* p_w = p_s + warp * ROWS * kBlockK;
-  const int row0 = q0 + warp * ROWS;
+  const T* q_t = q_s + (16 * warp + half) * LD;      // row r at + 2 r LD
+  float* p_t = p_s + (16 * warp + half) * kPLd;      // the same rows of P
 
-  // last key any row of this tile may see: the causal limit stops the loop
-  const int k_end = causal ? min(sk, q0 + BQ) : sk;
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();  // the previous tile is consumed (and q is staged)
-    for (int i = tid; i < kBlockK * D; i += kThreads) {
-      const int r = i / D, c = i - r * D, kp = k0 + r;
-      float kx = 0.f, vx = 0.f;  // zero-fill the tail: 0 * garbage could be NaN
-      if (kp < sk) {
-        kx = to_f32(kb[kp * ks.s + c]);
-        vx = to_f32(vb[kp * vs.s + c]);
-      }
-      k_s[r * LD + c] = kx;
-      v_s[r * LD + c] = vx;
-    }
-    __syncthreads();
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();                         // tile j (and Q) has landed
+    __syncthreads();                            // and every warp is past j - 1
+    if (kKvStages > 1 && j + 1 < n_tiles) fetch(j + 1);  // into j - 1's stage
+    if (j < my_tiles) {                         // uniform in the warp
+      const T* k_t = kv_s + (j % kKvStages) * 2 * KV_TILE;
+      const T* v_t = k_t + KV_TILE;
 
-    float s[ROWS][2];
+      float s[kRows][4];                        // keys kg + 16 i
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) s[r][0] = s[r][1] = 0.f;
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[r][i] = 0.f;
+      const T* k_l = k_t + kg * LD;
 #pragma unroll 4
-    for (int c = 0; c < D; c += 4) {
-      const float4 ka = *reinterpret_cast<const float4*>(k_s + lane * LD + c);
-      const float4 kc = *reinterpret_cast<const float4*>(k_s + (lane + 32) * LD + c);
+      for (int c = 0; c < D; c += 4) {
+        float kx[4][4];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(q_w + r * D + c);
-        s[r][0] = fmaf(qv.x, ka.x, fmaf(qv.y, ka.y, fmaf(qv.z, ka.z, fmaf(qv.w, ka.w, s[r][0]))));
-        s[r][1] = fmaf(qv.x, kc.x, fmaf(qv.y, kc.y, fmaf(qv.z, kc.z, fmaf(qv.w, kc.w, s[r][1]))));
-      }
-    }
-
-    const int key_a = k0 + lane, key_b = k0 + lane + 32;
+        for (int i = 0; i < 4; ++i) ld<4>(k_l + 16 * i * LD + c, kx[i]);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int qp = row0 + r;
-      float sa = s[r][0] * scale, sb = s[r][1] * scale;
-      if (key_a >= sk || (causal && key_a > qp)) sa = kNegInf;
-      if (key_b >= sk || (causal && key_b > qp)) sb = kNegInf;
-      const float m_new = fmaxf(m[r], warp_max(fmaxf(sa, sb)));
-      const float corr = expf(m[r] - m_new);
-      const float pa = expf(sa - m_new), pb = expf(sb - m_new);
-      l[r] = l[r] * corr + warp_sum(pa + pb);
-      m[r] = m_new;
+        for (int r = 0; r < kRows; ++r) {
+          float qx[4];
+          ld<4>(q_t + 2 * r * LD + c, qx);
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[r][c] *= corr;
-      p_w[r * kBlockK + lane] = pa;
-      p_w[r * kBlockK + lane + 32] = pb;
-    }
-    __syncwarp();
-
-#pragma unroll 2
-    for (int j = 0; j < kBlockK; j += 4) {
-      float vv[4][DPL];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) {
-          const int dd = lane + 32 * c;
-          vv[jj][c] = dd < D ? v_s[(j + jj) * LD + dd] : 0.f;
+          for (int i = 0; i < 4; ++i)
+            s[r][i] = fmaf(qx[3], kx[i][3], fmaf(qx[2], kx[i][2],
+                      fmaf(qx[1], kx[i][1], fmaf(qx[0], kx[i][0], s[r][i]))));
         }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 pv = *reinterpret_cast<const float4*>(p_w + r * kBlockK + j);
-#pragma unroll
-        for (int c = 0; c < DPL; ++c)
-          acc[r][c] = fmaf(pv.x, vv[0][c], fmaf(pv.y, vv[1][c],
-                      fmaf(pv.z, vv[2][c], fmaf(pv.w, vv[3][c], acc[r][c]))));
       }
+
+      const int k0 = j * kBlockK;
+      if (k0 + kBlockK > sk || (causal && k0 + kBlockK - 1 > wrow)) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)         // the diagonal or ragged tile
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = k0 + kg + 16 * i, row = wrow + 2 * r + half;
+            if (key >= sk || (causal && key > row)) s[r][i] = -INFINITY;
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        // the scale is positive, so the max of raw scores is the max of scaled
+        const float mx = half_max(fmaxf(fmaxf(s[r][0], s[r][1]),
+                                        fmaxf(s[r][2], s[r][3])));
+        const float m_new = fmaxf(m[r], mx * scale_log2);
+        const float corr = ex2(m[r] - m_new);
+        m[r] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[r][i] = ex2(fmaf(s[r][i], scale_log2, -m_new));
+          sum += s[r][i];
+        }
+        l[r] = l[r] * corr + sum;               // this thread's keys only
+#pragma unroll
+        for (int n = 0; n < N; ++n) acc[r][n] *= corr;
+      }
+
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p_t[2 * r * kPLd + kg + 16 * i] = s[r][i];
+      __syncwarp();
+      const T* v_l = v_t + kg * VW;             // chunk c at + 16 VW c
+#pragma unroll 2
+      for (int jj = 0; jj < kBlockK; jj += 4) {
+        float vx[4][N];
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            ld<VW>(v_l + (jj + t) * LD + 16 * VW * c, &vx[t][c * VW]);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          float px[4];
+          ld<4>(p_t + 2 * r * kPLd + jj, px);
+#pragma unroll
+          for (int n = 0; n < N; ++n)
+            acc[r][n] = fmaf(px[3], vx[3][n], fmaf(px[2], vx[2][n],
+                        fmaf(px[1], vx[1][n], fmaf(px[0], vx[0][n], acc[r][n]))));
+        }
+      }
+      __syncwarp();                             // P is rewritten next
     }
-    __syncwarp();  // p_w is rewritten by the next tile
+    if (kKvStages == 1 && j + 1 < n_tiles) {    // one stage: refill it once
+      // every warp is done with tile j
+      __syncthreads();
+      fetch(j + 1);
+    }
   }
 
   T* ob = o + batch * os.b + head * os.h;
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int qp = row0 + r;
-    if (qp >= sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
+  for (int r = 0; r < kRows; ++r) {
+    const int row = wrow + 2 * r + half;
+    const float lsum = half_sum(l[r]);
+    if (row >= sq) continue;
+    const float denom = fmaxf(lsum, 1e-30f);
+    float out[N];
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) {
-      const int dd = lane + 32 * c;
-      if (dd < D) ob[qp * os.s + dd] = from_f32<T>(acc[r][c] / denom);
-    }
-    if (lse != nullptr && lane == 0)  // m is in the scaled units here
-      lse[((long long)batch * gridDim.y + head) * sq + qp] = m[r] + logf(l[r]);
+    for (int n = 0; n < N; ++n) out[n] = acc[r][n] / denom;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      st<VW>(ob + row * os.s + 16 * VW * c + kg * VW, &out[c * VW]);
+    if (lse != nullptr && kg == 0)    // m, log2(l) in base-2 units
+      lse[((long long)batch * gridDim.y + head) * sq + row] =
+          (m[r] + log2f(lsum)) * kLn2;
   }
 }
 
-template <typename T, int D, int ROWS>
+template <typename T, int D, int BQ>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int b, int sq, int sk, int h, int kh, const Strides& qs,
            const Strides& ks, const Strides& vs, const Strides& os,
            float scale, int causal, cudaStream_t stream) {
-  constexpr int BQ = ROWS * kWarps;
-  constexpr size_t smem = smem_bytes<D, ROWS>();
-  auto kern = flash_fwd<T, D, ROWS>;
+  constexpr size_t smem = smem_bytes<T>(D, BQ);
+  auto kern = flash_fwd<T, D, BQ>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sq + BQ - 1) / BQ, h, b);
-  kern<<<grid, kThreads, smem, stream>>>(
+  kern<<<grid, 2 * BQ, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, h / kh, qs,
-      ks, vs, os, scale, causal);
+      ks, vs, os, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
@@ -296,8 +440,8 @@ int dispatch_rows(int block_q, const void* q, const void* k, const void* v,
                   const Strides& os, float scale, int causal,
                   cudaStream_t stream) {
   switch (block_q) {
-    case 16: return launch<T, D, 4>(q, k, v, o, lse, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
-    case 32: return launch<T, D, 8>(q, k, v, o, lse, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
+    case 64: return launch<T, D, 64>(q, k, v, o, lse, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
+    case 128: return launch<T, D, 128>(q, k, v, o, lse, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, stream);
     default: return -2;
   }
 }
@@ -318,6 +462,14 @@ int dispatch_d(int d, int block_q, const void* q, const void* k,
   }
 }
 
+size_t smem_of(int dtype, int d, int block_q) {
+  if (d % 16 || d < 16 || d > 128 || (block_q != 64 && block_q != 128))
+    return 0;
+  return dtype == 0 ? smem_bytes<float>(d, block_q)
+                    : smem_bytes<__nv_bfloat16>(d, block_q);
+}
+
+}  // namespace cc
 
 // --- flash_fwd_wgmma: bf16 on the tensor cores ---------------------------------
 
@@ -562,9 +714,10 @@ extern "C" {
 // negative code for an argument the kernel does not take: -1 dtype,
 // -2 block_q, -3 head dim, -4 block_k, -5 impl.  dtype: 0 float32,
 // 1 bfloat16.  impl: 0 by dtype (bfloat16 -> flash_fwd_wgmma with block_q
-// 64 or 128, float32 -> flash_fwd with block_q 16 or 32), 1 flash_fwd for
-// either dtype (block_q 16 or 32).  lse: null, or fp32 (B, H, Sq) that
-// receives each row's log-sum-exp.
+// 64 or 128, float32 -> flash_fwd with block_q 64 or 128), 1 flash_fwd for
+// either dtype (block_q 64 or 128).  lse: null, or fp32 (B, H, Sq) that
+// receives each row's log-sum-exp.  q, k, v rows must start on 16-byte
+// boundaries (both kernels copy 16 bytes at a time; the wrapper checks).
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int dtype, int impl,
                               int device, int b,
@@ -585,9 +738,9 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch_d<float>(d, block_q, q, k, v, o, l, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, st);
+    return cc::dispatch_d<float>(d, block_q, q, k, v, o, l, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, st);
   if (impl == 1)
-    return dispatch_d<__nv_bfloat16>(d, block_q, q, k, v, o, l, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, st);
+    return cc::dispatch_d<__nv_bfloat16>(d, block_q, q, k, v, o, l, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, st);
   return wg::dispatch_d(d, block_q, q, k, v, o, l, b, sq, sk, h, kh, qs, ks, vs, os, scale, causal, st);
 }
 
@@ -595,6 +748,12 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
 // not take).
 long long repro_flash_attention_wgmma_smem(int d, int block_q) {
   return (long long)wg::smem_of(d, block_q);
+}
+
+// Dynamic shared memory of one flash_fwd block (dtype 0 float32, 1
+// bfloat16; 0 for a shape it does not take).
+long long repro_flash_attention_cuda_core_smem(int dtype, int d, int block_q) {
+  return (long long)cc::smem_of(dtype, d, block_q);
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -11,7 +11,13 @@ functions here take the model's (B, S, H, D) layout and GQA
   or 128 rows (one or two warpgroups); P enters P V as two bf16 parts, its
   rounding ``hi`` and the rounding of ``p - hi``.
 - float32 -> ``"cuda_core"``: fp32 products on the CUDA cores, as the Pallas
-  kernel computes them, q tiles of 16 or 32 rows.
+  kernel computes them, q tiles of 64 or 128 rows (two threads a row, each
+  thread an 8-row register tile of S and of O), K/V double-buffered by
+  16-byte ``cp.async`` copies.
+
+Both kernels copy 16 bytes at a time, so q, k and v must start on 16-byte
+boundaries with 16-byte multiples for their batch, seq and head strides;
+the wrapper raises otherwise, for either dtype.
 
 ``impl="cuda_core"`` on ``flash_attention_cuda`` and the plain version pins
 the CUDA-core kernel for bf16 too, so a run can time the two on one card.
@@ -36,9 +42,10 @@ NEG_INF = -1e30
 BLOCK_K = 64                  # keys per K/V tile staged in shared memory
 BLOCK_K_CHOICES = (64,)
 # q rows per CUDA block, by kernel: the tiles each is compiled for and the
-# default (wgmma: one or two 64-row warpgroups; cuda_core: 4 warps x 4 or 8)
-BLOCK_Q_CHOICES = {"wgmma": (64, 128), "cuda_core": (16, 32)}
-BLOCK_Q = {"wgmma": 128, "cuda_core": 32}
+# default (wgmma: one or two 64-row warpgroups; cuda_core: 4 or 8 warps,
+# each 16 rows)
+BLOCK_Q_CHOICES = {"wgmma": (64, 128), "cuda_core": (64, 128)}
+BLOCK_Q = {"wgmma": 128, "cuda_core": 64}
 HEAD_DIMS = tuple(range(16, 129, 16))   # one kernel instantiation each
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _IMPL_CODE = {None: 0, "cuda_core": 1}
@@ -174,12 +181,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          return_lse: bool = False):
     """Launch q's dtype's kernel (or, with ``impl="cuda_core"``, the
     CUDA-core one) on PyTorch's current stream; raises on any tensor it
-    does not take (for the wgmma kernel, rows not on 16-byte boundaries)
-    and on a refused launch.  ``return_lse`` also returns the rows' fp32
+    does not take (rows not on 16-byte boundaries first, for either
+    kernel) and on a refused launch.  ``return_lse`` also returns the rows' fp32
     log-sum-exp (B, H, Sq), written by the kernel's epilogue; without it
     the kernel gets a null pointer and writes O alone."""
     kern = kernel_for(q.dtype, impl)
     block_q = block_q or BLOCK_Q[kern]
+    for name, t in (("q", q), ("k", k), ("v", v)):   # 16-byte copies
+        _check_16_bytes(t, name, "flash_attention_cuda")
     for t in (q, k, v):
         if not t.is_cuda or t.device != q.device:
             raise ValueError("flash_attention_cuda: q, k, v must be CUDA "
@@ -192,9 +201,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if h > _MAX_GRID_YZ or b > _MAX_GRID_YZ:
         raise ValueError(f"flash_attention_cuda: B={b}, H={h} exceed the "
                          f"grid limit {_MAX_GRID_YZ}")
-    if kern == "wgmma":                 # 16-byte cp.async copies
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            _check_16_bytes(t, name, "flash_attention_cuda")
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)

@@ -74,8 +74,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: BlockArg = None,
                     block_k: BlockArg = None) -> torch.Tensor:
     """q: (B, S, H, D); k, v: (B, Sk, K, D) with H % K == 0 -> (B, S, H, D).
-    bf16 runs the tensor-core kernel (``block_q`` 64 or 128), fp32 the
-    CUDA-core one (16 or 32); None takes the kernel's default.
+    bf16 runs the tensor-core kernel, fp32 the CUDA-core one (``block_q``
+    64 or 128 for either); None takes the kernel's default.
     Differentiable: see ``_FlashAttention``."""
     bq = _block(block_q, fa.default_block_q(q.dtype), "block_q")
     bk = _block(block_k, fa.BLOCK_K, "block_k")

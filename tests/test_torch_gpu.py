@@ -53,7 +53,7 @@ def _rand(gen, *shape, dtype):
     (1, 2048, 2048, 120, 120, 64, True),    # calibration: q (1, s, 120, 64)
 ])
 @pytest.mark.parametrize("dtype,block_q", [
-    (torch.float32, 16), (torch.float32, 32),       # the CUDA-core kernel
+    (torch.float32, 64), (torch.float32, 128),      # the CUDA-core kernel
     (torch.bfloat16, 64), (torch.bfloat16, 128),    # the wgmma kernel
 ])
 def test_flash_attention_kernel_matches_plain(cuda, b, sq, sk, h, kh, d,
@@ -102,22 +102,109 @@ def test_flash_attention_wgmma_every_head_dim(cuda, d, block_q):
                                    atol=2e-2)
 
 
-def test_flash_attention_cuda_core_kernel_takes_bf16(cuda):
+@pytest.mark.parametrize("block_q", [None, 64, 128])
+def test_flash_attention_cuda_core_kernel_takes_bf16(cuda, block_q):
     """``impl="cuda_core"`` runs the fp32 CUDA-core kernel on bf16 inputs
-    (keeping P in fp32), against the plain version of that arithmetic; a
-    direct launch counts no wrapper launch."""
+    (staged as bf16, keeping P in fp32), against the plain version of that
+    arithmetic, at its default and both q tiles; a direct launch counts no
+    wrapper launch, and a tile it is not built for is refused."""
     q = _rand(cuda, 2, 509, 15, 64, dtype=torch.bfloat16)
     k = _rand(cuda, 2, 509, 5, 64, dtype=torch.bfloat16)
     v = _rand(cuda, 2, 509, 5, 64, dtype=torch.bfloat16)
     ops.reset_launches()
-    got = fa.flash_attention_cuda(q, k, v, impl="cuda_core")
-    want = fa.flash_attention_plain(q, k, v, impl="cuda_core")
+    got = fa.flash_attention_cuda(q, k, v, impl="cuda_core", block_q=block_q)
+    want = fa.flash_attention_plain(q, k, v, impl="cuda_core",
+                                    block_q=block_q)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention"] == 0
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
     with pytest.raises(RuntimeError, match="block_q"):
-        fa.flash_attention_cuda(q, k, v, impl="cuda_core", block_q=64)
+        fa.flash_attention_cuda(q, k, v, impl="cuda_core", block_q=32)
+
+
+def _cuda_core_close(q, k, v, causal, block_q, impl=None):
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, block_q=block_q,
+                                  impl=impl)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
+                                    impl=impl)
+    torch.cuda.synchronize()
+    tol = TOL[q.dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("block_q", [64, 128])
+def test_flash_attention_cuda_core_every_head_dim(cuda, d, block_q):
+    """Every head dim runs the fp32 CUDA-core kernel at both q tiles
+    (ragged q and keys, GQA, causal and not), and the same instantiation
+    on bf16 under ``impl="cuda_core"``."""
+    for sq, sk, causal in ((200, 200, True), (130, 70, False)):
+        for dtype, impl in ((torch.float32, None),
+                            (torch.bfloat16, "cuda_core")):
+            q = _rand(cuda, 2, sq, 6, d, dtype=dtype)
+            k = _rand(cuda, 2, sk, 2, d, dtype=dtype)
+            v = _rand(cuda, 2, sk, 2, d, dtype=dtype)
+            _cuda_core_close(q, k, v, causal, block_q, impl)
+
+
+@pytest.mark.parametrize("block_q", [64, 128])
+@pytest.mark.parametrize("b,sq,sk,h,kh,d,causal", [
+    (2, 300, 300, 6, 2, 64, True),      # a ragged sk tail on the diagonal
+    (1, 100, 1000, 4, 2, 64, False),    # non-causal, sk > sq, ragged tail
+    (1, 333, 333, 8, 1, 64, True),      # MQA, causal
+    (2, 64, 700, 15, 1, 128, False),    # MQA, one q tile, many K/V tiles
+    (1, 1, 65, 2, 2, 16, True),         # one row: one key, then the tail
+])
+def test_flash_attention_cuda_core_edges(cuda, block_q, b, sq, sk, h, kh, d,
+                                         causal):
+    """The fp32 CUDA-core kernel where its masks and skips bite: the tile
+    holding sk, sk past sq without the causal limit, one KV head for every
+    query head, and a q tile almost wholly past sq."""
+    q = _rand(cuda, b, sq, h, d, dtype=torch.float32)
+    k = _rand(cuda, b, sk, kh, d, dtype=torch.float32)
+    v = _rand(cuda, b, sk, kh, d, dtype=torch.float32)
+    _cuda_core_close(q, k, v, causal, block_q)
+
+
+@pytest.mark.parametrize("block_q", [64, 128])
+@pytest.mark.parametrize("dtype,impl", [(torch.float32, None),
+                                        (torch.bfloat16, "cuda_core")])
+def test_flash_attention_cuda_core_lse_and_stream(cuda, block_q, dtype, impl):
+    """With and without the LSE pointer the CUDA-core kernel writes the
+    same O bit for bit, at both q tiles; the LSE matches the plain
+    version's; and a launch on a side stream gives the same O as on the
+    default stream."""
+    q = _rand(cuda, 2, 333, 15, 64, dtype=dtype)
+    k = _rand(cuda, 2, 333, 5, 64, dtype=dtype)
+    v = _rand(cuda, 2, 333, 5, 64, dtype=dtype)
+    kw = dict(causal=True, block_q=block_q, impl=impl)
+    o1 = fa.flash_attention_cuda(q, k, v, **kw)
+    o2, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    _, want = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        o3 = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(o1, o3)
+    torch.testing.assert_close(lse, want, rtol=0, atol=2e-4)
+
+
+def test_flash_attention_cuda_core_refuses_unaligned_rows(cuda):
+    """The CUDA-core kernel copies 16 bytes at a time too: an fp32 view
+    whose rows do not start on 16-byte boundaries is refused before any
+    launch, and nothing falls back."""
+    wide = _rand(cuda, 2, 64, 4, 66, dtype=torch.float32)
+    q = wide[..., :64]                    # head stride 264 bytes
+    ok = _rand(cuda, 2, 64, 4, 64, dtype=torch.float32)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(q, ok, ok)
+    flat = _rand(cuda, 2 * 64 * 4 * 64 + 1, dtype=torch.float32)
+    shifted = flat[1:].view(2, 64, 4, 64)  # base 4 bytes past a boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(ok, shifted, ok)
 
 
 def test_flash_attention_wgmma_refuses_unaligned_rows(cuda):

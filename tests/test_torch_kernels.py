@@ -105,7 +105,7 @@ def test_flash_attention_plain_small_head_dims(d, causal):
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("block_q", [16, 32])
+@pytest.mark.parametrize("block_q", [64, 128])
 def test_flash_attention_plain_block_q_invariant(block_q):
     """The q tile the kernel is launched with does not change the result."""
     (jq, tq), (jk, tk), (jv, tv) = _attn_inputs(2, 77, 77, 6, 2, 64,
@@ -141,12 +141,12 @@ def test_flash_attention_bf16_plain_matches_pallas(b, sq, sk, h, kh, d,
 
 @pytest.mark.parametrize("dtype,ok,refused", [
     (torch.bfloat16, (64, 128), (16, 32, 48)),
-    (torch.float32, (16, 32), (48, 64, 128)),
+    (torch.float32, (128, 64), (16, 32, 48)),
 ])
 def test_flash_attention_block_q_by_dtype(dtype, ok, refused):
     """bf16 runs the wgmma kernel (one or two 64-row warpgroups), fp32 the
-    CUDA-core one; the plain version is held to the same tiles, and None
-    takes each kernel's default."""
+    CUDA-core one (4 or 8 warps of 16 rows); the plain version is held to
+    the same tiles, and None takes each kernel's default."""
     q = _t(1, 40, 2, 64, dtype=dtype)
     for bq in ok:
         assert ops.flash_attention(q, q, q, block_q=bq).shape == q.shape
@@ -154,9 +154,69 @@ def test_flash_attention_block_q_by_dtype(dtype, ok, refused):
         with pytest.raises(ValueError, match="block_q"):
             ops.flash_attention(q, q, q, block_q=bq)
     assert fa.default_block_q(dtype) == ok[-1]
-    assert fa.default_block_q(dtype, "cuda_core") == 32
+    assert fa.default_block_q(dtype, "cuda_core") == 64
     with pytest.raises(ValueError, match="impl"):
         fa.kernel_for(dtype, "tf32")
+
+
+def _lse_f64(q, k, v, causal):
+    """Each row's log-sum-exp of its scaled, masked scores in float64,
+    (B, H, Sq), from the same values the kernels read."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    idx = torch.arange(h) // (h // kh)
+    qd, kd = q.double().transpose(1, 2), k.double()[:, :, idx].transpose(1, 2)
+    sc = qd @ kd.transpose(-1, -2) / d ** 0.5
+    if causal:
+        sc = sc.masked_fill(torch.ones(sq, sk, dtype=torch.bool).triu(1),
+                            float("-inf"))
+    return torch.logsumexp(sc, dim=-1)
+
+
+@pytest.mark.parametrize("block_q", fa.BLOCK_Q_CHOICES["cuda_core"])
+@pytest.mark.parametrize("b,sq,sk,h,kh,d,causal", [
+    (1, 300, 300, 6, 2, 64, True),      # GQA 3, sk not a multiple of 64
+    (2, 130, 200, 4, 4, 32, False),     # non-causal, sk > sq, ragged tail
+    (1, 200, 77, 4, 1, 16, False),      # MQA, sq > sk
+    (1, 150, 150, 4, 2, 128, True),     # causal, a q tile past sq
+])
+def test_flash_attention_cuda_core_tiles_match_pallas(block_q, b, sq, sk, h,
+                                                      kh, d, causal):
+    """The CUDA-core kernel's plain version at each of its q tiles against
+    the Pallas kernel (interpret mode) at fp32's 2e-5, and its row LSE
+    against a float64 log-sum-exp of the same scores."""
+    (jq, tq), (jk, tk), (jv, tv) = _attn_inputs(b, sq, sk, h, kh, d,
+                                                "float32")
+    want = jops.flash_attention(jq, jk, jv, causal=causal, block_q=64,
+                                block_k=64)
+    got, lse = fa.flash_attention_plain(tq, tk, tv, causal=causal,
+                                        block_q=block_q, return_lse=True)
+    assert fa.kernel_for(tq.dtype) == "cuda_core"
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse.double(), _lse_f64(tq, tk, tv, causal),
+                               rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("bad", ["base", "head_stride", "seq_stride"])
+def test_flash_attention_cuda_refuses_unaligned_fp32(bad):
+    """Both forward kernels copy 16 bytes at a time: an fp32 q, k or v
+    whose base or batch/seq/head strides are not 16-byte multiples is
+    refused by the wrapper before anything else (here on CPU tensors,
+    which it then refuses for not lying on the card)."""
+    ok = _t(1, 8, 2, 64)
+    if bad == "base":
+        t = torch.zeros(1 * 8 * 2 * 64 + 1)[1:].view(1, 8, 2, 64)
+    elif bad == "head_stride":
+        t = torch.zeros(1, 8, 2, 66)[..., :64]       # head stride 264 bytes
+    else:
+        t = torch.zeros(8 * 129).as_strided((1, 8, 2, 64),
+                                            (8 * 129, 129, 64, 1))
+    for args in ((t, ok, ok), (ok, t, ok), (ok, ok, t)):
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention_cuda(*args)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_cuda(ok, ok, ok)
 
 
 def test_flash_attention_split_p_adds_little_error():
@@ -490,7 +550,7 @@ def test_block_args():
         ops.flash_attention(q, q, q, block_q=48)
     with pytest.raises(TypeError):
         ops.flash_attention(q, q, q, block_k=64.0)
-    assert ops.flash_attention(q, q, q, block_q=16, block_k=64).shape \
+    assert ops.flash_attention(q, q, q, block_q=64, block_k=64).shape \
         == q.shape
 
 
@@ -1107,3 +1167,32 @@ def test_backward_wrappers_never_take_the_plain_version_off_the_cpu():
         fused_mod.fused_add_rmsnorm_bwd_cuda(y, y, y, y, _t(64))
     assert not ops.LAUNCHES["flash_attention_bwd"]
     assert not ops.LAUNCHES["fused_add_rmsnorm_bwd"]
+
+
+def _attention_ablations():
+    from repro_torch.bench import attention_ablations
+    return attention_ablations
+
+
+@pytest.mark.parametrize("name", ["f32_base", "f32_two_stages",
+                                  "f32_mask_every_tile", "f32_generic_copy",
+                                  "f32_expf"])
+def test_attention_fp32_ablation_variants_apply(name):
+    """Each fp32 forward variant of ``bench/attention_ablations.py`` finds
+    its anchor in ``csrc/flash_attention.cu`` (the bench raises otherwise)
+    and changes only what it names: the source constant it flips, the
+    mask's condition, the copy's branch, the two exponentials."""
+    ab = _attention_ablations()
+    base = (Path(ROOT) / "src/repro_torch/csrc/flash_attention.cu").read_text()
+    src = ab.variant_source(name)
+    assert name.startswith("f32_") and name in ab.VARIANTS
+    removed = set(base.splitlines()) - set(src.splitlines())
+    assert len(removed) == {"f32_base": 0, "f32_expf": 2}.get(name, 1)
+    if name == "f32_two_stages":
+        assert "constexpr int kKvStages = 2;" in src
+    if name == "f32_mask_every_tile":
+        assert "      if (true) {" in src
+    if name == "f32_generic_copy":
+        assert "  if constexpr (false) {" in src
+    if name == "f32_expf":
+        assert src.count("expf(kLn2 * ") == 2
