@@ -62,7 +62,16 @@ Phases, each printed as it runs; any failure exits non-zero:
              backward kernel 32 x 2 times.  Then one microbatch's loss and
              gradients through the kernels against the plain path
              (``attn_impl="naive"``), at full width in bf16 and on a
-             2-layer fp32 model (1e-4 of max |g|).
+             2-layer fp32 model (1e-4 of max |g|).  Then the graphed step
+             (``make_graphed_train_step``, one CUDA graph a step) against
+             the eager one from two copies of the same seeded weights: 3
+             steps each on the same batches, loss, grad_norm and every
+             param compared after each (``TRAIN_LOSS_TOL``, params
+             ``TRAIN_GRAD_TOL`` of max |p|; bit-identical or not), the
+             same launches a step; 4 pairs timed in turns (wall, device
+             ms, tokens/s, peak memory), the capture's seconds and the
+             graph's nodes; both steps profiled, the "elementwise/other"
+             group broken down by kernel name.
 9. result    one JSON line of kernel figures, the card line, then
              ``{"ok": true, "device": {...}}`` as the last line.  The
              attention entry also carries its share of the bound, its
@@ -198,6 +207,9 @@ SMALL_FP32_TOL = 1e-4   # fp32, 2 layers: kernel path vs plain path
 TRAIN_DATA = dict(seq_len=1024, global_batch=8, num_microbatches=2)
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=2)
 TRAIN_STEPS, TRAIN_TIMED = 8, 3
+# graphed vs eager: steps compared one by one (warm-up, capture, replay),
+# then pairs of steps timed in turns
+TRAIN_GRAPH_STEPS, TRAIN_PAIRS = 3, 4
 # One microbatch's loss and gradients, kernel path vs plain path, full width
 # in bf16 through 32 layers.  The paths round at different places (the
 # kernels keep P to ~16 bits and take every backward sum in fp32 with one
@@ -665,7 +677,7 @@ def fused_bwd_case(gen, label, rows, d, dtype, timed=False):
     pl = rn.plan(x, r, sc, dh, dy, warp_vals=fused_mod.BWD_WARP_VALS)
     bp = fused_mod.bwd_plan(rows, d, x.element_size(), pl, _sms())
     stream = torch.cuda.current_stream()
-    if fused_mod._counter(stream.device, stream).any():
+    if fused_mod.ticket_counters(stream.device, stream).any():
         raise AssertionError(f"fused_add_rmsnorm_bwd {label}: left its "
                              "ticket counters set")
     err = max(check_close(f"fused_add_rmsnorm_bwd {label} dsum", dsum, wsum,
@@ -1164,11 +1176,23 @@ def _kernel_group(name: str) -> str:
     return "elementwise/other"
 
 
-def profile_window(label: str, fn, wall_ms: float, per: int) -> None:
+def _short_kernel_name(name: str) -> str:
+    """A kernel's name without ``void``, namespaces and, past 160
+    characters, the rest (template arguments, parameter lists)."""
+    name = re.sub(r"^void ", "", name)
+    name = re.sub(r"\(anonymous namespace\)::|\b\w+::", "", name)
+    return name[:160]
+
+
+def profile_window(label: str, fn, wall_ms: float, per: int,
+                   breakdown: bool = False):
     """Device time by kernel group over one run of ``fn`` (torch.profiler,
     read from its Chrome trace so kernels launched outside PyTorch's own
     operators count too).  ``busy`` is that device time over ``wall_ms``,
-    the same work's wall time measured without the profiler."""
+    the same work's wall time measured without the profiler.
+    ``breakdown`` also prints the "elementwise/other" group by kernel
+    name: the 10 largest, ms and launches a step (or call).  Returns the
+    device ms, or None when the trace holds no kernel."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1184,6 +1208,7 @@ def profile_window(label: str, fn, wall_ms: float, per: int) -> None:
     counts: dict = {}     # kernels by group
     names: dict = {}
     ported: dict = {}     # the port's own kernels by entry function
+    other: dict = {}      # "elementwise/other" by kernel name: [ms, count]
     n_kernels = 0
     for ev in events:
         if ev.get("cat") == "kernel" and ev.get("ph") == "X":
@@ -1196,6 +1221,11 @@ def profile_window(label: str, fn, wall_ms: float, per: int) -> None:
             if g.endswith(" kernel"):
                 fn = re.sub(r"^.*?(\w+)(<|\().*$", r"\1", ev.get("name", ""))
                 ported[fn] = ported.get(fn, 0.0) + ms
+            if g == "elementwise/other":
+                row = other.setdefault(_short_kernel_name(ev.get("name", "")),
+                                       [0.0, 0.0])
+                row[0] += ms
+                row[1] += 1 / per
             n_kernels += 1
     if not n_kernels:
         log(f"[profile] {label}: the trace holds no device kernels; "
@@ -1211,6 +1241,13 @@ def profile_window(label: str, fn, wall_ms: float, per: int) -> None:
                                          key=lambda kv: -kv[1])),
             port_kernels=dict(sorted(ported.items(), key=lambda kv: -kv[1])),
             top=sorted(names.items(), key=lambda kv: -kv[1])[:5])))
+    if breakdown:
+        top = sorted(other.items(), key=lambda kv: -kv[1][0])[:10]
+        log(f"[profile] {label} elementwise/other by kernel name (top 10 "
+            f"of {len(other)}; ms and launches a "
+            f"{'step' if per > 1 else 'call'}): " + json.dumps(dict(
+                total_ms=groups.get("elementwise/other", 0.0),
+                top=[dict(name=n, ms=ms, count=c) for n, (ms, c) in top])))
     return device_ms
 
 
@@ -1434,20 +1471,130 @@ def _grad_agreement(label, cfg, params, mb, tol, cosine=None):
     return worst
 
 
+def _train_launch_check(label: str, cfg, dc, n_steps: int) -> dict:
+    """The launches counted since the last reset: each train kernel its
+    per-step count times ``n_steps``, every other kernel none."""
+    launches = dict(ops.LAUNCHES)
+    per_step = cfg.n_layers * dc.num_microbatches
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=2 * per_step, fused_add_rmsnorm=2 * per_step,
+                flash_attention_bwd=per_step, fused_add_rmsnorm_bwd=per_step)
+    for name, n in launches.items():
+        if n != want[name] * n_steps:
+            raise AssertionError(
+                f"[train] {label}: {name}: {n} launches in {n_steps} steps, "
+                f"expected {want[name]} a step ({cfg.n_layers} layers x "
+                f"{dc.num_microbatches} microbatches; the forward kernels "
+                f"run again under remat)")
+    log(f"[train] {label}: launches in {n_steps} steps: "
+        f"{json.dumps(launches)} (per step "
+        f"{json.dumps({k: v for k, v in want.items() if v})})")
+    return launches
+
+
+def _add_counts(total: dict, launches: dict) -> None:
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def _resident_bytes(params, state) -> int:
+    trees = (params, state["m"], state["v"], {"step": state["step"]})
+    return sum(t.numel() * t.element_size() for tree in trees
+               for _, t in opt_lib.tree_leaves(tree))
+
+
+def _graph_nodes(graph):
+    """The captured graph's nodes by type (driver API, on its
+    ``cudaGraph_t``), or None where PyTorch does not expose the graph."""
+    try:
+        raw = graph.raw_cuda_graph()
+    except (AttributeError, RuntimeError):
+        return None
+    cu = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(ctypes.c_void_p(raw), None, ctypes.byref(n)):
+        return None
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(ctypes.c_void_p(raw), nodes, ctypes.byref(n)):
+        return None
+    names = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+             5: "empty", 6: "wait_event", 7: "event_record"}
+    kinds: dict = {}
+    kind = ctypes.c_int(0)
+    for node in nodes:
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        name = names.get(kind.value, str(kind.value))
+        kinds[name] = kinds.get(name, 0) + 1
+    return dict(total=n.value, by_type=kinds)
+
+
+def _timed_step(fn):
+    """(wall ms, device ms, working set in bytes above what was allocated
+    before) of one call of ``fn``, and its result."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return (wall, start.elapsed_time(end),
+            torch.cuda.max_memory_allocated() - base, out)
+
+
+def _param_diff(a, b) -> float:
+    return max((x.float() - y.float()).abs().max().item()
+               for (_, x), (_, y) in zip(opt_lib.tree_leaves(a),
+                                         opt_lib.tree_leaves(b)))
+
+
+def _compare_steps(label, em, gm, ep, gp) -> bool:
+    """Graphed vs eager after one step: loss and grad_norm within
+    TRAIN_LOSS_TOL of their size, every param leaf within TRAIN_GRAD_TOL
+    of its max |p|.  Returns whether all of it is bit-identical."""
+    row, same = {}, True
+    for key in ("loss", "grad_norm", "lr"):
+        err = (gm[key] - em[key]).abs().item()
+        row[key] = err
+        same &= torch.equal(gm[key], em[key])
+        if not err <= TRAIN_LOSS_TOL * em[key].abs().item():
+            raise AssertionError(f"[train] {label}: {key} graphed "
+                                 f"{gm[key].item()} vs eager {em[key].item()}")
+    worst = 0.0
+    for (k, g), (_, e) in zip(opt_lib.tree_leaves(gp),
+                              opt_lib.tree_leaves(ep)):
+        err = (g.float() - e.float()).abs().max().item()
+        worst = max(worst, err)
+        same &= torch.equal(g, e)
+        if not err <= TRAIN_GRAD_TOL * e.float().abs().max().item():
+            raise AssertionError(f"[train] {label}: param {k} graphed vs "
+                                 f"eager max |dp| {err:.3e}")
+    log(f"[train] {label}: graphed vs eager max |diff|: " + json.dumps(dict(
+        row, params=worst, bit_identical=same)))
+    return same
+
+
 def phase_train():
     """smollm-360M, 32 layers, bf16, ``remat="full"``: training steps
-    through ``make_train_step``, a main path for the two forward kernels
-    and both backward kernels."""
+    through ``make_train_step`` and ``make_graphed_train_step``, a main
+    path for the two forward kernels and both backward kernels."""
     cfg = dataclasses.replace(get_config(ARCH), remat="full")
     dc = data_lib.DataConfig(**TRAIN_DATA)
+    ocfg = opt_lib.OptimizerConfig(**TRAIN_OPT)
     ds = data_lib.SyntheticDataset(cfg, dc)
-    batches = [ds.batch(i) for i in range(1 + TRAIN_TIMED + 1)]
+    n_fresh = 1 + TRAIN_TIMED + 1
+    batches = [ds.batch(i)
+               for i in range(n_fresh + TRAIN_GRAPH_STEPS + TRAIN_PAIRS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     params = model_lib.init(cfg, 0, device="cuda")
     state = opt_lib.init_state(params)
-    step = train_lib.make_train_step(cfg, opt_lib.OptimizerConfig(
-        **TRAIN_OPT))
+    step = train_lib.make_train_step(cfg, ocfg)
+    total: dict = {}
     ops.reset_launches()
     # (a) one repeated batch: the loss must fall
     losses = []
@@ -1476,21 +1623,8 @@ def phase_train():
         timed_losses.append(m["loss"].item())
     peak = torch.cuda.max_memory_allocated()
     # (c) launches over (a) and (b), per step
-    launches = dict(ops.LAUNCHES)
-    n_steps = TRAIN_STEPS + TRAIN_TIMED
-    per_step = cfg.n_layers * dc.num_microbatches
-    want = {name: 0 for name in launches}
-    want.update(flash_attention=2 * per_step, fused_add_rmsnorm=2 * per_step,
-                flash_attention_bwd=per_step, fused_add_rmsnorm_bwd=per_step)
-    for name, n in launches.items():
-        if n != want[name] * n_steps:
-            raise AssertionError(
-                f"[train] {name}: {n} launches in {n_steps} steps, expected "
-                f"{want[name]} a step ({cfg.n_layers} layers x "
-                f"{dc.num_microbatches} microbatches; the forward kernels "
-                f"run again under remat)")
-    log(f"[train] launches in {n_steps} steps: {json.dumps(launches)} "
-        f"(per step {json.dumps({k: v for k, v in want.items() if v})})")
+    _add_counts(total, _train_launch_check(
+        "eager", cfg, dc, TRAIN_STEPS + TRAIN_TIMED))
     tokens = dc.global_batch * dc.seq_len
     stats = dict(
         arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, remat=cfg.remat,
@@ -1502,8 +1636,9 @@ def phase_train():
         tokens_per_s=tokens / (statistics.median(wall_ms) / 1e3),
         peak_mem_gib=peak / 2**30)
     log(f"[train] {json.dumps(stats)}")
-    profile_window("train_step", lambda: step(params, state, batches[-1]),
-                   statistics.median(wall_ms), 1)
+    profile_window("train_step_eager",
+                   lambda: step(params, state, batches[n_fresh - 1]),
+                   statistics.median(wall_ms), 1, breakdown=True)
     # (d) kernel path vs plain path on one microbatch, on the card
     mb = {k: v[0] for k, v in batches[0].items()}
     _grad_agreement(f"{cfg.name} bf16, {cfg.n_layers} layers", cfg, params,
@@ -1514,7 +1649,107 @@ def phase_train():
     _grad_agreement(f"{cfg.name} widths fp32, 2 layers", small,
                     model_lib.init(small, 1, device="cuda"), mb,
                     SMALL_FP32_TOL)
-    return launches
+    del params, state, m
+    _add_counts(total, phase_train_graphed(cfg, dc, ocfg,
+                                           batches[n_fresh:]))
+    return total
+
+
+def phase_train_graphed(cfg, dc, ocfg, batches) -> dict:
+    """The graphed step (``make_graphed_train_step``) against the eager one
+    from two copies of the same seeded weights: TRAIN_GRAPH_STEPS steps
+    each on the same fresh batches (the first graphed call runs eagerly
+    on its side stream, the second captures and replays, the rest
+    replay), compared after every step; then TRAIN_PAIRS pairs of steps
+    timed in turns (eager, graphed, graphed, eager, ...); then the graphed
+    step profiled.  Returns the launches of both windows."""
+    tokens = dc.global_batch * dc.seq_len
+    ep = model_lib.init(cfg, 3, device="cuda")
+    es = opt_lib.init_state(ep)
+    gp = model_lib.init(cfg, 3, device="cuda")
+    gs = opt_lib.init_state(gp)
+    eager = train_lib.make_train_step(cfg, ocfg)
+    graphed = train_lib.make_graphed_train_step(cfg, ocfg, gp, gs,
+                                                batches[0])
+    total: dict = {}
+    ops.reset_launches()
+    same, g_extra, e_extra, calls = True, 0, 0, []
+    reserved0 = torch.cuda.memory_reserved()
+    for i in range(TRAIN_GRAPH_STEPS):
+        b = batches[i]
+        e_wall, _, ext, (_, _, em) = _timed_step(lambda: eager(ep, es, b))
+        e_extra = max(e_extra, ext)
+        g_wall, g_dev, ext, (_, _, gm) = _timed_step(
+            lambda: graphed(gp, gs, b))
+        g_extra = max(g_extra, ext)
+        calls.append(dict(call=i + 1, wall_ms=g_wall, device_ms=g_dev,
+                          working_set_gib=ext / 2**30, eager_wall_ms=e_wall))
+        same &= _compare_steps(f"step {i + 1}", em, gm, ep, gp)
+    _add_counts(total, _train_launch_check(
+        "graphed vs eager", cfg, dc, 2 * TRAIN_GRAPH_STEPS))
+    if graphed.capture_launches != {k: n // (2 * TRAIN_GRAPH_STEPS)
+                                    for k, n in total.items()}:
+        raise AssertionError(f"[train] the capture recorded "
+                             f"{graphed.capture_launches}, not one eager "
+                             f"step's launches")
+    nodes = _graph_nodes(graphed.graph)
+    log("[train] graphed step: " + json.dumps(dict(
+        capture_s=graphed.capture_seconds, graph_nodes=nodes,
+        capture_launches=graphed.capture_launches, calls=calls,
+        reserved_growth_gib=(torch.cuda.memory_reserved() - reserved0)
+        / 2**30, bit_identical_3_steps=same)))
+    if nodes is not None and nodes["by_type"].get("kernel", 0) < sum(
+            graphed.capture_launches.values()):
+        raise AssertionError(f"[train] the graph holds {nodes} nodes, fewer "
+                             f"kernels than the port's launches")
+    # timing in turns, the pairs' batches shared
+    runs = {"eager": [], "graphed": []}
+    steps = {"eager": lambda b: eager(ep, es, b),
+             "graphed": lambda b: graphed(gp, gs, b)}
+    ops.reset_launches()
+    for j in range(TRAIN_PAIRS):
+        b = batches[TRAIN_GRAPH_STEPS + j]
+        order = ("eager", "graphed") if j % 2 == 0 else ("graphed", "eager")
+        for kind in order:
+            wall, dev, ext, (_, _, m) = _timed_step(lambda: steps[kind](b))
+            runs[kind].append((wall, dev, ext, m["loss"].item()))
+    _add_counts(total, _train_launch_check(
+        "turns", cfg, dc, 2 * TRAIN_PAIRS))
+    same_after = _param_diff(ep, gp)
+    turns = {}
+    for kind, rows in runs.items():
+        wall = statistics.median(r[0] for r in rows)
+        extra = max([r[2] for r in rows]
+                    + [e_extra if kind == "eager" else g_extra])
+        own = _resident_bytes(ep, es) if kind == "eager" \
+            else _resident_bytes(gp, gs)
+        turns[kind] = dict(
+            step_wall_ms=wall, step_wall_ms_all=[r[0] for r in rows],
+            step_device_ms=statistics.median(r[1] for r in rows),
+            step_device_ms_all=[r[1] for r in rows],
+            tokens_per_s=tokens / (wall / 1e3),
+            peak_mem_gib=(own + extra) / 2**30,
+            resident_gib=own / 2**30, working_set_gib=extra / 2**30,
+            losses=[r[3] for r in rows])
+    log(f"[train] in turns ({TRAIN_PAIRS} pairs, eager and graphed from "
+        f"the same weights on the same batches; peak_mem_gib = the copy's "
+        f"params and AdamW state + the most a step allocated above them, "
+        f"for the graphed step at its capture): " + json.dumps(dict(
+            turns, wall_speedup=turns["eager"]["step_wall_ms"]
+            / turns["graphed"]["step_wall_ms"],
+            params_max_abs_diff_after=same_after,
+            reserved_gib=torch.cuda.memory_reserved() / 2**30)))
+    g_wall = turns["graphed"]["step_wall_ms"]
+    b = batches[-1]
+    dev = profile_window("train_step", lambda: graphed(gp, gs, b), g_wall, 1,
+                         breakdown=True)
+    if dev is None:
+        log(f"[profile] train_step: the trace holds no kernel of the "
+            f"graph's replay; the graphed step's device time from events "
+            f"is {turns['graphed']['step_device_ms']:.3f} ms (busy "
+            f"{turns['graphed']['step_device_ms'] / g_wall:.3f}); the eager "
+            f"step's profile above holds its kernels")
+    return total
 
 
 def main() -> int:

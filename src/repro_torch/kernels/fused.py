@@ -215,12 +215,22 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _counter(device: torch.device, stream) -> torch.Tensor:
+def ticket_counters(device: torch.device, stream) -> torch.Tensor:
     """The stream's two ticket counters: allocated and zeroed once, on the
-    stream; every launch leaves them zero."""
+    stream, at the first call for this (device, stream); every launch
+    leaves them zero.  A CUDA graph captured on ``stream`` needs them made
+    before its capture begins (call this, or run the backward once on the
+    stream): made inside a capture, they would come from the graph's
+    private pool and their zeroing would be a node of the graph, so a call
+    that would create them there raises."""
     key = (device.index, stream.cuda_stream)
     if key not in _COUNTERS:
         with torch.cuda.stream(stream):
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "fused_add_rmsnorm_bwd: the ticket counters of a stream "
+                    "under graph capture must be created before the capture "
+                    "(fused.ticket_counters(device, stream))")
             _COUNTERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
     return _COUNTERS[key]
 
@@ -262,7 +272,7 @@ def fused_add_rmsnorm_bwd_cuda(dh: torch.Tensor, dy: torch.Tensor,
     partial = torch.empty((bp.blocks, d), dtype=torch.float32,
                           device=x.device)
     stream = torch.cuda.current_stream(x.device)
-    counter = _counter(x.device, stream)
+    counter = ticket_counters(x.device, stream)
     lib = _build.load("fused_add_rmsnorm_bwd")
     fn = lib.repro_fused_add_rmsnorm_bwd
     if fn.argtypes is None:

@@ -5,7 +5,10 @@ arguments once, then routes by where the tensors lie: CPU tensors take the
 kernel's plain PyTorch version, CUDA tensors launch the CUDA kernel (which
 raises if it cannot).  Nothing falls back from the card to the plain
 version.  ``LAUNCHES`` counts, per wrapper, the kernel launches it made,
-so a run can show that its main path went through the kernels.
+so a run can show that its main path went through the kernels.  A CUDA
+graph's replay launches what its capture recorded without calling a
+wrapper: the graph's owner adds its capture's counts on every replay
+(``train_step.make_graphed_train_step``).
 
 ``flash_attention`` and ``fused_add_rmsnorm`` are differentiable: when a
 gradient will be taken (grad mode on and an input that requires one) they

@@ -157,7 +157,8 @@ def attn_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return o * corr[..., None] + pv.float(), m_new, l
 
     if block_remat and torch.is_grad_enabled():
-        step = functools.partial(checkpoint, step, use_reentrant=False)
+        step = functools.partial(checkpoint, step, use_reentrant=False,
+                                 preserve_rng_state=False)
     o = torch.zeros((b, n_kv, g, sq, hd), dtype=torch.float32, device=q.device)
     m = torch.full((b, n_kv, g, sq), NEG_INF, dtype=torch.float32,
                    device=q.device)

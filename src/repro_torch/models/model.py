@@ -132,7 +132,8 @@ def _chunked_loss(cfg: ModelConfig, params, batch):
         xi, li = x[:, i:i + c], labels[:, i:i + c]
         if grad:
             s_nll, s_tok, s_corr = checkpoint(_chunk_sums, xi, head, li,
-                                              use_reentrant=False)
+                                              use_reentrant=False,
+                                              preserve_rng_state=False)
         else:
             s_nll, s_tok, s_corr = _chunk_sums(xi, head, li)
         nll_sum = nll_sum + s_nll

@@ -174,14 +174,20 @@ def _remat(fn, mode: str):
     around the scan body): ``none`` as is, ``dots`` a selective checkpoint
     that saves the outputs of matrix products without batch dims
     (``aten.mm``/``aten.addmm``; the model's projections) and recomputes
-    the rest, any other mode a full checkpoint."""
+    the rest, any other mode a full checkpoint.  No op of a layer draws
+    random numbers (the port has no dropout), so the checkpoint neither
+    saves nor restores the RNG state (``preserve_rng_state=False``): that
+    reads the CUDA generator on every call, which a CUDA graph capture
+    (``train_step.make_graphed_train_step``) may refuse.  The model's other
+    checkpoints (the chunked loss, ``block_remat``) do the same."""
     if mode == "none":
         return fn
     kw = {}
     if mode == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_policy)
-    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False, **kw)
 
 
 def _needs_grad(params) -> bool:

@@ -8,14 +8,23 @@ layer loop bounds it further).  Gradients come from
 ``torch.autograd.grad`` over the parameter leaves.  The mesh half
 (``batch_shardings``, ``jit_train_step``) waits for the sharded slice: a
 ``mesh`` argument raises.
+
+A step is a host part (``device_inputs``: the batch onto the device) and
+a device body (``train_step_on_device``) that makes no host sync.
+``make_train_step`` runs both eagerly; ``make_graphed_train_step``, the
+counterpart of ``jax.jit(make_train_step(...))``, captures the body once
+as a CUDA graph and replays it.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.device import device_of
+from repro_torch.kernels import fused as fused_mod
+from repro_torch.kernels import ops
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import optimizer as opt_lib
@@ -36,26 +45,32 @@ def _no_mesh(mesh) -> None:
                                   "ported yet (single device only)")
 
 
-def loss_and_grads(cfg: ModelConfig, params, batch, mesh=None,
-                   micro_weights=None):
-    """Loop over microbatches, accumulating fp32 grads and mean loss.
-
-    ``micro_weights`` (shape ``(num_micro,)``, summing to 1) weights each
-    microbatch's gradient and loss instead of the uniform ``1/num_micro``
-    (the single-mesh form of the adaptive-batching gradient weights).
-    ``None`` is the exact uniform path.  Returns ``(loss, grads)``, grads
-    a nested dict of fp32 tensors shaped like ``params``.
-    """
-    _no_mesh(mesh)
+def device_inputs(cfg: ModelConfig, params, batch, micro_weights=None):
+    """The host part of a step: the batch's fields (numpy arrays or
+    tensors) and ``micro_weights`` as tensors on the params' device.
+    Returns ``(batch, w)``, ``w`` None for the uniform path."""
     dev = device_of(params)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    return batch, _weights(micro_weights, batch["tokens"].shape[0], dev)
+
+
+def _weights(micro_weights, n_micro: int, dev) -> Optional[torch.Tensor]:
+    if micro_weights is None:
+        return None
+    w = torch.as_tensor(micro_weights, dtype=torch.float32).to(dev)
+    if tuple(w.shape) != (n_micro,):
+        raise ValueError(f"micro_weights shape {tuple(w.shape)} != "
+                         f"({n_micro},)")
+    return w
+
+
+def loss_and_grads_on_device(cfg: ModelConfig, params, batch, w=None):
+    """The device body of ``loss_and_grads``: ``batch`` and ``w`` already on
+    the params' device (``device_inputs``).  It makes no host sync, copies
+    nothing to or from the host and branches on no tensor's value, so a
+    CUDA graph can capture it."""
     n_micro = batch["tokens"].shape[0]
-    w = None
-    if micro_weights is not None:
-        w = torch.as_tensor(micro_weights, dtype=torch.float32).to(dev)
-        if tuple(w.shape) != (n_micro,):
-            raise ValueError(f"micro_weights shape {tuple(w.shape)} != "
-                             f"({n_micro},)")
+    dev = device_of(params)
     # detached leaves that share the caller's storage: the grads are taken
     # against them, and the caller's tensors need no requires_grad
     paths, leaves = zip(*[(k, p.detach().requires_grad_())
@@ -83,6 +98,32 @@ def loss_and_grads(cfg: ModelConfig, params, batch, mesh=None,
     return loss_sum, opt_lib.tree_unflatten(zip(paths, acc))
 
 
+def loss_and_grads(cfg: ModelConfig, params, batch, mesh=None,
+                   micro_weights=None):
+    """Loop over microbatches, accumulating fp32 grads and mean loss.
+
+    ``micro_weights`` (shape ``(num_micro,)``, summing to 1) weights each
+    microbatch's gradient and loss instead of the uniform ``1/num_micro``
+    (the single-mesh form of the adaptive-batching gradient weights).
+    ``None`` is the exact uniform path.  Returns ``(loss, grads)``, grads
+    a nested dict of fp32 tensors shaped like ``params``.
+    """
+    _no_mesh(mesh)
+    batch, w = device_inputs(cfg, params, batch, micro_weights)
+    return loss_and_grads_on_device(cfg, params, batch, w)
+
+
+def train_step_on_device(cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig,
+                         params, opt_state, batch, w=None):
+    """One step's device body: ``loss_and_grads_on_device`` then the
+    in-place AdamW update.  Returns ``(params, opt_state, metrics)``."""
+    loss, grads = loss_and_grads_on_device(cfg, params, batch, w)
+    params, opt_state, om = opt_lib.apply_updates(params, grads, opt_state,
+                                                  opt_cfg)
+    metrics: Dict[str, Any] = {"loss": loss, **om}
+    return params, opt_state, metrics
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig,
                     mesh=None, micro_weights=None) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
@@ -92,11 +133,167 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig,
     _no_mesh(mesh)
 
     def train_step(params, opt_state, batch):
-        loss, grads = loss_and_grads(cfg, params, batch,
-                                     micro_weights=micro_weights)
-        params, opt_state, om = opt_lib.apply_updates(
-            params, grads, opt_state, opt_cfg)
-        metrics: Dict[str, Any] = {"loss": loss, **om}
-        return params, opt_state, metrics
+        batch, w = device_inputs(cfg, params, batch, micro_weights)
+        return train_step_on_device(cfg, opt_cfg, params, opt_state, batch,
+                                    w)
 
     return train_step
+
+
+def _state_leaves(opt_state) -> list:
+    return (opt_lib.tree_leaves(opt_state["m"], "m")
+            + opt_lib.tree_leaves(opt_state["v"], "v")
+            + [("step", opt_state["step"])])
+
+
+class GraphedTrainStep:
+    """``make_graphed_train_step``'s step.  Every call is one training
+    step, as ``make_train_step``'s is:
+
+    1. the first runs the device body eagerly on the step's own side
+       stream: it builds the kernels, loads every instantiation the step
+       launches (none may load inside a capture) and creates the stream's
+       fused-norm ticket counters before any capture;
+    2. the second captures the body on that stream into one
+       ``torch.cuda.CUDAGraph``, then replays it;
+    3. every later call replays it.
+
+    Before each, the batch is copied into static device buffers (through
+    pinned host buffers, ``non_blocking``), on the caller's current
+    stream, where the replay runs too.  The graph reads and writes the
+    storage of the params and optimizer state it was made with (the update
+    is in place), so other tensors, or a batch of another shape or dtype,
+    raise.  ``opt_state["step"]`` stays the tensor it was: the body writes
+    the new step into it.  Metrics come back as clones, so the next replay
+    does not overwrite them.  ``capture_launches`` holds the kernel
+    launches the capture recorded, added to ``ops.LAUNCHES`` on every
+    replay (a replay calls no wrapper); ``capture_seconds`` the capture's
+    host time; ``graph`` the ``CUDAGraph`` (its ``cudaGraph_t`` kept)."""
+
+    def __init__(self, cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig,
+                 params, opt_state, batch, micro_weights=None):
+        dev = device_of(params)
+        if dev is None or dev.type != "cuda":
+            raise ValueError(f"make_graphed_train_step: a CUDA graph needs "
+                             f"params on a CUDA device, got {dev}")
+        self.cfg, self.opt_cfg, self.device = cfg, opt_cfg, dev
+        self._params = opt_lib.tree_leaves(params)
+        self._state = _state_leaves(opt_state)
+        self._step = opt_state["step"]
+        host = {k: torch.as_tensor(v) for k, v in batch.items()}
+        self._static = {k: torch.empty(t.shape, dtype=t.dtype, device=dev)
+                        for k, t in host.items()}
+        self._pinned = {k: torch.empty(t.shape, dtype=t.dtype,
+                                       pin_memory=True)
+                        for k, t in host.items()}
+        self._w = _weights(micro_weights, host["tokens"].shape[0], dev)
+        self._copied: Optional[torch.cuda.Event] = None
+        self.stream = torch.cuda.Stream(dev)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.capture_launches: Optional[Dict[str, int]] = None
+        self.capture_seconds: Optional[float] = None
+        self.calls = 0
+        self._out: Optional[Dict[str, torch.Tensor]] = None
+        self._failed: Optional[str] = None
+
+    def _check(self, params, opt_state) -> None:
+        for what, want, got in (
+                ("params", self._params, opt_lib.tree_leaves(params)),
+                ("optimizer state", self._state, _state_leaves(opt_state))):
+            if [k for k, _ in got] != [k for k, _ in want] or any(
+                    a is not b for (_, a), (_, b) in zip(got, want)):
+                raise ValueError(
+                    f"graphed train step: these {what} are not the tensors "
+                    f"the step was made with (the graph reads and updates "
+                    f"their storage); make a new step for them")
+
+    def _load(self, batch) -> None:
+        """Copy the batch into the static buffers on the current stream."""
+        if set(batch) != set(self._static):
+            raise ValueError(f"graphed train step: batch fields "
+                             f"{sorted(batch)} != {sorted(self._static)}")
+        for k, v in batch.items():
+            t = torch.as_tensor(v)
+            dst = self._static[k]
+            if t.shape != dst.shape or t.dtype != dst.dtype:
+                raise ValueError(
+                    f"graphed train step: batch[{k!r}] is "
+                    f"{tuple(t.shape)} {t.dtype}; the graph was captured "
+                    f"for {tuple(dst.shape)} {dst.dtype}")
+        if self._copied is not None:    # the pinned buffers' last copy
+            self._copied.synchronize()
+        for k, v in batch.items():
+            t = torch.as_tensor(v)
+            if t.is_cuda:
+                self._static[k].copy_(t)
+            else:
+                self._pinned[k].copy_(t)
+                self._static[k].copy_(self._pinned[k], non_blocking=True)
+        self._copied = torch.cuda.Event()
+        self._copied.record()
+
+    def _body(self, params, opt_state) -> Dict[str, torch.Tensor]:
+        try:
+            _, state, metrics = train_step_on_device(
+                self.cfg, self.opt_cfg, params, opt_state, self._static,
+                self._w)
+            self._step.copy_(state["step"])
+        finally:
+            opt_state["step"] = self._step
+        return metrics
+
+    def _capture(self, params, opt_state) -> None:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, stream=self.stream):
+                out = self._body(params, opt_state)
+            graph.instantiate()
+        except RuntimeError as err:     # CUDA's errors, and the capture's
+            self._failed = f"{type(err).__name__}: {err}"
+            raise RuntimeError(f"graphed train step: the capture failed: "
+                               f"{self._failed}") from err
+        finally:
+            counted = {k: ops.LAUNCHES[k] - before[k] for k in before}
+            ops.LAUNCHES.update(before)   # the capture launched nothing
+        self.capture_seconds = time.perf_counter() - t0
+        self.capture_launches = counted
+        self.graph, self._out = graph, out
+
+    def __call__(self, params, opt_state, batch):
+        if self._failed is not None:
+            raise RuntimeError(f"graphed train step: the capture failed "
+                               f"earlier ({self._failed})")
+        self._check(params, opt_state)
+        self._load(batch)
+        if self.calls == 0:
+            main = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(main)
+            with torch.cuda.stream(self.stream):
+                fused_mod.ticket_counters(self.device, self.stream)
+                out = self._body(params, opt_state)
+            main.wait_stream(self.stream)
+        else:
+            if self.graph is None:
+                self._capture(params, opt_state)
+            self.graph.replay()
+            for name, n in self.capture_launches.items():
+                ops.LAUNCHES[name] += n
+            out = self._out
+        self.calls += 1
+        return params, opt_state, {k: v.clone() for k, v in out.items()}
+
+
+def make_graphed_train_step(cfg: ModelConfig,
+                            opt_cfg: opt_lib.OptimizerConfig, params,
+                            opt_state, batch,
+                            micro_weights=None) -> GraphedTrainStep:
+    """Returns step(params, opt_state, batch) -> (params, opt_state,
+    metrics) with ``make_train_step``'s contract, the step's device body
+    captured once as a CUDA graph and replayed (``GraphedTrainStep``).
+    ``params`` and ``opt_state`` are the tensors every call must pass (the
+    graph is bound to their storage); ``batch`` gives the batch's fields,
+    shapes and dtypes.  Raises on params that are not on a CUDA device."""
+    return GraphedTrainStep(cfg, opt_cfg, params, opt_state, batch,
+                            micro_weights)

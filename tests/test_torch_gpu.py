@@ -684,7 +684,7 @@ def test_fused_add_rmsnorm_bwd_counters_rearm(cuda):
     for got, args in zip(outs, inputs):
         _norm_bwd_close(got, args)
     main = torch.cuda.current_stream()
-    assert not fused_mod._counter(main.device, main).any()
+    assert not fused_mod.ticket_counters(main.device, main).any()
     side = torch.cuda.Stream()
     side.wait_stream(main)
     with torch.cuda.stream(side):
@@ -692,7 +692,7 @@ def test_fused_add_rmsnorm_bwd_counters_rearm(cuda):
     side.synchronize()
     for g, args in zip(got, inputs[:2]):
         _norm_bwd_close(g, args)
-    assert not fused_mod._counter(side.device, side).any()
+    assert not fused_mod.ticket_counters(side.device, side).any()
 
 
 def test_fused_add_rmsnorm_bwd_is_one_kernel(cuda, tmp_path):
@@ -787,3 +787,185 @@ def test_train_step_kernel_path_matches_plain_path(cuda):
     for key in ("loss", "grad_norm", "lr"):
         torch.testing.assert_close(metrics[0][key], metrics[1][key],
                                    rtol=1e-4, atol=0)
+
+
+# --- the graphed train step ------------------------------------------------------
+#
+# 2 layers at smollm-360M's widths, bf16, full remat.  Graphed against eager
+# at chip_smoke.py's ``[train]`` bounds: loss and grad_norm at 2e-2 of
+# their size, each param leaf at 0.1 of its max |p| (both run the same
+# kernels in the same order, so they should agree bit for bit; the tests
+# print whether they do).
+
+def _graph_setup(lr=1e-3):
+    from repro_torch.train import data as tdata
+    from repro_torch.train import optimizer as topt
+    cfg = dataclasses.replace(get_config("smollm_360m"), n_layers=2,
+                              remat="full")
+    ds = tdata.SyntheticDataset(cfg, tdata.DataConfig(
+        seq_len=256, global_batch=4, num_microbatches=2))
+    return cfg, ds, topt.OptimizerConfig(lr=lr, warmup_steps=2)
+
+
+def _fresh(cfg, seed=0):
+    from repro_torch.train import optimizer as topt
+    params = tm.init(cfg, seed)
+    return params, topt.init_state(params)
+
+
+def test_graphed_train_step_matches_eager(cuda):
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+    cfg, ds, ocfg = _graph_setup()
+    (ep, es), (gp, gs) = _fresh(cfg), _fresh(cfg)
+    eager = tts.make_train_step(cfg, ocfg)
+    graphed = tts.make_graphed_train_step(cfg, ocfg, gp, gs, ds.batch(0))
+    identical = True
+    for i in range(3):
+        b = ds.batch(i)
+        _, _, em = eager(ep, es, b)
+        gp2, gs2, gm = graphed(gp, gs, b)
+        assert gp2 is gp and gs2 is gs
+        for key in ("loss", "grad_norm", "lr"):
+            err = (gm[key] - em[key]).abs().item()
+            assert err <= 2e-2 * em[key].abs().item(), (key, i, err)
+            identical &= torch.equal(gm[key], em[key])
+        for (k, g), (_, e) in zip(topt.tree_leaves(gp),
+                                  topt.tree_leaves(ep)):
+            err = (g.float() - e.float()).abs().max().item()
+            assert err <= 0.1 * e.float().abs().max().item(), (k, i, err)
+            identical &= torch.equal(g, e)
+    assert int(gs["step"]) == int(es["step"]) == 3
+    print(f"graphed vs eager, 3 steps: bit-identical {identical}")
+
+
+def test_graphed_replay_reads_each_batch(cuda):
+    """lr 0 keeps the params: a replay on another batch (here given as
+    CUDA tensors) gives another loss, and the first batch again gives its
+    loss again, bit for bit."""
+    from repro_torch.train import train_step as tts
+    cfg, ds, ocfg = _graph_setup(lr=0.0)
+    params, state = _fresh(cfg)
+    a = ds.batch(0)
+    b = {k: torch.from_numpy(v).cuda() for k, v in ds.batch(1).items()}
+    step = tts.make_graphed_train_step(cfg, ocfg, params, state, a)
+    losses = [step(params, state, x)[2]["loss"] for x in (a, a, b, a)]
+    assert step.graph is not None and step.calls == 4
+    assert not torch.equal(losses[2], losses[1])
+    assert torch.equal(losses[3], losses[1])
+
+
+def test_graphed_train_step_counts_the_eager_launches(cuda):
+    from repro_torch.train import train_step as tts
+    cfg, ds, ocfg = _graph_setup()
+    params, state = _fresh(cfg)
+    ops.reset_launches()
+    tts.make_train_step(cfg, ocfg)(params, state, ds.batch(0))
+    eager = dict(ops.LAUNCHES)
+    assert eager["flash_attention_bwd"] == cfg.n_layers * 2
+    params, state = _fresh(cfg)
+    step = tts.make_graphed_train_step(cfg, ocfg, params, state,
+                                       ds.batch(0))
+    ops.reset_launches()
+    for i in range(3):     # eager on the side stream, capture + replay, replay
+        step(params, state, ds.batch(i))
+        assert ops.LAUNCHES == {k: (i + 1) * n for k, n in eager.items()}
+    assert step.capture_launches == eager
+
+
+def test_graphed_train_step_makes_the_counters_before_capture(cuda):
+    """The side stream's fused-norm ticket counters exist after the first
+    (eager) call, the capture adds none, and they read zero after 3
+    replays; the capture stream's counters cannot be made inside one."""
+    from repro_torch.train import train_step as tts
+    cfg, ds, ocfg = _graph_setup()
+    params, state = _fresh(cfg)
+    step = tts.make_graphed_train_step(cfg, ocfg, params, state,
+                                       ds.batch(0))
+    dev = params["embed"].device
+    key = (dev.index, step.stream.cuda_stream)
+    assert key not in fused_mod._COUNTERS
+    step(params, state, ds.batch(0))
+    counters = fused_mod._COUNTERS[key]
+    keys = set(fused_mod._COUNTERS)
+    for i in range(3):
+        step(params, state, ds.batch(i + 1))
+    torch.cuda.synchronize()
+    assert set(fused_mod._COUNTERS) == keys
+    assert fused_mod.ticket_counters(dev, step.stream) is counters
+    assert not counters.any()
+    side = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="before the capture"):
+        with torch.cuda.graph(graph, stream=side):
+            fused_mod.ticket_counters(dev, side)
+
+
+def test_graphed_train_step_refuses_other_tensors_and_shapes(cuda):
+    from repro_torch.train import train_step as tts
+    cfg, ds, ocfg = _graph_setup()
+    params, state = _fresh(cfg)
+    b = ds.batch(0)
+    step = tts.make_graphed_train_step(cfg, ocfg, params, state, b)
+    step(params, state, b)
+    other, other_state = _fresh(cfg)
+    with pytest.raises(ValueError, match="params"):
+        step(other, state, b)
+    with pytest.raises(ValueError, match="optimizer state"):
+        step(params, other_state, b)
+    short = {k: v[:, :, :128] for k, v in b.items()}
+    with pytest.raises(ValueError, match="captured for"):
+        step(params, state, short)
+    with pytest.raises(ValueError, match="captured for"):
+        step(params, state, {k: v.astype("int64") for k, v in b.items()})
+    step(params, state, b)         # the graph still captures and replays
+    assert step.graph is not None and int(state["step"]) == 2
+
+
+def test_device_body_makes_no_host_sync_on_the_card(cuda):
+    """``train_step_on_device`` on device batches under
+    ``set_sync_debug_mode("error")`` (after one warm step, so the kernels
+    are built and loaded)."""
+    from repro_torch.train import train_step as tts
+    cfg, ds, ocfg = _graph_setup()
+    params, state = _fresh(cfg)
+    tts.make_train_step(cfg, ocfg)(params, state, ds.batch(0))
+    db, w = tts.device_inputs(cfg, params, ds.batch(1))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, metrics = tts.train_step_on_device(cfg, ocfg, params, state,
+                                                 db, w)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(metrics["loss"])
+
+
+def test_graphed_train_step_raises_on_a_failed_capture(cuda, monkeypatch):
+    """A body that reads a value on the host (``.item()``) runs eagerly
+    in the first call and fails the capture in the second: the step
+    raises with CUDA's message, counts no launch for the capture, and
+    raises again on a later call rather than run the eager step."""
+    from repro_torch.train import train_step as tts
+    cfg, ds, ocfg = _graph_setup()
+    params, state = _fresh(cfg)
+    real = tts.train_step_on_device
+
+    def syncing(*args, **kwargs):
+        out = real(*args, **kwargs)
+        out[2]["loss"].item()
+        return out
+    monkeypatch.setattr(tts, "train_step_on_device", syncing)
+    step = tts.make_graphed_train_step(cfg, ocfg, params, state,
+                                       ds.batch(0))
+    step(params, state, ds.batch(0))
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="capture failed") as err:
+        step(params, state, ds.batch(1))
+    assert "captur" in str(err.value.__cause__).lower()
+    assert not any(ops.LAUNCHES.values())
+    assert step.graph is None and state["step"] is step._step
+    with pytest.raises(RuntimeError, match="failed earlier"):
+        step(params, state, ds.batch(1))
+    torch.cuda.synchronize()
+    assert int(state["step"]) == 1

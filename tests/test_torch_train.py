@@ -38,6 +38,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.models import model as jm
 from repro.train import data as jdata
@@ -206,6 +207,51 @@ def test_block_remat_checkpoints_the_chunked_attention():
     assert float(l0) == float(l1)
     for k in g0:
         torch.testing.assert_close(g1[k], g0[k], rtol=0, atol=0)
+
+
+def _checkpoint_spies(monkeypatch, force_preserve):
+    """Route the model's three checkpoint sites (layer remat, the chunked
+    loss, ``block_remat``) through a spy that records each call's
+    ``preserve_rng_state``; ``force_preserve`` sets it to True, the
+    default of ``torch.utils.checkpoint``, before the call."""
+    from repro_torch.models import layers, model, transformer
+    real = torch.utils.checkpoint.checkpoint
+    seen = []
+
+    def spy(fn, *args, **kwargs):
+        seen.append(kwargs.get("preserve_rng_state", True))
+        if force_preserve:
+            kwargs["preserve_rng_state"] = True
+        return real(fn, *args, **kwargs)
+    for mod in (layers, model, transformer):
+        monkeypatch.setattr(mod, "checkpoint", spy)
+    return seen
+
+
+@pytest.mark.parametrize("remat,chunk,block_remat", [
+    ("none", 0, False), ("full", 0, False), ("dots", 0, False),
+    ("none", 16, False), ("full", 16, False), ("dots", 16, False),
+    ("full", 0, True)])
+def test_checkpoints_keep_no_rng_state(monkeypatch, remat, chunk,
+                                       block_remat):
+    """Every checkpoint passes ``preserve_rng_state=False`` (no op of the
+    model draws random numbers, and a CUDA graph capture may refuse the
+    generator's state being read), and loss and every gradient leaf are
+    bit for bit what the default (True) gives."""
+    _, tcfg = configs("smollm_360m", remat=remat, logits_chunk=chunk,
+                      attn_impl="chunked" if block_remat else "kernel",
+                      attn_block_remat=block_remat)
+    _, tp = _params(*configs("smollm_360m"), seed=11)
+    batch = _batch(tcfg.vocab_size, 11)
+    seen = _checkpoint_spies(monkeypatch, force_preserve=False)
+    loss, _, grads = _port_grads(tcfg, tp, batch)
+    assert not any(seen)
+    assert bool(seen) == (remat != "none" or chunk > 0 or block_remat)
+    _checkpoint_spies(monkeypatch, force_preserve=True)
+    want_loss, _, want = _port_grads(tcfg, tp, batch)
+    assert torch.equal(loss, want_loss)
+    for k in want:
+        assert torch.equal(grads[k], want[k]), k
 
 
 # --- loss_and_grads --------------------------------------------------------------
@@ -378,11 +424,13 @@ def _close_params(got, want, near_zero, adam_bound, what):
     return past
 
 
-@pytest.mark.parametrize("weights", [None, (0.25, 0.75)])
-def test_make_train_step_matches_reference(weights):
+def _three_steps_against_reference(weights, device_body):
     """1 and 3 steps on identical ``SyntheticDataset`` batches, from the
     same weights and a fresh state; the kernel path (autograd Functions)
-    against the reference's jnp path."""
+    against the reference's jnp path.  ``device_body``: the port's step is
+    ``train_step_on_device`` fed batches already on the device (the CPU),
+    and a second copy of the weights takes ``make_train_step``'s steps
+    beside it, which must agree bit for bit."""
     jcfg, tcfg = configs("smollm_360m", remat="full", attn_impl="naive")
     tcfg = dataclasses.replace(tcfg, attn_impl="kernel")
     ocfg = dict(lr=1e-2, warmup_steps=2, total_steps=10)
@@ -395,6 +443,10 @@ def test_make_train_step_matches_reference(weights):
                                         micro_weights=weights))
     tstep = tts.make_train_step(tcfg, topt.OptimizerConfig(**ocfg),
                                 micro_weights=weights)
+    if device_body:
+        ep = _params(jcfg, tcfg, seed=10)[1]
+        es = topt.init_state(ep)
+        w = None if weights is None else torch.tensor(weights)
     near_zero = {k: np.zeros(p.shape, bool)
                  for k, p in topt.tree_leaves(tp)}
     past = []
@@ -405,7 +457,19 @@ def test_make_train_step_matches_reference(weights):
             near_zero[k] |= (g.abs() <= 1e-4 * g.abs().max()).numpy()
         jp, js, jm_ = jstep(jp, js, {k: jnp.asarray(v) for k, v in
                                      jb.items()})
-        tp2, ts2, tm_ = tstep(tp, ts, tb)
+        if device_body:
+            db = {k: torch.from_numpy(v) for k, v in tb.items()}
+            tp2, ts2, tm_ = tts.train_step_on_device(
+                tcfg, topt.OptimizerConfig(**ocfg), tp, ts, db, w)
+            _, _, em = tstep(ep, es, tb)
+            for key in ("loss", "grad_norm", "lr"):
+                assert torch.equal(tm_[key], em[key]), f"{key} @ {step}"
+            for (k, p), (_, e) in zip(topt.tree_leaves(tp),
+                                      topt.tree_leaves(ep)):
+                assert torch.equal(p, e), f"{k} @ {step}"
+            assert torch.equal(ts["step"], es["step"])
+        else:
+            tp2, ts2, tm_ = tstep(tp, ts, tb)
         assert tp2 is tp and ts2 is ts
         for key in ("loss", "grad_norm", "lr"):
             np.testing.assert_allclose(float(tm_[key]), float(jm_[key]),
@@ -418,3 +482,89 @@ def test_make_train_step_matches_reference(weights):
     total = sum(m.size for m in near_zero.values())
     assert sum(past) <= 1e-3 * total, (
         f"{sum(past)} of {total} params past 2e-5 (near-zero gradients)")
+
+
+@pytest.mark.parametrize("weights", [None, (0.25, 0.75)])
+def test_make_train_step_matches_reference(weights):
+    _three_steps_against_reference(weights, device_body=False)
+
+
+@pytest.mark.parametrize("weights", [None, (0.25, 0.75)])
+def test_device_body_matches_make_train_step_and_reference(weights):
+    """The step's device body (what ``make_graphed_train_step`` captures),
+    fed tensors already on the device, gives ``make_train_step``'s results
+    bit for bit over 3 steps, and the reference's at its tolerances."""
+    _three_steps_against_reference(weights, device_body=True)
+
+
+# --- the device body under a host-sync guard; the graphed step ------------------
+
+_aten = torch.ops.aten
+
+
+class _HostSyncGuard(TorchDispatchMode):
+    """Raises on what a CUDA graph capture cannot hold: a tensor's value
+    read on the host (``aten._local_scalar_dense``: ``.item()``,
+    ``int(t)``, ``bool(t)``), an op whose output size depends on values
+    (``nonzero``, ``masked_select``, indexing by a boolean mask) and a
+    copy to the CPU from another device."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        op = func.overloadpacket
+        masks = op in (_aten.index, _aten.index_put, _aten.index_put_) and \
+            any(i is not None and i.dtype in (torch.bool, torch.uint8)
+                for i in args[1])
+        if masks or op in (_aten._local_scalar_dense, _aten.nonzero,
+                           _aten.masked_select):
+            raise AssertionError(f"host sync in the device body: {func}")
+        if op is _aten._to_copy:
+            src = args[0].device
+            dst = torch.device(kwargs.get("device") or src)
+        elif op is _aten.copy_:
+            dst, src = args[0].device, args[1].device
+        else:
+            src = dst = None
+        if dst is not None and dst.type == "cpu" and src.type != "cpu":
+            raise AssertionError(f"copy to the CPU in the device body: "
+                                 f"{func} from {src}")
+        return func(*args, **kwargs)
+
+
+def test_host_sync_guard_refuses_what_a_capture_cannot_hold():
+    t = torch.arange(4.0)
+    for bad in (lambda: t.sum().item(), lambda: bool(t[0]),
+                lambda: torch.nonzero(t), lambda: t[t > 1],
+                lambda: torch.empty(2, device="meta").cpu()):
+        with _HostSyncGuard(), pytest.raises(AssertionError):
+            bad()
+
+
+@pytest.mark.parametrize("remat,chunk,weights", [
+    ("full", 0, None), ("dots", 16, (0.25, 0.75))])
+def test_device_body_makes_no_host_sync(remat, chunk, weights):
+    """One step of ``train_step_on_device`` (kernel path, the plain
+    kernels' autograd Functions on the CPU) under ``_HostSyncGuard``: what
+    the graph capture needs on the card, checked here."""
+    _, tcfg = configs("smollm_360m", remat=remat, logits_chunk=chunk,
+                      attn_impl="kernel")
+    _, tp = _params(*configs("smollm_360m"), seed=12)
+    state = topt.init_state(tp)
+    batch = tdata.SyntheticDataset(tcfg, tdata.DataConfig(
+        seq_len=32, global_batch=4, num_microbatches=2)).batch(0)
+    db, w = tts.device_inputs(tcfg, tp, batch, weights)
+    before = {k: p.clone() for k, p in topt.tree_leaves(tp)}
+    with _HostSyncGuard():
+        _, _, metrics = tts.train_step_on_device(
+            tcfg, topt.OptimizerConfig(), tp, state, db, w)
+    assert torch.isfinite(metrics["loss"]) and int(state["step"]) == 1
+    assert not torch.equal(tp["embed"], before["embed"])
+
+
+def test_graphed_train_step_refuses_cpu_params():
+    _, tcfg = configs("smollm_360m")
+    _, tp = _params(*configs("smollm_360m"), seed=13)
+    batch = _batch(tcfg.vocab_size, 13, shape=(2, 1, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        tts.make_graphed_train_step(tcfg, topt.OptimizerConfig(), tp,
+                                    topt.init_state(tp), batch)
