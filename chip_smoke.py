@@ -38,12 +38,29 @@ Phases, each printed as it runs; any failure exits non-zero:
              smollm config (head_dim 16, ``attn_impl="auto"``) prefills
              through the attention kernel.
 5. serve     smollm-360M at its published widths (32 layers, bf16, seeded
-             random weights) through ``BatchedServer``: 16 requests, prompts
-             of 256-509 tokens, 32 new tokens each, batch 8.  The two
-             prefill kernels must show 32 launches per prefill and the
-             other four none; the prefill's last-token logits are held
-             against the port's plain path.  Prefill and decode are timed,
-             then profiled (device time by kernel group, busy share).
+             random weights) through ``BatchedServer``, its decode steps
+             replayed as CUDA graphs (``GraphedDecodeStep``): 16 requests,
+             prompts of 256-509 tokens, 32 new tokens each, batch 8.  The
+             two prefill kernels must show 32 launches per prefill and the
+             other six none; an eager server (``graphed=False``) serves the
+             same requests and must give the same tokens.  The prefill's
+             last-token logits are held against the port's plain path.
+             Prefill is timed; decode ms a step graphed and eager in turns
+             from the same cache state (each side its own copy, equal
+             after); the graphs, their capture seconds and pool bytes;
+             prefill, a graphed and an eager decode step profiled (device
+             time by kernel group, busy share against each one's wall).
+   serve continuous  ``ContinuousBatchingServer`` on the same weights:
+             32 requests of 256-509-token prompts (bucket 512), 8-64 new
+             tokens, 8 slots, max_ctx 576, 224 pages of 16 (so it must
+             preempt), after a warm run; graphed and eager must give the
+             same tokens and ``ServerStats``, every request its own length,
+             every page back, the prefill kernels 32 launches a prefill.
+             A (1, 512) prefill's last-token logits are held against the
+             port's plain path (phase 3 holds both prefill kernels at
+             this shape: attention (1, 512, 15/5, 64), the fused norm
+             512 x 960).  ServerStats, tok/s, decode ms a step at each
+             bucket (in turns) and a profiled replay.
 6. calibrate ``calibrate_kernels("H100", bf16 and fp32)`` at smollm-360M's
              widths, the table scored on held-out shapes against the
              roofline (``bench.kernels_bench.cost_table_accuracy``), and
@@ -80,9 +97,9 @@ Phases, each printed as it runs; any failure exits non-zero:
              shape (``calibrate``); the norm entries their plan, share of
              the bound and the 16384-row case (``rows16384``).
 
-Each of phases 5-8 is a main path: the launch counts are set to 0 just
-before it and read just after, and each kernel must have launched on the
-path that runs it.  Phase 3 also holds the two backward kernels
+Each of phases 5-8 (serve continuous too) is a main path: the launch
+counts are set to 0 just before it and read just after, and each kernel
+must have launched on the path that runs it.  Phase 3 also holds the two backward kernels
 (attention, fused add + RMSNorm) against their plain versions on the
 train path's shapes and edge cases, each run twice and compared bit for
 bit, timed beside the backward of ``F.scaled_dot_product_attention`` for
@@ -129,7 +146,9 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
-from repro_torch.serve import kv_cache  # noqa: E402
+from repro_torch.serve import kv_cache, serve_step  # noqa: E402
+from repro_torch.serve.scheduler import (ContinuousBatchingServer,  # noqa: E402
+                                         ServerStats, _next_pow2)
 from repro_torch.serve.serve_step import BatchedServer, Request  # noqa: E402
 from repro_torch.train import data as data_lib  # noqa: E402
 from repro_torch.train import optimizer as opt_lib  # noqa: E402
@@ -202,6 +221,13 @@ PROMPT_MIN, PROMPT_MAX = 256, 509
 # random weights have a spread of ~0.6; 0.1 allows ~1/6 of that and is
 # what a real indexing or masking fault (O(1) errors) cannot pass.
 LOGITS_TOL = 0.1
+DECODE_PAIRS = 16       # single decode steps timed in turns, graphed and eager
+# continuous phase (smollm-360M, published widths and depth): every prompt
+# buckets to 512, so max_ctx 512 + 64; 224 pages of 16 tokens hold fewer
+# than eight full rows (36 pages each), so the policy must preempt
+CB_REQUESTS, CB_SLOTS, CB_CTX, CB_PAGE, CB_PAGES = 32, 8, 576, 16, 224
+CB_NEW = (8, 64)        # max_new_tokens spread over this range
+DECODE_PROFILED = 8     # decode steps in each decode profile window
 SMALL_FP32_TOL = 1e-4   # fp32, 2 layers: kernel path vs plain path
 # train phase (smollm-360M, published widths and depth, bf16)
 TRAIN_DATA = dict(seq_len=1024, global_batch=8, num_microbatches=2)
@@ -862,7 +888,8 @@ def batch_lengths(reqs):
 
 def phase_kernels(main_lens):
     """Every kernel against its plain version at the shapes of the main
-    paths that run it (serve, calibrate, fused) and at the edge cases;
+    paths that run it (serve, serve continuous, calibrate, fused) and at
+    the edge cases;
     returns, per kernel, the timed case, at a shape of the path whose
     launches the kernel line reports."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -880,6 +907,10 @@ def phase_kernels(main_lens):
     for s in sorted(set(main_lens)):          # the serve phase's own shapes
         attn.append(attention_case(gen, f"serve_s{s}", BATCH, s, s, h, kh, d,
                                    True, bf16))
+    # the continuous phase's prefill: batch 1 at the prompts' pow2 bucket
+    cb = cb_bucket()
+    attn.append(attention_case(gen, f"continuous_b1_s{cb}", 1, cb, cb, h, kh,
+                               d, True, bf16))
     attn += [
         attention_case(gen, "ragged_s509", BATCH, 509, 509, h, kh, d, True,
                        bf16),
@@ -942,6 +973,7 @@ def phase_kernels(main_lens):
     for s in sorted(set(main_lens)):
         norm.append(fused_case(gen, f"serve_rows{BATCH * s}", BATCH * s, dm,
                                bf16))
+    norm.append(fused_case(gen, f"continuous_rows{cb}", cb, dm, bf16))
     norm += [fused_case(gen, "ragged_rows4071", 4071, dm, bf16),
              fused_case(gen, "f32_rows1000", 1000, dm, f32),
              fused_case(gen, "f32_4096x512", 4096, 512, f32),
@@ -1251,7 +1283,53 @@ def profile_window(label: str, fn, wall_ms: float, per: int,
     return device_ms
 
 
+def _fresh_requests(reqs):
+    """The same prompts and lengths as new, unserved requests."""
+    return [Request(rid=r.rid, prompt=r.prompt,
+                    max_new_tokens=r.max_new_tokens) for r in reqs]
+
+
+def _same_tokens(label: str, got, want) -> None:
+    bad = [g.rid for g, w in zip(got, want) if g.output != w.output]
+    if bad or len(got) != len(want):
+        raise AssertionError(f"[{label}] graphed vs eager tokens differ for "
+                             f"requests {bad}")
+
+
+def _serve_launch_check(label: str, cfg, n_prefill: int) -> dict:
+    """The prefill kernels launch ``n_layers`` times a prefill, the others
+    never (decode runs the plain path, as the reference's does)."""
+    launches = dict(ops.LAUNCHES)
+    for name, n in launches.items():
+        want = cfg.n_layers * n_prefill if name in SERVE_KERNELS else 0
+        if n != want:
+            raise AssertionError(
+                f"[{label}] {name}: {n} launches, expected {want} "
+                f"({cfg.n_layers} per prefill x {n_prefill} prefills for "
+                f"{', '.join(SERVE_KERNELS)}, none for the others)")
+    return launches
+
+
+def _pool_bytes(pool):
+    """Bytes the caching allocator holds in a graph memory pool, or None
+    where its snapshot does not name pools."""
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(s["total_size"] for s in segs
+               if tuple(s["segment_pool_id"]) == tuple(pool))
+
+
+def _graph_stats(step) -> dict:
+    return dict(graphs=sorted(step.graphs),
+                capture_s={str(k): v for k, v in step.capture_seconds.items()},
+                pool_reserved_bytes=_pool_bytes(step.pool))
+
+
 def phase_serve(reqs, warm):
+    """The graphed server's run is the serve path (launch counts, tokens,
+    tok/s); the eager server (``graphed=False``) serves the same requests
+    and must give the same tokens."""
     cfg = get_config(ARCH)
     t0 = time.perf_counter()
     params = model_lib.init(cfg, 0, device="cuda")
@@ -1263,30 +1341,36 @@ def phase_serve(reqs, warm):
         f"{time.perf_counter() - t0:.1f}s")
     max_len = PROMPT_MAX + MAX_NEW + 8
     server = BatchedServer(cfg, params, max_len=max_len, batch_size=BATCH)
+    eager = BatchedServer(cfg, params, max_len=max_len, batch_size=BATCH,
+                          graphed=False)
+    if not server.graphed:
+        raise AssertionError("[serve] BatchedServer on CUDA params is not "
+                             "graphed")
 
     t_warm = _timed(lambda: server.run(warm))
-    log(f"[serve] warmup batch ({len(warm)} requests): {t_warm:.0f} ms")
+    t_warm_eager = _timed(lambda: eager.run(_fresh_requests(warm)))
+    log(f"[serve] warmup batch ({len(warm)} requests): graphed "
+        f"{t_warm:.0f} ms, eager {t_warm_eager:.0f} ms")
 
     torch.cuda.reset_peak_memory_stats()
+    n_prefill = len(batch_lengths(reqs))
     ops.reset_launches()
     t_run = _timed(lambda: server.run(reqs))
-    launches = dict(ops.LAUNCHES)
-    n_prefill = len(batch_lengths(reqs))
-    for name, n in launches.items():
-        want = cfg.n_layers * n_prefill if name in SERVE_KERNELS else 0
-        if n != want:
-            raise AssertionError(
-                f"{name}: {n} launches in the serve run, expected {want} "
-                f"({cfg.n_layers} per prefill x {n_prefill} prefills for "
-                f"{', '.join(SERVE_KERNELS)}, none for the others)")
+    launches = _serve_launch_check("serve", cfg, n_prefill)
+    peak = torch.cuda.max_memory_allocated()
     if not all(r.done and len(r.output) == MAX_NEW for r in reqs):
         raise AssertionError("a request did not finish")
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
         raise AssertionError("a generated token is outside the vocabulary")
     n_tok = sum(len(r.output) for r in reqs)
-    peak = torch.cuda.max_memory_allocated()
     log(f"[serve] launches in the serve run: {json.dumps(launches)} "
         f"({n_prefill} prefills x {cfg.n_layers} layers)")
+    ereqs = _fresh_requests(reqs)
+    ops.reset_launches()
+    t_eager = _timed(lambda: eager.run(ereqs))
+    _serve_launch_check("serve eager", cfg, n_prefill)
+    _same_tokens("serve", reqs, ereqs)
+    log(f"[serve] graphed vs eager: all {len(reqs)} requests' tokens equal")
 
     # prefill / decode step times on the first batch
     first = reqs[:BATCH]
@@ -1300,21 +1384,16 @@ def phase_serve(reqs, warm):
             _timed(lambda: server._prefill(params, batch)) for _ in range(3))
         logits, cache = server._prefill(params, batch)
         plain = model_lib.forward(cfg, params, batch, attn_impl="naive")[:, -1]
-        full = model_lib.init_cache(cfg, len(first), max_len, device="cuda")
-        cache = kv_cache.grow_cache(cache, full)
-        cur = torch.argmax(logits, dim=-1)[:, None]
-
-        def decode_steps(steps):
-            nonlocal cache, cur
-            for _ in range(steps):
-                lg, cache = server._decode(params, cache, cur)
-                cur = torch.argmax(lg, dim=-1)[:, None]
-        decode_ms = statistics.median(
-            _timed(lambda: decode_steps(1)) for _ in range(16))
+        decode = _decode_in_turns(cfg, params, server.decode_graph,
+                                  server.state, cache, logits, plen)
         dev_prefill = profile_window(
             "prefill", lambda: server._prefill(params, batch), prefill_ms, 1)
-        dev_decode = profile_window("decode", lambda: decode_steps(8),
-                                    decode_ms * 8, 8)
+        dev_decode = profile_window(
+            "decode", lambda: decode["run"]("graphed", DECODE_PROFILED),
+            decode["graphed_ms"] * DECODE_PROFILED, DECODE_PROFILED)
+        profile_window("decode_eager",
+                       lambda: decode["run"]("eager", DECODE_PROFILED),
+                       decode["eager_ms"] * DECODE_PROFILED, DECODE_PROFILED)
     if logits.shape != (len(first), cfg.vocab_size) \
             or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
@@ -1325,16 +1404,212 @@ def phase_serve(reqs, warm):
                              f"path {dlogit:.3e} > {LOGITS_TOL}")
     agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
     stats = dict(prefill_ms=prefill_ms, prefill_batch=[len(first), plen],
-                 decode_ms_per_step=decode_ms, decode_batch=len(first),
-                 steady_tok_s=n_tok / (t_run / 1e3), steady_tokens=n_tok,
-                 steady_s=t_run / 1e3, warmup_s=t_warm / 1e3,
+                 decode_ms_per_step=decode["graphed_ms"],
+                 decode_ms_per_step_eager=decode["eager_ms"],
+                 decode_batch=len(first),
+                 steady_tok_s=n_tok / (t_run / 1e3),
+                 steady_tok_s_eager=n_tok / (t_eager / 1e3),
+                 steady_tokens=n_tok, steady_s=t_run / 1e3,
+                 steady_s_eager=t_eager / 1e3, warmup_s=t_warm / 1e3,
                  peak_mem_gib=peak / 2**30, logits_max_abs_diff=dlogit,
                  logits_std=logits.std().item(), argmax_agree=agree,
                  decode_steps=server.decode_steps,
-                 decode_row_steps=server.decode_row_steps)
+                 decode_row_steps=server.decode_row_steps,
+                 **_graph_stats(server.decode_graph))
     log(f"[serve] {json.dumps(stats)}")
     return launches, dict(prefill_len=plen, prefill_device_ms=dev_prefill,
-                          decode_device_ms=dev_decode)
+                          decode_device_ms=dev_decode), params
+
+
+def _decode_in_turns(cfg, params, graph, state, cache, logits, plen):
+    """Decode ms a step, graphed and eager, in turns from the same cache
+    state: the prefill's cache goes into ``state`` (the graph's), the graph
+    takes 2 steps at BATCH rows (eager on its stream, then capture, or
+    replays where it exists), then a copy of the state goes to the eager
+    side.  DECODE_PAIRS pairs of single steps follow (eager, graphed,
+    graphed, eager, ...), each side on its own copy; the two must hold the
+    same cache, lengths and tokens after them.  Returns the medians and
+    ``run(kind, steps)`` for the profiles."""
+    rows = logits.shape[0]
+    # the tensor length reads nothing on the host, so the room for the
+    # graphed side's steps (2, the pairs, the profile) is checked here
+    need = plen + 2 + DECODE_PAIRS + DECODE_PROFILED
+    size = state["k"].shape[2]
+    if need > size:
+        raise ValueError(f"[serve] decode in turns: a {plen}-token prefill "
+                         f"and {need - plen} steps write past the cache's "
+                         f"{size} slots")
+    view = serve_step.rows_of(state, rows)
+    kv_cache.grow_cache(cache, {"k": view["k"], "v": view["v"]})
+    view["len"].fill_(plen)
+    view["cur"].copy_(torch.argmax(logits, dim=-1)[:, None])
+    steps = {"graphed": lambda: graph(params, state, rows)}
+    for _ in range(2):
+        steps["graphed"]()
+    other = {k: v.clone() for k, v in state.items()}
+    steps["eager"] = lambda: serve_step.decode_on_device(
+        cfg, params, serve_step.rows_of(other, rows))
+    times = {"graphed": [], "eager": []}
+    for j in range(DECODE_PAIRS):
+        order = ("eager", "graphed") if j % 2 == 0 else ("graphed", "eager")
+        for kind in order:
+            times[kind].append(_timed(steps[kind]))
+    for key in ("k", "v", "len", "cur"):
+        a, b = serve_step.rows_of(state, rows)[key], \
+            serve_step.rows_of(other, rows)[key]
+        if not torch.equal(a, b):
+            raise AssertionError(f"[serve] decode in turns: graphed and "
+                                 f"eager {key} differ after {DECODE_PAIRS} "
+                                 f"steps each")
+
+    def run(kind, n):
+        for _ in range(n):
+            steps[kind]()
+    out = {f"{kind}_ms": statistics.median(t) for kind, t in times.items()}
+    log("[serve] decode in turns (" + f"{DECODE_PAIRS} pairs, batch {rows}, "
+        f"from the same cache state; caches, lengths and tokens equal "
+        f"after): " + json.dumps(dict(
+            out, graphed_ms_all=times["graphed"], eager_ms_all=times["eager"],
+            speedup=out["eager_ms"] / out["graphed_ms"])))
+    return dict(out, run=run)
+
+
+def cb_bucket() -> int:
+    """The continuous phase's prefill length: its prompts' pow2 bucket."""
+    return min(_next_pow2(PROMPT_MAX), CB_CTX)
+
+
+def continuous_requests(cfg, seed: int, n: int):
+    """Prompts as ``serve_requests`` makes them (256-509 tokens: every
+    bucket is 512); ``max_new_tokens`` spread evenly over CB_NEW, in an
+    order drawn from the seed."""
+    reqs = serve_requests(cfg, seed, n)
+    spread = np.linspace(CB_NEW[0], CB_NEW[1], n).round().astype(int)
+    for r, m in zip(reqs, np.random.default_rng(seed).permutation(spread)):
+        r.max_new_tokens = int(m)
+    return reqs
+
+
+def phase_serve_continuous(params) -> dict:
+    """``ContinuousBatchingServer`` at smollm-360M's published widths and
+    depth: a warm run, then CB_REQUESTS requests through the graphed server
+    (the path: launch counts, tok/s, stats) and the same through an eager
+    one (``graphed=False``), which must give the same tokens and stats."""
+    cfg = get_config(ARCH)
+    kw = dict(max_slots=CB_SLOTS, max_ctx=CB_CTX, page_size=CB_PAGE,
+              total_pages=CB_PAGES)
+    servers = {"graphed": ContinuousBatchingServer(cfg, params, **kw),
+               "eager": ContinuousBatchingServer(cfg, params, graphed=False,
+                                                 **kw)}
+    if not servers["graphed"].graphed:
+        raise AssertionError("[serve continuous] the server on CUDA params "
+                             "is not graphed")
+    warm = continuous_requests(cfg, 1, CB_SLOTS)
+    for i, r in enumerate(warm):      # every bucket twice before the run
+        r.max_new_tokens = 4 + 2 * i
+    reqs = continuous_requests(cfg, 0, CB_REQUESTS)
+    runs, launches, out = {}, {}, {}
+    for kind, srv in servers.items():
+        t_warm = _timed(lambda: srv.run(_fresh_requests(warm)))
+        srv.stats = ServerStats()
+        mine = _fresh_requests(reqs)
+        graphs = len(srv.decode_graph.graphs) if srv.decode_graph else 0
+        ops.reset_launches()
+        t_run = _timed(lambda: srv.run(mine))
+        launches[kind] = _serve_launch_check(
+            f"serve continuous {kind}", cfg, srv.stats.prefill_calls)
+        bad = [r.rid for r in mine
+               if not r.done or len(r.output) != r.max_new_tokens]
+        if bad:
+            raise AssertionError(f"[serve continuous] {kind}: requests {bad} "
+                                 f"did not finish with their own length")
+        if srv.alloc.used_pages or srv.live or srv.queue:
+            raise AssertionError(f"[serve continuous] {kind}: "
+                                 f"{srv.alloc.used_pages} pages, "
+                                 f"{len(srv.live)} live, {len(srv.queue)} "
+                                 f"queued after the run")
+        n_tok = sum(len(r.output) for r in mine)
+        runs[kind] = mine
+        out[kind] = dict(
+            stats=dataclasses.asdict(srv.stats), steady_tok_s=n_tok
+            / (t_run / 1e3), steady_tokens=n_tok, steady_s=t_run / 1e3,
+            warmup_s=t_warm / 1e3,
+            captures_in_run=(len(srv.decode_graph.graphs) - graphs
+                             if srv.decode_graph else None))
+    _same_tokens("serve continuous", runs["graphed"], runs["eager"])
+    if out["graphed"]["stats"] != out["eager"]["stats"]:
+        raise AssertionError(f"[serve continuous] ServerStats differ: "
+                             f"{out['graphed']['stats']} vs "
+                             f"{out['eager']['stats']}")
+    if out["graphed"]["stats"]["n_preempted"] < 1:
+        raise AssertionError("[serve continuous] no preemption with "
+                             f"{CB_PAGES} pages")
+    g = servers["graphed"]
+    log(f"[serve continuous] {CB_REQUESTS} requests, {CB_SLOTS} slots, "
+        f"max_ctx {CB_CTX}, {CB_PAGES} pages of {CB_PAGE}; tokens and "
+        f"ServerStats equal graphed vs eager: " + json.dumps(dict(
+            out, launches=launches["graphed"],
+            **_graph_stats(g.decode_graph))))
+    # decode ms a step at each bucket the run used, graphed and eager in
+    # turns; every row is set to length 1 first so no row can reach past
+    # max_ctx (the time does not depend on the lengths: the plain
+    # attention reads every slot)
+    per_bucket = {}
+    with torch.inference_mode():
+        for srv in servers.values():
+            srv.state["len"].fill_(1)
+        e = servers["eager"]
+        for bsz in sorted(g.decode_graph.graphs):
+            steps = {"graphed": lambda: g.decode_graph(params, g.state, bsz),
+                     "eager": lambda: serve_step.decode_rows(
+                         cfg, params, e.state, bsz)}
+            times = {"graphed": [], "eager": []}
+            for j in range(4):
+                order = ("eager", "graphed") if j % 2 == 0 \
+                    else ("graphed", "eager")
+                for kind in order:
+                    times[kind].append(_timed(steps[kind]))
+            per_bucket[bsz] = {k: statistics.median(t)
+                               for k, t in times.items()}
+        log("[serve continuous] decode ms a step by bucket (4 pairs in "
+            "turns): " + json.dumps(per_bucket))
+        # one eager batch-1 prefill at the bucket, the run's other part,
+        # left-padded as the server pads it; its last-token logits held
+        # against the plain path (naive attention + unfused norm)
+        r, cb = reqs[0], cb_bucket()
+        toks = np.zeros((1, cb), np.int64)
+        toks[0, cb - len(r.prompt):] = r.prompt
+        pbatch = {"tokens": torch.from_numpy(toks).cuda()}
+        pre_ms = statistics.median(
+            _timed(lambda: g._prefill(params, pbatch)) for _ in range(5))
+        logits, _ = g._prefill(params, pbatch)
+        plain = model_lib.forward(cfg, params, pbatch,
+                                  attn_impl="naive")[:, -1]
+        if logits.shape != (1, cfg.vocab_size) \
+                or not torch.isfinite(logits).all():
+            raise AssertionError(f"[serve continuous] prefill logits "
+                                 f"{tuple(logits.shape)} not finite or of "
+                                 f"the wrong shape")
+        dlogit = (logits - plain).abs().max().item()
+        if not dlogit <= LOGITS_TOL:
+            raise AssertionError(f"[serve continuous] prefill (1, {cb}) "
+                                 f"last-token logits: kernel vs plain path "
+                                 f"{dlogit:.3e} > {LOGITS_TOL}")
+        calls = out["graphed"]["stats"]["prefill_calls"]
+        log(f"[serve continuous] prefill (1, {cb}), median of 5: "
+            + json.dumps(dict(
+                prefill_ms=pre_ms, prefill_calls=calls,
+                prefill_share_of_run=calls * pre_ms
+                / (out["graphed"]["steady_s"] * 1e3),
+                logits_max_abs_diff=dlogit, logits_tol=LOGITS_TOL,
+                argmax_agree=bool(logits.argmax(-1) == plain.argmax(-1)))))
+        top = max(per_bucket)
+        profile_window("decode_continuous",
+                       lambda: [g.decode_graph(params, g.state, top)
+                                for _ in range(DECODE_PROFILED)],
+                       per_bucket[top]["graphed"] * DECODE_PROFILED,
+                       DECODE_PROFILED)
+    return launches["graphed"]
 
 
 def _path_launches(label: str, names) -> dict:
@@ -1761,7 +2036,9 @@ def main() -> int:
     rows = phase_kernels(batch_lengths(reqs))
     phase_small_reference()
     phase_reduced()
-    serve_launches, serve_dev = phase_serve(reqs, warm)
+    serve_launches, serve_dev, params = phase_serve(reqs, warm)
+    phase_serve_continuous(params)
+    del params
     cal_launches = phase_calibrate(serve_dev)
     fused_launches = phase_fused()
     train_launches = phase_train()

@@ -5,8 +5,8 @@ easy to find.  It imports ``torch`` and never ``jax`` or ``repro``: what it
 needs from the reference it keeps as its own copy.  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"`` (see ``device.py``).
 
-Ported so far (the serving main path, dense family, kernel calibration
-and single-device training):
+Ported so far (the serving main path with continuous batching, dense
+family, kernel calibration and single-device training):
   configs/           every architecture config (the model runs the dense family)
   models/            config, layers, transformer, model (with the loss)
   dist/sharding.py   ``Decl`` + seeded init
@@ -21,6 +21,10 @@ and single-device training):
   bench/             fused-vs-unfused and cost-table accuracy benchmarks
   bridge.py          numpy <-> torch params and AdamW state, keyed like the
                      reference's checkpoints
-  serve/             kv_cache, serve_step (``BatchedServer``)
-  launch/serve.py    serving CLI
+  serve/             kv_cache, paged_cache (``PagedKVAllocator``), serve_step
+                     (``BatchedServer``, the decode step as CUDA graphs:
+                     ``GraphedDecodeStep``), scheduler
+                     (``ContinuousBatchingServer``)
+  launch/serve.py    serving CLI (static or ``--continuous``)
+  graphs.py          what the CUDA-graphed steps (train, served decode) share
 """

@@ -1,0 +1,126 @@
+"""What the port's CUDA-graphed steps share (``train_step.GraphedTrainStep``
+and ``serve_step.GraphedDecodeStep``, the counterparts of the reference's
+``jax.jit``): the params-leaf walk that binds a graph to its tensors, and
+``GraphedStep``, the bookkeeping around a step's device body.
+
+A graphed step runs its body in three ways:
+
+1. eagerly, on the step's own side stream (``GraphedStep.eager``): the
+   first call of a shape builds and loads what the body launches and makes
+   what it makes on first use (cuBLAS's handle and workspace for the
+   stream, the fused norm's ticket counters), since none of it may be made
+   inside a capture;
+2. captured on that stream (``GraphedStep.capture``): the kernel launches
+   the capture recorded are taken back out of ``ops.LAUNCHES`` (a capture
+   launches nothing) and kept with the graph; a capture that fails raises
+   with CUDA's error as its cause, and every later call raises too
+   (``GraphedStep.check_alive``): PyTorch's allocator may be left recording
+   into the graph's pool, and no path runs the body eagerly instead;
+3. replayed (``Captured.replay``), on the caller's current stream, adding
+   the recorded launches to ``ops.LAUNCHES`` (a replay calls no wrapper).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.device import device_of
+from repro_torch.kernels import ops
+
+
+def tree_leaves(tree: Any, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """(path, tensor) leaves of a nested dict in sorted-key order (the
+    order ``jax.tree_util`` flattens a dict in), "/"-joined paths."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    out: List[Tuple[str, torch.Tensor]] = []
+    for k in sorted(tree):
+        out += tree_leaves(tree[k], f"{prefix}/{k}" if prefix else k)
+    return out
+
+
+@dataclasses.dataclass
+class Captured:
+    """One captured body: its graph, the tensors the graph writes its
+    results into (the next replay overwrites them), the kernel launches
+    the capture recorded and the capture's host seconds."""
+    graph: torch.cuda.CUDAGraph
+    out: Any
+    launches: Dict[str, int]
+    seconds: float
+
+    def replay(self) -> Any:
+        self.graph.replay()
+        for name, n in self.launches.items():
+            ops.LAUNCHES[name] += n
+        return self.out
+
+
+class GraphedStep:
+    """The bookkeeping of a graphed step (module docstring).  ``who`` names
+    the step in its errors; ``shared_pool`` gives every graph the step
+    captures one memory pool (``torch.cuda.graph_pool_handle``), for graphs
+    that never run at the same time.  Raises on params that are not on a
+    CUDA device."""
+
+    def __init__(self, params, who: str, shared_pool: bool = False):
+        dev = device_of(params)
+        if dev is None or dev.type != "cuda":
+            raise ValueError(f"{who}: a CUDA graph needs params on a CUDA "
+                             f"device, got {dev}")
+        self.who, self.device = who, dev
+        self.stream = torch.cuda.Stream(dev)
+        self.pool = torch.cuda.graph_pool_handle() if shared_pool else None
+        self._failed: Optional[str] = None
+
+    def check_bound(self, what: str, want: List[Tuple[str, torch.Tensor]],
+                    got: List[Tuple[str, torch.Tensor]]) -> None:
+        """Raise unless ``got`` holds the very tensors of ``want`` (the
+        graphs read and write their storage)."""
+        if [k for k, _ in got] != [k for k, _ in want] or any(
+                a is not b for (_, a), (_, b) in zip(got, want)):
+            raise ValueError(
+                f"{self.who}: these {what} are not the tensors the step was "
+                f"made with (its graphs read and write their storage); make "
+                f"a new step for them")
+
+    def check_alive(self) -> None:
+        if self._failed is not None:
+            raise RuntimeError(f"{self.who}: a capture failed earlier "
+                               f"({self._failed})")
+
+    def eager(self, body: Callable[[], Any]) -> Any:
+        """``body()`` on the step's stream, ordered after the caller's
+        stream's work and before its next."""
+        main = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            out = body()
+        main.wait_stream(self.stream)
+        return out
+
+    def capture(self, body: Callable[[], Any], where: str = "",
+                keep_graph: bool = False) -> Captured:
+        """``body()`` captured on the step's stream; ``where`` (" at 4
+        rows") names the shape in the error of a failed capture;
+        ``keep_graph`` keeps the ``cudaGraph_t`` (instantiated here)."""
+        graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                out = body()
+            if keep_graph:
+                graph.instantiate()
+        except RuntimeError as err:     # CUDA's errors, and the capture's
+            msg = f"{type(err).__name__}: {err}"
+            self._failed = f"{where.strip()}: {msg}" if where else msg
+            raise RuntimeError(f"{self.who}: the capture failed{where}: "
+                               f"{msg}") from err
+        finally:
+            launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+            ops.LAUNCHES.update(before)   # the capture launched nothing
+        return Captured(graph, out, launches, time.perf_counter() - t0)

@@ -6,8 +6,12 @@
 
 Counterpart of ``repro/launch/serve.py`` with the same flags plus
 ``--device`` (default ``cuda``).  A warmup batch runs first and is timed
-apart, so the reported tok/s is the steady state.  The weights are seeded
-random numbers at the config's widths.
+apart, so the reported tok/s is the steady state.  ``--continuous`` serves
+through the paged continuous-batching scheduler (``max_slots`` =
+``--batch-size``, ``max_ctx`` = prompt + new tokens + 8) instead of the
+static lockstep batch; a request whose prompt bucket and decode steps
+would write past ``max_ctx`` raises (``ContinuousBatchingServer.submit``).
+The weights are seeded random numbers at the config's widths.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import model as model_lib
+from repro_torch.serve.scheduler import ContinuousBatchingServer
 from repro_torch.serve.serve_step import BatchedServer, Request
 
 
@@ -47,12 +52,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--continuous", action="store_true",
-                    help="continuous batching (not ported yet)")
+                    help="serve via the paged continuous-batching scheduler")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.continuous:
-        ap.error("--continuous: the continuous-batching scheduler is not "
-                 "ported yet")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -60,8 +62,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     params = model_lib.init(cfg, 0, device=args.device)
     device = torch.device(args.device)
     max_len = args.prompt_len + args.max_new + 8
-    server = BatchedServer(cfg, params, max_len=max_len,
-                           batch_size=args.batch_size)
+    if args.continuous:
+        server = ContinuousBatchingServer(cfg, params,
+                                          max_slots=args.batch_size,
+                                          max_ctx=max_len)
+    else:
+        server = BatchedServer(cfg, params, max_len=max_len,
+                               batch_size=args.batch_size)
 
     # warmup: one full batch through prefill + decode (first launches,
     # kernel builds); timed separately
@@ -78,9 +85,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     _sync(device)
     dt = time.perf_counter() - t0
     n_tok = sum(len(r.output) for r in reqs)
-    print(f"[serve:static:{device.type}] warmup {t_warm:.2f}s")
-    print(f"[serve:static:{device.type}] {len(reqs)} requests, {n_tok} "
-          f"tokens in {dt:.2f}s steady-state ({n_tok / dt:.1f} tok/s)")
+    tag = f"[serve:{'continuous' if args.continuous else 'static'}:" \
+        f"{device.type}]"
+    print(f"{tag} warmup {t_warm:.2f}s")
+    print(f"{tag} {len(reqs)} requests, {n_tok} tokens in {dt:.2f}s "
+          f"steady-state ({n_tok / dt:.1f} tok/s)")
     if not all(r.done for r in reqs):
         raise RuntimeError("serve: a request did not finish")
     print("sample output:", reqs[0].output[:8])

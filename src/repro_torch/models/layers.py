@@ -12,8 +12,8 @@ Attention implementations:
 All softmax statistics are computed in float32 regardless of input dtype.
 ``attn_decode(impl="kernel")`` takes the decode kernel for a scalar
 length and no window, as the reference's ``impl="pallas"`` does.
-Sliding-window prefill (``attn_window_linear``) and per-row decode lengths
-wait for their slices and raise ``NotImplementedError``.
+Sliding-window prefill (``attn_window_linear``) waits for its slice and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -181,18 +181,18 @@ def attn_decode(q: torch.Tensor, k_cache: torch.Tensor,
                 impl: str = "naive") -> torch.Tensor:
     """Single-token decode. q: (B,1,H,hd); caches: (B,S,K,hd).
 
-    ``cache_len`` is a scalar: the lockstep batch, all rows at the same
-    position.  The per-row (B,) lengths of continuous batching wait for
-    that slice.  ``impl="kernel"`` with no window runs the decode kernel
-    (``kops.flash_attention_decode``); with a window it takes the plain
-    path, as the reference's ``impl="pallas"`` does.
+    ``cache_len`` may be a scalar (a Python int or a 0-d tensor: the
+    lockstep batch, all rows at the same position) or a (B,) tensor
+    (continuous batching: rows joined at different times, each masks its
+    own context).  ``impl="kernel"`` with no window and a scalar length
+    runs the decode kernel (``kops.flash_attention_decode``); a window or
+    a (B,) length takes the plain path, as the reference's
+    ``impl="pallas"`` does.
     """
-    if isinstance(cache_len, torch.Tensor) and cache_len.dim() > 0:
-        raise NotImplementedError("attn_decode: per-row (B,) cache_len is "
-                                  "not ported yet (continuous batching)")
     if impl not in ("naive", "kernel"):
         raise ValueError(f"attn_decode: unknown impl {impl!r}")
-    if impl == "kernel" and window == 0:
+    per_row = isinstance(cache_len, torch.Tensor) and cache_len.dim() > 0
+    if impl == "kernel" and window == 0 and not per_row:
         return kops.flash_attention_decode(q, k_cache, v_cache,
                                            cache_len=cache_len)
     b, _, h, hd = q.shape
@@ -200,12 +200,14 @@ def attn_decode(q: torch.Tensor, k_cache: torch.Tensor,
     qg = _split_gqa(q, n_kv)[:, 0]                      # (B,K,G,hd)
     scale = 1.0 / math.sqrt(hd)
     s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache).float() * scale
-    k_pos = torch.arange(k_cache.shape[1], device=q.device)
-    mask = k_pos >= cache_len                           # (S,)
+    k_pos = torch.arange(k_cache.shape[1], device=q.device)[None]
+    lens = cache_len.reshape(-1, 1) if isinstance(cache_len, torch.Tensor) \
+        else cache_len                                  # (1,1), (B,1) or int
+    mask = k_pos >= lens                                # (1,S) or (B,S)
     if window > 0:
         # ring buffer: valid positions are the last `window` written slots
-        mask = mask | (k_pos < cache_len - window)
-    s = torch.where(mask[None, None, None, :], NEG_INF, s)
+        mask = mask | (k_pos < lens - window)
+    s = torch.where(mask[:, None, None, :], NEG_INF, s)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype), v_cache)
     return o.reshape(b, 1, h, hd).to(q.dtype)

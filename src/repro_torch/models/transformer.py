@@ -257,36 +257,50 @@ def cache_decls(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Decl]:
 def decode(cfg: ModelConfig, params, cache, tokens: torch.Tensor):
     """One decode step. tokens: (B, 1). Returns (logits, cache).
 
-    ``cache["len"]`` is a Python int: every row sits at the same position
-    (the lockstep batch).  Where the reference's ``dynamic_update_slice``
-    returns a new cache, the port writes the new K/V row into the cache
-    tensors in place and returns them with ``len + 1``; a slot past the
-    buffer raises instead of being clamped into it.
+    ``cache["len"]`` takes three forms:
+
+    * a Python int: every row sits at the same position (the lockstep
+      batch, run eagerly);
+    * a 0-d integer tensor on the params' device: the same, with the
+      position read on the device, so a CUDA graph can capture the step;
+    * a (B,) integer tensor: per-row positions (continuous batching, the
+      reference's per-row path), rows admitted at different times decode
+      together, each masking its own context.
+
+    Where the reference returns a new cache, the port writes the new K/V
+    row into the cache tensors in place and returns them with ``len + 1``
+    (an int for an int, else a new tensor).  An int is checked on the
+    host, where a slot past the buffer raises instead of being clamped
+    into it, and then moved to the device; with a tensor nothing is read
+    on the host, so that check is the caller's (the servers' host
+    bookkeeping).
     """
-    pos = cache["len"]
-    if isinstance(pos, torch.Tensor):
-        if pos.dim() > 0:
-            raise NotImplementedError("decode: per-row cache lengths are "
-                                      "not ported yet (continuous batching)")
-        pos = int(pos)
+    n = cache["len"]
     x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
-    positions = torch.tensor([pos], device=x.device)   # absolute, for RoPE
     k_all, v_all = cache["k"], cache["v"]
     cache_size = k_all.shape[2]
+    pos = n
+    if not isinstance(n, torch.Tensor):
+        if not cfg.window and n >= cache_size:
+            raise IndexError(f"decode: position {n} is past the cache's "
+                             f"{cache_size} slots")
+        pos = torch.tensor(n, device=x.device)
+    b = tokens.shape[0]
+    # absolute positions for RoPE: (1,) lockstep, (B, 1) per row
+    positions = pos.reshape(1) if pos.dim() == 0 else pos[:, None]
     # SWA: ring buffer; slot p % window holds position p
-    slot = pos % cache_size if cfg.window else pos
-    if slot >= cache_size:
-        raise IndexError(f"decode: position {pos} is past the cache's "
-                         f"{cache_size} slots")
-    valid = min(pos + 1, cache_size)
+    slot = (pos % cache_size if cfg.window else pos).expand(b)
+    rows = torch.arange(b, device=x.device)
+    valid = torch.clamp(pos + 1, max=cache_size)
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, h, positions)
-        k_all[i, :, slot] = k[:, 0].to(k_all.dtype)
-        v_all[i, :, slot] = v[:, 0].to(v_all.dtype)
+        # in place, at a device index: one row a batch row
+        k_all[i].index_put_((rows, slot), k[:, 0].to(k_all.dtype))
+        v_all[i].index_put_((rows, slot), v[:, 0].to(v_all.dtype))
         o = L.attn_decode(q, k_all[i], v_all[i], cache_len=valid, window=0)
         delta = _proj_out(o.to(x.dtype), lp["wo"])
         h, x = L.rms_norm_residual(x, delta, lp["ln2"], cfg.norm_eps)
         x = x + _ffn(cfg, lp, h)
-    return _head(cfg, params, x), {"k": k_all, "v": v_all, "len": pos + 1}
+    return _head(cfg, params, x), {"k": k_all, "v": v_all, "len": n + 1}

@@ -2,7 +2,8 @@
 
 Cache layouts are declared by each model family (``model.cache_decls``):
 stacked-over-layers (L, B, S, K, hd) tensors, ring buffers capped at the
-window for SWA archs, plus a Python-int ``len``.
+window for SWA archs, plus ``len``: a Python int from ``forward``, a
+device tensor in the servers' decode state (``serve_step.decode_state``).
 """
 from __future__ import annotations
 
@@ -15,18 +16,16 @@ def grow_cache(cache: Dict[str, Any], full: Dict[str, Any]) -> Dict[str, Any]:
     """Re-home a prefill-sized cache into a larger decode buffer.
 
     Copies every tensor of ``cache`` into the leading slots of the
-    corresponding (bigger) tensor in ``full``, writing into ``full``'s
-    buffers in place (the reference builds new arrays); ``len`` and other
-    scalars pass through.  Same-shape (ring) caches pass through, cast to
-    ``full``'s dtype."""
+    corresponding (bigger or same-shape) tensor in ``full``, writing into
+    ``full``'s buffers in place, cast to their dtype (the reference builds
+    new arrays and passes same-shape ring caches through); ``len`` and
+    other scalars pass through.  ``full``'s tensors may be views: the
+    servers write a prefill's cache into their static cache's prefix."""
     out = {}
     for k, dst in full.items():
         src = cache[k]
         if k == "len" or not isinstance(src, torch.Tensor) or src.dim() == 0:
             out[k] = src
-            continue
-        if src.shape == dst.shape:
-            out[k] = src.to(dst.dtype)
             continue
         dst[tuple(slice(0, d) for d in src.shape)] = src.to(dst.dtype)
         out[k] = dst

@@ -18,11 +18,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.dist.sharding import set_path
+from repro_torch.graphs import tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,17 +37,6 @@ class OptimizerConfig:
     total_steps: int = 10_000
     grad_clip: float = 1.0
     schedule: str = "cosine"      # cosine | constant
-
-
-def tree_leaves(tree: Any, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
-    """(path, tensor) leaves of a nested dict in sorted-key order (the
-    order ``jax.tree_util`` flattens a dict in), "/"-joined paths."""
-    if isinstance(tree, torch.Tensor):
-        return [(prefix, tree)]
-    out: List[Tuple[str, torch.Tensor]] = []
-    for k in sorted(tree):
-        out += tree_leaves(tree[k], f"{prefix}/{k}" if prefix else k)
-    return out
 
 
 def tree_unflatten(items) -> Dict[str, Any]:

@@ -17,14 +17,13 @@ as a CUDA graph and replays it.
 """
 from __future__ import annotations
 
-import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import graphs
 from repro_torch.device import device_of
 from repro_torch.kernels import fused as fused_mod
-from repro_torch.kernels import ops
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import optimizer as opt_lib
@@ -141,12 +140,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig,
 
 
 def _state_leaves(opt_state) -> list:
-    return (opt_lib.tree_leaves(opt_state["m"], "m")
-            + opt_lib.tree_leaves(opt_state["v"], "v")
+    return (graphs.tree_leaves(opt_state["m"], "m")
+            + graphs.tree_leaves(opt_state["v"], "v")
             + [("step", opt_state["step"])])
 
 
-class GraphedTrainStep:
+class GraphedTrainStep(graphs.GraphedStep):
     """``make_graphed_train_step``'s step.  Every call is one training
     step, as ``make_train_step``'s is:
 
@@ -168,16 +167,16 @@ class GraphedTrainStep:
     does not overwrite them.  ``capture_launches`` holds the kernel
     launches the capture recorded, added to ``ops.LAUNCHES`` on every
     replay (a replay calls no wrapper); ``capture_seconds`` the capture's
-    host time; ``graph`` the ``CUDAGraph`` (its ``cudaGraph_t`` kept)."""
+    host time; ``graph`` the ``CUDAGraph`` (its ``cudaGraph_t`` kept).
+    The warm call, the capture, the replay and a failed capture's latch
+    are ``graphs.GraphedStep``'s."""
 
     def __init__(self, cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig,
                  params, opt_state, batch, micro_weights=None):
-        dev = device_of(params)
-        if dev is None or dev.type != "cuda":
-            raise ValueError(f"make_graphed_train_step: a CUDA graph needs "
-                             f"params on a CUDA device, got {dev}")
-        self.cfg, self.opt_cfg, self.device = cfg, opt_cfg, dev
-        self._params = opt_lib.tree_leaves(params)
+        super().__init__(params, "graphed train step")
+        dev = self.device
+        self.cfg, self.opt_cfg = cfg, opt_cfg
+        self._params = graphs.tree_leaves(params)
         self._state = _state_leaves(opt_state)
         self._step = opt_state["step"]
         host = {k: torch.as_tensor(v) for k, v in batch.items()}
@@ -188,24 +187,20 @@ class GraphedTrainStep:
                         for k, t in host.items()}
         self._w = _weights(micro_weights, host["tokens"].shape[0], dev)
         self._copied: Optional[torch.cuda.Event] = None
-        self.stream = torch.cuda.Stream(dev)
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.capture_launches: Optional[Dict[str, int]] = None
-        self.capture_seconds: Optional[float] = None
+        self._captured: Optional[graphs.Captured] = None
         self.calls = 0
-        self._out: Optional[Dict[str, torch.Tensor]] = None
-        self._failed: Optional[str] = None
 
-    def _check(self, params, opt_state) -> None:
-        for what, want, got in (
-                ("params", self._params, opt_lib.tree_leaves(params)),
-                ("optimizer state", self._state, _state_leaves(opt_state))):
-            if [k for k, _ in got] != [k for k, _ in want] or any(
-                    a is not b for (_, a), (_, b) in zip(got, want)):
-                raise ValueError(
-                    f"graphed train step: these {what} are not the tensors "
-                    f"the step was made with (the graph reads and updates "
-                    f"their storage); make a new step for them")
+    @property
+    def graph(self) -> Optional[torch.cuda.CUDAGraph]:
+        return self._captured.graph if self._captured else None
+
+    @property
+    def capture_launches(self) -> Optional[Dict[str, int]]:
+        return self._captured.launches if self._captured else None
+
+    @property
+    def capture_seconds(self) -> Optional[float]:
+        return self._captured.seconds if self._captured else None
 
     def _load(self, batch) -> None:
         """Copy the batch into the static buffers on the current stream."""
@@ -242,45 +237,23 @@ class GraphedTrainStep:
             opt_state["step"] = self._step
         return metrics
 
-    def _capture(self, params, opt_state) -> None:
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        before = dict(ops.LAUNCHES)
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, stream=self.stream):
-                out = self._body(params, opt_state)
-            graph.instantiate()
-        except RuntimeError as err:     # CUDA's errors, and the capture's
-            self._failed = f"{type(err).__name__}: {err}"
-            raise RuntimeError(f"graphed train step: the capture failed: "
-                               f"{self._failed}") from err
-        finally:
-            counted = {k: ops.LAUNCHES[k] - before[k] for k in before}
-            ops.LAUNCHES.update(before)   # the capture launched nothing
-        self.capture_seconds = time.perf_counter() - t0
-        self.capture_launches = counted
-        self.graph, self._out = graph, out
+    def _first(self, params, opt_state) -> Dict[str, torch.Tensor]:
+        fused_mod.ticket_counters(self.device, self.stream)
+        return self._body(params, opt_state)
 
     def __call__(self, params, opt_state, batch):
-        if self._failed is not None:
-            raise RuntimeError(f"graphed train step: the capture failed "
-                               f"earlier ({self._failed})")
-        self._check(params, opt_state)
+        self.check_alive()
+        self.check_bound("params", self._params, graphs.tree_leaves(params))
+        self.check_bound("optimizer state", self._state,
+                         _state_leaves(opt_state))
         self._load(batch)
         if self.calls == 0:
-            main = torch.cuda.current_stream(self.device)
-            self.stream.wait_stream(main)
-            with torch.cuda.stream(self.stream):
-                fused_mod.ticket_counters(self.device, self.stream)
-                out = self._body(params, opt_state)
-            main.wait_stream(self.stream)
+            out = self.eager(lambda: self._first(params, opt_state))
         else:
-            if self.graph is None:
-                self._capture(params, opt_state)
-            self.graph.replay()
-            for name, n in self.capture_launches.items():
-                ops.LAUNCHES[name] += n
-            out = self._out
+            if self._captured is None:
+                self._captured = self.capture(
+                    lambda: self._body(params, opt_state), keep_graph=True)
+            out = self._captured.replay()
         self.calls += 1
         return params, opt_state, {k: v.clone() for k, v in out.items()}
 

@@ -969,3 +969,173 @@ def test_graphed_train_step_raises_on_a_failed_capture(cuda, monkeypatch):
         step(params, state, ds.batch(1))
     torch.cuda.synchronize()
     assert int(state["step"]) == 1
+
+
+# --- the served decode step as CUDA graphs ---------------------------------------
+# Graphed and eager decode run the same kernels in the same order on the
+# same inputs, so they must agree bit for bit: tokens, logits and caches.
+
+def _serve_setup(seed=0):
+    cfg = dataclasses.replace(get_config("smollm_360m").reduced(),
+                              head_dim=64)
+    return cfg, tm.init(cfg, seed)
+
+
+def _requests(cfg, seed, lens, max_new):
+    import numpy as np
+    from repro_torch.serve.serve_step import Request
+    rng = np.random.default_rng(seed)
+    return [Request(i, rng.integers(0, cfg.vocab_size, n).astype("int32"), m)
+            for i, (n, m) in enumerate(zip(lens, max_new))]
+
+
+def test_graphed_batched_server_matches_eager(cuda):
+    """Mixed lengths: the halving rule compacts 4 rows to 2 and to 1, so
+    three row counts each run once eagerly, then capture and replay."""
+    from repro_torch.serve.serve_step import BatchedServer
+    cfg, params = _serve_setup()
+    lens, max_new = [5, 9, 7, 3, 8, 6], [12, 3, 3, 6, 2, 9]
+    got = _requests(cfg, 1, lens, max_new)
+    want = _requests(cfg, 1, lens, max_new)
+    graphed = BatchedServer(cfg, params, max_len=32, batch_size=4)
+    eager = BatchedServer(cfg, params, max_len=32, batch_size=4,
+                          graphed=False)
+    assert graphed.graphed and graphed.decode_graph is not None
+    ptrs = {k: v.data_ptr() for k, v in graphed.state.items()}
+    graphed.run(got)
+    eager.run(want)
+    assert [r.output for r in got] == [r.output for r in want]
+    assert [len(r.output) for r in got] == max_new
+    assert (graphed.decode_steps, graphed.decode_row_steps) \
+        == (eager.decode_steps, eager.decode_row_steps)
+    assert sorted(graphed.decode_graph.graphs) == [1, 2, 4]
+    assert {k: v.data_ptr() for k, v in graphed.state.items()} == ptrs
+
+
+def test_graphed_continuous_server_matches_eager(cuda):
+    """Preemption on page exhaustion and prompts in several buckets: the
+    graphed server's tokens and ``ServerStats`` equal the eager one's."""
+    from repro_torch.serve.scheduler import ContinuousBatchingServer
+    cfg, params = _serve_setup(1)
+    lens, max_new = [8, 3, 8, 13, 5, 8, 2], [12, 5, 12, 4, 9, 7, 3]
+    kw = dict(max_slots=4, max_ctx=32, page_size=4, total_pages=14)
+    got = _requests(cfg, 2, lens, max_new)
+    want = _requests(cfg, 2, lens, max_new)
+    gs = ContinuousBatchingServer(cfg, params, **kw)
+    es = ContinuousBatchingServer(cfg, params, graphed=False, **kw)
+    gs.run(got)
+    es.run(want)
+    assert [r.output for r in got] == [r.output for r in want]
+    assert [len(r.output) for r in got] == max_new
+    assert dataclasses.asdict(gs.stats) == dataclasses.asdict(es.stats)
+    assert gs.stats.n_preempted >= 1 and gs.alloc.used_pages == 0
+    assert set(gs.decode_graph.graphs) <= {1, 2, 4}
+
+
+def _decode_pair(cfg, params, per_row):
+    """Two equal static states, 4 rows prefilled to different lengths."""
+    import numpy as np
+    from repro_torch.serve import serve_step as tss
+    states = [tss.decode_state(cfg, 4, 32, per_row=per_row, device="cuda")
+              for _ in range(2)]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for key in ("k", "v"):
+        states[0][key].normal_(generator=g)
+        states[1][key].copy_(states[0][key])
+    lens = torch.tensor([9, 4, 12, 7] if per_row else 9, device="cuda")
+    cur = torch.from_numpy(np.arange(4)[:, None] * 7 + 1).cuda()
+    for s in states:
+        s["len"].copy_(lens)
+        s["cur"].copy_(cur)
+    return states
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_graphed_decode_step_matches_eager_bit_for_bit(cuda, per_row):
+    """Five steps at 4 rows then 2: the first call at each row count runs
+    eagerly on the step's stream, the second captures; logits, caches,
+    lengths and tokens equal the eager body's after every step, and the
+    replay writes into the static state (its data pointers unchanged)."""
+    from repro_torch.serve import serve_step as tss
+    cfg, params = _serve_setup(2)
+    gst, est = _decode_pair(cfg, params, per_row)
+    step = tss.GraphedDecodeStep(cfg, params, gst)
+    ptrs = {k: v.data_ptr() for k, v in gst.items()}
+    with torch.inference_mode():
+        for rows in (4, 4, 4, 2, 2, 2):
+            got = step(params, gst, rows).clone()
+            want = tss.decode_on_device(cfg, params, tss.rows_of(est, rows))
+            assert torch.equal(got, want), rows
+            for key in gst:
+                assert torch.equal(gst[key], est[key]), (rows, key)
+    assert {k: v.data_ptr() for k, v in gst.items()} == ptrs
+    assert sorted(step.graphs) == [2, 4]
+    assert gst["len"].tolist() == ([15, 10, 15, 10] if per_row else 15)
+
+
+def test_graphed_decode_step_captures_once_per_row_count(cuda):
+    from repro_torch.serve import serve_step as tss
+    cfg, params = _serve_setup(3)
+    state, _ = _decode_pair(cfg, params, True)
+    step = tss.GraphedDecodeStep(cfg, params, state)
+    with torch.inference_mode():
+        step(params, state, 4)
+        assert step.graphs == {}                  # eager on its stream
+        step(params, state, 4)
+        first = step.graphs[4]
+        step(params, state, 2)
+        step(params, state, 2)
+        assert set(step.graphs) == {2, 4} and step.graphs[4] is first
+        ops.reset_launches()
+        step(params, state, 4)
+        assert step.graphs[4] is first and len(step.capture_seconds) == 2
+    assert step.capture_launches[4] == {k: 0 for k in ops.LAUNCHES}
+    assert not any(ops.LAUNCHES.values())   # decode runs no port kernel
+
+
+def test_graphed_decode_step_refuses_other_tensors(cuda):
+    from repro_torch.serve import serve_step as tss
+    cfg, params = _serve_setup(4)
+    state, other = _decode_pair(cfg, params, True)
+    step = tss.GraphedDecodeStep(cfg, params, state)
+    with torch.inference_mode():
+        step(params, state, 2)
+        with pytest.raises(ValueError, match="params"):
+            step(tm.init(cfg, 4), state, 2)
+        with pytest.raises(ValueError, match="decode state"):
+            step(params, other, 2)
+        with pytest.raises(ValueError, match="decode state"):
+            step(params, dict(state, len=state["len"].clone()), 2)
+        with pytest.raises(ValueError, match="rows"):
+            step(params, state, 5)
+        step(params, state, 2)            # the graph still captures
+    assert sorted(step.graphs) == [2]
+
+
+def test_graphed_decode_step_raises_on_a_failed_capture(cuda, monkeypatch):
+    """A body that reads a value on the host (``.item()``) runs eagerly
+    in the first call and fails the capture in the second: the step raises
+    with CUDA's message, naming the row count, and every later call raises
+    rather than run the body eagerly, at any row count (the allocator is
+    left recording into the graphs' pool)."""
+    from repro_torch.serve import serve_step as tss
+    cfg, params = _serve_setup(5)
+    state, _ = _decode_pair(cfg, params, False)
+    real = tss.decode_on_device
+
+    def syncing(cfg, params, view):
+        out = real(cfg, params, view)
+        if view["cur"].shape[0] == 2:
+            out.sum().item()
+        return out
+    monkeypatch.setattr(tss, "decode_on_device", syncing)
+    step = tss.GraphedDecodeStep(cfg, params, state)
+    with torch.inference_mode():
+        step(params, state, 2)
+        with pytest.raises(RuntimeError, match="failed at 2 rows") as err:
+            step(params, state, 2)
+        assert "captur" in str(err.value.__cause__).lower()
+        for rows in (2, 4):
+            with pytest.raises(RuntimeError, match="failed earlier"):
+                step(params, state, rows)
+    assert step.graphs == {}

@@ -167,13 +167,38 @@ def test_attn_decode_kernel_matches_pallas(cache_len, window, d, dtype, tol):
     _close(got, want, tol)
 
 
+@pytest.mark.parametrize("window", [0, 8])
+@pytest.mark.parametrize("impl", ["naive", "kernel"])
+def test_attn_decode_per_row_matches_reference(window, impl):
+    """(B,) lengths 1, 17 and 30 against the reference's per-row mask; a
+    (B,) length takes the plain path under ``impl="kernel"`` too, as
+    under the reference's ``impl="pallas"``."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(3, 1, 30, 6, 2, 16)
+    lens = np.array([1, 17, 30])
+    got = TL.attn_decode(tq, tk, tv, cache_len=torch.from_numpy(lens),
+                         window=window, impl=impl)
+    want = JL.attn_decode(jq, jk, jv, cache_len=jnp.asarray(lens),
+                          window=window,
+                          impl="pallas" if impl == "kernel" else "naive")
+    _close(got, want)
+    plain = TL.attn_decode(tq, tk, tv, cache_len=torch.from_numpy(lens),
+                           window=window)
+    assert torch.equal(got, plain)
+
+
 def test_attn_decode_waits_for_later_slices():
+    """Per-row lengths are ported (the rows equal the scalar path's at the
+    same length, bit for bit); an unknown impl and sliding-window prefill
+    still raise."""
+    (_, tq), (_, tk), (_, tv) = _qkv(2, 1, 8, 4, 2, 16)
+    rows = TL.attn_decode(tq, tk, tv, cache_len=torch.tensor([3, 8]))
+    for i, n in enumerate((3, 8)):
+        assert torch.equal(rows[i], TL.attn_decode(
+            tq[i:i + 1], tk[i:i + 1], tv[i:i + 1], cache_len=n)[0])
+        assert torch.equal(rows[i], TL.attn_decode(
+            tq[i:i + 1], tk[i:i + 1], tv[i:i + 1],
+            cache_len=torch.tensor(n))[0])
     q, c = torch.zeros(2, 1, 4, 16), torch.zeros(2, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="per-row"):
-        TL.attn_decode(q, c, c, cache_len=torch.tensor([3, 4]))
-    with pytest.raises(NotImplementedError, match="per-row"):
-        TL.attn_decode(q, c, c, cache_len=torch.tensor([3, 4]),
-                       impl="kernel")
     with pytest.raises(ValueError, match="unknown impl"):
         TL.attn_decode(q, c, c, cache_len=3, impl="pallas")
     with pytest.raises(NotImplementedError):

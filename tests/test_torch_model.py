@@ -289,9 +289,12 @@ def test_decode_past_the_cache_raises():
     cache = tm.init_cache(cfg, 1, 4, start_len=4, device="cpu")
     with pytest.raises(IndexError):
         tm.decode(cfg, params, cache, torch.zeros(1, 1, dtype=torch.long))
-    cache["len"] = torch.tensor([1])
-    with pytest.raises(NotImplementedError, match="per-row"):
-        tm.decode(cfg, params, cache, torch.zeros(1, 1, dtype=torch.long))
+    # a tensor length reads nothing on the host: the callers keep their
+    # positions inside the cache (the servers check before they decode)
+    cache["len"] = torch.tensor([1])          # per row
+    _, out = tm.decode(cfg, params, cache,
+                       torch.zeros(1, 1, dtype=torch.long))
+    assert out["len"].tolist() == [2]
     cache["len"] = torch.tensor(2)            # a 0-d length is a scalar
     _, out = tm.decode(cfg, params, cache,
                        torch.zeros(1, 1, dtype=torch.long))

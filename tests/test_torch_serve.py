@@ -119,9 +119,15 @@ def test_launch_serve_runs_on_cpu(capsys):
                   "--batch-size", "2"])
     out = capsys.readouterr().out
     assert "3 requests, 12 tokens" in out and "tok/s" in out
+    assert "[serve:static:cpu]" in out
+    tlaunch.main(["--arch", "smollm_360m", "--reduced", "--device", "cpu",
+                  "--requests", "3", "--prompt-len", "6", "--max-new", "4",
+                  "--batch-size", "2", "--continuous"])
+    out = capsys.readouterr().out
+    assert "[serve:continuous:cpu] 3 requests, 12 tokens" in out
     with pytest.raises(SystemExit):
         tlaunch.main(["--arch", "smollm_360m", "--reduced", "--device",
-                      "cpu", "--continuous"])
+                      "cpu", "--no-such-flag"])
 
 
 def test_launch_serve_requests_match_reference():
