@@ -38,29 +38,35 @@ Phases, each printed as it runs; any failure exits non-zero:
              smollm config (head_dim 16, ``attn_impl="auto"``) prefills
              through the attention kernel.
 5. serve     smollm-360M at its published widths (32 layers, bf16, seeded
-             random weights) through ``BatchedServer``, its decode steps
-             replayed as CUDA graphs (``GraphedDecodeStep``): 16 requests,
-             prompts of 256-509 tokens, 32 new tokens each, batch 8.  The
-             two prefill kernels must show 32 launches per prefill and the
-             other six none; an eager server (``graphed=False``) serves the
-             same requests and must give the same tokens.  The prefill's
-             last-token logits are held against the port's plain path.
-             Prefill is timed; decode ms a step graphed and eager in turns
-             from the same cache state (each side its own copy, equal
-             after); the graphs, their capture seconds and pool bytes;
-             prefill, a graphed and an eager decode step profiled (device
-             time by kernel group, busy share against each one's wall).
+             random weights) through ``BatchedServer``, its prefills
+             (``GraphedPrefill``, a graph per batch shape from that
+             shape's second batch) and decode steps (``GraphedDecodeStep``)
+             as CUDA graphs: 16 requests, prompts of 256-509 tokens, 32 new
+             tokens each, batch 8.  The two prefill kernels must show 32
+             launches per prefill and the other six none; an eager server
+             (``graphed=False``) serves the same requests and must give the
+             same tokens.  The first batch's prefill, graphed and eager in
+             turns from the same state (each side its own copy, equal bit
+             for bit after); its last-token logits held against the port's
+             plain path.  Decode ms a step graphed and eager in turns from
+             the same cache state (equal after); the graphs, their capture
+             seconds and pool bytes; a graphed and an eager prefill and
+             decode step profiled (device time by kernel group, busy share
+             against each one's wall).
    serve continuous  ``ContinuousBatchingServer`` on the same weights:
              32 requests of 256-509-token prompts (bucket 512), 8-64 new
              tokens, 8 slots, max_ctx 576, 224 pages of 16 (so it must
-             preempt), after a warm run; graphed and eager must give the
-             same tokens and ``ServerStats``, every request its own length,
-             every page back, the prefill kernels 32 launches a prefill.
-             A (1, 512) prefill's last-token logits are held against the
-             port's plain path (phase 3 holds both prefill kernels at
-             this shape: attention (1, 512, 15/5, 64), the fused norm
-             512 x 960).  ServerStats, tok/s, decode ms a step at each
-             bucket (in turns) and a profiled replay.
+             preempt), after a warm run that must capture every prefill
+             and decode graph the timed run uses; graphed and eager must
+             give the same tokens and ``ServerStats``, every request its
+             own length, every page back, the prefill kernels 32 launches a
+             prefill.  The (1, 512) prefill graphed and eager in turns into
+             row 0 (equal bit for bit after), its last-token logits held
+             against the port's plain path (phase 3 holds both prefill
+             kernels at this shape: attention (1, 512, 15/5, 64), the fused
+             norm 512 x 960), its share of the run.  ServerStats, tok/s,
+             decode ms a step at each bucket (in turns, and back to back),
+             a profiled prefill and decode replay.
 6. calibrate ``calibrate_kernels("H100", bf16 and fp32)`` at smollm-360M's
              widths, the table scored on held-out shapes against the
              roofline (``bench.kernels_bench.cost_table_accuracy``), and
@@ -131,6 +137,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.bench import kernels_bench  # noqa: E402
+from repro_torch.bench.serve_runs import DecodeClock  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.profiler import kernel_costs  # noqa: E402
 from repro_torch.core.profiler import measured  # noqa: E402
@@ -146,7 +153,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
-from repro_torch.serve import kv_cache, serve_step  # noqa: E402
+from repro_torch.serve import serve_step  # noqa: E402
 from repro_torch.serve.scheduler import (ContinuousBatchingServer,  # noqa: E402
                                          ServerStats, _next_pow2)
 from repro_torch.serve.serve_step import BatchedServer, Request  # noqa: E402
@@ -222,6 +229,7 @@ PROMPT_MIN, PROMPT_MAX = 256, 509
 # what a real indexing or masking fault (O(1) errors) cannot pass.
 LOGITS_TOL = 0.1
 DECODE_PAIRS = 16       # single decode steps timed in turns, graphed and eager
+PREFILL_PAIRS = 5       # prefills timed in turns, graphed and eager
 # continuous phase (smollm-360M, published widths and depth): every prompt
 # buckets to 512, so max_ctx 512 + 64; 224 pages of 16 tokens hold fewer
 # than eight full rows (36 pages each), so the policy must preempt
@@ -1353,9 +1361,11 @@ def phase_serve(reqs, warm):
         f"{t_warm:.0f} ms, eager {t_warm_eager:.0f} ms")
 
     torch.cuda.reset_peak_memory_stats()
+    reserved = torch.cuda.memory_reserved()
     n_prefill = len(batch_lengths(reqs))
     ops.reset_launches()
-    t_run = _timed(lambda: server.run(reqs))
+    with DecodeClock() as clock:
+        t_run = _timed(lambda: server.run(reqs))
     launches = _serve_launch_check("serve", cfg, n_prefill)
     peak = torch.cuda.max_memory_allocated()
     if not all(r.done and len(r.output) == MAX_NEW for r in reqs):
@@ -1367,7 +1377,8 @@ def phase_serve(reqs, warm):
         f"({n_prefill} prefills x {cfg.n_layers} layers)")
     ereqs = _fresh_requests(reqs)
     ops.reset_launches()
-    t_eager = _timed(lambda: eager.run(ereqs))
+    with DecodeClock() as eclock:
+        t_eager = _timed(lambda: eager.run(ereqs))
     _serve_launch_check("serve eager", cfg, n_prefill)
     _same_tokens("serve", reqs, ereqs)
     log(f"[serve] graphed vs eager: all {len(reqs)} requests' tokens equal")
@@ -1380,14 +1391,18 @@ def phase_serve(reqs, warm):
         toks[i, plen - len(r.prompt):] = r.prompt
     batch = {"tokens": torch.from_numpy(toks).cuda()}
     with torch.inference_mode():
-        prefill_ms = statistics.median(
-            _timed(lambda: server._prefill(params, batch)) for _ in range(3))
-        logits, cache = server._prefill(params, batch)
+        torch.cuda.reset_peak_memory_stats()
+        pre = _prefill_in_turns("serve", cfg, params, server.prefill_graph,
+                                server.state, toks)
+        peak_prefill = torch.cuda.max_memory_allocated()
+        logits = pre["logits"]
         plain = model_lib.forward(cfg, params, batch, attn_impl="naive")[:, -1]
         decode = _decode_in_turns(cfg, params, server.decode_graph,
-                                  server.state, cache, logits, plen)
+                                  server.state, len(first), plen)
         dev_prefill = profile_window(
-            "prefill", lambda: server._prefill(params, batch), prefill_ms, 1)
+            "prefill", lambda: pre["run"]("graphed"), pre["graphed_ms"], 1)
+        profile_window("prefill_eager", lambda: pre["run"]("eager"),
+                       pre["eager_ms"], 1)
         dev_decode = profile_window(
             "decode", lambda: decode["run"]("graphed", DECODE_PROFILED),
             decode["graphed_ms"] * DECODE_PROFILED, DECODE_PROFILED)
@@ -1403,7 +1418,9 @@ def phase_serve(reqs, warm):
         raise AssertionError(f"prefill last-token logits: kernel vs plain "
                              f"path {dlogit:.3e} > {LOGITS_TOL}")
     agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    stats = dict(prefill_ms=prefill_ms, prefill_batch=[len(first), plen],
+    stats = dict(prefill_ms=pre["graphed_ms"],
+                 prefill_ms_eager=pre["eager_ms"],
+                 prefill_batch=[len(first), plen],
                  decode_ms_per_step=decode["graphed_ms"],
                  decode_ms_per_step_eager=decode["eager_ms"],
                  decode_batch=len(first),
@@ -1411,26 +1428,88 @@ def phase_serve(reqs, warm):
                  steady_tok_s_eager=n_tok / (t_eager / 1e3),
                  steady_tokens=n_tok, steady_s=t_run / 1e3,
                  steady_s_eager=t_eager / 1e3, warmup_s=t_warm / 1e3,
-                 peak_mem_gib=peak / 2**30, logits_max_abs_diff=dlogit,
+                 steady_split=_split(t_run, clock),
+                 steady_split_eager=_split(t_eager, eclock),
+                 reserved_gib_before_run=reserved / 2**30,
+                 peak_mem_gib=peak / 2**30,
+                 peak_mem_gib_prefill_in_turns=peak_prefill / 2**30,
+                 logits_max_abs_diff=dlogit,
                  logits_std=logits.std().item(), argmax_agree=agree,
                  decode_steps=server.decode_steps,
                  decode_row_steps=server.decode_row_steps,
-                 **_graph_stats(server.decode_graph))
+                 decode_graphs=_graph_stats(server.decode_graph),
+                 prefill_graphs=_graph_stats(server.prefill_graph))
     log(f"[serve] {json.dumps(stats)}")
     return launches, dict(prefill_len=plen, prefill_device_ms=dev_prefill,
                           decode_device_ms=dev_decode), params
 
 
-def _decode_in_turns(cfg, params, graph, state, cache, logits, plen):
+def _split(run_ms: float, clock) -> dict:
+    """A timed run's host seconds inside the decode steps and outside them
+    (prefills, host work), and the allocator's counts meanwhile."""
+    return dict(decode_rows_s=clock.seconds,
+                other_s=run_ms / 1e3 - clock.seconds, **clock.allocator)
+
+
+def _in_turns(steps, pairs: int):
+    """Host ms of each of ``pairs`` pairs of calls, in turns (eager,
+    graphed, graphed, eager, ...)."""
+    times = {"graphed": [], "eager": []}
+    for j in range(pairs):
+        order = ("eager", "graphed") if j % 2 == 0 else ("graphed", "eager")
+        for kind in order:
+            times[kind].append(_timed(steps[kind]))
+    return times
+
+
+def _prefill_in_turns(label, cfg, params, graph, state, toks, row=None):
+    """Prefill ms, graphed and eager, in turns from the same state: the
+    graph (``GraphedPrefill``) takes the prompts until it holds their
+    shape's graph (eager, then the capture), then a copy of
+    the state goes to the eager side (``prefill_on_device`` on the
+    caller's stream).  PREFILL_PAIRS pairs follow, each side writing its
+    own copy; after them one more call each must give the same logits,
+    and the two states the same K/V, lengths and tokens, bit for bit.
+    ``row``: the continuous server's row (by row), else the prefix.
+    Returns the medians, the graphed logits and ``run(kind)``."""
+    by_row = row is not None
+    key = toks.shape[1] if by_row else tuple(toks.shape)
+    tok_dev = torch.from_numpy(toks).cuda()
+    rows = torch.tensor([row], device="cuda") if by_row else toks.shape[0]
+    steps = {"graphed": lambda: graph(params, state, toks, row=row)}
+    while key not in graph.graphs:
+        steps["graphed"]()
+    other = {k: v.clone() for k, v in state.items()}
+    steps["eager"] = lambda: serve_step.prefill_on_device(
+        cfg, params, other, tok_dev, rows)
+    times = _in_turns(steps, PREFILL_PAIRS)
+    logits = steps["graphed"]().clone()
+    if not torch.equal(logits, steps["eager"]()):
+        raise AssertionError(f"[{label}] prefill in turns: graphed and "
+                             f"eager logits differ")
+    for k in state:
+        if not torch.equal(state[k], other[k]):
+            raise AssertionError(f"[{label}] prefill in turns: graphed and "
+                                 f"eager {k} differ")
+    out = {f"{kind}_ms": statistics.median(t) for kind, t in times.items()}
+    log(f"[{label}] prefill in turns ({PREFILL_PAIRS} pairs, "
+        f"{'batch 1 into a row' if by_row else 'the prefix'} at "
+        f"{tuple(toks.shape)}, from the same state; logits, caches, lengths "
+        f"and tokens equal after): " + json.dumps(dict(
+            out, graphed_ms_all=times["graphed"], eager_ms_all=times["eager"],
+            speedup=out["eager_ms"] / out["graphed_ms"])))
+    return dict(out, logits=logits, run=lambda kind: steps[kind]())
+
+
+def _decode_in_turns(cfg, params, graph, state, rows, plen):
     """Decode ms a step, graphed and eager, in turns from the same cache
-    state: the prefill's cache goes into ``state`` (the graph's), the graph
-    takes 2 steps at BATCH rows (eager on its stream, then capture, or
-    replays where it exists), then a copy of the state goes to the eager
-    side.  DECODE_PAIRS pairs of single steps follow (eager, graphed,
-    graphed, eager, ...), each side on its own copy; the two must hold the
-    same cache, lengths and tokens after them.  Returns the medians and
-    ``run(kind, steps)`` for the profiles."""
-    rows = logits.shape[0]
+    state: ``state`` (the graph's) holds a ``plen``-token prefill in its
+    first ``rows`` rows; the graph takes 2 steps at those rows (eager,
+    then capture, or replays where it exists), then a copy of
+    the state goes to the eager side.  DECODE_PAIRS pairs of single steps
+    follow (eager, graphed, graphed, eager, ...), each side on its own
+    copy; the two must hold the same cache, lengths and tokens after them.
+    Returns the medians and ``run(kind, steps)`` for the profiles."""
     # the tensor length reads nothing on the host, so the room for the
     # graphed side's steps (2, the pairs, the profile) is checked here
     need = plen + 2 + DECODE_PAIRS + DECODE_PROFILED
@@ -1439,21 +1518,13 @@ def _decode_in_turns(cfg, params, graph, state, cache, logits, plen):
         raise ValueError(f"[serve] decode in turns: a {plen}-token prefill "
                          f"and {need - plen} steps write past the cache's "
                          f"{size} slots")
-    view = serve_step.rows_of(state, rows)
-    kv_cache.grow_cache(cache, {"k": view["k"], "v": view["v"]})
-    view["len"].fill_(plen)
-    view["cur"].copy_(torch.argmax(logits, dim=-1)[:, None])
     steps = {"graphed": lambda: graph(params, state, rows)}
     for _ in range(2):
         steps["graphed"]()
     other = {k: v.clone() for k, v in state.items()}
     steps["eager"] = lambda: serve_step.decode_on_device(
         cfg, params, serve_step.rows_of(other, rows))
-    times = {"graphed": [], "eager": []}
-    for j in range(DECODE_PAIRS):
-        order = ("eager", "graphed") if j % 2 == 0 else ("graphed", "eager")
-        for kind in order:
-            times[kind].append(_timed(steps[kind]))
+    times = _in_turns(steps, DECODE_PAIRS)
     for key in ("k", "v", "len", "cur"):
         a, b = serve_step.rows_of(state, rows)[key], \
             serve_step.rows_of(other, rows)[key]
@@ -1513,9 +1584,18 @@ def phase_serve_continuous(params) -> dict:
         t_warm = _timed(lambda: srv.run(_fresh_requests(warm)))
         srv.stats = ServerStats()
         mine = _fresh_requests(reqs)
-        graphs = len(srv.decode_graph.graphs) if srv.decode_graph else 0
+        graphs = [set(step.graphs) if step else None
+                  for step in (srv.decode_graph, srv.prefill_graph)]
         ops.reset_launches()
-        t_run = _timed(lambda: srv.run(mine))
+        with DecodeClock() as clock:
+            t_run = _timed(lambda: srv.run(mine))
+        if srv.graphed and graphs != [set(srv.decode_graph.graphs),
+                                      set(srv.prefill_graph.graphs)]:
+            raise AssertionError(
+                f"[serve continuous] the timed run captured graphs the warm "
+                f"run did not: decode {sorted(graphs[0])} -> "
+                f"{sorted(srv.decode_graph.graphs)}, prefill "
+                f"{sorted(graphs[1])} -> {sorted(srv.prefill_graph.graphs)}")
         launches[kind] = _serve_launch_check(
             f"serve continuous {kind}", cfg, srv.stats.prefill_calls)
         bad = [r.rid for r in mine
@@ -1533,9 +1613,7 @@ def phase_serve_continuous(params) -> dict:
         out[kind] = dict(
             stats=dataclasses.asdict(srv.stats), steady_tok_s=n_tok
             / (t_run / 1e3), steady_tokens=n_tok, steady_s=t_run / 1e3,
-            warmup_s=t_warm / 1e3,
-            captures_in_run=(len(srv.decode_graph.graphs) - graphs
-                             if srv.decode_graph else None))
+            warmup_s=t_warm / 1e3, steady_split=_split(t_run, clock))
     _same_tokens("serve continuous", runs["graphed"], runs["eager"])
     if out["graphed"]["stats"] != out["eager"]["stats"]:
         raise AssertionError(f"[serve continuous] ServerStats differ: "
@@ -1549,11 +1627,14 @@ def phase_serve_continuous(params) -> dict:
         f"max_ctx {CB_CTX}, {CB_PAGES} pages of {CB_PAGE}; tokens and "
         f"ServerStats equal graphed vs eager: " + json.dumps(dict(
             out, launches=launches["graphed"],
-            **_graph_stats(g.decode_graph))))
+            decode_graphs=_graph_stats(g.decode_graph),
+            prefill_graphs=_graph_stats(g.prefill_graph))))
     # decode ms a step at each bucket the run used, graphed and eager in
     # turns; every row is set to length 1 first so no row can reach past
     # max_ctx (the time does not depend on the lengths: the plain
-    # attention reads every slot)
+    # attention reads every slot).  Beside them, DECODE_PROFILED replays
+    # back to back with one sync at the end, a step's wall without the
+    # per-step sync.
     per_bucket = {}
     with torch.inference_mode():
         for srv in servers.values():
@@ -1563,26 +1644,29 @@ def phase_serve_continuous(params) -> dict:
             steps = {"graphed": lambda: g.decode_graph(params, g.state, bsz),
                      "eager": lambda: serve_step.decode_rows(
                          cfg, params, e.state, bsz)}
-            times = {"graphed": [], "eager": []}
-            for j in range(4):
-                order = ("eager", "graphed") if j % 2 == 0 \
-                    else ("graphed", "eager")
-                for kind in order:
-                    times[kind].append(_timed(steps[kind]))
-            per_bucket[bsz] = {k: statistics.median(t)
-                               for k, t in times.items()}
+            times = _in_turns(steps, 4)
+            back = _timed(lambda: [steps["graphed"]()
+                                   for _ in range(DECODE_PROFILED)])
+            per_bucket[bsz] = dict(
+                {k: statistics.median(t) for k, t in times.items()},
+                graphed_all=times["graphed"],
+                graphed_back_to_back=back / DECODE_PROFILED)
         log("[serve continuous] decode ms a step by bucket (4 pairs in "
-            "turns): " + json.dumps(per_bucket))
-        # one eager batch-1 prefill at the bucket, the run's other part,
-        # left-padded as the server pads it; its last-token logits held
-        # against the plain path (naive attention + unfused norm)
+            "turns; back to back: " f"{DECODE_PROFILED} replays, one sync): "
+            + json.dumps(per_bucket))
+        # the batch-1 prefill at the bucket, the run's other part,
+        # left-padded as the server pads it, graphed and eager in turns
+        # into row 0; its last-token logits held against the plain path
+        # (naive attention + unfused norm)
         r, cb = reqs[0], cb_bucket()
         toks = np.zeros((1, cb), np.int64)
         toks[0, cb - len(r.prompt):] = r.prompt
         pbatch = {"tokens": torch.from_numpy(toks).cuda()}
-        pre_ms = statistics.median(
-            _timed(lambda: g._prefill(params, pbatch)) for _ in range(5))
-        logits, _ = g._prefill(params, pbatch)
+        torch.cuda.reset_peak_memory_stats()
+        pre = _prefill_in_turns("serve continuous", cfg, params,
+                                g.prefill_graph, g.state, toks, row=0)
+        peak = torch.cuda.max_memory_allocated()
+        logits = pre["logits"]
         plain = model_lib.forward(cfg, params, pbatch,
                                   attn_impl="naive")[:, -1]
         if logits.shape != (1, cfg.vocab_size) \
@@ -1596,13 +1680,19 @@ def phase_serve_continuous(params) -> dict:
                                  f"last-token logits: kernel vs plain path "
                                  f"{dlogit:.3e} > {LOGITS_TOL}")
         calls = out["graphed"]["stats"]["prefill_calls"]
-        log(f"[serve continuous] prefill (1, {cb}), median of 5: "
+        log(f"[serve continuous] prefill (1, {cb}), graphed and eager: "
             + json.dumps(dict(
-                prefill_ms=pre_ms, prefill_calls=calls,
-                prefill_share_of_run=calls * pre_ms
+                prefill_ms=pre["graphed_ms"], prefill_ms_eager=pre["eager_ms"],
+                prefill_calls=calls,
+                prefill_share_of_run=calls * pre["graphed_ms"]
                 / (out["graphed"]["steady_s"] * 1e3),
+                prefill_share_of_run_eager=calls * pre["eager_ms"]
+                / (out["eager"]["steady_s"] * 1e3),
+                peak_mem_gib_prefill_in_turns=peak / 2**30,
                 logits_max_abs_diff=dlogit, logits_tol=LOGITS_TOL,
                 argmax_agree=bool(logits.argmax(-1) == plain.argmax(-1)))))
+        profile_window("prefill_continuous", lambda: pre["run"]("graphed"),
+                       pre["graphed_ms"], 1)
         top = max(per_bucket)
         profile_window("decode_continuous",
                        lambda: [g.decode_graph(params, g.state, top)

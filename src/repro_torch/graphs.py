@@ -1,15 +1,17 @@
-"""What the port's CUDA-graphed steps share (``train_step.GraphedTrainStep``
-and ``serve_step.GraphedDecodeStep``, the counterparts of the reference's
-``jax.jit``): the params-leaf walk that binds a graph to its tensors, and
-``GraphedStep``, the bookkeeping around a step's device body.
+"""What the port's CUDA-graphed steps share (``train_step.GraphedTrainStep``,
+``serve_step.GraphedDecodeStep`` and ``serve_step.GraphedPrefill``, the
+counterparts of the reference's ``jax.jit``): the params-leaf walk that
+binds a graph to its tensors, ``GraphedStep``, the bookkeeping around a
+step's device body, and ``GraphedShapes``, a step with one graph per shape.
 
 A graphed step runs its body in three ways:
 
 1. eagerly, on the step's own side stream (``GraphedStep.eager``): the
-   first call of a shape builds and loads what the body launches and makes
-   what it makes on first use (cuBLAS's handle and workspace for the
-   stream, the fused norm's ticket counters), since none of it may be made
-   inside a capture;
+   first call builds and loads what the body launches and makes what it
+   makes on first use (cuBLAS's handle and workspace for the stream, the
+   fused norm's ticket counters), since none of it may be made inside a
+   capture (``GraphedShapes`` runs a later shape's first call on the
+   caller's stream);
 2. captured on that stream (``GraphedStep.capture``): the kernel launches
    the capture recorded are taken back out of ``ops.LAUNCHES`` (a capture
    launches nothing) and kept with the graph; a capture that fails raises
@@ -124,3 +126,44 @@ class GraphedStep:
             launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
             ops.LAUNCHES.update(before)   # the capture launched nothing
         return Captured(graph, out, launches, time.perf_counter() - t0)
+
+
+class GraphedShapes(GraphedStep):
+    """A graphed step with one graph per shape (the reference's jit traces
+    once per shape): ``run(key, body)`` runs ``body`` eagerly at the first
+    call with ``key``, captures it at the second and replays it from then
+    on.  Only the step's first call runs on its side stream: what the body
+    makes per stream is made then, and what it makes per shape (kernels
+    loaded, cuBLAS's choices) does not depend on the stream, so a later
+    shape's first call runs on the caller's stream, as the eager body
+    would, drawing on that stream's cached memory (each stream has its own
+    cache, and a shape seen once must cost what the eager body costs).
+    ``graphs``, ``capture_launches`` and ``capture_seconds`` are keyed by
+    shape."""
+
+    def __init__(self, params, who: str, shared_pool: bool = False):
+        super().__init__(params, who, shared_pool)
+        self._warm: set = set()
+        self._captured: Dict[Any, Captured] = {}
+
+    @property
+    def graphs(self) -> Dict[Any, torch.cuda.CUDAGraph]:
+        return {key: c.graph for key, c in self._captured.items()}
+
+    @property
+    def capture_launches(self) -> Dict[Any, Dict[str, int]]:
+        return {key: c.launches for key, c in self._captured.items()}
+
+    @property
+    def capture_seconds(self) -> Dict[Any, float]:
+        return {key: c.seconds for key, c in self._captured.items()}
+
+    def run(self, key, body: Callable[[], Any], where: str) -> Any:
+        """``where`` names the shape in the error of a failed capture."""
+        if key not in self._captured:
+            if key not in self._warm:
+                out = body() if self._warm else self.eager(body)
+                self._warm.add(key)
+                return out
+            self._captured[key] = self.capture(body, where)
+        return self._captured[key].replay()

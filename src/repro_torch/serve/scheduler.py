@@ -26,11 +26,15 @@ requests at every decode-step boundary:
   tokens.  The host writes its arrays into that mirror only after an
   admission, finish or preemption; between such events the graph advances
   it (idle rows in the slice drift, but their logits are discarded).
+* **One graph per prefill bucket.**  Prefill is batch 1 at the prompt's
+  pow2 bucket, the reference's jitted prefill at one shape per bucket; the
+  port replays one CUDA graph per bucket (``serve_step.GraphedPrefill``,
+  by row), which writes the prompt's K/V, length and first token into the
+  admitted row of the static state at a device row index.
 
-Prefill runs eagerly, batch 1 at the prompt's pow2 bucket.  Unlike the
-reference, ``submit`` refuses a request whose bucket plus decode steps
-would write past ``max_ctx`` (the reference clamps that write into the
-cache and drops the row's K/V).
+Unlike the reference, ``submit`` refuses a request whose bucket plus
+decode steps would write past ``max_ctx`` (the reference clamps that write
+into the cache and drops the row's K/V).
 """
 from __future__ import annotations
 
@@ -43,9 +47,9 @@ import torch
 from repro_torch.device import device_of
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.paged_cache import PagedKVAllocator
-from repro_torch.serve.serve_step import (GraphedDecodeStep, Request,
-                                          decode_rows, decode_state,
-                                          make_prefill, resolve_graphed)
+from repro_torch.serve.serve_step import (GraphedDecodeStep, GraphedPrefill,
+                                          Request, decode_rows, decode_state,
+                                          prefill_on_device, resolve_graphed)
 
 
 def _next_pow2(n: int) -> int:
@@ -68,9 +72,10 @@ class ServerStats:
 class ContinuousBatchingServer:
     """Admit/evict by page budget; decode a dead-slot-free prefix batch.
 
-    ``graphed`` as in ``BatchedServer``: None replays the decode graphs
-    when the params lie on a CUDA device and runs the step's body eagerly
-    on the CPU; True on the CPU raises; False runs it eagerly."""
+    ``graphed`` as in ``BatchedServer``: None replays the prefill and
+    decode graphs when the params lie on a CUDA device and runs their
+    bodies eagerly on the CPU; True on the CPU raises; False runs them
+    eagerly."""
 
     def __init__(self, cfg: ModelConfig, params, max_slots: int = 8,
                  max_ctx: int = 512, page_size: int = 16,
@@ -90,11 +95,13 @@ class ContinuousBatchingServer:
         self.alloc = PagedKVAllocator(total_pages, page_size)
         self.graphed = resolve_graphed(params, graphed,
                                        "ContinuousBatchingServer")
-        self._prefill = make_prefill(cfg)
-        # the static cache, per-row lengths and current tokens the decode
-        # steps read and write in place
+        # the static cache, per-row lengths and current tokens the prefills
+        # write and the decode steps read and write in place
         self.state = decode_state(cfg, max_slots, max_ctx, per_row=True,
                                   device=self.device)
+        self.prefill_graph = GraphedPrefill(cfg, params, self.state,
+                                            by_row=True) \
+            if self.graphed else None
         self.decode_graph = GraphedDecodeStep(cfg, params, self.state) \
             if self.graphed else None
         # per-row positions; idle rows sit at 1 (a 0 would mask every
@@ -124,12 +131,20 @@ class ContinuousBatchingServer:
                              f"write past max_ctx {self.max_ctx}")
         self.queue.append(req)
 
-    def _write_row(self, row: int, pcache, bucket: int) -> None:
-        n = pcache["k"].shape[2]
-        for key in ("k", "v"):
-            self.state[key][:, row, :n] = pcache[key][:, 0]
-        self.len_np[row] = bucket
+    def _prefill_row(self, row: int, toks: np.ndarray) -> int:
+        """Prefill one left-padded prompt into ``row`` of the state (its
+        K/V from slot 0, its length and first token); the host mirror
+        follows.  Returns the first token."""
+        if self.prefill_graph is not None:
+            self.prefill_graph(self.params, self.state, toks, row=row)
+        else:
+            prefill_on_device(
+                self.cfg, self.params, self.state,
+                torch.from_numpy(toks).to(self.device),
+                torch.tensor([row], device=self.device))
+        self.len_np[row] = toks.shape[1]
         self._stale = True
+        return int(self.state["cur"][row, 0])
 
     def _remove_row(self, row: int) -> None:
         """Swap the last live row into ``row`` (prefix compaction)."""
@@ -157,13 +172,10 @@ class ContinuousBatchingServer:
             bucket = min(_next_pow2(plen), self.max_ctx)
             toks = np.zeros((1, bucket), np.int64)
             toks[0, bucket - plen:] = req.prompt
-            logits, pcache = self._prefill(
-                self.params, {"tokens": torch.from_numpy(toks).to(self.device)})
-            self.stats.prefill_calls += 1
             row = len(self.live)
+            first = self._prefill_row(row, toks)
+            self.stats.prefill_calls += 1
             self.live.append(req)
-            self._write_row(row, pcache, bucket)
-            first = int(torch.argmax(logits[0], dim=-1))
             self.cur[row, 0] = first
             req.output.append(first)
             if len(req.output) >= req.max_new_tokens:

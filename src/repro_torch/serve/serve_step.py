@@ -3,19 +3,21 @@
 
 ``make_prefill`` runs the full-sequence forward returning (last-token
 logits, cache); ``make_decode`` advances one token for the whole batch.
-Both run eagerly.  The reference jits both; the port's counterpart of the
-jitted decode is a CUDA graph.  A served decode step keeps its state in
-static buffers (``decode_state``: the KV cache, the length, the current
-tokens), and its device body (``decode_on_device``) reads and writes them
-in place without a host sync, so ``GraphedDecodeStep`` captures it once
-per batch size and replays it.  Prefill stays eager: its shape follows
-each batch's longest prompt.  Cache sharding (``cache_specs``) waits for
-the mesh slice.
+Both run eagerly.  The reference jits the servers' prefill and decode;
+the port's counterparts of those jitted programs are CUDA graphs.  A
+server keeps one static decode state for its life (``decode_state``: the
+KV cache, the length, the current tokens).  A served prefill's device
+body (``prefill_on_device``) writes its K/V, length and first token into
+rows of that state, and a decode step's (``decode_on_device``) reads and
+writes it in place; neither syncs with the host, so ``GraphedPrefill``
+captures a prefill once per prompt shape and ``GraphedDecodeStep`` a
+decode step once per batch size, and both replay.  Cache sharding
+(``cache_specs``) waits for the mesh slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -63,6 +65,37 @@ def rows_of(state: Dict[str, torch.Tensor], n: int) -> Dict[str, torch.Tensor]:
             "len": ln if ln.dim() == 0 else ln[:n], "cur": state["cur"][:n]}
 
 
+def prefill_on_device(cfg: ModelConfig, params,
+                      state: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                      rows: Union[int, torch.Tensor]) -> torch.Tensor:
+    """One served prefill's device body: ``make_prefill`` on ``tokens``
+    (B, S), its K/V written into rows of ``state`` from slot 0, in place,
+    those rows' ``len`` set to S and the greedy first token written into
+    their ``cur``.  ``rows`` is an int ``B`` (the prefix ``[0, B)``, as
+    ``rows_of`` gives it: the static server) or a (B,) int64 tensor of row
+    indices on the state's device (a per-row state: the continuous
+    server's row, so one graph serves every row).  Returns the last-position
+    logits (B, V) as a tensor of their own, so the (B, S, V) logits are a
+    temporary.  It reads no value on the host, copies nothing to or from
+    it and branches on no tensor's value, so a CUDA graph can capture it."""
+    logits, cache = make_prefill(cfg)(params, {"tokens": tokens})
+    logits = logits.clone()
+    first = torch.argmax(logits, dim=-1)[:, None]
+    if isinstance(rows, torch.Tensor):
+        n = cache["k"].shape[2]
+        for key in ("k", "v"):
+            dst = state[key][:, :, :n]
+            dst.index_copy_(1, rows, cache[key].to(dst.dtype))
+        state["len"].index_fill_(0, rows, cache["len"])
+        state["cur"].index_copy_(0, rows, first)
+    else:
+        view = rows_of(state, rows)
+        kv_cache.grow_cache(cache, {"k": view["k"], "v": view["v"]})
+        view["len"].fill_(cache["len"])
+        view["cur"].copy_(first)
+    return logits
+
+
 def decode_on_device(cfg: ModelConfig, params,
                      state: Dict[str, torch.Tensor]) -> torch.Tensor:
     """One decode step's device body on ``state`` (``rows_of`` views):
@@ -80,14 +113,15 @@ def decode_on_device(cfg: ModelConfig, params,
     return logits
 
 
-class GraphedDecodeStep(graphs.GraphedStep):
+class GraphedDecodeStep(graphs.GraphedShapes):
     """``decode_on_device`` on the first ``rows`` rows of one static decode
     state, one ``torch.cuda.CUDAGraph`` per row count (the reference jits
     one program per batch shape).  For each row count:
 
-    1. the first call runs the body eagerly on the step's own side stream
-       (what the body makes on first use, cuBLAS's handle and workspace for
-       that stream among it, must not be made inside a capture);
+    1. the first call runs the body eagerly: the step's first call on its
+       own side stream (what the body makes on first use, cuBLAS's handle
+       and workspace for that stream among it, must not be made inside a
+       capture), the first call at a later row count on the caller's;
     2. the second captures the body on that stream, then replays it;
     3. every later call replays it, on the caller's current stream.
 
@@ -101,7 +135,7 @@ class GraphedDecodeStep(graphs.GraphedStep):
     host time.  A capture that fails raises, naming the row count, and so
     does every later call: PyTorch's allocator is left recording into the
     shared pool, so no later capture can use it.  The warm call, the
-    capture, the replay and the failure latch are ``graphs.GraphedStep``'s."""
+    capture, the replay and the failure latch are ``graphs.GraphedShapes``'s."""
 
     def __init__(self, cfg: ModelConfig, params,
                  state: Dict[str, torch.Tensor]):
@@ -109,20 +143,6 @@ class GraphedDecodeStep(graphs.GraphedStep):
         self.cfg = cfg
         self._params = graphs.tree_leaves(params)
         self._state = dict(state)
-        self._captured: Dict[int, graphs.Captured] = {}
-        self._warm: set = set()
-
-    @property
-    def graphs(self) -> Dict[int, torch.cuda.CUDAGraph]:
-        return {rows: c.graph for rows, c in self._captured.items()}
-
-    @property
-    def capture_launches(self) -> Dict[int, Dict[str, int]]:
-        return {rows: c.launches for rows, c in self._captured.items()}
-
-    @property
-    def capture_seconds(self) -> Dict[int, float]:
-        return {rows: c.seconds for rows, c in self._captured.items()}
 
     def __call__(self, params, state: Dict[str, torch.Tensor],
                  rows: int) -> torch.Tensor:
@@ -138,13 +158,80 @@ class GraphedDecodeStep(graphs.GraphedStep):
         def body():
             return decode_on_device(self.cfg, params,
                                     rows_of(self._state, rows))
-        if rows not in self._warm:
-            out = self.eager(body)
-            self._warm.add(rows)
-            return out
-        if rows not in self._captured:
-            self._captured[rows] = self.capture(body, f" at {rows} rows")
-        return self._captured[rows].replay()
+        return self.run(rows, body, f" at {rows} rows")
+
+
+class GraphedPrefill(graphs.GraphedShapes):
+    """``prefill_on_device`` into one static decode state, one
+    ``torch.cuda.CUDAGraph`` per prompt shape (the reference's jitted
+    prefill compiles one program per shape).  ``by_row`` False: a call
+    prefills B prompts into the prefix ``[0, B)`` (the static server), one
+    graph per ``(B, S)``; True: one prompt into the row it names, through a
+    device row index the host writes before each run, so one graph per
+    bucket ``S`` serves every row (the continuous server).  Each shape has
+    a static token buffer on the device, into which a call copies its
+    left-padded prompts.  For each shape, as in ``GraphedDecodeStep``: the
+    first call runs the body eagerly (the step's first call on its side
+    stream, a later shape's on the caller's stream, where the eager body
+    runs, so a shape seen once costs what it costs eagerly), the second
+    captures it on the side stream and replays it, later calls replay it
+    on the caller's current stream.
+
+    Every output that outlives a call is in the static state (K/V, ``len``,
+    ``cur``), outside the graphs' memory.  The graphs share one pool of
+    their own (not the decode graphs'): they never run at the same time,
+    and a call's logits, which live in that pool, hold only until the
+    step's next call (a replay writes its temporaries where a graph
+    captured later keeps its logits).  The graphs read the storage of the
+    params and write that of the state they were made with, so other
+    tensors raise.  ``graphs``, ``capture_launches`` (added to
+    ``ops.LAUNCHES`` on every replay) and ``capture_seconds`` are keyed by
+    shape.  A capture that fails raises, naming the shape, and so does
+    every later call (``graphs.GraphedShapes``)."""
+
+    def __init__(self, cfg: ModelConfig, params,
+                 state: Dict[str, torch.Tensor], by_row: bool = False):
+        super().__init__(params, "graphed prefill", shared_pool=True)
+        self.cfg = cfg
+        self.by_row = by_row
+        self._params = graphs.tree_leaves(params)
+        self._state = dict(state)
+        self._row = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        self._tokens: Dict[object, torch.Tensor] = {}
+
+    def __call__(self, params, state: Dict[str, torch.Tensor],
+                 tokens: np.ndarray, row: Optional[int] = None
+                 ) -> torch.Tensor:
+        """Prefill ``tokens`` ((B, S) host ints, left-padded) into the
+        prefix, or (``by_row``; B = 1) into ``row``.  Returns the logits
+        (B, V), valid until the next call."""
+        self.check_alive()
+        self.check_bound("params", self._params, graphs.tree_leaves(params))
+        self.check_bound("decode state", graphs.tree_leaves(self._state),
+                         graphs.tree_leaves(state))
+        b, s = tokens.shape
+        held = self._state["cur"].shape[0]
+        if self.by_row:
+            if b != 1 or row is None or not 0 <= row < held:
+                raise ValueError(f"{self.who}: by row, one prompt into a row "
+                                 f"of {held}; got {b} prompts, row {row}")
+            key, where, rows = s, f" at bucket {s}", self._row
+        else:
+            if row is not None or not 1 <= b <= held:
+                raise ValueError(f"{self.who}: {b} prompts into the prefix "
+                                 f"(row {row}); the state holds {held}")
+            key, where, rows = (b, s), f" at {b} x {s}", b
+        if key not in self._tokens:
+            self._tokens[key] = torch.empty((b, s), dtype=torch.int64,
+                                            device=self.device)
+        buf = self._tokens[key]
+        buf.copy_(torch.from_numpy(np.asarray(tokens, np.int64)))
+        if self.by_row:
+            self._row.fill_(row)
+
+        def body():
+            return prefill_on_device(self.cfg, params, self._state, buf, rows)
+        return self.run(key, body, where)
 
 
 def resolve_graphed(params, graphed: Optional[bool], who: str) -> bool:
@@ -192,14 +279,18 @@ class BatchedServer:
     server runs on the device its ``params`` lie on.
 
     One static decode state of ``(batch_size, max_len)`` rows lives as long
-    as the server: each batch's prefill cache is written into its prefix
-    (``kv_cache.grow_cache``), compaction moves the live rows into the
+    as the server: each batch's prefill writes its cache into the state's
+    prefix (``prefill_on_device``), compaction moves the live rows into the
     prefix in place, and decode runs on prefix views.  ``graphed``: None
-    (the default) replays a ``GraphedDecodeStep`` when the params lie on
-    a CUDA device and runs the body eagerly on the CPU; True on the CPU
-    raises; False runs it eagerly on any device.  A batch whose prompt and
-    decode steps would write past ``max_len`` raises before its prefill
-    (the reference clamps the write into the cache).
+    (the default) runs the prefill through a ``GraphedPrefill`` (a graph
+    per batch shape, from the second batch of that shape on) and the decode
+    steps through a ``GraphedDecodeStep`` when the params lie on a CUDA
+    device, and both bodies eagerly on the CPU; True on the CPU raises;
+    False runs both eagerly on any device.  Prompts are not bucketed: the
+    prefill has no pad mask, so a longer pad would change its logits
+    against the reference's.  A batch whose prompt and decode steps would
+    write past ``max_len`` raises before its prefill (the reference clamps
+    the write into the cache).
     """
 
     def __init__(self, cfg: ModelConfig, params, max_len: int = 512,
@@ -210,9 +301,10 @@ class BatchedServer:
         self.max_len = max_len
         self.batch_size = batch_size
         self.graphed = resolve_graphed(params, graphed, "BatchedServer")
-        self._prefill = make_prefill(cfg)
         self.state = decode_state(cfg, batch_size, max_len, per_row=False,
                                   device=self.device)
+        self.prefill_graph = GraphedPrefill(cfg, params, self.state) \
+            if self.graphed else None
         self.decode_graph = GraphedDecodeStep(cfg, params, self.state) \
             if self.graphed else None
         self.decode_steps = 0        # decode_step launches
@@ -247,14 +339,13 @@ class BatchedServer:
         toks = np.zeros((b, plen), np.int64)
         for i, r in enumerate(reqs):
             toks[i, plen - len(r.prompt):] = r.prompt     # left-pad
-        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
-        logits, cache = self._prefill(self.params, batch)
-        # the prefill cache into the static cache's prefix, in place
-        view = rows_of(self.state, b)
-        kv_cache.grow_cache(cache, {"k": view["k"], "v": view["v"]})
-        self.state["len"].fill_(plen)
+        # the prefill's cache, length and first tokens into the prefix
+        if self.prefill_graph is not None:
+            self.prefill_graph(self.params, self.state, toks)
+        else:
+            prefill_on_device(self.cfg, self.params, self.state,
+                              torch.from_numpy(toks).to(self.device), b)
         cur = self.state["cur"]
-        cur[:b].copy_(torch.argmax(logits, dim=-1)[:, None])
         rows = list(range(b))        # batch row -> index into reqs
         while True:
             cur_host = cur[:len(rows), 0].tolist()   # one device->host copy

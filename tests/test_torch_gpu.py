@@ -1009,6 +1009,7 @@ def test_graphed_batched_server_matches_eager(cuda):
     assert (graphed.decode_steps, graphed.decode_row_steps) \
         == (eager.decode_steps, eager.decode_row_steps)
     assert sorted(graphed.decode_graph.graphs) == [1, 2, 4]
+    assert graphed.prefill_graph.graphs == {}     # each shape seen once
     assert {k: v.data_ptr() for k, v in graphed.state.items()} == ptrs
 
 
@@ -1030,6 +1031,7 @@ def test_graphed_continuous_server_matches_eager(cuda):
     assert dataclasses.asdict(gs.stats) == dataclasses.asdict(es.stats)
     assert gs.stats.n_preempted >= 1 and gs.alloc.used_pages == 0
     assert set(gs.decode_graph.graphs) <= {1, 2, 4}
+    assert set(gs.prefill_graph.graphs) <= {2, 4, 8, 16}
 
 
 def _decode_pair(cfg, params, per_row):
@@ -1139,3 +1141,194 @@ def test_graphed_decode_step_raises_on_a_failed_capture(cuda, monkeypatch):
             with pytest.raises(RuntimeError, match="failed earlier"):
                 step(params, state, rows)
     assert step.graphs == {}
+
+
+# --- the served prefill as CUDA graphs -------------------------------------------
+# Graphed and eager prefill run the same kernels in the same order on the
+# same inputs, so they agree bit for bit: logits, K/V, lengths and tokens.
+
+def _prefill_pair(cfg, per_row):
+    """Two equal static states of 4 rows whose caches hold other values."""
+    from repro_torch.serve import serve_step as tss
+    states = [tss.decode_state(cfg, 4, 32, per_row=per_row, device="cuda")
+              for _ in range(2)]
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for key in ("k", "v"):
+        states[0][key].normal_(generator=g)
+        states[1][key].copy_(states[0][key])
+    return states
+
+
+def _prompts(cfg, seed, b, s):
+    import numpy as np
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s))
+    toks[0, :s // 3] = 0                                  # left pad
+    return toks
+
+
+# (rows or row, bucket or length) of each call: a shape's first call runs
+# eagerly, its second captures, later ones replay; a row index is a device
+# value, so one bucket's graph writes every row
+_PREFILL_CALLS = {False: [(4, 9), (4, 9), (4, 9), (2, 13), (2, 13), (4, 9),
+                          (2, 13)],
+                  True: [(1, 8), (3, 8), (0, 8), (2, 16), (2, 16), (3, 8),
+                         (1, 16), (2, 4)]}
+
+
+@pytest.mark.parametrize("by_row", [False, True])
+def test_graphed_prefill_matches_eager_bit_for_bit(cuda, by_row):
+    """Every call's logits and the whole state (K/V, lengths, tokens)
+    equal the eager body's on a copy, and the replays write into the
+    static state (its data pointers unchanged)."""
+    from repro_torch.serve import serve_step as tss
+    cfg, params = _serve_setup(6)
+    gst, est = _prefill_pair(cfg, by_row)
+    step = tss.GraphedPrefill(cfg, params, gst, by_row=by_row)
+    ptrs = {k: v.data_ptr() for k, v in gst.items()}
+    with torch.inference_mode():
+        for i, (a, s) in enumerate(_PREFILL_CALLS[by_row]):
+            toks = _prompts(cfg, i, 1 if by_row else a, s)
+            if by_row:
+                got = step(params, gst, toks, row=a).clone()
+                rows = torch.tensor([a], device="cuda")
+            else:
+                got = step(params, gst, toks).clone()
+                rows = a
+            want = tss.prefill_on_device(cfg, params, est,
+                                         torch.from_numpy(toks).cuda(), rows)
+            assert torch.equal(got, want), (i, a, s)
+            for key in gst:
+                assert torch.equal(gst[key], est[key]), (i, key)
+    assert {k: v.data_ptr() for k, v in gst.items()} == ptrs
+    assert sorted(step.graphs) == ([8, 16] if by_row else [(2, 13), (4, 9)])
+    assert gst["len"].tolist() == ([8, 16, 4, 8] if by_row else 13)
+
+
+def test_graphed_prefill_captures_once_per_shape(cuda):
+    """One graph per bucket, made at the shape's second call; only the
+    step's first call runs on its side stream; a replay adds the launches
+    its capture recorded: the two prefill kernels once a layer each."""
+    from repro_torch.serve import serve_step as tss
+    cfg, params = _serve_setup(7)
+    state, _ = _prefill_pair(cfg, True)
+    step = tss.GraphedPrefill(cfg, params, state, by_row=True)
+    on_side, eager = [], step.eager
+    step.eager = lambda body: on_side.append(1) or eager(body)
+    toks8, toks4 = _prompts(cfg, 1, 1, 8), _prompts(cfg, 2, 1, 4)
+    per = {k: cfg.n_layers if k in ("flash_attention", "fused_add_rmsnorm")
+           else 0 for k in ops.LAUNCHES}
+    with torch.inference_mode():
+        ops.reset_launches()
+        step(params, state, toks8, row=0)
+        assert step.graphs == {} and dict(ops.LAUNCHES) == per
+        step(params, state, toks8, row=1)
+        first = step.graphs[8]
+        step(params, state, toks4, row=2)
+        step(params, state, toks4, row=2)
+        assert set(step.graphs) == {4, 8} and step.graphs[8] is first
+        ops.reset_launches()
+        step(params, state, toks8, row=3)
+        assert step.graphs[8] is first and len(step.capture_seconds) == 2
+    assert on_side == [1]
+    assert step.capture_launches[8] == per == step.capture_launches[4]
+    assert dict(ops.LAUNCHES) == per
+
+
+def test_graphed_prefill_refuses_other_tensors(cuda):
+    from repro_torch.serve import serve_step as tss
+    cfg, params = _serve_setup(8)
+    state, other = _prefill_pair(cfg, True)
+    step = tss.GraphedPrefill(cfg, params, state, by_row=True)
+    toks = _prompts(cfg, 3, 1, 8)
+    with torch.inference_mode():
+        step(params, state, toks, row=0)
+        with pytest.raises(ValueError, match="params"):
+            step(tm.init(cfg, 8), state, toks, row=0)
+        with pytest.raises(ValueError, match="decode state"):
+            step(params, other, toks, row=0)
+        with pytest.raises(ValueError, match="decode state"):
+            step(params, dict(state, cur=state["cur"].clone()), toks, row=0)
+        for bad in (dict(row=4), dict(row=None), dict(row=-1)):
+            with pytest.raises(ValueError, match="row"):
+                step(params, state, toks, **bad)
+        with pytest.raises(ValueError, match="2 prompts"):
+            step(params, state, _prompts(cfg, 3, 2, 8), row=0)
+        prefix = tss.GraphedPrefill(cfg, params, state)
+        with pytest.raises(ValueError, match="5 prompts"):
+            prefix(params, state, _prompts(cfg, 3, 5, 8))
+        with pytest.raises(ValueError, match="row 1"):
+            prefix(params, state, toks, row=1)
+        step(params, state, toks, row=0)          # the graph still captures
+    assert sorted(step.graphs) == [8]
+
+
+def test_graphed_prefill_raises_on_a_failed_capture(cuda, monkeypatch):
+    """A body that reads a value on the host fails the capture at its
+    shape's second call: the step raises naming the shape, with CUDA's
+    message as the cause, and every later call raises, at any shape,
+    rather than run the prefill eagerly."""
+    from repro_torch.serve import serve_step as tss
+    cfg, params = _serve_setup(9)
+    state, _ = _prefill_pair(cfg, False)
+    real = tss.prefill_on_device
+
+    def syncing(cfg, params, state, tokens, rows):
+        out = real(cfg, params, state, tokens, rows)
+        if tokens.shape[1] == 8:
+            out.sum().item()
+        return out
+    monkeypatch.setattr(tss, "prefill_on_device", syncing)
+    step = tss.GraphedPrefill(cfg, params, state)
+    with torch.inference_mode():
+        step(params, state, _prompts(cfg, 4, 2, 8))
+        with pytest.raises(RuntimeError, match="failed at 2 x 8") as err:
+            step(params, state, _prompts(cfg, 4, 2, 8))
+        assert "captur" in str(err.value.__cause__).lower()
+        for s in (8, 5):
+            with pytest.raises(RuntimeError, match="failed earlier"):
+                step(params, state, _prompts(cfg, 5, 2, s))
+    assert step.graphs == {}
+
+
+def test_graphed_batched_server_captures_a_prefill_per_shape(cuda):
+    """The same two batches three times: the prefills run eagerly in the
+    first run, are captured in the second and replayed in the third; every
+    run's tokens and counters equal an eager server's."""
+    from repro_torch.serve.serve_step import BatchedServer
+    cfg, params = _serve_setup(10)
+    lens, max_new = [5, 9, 7, 3, 8, 6], [4, 3, 6, 2, 5, 3]
+    graphed = BatchedServer(cfg, params, max_len=32, batch_size=4)
+    eager = BatchedServer(cfg, params, max_len=32, batch_size=4,
+                          graphed=False)
+    for run in range(3):
+        got = graphed.run(_requests(cfg, 11, lens, max_new))
+        want = eager.run(_requests(cfg, 11, lens, max_new))
+        assert [r.output for r in got] == [r.output for r in want], run
+        assert (graphed.decode_steps, graphed.decode_row_steps) \
+            == (eager.decode_steps, eager.decode_row_steps)
+        assert sorted(graphed.prefill_graph.graphs) \
+            == ([] if run == 0 else [(2, 8), (4, 9)])
+    assert eager.prefill_graph is None
+
+
+def test_graphed_continuous_server_prefills_one_graph_per_bucket(cuda):
+    """Two runs of the same requests (prompts in buckets 2, 4, 8 and 16,
+    re-admissions after preemption): tokens and ``ServerStats`` equal the
+    eager server's in each, and after the second run the prefill graphs
+    are exactly the buckets the server used."""
+    from repro_torch.serve.scheduler import ContinuousBatchingServer, \
+        ServerStats, _next_pow2
+    cfg, params = _serve_setup(12)
+    lens, max_new = [8, 3, 8, 13, 5, 2, 7], [12, 5, 12, 4, 9, 3, 7]
+    kw = dict(max_slots=4, max_ctx=32, page_size=4, total_pages=14)
+    gs = ContinuousBatchingServer(cfg, params, **kw)
+    es = ContinuousBatchingServer(cfg, params, graphed=False, **kw)
+    for run in range(2):
+        gs.stats, es.stats = ServerStats(), ServerStats()
+        got = gs.run(_requests(cfg, 13, lens, max_new))
+        want = es.run(_requests(cfg, 13, lens, max_new))
+        assert [r.output for r in got] == [r.output for r in want], run
+        assert dataclasses.asdict(gs.stats) == dataclasses.asdict(es.stats)
+    assert gs.stats.n_preempted >= 1
+    assert set(gs.prefill_graph.graphs) == {_next_pow2(n) for n in lens}
+    assert torch.equal(gs.state["len"], es.state["len"])

@@ -167,6 +167,9 @@ def test_graphed_steps_refuse_cpu_params():
     state = tss.decode_state(cfg, 2, 8, per_row=False, device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         tss.GraphedDecodeStep(cfg, params, state)
+    for by_row in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            tss.GraphedPrefill(cfg, params, state, by_row=by_row)
     with pytest.raises(ValueError, match="graphed=True"):
         tss.BatchedServer(cfg, params, max_len=16, batch_size=2,
                           graphed=True)
@@ -175,6 +178,7 @@ def test_graphed_steps_refuse_cpu_params():
     for server in (tss.BatchedServer(cfg, params, max_len=16, batch_size=2),
                    TCB(cfg, params, max_slots=2, max_ctx=16)):
         assert server.graphed is False and server.decode_graph is None
+        assert server.prefill_graph is None
 
 
 def test_batched_server_keeps_one_static_cache():
@@ -198,6 +202,139 @@ def test_batched_server_keeps_one_static_cache():
         assert [r.output for r in alone] == [r.output for r in got[i:i + 3]]
     with pytest.raises(ValueError, match="write past"):
         server.run([TRequest(0, prompts[0][:8], 18)])
+
+
+# --- the served prefill's device body ---------------------------------------------
+# ``prefill_on_device`` writes a prefill into rows of a static decode state:
+# by a device row index (the continuous server) against the reference's
+# ``_write_row``, into the prefix (the static server) against its
+# ``grow_cache``, both at 1e-5; against the port's own make_prefill + row
+# write bit for bit.
+
+def _prompt(rng, vocab, plen, bucket):
+    toks = np.zeros((1, bucket), np.int64)
+    toks[0, bucket - plen:] = rng.integers(0, vocab, plen)
+    return toks
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "qwen1_5_0_5b"])
+def test_prefill_on_device_by_row_matches_reference_write_row(arch):
+    """Three prefills into a 4-row state: bucket 16 into row 2, bucket 8
+    into row 0, then bucket 4 into row 2 again (a re-admitted row that held
+    a longer request: its slots past 4 keep the old K/V, as the
+    reference's ``dynamic_update_slice`` leaves them).  After each, the
+    whole cache, every row's length and the first token."""
+    jcfg, tcfg = configs(arch)
+    jp, tp = both_params(jcfg, tcfg, 10)
+    js = JCB(jcfg, jp, max_slots=4, max_ctx=32)
+    state = tss.decode_state(tcfg, 4, 32, per_row=True, device="cpu")
+    rng = np.random.default_rng(10)
+    for row, plen, bucket in ((2, 13, 16), (0, 5, 8), (2, 3, 4)):
+        toks = _prompt(rng, jcfg.vocab_size, plen, bucket)
+        jl, pcache = js._prefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)})
+        js._write_row(row, pcache, bucket)
+        got = tss.prefill_on_device(tcfg, tp, state, torch.from_numpy(toks),
+                                    torch.tensor([row]))
+        np.testing.assert_allclose(_np(got), _np(jl), rtol=0, atol=TOL)
+        for name in ("k", "v"):
+            np.testing.assert_allclose(_np(state[name]), _np(js.cache[name]),
+                                       rtol=0, atol=TOL)
+        assert state["len"].tolist() == js.len_np.tolist()
+        assert int(state["cur"][row, 0]) == int(jnp.argmax(jl[0]))
+    assert state["len"].tolist() == [8, 1, 4, 1]
+    assert torch.all(state["k"][:, 2, 4:16] != 0)      # the longer request's
+    assert torch.all(state["k"][:, :, 16:] == 0)
+
+
+def test_prefill_on_device_prefix_matches_reference_grow_cache():
+    """The static server's prefill: 3 left-padded prompts into the prefix
+    of a 4-row state, against the reference's prefill grown into a
+    ``max_len`` cache; row 3 untouched."""
+    jcfg, tcfg = configs("qwen1_5_0_5b")
+    jp, tp = both_params(jcfg, tcfg, 11)
+    toks = np.random.default_rng(11).integers(0, jcfg.vocab_size, (3, 9))
+    toks[1, :4] = toks[2, :2] = 0
+    jl, jc = jm.forward(jcfg, jp, {"tokens": jnp.asarray(toks)},
+                        return_cache=True)
+    jc = jkv.grow_cache(jc, jm.init_cache(jcfg, 3, 24))
+    state = tss.decode_state(tcfg, 4, 24, per_row=False, device="cpu")
+    state["k"][:, 3].fill_(7.0)
+    got = tss.prefill_on_device(tcfg, tp, state, torch.from_numpy(toks), 3)
+    np.testing.assert_allclose(_np(got), _np(jl[:, -1]), rtol=0, atol=TOL)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(_np(state[name][:, :3]), _np(jc[name]),
+                                   rtol=0, atol=TOL)
+    assert torch.all(state["k"][:, 3] == 7.0) and torch.all(
+        state["v"][:, 3] == 0)
+    assert state["len"].tolist() == 9
+    assert state["cur"][:3, 0].tolist() == np.asarray(
+        jnp.argmax(jl[:, -1], axis=-1)).tolist()
+    assert state["cur"][3, 0] == 0
+
+
+def _old_prefill(cfg, params, state, toks, row):
+    """The servers' eager prefill as it was: ``make_prefill``, then the
+    cache written at ``row`` (or into the prefix, ``row`` None), the
+    length set and the greedy token stored."""
+    logits, cache = tss.make_prefill(cfg)(params, {"tokens": toks})
+    first = torch.argmax(logits, dim=-1)[:, None]
+    if row is None:
+        view = tss.rows_of(state, toks.shape[0])
+        tkv.grow_cache(cache, {"k": view["k"], "v": view["v"]})
+        state["len"].fill_(toks.shape[1])
+        state["cur"][:toks.shape[0]].copy_(first)
+    else:
+        n = cache["k"].shape[2]
+        for key in ("k", "v"):
+            state[key][:, row, :n] = cache[key][:, 0]
+        state["len"][row] = toks.shape[1]
+        state["cur"][row] = first[0]
+    return logits
+
+
+@pytest.mark.parametrize("by_row", [False, True])
+def test_prefill_on_device_equals_the_eager_path(by_row):
+    """Bit for bit against ``make_prefill`` and the row write it replaces,
+    on a state whose rows already hold other values; the state's buffers
+    keep their storage."""
+    _, cfg = configs("smollm_360m")
+    params = tm.init(cfg, 12, device="cpu")
+    rng = np.random.default_rng(12)
+    states = [tss.decode_state(cfg, 4, 16, per_row=by_row, device="cpu")
+              for _ in range(2)]
+    for key in ("k", "v"):
+        states[0][key].normal_()
+        states[1][key].copy_(states[0][key])
+    ptrs = {k: v.data_ptr() for k, v in states[1].items()}
+    shapes = ((1, 8), (1, 4), (1, 8)) if by_row else ((3, 7), (2, 11))
+    for i, (b, s) in enumerate(shapes):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
+        row = (3, 1, 1)[i] if by_row else None
+        want = _old_prefill(cfg, params, states[0], toks, row)
+        got = tss.prefill_on_device(cfg, params, states[1], toks,
+                                    torch.tensor([row]) if by_row else b)
+        assert torch.equal(got, want)
+        for key in states[0]:
+            assert torch.equal(states[1][key], states[0][key]), (i, key)
+    assert {k: v.data_ptr() for k, v in states[1].items()} == ptrs
+
+
+@pytest.mark.parametrize("by_row", [False, True])
+def test_prefill_on_device_makes_no_host_sync(by_row):
+    """Under ``_HostSyncGuard`` (no host read, no value-dependent shape,
+    no copy to the CPU), on the kernel path too (the attention kernel and
+    the fused norm run their plain versions on the CPU)."""
+    _, cfg = configs("smollm_360m")
+    params = tm.init(cfg, 13, device="cpu")
+    state = tss.decode_state(cfg, 2, 16, per_row=by_row, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (1 if by_row else 2, 8)))
+    rows = torch.tensor([1]) if by_row else 2
+    for impl in ("auto", "kernel"):
+        kcfg = dataclasses.replace(cfg, attn_impl=impl)
+        with _HostSyncGuard():
+            logits = tss.prefill_on_device(kcfg, params, state, toks, rows)
+        assert torch.isfinite(logits).all()
 
 
 # --- PagedKVAllocator ---------------------------------------------------------------
