@@ -34,6 +34,11 @@ Phases, each printed as it runs; any failure exits non-zero:
              (``impl="cuda_core"``): the wgmma kernel must be faster at the
              byte-bound serve shape and 4x faster at the operation-bound
              calibrate shape.  fp32 is timed at the calibrate shape.
+             Every shape the plan phase's fits launch (``plan_shapes``:
+             attention at (1|2|4, 1024, 15/5, 64) bf16 and (1|2|4, 128)
+             fp32, the norm at their mbs x seq rows, forward and backward)
+             is held against the plain versions; the fp32 attention
+             backward is timed at (4, 128).
 4. models    a 2-layer fp32 model, kernel path vs plain path; the reduced
              smollm config (head_dim 16, ``attn_impl="auto"``) prefills
              through the attention kernel.
@@ -95,7 +100,30 @@ Phases, each printed as it runs; any failure exits non-zero:
              ms, tokens/s, peak memory), the capture's seconds and the
              graph's nodes; both steps profiled, the "elementwise/other"
              group broken down by kernel name.
-9. result    one JSON line of kernel figures, the card line, then
+9. plan      Sailor's planner and simulator priced by the card: the
+             ``"H100"`` entry fitted as ``measured.calibrate_cpu_host``
+             fits it (``measure_block``'s one-layer forward and gradient
+             on the reference's all-zero batch as CUDA graphs, their
+             replays timed by CUDA events, then ``fit_rate``) at the train
+             path's bf16 and seq 1024, then at the reference's own call
+             (fp32, seq 128): each point's ms and effective TFLOP/s, the
+             fitted rate and its share of the datasheet's, and every
+             program's launches of the attention and fused-norm kernels,
+             forward and backward.  ``simulate`` of the graphed train
+             step's shape on one H100 (``homogeneous_plan``, 2
+             microbatches of 4) with the datasheet entry, with it and the
+             kernel table (``build/kernel-costs-H100.json`` from phase 6),
+             and with the fitted entry (also with the table), each beside
+             phase 8's graphed step (relative error), and the simulated
+             worker peak bytes beside phase 8's peak memory.  ``plan_for``
+             (both objectives, global batch 256 of 1024 tokens) on a zone
+             of H100 + A100-40 + V100-16 and on H100s and A100s in two
+             regions, with the datasheet and then the fitted entry (plan,
+             t_iter, $/iteration, search seconds, whether the plan
+             changed), and one serving plan (``plan_serving``) on the
+             first fleet with the kernel table.  The datasheet entry is
+             restored at the end.
+10. result   one JSON line of kernel figures, the card line, then
              ``{"ok": true, "device": {...}}`` as the last line.  The
              attention entry also carries its share of the bound, its
              TFLOP/s, the CUDA-core kernel's time on the same inputs
@@ -103,7 +131,7 @@ Phases, each printed as it runs; any failure exits non-zero:
              shape (``calibrate``); the norm entries their plan, share of
              the bound and the 16384-row case (``rows16384``).
 
-Each of phases 5-8 (serve continuous too) is a main path: the launch
+Each of phases 5-9 (serve continuous too) is a main path: the launch
 counts are set to 0 just before it and read just after, and each kernel
 must have launched on the path that runs it.  Phase 3 also holds the two backward kernels
 (attention, fused add + RMSNorm) against their plain versions on the
@@ -139,11 +167,21 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.bench import kernels_bench  # noqa: E402
 from repro_torch.bench.serve_runs import DecodeClock  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.cluster import (heterogeneous_zone,  # noqa: E402
+                                      multi_zone, single_zone)
+from repro_torch.core.planner.objectives import (MAX_THROUGHPUT,  # noqa: E402
+                                                 MIN_COST, Objective,
+                                                 ServingObjective)
+from repro_torch.core.planner.plan import homogeneous_plan  # noqa: E402
+from repro_torch.core.planner.search import SailorPlanner, plan_for  # noqa: E402
+from repro_torch.core.planner.serving import plan_serving  # noqa: E402
 from repro_torch.core.profiler import kernel_costs  # noqa: E402
 from repro_torch.core.profiler import measured  # noqa: E402
 from repro_torch.core.profiler.analytic import (JobProfile, ServeJob,  # noqa: E402
                                                 TrainJob)
-from repro_torch.core.profiler.hw_specs import get_accelerator  # noqa: E402
+from repro_torch.core.profiler.hw_specs import (ACCELERATORS,  # noqa: E402
+                                                get_accelerator)
+from repro_torch.core.simulator.simulate import simulate  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import add as add_mod  # noqa: E402
 from repro_torch.kernels import autotune as at  # noqa: E402
@@ -253,6 +291,26 @@ TRAIN_GRAPH_STEPS, TRAIN_PAIRS = 3, 4
 # (cosine >= 0.99): a wrong index, mask or missing term gives O(1) errors
 # and cosines far below that.  The fp32 2-layer check holds 1e-4 of max |g|.
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_COSINE = 2e-2, 0.1, 0.99
+# plan phase: calibrate_cpu_host at the train path's dtype and length, then
+# at the reference's own call (fp32, seq 128); each measure_block program
+# runs once eagerly, then as a graph: one warm-up and 3 timed replays
+# (measured._replay_time's defaults)
+PLAN_FITS = (("bf16_seq1024", dict(seq_len=TRAIN_DATA["seq_len"],
+                                   dtype="bfloat16")),
+             ("fp32_seq128", dict(seq_len=128, dtype="float32")))
+BLOCK_MBS, BLOCK_CALLS = (1, 2, 4), 1 + 1 + 3
+PLAN_BWD_TIMED = "plan_float32_s128_b4"   # plan_shapes()' label
+PLAN_ZONE = "us-central1-a"
+PLAN_GLOBAL_BATCH = 256     # sequences of TRAIN_DATA["seq_len"] a step
+PLAN_FLEETS = {
+    "hetero_zone": heterogeneous_zone({"H100": 8, "A100-40": 8,
+                                       "V100-16": 16}, zone=PLAN_ZONE),
+    "geo": multi_zone({PLAN_ZONE: ("us-central1", {"H100": 8}),
+                       "europe-west4-a": ("europe-west4", {"A100-40": 8})}),
+}
+PLAN_SERVE = dict(prompt_len=512, max_new_tokens=64, decode_batch=BATCH,
+                  arrival_rps=4.0)
+PLAN_SLO = dict(slo_ttft_p99_s=2.0, slo_tpot_p99_s=0.2)
 
 
 def log(msg: str) -> None:
@@ -894,6 +952,16 @@ def batch_lengths(reqs):
             for i in range(0, len(reqs), BATCH)]
 
 
+def plan_shapes():
+    """(label, mbs, seq_len, dtype) of every ``measure_block`` call the
+    plan phase makes (``PLAN_FITS`` x ``BLOCK_MBS``): its attention runs at
+    (mbs, seq_len, 15/5, 64) causal and its norm at mbs x seq_len rows."""
+    for _, kw in PLAN_FITS:
+        for mbs in BLOCK_MBS:
+            yield (f"plan_{kw['dtype']}_s{kw['seq_len']}_b{mbs}", mbs,
+                   kw["seq_len"], getattr(torch, kw["dtype"]))
+
+
 def phase_kernels(main_lens):
     """Every kernel against its plain version at the shapes of the main
     paths that run it (serve, serve continuous, calibrate, fused) and at
@@ -919,6 +987,10 @@ def phase_kernels(main_lens):
     cb = cb_bucket()
     attn.append(attention_case(gen, f"continuous_b1_s{cb}", 1, cb, cb, h, kh,
                                d, True, bf16))
+    # the plan phase's fits: every measure_block shape, causal
+    for label, mbs, seq, dt in plan_shapes():
+        attn.append(attention_case(gen, label, mbs, seq, seq, h, kh, d, True,
+                                   dt))
     attn += [
         attention_case(gen, "ragged_s509", BATCH, 509, 509, h, kh, d, True,
                        bf16),
@@ -982,6 +1054,9 @@ def phase_kernels(main_lens):
         norm.append(fused_case(gen, f"serve_rows{BATCH * s}", BATCH * s, dm,
                                bf16))
     norm.append(fused_case(gen, f"continuous_rows{cb}", cb, dm, bf16))
+    for label, mbs, seq, dt in plan_shapes():
+        norm.append(fused_case(gen, f"{label}_rows{mbs * seq}", mbs * seq, dm,
+                               dt))
     norm += [fused_case(gen, "ragged_rows4071", 4071, dm, bf16),
              fused_case(gen, "f32_rows1000", 1000, dm, f32),
              fused_case(gen, "f32_4096x512", 4096, 512, f32),
@@ -1123,9 +1198,19 @@ def phase_kernels(main_lens):
                                False, bf16),
             attention_bwd_case(gen, "sq70_sk130_d32", 1, 70, 130, 4, 4, 32,
                                True, bf16)]
+    # the plan phase's gradients; the fp32 fit's largest shape timed (the
+    # fp32 kernel's only path)
+    for label, mbs, seq, dt in plan_shapes():
+        abwd.append(attention_bwd_case(
+            gen, label, mbs, seq, seq, h, kh, d, True, dt,
+            timed=(label == PLAN_BWD_TIMED)))
     abwd[0]["f32"] = {key: abwd[1][key] for key in (
         "ms", "bound_ms", "bound_by", "share_of_bound", "plain_ms",
         "library_ms", "max_abs_err")}
+    abwd[0]["plan_f32"] = {key: _labelled(abwd, PLAN_BWD_TIMED)[key]
+                           for key in ("shape", "ms", "bound_ms", "bound_by",
+                                       "share_of_bound", "plain_ms",
+                                       "library_ms", "max_abs_err")}
     nbwd = [fused_bwd_case(gen, "train_rows4096", mb * sl, dm, bf16,
                            timed=True),
             fused_bwd_case(gen, "rows16384", 16384, dm, bf16, timed=True),
@@ -1137,6 +1222,9 @@ def phase_kernels(main_lens):
             fused_bwd_case(gen, "d8192_f32", 33, 8192, f32),
             fused_bwd_case(gen, "rows1", 1, dm, bf16),
             fused_bwd_case(gen, "rows7", 7, dm, bf16)]
+    for label, mbs, seq, dt in plan_shapes():
+        nbwd.append(fused_bwd_case(gen, f"{label}_rows{mbs * seq}",
+                                   mbs * seq, dm, dt))
     nbwd[0]["rows16384"] = {key: nbwd[1][key] for key in (
         "shape", "plan", "ms", "bound_ms", "share_of_bound", "plain_ms",
         "max_abs_err")}
@@ -1946,7 +2034,9 @@ def _compare_steps(label, em, gm, ep, gp) -> bool:
 def phase_train():
     """smollm-360M, 32 layers, bf16, ``remat="full"``: training steps
     through ``make_train_step`` and ``make_graphed_train_step``, a main
-    path for the two forward kernels and both backward kernels."""
+    path for the two forward kernels and both backward kernels.  Returns
+    the launches and the measured steps (the eager ``[train]`` stats and
+    the graphed step's figures in turns)."""
     cfg = dataclasses.replace(get_config(ARCH), remat="full")
     dc = data_lib.DataConfig(**TRAIN_DATA)
     ocfg = opt_lib.OptimizerConfig(**TRAIN_OPT)
@@ -2015,19 +2105,21 @@ def phase_train():
                     model_lib.init(small, 1, device="cuda"), mb,
                     SMALL_FP32_TOL)
     del params, state, m
-    _add_counts(total, phase_train_graphed(cfg, dc, ocfg,
-                                           batches[n_fresh:]))
-    return total
+    graphed_launches, turns = phase_train_graphed(cfg, dc, ocfg,
+                                                  batches[n_fresh:])
+    _add_counts(total, graphed_launches)
+    return total, dict(eager=stats, graphed=turns["graphed"])
 
 
-def phase_train_graphed(cfg, dc, ocfg, batches) -> dict:
+def phase_train_graphed(cfg, dc, ocfg, batches):
     """The graphed step (``make_graphed_train_step``) against the eager one
     from two copies of the same seeded weights: TRAIN_GRAPH_STEPS steps
     each on the same fresh batches (the first graphed call runs eagerly
     on its side stream, the second captures and replays, the rest
     replay), compared after every step; then TRAIN_PAIRS pairs of steps
     timed in turns (eager, graphed, graphed, eager, ...); then the graphed
-    step profiled.  Returns the launches of both windows."""
+    step profiled.  Returns the launches of both windows and each side's
+    figures in turns."""
     tokens = dc.global_batch * dc.seq_len
     ep = model_lib.init(cfg, 3, device="cuda")
     es = opt_lib.init_state(ep)
@@ -2114,7 +2206,185 @@ def phase_train_graphed(cfg, dc, ocfg, batches) -> dict:
             f"is {turns['graphed']['step_device_ms']:.3f} ms (busy "
             f"{turns['graphed']['step_device_ms'] / g_wall:.3f}); the eager "
             f"step's profile above holds its kernels")
-    return total
+    return total, turns
+
+
+def _fit(cfg, label: str, kw: dict):
+    """The ``"H100"`` entry fitted as ``measured.calibrate_cpu_host(cfg,
+    **kw)`` fits it, step by step (``catalog_entry``, ``measure_block``,
+    ``fit_rate``), so the rows printed are the ones fitted; with each
+    point's effective FLOP/s."""
+    t0 = time.perf_counter()
+    seq = kw["seq_len"]
+    base = measured.catalog_entry("cuda")
+    rows = measured.measure_block(cfg, seq, BLOCK_MBS, dtype=kw["dtype"],
+                                  device="cuda")
+    spec = dataclasses.replace(base, peak_flops=measured.fit_rate(
+        cfg, seq, rows), efficiency=1.0)
+    if spec.name != "H100":
+        raise AssertionError(f"[plan] {label}: fitted {spec.name!r}, not the "
+                             f"H100 entry")
+    fl_tok = 2 * cfg.layer_params()
+    points = []
+    for mbs, t_f, t_fb in rows:
+        fl = fl_tok * mbs * seq
+        points.append(dict(mbs=mbs, fwd_ms=t_f * 1e3, fwd_bwd_ms=t_fb * 1e3,
+                           fwd_tflops=fl / t_f / 1e12,
+                           fwd_bwd_tflops=3 * fl / t_fb / 1e12))
+    log(f"[plan] fit {label}: " + json.dumps(dict(
+        seq_len=seq, dtype=kw["dtype"], points=points,
+        fitted_peak_tflops=spec.peak_flops / 1e12,
+        efficiency_vs_datasheet=spec.peak_flops / H100.peak_flops,
+        seconds=time.perf_counter() - t0)))
+    return spec
+
+
+def _plan_launch_check(n_fits: int) -> dict:
+    """Every measure_block program launched the attention and fused-norm
+    kernels (the gradient their backward ones too) once a layer a call;
+    every other kernel none."""
+    launches = dict(ops.LAUNCHES)
+    calls = n_fits * len(BLOCK_MBS) * BLOCK_CALLS
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=2 * calls, fused_add_rmsnorm=2 * calls,
+                flash_attention_bwd=calls, fused_add_rmsnorm_bwd=calls)
+    if launches != want:
+        raise AssertionError(
+            f"[plan] launches over the fits {json.dumps(launches)}, "
+            f"expected {json.dumps(want)} ({n_fits} fits x "
+            f"{len(BLOCK_MBS)} mbs x {BLOCK_CALLS} calls of the forward and "
+            f"of the gradient, one layer)")
+    log(f"[plan] launches over the fits: {json.dumps(launches)}")
+    return launches
+
+
+def _sim_step(cfg, seq: int, gbs: int, mbs: int):
+    """``simulate`` of the graphed train step's own shape on one H100, on a
+    fresh ``JobProfile`` (its prices are cached per profile)."""
+    prof = JobProfile(TrainJob(cfg, seq_len=seq, global_batch=gbs,
+                               remat="full"))
+    plan = homogeneous_plan("H100", PLAN_ZONE, 1, 1, 1,
+                            prof.n_partition_units, mbs, gbs)
+    return simulate(prof, plan, single_zone("H100", 1, zone=PLAN_ZONE))
+
+
+def _plans(cfg, entry: str) -> dict:
+    """``plan_for`` on every fleet, both objectives, under the catalog's
+    current ``"H100"`` entry (each call builds its own planner)."""
+    out = {}
+    for fleet, cluster in PLAN_FLEETS.items():
+        for kind in (MAX_THROUGHPUT, MIN_COST):
+            res = plan_for(cfg, cluster, Objective(kind),
+                           seq_len=TRAIN_DATA["seq_len"],
+                           global_batch=PLAN_GLOBAL_BATCH)
+            if res.best is None or not res.best.valid:
+                raise AssertionError(f"[plan] {entry} {fleet} {kind}: no "
+                                     f"valid plan")
+            out[(fleet, kind)] = res
+    return out
+
+
+def phase_plan(cfg, train: dict, table_path: str) -> dict:
+    """Sailor's planner and simulator priced by the card's measurements:
+    the ``"H100"`` entry fitted through the kernels (``calibrate_cpu_host``
+    at the train path's bf16 and at the reference's fp32 call), the
+    simulated graphed train step against the measured one three ways, and
+    the plans on two fleets that hold H100s before and after the fit.
+    The datasheet entry and an empty kernel-table registry are restored at
+    the end.  Returns the launches over the fits."""
+    datasheet = ACCELERATORS["H100"]
+    kernel_costs.clear_kernel_tables()
+    ops.reset_launches()
+    fits = {label: _fit(cfg, label, kw) for label, kw in PLAN_FITS}
+    launches = _plan_launch_check(len(fits))
+    fit = fits[PLAN_FITS[0][0]]
+    log("[plan] fitted rates (TFLOP/s): " + json.dumps(
+        {label: spec.peak_flops / 1e12 for label, spec in fits.items()}
+        | dict(datasheet_peak=datasheet.peak_flops / 1e12,
+               datasheet_effective=datasheet.peak_flops
+               * datasheet.efficiency / 1e12)))
+
+    # the simulator against the graphed step, one H100
+    seq, gbs = TRAIN_DATA["seq_len"], TRAIN_DATA["global_batch"]
+    mbs = gbs // TRAIN_DATA["num_microbatches"]
+    table = kernel_costs.KernelCostTable.load(table_path)
+    step = train["graphed"]
+    sims = {}
+    try:
+        sims["datasheet"] = _sim_step(cfg, seq, gbs, mbs)
+        kernel_costs.register_kernel_table(table)
+        sims["datasheet_with_table"] = _sim_step(cfg, seq, gbs, mbs)
+        kernel_costs.clear_kernel_tables()
+        measured.register_calibrated(fit, "H100")
+        sims["fitted"] = _sim_step(cfg, seq, gbs, mbs)
+        kernel_costs.register_kernel_table(table)
+        sims["fitted_with_table"] = _sim_step(cfg, seq, gbs, mbs)
+        kernel_costs.clear_kernel_tables()
+        measured.register_calibrated(datasheet, "H100")
+        rows = {}
+        for name, r in sims.items():
+            rows[name] = dict(
+                t_iter_ms=r.t_iter * 1e3,
+                rel_err_vs_graphed_wall=(r.t_iter * 1e3
+                                         - step["step_wall_ms"])
+                / step["step_wall_ms"],
+                rel_err_vs_graphed_device=(r.t_iter * 1e3
+                                           - step["step_device_ms"])
+                / step["step_device_ms"],
+                t_pp_ms=r.timing.t_pp * 1e3,
+                t_update_ms=r.timing.t_update * 1e3)
+        log("[plan] simulated vs measured train step (smollm-360M, "
+            f"{gbs} x {seq} tokens, mbs {mbs}, full remat, bf16, one H100): "
+            + json.dumps(dict(
+                measured_graphed_wall_ms=step["step_wall_ms"],
+                measured_graphed_device_ms=step["step_device_ms"],
+                simulated=rows)))
+        peak = sims["datasheet"].peak_mem[0][0]["peak"]
+        log("[plan] simulated vs measured peak memory: " + json.dumps(dict(
+            simulated_worker_peak_bytes=peak,
+            simulated_worker_peak_gib=peak / 2**30,
+            train_eager_peak_mem_gib=train["eager"]["peak_mem_gib"],
+            train_graphed_peak_mem_gib=step["peak_mem_gib"],
+            rel_err_vs_eager=(peak / 2**30 - train["eager"]["peak_mem_gib"])
+            / train["eager"]["peak_mem_gib"])))
+
+        # the planner, datasheet entry then fitted entry
+        before = _plans(cfg, "datasheet")
+        measured.register_calibrated(fit, "H100")
+        after = _plans(cfg, "fitted")
+        measured.register_calibrated(datasheet, "H100")
+        for key, res in before.items():
+            new = after[key]
+            log(f"[plan] {key[0]} {key[1]}: " + json.dumps(dict(
+                datasheet=_plan_row(res), fitted=_plan_row(new),
+                plan_changed=res.best.plan != new.best.plan)))
+
+        # one serving plan, the kernel table registered
+        kernel_costs.register_kernel_table(table)
+        job = ServeJob(cfg, **PLAN_SERVE)
+        res = plan_serving(SailorPlanner(job), PLAN_FLEETS["hetero_zone"],
+                           ServingObjective(**PLAN_SLO), horizon_s=60.0)
+        if res.best is None or not res.best.valid:
+            raise AssertionError("[plan] serving: no valid plan")
+        b = res.best
+        log("[plan] serving plan (smollm-360M, hetero_zone, datasheet H100 "
+            "and the kernel table): " + json.dumps(dict(
+                job=PLAN_SERVE, slo=PLAN_SLO, describe=b.plan.describe(),
+                ttft_p99_s=b.ttft_p99, tpot_p99_s=b.tpot_p99,
+                cost_per_token=b.cost_per_token,
+                search_time_s=res.search_time_s,
+                n_evaluated=res.n_evaluated)))
+    finally:
+        measured.register_calibrated(datasheet, "H100")
+        kernel_costs.clear_kernel_tables()
+    return launches
+
+
+def _plan_row(res) -> dict:
+    b = res.best
+    return dict(describe=b.plan.describe(), t_iter_s=b.t_iter,
+                cost_per_iter=b.cost_per_iter, chips=b.plan.chips_by_type(),
+                search_time_s=res.search_time_s)
 
 
 def main() -> int:
@@ -2131,7 +2401,9 @@ def main() -> int:
     del params
     cal_launches = phase_calibrate(serve_dev)
     fused_launches = phase_fused()
-    train_launches = phase_train()
+    train_launches, train = phase_train()
+    plan_launches = phase_plan(cfg, train, os.path.join(
+        ROOT, "build", "kernel-costs-H100.json"))
     # launches: each kernel's count on the main path that runs it, which
     # also runs the timed case's shape
     path_of = {"flash_attention": "serve", "fused_add_rmsnorm": "serve",
@@ -2146,6 +2418,7 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", **SOURCES[name], path=path_of[name],
             launches=counts[path_of[name]][name],
+            launches_plan=plan_launches[name],
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
@@ -2155,7 +2428,8 @@ def main() -> int:
                                          "passes_ms", "sequential_plain_ms",
                                          "blocks_ms",
                                          "calibrate_f32", "rows16384",
-                                         "more", "plan", "f32", "blocks")
+                                         "more", "plan", "f32", "blocks",
+                                         "plan_f32")
                if key in row}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -104,9 +104,14 @@ ACCELERATORS: Dict[str, AcceleratorSpec] = {
     # rate, 80 GB HBM3 at 3.35 TB/s, NVLink 900 GB/s, 8 per HGX node).
     # Price: GCP a3-highgpu-8g (8x H100 80GB) on demand in us-central1,
     # $88.49 per hour / 8 GPUs, GCP's Compute Engine GPU price list, 2024.
-    # efficiency 0.45 as for the other NVIDIA entries: uncalibrated until
-    # the port's calibrate_cpu_host counterpart (training slice) fits it;
-    # the measured kernel tables already price the custom kernels.
+    # efficiency 0.45 as for the other NVIDIA entries: the datasheet price,
+    # which every plan sees unless a caller registers a fit.  The fit is
+    # measured at run time, as the reference fits "cpu-host":
+    # measured.calibrate_cpu_host(cfg, dtype=...) on the card times one
+    # layer's forward and gradient through the kernels and returns this
+    # entry with the measured rate and efficiency 1.0, and
+    # measured.register_calibrated(spec, "H100") installs it.  The
+    # measured kernel tables price the custom kernels either way.
     "H100": AcceleratorSpec(
         name="H100", peak_flops=989e12, mem_bytes=80e9, mem_bw=3.35e12,
         intra_node_bw=900e9, price_per_hour=11.06, chips_per_node=8,

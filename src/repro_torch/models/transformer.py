@@ -204,6 +204,16 @@ def _needs_grad(params) -> bool:
     return False
 
 
+def embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings in the compute dtype.  ``F.embedding`` and not
+    ``params["embed"][tokens]``: indexing takes its gradient by
+    ``index_put_`` with accumulate, which on CUDA adds a repeated token's
+    rows one after another (one token 4,096 times: 2.6 ms on an H100,
+    against 0.14 ms for ``F.embedding``'s sorted segment sums,
+    ``bench/block_fit.py``); the forward is the same gather."""
+    return F.embedding(tokens, params["embed"]).to(torch_dtype(cfg.dtype))
+
+
 # --- full-sequence forward (train / scoring / prefill) -----------------------------
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
@@ -213,7 +223,7 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     ``return_hidden`` returns (final-normed hidden (B,S,D), head (D,V))
     for the chunked loss instead of the logits."""
     tokens = batch["tokens"]
-    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    x = embed(cfg, params, tokens)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     impl = attn_impl or L.pick_attn_impl(cfg.attn_impl, s, x.device)
@@ -276,7 +286,7 @@ def decode(cfg: ModelConfig, params, cache, tokens: torch.Tensor):
     bookkeeping).
     """
     n = cache["len"]
-    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    x = embed(cfg, params, tokens)
     k_all, v_all = cache["k"], cache["v"]
     cache_size = k_all.shape[2]
     pos = n

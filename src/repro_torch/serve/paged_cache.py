@@ -1,4 +1,4 @@
-"""Paged KV-cache block allocator (counterpart of the accounting half of
+"""Paged KV-cache block allocator (counterpart of
 ``repro/serve/paged_cache.py``; vLLM-style page accounting).
 
 The cache of a serving replica is carved into fixed-size pages of
@@ -7,9 +7,11 @@ The cache of a serving replica is carved into fixed-size pages of
 Python: the continuous-batching server (``serve/scheduler``) admits and
 evicts by it.  The physical cache stays a dense ``(slots, max_ctx, ...)``
 buffer per slot (a CUDA graph wants static shapes); paging governs
-admission, not the layout.  The reference's ``page_bytes``,
-``replica_page_budget`` and ``kv_headroom_bytes`` read the serving
-simulator and come with its port.
+admission, not the layout.  ``page_bytes``, ``replica_page_budget`` and
+``kv_headroom_bytes`` size the page budget from the memory model
+(``core/simulator/memory``), for the serving simulator and planner; the
+server and the simulator share this module's arithmetic, so they cannot
+drift.
 """
 from __future__ import annotations
 
@@ -74,3 +76,40 @@ class PagedKVAllocator:
     def release(self, rid) -> int:
         """Free all pages of ``rid`` (finish or preemption)."""
         return self._held.pop(rid, 0)
+
+
+def page_bytes(cfg, page_size: int) -> int:
+    """HBM bytes of ONE page of ONE sequence, from the model's own cache
+    declarations (attention K/V for ``page_size`` tokens; SSM/conv state
+    is constant per sequence and rides the first page)."""
+    from repro_torch.core.simulator.memory import kv_cache_bytes
+    return kv_cache_bytes(cfg, batch=1, ctx=page_size, page_size=page_size)
+
+
+def replica_page_budget(cfg, kv_budget_bytes: float,
+                        page_size: int) -> int:
+    """Pages a replica can hold given ``kv_budget_bytes`` of HBM headroom
+    (usable memory minus the params + working-set peak)."""
+    pb = page_bytes(cfg, page_size)
+    if pb <= 0 or kv_budget_bytes <= 0:
+        return 0
+    return int(kv_budget_bytes // pb)
+
+
+def kv_headroom_bytes(profile, layer_lo: int, layer_hi: int, batch: int,
+                      tp: int, gpu_type: str, mem_cfg=None) -> float:
+    """Unsharded KV bytes that fit on one replica: invert the affine
+    ``serving_stage_peak_bytes`` in its ``kv_bytes`` argument against
+    usable HBM.  Shared by the simulator's page-budget derivation and the
+    planner's replica sizing."""
+    from repro_torch.core.profiler.hw_specs import get_accelerator
+    from repro_torch.core.simulator import memory as mem
+    if mem_cfg is None:
+        mem_cfg = mem.serving_mem_cfg()
+    usable = get_accelerator(gpu_type).usable_mem_bytes
+    base = mem.serving_stage_peak_bytes(profile, layer_lo, layer_hi,
+                                        batch, tp, 0.0, mem_cfg)
+    if base >= usable:
+        return 0.0
+    # peak(kv) = base + kv/tp * fragmentation  (kv rides the static stream)
+    return (usable - base) * tp / mem_cfg.fragmentation

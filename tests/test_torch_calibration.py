@@ -305,3 +305,124 @@ def test_kernels_bench_on_the_cpu():
     with pytest.raises(ValueError, match="outside"):
         kernels_bench.cost_table_accuracy(
             cal.table, [("rmsnorm", (4096, 64))], iters=1, device="cpu")
+
+
+# --- the block-time fit: measure_block, calibrate_cpu_host ---------------------------
+
+_ROWS = [[(1, 2e-3, 7e-3), (2, 3.5e-3, 1.3e-2), (4, 7e-3, 2.4e-2)],
+         [(1, 0.0, 4e-4), (2, 5e-4, 1e-12)]]
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "opt-350m"])
+@pytest.mark.parametrize("rows", _ROWS)
+@pytest.mark.parametrize("seq_len", [128, 1024])
+def test_calibrate_cpu_host_equals_reference_on_the_same_rows(
+        monkeypatch, arch, rows, seq_len):
+    """The same measured rows give the reference's spec (its arithmetic,
+    its ``cpu-host`` base on the CPU)."""
+    seen = []
+    monkeypatch.setattr(jmeasured, "measure_block",
+                        lambda cfg, s, *a, **kw: seen.append(s) or rows)
+    monkeypatch.setattr(tmeasured, "measure_block",
+                        lambda cfg, s, *a, **kw: seen.append(kw) or rows)
+    got = tmeasured.calibrate_cpu_host(tget(arch), seq_len, device="cpu")
+    want = jmeasured.calibrate_cpu_host(jget(arch), seq_len)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (got.name, got.efficiency) == ("cpu-host", 1.0)
+    assert seen == [{"dtype": "float32", "device": torch.device("cpu")},
+                    seq_len]
+
+
+def test_calibrate_cpu_host_fits_the_entry_of_the_device(monkeypatch):
+    """The base entry is the catalog's for ``default_chip`` of the device:
+    ``"H100"`` on an H100, with only ``peak_flops`` and ``efficiency``
+    replaced; ``dtype`` reaches ``measure_block``."""
+    seen = []
+    monkeypatch.setattr(tmeasured, "measure_block",
+                        lambda cfg, s, *a, **kw: seen.append(kw) or _ROWS[0])
+    monkeypatch.setattr(tmeasured.at, "default_chip", lambda dev: "H100")
+    got = tmeasured.calibrate_cpu_host(tget("smollm_360m"), 1024,
+                                       dtype="bfloat16", device="cpu")
+    h100 = thw.ACCELERATORS["H100"]
+    assert dataclasses.asdict(got) == dataclasses.asdict(dataclasses.replace(
+        h100, peak_flops=got.peak_flops, efficiency=1.0))
+    assert got.peak_flops != h100.peak_flops
+    assert seen[0]["dtype"] == "bfloat16"
+    tmeasured.register_calibrated(got, "H100")
+    try:
+        assert thw.get_accelerator("H100") == got
+    finally:
+        tmeasured.register_calibrated(h100, "H100")
+
+
+def test_calibrate_cpu_host_refuses_a_card_without_an_entry(monkeypatch):
+    """A card the catalog has no entry for raises ``ValueError`` naming it
+    and the catalog's keys, before anything is measured."""
+    monkeypatch.setattr(tmeasured, "measure_block",
+                        lambda *a, **kw: pytest.fail("measured"))
+    monkeypatch.setattr(tmeasured.at, "default_chip",
+                        lambda dev: "nvidia-a100-sxm4-40gb")
+    with pytest.raises(ValueError, match="nvidia-a100-sxm4-40gb.*H100"):
+        tmeasured.calibrate_cpu_host(tget("smollm_360m"), device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_measure_block_runs_the_one_layer_model_on_the_cpu(monkeypatch,
+                                                           dtype):
+    """The reference's one-layer model (n_layers 1, vocab at most 1024, no
+    remat, ``dtype`` throughout), timed eagerly by the host clock."""
+    cfg = dataclasses.replace(tget("smollm_360m").reduced(), vocab_size=4096)
+    made = []
+    init = tmeasured.model_lib.init
+    monkeypatch.setattr(tmeasured.model_lib, "init",
+                        lambda one, seed, device: made.append(
+                            (one, seed, device)) or init(one, seed,
+                                                         device=device))
+    rows = tmeasured.measure_block(cfg, 32, (1, 2), dtype=dtype,
+                                   device="cpu")
+    assert [r[0] for r in rows] == [1, 2]
+    assert all(np.isfinite(t) and t > 0 for r in rows for t in r[1:])
+    (one, seed, device), = made
+    assert (one.n_layers, one.vocab_size, one.remat, one.dtype,
+            one.param_dtype, seed, device.type) == \
+        (1, 1024, "none", dtype, dtype, 0, "cpu")
+
+
+def test_measure_block_programs_match_the_reference():
+    """The two programs ``measure_block`` times compute the reference's
+    ``jax.jit`` forward and ``jax.grad`` of ``loss_fn`` on the same
+    one-layer model and batch (fp32: logits 1e-5, every gradient leaf 1e-4
+    of its max |g|).  ``block_batch`` is the reference's all-zero batch;
+    on it every position sees the same key, so the attention weights'
+    gradients are rounding noise, and the programs are held on seeded
+    tokens of the same shape instead."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import model as jm
+    from repro.train.checkpoint import _flatten
+    from repro_torch import graphs
+    from test_torch_model import both_params, configs
+
+    jcfg, tcfg = configs("smollm_360m", n_layers=1, remat="none")
+    jp, tp = both_params(jcfg, tcfg, seed=4)
+    tb = tmeasured.block_batch(tcfg, 2, 24, "cpu")
+    assert {k: tuple(v.shape) for k, v in tb.items()} == \
+        {"tokens": (2, 24), "labels": (2, 24)}
+    assert all(v.dtype == torch.int32 and not v.any() for v in tb.values())
+    rng = np.random.default_rng(4)
+    tb = {k: torch.from_numpy(rng.integers(0, tcfg.vocab_size, (2, 24),
+                                           dtype=np.int32)) for k in tb}
+    fwd, grad = tmeasured.block_programs(tcfg, tp, tb)
+    batch = {k: jnp.asarray(v.numpy()) for k, v in tb.items()}
+    want = np.asarray(jm.forward(jcfg, jp, batch))
+    np.testing.assert_allclose(fwd().numpy(), want, rtol=0, atol=1e-5)
+    wg = _flatten(jax.grad(lambda p: jm.loss_fn(jcfg, p, batch)[0])(jp))
+    got = grad()
+    paths = [k for k, _ in graphs.tree_leaves(tp)]
+    assert sorted(paths) == sorted(wg) and len(got) == len(paths)
+    for k, g in zip(paths, got):
+        w = np.asarray(wg[k], np.float32)
+        assert g.shape == w.shape and g.dtype == torch.float32, k
+        assert np.abs(g.numpy() - w).max() <= 1e-4 * np.abs(w).max(), k
+    assert all(p.grad is None and not p.requires_grad
+               for _, p in graphs.tree_leaves(tp))

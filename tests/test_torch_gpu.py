@@ -1332,3 +1332,61 @@ def test_graphed_continuous_server_prefills_one_graph_per_bucket(cuda):
     assert gs.stats.n_preempted >= 1
     assert set(gs.prefill_graph.graphs) == {_next_pow2(n) for n in lens}
     assert torch.equal(gs.state["len"], es.state["len"])
+
+
+# --- the block-time fit (measure_block, calibrate_cpu_host) ------------------------
+
+def test_measure_block_graphs_match_eager_bit_for_bit(cuda):
+    """measure_block's forward and gradient (bf16, mbs 2) as CUDA graphs:
+    a replay equals the eager call bit for bit, and launches the attention
+    and fused-norm kernels once (the gradient their backward kernels once
+    too: one layer, no remat)."""
+    from repro_torch import graphs
+    from repro_torch.core.profiler import measured
+    one = measured.one_layer(get_config("smollm_360m"), "bfloat16")
+    params = tm.init(one, 0, device="cuda")
+    fwd, grad = measured.block_programs(
+        one, params, measured.block_batch(one, 2, 512, "cuda"))
+    want_f, want_g = fwd(), grad()
+    f_replay = measured.graphed_program(fwd, params)
+    g_replay = measured.graphed_program(grad, params)
+    ops.reset_launches()
+    got_f = f_replay()
+    torch.cuda.synchronize()
+    fwd_launches = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    got_g = g_replay()
+    torch.cuda.synchronize()
+    grad_launches = dict(ops.LAUNCHES)
+    assert got_f.dtype == torch.float32 and torch.equal(got_f, want_f)
+    assert len(got_g) == len(want_g) == len(graphs.tree_leaves(params))
+    assert all(torch.equal(g, w) for g, w in zip(got_g, want_g))
+    none = {k: 0 for k in ops.LAUNCHES}
+    assert fwd_launches == none | dict(flash_attention=1,
+                                       fused_add_rmsnorm=1)
+    assert grad_launches == none | dict(
+        flash_attention=1, fused_add_rmsnorm=1, flash_attention_bwd=1,
+        fused_add_rmsnorm_bwd=1)
+
+
+def test_calibrate_cpu_host_fits_the_h100_entry(cuda):
+    """On an H100 the fit replaces the ``"H100"`` entry's rate (and nothing
+    else of it) with the measured one, efficiency 1.0, below the datasheet
+    peak; each measured row is positive.  A card without a catalog entry
+    raises ``ValueError`` naming it."""
+    from repro_torch.core.profiler import measured
+    from repro_torch.core.profiler.hw_specs import get_accelerator
+    from repro_torch.kernels import autotune as at
+    cfg = get_config("smollm_360m")
+    if at.default_chip() != "H100":
+        with pytest.raises(ValueError, match=at.default_chip()):
+            measured.calibrate_cpu_host(cfg)
+        return
+    rows = measured.measure_block(cfg, 128, (1, 2))
+    assert [r[0] for r in rows] == [1, 2]
+    assert all(t > 0 for r in rows for t in r[1:])
+    spec = measured.calibrate_cpu_host(cfg)
+    h100 = get_accelerator("H100")
+    assert dataclasses.asdict(spec) == dataclasses.asdict(dataclasses.replace(
+        h100, peak_flops=spec.peak_flops, efficiency=1.0))
+    assert 0 < spec.peak_flops < h100.peak_flops

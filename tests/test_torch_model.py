@@ -258,6 +258,28 @@ def test_forward_bf16_matches_reference():
                                atol=2e-2)
 
 
+@pytest.mark.parametrize("tokens", ["zeros", "skewed"])
+def test_embed_gradient_sums_repeated_tokens(tokens):
+    """The lookup (``F.embedding``): the reference's gather forward, and a
+    gradient that sums every repeat of a token into its row, as the
+    reference's ``jax.grad`` of ``embed[tokens]`` does (fp32, 1e-5 of max
+    |g|; all zeros, and a few tokens repeated many times)."""
+    from repro_torch.models import transformer as tt
+    jcfg, tcfg = configs("smollm_360m")
+    jp, tp = both_params(jcfg, tcfg, seed=7)
+    rng = np.random.default_rng(7)
+    toks = (np.zeros((2, 48), np.int32) if tokens == "zeros"
+            else rng.integers(0, 4, (2, 48)).astype(np.int32))
+    go = rng.standard_normal((2, 48, jcfg.d_model)).astype(np.float32)
+    e = tp["embed"].detach().requires_grad_()
+    x = tt.embed(tcfg, {"embed": e}, torch.from_numpy(toks))
+    assert torch.equal(x, tp["embed"][torch.from_numpy(toks)])
+    (got,) = torch.autograd.grad(x, e, torch.from_numpy(go))
+    want = np.asarray(jax.grad(lambda w: jnp.sum(
+        w[jnp.asarray(toks)] * jnp.asarray(go)))(jp["embed"]))
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
 # --- decode ------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["smollm_360m", "qwen1_5_0_5b"])
@@ -315,12 +337,25 @@ bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "repro"
              or n.startswith("repro."))
 assert not bad, bad
+missing = [n for n in {planner!r} if n not in sys.modules]
+assert not missing, missing
 print("ok", len([n for n in sys.modules if n.startswith("repro_torch")]))
 """
 
 
+# the planner and simulator copies, which the walk must reach too (the
+# reference's planner directory has no __init__.py; the port's has one)
+_PLANNER = ["repro_torch.core.cluster"] + [
+    f"repro_torch.core.planner.{m}" for m in
+    ("plan", "objectives", "heuristics", "dp_solver", "search", "serving")
+] + [f"repro_torch.core.simulator.{m}" for m in
+     ("engine", "memory", "timing", "cost", "simulate", "serving")] + [
+    "repro_torch.serve.paged_cache", "repro_torch.core.profiler.measured"]
+
+
 def test_port_imports_neither_jax_nor_the_reference():
-    code = _GUARD.format(src=os.path.join(ROOT, "src"), root=ROOT)
+    code = _GUARD.format(src=os.path.join(ROOT, "src"), root=ROOT,
+                         planner=_PLANNER)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
