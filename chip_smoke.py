@@ -6,12 +6,16 @@
 Phases, each printed as it runs; any failure exits non-zero:
 
 1. card      the card's name and power limit (nvidia-smi); TF32 off for
-             matmuls and cuDNN, so float32 is float32.
+             matmuls and cuDNN, so float32 is float32; the card's key
+             (``autotune.default_chip``: ``"H100"`` only for the H100 SXM,
+             any other card its own name) and the catalog entry every
+             bound is read from (the SXM's data sheet, said so on any
+             other card).
 2. build     compile every CUDA source of the port with nvcc, in parallel;
              registers, spills and shared memory of every instantiation of
-             the decode kernel, the bf16 (wgmma) attention kernels, forward
-             and backward, the RMSNorm and fused add + RMSNorm kernels and
-             the SSD scan's passes.
+             the decode kernel, the attention kernels (bf16 wgmma and
+             CUDA-core, forward and backward), the RMSNorm and fused add +
+             RMSNorm kernels and the SSD scan's passes.
 3. kernels   hold each of the six kernels against its plain PyTorch version
              on the card (bf16 2e-2, fp32 2e-5; SSD y 4e-2 / 1e-4 and state
              1e-2 / 1e-4) at the main paths' shapes and the edge cases, and
@@ -140,7 +144,12 @@ bit, timed beside the backward of ``F.scaled_dot_product_attention`` for
 attention.  The bf16 attention backward runs the tensor-core kernels and
 is timed beside the CUDA-core ones on the same inputs (``earlier_ms``,
 also held against their plain version) and at each pair of blocks
-(``blocks_ms``).
+(``blocks_ms``); the fp32 one (CUDA-core kernels) at each pair of blocks
+too, at the train shape and at the plan phase's (4, 128) fit shape, and,
+where the parent commit's tree is unpacked at ``build/parent``
+(``git archive``), beside that tree's fp32 backward on the same inputs
+(``earlier_ms``: ``bench/attention_ablations.py --f32-bwd-default-only``
+run with the parent's ``src`` first on ``PYTHONPATH``; null without it).
 
 Without a CUDA device, or run outside a checkout of the repository, it
 exits non-zero and prints no result.
@@ -200,7 +209,9 @@ from repro_torch.train import optimizer as opt_lib  # noqa: E402
 from repro_torch.train import train_step as train_lib  # noqa: E402
 
 # the card's HBM rate and dense bf16 tensor-core rate from the port's
-# catalog; float32 outside the tensor cores from the H100 SXM data sheet
+# catalog; float32 outside the tensor cores from the H100 SXM data sheet.
+# Every bound is the SXM's, the card this script is run on; phase_card
+# says so where the card is another.
 H100 = get_accelerator("H100")
 PEAK_FLOPS = {torch.bfloat16: H100.peak_flops, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # tests/test_kernels.py
@@ -363,6 +374,17 @@ def phase_card() -> str:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
+    chip = at.default_chip("cuda")
+    log("[card] " + json.dumps(dict(
+        name=torch.cuda.get_device_name(0), default_chip=chip,
+        bounds_from=dict(entry=H100.name, card=at.H100_SXM_NAME,
+                         mem_bw=H100.mem_bw, bf16_flops=H100.peak_flops,
+                         fp32_flops=PEAK_FLOPS[torch.float32]))))
+    if chip != "H100":
+        log(f"[card] this card is not the H100 SXM ({at.H100_SXM_NAME}): "
+            f"every bound below is the SXM's data sheet, not this card's; "
+            f"its kernel-cost table is keyed {chip!r}, and the catalog "
+            f"holds no entry for it to fit in [plan]")
     return smi
 
 
@@ -420,6 +442,15 @@ def _bwd_wgmma_name(mangled: str):
     return (m.group(1), int(m.group(2)), 64 * int(m.group(3))) if m else None
 
 
+def _bwd_cuda_core_name(mangled: str):
+    """(kernel, dtype code, D, block) of a CUDA-core bwd_dq / bwd_dkdv<T,
+    D, block> instantiation (dtype 0 float32, 1 bfloat16), or None."""
+    m = re.search(r"(bwd_dkdv|bwd_dq)I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+                  mangled)
+    return ((m.group(1), 0 if m.group(2) == "f" else 1, int(m.group(3)),
+             int(m.group(4))) if m else None)
+
+
 def _sms() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -436,10 +467,10 @@ def _bwd_kernel_name(mangled: str) -> str:
     if wg:
         return (f"{wg[0]}<D {wg[1]}, "
                 f"block_{'q' if wg[0] == 'bwd_dq_wgmma' else 'k'} {wg[2]}>")
-    m = re.search(r"(bwd_dkdv|bwd_dq)I(?:f|13__nv_bfloat16)Li(\d+)E",
-                  mangled)
-    if m:
-        return f"{m.group(1)}<{dt}, D {m.group(2)}>"
+    cc = _bwd_cuda_core_name(mangled)
+    if cc:
+        return (f"{cc[0]}<{dt}, D {cc[2]}, "
+                f"block_{'q' if cc[0] == 'bwd_dq' else 'k'} {cc[3]}>")
     m = _BWD_NORM.search(mangled)
     if m:
         how = ("bulk copies" if m.group(4) == "1" else "16-byte loads"
@@ -557,14 +588,21 @@ def phase_build() -> None:
             continue
         if name in ("flash_attention_bwd", "fused_add_rmsnorm_bwd"):
             smem = None
-            if name == "flash_attention_bwd":   # and of each wgmma kernel
-                smem = _build.load(name).repro_flash_attention_bwd_wgmma_smem
+            if name == "flash_attention_bwd":   # and of each attention kernel
+                lib = _build.load(name)
+                smem = lib.repro_flash_attention_bwd_wgmma_smem
                 smem.argtypes = [ctypes.c_int] * 3
                 smem.restype = ctypes.c_longlong
+                cc_smem = lib.repro_flash_attention_bwd_cuda_core_smem
+                cc_smem.argtypes = [ctypes.c_int] * 4
+                cc_smem.restype = ctypes.c_longlong
             for fn, regs, st, ld in ptxas_report(info["log"]):
                 wg = _bwd_wgmma_name(fn)
+                cc = _bwd_cuda_core_name(fn)
                 dyn = (f"{smem(int(wg[0] == 'bwd_dkdv_wgmma'), wg[1], wg[2])}"
                        f" B dynamic shared memory, " if wg
+                       else f"{cc_smem(int(cc[0] == 'bwd_dkdv'), *cc[1:])} B "
+                       f"dynamic shared memory, " if cc
                        else _bwd_norm_smem(fn) if _BWD_NORM.search(fn)
                        else "")
                 log(f"[build]   {_bwd_kernel_name(fn)}: {regs} registers, "
@@ -699,7 +737,9 @@ def attention_bwd_case(gen, label, b, sq, sk, h, kh, d, causal, dtype,
     Timed: beside the backward of ``F.scaled_dot_product_attention``
     (enable_gqa) on the same q, k, v and dO; the tensor-core kernels also
     beside the CUDA-core ones on the same inputs (``earlier_ms``) and at
-    each pair of blocks (``blocks_ms``, "block_q x block_k")."""
+    each pair of blocks (``blocks_ms``, "block_q x block_k"), as are the
+    fp32 ones (CUDA-core), whose inputs are kept in ``F32_BWD_INPUTS`` for
+    the parent tree's kernel (``parent_f32_bwd``)."""
     q, k, v = _attn_inputs(gen, b, sq, sk, h, kh, d, dtype)
     do = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dtype)
     _, lse = fa.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
@@ -721,7 +761,8 @@ def attention_bwd_case(gen, label, b, sq, sk, h, kh, d, causal, dtype,
         raise AssertionError(f"flash_attention_bwd {label}: two runs differ")
     row = dict(label=label, shape=[b, sq, sk, h, kh, d], causal=causal,
                dtype=_dname(dtype), kernel=kernel,
-               blocks=list(fa.BWD_BLOCKS[kernel]), max_abs_err=err)
+               blocks=list(fa.bwd_block_pair(kernel, b, sq, h)),
+               max_abs_err=err)
     if timed:
         es = q.element_size()
         pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
@@ -737,6 +778,10 @@ def attention_bwd_case(gen, label, b, sq, sk, h, kh, d, causal, dtype,
         if kernel == "wgmma":
             row["earlier_ms"] = time_ms(lambda: fa.flash_attention_bwd_cuda(
                 q, k, v, do, lse, causal=causal, impl="cuda_core"))
+        if impl is None:
+            if dtype == torch.float32:
+                F32_BWD_INPUTS[f"{b}x{sq}x{h}/{kh}x{d}"] = (
+                    row, (q, k, v, do, lse))
             row["blocks_ms"] = {
                 f"{bq}x{bk}": time_ms(lambda: fa.flash_attention_bwd_cuda(
                     q, k, v, do, lse, causal=causal, block_q=bq, block_k=bk))
@@ -753,6 +798,47 @@ def attention_bwd_case(gen, label, b, sq, sk, h, kh, d, causal, dtype,
             out, (qt, kt, vt), dot, retain_graph=True))
     log(f"[kernels] flash_attention_bwd {json.dumps(row)}")
     return row
+
+
+F32_BWD_INPUTS = {}     # "BxSxH/KHxD" -> (its row, (q, k, v, do, lse))
+PARENT = os.path.join(ROOT, "build", "parent")
+
+
+def parent_f32_bwd() -> None:
+    """``earlier_ms`` of each timed fp32 backward row: the parent
+    commit's kernel on the same inputs in this call, where its tree is
+    unpacked at ``build/parent`` (``git archive``), through
+    ``bench/attention_ablations.py --f32-bwd-default-only`` with the
+    parent's ``src`` first on ``PYTHONPATH`` (it builds that tree's
+    library and holds the kernel against that tree's plain version); null
+    without a parent tree."""
+    rows = {label: row for label, (row, _) in F32_BWD_INPUTS.items()}
+    if not os.path.isdir(os.path.join(PARENT, "src", "repro_torch")):
+        for row in rows.values():
+            row["earlier_ms"] = None
+        log(f"[kernels] flash_attention_bwd fp32 earlier_ms: no parent tree "
+            f"at {PARENT}")
+        return
+    path = os.path.join(ROOT, "build", "f32_bwd_inputs.pt")
+    torch.save({label: tuple(t.cpu() for t in args)
+                for label, (_, args) in F32_BWD_INPUTS.items()}, path)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "src", "repro_torch", "bench",
+                                      "attention_ablations.py"),
+         "--f32-bwd-default-only", path],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.path.join(PARENT, "src")))
+    if out.returncode != 0:
+        raise RuntimeError(f"the parent tree's fp32 backward: "
+                           f"{out.stderr[-2000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    log(f"[kernels] flash_attention_bwd fp32, parent tree "
+        f"({time.perf_counter() - t0:.1f}s with its build): "
+        f"{json.dumps(res)}")
+    for label, row in rows.items():
+        row["earlier_ms"] = res[f"ms_{label}"]
+        row["earlier_max_err_of_max"] = res[f"max_err_of_max_{label}"]
 
 
 def fused_bwd_case(gen, label, rows, d, dtype, timed=False):
@@ -1204,13 +1290,21 @@ def phase_kernels(main_lens):
         abwd.append(attention_bwd_case(
             gen, label, mbs, seq, seq, h, kh, d, True, dt,
             timed=(label == PLAN_BWD_TIMED)))
+    parent_f32_bwd()
+    for row in (abwd[1], _labelled(abwd, PLAN_BWD_TIMED)):
+        log(f"[kernels] flash_attention_bwd {row['label']}: "
+            + json.dumps({key: row[key] for key in (
+                "shape", "ms", "earlier_ms", "library_ms", "bound_ms",
+                "share_of_bound", "blocks_ms")}))
     abwd[0]["f32"] = {key: abwd[1][key] for key in (
-        "ms", "bound_ms", "bound_by", "share_of_bound", "plain_ms",
-        "library_ms", "max_abs_err")}
+        "ms", "earlier_ms", "bound_ms", "bound_by", "share_of_bound",
+        "plain_ms", "library_ms", "max_abs_err", "blocks_ms")}
     abwd[0]["plan_f32"] = {key: _labelled(abwd, PLAN_BWD_TIMED)[key]
-                           for key in ("shape", "ms", "bound_ms", "bound_by",
+                           for key in ("shape", "ms", "earlier_ms",
+                                       "bound_ms", "bound_by",
                                        "share_of_bound", "plain_ms",
-                                       "library_ms", "max_abs_err")}
+                                       "library_ms", "max_abs_err",
+                                       "blocks_ms")}
     nbwd = [fused_bwd_case(gen, "train_rows4096", mb * sl, dm, bf16,
                            timed=True),
             fused_bwd_case(gen, "rows16384", 16384, dm, bf16, timed=True),
@@ -1800,14 +1894,22 @@ def _path_launches(label: str, names) -> dict:
     return launches
 
 
+def table_path() -> str:
+    """Where phase 6 saves the card's kernel-cost table: keyed by
+    ``default_chip``, as ``calibrate_kernels`` keys it."""
+    return os.path.join(ROOT, "build",
+                        f"kernel-costs-{at.default_chip('cuda')}.json")
+
+
 def phase_calibrate(serve_dev: dict) -> dict:
     """Kernel calibration at full width, the table's held-out accuracy,
     and what it does to the analytic price of a smollm-360M layer."""
     cfg = get_config(ARCH)
-    path = os.path.join(ROOT, "build", "kernel-costs-H100.json")
+    path = table_path()
     ops.reset_launches()
     t0 = time.perf_counter()
-    cal = measured.calibrate_kernels("H100", dtypes=("bfloat16", "float32"),
+    cal = measured.calibrate_kernels(at.default_chip("cuda"),
+                                     dtypes=("bfloat16", "float32"),
                                      iters=10, path=path, **CAL_GRID)
     t_cal = time.perf_counter() - t0
     acc = kernels_bench.cost_table_accuracy(
@@ -2402,8 +2504,7 @@ def main() -> int:
     cal_launches = phase_calibrate(serve_dev)
     fused_launches = phase_fused()
     train_launches, train = phase_train()
-    plan_launches = phase_plan(cfg, train, os.path.join(
-        ROOT, "build", "kernel-costs-H100.json"))
+    plan_launches = phase_plan(cfg, train, table_path())
     # launches: each kernel's count on the main path that runs it, which
     # also runs the timed case's shape
     path_of = {"flash_attention": "serve", "fused_add_rmsnorm": "serve",

@@ -3,11 +3,14 @@
     python3 -m repro_torch.bench.attention_ablations         # from src/, on a GPU
     python3 -m repro_torch.bench.attention_ablations bwd     # the backward's only
     python3 -m repro_torch.bench.attention_ablations f32     # the fp32 forward's only
+    python3 -m repro_torch.bench.attention_ablations bwd_f32 # the fp32 backward's only
     python3 src/repro_torch/bench/attention_ablations.py --f32-default-only
+    python3 src/repro_torch/bench/attention_ablations.py --f32-bwd-default-only [inputs.pt]
 
 Each variant is ``csrc/flash_attention.cu`` (the bf16 forward's, named
 plainly; the fp32 CUDA-core forward's, ``f32_*``) or
-``csrc/flash_attention_bwd.cu`` (``bwd_*``) with one piece of a kernel
+``csrc/flash_attention_bwd.cu`` (``bwd_*``; the fp32 CUDA-core
+backward's, ``bwd_f32_*``) with one piece of a kernel
 changed by a text substitution (the anchors are checked, so a variant
 that no longer applies fails loudly).  All variants build at once,
 one ``nvcc`` each, into ``build/attention_ablations/``; each then runs in
@@ -20,13 +23,18 @@ the forward at the serve shape (8, 512, 15/5, 64) and the calibrate shape
 (1, 2048, 120/120, 64), causal, ``block_q`` 128; the backward at the train
 shape (4, 1024, 15/5, 64) and at (1, 2048, 16/16, 128), causal, its
 default blocks; the fp32 forward at the forward's shapes in fp32, at
-``block_q`` 64 and, for ``f32_base``, 128 too.
+``block_q`` 64 and, for ``f32_base``, 128 too; the fp32 backward at the
+train shape and the plan phase's fp32 fit shape (4, 128, 15/5, 64),
+causal, its default blocks, held against the plain version.
 
 ``--f32-default-only`` times only the wrapper's own fp32 launch at the
 forward's shapes (default ``block_q``, checked against the plain version)
 with whatever ``repro_torch`` ``PYTHONPATH`` finds first: run it with an
 older tree's ``src`` to time that tree's kernel on the same card in the
-same call.
+same call.  ``--f32-bwd-default-only`` does the same for the fp32
+backward at ``F32_BWD_SHAPES`` (default blocks), on seeded inputs or on
+those a ``torch.save`` file holds (``{label: (q, k, v, do, lse)}``, as
+``chip_smoke.py`` writes them), and prints one JSON line.
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ from repro_torch.kernels import flash_attention as fa
 OUT = _build.BUILD_DIR.parent / "attention_ablations"
 SHAPES = ((8, 512, 15, 5, 64), (1, 2048, 120, 120, 64))
 BWD_SHAPES = ((4, 1024, 15, 5, 64), (1, 2048, 16, 16, 128))
+F32_BWD_SHAPES = ((4, 1024, 15, 5, 64), (4, 128, 15, 5, 64))
 
 _COPY = "    if (j + kAhead < n_tiles) {                 // into tile j - 1's stage"
 _LOOP = "    if (j >= my_tiles) continue;                // uniform in the warpgroup"
@@ -100,11 +109,15 @@ VARIANTS: Dict[str, tuple] = {
     "f32_two_stages": (("constexpr int kKvStages = 1;",
                         "constexpr int kKvStages = 2;"),),
     "f32_mask_every_tile": ((_MASK, "      if (true) {"),),
-    "f32_generic_copy": (("  if constexpr (NT % PIECES == 0) {",
-                          "  if constexpr (false) {"),),
+    "f32_generic_copy": (("copy_rows<", "copy_rows_each<"),),
     "f32_expf": ((_CORR, _CORR.replace("ex2(m[r] - m_new)",
                                        "expf(kLn2 * (m[r] - m_new))")),
                  (_P, _P.replace("ex2(", "expf(kLn2 * "))),
+    # the fp32 CUDA-core backward: a second streamed stage (a copy in flight
+    # in the block, fewer blocks an SM); values kept, so each is checked
+    "bwd_f32_base": (),
+    "bwd_f32_two_stages": (("constexpr int kStages = 1;",
+                            "constexpr int kStages = 2;"),),
 }
 F32_BLOCK_Q = {"f32_base": (64, 128)}    # the others at block_q 64 only
 # what each backward variant rounds, for its plain version (None: wrong
@@ -165,6 +178,9 @@ def run_variant(name: str, so: str) -> dict:
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     _build._libs[_source(name)] = lib
     bwd = name.startswith("bwd_")
+    if name.startswith("bwd_f32"):
+        return {"variant": name, "card": torch.cuda.get_device_name(0),
+                **f32_bwd_times(None)}
     gen = torch.Generator(device="cuda").manual_seed(0)
     row = {"variant": name, "card": torch.cuda.get_device_name(0)}
     for b, s, h, kh, d in BWD_SHAPES if bwd else SHAPES:
@@ -224,16 +240,53 @@ def _time_checked(q, k, v, block_q, row: dict, tag: str) -> float:
         device="cuda") * 1e3
 
 
+def f32_bwd_times(inputs) -> dict:
+    """ms of the fp32 backward (default blocks) at ``F32_BWD_SHAPES``,
+    causal, each after holding it against the plain version (2e-5 of the
+    max |g|): on ``inputs`` (label -> (q, k, v, do, lse)) where given, else
+    on seeded ones."""
+    import torch
+
+    from repro_torch.kernels import autotune
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    row = {}
+    for b, s, h, kh, d in F32_BWD_SHAPES:
+        label = f"{b}x{s}x{h}/{kh}x{d}"
+        if inputs is not None:
+            args = tuple(t.cuda() for t in inputs[label])
+        else:
+            q, k, v, do = (torch.randn(b, s, n, d, generator=gen,
+                                       device="cuda") for n in (h, kh, kh, h))
+            _, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+            args = (q, k, v, do, lse)
+        got = fa.flash_attention_bwd_cuda(*args)
+        want = fa.flash_attention_bwd_plain(*args)
+        err = max(((x - y).abs().max() / y.abs().max()).item()
+                  for x, y in zip(got, want))
+        if not err <= 2e-5:
+            raise AssertionError(f"fp32 backward {label}: max |kernel - "
+                                 f"plain| {err:.3e} of max |g| exceeds 2e-5")
+        row[f"max_err_of_max_{label}"] = err
+        torch.cuda.synchronize()
+        row[f"ms_{label}"] = autotune.bench_time(
+            lambda: fa.flash_attention_bwd_cuda(*args), iters=20,
+            device="cuda") * 1e3
+    return row
+
+
+def _card() -> str:
+    import subprocess as sp
+    return sp.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                   "--format=csv,noheader"], capture_output=True, text=True,
+                  check=True).stdout.strip().splitlines()[0]
+
+
 def default_only() -> dict:
     """The installed tree's fp32 forward at the forward's shapes."""
-    import subprocess as sp
-
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
-    smi = sp.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                  "--format=csv,noheader"], capture_output=True, text=True,
-                 check=True).stdout.strip().splitlines()[0]
-    row = {"variant": "f32_default_only", "module": fa.__file__, "card": smi}
+    row = {"variant": "f32_default_only", "module": fa.__file__,
+           "card": _card()}
     for b, s, h, kh, d in SHAPES:
         q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda")
                    for n in (h, kh, kh))
@@ -246,10 +299,18 @@ def main() -> int:
     if sys.argv[1:] == ["--f32-default-only"]:
         print(json.dumps(default_only()), flush=True)
         return 0
+    if sys.argv[1:2] == ["--f32-bwd-default-only"]:
+        import torch
+        inputs = (torch.load(sys.argv[2]) if len(sys.argv) > 2 else None)
+        print(json.dumps({"variant": "f32_bwd_default_only",
+                          "module": fa.__file__, "card": _card(),
+                          **f32_bwd_times(inputs)}), flush=True)
+        return 0
     if len(sys.argv) == 3:                      # one variant, in a child
         print(json.dumps(run_variant(sys.argv[1], sys.argv[2])), flush=True)
         return 0
-    only = sys.argv[1] + "_" if sys.argv[1:] in (["bwd"], ["f32"]) else ""
+    only = (sys.argv[1] + "_" if sys.argv[1:] in (["bwd"], ["f32"],
+                                                  ["bwd_f32"]) else "")
     names = [n for n in VARIANTS if n.startswith(only)]
     libs = build_all(names)
     env = dict(os.environ, PYTHONPATH=str(_build.CSRC.parents[1]))

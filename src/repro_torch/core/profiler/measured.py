@@ -6,7 +6,8 @@ of a config (the repeated layers reduced to one instance, the paper's
 trick) for a grid of microbatch sizes, and ``calibrate_cpu_host`` fits an
 accelerator's effective FLOP/s to those times with the reference's
 arithmetic: on the CPU the ``cpu-host`` entry, as in the reference, and
-on an H100 the ``"H100"`` entry.  On the card each program runs as a CUDA
+on the H100 SXM the ``"H100"`` entry (another card, an H100 PCIe or NVL
+too, has no entry and is refused).  On the card each program runs as a CUDA
 graph (the counterpart of the reference's ``jax.jit``), and its replays
 are timed on the device's clock: the fit prices the card's kernels, not
 the host that launches them.
@@ -37,6 +38,7 @@ from repro_torch.core.profiler.hw_specs import (ACCELERATORS, AcceleratorSpec,
 from repro_torch.device import (DeviceArg, device_of, resolve_device,
                                 torch_dtype)
 from repro_torch.kernels import autotune as at
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused as fused_mod
 from repro_torch.kernels import ops as kops
 from repro_torch.models import model as model_lib
@@ -118,13 +120,15 @@ def block_programs(one: ModelConfig, params, batch
 def graphed_program(fn: Callable[[], Any], params) -> Callable[[], Any]:
     """``fn`` as one CUDA graph, the counterpart of the reference's
     ``jax.jit``: run once eagerly on a side stream (every kernel it
-    launches loads, and the stream's fused-norm ticket counters exist
-    before the capture), captured on that stream, and returned as its
+    launches loads, and the stream's ticket counters, the fused norm's and
+    the fp32 attention backward's, exist before the capture), captured on
+    that stream, and returned as its
     replay, which returns the graph's output tensors (the next replay
     overwrites them) and adds the capture's launches to ``ops.LAUNCHES``
     (``graphs.Captured``)."""
     step = graphs.GraphedStep(params, "measure_block")
     fused_mod.ticket_counters(step.device, step.stream)
+    fa.bwd_ticket_counters(step.device, step.stream)
     step.eager(fn)
     return step.capture(fn).replay
 
@@ -163,7 +167,9 @@ def measure_block(cfg: ModelConfig, seq_len: int, mbs_grid=(1, 2, 4), *,
 def catalog_entry(device: DeviceArg = None) -> AcceleratorSpec:
     """The catalog entry ``calibrate_cpu_host`` fits for the device,
     ``ACCELERATORS[autotune.default_chip(device)]``: ``"cpu-host"`` on
-    the CPU, ``"H100"`` on an H100; another card has none, and raises."""
+    the CPU, ``"H100"`` on the H100 SXM (``autotune.H100_SXM_NAME``, the
+    card the entry's data sheet describes); another card, an H100 PCIe or
+    NVL too, has none, and raises."""
     chip = at.default_chip(resolve_device(device))
     if chip not in ACCELERATORS:
         raise ValueError(f"calibrate_cpu_host: the catalog holds no entry "

@@ -155,100 +155,6 @@ constexpr size_t smem_bytes(int d, int block_q) {
          + sizeof(float) * (size_t)block_q * kPLd;
 }
 
-__device__ __forceinline__ float half_max(float x) {  // over the 16 lanes of a half-warp
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float half_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// N consecutive staged values as fp32 (one 4N- or 2N-byte shared load)
-template <int N>
-__device__ __forceinline__ void ld(const float* p, float* out) {
-  if constexpr (N == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
-  } else if constexpr (N == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    out[0] = x.x; out[1] = x.y;
-  } else {
-    out[0] = *p;
-  }
-}
-__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
-template <int N>
-__device__ __forceinline__ void ld(const __nv_bfloat16* p, float* out) {
-  if constexpr (N == 4) {
-    const uint2 x = *reinterpret_cast<const uint2*>(p);
-    out[0] = bf16_lo(x.x); out[1] = bf16_hi(x.x);
-    out[2] = bf16_lo(x.y); out[3] = bf16_hi(x.y);
-  } else if constexpr (N == 2) {
-    const uint32_t x = *reinterpret_cast<const uint32_t*>(p);
-    out[0] = bf16_lo(x); out[1] = bf16_hi(x);
-  } else {
-    out[0] = __bfloat162float(*p);
-  }
-}
-
-// N consecutive outputs, rounded to T (nearest even, as torch's cast)
-template <int N>
-__device__ __forceinline__ void st(float* p, const float* x) {
-  if constexpr (N == 4) *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  else if constexpr (N == 2) *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
-  else *p = x[0];
-}
-template <int N>
-__device__ __forceinline__ void st(__nv_bfloat16* p, const float* x) {
-  if constexpr (N == 4) {
-    *reinterpret_cast<uint2*>(p) =
-        make_uint2(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]));
-  } else if constexpr (N == 2) {
-    *reinterpret_cast<uint32_t*>(p) = pack_bf16(x[0], x[1]);
-  } else {
-    *p = __float2bfloat16(x[0]);
-  }
-}
-
-// Rows row0 .. row0 + ROWS - 1 of a (seq, D) slice with row stride
-// `stride` into shared memory at a row stride of LD elements, by 16-byte
-// cp.async copies; rows at or past `limit` are zero-filled.  Where the
-// threads cover whole rows (NT a multiple of the pieces a row), a thread
-// copies the same piece of every RP-th row, so its addresses step by a
-// constant.
-template <typename T, int D, int LD, int ROWS, int NT>
-__device__ __forceinline__ void copy_rows(T* dst, const T* src,
-                                          long long stride, int row0,
-                                          int limit, int tid) {
-  constexpr int E = 16 / sizeof(T), PIECES = D / E;
-  const uint32_t base = smem_addr(dst);
-  if constexpr (NT % PIECES == 0) {
-    constexpr int RP = NT / PIECES;
-    const int r0 = tid / PIECES, c = tid % PIECES;
-    if (RP > ROWS && r0 >= ROWS) return;
-    const T* s = src + (row0 + r0) * stride + c * E;
-    const uint32_t d = base + (uint32_t)((r0 * LD + c * E) * sizeof(T));
-#pragma unroll
-    for (int n = 0; n < (ROWS + RP - 1) / RP; ++n) {
-      const bool ok = row0 + r0 + n * RP < limit;
-      cp_async_16(d + (uint32_t)(n * RP * LD * sizeof(T)),
-                  ok ? s + n * RP * stride : src, ok);
-    }
-  } else {
-#pragma unroll
-    for (int i = tid; i < ROWS * PIECES; i += NT) {
-      const int r = i / PIECES, c = i - r * PIECES, row = row0 + r;
-      const bool ok = row < limit;
-      cp_async_16(base + (uint32_t)((r * LD + c * E) * sizeof(T)),
-                  ok ? src + row * stride + c * E : src, ok);
-    }
-  }
-}
-
 template <typename T, int D, int BQ>
 __global__ void __launch_bounds__(2 * BQ, BQ == 64 && D <= 64 ? 3 : 1)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,

@@ -13,9 +13,8 @@
 //   dK = sum of dS^T Q * scale                               bwd_dkdv
 // Masks are the forward's: causal k_pos > q_pos (top-left aligned), keys at
 // or past sk.  Every sum is fp32 from the inputs' values; dQ, dK, dV are cast
-// once to the input dtype.  Each output element is written by exactly one
-// block, and every sum runs in a fixed order: no atomics, so two runs agree
-// bit for bit.
+// once to the input dtype.  No float atomics: every sum runs in a fixed
+// order, so two runs agree bit for bit.
 //
 // delta.  rowsum(P * dP) equals FlashAttention-2's rowsum(dO * O) in exact
 // arithmetic (sum_j P_ij dO_i . V_j = dO_i . O_i), but it is taken from the
@@ -40,21 +39,71 @@
 // impl = 1 sends bf16 to bwd_dq / bwd_dkdv too, so a run can time the two
 // on one card.
 //
-// bwd_dq, bwd_dkdv (CUDA cores).  A block of 256 threads works on 64 x 64
-// tiles staged in shared memory as fp32, rows padded by one float so a
-// column walk hits distinct banks.  Every product is C (+)= A B over
-// shared-memory operands read through strides, so the transposes cost
-// nothing: thread (tx, ty) = (t % 16, t / 16) owns rows ty + 16 i and
-// columns tx + 16 j of C in registers.
-//   bwd_dq (first): grid (q tiles, H, B), a causal head's heaviest q tile
-//   first.  Q, dO and LSE stay staged; the block walks the KV tiles up to
-//   its causal limit twice: once for its rows' delta (written out for
-//   bwd_dkdv), then recomputing P and dS and accumulating dQ in registers.
-//   bwd_dkdv (second): grid (KV tiles, KH, B), the heaviest (first) KV
-//   tile first.  K and V stay staged; the block walks the q heads of its
-//   GQA group and, for each, the q tiles that can see its keys (a causal
-//   block starts at the diagonal), recomputing S and P, staging P and dS,
-//   and accumulating dV and dK in registers.
+// bwd_dq, bwd_dkdv (CUDA cores): bound by operations.  At the train path's
+// (4, 1024, 15/5, 64) causal fp32 the function's 5 products (S, dP, dV, dK,
+// dQ) are 20.2 GFLOP, 0.301 ms at the 67 TFLOP/s fp32 rate, against 68 MB
+// of inputs and outputs (20 us at 3.35 TB/s).  The kernels run 9: the dQ
+// kernel's delta pass recomputes S and dP, and the dK/dV kernel S and dP
+// again, a floor of 0.542 ms.  So the design is flash_attention.cu's
+// flash_fwd, which keeps the FMA pipe fed from registers, taken through
+// the five things that would keep it far from that floor:
+//   Staging (a block that loads a tile by scalar loads between two
+//   barriers waits on memory once a tile).  16-byte cp.async copies
+//   (wgmma.cuh's copy_rows) in the input type, converted when read, rows
+//   past sq or sk zero-filled; 4-byte copies for the LSE and delta rows
+//   (Sq floats apart).  Rows are padded by 16 bytes, so the float4 reads
+//   of 16 distinct rows fall on distinct banks.  The block's own rows (Q
+//   and dO; K and V) are staged once; the streamed tile (K and V; Q, dO,
+//   LSE and delta) is copied while the other blocks on the SM compute:
+//   kStages, below.
+//   Register tiles (a product that reads both operands from shared memory
+//   a scalar at a time issues a load for every two FMAs).  A block owns BR
+//   = 32 or 64 rows (q rows in dQ, keys in dK/dV) and streams tiles of 64
+//   columns (keys; q rows).  A warp owns 2 R rows; a thread (half h = lane
+//   / 16, column group g = lane % 16) the R rows 2 r + h and the columns g
+//   + 16 i, so S and dP (S^T and dP^T in dK/dV) are R x 4 in registers:
+//   each 4-wide d step reads R broadcast float4s of the row operand and 4
+//   float4s of column rows, 12 LDS.128 for 128 FMAs at R = 8.  P, dS and
+//   delta's row sums stay in registers; a row's sum is reduced in its
+//   half-warp by shuffles in a fixed order.  The products over the columns
+//   (dQ += dS K; dV += P^T dO and dK += dS^T Q) take the thread's R rows x
+//   D / 16 dims (chunks of 4, 2 or 1 consecutive dims, 16 lanes side by
+//   side, so a B row is read as whole lines); the operand that changes
+//   hands (dS; P^T and dS^T) goes through warp-private shared rows of kXLd
+//   floats (16-byte aligned, the two halves' rows 16 banks apart) behind
+//   __syncwarp, never a block barrier.  R = 8 in a 64-row block, except 4
+//   in dK/dV past D 64, where two R x D / 16 accumulators and the S and dP
+//   fragment would not fit 255 registers; R = 4 in a 32-row block, whose
+//   four warps each carry half a 64-row block's warp's chain of work.  One
+//   FFMA and one ex2.approx a score: scale * log2(e) folded in, the LSE
+//   converted to base 2 once.
+//   Masking (tested on every element of every tile, the mask costs more
+//   than the exponent).  Only the diagonal tile and the tile that holds sk
+//   or sq take it; a causal warp skips the tiles wholly past its rows (dQ)
+//   or wholly before its keys (dK/dV).
+//   Occupancy (a block's barriers stall its SM unless other blocks share
+//   it).  At D 64 fp32 a 64-row dQ block takes 90 KB (two an SM), a 32-key
+//   dK/dV block 73 KB and 128 registers a thread (three an SM).  Blocks of
+//   32 rows (four warps of R = 4) or 64 (R = 8), each an instantiation:
+//   the dK/dV kernel takes 32 keys, the dQ kernel 64 rows, or 32 while its
+//   grid is under two 64-row blocks an SM (flash_attention.py,
+//   bwd_block_pair), where a warp's own chain of work sets the time.
+//   The dK/dV critical path (a block a KV head walks the GQA group's heads
+//   in series: 48 tile steps at the train shape for the heaviest block, 40
+//   blocks at (4, 128)).  One block a (key tile, query head): with a group
+//   of G > 1 each writes its fp32 dK * scale and dV to scratch that the
+//   wrapper allocates (partial, (2, B, H, Sk, D)), takes an int32 ticket
+//   from its (batch, KV head, key tile) counter after a fence, and the
+//   group's last block adds the G partials in head order, writes dK and
+//   dV, and sets the counter back to zero for the next launch.  The
+//   heaviest block walks 16 q tiles; (4, 128) has 240 blocks of 32 keys.
+//   bwd_dq (first): grid (H x B, q tiles), every (head, batch) of a tile
+//   before the next tile, a causal head's heaviest tile first.  The K/V
+//   tiles stream twice, 0 .. n - 1 for delta, then n - 1 .. 0 for dQ: the
+//   last tile of the first pass is the first of the second, loaded once,
+//   its S and dP computed once.
+//   bwd_dkdv (second): grid (H x B, key tiles), tile 0 (the heaviest when
+//   causal) first; a causal block starts at its diagonal q rows.
 //
 // bwd_dq_wgmma, bwd_dkdv_wgmma (tensor cores).  The same two passes and
 // the same blocks, a warpgroup (128 threads) owning 64 rows, wgmma's M: a
@@ -77,15 +126,15 @@
 // apart) cp.async copies, which runs on across the GQA group's heads and
 // from the dQ kernel's first pass into its second without draining.  Only
 // the diagonal or ragged tile is masked.  The outputs are staged in the
-// freed shared memory and written once as 16-byte pieces of rows.
+// freed shared memory and written once as 16-byte pieces of rows.  Each
+// output element is written by exactly one block.
 //
 // Bound on the H100: at the train path's (4, 1024, 15/5, 64) causal bf16,
 // 5 products of 2 * d * (causal pairs) each a head, 20.2 GFLOP (20 us at
-// 989 TFLOP/s bf16), against 18 MB of inputs and outputs (5 us): bound by
-// operations.  The CUDA-core kernels run 9 products (with the delta pass
-// and the recomputation) at the 67 TFLOP/s fp32 rate; the tensor-core
-// kernels run the same 9, plus one for dS's lo part in dQ, at the bf16
-// tensor-core rate.
+// 989 TFLOP/s bf16), against 34 MB of inputs and outputs (10 us): bound by
+// operations.  The tensor-core kernels run the same 9 products as the
+// CUDA-core ones, plus one for dS's lo part in dQ, at the bf16 tensor-core
+// rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,318 +145,529 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;            // q rows and keys a tile
-constexpr int kLDP = kTile + 1;      // row stride of the staged P and dS
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 struct Dims {
   int b, sq, sk, h, kh, group;
 };
 
-// 64 rows [row0, row0 + 64) of a (.., S, heads, D) tensor at `base` (its
-// (batch, head) offset applied; rows `stride` elements apart) into shared
-// memory as fp32 with row stride D + 1; rows at or past `limit` are zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* base,
-                                          long long stride, int row0,
-                                          int limit, int tid) {
-  for (int i = tid; i < kTile * D; i += kThreads) {
-    const int r = i / D, c = i - r * D, row = row0 + r;
-    dst[r * (D + 1) + c] = row < limit ? to_f32(base[row * stride + c]) : 0.f;
-  }
-}
-
-// c[i][j] += sum_k A(ty + 16 i, k) B(k, tx + 16 j) over k < K, with
-// A(m, k) = a[m * am + k * ak] and B(k, n) = b[k * bk + n * bn].
-template <int TM, int TN, int K>
-__device__ __forceinline__ void mm(float (&c)[TM][TN], const float* a, int am,
-                                   int ak, const float* b, int bk, int bn,
-                                   int tx, int ty) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float av[TM], bv[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) av[i] = a[(ty + 16 * i) * am + k * ak];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) bv[j] = b[k * bk + (tx + 16 * j) * bn];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) c[i][j] = fmaf(av[i], bv[j], c[i][j]);
-  }
-}
-
-template <int TM, int TN>
-__device__ __forceinline__ void zero(float (&c)[TM][TN]) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) c[i][j] = 0.f;
-}
-
-// The 64 x 64 tile's P = exp(S * scale - LSE) and dS = P * (dP - delta) in
-// the (ty + 16 i, tx + 16 j) fragment, S and dP given there; masked
-// entries (causal, keys past sk, rows past sq) are 0.  Stages dS in ds_s
-// and, when p_s is not null, P in p_s (both row stride kLDP).
-__device__ __forceinline__ void softmax_grad(const float (&s)[4][4],
-                                             const float (&dp)[4][4],
-                                             float* p_s, float* ds_s,
-                                             const float* lse_s,
-                                             const float* dl_s, int q0, int k0,
-                                             int sq, int sk, int causal,
-                                             float scale, int tx, int ty) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, row = q0 + r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j, key = k0 + c;
-      const bool live = row < sq && key < sk && !(causal && key > row);
-      const float pv = live ? expf(fmaf(s[i][j], scale, -lse_s[r])) : 0.f;
-      if (p_s != nullptr) p_s[r * kLDP + c] = pv;
-      ds_s[r * kLDP + c] = pv * (dp[i][j] - dl_s[r]);
-    }
-  }
-}
-
-template <int D>
-constexpr size_t smem_bytes() {  // four D-wide tiles, P and dS, LSE and delta
-  return sizeof(float) * (size_t)(4 * kTile * (D + 1) + 2 * kTile * kLDP
-                                  + 2 * kTile);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-         const T* __restrict__ v, const T* __restrict__ dout,
-         const float* __restrict__ lse, const float* __restrict__ delta,
-         T* __restrict__ dk, T* __restrict__ dv, Dims dm, float scale,
-         int causal) {
-  constexpr int LD = D + 1, TN = D / 16;
-  extern __shared__ float smem[];
-  float* k_s = smem;                    // keys x D
-  float* v_s = k_s + kTile * LD;
-  float* q_s = v_s + kTile * LD;        // q rows x D
-  float* do_s = q_s + kTile * LD;
-  float* p_s = do_s + kTile * LD;       // q rows x keys
-  float* ds_s = p_s + kTile * kLDP;
-  float* lse_s = ds_s + kTile * kLDP;
-  float* dl_s = lse_s + kTile;
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * kTile, kvh = blockIdx.y, bi = blockIdx.z;
-  const long long kv_stride = (long long)dm.kh * D, q_stride = (long long)dm.h * D;
-  const long long kv_off = ((long long)bi * dm.sk * dm.kh + kvh) * D;
-  load_tile<T, D>(k_s, k + kv_off, kv_stride, k0, dm.sk, tid);
-  load_tile<T, D>(v_s, v + kv_off, kv_stride, k0, dm.sk, tid);
-
-  float dk_acc[4][TN], dv_acc[4][TN];
-  zero(dk_acc);
-  zero(dv_acc);
-  // a causal q tile that ends before k0 sees none of these keys
-  const int q_first = causal ? k0 : 0;
-  for (int hh = 0; hh < dm.group; ++hh) {
-    const int head = kvh * dm.group + hh;
-    const long long q_off = ((long long)bi * dm.sq * dm.h + head) * D;
-    const float* lse_row = lse + ((long long)bi * dm.h + head) * dm.sq;
-    const float* dl_row = delta + ((long long)bi * dm.h + head) * dm.sq;
-    for (int q0 = q_first; q0 < dm.sq; q0 += kTile) {
-      __syncthreads();                  // the last tile's reads are done
-      load_tile<T, D>(q_s, q + q_off, q_stride, q0, dm.sq, tid);
-      load_tile<T, D>(do_s, dout + q_off, q_stride, q0, dm.sq, tid);
-      if (tid < kTile) {
-        const bool ok = q0 + tid < dm.sq;
-        lse_s[tid] = ok ? lse_row[q0 + tid] : 0.f;
-        dl_s[tid] = ok ? dl_row[q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      zero(s);
-      zero(dp);
-      mm<4, 4, D>(s, q_s, LD, 1, k_s, 1, LD, tx, ty);     // S = Q K^T
-      mm<4, 4, D>(dp, do_s, LD, 1, v_s, 1, LD, tx, ty);   // dP = dO V^T
-      softmax_grad(s, dp, p_s, ds_s, lse_s, dl_s, q0, k0, dm.sq, dm.sk,
-                   causal, scale, tx, ty);
-      __syncthreads();
-      // dV += P^T dO and dK += dS^T Q: C rows are keys, k runs over q rows
-      mm<4, TN, kTile>(dv_acc, p_s, 1, kLDP, do_s, LD, 1, tx, ty);
-      mm<4, TN, kTile>(dk_acc, ds_s, 1, kLDP, q_s, LD, 1, tx, ty);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty + 16 * i;
-    if (key >= dm.sk) continue;
-    T* dkr = dk + kv_off + key * kv_stride;
-    T* dvr = dv + kv_off + key * kv_stride;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      dkr[tx + 16 * j] = from_f32<T>(dk_acc[i][j] * scale);
-      dvr[tx + 16 * j] = from_f32<T>(dv_acc[i][j]);
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-       const T* __restrict__ v, const T* __restrict__ dout,
-       const float* __restrict__ lse, float* __restrict__ delta,
-       T* __restrict__ dq, Dims dm, float scale, int causal) {
-  constexpr int LD = D + 1, TN = D / 16;
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* do_s = q_s + kTile * LD;
-  float* k_s = do_s + kTile * LD;
-  float* v_s = k_s + kTile * LD;
-  float* ds_s = v_s + kTile * LD;       // q rows x keys
-  float* lse_s = ds_s + kTile * kLDP;
-  float* dl_s = lse_s + kTile;
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  // a causal head's last q tiles walk the most KV tiles: start them first
-  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = tile * kTile, head = blockIdx.y, bi = blockIdx.z;
-  const int kvh = head / dm.group;
-  const long long kv_stride = (long long)dm.kh * D, q_stride = (long long)dm.h * D;
-  const long long kv_off = ((long long)bi * dm.sk * dm.kh + kvh) * D;
-  const long long q_off = ((long long)bi * dm.sq * dm.h + head) * D;
-  const long long row_at = ((long long)bi * dm.h + head) * dm.sq + q0;
-  load_tile<T, D>(q_s, q + q_off, q_stride, q0, dm.sq, tid);
-  load_tile<T, D>(do_s, dout + q_off, q_stride, q0, dm.sq, tid);
-  if (tid < kTile) {
-    lse_s[tid] = q0 + tid < dm.sq ? lse[row_at + tid] : 0.f;
-    dl_s[tid] = 0.f;                    // pass 1 does not read it
-  }
-  const int k_end = causal ? min(dm.sk, q0 + kTile) : dm.sk;
-
-  // pass 1: delta = rowsum(P * dP), each thread over its 4 columns of the
-  // tile, then over the 16 threads of a row (a fixed butterfly)
-  float rs[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();                    // the last tile's reads are done
-    load_tile<T, D>(k_s, k + kv_off, kv_stride, k0, dm.sk, tid);
-    load_tile<T, D>(v_s, v + kv_off, kv_stride, k0, dm.sk, tid);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    zero(s);
-    zero(dp);
-    mm<4, 4, D>(s, q_s, LD, 1, k_s, 1, LD, tx, ty);
-    mm<4, 4, D>(dp, do_s, LD, 1, v_s, 1, LD, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, row = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        if (row < dm.sq && key < dm.sk && !(causal && key > row))
-          rs[i] = fmaf(expf(fmaf(s[i][j], scale, -lse_s[r])), dp[i][j], rs[i]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)   // lanes of one row: one half-warp
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], off);
-    const int r = ty + 16 * i;
-    if (tx == 0) {
-      dl_s[r] = rs[i];
-      if (q0 + r < dm.sq) delta[row_at + r] = rs[i];
-    }
-  }
-
-  // pass 2: dQ = dS K * scale
-  float dq_acc[4][TN];
-  zero(dq_acc);
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();                    // the last tile's reads are done
-    load_tile<T, D>(k_s, k + kv_off, kv_stride, k0, dm.sk, tid);
-    load_tile<T, D>(v_s, v + kv_off, kv_stride, k0, dm.sk, tid);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    zero(s);
-    zero(dp);
-    mm<4, 4, D>(s, q_s, LD, 1, k_s, 1, LD, tx, ty);
-    mm<4, 4, D>(dp, do_s, LD, 1, v_s, 1, LD, tx, ty);
-    softmax_grad(s, dp, nullptr, ds_s, lse_s, dl_s, q0, k0, dm.sq, dm.sk,
-                 causal, scale, tx, ty);
-    __syncthreads();
-    mm<4, TN, kTile>(dq_acc, ds_s, kLDP, 1, k_s, LD, 1, tx, ty);  // dS K
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= dm.sq) continue;
-    T* dqr = dq + q_off + row * q_stride;
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-      dqr[tx + 16 * j] = from_f32<T>(dq_acc[i][j] * scale);
-  }
-}
-
 struct Args {
   const void *q, *k, *v, *dout, *lse;
   void *delta, *dq, *dk, *dv;
+  float* partial;     // CUDA-core dK/dV: the heads' shares, group > 1
+  int* counter;       // and the groups' tickets, zero between launches
   Dims dm;
   float scale;
   int causal;
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+// --- bwd_dq, bwd_dkdv: fp32 FMAs on the CUDA cores ------------------------------
+
+namespace cc {
+
+using namespace hopper;
+
+constexpr int kCols = 64;            // columns of a streamed tile: keys, q rows
+// Streamed tiles staged.  One: at D 64 fp32 a 64-row dQ block takes 90 KB
+// and a 32-key dK/dV block 73 KB, so two or three blocks share an SM and
+// one block's copy overlaps the others' products.  Two stages (the next
+// tile in flight in the block, fewer blocks an SM) timed 23% slower at the
+// train shape and 2% faster at (4, 128, 15/5, 64) on an H100
+// (bench/attention_ablations.py, bwd_f32_two_stages).
+constexpr int kStages = 1;
+// rows a block owns, q rows (bwd_dq) or keys (bwd_dkdv): each an
+// instantiation (flash_attention.py, BWD_BLOCK_CHOICES["cuda_core"])
+constexpr int kBlockSmall = 32, kBlockLarge = 64;
+constexpr int kXLd = kCols + 16;     // exchange rows: rows 2 r, 2 r + 1 16 banks apart
+constexpr float kLog2e = 1.4426950408889634f;
+
+// rows a thread owns: 8 in a 64-row block, or 4 in the dK/dV kernel past
+// D 64; 4 in a 32-row block (four warps, each half the chain of work)
+template <bool DKDV, int D, int BR>
+__host__ __device__ constexpr int thread_rows() {
+  return BR == kBlockSmall || (DKDV && D > 64) ? 4 : 8;
+}
+template <typename T, int D>     // staged row stride
+__host__ __device__ constexpr int row_ld() { return D + 16 / (int)sizeof(T); }
+template <int D>          // consecutive dims a lane reads in a product over columns
+__host__ __device__ constexpr int dims_vec() {
+  return (D / 16) % 4 == 0 ? 4 : (D / 16) % 2 == 0 ? 2 : 1;
+}
+template <bool DKDV, int D, int BR>
+__host__ __device__ constexpr int threads() {
+  return 16 * BR / thread_rows<DKDV, D, BR>();
+}
+
+// dynamic shared memory of a block owning br rows: its two tiles, the
+// streamed stages (two tiles; for dK/dV also the LSE and delta rows), and
+// the warps' exchange rows (dS; for dK/dV P^T and dS^T)
+template <typename T, int D, bool DKDV>
+constexpr size_t smem_bytes(int br) {
+  return sizeof(T) * (size_t)row_ld<T, D>() * (2 * br + kStages * 2 * kCols)
+         + sizeof(float) * (size_t)((DKDV ? kStages * 2 * kCols : 0)
+                                    + (DKDV ? 2 : 1) * br * kXLd);
+}
+
+// N consecutive fp32 values written by other blocks (through the L2)
+template <int N>
+__device__ __forceinline__ void ld_l2(const float* p, float* out) {
+  if constexpr (N == 4) {
+    const float4 x = __ldcg(reinterpret_cast<const float4*>(p));
+    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+  } else if constexpr (N == 2) {
+    const float2 x = __ldcg(reinterpret_cast<const float2*>(p));
+    out[0] = x.x; out[1] = x.y;
+  } else {
+    out[0] = __ldcg(p);
+  }
+}
+
+// s[r][i] = sum over d of A(row 2 r) B(row 16 i): a_t is this thread's
+// first row of the row operand (row r at + 2 r LD), b_l its first column
+// row (row i at + 16 i LD)
+template <typename T, int D, int R>
+__device__ __forceinline__ void scores(float (&s)[R][4], const T* a_t,
+                                       const T* b_l) {
+  constexpr int LD = row_ld<T, D>();
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[r][i] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < D; c += 4) {
+    float bx[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ld<4>(b_l + 16 * i * LD + c, bx[i]);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float ax[4];
+      ld<4>(a_t + 2 * r * LD + c, ax);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        s[r][i] = fmaf(ax[3], bx[i][3], fmaf(ax[2], bx[i][2],
+                  fmaf(ax[1], bx[i][1], fmaf(ax[0], bx[i][0], s[r][i]))));
+    }
+  }
+}
+
+// acc[r][n] += sum over the tile's columns j of X(row 2 r, j) B(j, dim n):
+// x_t is this thread's first exchange row (row r at + 2 r kXLd), b_l its
+// first dims of B's row 0 (row j at + j LD, chunk c at + 16 VW c)
+template <typename T, int D, int R>
+__device__ __forceinline__ void accumulate(float (&acc)[R][D / 16],
+                                           const float* x_t, const T* b_l) {
+  constexpr int LD = row_ld<T, D>(), N = D / 16, VW = dims_vec<D>();
+#pragma unroll 2
+  for (int j = 0; j < kCols; j += 4) {
+    float bx[4][N];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int c = 0; c < N / VW; ++c)
+        ld<VW>(b_l + (j + t) * LD + 16 * VW * c, &bx[t][c * VW]);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float xx[4];
+      ld<4>(x_t + 2 * r * kXLd + j, xx);
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        acc[r][n] = fmaf(xx[3], bx[3][n], fmaf(xx[2], bx[2][n],
+                    fmaf(xx[1], bx[1][n], fmaf(xx[0], bx[0][n], acc[r][n]))));
+    }
+  }
+}
+
+// One block a (head, batch, q tile of BQ rows), 2 BQ threads.  Q, dO and
+// the rows' base-2 LSE are staged once; K/V tiles of 64 keys stream in load
+// order 0 .. n - 1 (pass 1: delta = rowsum(P dP), written out), then
+// n - 2 .. 0, the last load of pass 1 also the first of pass 2 (dS = P (dP
+// - delta), dQ += dS K).
+template <typename T, int D, int BQ>
+__global__ void __launch_bounds__(threads<false, D, BQ>())
+bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+       const T* __restrict__ v, const T* __restrict__ dout,
+       const float* __restrict__ lse, float* __restrict__ delta,
+       T* __restrict__ dq, Dims dm, float scale, float scale_log2,
+       int causal) {
+  constexpr int R = thread_rows<false, D, BQ>(), NT = threads<false, D, BQ>();
+  constexpr int LD = row_ld<T, D>(), CT = kCols * LD, N = D / 16;
+  constexpr int VW = dims_vec<D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* do_s = q_s + BQ * LD;
+  T* kv_s = do_s + BQ * LD;                       // stage s: K, then V
+  float* x_s = reinterpret_cast<float*>(kv_s + kStages * 2 * CT);   // dS
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int half = lane >> 4, kg = lane & 15;
+  const int head = blockIdx.x % dm.h, bi = blockIdx.x / dm.h;
+  // every (head, batch) of a tile before the next; a causal head's heaviest
+  // tile first
+  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = tile * BQ, kvh = head / dm.group;
+  const long long q_stride = (long long)dm.h * D;
+  const long long kv_stride = (long long)dm.kh * D;
+  const long long kv_off = ((long long)bi * dm.sk * dm.kh + kvh) * D;
+  const long long q_off = ((long long)bi * dm.sq * dm.h + head) * D;
+  const long long row_at = ((long long)bi * dm.h + head) * dm.sq;
+  const int k_end = causal ? min(dm.sk, q0 + BQ) : dm.sk;
+  const int n = (k_end + kCols - 1) / kCols;
+  const int loads = 2 * n - 1;
+  const int wrow = q0 + 2 * R * warp;             // this warp's first row
+  // a causal warp stops at the tile that holds its last row's key; a warp
+  // wholly past sq computes nothing
+  const int my_tiles = wrow >= dm.sq ? 0
+      : causal ? min(n, (wrow + 2 * R - 1) / kCols + 1) : n;
+
+  auto fetch = [&](int l) {                       // load l into its stage
+    const int j = l < n ? l : 2 * n - 2 - l;
+    T* st_kv = kv_s + (l % kStages) * 2 * CT;
+    copy_rows<T, D, LD, kCols, NT>(st_kv, k + kv_off, kv_stride, j * kCols,
+                                   dm.sk, tid);
+    copy_rows<T, D, LD, kCols, NT>(st_kv + CT, v + kv_off, kv_stride,
+                                   j * kCols, dm.sk, tid);
+    cp_async_commit();
+  };
+  copy_rows<T, D, LD, BQ, NT>(q_s, q + q_off, q_stride, q0, dm.sq, tid);
+  copy_rows<T, D, LD, BQ, NT>(do_s, dout + q_off, q_stride, q0, dm.sq, tid);
+  fetch(0);                                       // with Q and dO
+
+  float lse2[R], rs[R], dl[R], acc[R][N];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = wrow + 2 * r + half;
+    // rows past sq: Q and dO are zeros, so any finite LSE gives finite terms
+    lse2[r] = row < dm.sq ? lse[row_at + row] * kLog2e : 0.f;
+    rs[r] = dl[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < N; ++c) acc[r][c] = 0.f;
+  }
+  const T* q_t = q_s + (2 * R * warp + half) * LD;
+  const T* do_t = do_s + (2 * R * warp + half) * LD;
+  float* x_t = x_s + (2 * R * warp + half) * kXLd;
+
+  for (int l = 0; l < loads; ++l) {
+    cp_async_wait<0>();                           // load l has landed
+    __syncthreads();                              // and every warp is past l - 1
+    if (kStages > 1 && l + 1 < loads) fetch(l + 1);
+    const int j = l < n ? l : 2 * n - 2 - l;
+    const bool live = j < my_tiles;               // uniform in the warp
+    const T* k_t = kv_s + (l % kStages) * 2 * CT;
+    float s[R][4], dp[R][4];
+    if (live) {
+      scores<T, D, R>(s, q_t, k_t + kg * LD);         // S = Q K^T
+      scores<T, D, R>(dp, do_t, k_t + CT + kg * LD);  // dP = dO V^T
+      const int k0 = j * kCols;
+      if (k0 + kCols > dm.sk || (causal && k0 + kCols - 1 > wrow)) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)               // the diagonal or ragged tile
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = k0 + kg + 16 * i, row = wrow + 2 * r + half;
+            if (key >= dm.sk || (causal && key > row)) s[r][i] = -INFINITY;
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)               // P
+          s[r][i] = ex2(fmaf(s[r][i], scale_log2, -lse2[r]));
+      if (l < n) {                                // pass 1: delta's terms
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) rs[r] = fmaf(s[r][i], dp[r][i], rs[r]);
+      }
+    }
+    if (l == n - 1) {                             // pass 1 is done
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        dl[r] = half_sum(rs[r]);                  // one order in every lane
+        const int row = wrow + 2 * r + half;
+        if (kg == 0 && row < dm.sq) delta[row_at + row] = dl[r];
+      }
+    }
+    if (live && l >= n - 1) {                     // pass 2: dQ += dS K
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          x_t[2 * r * kXLd + kg + 16 * i] = s[r][i] * (dp[r][i] - dl[r]);
+      __syncwarp();
+      accumulate<T, D, R>(acc, x_t, k_t + kg * VW);
+      __syncwarp();                               // dS is rewritten next
+    }
+    if (kStages == 1 && l + 1 < loads) {          // one stage: refill it
+      __syncthreads();                            // every warp is done with l
+      fetch(l + 1);
+    }
+  }
+
+  T* dqb = dq + q_off;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = wrow + 2 * r + half;
+    if (row >= dm.sq) continue;
+    float out[N];
+#pragma unroll
+    for (int c = 0; c < N; ++c) out[c] = acc[r][c] * scale;
+#pragma unroll
+    for (int c = 0; c < N / VW; ++c)
+      st<VW>(dqb + row * q_stride + 16 * VW * c + kg * VW, &out[c * VW]);
+  }
+}
+
+// One block a (query head, batch, key tile of BK keys): K and V staged once;
+// Q and dO tiles of 64 rows and their LSE and delta rows stream, from the
+// diagonal when causal.  Per tile, in fragments whose rows are keys:
+//   S^T = K Q^T, dP^T = V dO^T; P^T, dS^T = P^T (dP^T - delta)
+//   dV += P^T dO, dK += dS^T Q
+// With a GQA group of G > 1 the heads' shares meet in `partial` and the
+// group's last block (by ticket) adds them in head order.
+template <typename T, int D, int BK>
+__global__ void __launch_bounds__(threads<true, D, BK>())
+bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+         const T* __restrict__ v, const T* __restrict__ dout,
+         const float* __restrict__ lse, const float* __restrict__ delta,
+         T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ partial,
+         int* __restrict__ counter, Dims dm, float scale, float scale_log2,
+         int causal) {
+  constexpr int R = thread_rows<true, D, BK>(), NT = threads<true, D, BK>();
+  constexpr int LD = row_ld<T, D>(), CT = kCols * LD, N = D / 16;
+  constexpr int VW = dims_vec<D>(), XT = 2 * R * kXLd;  // a warp's exchange rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int last;
+  T* k_s = reinterpret_cast<T*>(smem_raw);
+  T* v_s = k_s + BK * LD;
+  T* qd_s = v_s + BK * LD;                        // stage s: Q, then dO
+  float* rows_s = reinterpret_cast<float*>(qd_s + kStages * 2 * CT);
+  float* x_s = rows_s + kStages * 2 * kCols;      // warp w: P^T, then dS^T
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int half = lane >> 4, kg = lane & 15;
+  const int head = blockIdx.x % dm.h, bi = blockIdx.x / dm.h;
+  const int tile = blockIdx.y, k0 = tile * BK, kvh = head / dm.group;
+  const long long q_stride = (long long)dm.h * D;
+  const long long kv_stride = (long long)dm.kh * D;
+  const long long kv_off = ((long long)bi * dm.sk * dm.kh + kvh) * D;
+  const long long q_off = ((long long)bi * dm.sq * dm.h + head) * D;
+  const long long row_at = ((long long)bi * dm.h + head) * dm.sq;
+  const int kw = k0 + 2 * R * warp;               // this warp's first key
+  // a causal q row before k0 sees none of these keys
+  const int q_first = causal ? k0 : 0;
+  const int n = q_first < dm.sq ? (dm.sq - q_first + kCols - 1) / kCols : 0;
+
+  // Q, dO and the LSE and delta rows of q tile `it` into its stage; the
+  // rows are Sq floats apart, so not 16-byte aligned: 4-byte copies
+  auto fetch = [&](int it) {
+    const int q0 = q_first + it * kCols;
+    T* st_q = qd_s + (it % kStages) * 2 * CT;
+    copy_rows<T, D, LD, kCols, NT>(st_q, q + q_off, q_stride, q0, dm.sq, tid);
+    copy_rows<T, D, LD, kCols, NT>(st_q + CT, dout + q_off, q_stride, q0,
+                                   dm.sq, tid);
+    const uint32_t rs = smem_addr(rows_s + (it % kStages) * 2 * kCols);
+    for (int i = tid; i < 2 * kCols; i += NT) {
+      const int row = q0 + (i & (kCols - 1));
+      const bool ok = row < dm.sq;
+      cp_async_4(rs + 4 * i, (i < kCols ? lse : delta) + row_at + (ok ? row : 0),
+                 ok);
+    }
+    cp_async_commit();
+  };
+  if (n > 0) {
+    copy_rows<T, D, LD, BK, NT>(k_s, k + kv_off, kv_stride, k0, dm.sk, tid);
+    copy_rows<T, D, LD, BK, NT>(v_s, v + kv_off, kv_stride, k0, dm.sk, tid);
+    fetch(0);                                     // with K and V
+  }
+
+  float dk_acc[R][N], dv_acc[R][N];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < N; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
+  const T* k_t = k_s + (2 * R * warp + half) * LD;
+  const T* v_t = v_s + (2 * R * warp + half) * LD;
+  float* xp_t = x_s + warp * 2 * XT + half * kXLd;
+  float* xs_t = xp_t + XT;
+  const bool keys = kw < dm.sk;                   // a warp wholly past sk: none
+
+  for (int it = 0; it < n; ++it) {
+    cp_async_wait<0>();                           // tile it has landed
+    __syncthreads();                              // and every warp is past it - 1
+    if (kStages > 1 && it + 1 < n) fetch(it + 1);
+    const int q0 = q_first + it * kCols;
+    // a causal q tile wholly before this warp's keys sees none of them
+    if (keys && !(causal && q0 + kCols - 1 < kw)) {   // uniform in the warp
+      const T* q_t = qd_s + (it % kStages) * 2 * CT;
+      const T* do_t = q_t + CT;
+      const float* lse_s = rows_s + (it % kStages) * 2 * kCols;
+      float s[R][4], dp[R][4];
+      scores<T, D, R>(s, k_t, q_t + kg * LD);     // S^T = K Q^T
+      scores<T, D, R>(dp, v_t, do_t + kg * LD);   // dP^T = V dO^T
+      if (q0 + kCols > dm.sq || kw + 2 * R > dm.sk
+          || (causal && kw + 2 * R - 1 > q0)) {   // diagonal, ragged
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = kw + 2 * r + half, qp = q0 + kg + 16 * i;
+            if (key >= dm.sk || qp >= dm.sq || (causal && key > qp))
+              s[r][i] = -INFINITY;
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {               // column kg + 16 i: one q row
+        const float l2 = lse_s[kg + 16 * i] * kLog2e;
+        const float d = lse_s[kCols + kg + 16 * i];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float p = ex2(fmaf(s[r][i], scale_log2, -l2));
+          xp_t[2 * r * kXLd + kg + 16 * i] = p;
+          xs_t[2 * r * kXLd + kg + 16 * i] = p * (dp[r][i] - d);
+        }
+      }
+      __syncwarp();
+      accumulate<T, D, R>(dv_acc, xp_t, do_t + kg * VW);   // dV += P^T dO
+      accumulate<T, D, R>(dk_acc, xs_t, q_t + kg * VW);    // dK += dS^T Q
+      __syncwarp();                               // P^T, dS^T rewritten next
+    }
+    if (kStages == 1 && it + 1 < n) {             // one stage: refill it
+      __syncthreads();                            // every warp is done with it
+      fetch(it + 1);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < N; ++c) dk_acc[r][c] *= scale;
+  T* dkb = dk + kv_off;
+  T* dvb = dv + kv_off;
+  if (dm.group == 1) {                            // the one head's share is all
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int key = kw + 2 * r + half;
+      if (key >= dm.sk) continue;
+#pragma unroll
+      for (int c = 0; c < N / VW; ++c) {
+        const long long at = key * kv_stride + 16 * VW * c + kg * VW;
+        st<VW>(dkb + at, &dk_acc[r][c * VW]);
+        st<VW>(dvb + at, &dv_acc[r][c * VW]);
+      }
+    }
+    return;
+  }
+
+  // this head's share into partial (dK's (B, H, Sk, D), then dV's)
+  const long long part = (long long)dm.b * dm.h * dm.sk * D;
+  const long long head_at = (long long)dm.sk * D;
+  const float* grp = partial + ((long long)bi * dm.h + kvh * dm.group) * head_at;
+  const int own = head - kvh * dm.group;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int key = kw + 2 * r + half;
+    if (key >= dm.sk) continue;
+#pragma unroll
+    for (int c = 0; c < N / VW; ++c) {
+      float* p = partial + ((long long)bi * dm.h + head) * head_at
+                 + (long long)key * D + 16 * VW * c + kg * VW;
+      st<VW>(p, &dk_acc[r][c * VW]);
+      st<VW>(p + part, &dv_acc[r][c * VW]);
+    }
+  }
+  __threadfence();                                // this thread's share is visible
+  __syncthreads();                                // and every thread's
+  if (tid == 0) {
+    int* ticket = counter + ((long long)bi * dm.kh + kvh) * gridDim.y + tile;
+    last = atomicAdd(ticket, 1) == dm.group - 1;
+    if (last) *ticket = 0;                        // every block drew: re-armed
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the group's last block: the G shares in head order (its own from its
+  // registers, the same values it wrote)
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int key = kw + 2 * r + half;
+    if (key >= dm.sk) continue;
+#pragma unroll
+    for (int c = 0; c < N / VW; ++c) {
+      const long long at = (long long)key * D + 16 * VW * c + kg * VW;
+      float sk4[VW], sv4[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) sk4[e] = sv4[e] = 0.f;
+      for (int g = 0; g < dm.group; ++g) {
+        float xk[VW], xv[VW];
+        if (g == own) {
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            xk[e] = dk_acc[r][c * VW + e];
+            xv[e] = dv_acc[r][c * VW + e];
+          }
+        } else {
+          ld_l2<VW>(grp + g * head_at + at, xk);
+          ld_l2<VW>(grp + part + g * head_at + at, xv);
+        }
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          sk4[e] += xk[e];
+          sv4[e] += xv[e];
+        }
+      }
+      const long long out = key * kv_stride + 16 * VW * c + kg * VW;
+      st<VW>(dkb + out, sk4);
+      st<VW>(dvb + out, sv4);
+    }
+  }
+}
+
+template <typename T, int D, int BQ, int BK>
 int launch(const Args& a) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err;
+  constexpr size_t smem_dq = smem_bytes<T, D, false>(BQ);
+  constexpr size_t smem_dkdv = smem_bytes<T, D, true>(BK);
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse);
   float* delta = static_cast<float*>(a.delta);
+  const float scale_log2 = a.scale * kLog2e;
 
-  auto dqk = bwd_dq<T, D>;            // first: it writes delta
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  auto dqk = bwd_dq<T, D, BQ>;                    // first: it writes delta
+  cudaError_t err = cudaFuncSetAttribute(
+      dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
   if (err != cudaSuccess) return (int)err;
-  dim3 g1((a.dm.sq + kTile - 1) / kTile, a.dm.h, a.dm.b);
-  dqk<<<g1, kThreads, smem, a.stream>>>(q, k, v, dout, lse, delta,
-                                        static_cast<T*>(a.dq), a.dm, a.scale,
-                                        a.causal);
+  dim3 g1(a.dm.h * a.dm.b, (a.dm.sq + BQ - 1) / BQ);
+  dqk<<<g1, threads<false, D, BQ>(), smem_dq, a.stream>>>(
+      q, k, v, dout, lse, delta, static_cast<T*>(a.dq), a.dm, a.scale,
+      scale_log2, a.causal);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  auto dkdv = bwd_dkdv<T, D>;
+  auto dkdv = bwd_dkdv<T, D, BK>;
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                             (int)smem_dkdv);
   if (err != cudaSuccess) return (int)err;
-  dim3 g2((a.dm.sk + kTile - 1) / kTile, a.dm.kh, a.dm.b);
-  dkdv<<<g2, kThreads, smem, a.stream>>>(q, k, v, dout, lse, delta,
-                                         static_cast<T*>(a.dk),
-                                         static_cast<T*>(a.dv), a.dm, a.scale,
-                                         a.causal);
+  dim3 g2(a.dm.h * a.dm.b, (a.dm.sk + BK - 1) / BK);
+  dkdv<<<g2, threads<true, D, BK>(), smem_dkdv, a.stream>>>(
+      q, k, v, dout, lse, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+      a.partial, a.counter, a.dm, a.scale, scale_log2, a.causal);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int D>
+int dispatch_blocks(const Args& a, int block_q, int block_k) {
+  if (block_q == kBlockSmall)
+    return block_k == kBlockSmall ? launch<T, D, kBlockSmall, kBlockSmall>(a)
+                                  : launch<T, D, kBlockSmall, kBlockLarge>(a);
+  return block_k == kBlockSmall ? launch<T, D, kBlockLarge, kBlockSmall>(a)
+                                : launch<T, D, kBlockLarge, kBlockLarge>(a);
+}
+
 template <typename T>
-int dispatch_d(int d, const Args& a) {
+int dispatch_d(int d, const Args& a, int block_q, int block_k) {
   switch (d) {  // every multiple of 16 up to 128, each its own instantiation
 #define REPRO_HEAD_DIM(D) \
-    case D: return launch<T, D>(a);
+    case D: return dispatch_blocks<T, D>(a, block_q, block_k);
     REPRO_HEAD_DIM(16) REPRO_HEAD_DIM(32) REPRO_HEAD_DIM(48) REPRO_HEAD_DIM(64)
     REPRO_HEAD_DIM(80) REPRO_HEAD_DIM(96) REPRO_HEAD_DIM(112) REPRO_HEAD_DIM(128)
 #undef REPRO_HEAD_DIM
@@ -415,13 +675,28 @@ int dispatch_d(int d, const Args& a) {
   }
 }
 
+bool is_block(int block) { return block == kBlockSmall || block == kBlockLarge; }
+
+template <typename T>
+size_t smem_of(int which, int d, int block) {
+  switch (d) {
+#define REPRO_HEAD_DIM(D) \
+    case D: return which == 0 ? smem_bytes<T, D, false>(block) \
+                              : smem_bytes<T, D, true>(block);
+    REPRO_HEAD_DIM(16) REPRO_HEAD_DIM(32) REPRO_HEAD_DIM(48) REPRO_HEAD_DIM(64)
+    REPRO_HEAD_DIM(80) REPRO_HEAD_DIM(96) REPRO_HEAD_DIM(112) REPRO_HEAD_DIM(128)
+#undef REPRO_HEAD_DIM
+    default: return 0;
+  }
+}
+
+}  // namespace cc
 
 // --- bwd_dq_wgmma, bwd_dkdv_wgmma: bf16 on the tensor cores ----------------------
 
 namespace wg {
 
 using namespace hopper;
-using hopper::load_tile;           // not the fp32 staging load_tile above
 using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;          // wgmma's M: a warpgroup's q rows or keys
@@ -842,33 +1117,42 @@ extern "C" {
 
 // Returns 0 on success, a cudaError_t code if a launch was refused, or a
 // negative code for an argument the kernels do not take: -1 dtype, -2
-// block_q, -3 head dim, -4 block_k, -5 shape, -6 impl.  dtype: 0 float32,
-// 1 bfloat16.  impl: 0 by dtype (bfloat16 -> bwd_dq_wgmma and
+// block_q, -3 head dim, -4 block_k, -5 shape, -6 impl, -7 scratch.  dtype:
+// 0 float32, 1 bfloat16.  impl: 0 by dtype (bfloat16 -> bwd_dq_wgmma and
 // bwd_dkdv_wgmma, block_q and block_k 64 or 128; float32 -> bwd_dq and
-// bwd_dkdv, both 64), 1 bwd_dq and bwd_dkdv for either dtype (both 64).
-// delta: fp32 (B, H, Sq) scratch the first kernel fills.  Launches two
-// kernels in order on `stream`: the dQ kernel, then the dK/dV kernel.
+// bwd_dkdv, block_q and block_k 32 or 64), 1 bwd_dq and bwd_dkdv for either
+// dtype.  delta: fp32 (B, H, Sq) scratch the first kernel fills.  partial
+// (fp32, 2 x B x H x Sk x D) and counter (int32, B x KH x ceil(Sk /
+// block_k), all zero, left zero) are the CUDA-core dK/dV kernel's, needed
+// when H > KH.  Launches two kernels in order on `stream`: the dQ kernel,
+// then the dK/dV kernel.
 int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse, void* delta,
-                              void* dq, void* dk, void* dv, int dtype,
-                              int impl, int device, int b, int sq, int sk,
-                              int h, int kh, int d, int block_q, int block_k,
-                              int causal, float scale, void* stream) {
+                              void* dq, void* dk, void* dv, void* partial,
+                              void* counter, int dtype, int impl, int device,
+                              int b, int sq, int sk, int h, int kh, int d,
+                              int block_q, int block_k, int causal,
+                              float scale, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || kh < 1 || h % kh != 0) return -5;
   if (dtype != 0 && dtype != 1) return -1;
   if (impl != 0 && impl != 1) return -6;
   const bool tensor_cores = dtype == 1 && impl == 0;
-  if (tensor_cores ? block_q != 64 && block_q != 128 : block_q != kTile)
+  if (tensor_cores ? block_q != 64 && block_q != 128 : !cc::is_block(block_q))
     return -2;
-  if (tensor_cores ? block_k != 64 && block_k != 128 : block_k != kTile)
+  if (tensor_cores ? block_k != 64 && block_k != 128 : !cc::is_block(block_k))
     return -4;
+  if (!tensor_cores && h > kh && (partial == nullptr || counter == nullptr))
+    return -7;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Args a{q, k, v, dout, lse, delta, dq, dk, dv,
+               static_cast<float*>(partial), static_cast<int*>(counter),
                Dims{b, sq, sk, h, kh, h / kh}, scale, causal,
                static_cast<cudaStream_t>(stream)};
   if (tensor_cores) return wg::dispatch_d(d, a, block_q, block_k);
-  return dtype == 0 ? dispatch_d<float>(d, a) : dispatch_d<__nv_bfloat16>(d, a);
+  return dtype == 0
+             ? cc::dispatch_d<float>(d, a, block_q, block_k)
+             : cc::dispatch_d<__nv_bfloat16>(d, a, block_q, block_k);
 }
 
 // Dynamic shared memory of one tensor-core block (which: 0 bwd_dq_wgmma
@@ -876,6 +1160,17 @@ int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
 // shape they do not take).
 long long repro_flash_attention_bwd_wgmma_smem(int which, int d, int block) {
   return (long long)wg::smem_of(which, d, block);
+}
+
+// The same of one CUDA-core block (which: 0 bwd_dq, 1 bwd_dkdv; dtype 0
+// float32, 1 bfloat16).
+long long repro_flash_attention_bwd_cuda_core_smem(int which, int dtype, int d,
+                                                   int block) {
+  if (!cc::is_block(block) || (which != 0 && which != 1)
+      || (dtype != 0 && dtype != 1))
+    return 0;
+  return (long long)(dtype == 0 ? cc::smem_of<float>(which, d, block)
+                                : cc::smem_of<__nv_bfloat16>(which, d, block));
 }
 
 const char* repro_cuda_error_string(int code) {

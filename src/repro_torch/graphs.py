@@ -9,7 +9,8 @@ A graphed step runs its body in three ways:
 1. eagerly, on the step's own side stream (``GraphedStep.eager``): the
    first call builds and loads what the body launches and makes what it
    makes on first use (cuBLAS's handle and workspace for the stream, the
-   fused norm's ticket counters), since none of it may be made inside a
+   fused norm's and the fp32 attention backward's ticket counters), since
+   none of it may be made inside a
    capture (``GraphedShapes`` runs a later shape's first call on the
    caller's stream);
 2. captured on that stream (``GraphedStep.capture``): the kernel launches

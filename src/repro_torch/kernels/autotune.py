@@ -20,17 +20,25 @@ _SLEEP_CYCLES = 20_000_000    # ~10 ms of device clock, longer than the enqueue
 _FLUSH_BYTES = 128 << 20      # over twice the H100's 50 MB L2
 
 
+# the one card the catalog's "H100" entry describes: the SXM part's data
+# sheet (core/profiler/hw_specs.py), under the name the card reports
+H100_SXM_NAME = "NVIDIA H100 80GB HBM3"
+
+
 def default_chip(device: DeviceArg = None) -> str:
-    """Cache identity of the device the kernels run on: ``"H100"`` for any
-    H100 (the catalog key ``JobProfile.cost(..., "H100", ...)`` looks up),
-    another card's lowercased name with ``-`` for spaces (the reference's
-    TPU rule), and ``"cpu-host"`` for the CPU."""
+    """Cache identity of the device the kernels run on: ``"H100"`` for the
+    card the catalog's ``"H100"`` entry describes (the SXM part,
+    ``H100_SXM_NAME``; the key ``JobProfile.cost(..., "H100", ...)`` looks
+    up), any other card's name lowercased with ``-`` for spaces (the
+    reference's rule for a device kind: ``nvidia-h100-pcie``,
+    ``nvidia-h100-nvl``, which the catalog does not hold), and
+    ``"cpu-host"`` for the CPU."""
     dev = torch.device("cuda" if device is None and torch.cuda.is_available()
                        else device or "cpu")
     if dev.type != "cuda":
         return "cpu-host"
     name = torch.cuda.get_device_name(dev)
-    if "H100" in name:
+    if name == H100_SXM_NAME:
         return "H100"
     return name.replace(" ", "-").lower()
 

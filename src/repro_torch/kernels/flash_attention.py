@@ -52,6 +52,7 @@ _IMPL_CODE = {None: 0, "cuda_core": 1}
 _ERRORS = {-1: "dtype", -2: "block_q", -3: "head dim", -4: "block_k",
            -5: "impl"}
 _MAX_GRID_YZ = 65535
+H100_SMS = 132                # the grids sized from shapes alone assume it
 
 
 def kernel_for(dtype: torch.dtype, impl: Optional[str] = None) -> str:
@@ -238,22 +239,55 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # - bfloat16 -> ``"wgmma"``: the products on the tensor cores, P and dS
 #   entering them in bf16, as one rounding or as hi + lo
 #   (``WGMMA_BWD_SPLIT``); blocks of 64 or 128 q rows (dQ) and keys (dK/dV).
-# - float32 -> ``"cuda_core"``: fp32 products on the CUDA cores, 64 x 64
-#   tiles.  ``impl="cuda_core"`` pins these for bf16 too.
+# - float32 -> ``"cuda_core"``: fp32 products on the CUDA cores, blocks of
+#   32 or 64 q rows (dQ) and keys (dK/dV), each thread an 8-row register
+#   tile (4 in dK/dV past head dim 64) against 64-column streamed tiles.
+#   The dK/dV kernel takes one block a (key tile, query head); with a GQA
+#   group of G > 1 the heads' fp32 shares meet in scratch the wrapper
+#   allocates, and the group's last block to draw a ticket from an int32
+#   counter (``bwd_ticket_counters``) adds them in head order.
+#   ``impl="cuda_core"`` pins these for bf16 too.
 
 BWD_BLOCK = 64                # q rows and keys per tile of a warpgroup or block
 # q rows (dQ kernel) and keys (dK/dV kernel) a block, by kernel: the
-# choices each is built for and the defaults (the wgmma pair chosen by
-# ``chip_smoke.py``'s timing of all four at the train shape, ``blocks_ms``)
-BWD_BLOCK_CHOICES = {"wgmma": (64, 128), "cuda_core": (64,)}
-BWD_BLOCKS = {"wgmma": (128, 128), "cuda_core": (64, 64)}
+# choices each is built for (the CUDA-core ones the source's kBlockSmall,
+# kBlockLarge) and the defaults (each pair chosen by timing all four,
+# ``chip_smoke.py``'s ``blocks_ms``); ``bwd_block_pair`` adapts the
+# CUDA-core dQ block to the grid
+BWD_BLOCK_CHOICES = {"wgmma": (64, 128), "cuda_core": (32, 64)}
+BWD_BLOCKS = {"wgmma": (128, 128), "cuda_core": (64, 32)}
+# the CUDA-core dQ kernel takes 32-row blocks while its 64-row grid is at
+# most this many blocks an SM (two 64-row blocks fit an SM at D 64)
+BWD_SMALL_GRID = 2
+# the CUDA-core dK/dV kernel's ticket counters made at a stream's first
+# call: one a (batch, KV head, key tile), grown when a launch needs more
+BWD_TICKETS = 1 << 16
 # How the tensor-core kernels' bf16 A operands enter their products: True
 # is hi + lo (two bf16 parts, two products), False one bf16 rounding.  The
 # source's kSplit* constants; chosen per product on a trained model's
 # inputs (``bench/attention_bwd_precision.py``).
 WGMMA_BWD_SPLIT = {"p_dv": False, "ds_dk": False, "ds_dq": True}
 _BWD_ERRORS = {-1: "dtype", -2: "block_q", -3: "head dim", -4: "block_k",
-               -5: "shape", -6: "impl"}
+               -5: "shape", -6: "impl", -7: "scratch"}
+_TICKETS: dict = {}     # (device index, stream) -> counters, newest last
+
+
+def bwd_block_pair(kern: str, b: int, sq: int, h: int,
+               sms: int = H100_SMS) -> Tuple[int, int]:
+    """(block_q, block_k) a launch of ``kern``'s backward takes by default,
+    from host-known shapes: ``BWD_BLOCKS[kern]``, except that the
+    CUDA-core dQ kernel takes 32-row blocks (4 rows a thread) while its
+    64-row grid, ``b * h * ceil(sq / 64)`` blocks, is at most
+    ``BWD_SMALL_GRID`` blocks an SM: there each warp's own chain of work
+    sets the time, and a 32-row block's warps carry half a 64-row one's.
+    Measured on an H100 (``PERF.md``, beside 32-key dK/dV blocks): 32-row
+    dQ blocks 8-14% faster at the plan phase's (1-4, 128, 15/5, 64), 8%
+    slower at the train shape's 960 blocks."""
+    bq, bk = BWD_BLOCKS[kern]
+    if kern == "cuda_core" and b * h * -(-sq // BWD_BLOCK) \
+            <= BWD_SMALL_GRID * sms:
+        bq = BWD_BLOCK_CHOICES[kern][0]
+    return bq, bk
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -307,8 +341,36 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
             dv.transpose(1, 2).to(q.dtype))
 
 
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 12
                  + [ctypes.c_float, ctypes.c_void_p])
+
+
+def bwd_ticket_counters(device: torch.device, stream,
+                        n: int = BWD_TICKETS) -> torch.Tensor:
+    """The stream's ticket counters for the CUDA-core dK/dV kernel (int32,
+    at least ``n``): allocated and zeroed on the stream at the first call
+    for this (device, stream), and again, at least twice as many, when a
+    launch needs more than it has; every launch leaves them zero.  A CUDA
+    graph captured on ``stream`` needs them made before its capture begins
+    (call this, or run the backward once on the stream at the capture's
+    shapes): a call that would make them inside a capture raises.  Counters
+    that were replaced stay allocated, since a graph captured before may
+    launch on them."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    key = (index, stream.cuda_stream)
+    made = _TICKETS.setdefault(key, [])
+    if not made or made[-1].numel() < n:
+        with torch.cuda.stream(stream):
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "flash_attention_bwd: the ticket counters of a stream "
+                    "under graph capture must be made before the capture "
+                    "(flash_attention.bwd_ticket_counters(device, stream, "
+                    "n))")
+            size = max(n, BWD_TICKETS, 2 * made[-1].numel() if made else 0)
+            made.append(torch.zeros(size, dtype=torch.int32, device=device))
+    return made[-1]
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -322,19 +384,25 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     """Launch q's dtype's two backward kernels (or, with
     ``impl="cuda_core"``, the CUDA-core ones) on PyTorch's current stream:
     dQ with delta, then dK/dV.  ``block_q`` / ``block_k`` (None: the
-    kernels' defaults, ``BWD_BLOCKS``) are the q rows and keys a block
-    takes.  Raises on any tensor they do not take (for the wgmma kernels,
-    rows not on 16-byte boundaries) and on a refused launch.  Inputs are
-    made contiguous (a no-op on the model's path); two calls on the same
-    inputs agree bit for bit (no atomics)."""
+    kernels' defaults for the shape, ``bwd_block_pair``) are the q rows
+    and keys a block takes.  Raises on any tensor they do not take (rows not
+    on 16-byte boundaries, for either pair of kernels, before it looks at
+    the device) and on a refused launch.  Inputs are made contiguous (a no-op on the
+    model's path); two calls on the same inputs agree bit for bit (no
+    atomics on data).  The CUDA-core pair with H > KH also takes fp32
+    scratch for the heads' dK/dV shares and the stream's ticket counters
+    (``bwd_ticket_counters``)."""
     kern = kernel_for(q.dtype, impl)
-    bq, bk = BWD_BLOCKS[kern]
+    bq, bk = bwd_block_pair(kern, q.shape[0], q.shape[1], q.shape[2])
     block_q, block_k = block_q or bq, block_k or bk
     if block_q not in BWD_BLOCK_CHOICES[kern] \
             or block_k not in BWD_BLOCK_CHOICES[kern]:
         raise ValueError(f"flash_attention_bwd_cuda: block_q={block_q}, "
                          f"block_k={block_k}; the {kern} kernels are built "
                          f"for {BWD_BLOCK_CHOICES[kern]}")
+    q, k, v, do, lse = (t.contiguous() for t in (q, k, v, do, lse))
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        _check_16_bytes(t, name, "flash_attention_bwd_cuda")  # 16-byte copies
     for t in (q, k, v, do, lse):
         if not t.is_cuda or t.device != q.device:
             raise ValueError("flash_attention_bwd_cuda: q, k, v, do, lse "
@@ -349,26 +417,31 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if h > _MAX_GRID_YZ or b > _MAX_GRID_YZ:
         raise ValueError(f"flash_attention_bwd_cuda: B={b}, H={h} exceed "
                          f"the grid limit {_MAX_GRID_YZ}")
-    q, k, v, do, lse = (t.contiguous() for t in (q, k, v, do, lse))
-    if kern == "wgmma":                 # 16-byte cp.async copies of rows
-        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-            _check_16_bytes(t, name, "flash_attention_bwd_cuda")
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device)
+    partial = counter = None
+    if kern == "cuda_core" and h > kh:
+        partial = torch.empty((2, b, h, sk, d), dtype=torch.float32,
+                              device=q.device)
+        counter = bwd_ticket_counters(q.device, stream,
+                                      b * kh * -(-sk // block_k))
     lib = _build.load("flash_attention_bwd")
     fn = lib.repro_flash_attention_bwd
     if fn.argtypes is None:
         fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype],
-            _IMPL_CODE[impl], q.device.index, b, sq, sk, h, kh, d, block_q,
-            block_k, int(causal), 1.0 / math.sqrt(d),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            dk.data_ptr(), dv.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            None if counter is None else counter.data_ptr(),
+            _DTYPE_CODE[q.dtype], _IMPL_CODE[impl], q.device.index, b, sq,
+            sk, h, kh, d, block_q, block_k, int(causal), 1.0 / math.sqrt(d),
+            stream.cuda_stream)
     _build.check(lib, rc, "flash_attention_bwd", _BWD_ERRORS)
-    del delta     # freed in stream order, after the kernels
+    del delta, partial    # freed in stream order, after the kernels
     return dq, dk, dv
 
 
@@ -387,7 +460,6 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
 _DECODE_ERRORS = {-1: "dtype", -3: "head dim", -4: "block_k", -5: "shape",
                   -6: "split", -7: "heads per block"}
 DECODE_HEADS = (1, 2, 4, 8)   # query heads a block takes: one build each
-H100_SMS = 132
 BLOCKS_PER_SM = 4             # decode_splits' target grid: 4 blocks an SM
 
 

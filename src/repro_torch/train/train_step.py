@@ -23,6 +23,7 @@ import torch
 
 from repro_torch import graphs
 from repro_torch.device import device_of
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused as fused_mod
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
@@ -152,7 +153,8 @@ class GraphedTrainStep(graphs.GraphedStep):
     1. the first runs the device body eagerly on the step's own side
        stream: it builds the kernels, loads every instantiation the step
        launches (none may load inside a capture) and creates the stream's
-       fused-norm ticket counters before any capture;
+       ticket counters (the fused norm's and the fp32 attention
+       backward's) before any capture;
     2. the second captures the body on that stream into one
        ``torch.cuda.CUDAGraph``, then replays it;
     3. every later call replays it.
@@ -239,6 +241,7 @@ class GraphedTrainStep(graphs.GraphedStep):
 
     def _first(self, params, opt_state) -> Dict[str, torch.Tensor]:
         fused_mod.ticket_counters(self.device, self.stream)
+        fa.bwd_ticket_counters(self.device, self.stream)
         return self._body(params, opt_state)
 
     def __call__(self, params, opt_state, batch):

@@ -275,6 +275,13 @@ def test_default_chip(monkeypatch):
     monkeypatch.setattr(torch.cuda, "get_device_name",
                         lambda *a: "NVIDIA A100-SXM4-80GB")
     assert tat.default_chip("cuda") == "nvidia-a100-sxm4-80gb"
+    # the catalog's "H100" is the SXM card's data sheet: other H100s keep
+    # their own names, as the reference keys a chip by its device kind
+    for name, key in (("NVIDIA H100 PCIe", "nvidia-h100-pcie"),
+                      ("NVIDIA H100 NVL", "nvidia-h100-nvl"),
+                      (tat.H100_SXM_NAME, "H100")):
+        monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: name)
+        assert tat.default_chip("cuda") == key
 
 
 def test_bench_time_on_the_cpu_is_a_median():
@@ -364,6 +371,25 @@ def test_calibrate_cpu_host_refuses_a_card_without_an_entry(monkeypatch):
                         lambda dev: "nvidia-a100-sxm4-40gb")
     with pytest.raises(ValueError, match="nvidia-a100-sxm4-40gb.*H100"):
         tmeasured.calibrate_cpu_host(tget("smollm_360m"), device="cpu")
+
+
+@pytest.mark.parametrize("name,key", [
+    ("NVIDIA H100 PCIe", "nvidia-h100-pcie"),
+    ("NVIDIA H100 NVL", "nvidia-h100-nvl")])
+def test_catalog_entry_refuses_an_h100_that_is_not_the_sxm(monkeypatch, name,
+                                                          key):
+    """An H100 other than the SXM card has no catalog entry: the SXM's
+    is not fitted or priced in its place.  ``catalog_entry`` raises
+    ``ValueError`` naming the card's own key, and ``calibrate_cpu_host``
+    raises before anything is measured."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: name)
+    monkeypatch.setattr(tmeasured, "measure_block",
+                        lambda *a, **kw: pytest.fail("measured"))
+    with pytest.raises(ValueError, match=f"'{key}'"):
+        tmeasured.catalog_entry("cuda")
+    with pytest.raises(ValueError, match=f"'{key}'.*H100"):
+        tmeasured.calibrate_cpu_host(tget("smollm_360m"), device="cuda")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -546,6 +546,8 @@ def _attn_bwd_inputs(gen, b, sq, sk, h, kh, d, causal, dtype):
     (1, 200, 200, 6, 2, 128, True),
     (2, 130, 70, 4, 2, 48, False),      # unequal lengths
     (1, 70, 130, 4, 4, 32, True),       # causal, sk > sq
+    (1, 128, 128, 15, 5, 64, True),     # the plan phase's fp32 fit shapes
+    (4, 128, 128, 15, 5, 64, True),
 ])
 @pytest.mark.parametrize("dtype,impl", [
     (torch.float32, None),                          # the CUDA-core kernels
@@ -582,6 +584,116 @@ def test_flash_attention_bwd_wgmma_every_head_dim_and_block(cuda, d, block_q,
     torch.cuda.synchronize()
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         _close_max(g, w, BWD_TOL[torch.bfloat16], name)
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("block_q,block_k", [(32, 32), (64, 64), (32, 64),
+                                             (64, 32)])
+def test_flash_attention_bwd_cuda_core_every_head_dim_and_block(cuda, d,
+                                                                block_q,
+                                                                block_k):
+    """Every instantiation of the CUDA-core kernels (eight head dims, 32 or
+    64 rows a block; at D > 64 the dK/dV kernel's 4 rows a thread) in fp32
+    against the plain version, causal GQA 6/2 with S a multiple of no
+    tile, and twice bit for bit."""
+    args = _attn_bwd_inputs(cuda, 2, 200, 200, 6, 2, d, True, torch.float32)
+    got = fa.flash_attention_bwd_cuda(*args, block_q=block_q, block_k=block_k)
+    again = fa.flash_attention_bwd_cuda(*args, block_q=block_q,
+                                        block_k=block_k)
+    want = fa.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _close_max(g, w, BWD_TOL[torch.float32], name)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("shape,causal", [((4, 1024, 1024, 15, 5, 64), True),
+                                          ((2, 1000, 1000, 15, 5, 64), False)])
+def test_flash_attention_bwd_fp32_bit_for_bit(cuda, shape, causal):
+    """The fp32 backward at the train shape and at S 1000 non-causal: two
+    runs agree bit for bit at every pair of blocks (the GQA group's shares
+    are added in head order, no float atomics), and each pair agrees with
+    the plain version."""
+    args = _attn_bwd_inputs(cuda, *shape, causal, torch.float32)
+    want = fa.flash_attention_bwd_plain(*args, causal=causal)
+    for bq in fa.BWD_BLOCK_CHOICES["cuda_core"]:
+        for bk in fa.BWD_BLOCK_CHOICES["cuda_core"]:
+            first = fa.flash_attention_bwd_cuda(*args, causal=causal,
+                                                block_q=bq, block_k=bk)
+            again = fa.flash_attention_bwd_cuda(*args, causal=causal,
+                                                block_q=bq, block_k=bk)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(first, again))
+            for name, g, w in zip(("dq", "dk", "dv"), first, want):
+                _close_max(g, w, BWD_TOL[torch.float32], f"{name} {bq}x{bk}")
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "do"])
+@pytest.mark.parametrize("dtype,impl", [(torch.float32, None),
+                                        (torch.bfloat16, "cuda_core")])
+def test_flash_attention_bwd_cuda_core_refuses_unaligned_rows(cuda, which,
+                                                              dtype, impl):
+    """An input off a 16-byte boundary: the CUDA-core kernels' 16-byte
+    copies cannot take it, and the wrapper raises rather than fall back."""
+    args = list(_attn_bwd_inputs(cuda, 1, 64, 64, 2, 2, 64, True, dtype))
+    i = ("q", "k", "v", "do").index(which)
+    flat = torch.empty(args[i].numel() + 1, dtype=dtype, device="cuda")
+    args[i] = flat[1:].view(args[i].shape).copy_(args[i])
+    assert args[i].data_ptr() % 16 != 0
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        if impl is None:
+            ops.flash_attention_bwd(*args)
+        else:
+            fa.flash_attention_bwd_cuda(*args, impl=impl)
+    assert ops.LAUNCHES["flash_attention_bwd"] == 0
+
+
+def test_flash_attention_bwd_tickets_rearm_and_graph(cuda):
+    """The fp32 dK/dV kernel's ticket counters: zero after every launch
+    (shapes and blocks back to back, GQA groups 3 and 2, and on a side
+    stream, which gets counters of its own); grown outside a capture only;
+    and the fp32 backward captured in a CUDA graph on a stream whose
+    counters were made first replays equal to eager, bit for bit."""
+    dev = torch.device("cuda")
+    main = torch.cuda.current_stream()
+    for shape, bk in (((2, 300, 300, 15, 5, 64), 64), ((1, 200, 200, 6, 3, 32),
+                      32), ((2, 77, 77, 4, 2, 16), 64)):
+        args = _attn_bwd_inputs(cuda, *shape, True, torch.float32)
+        fa.flash_attention_bwd_cuda(*args, block_k=bk)
+        torch.cuda.synchronize()
+        assert not fa.bwd_ticket_counters(dev, main).any()
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        fa.flash_attention_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    counters = fa.bwd_ticket_counters(dev, side)
+    assert counters.data_ptr() != fa.bwd_ticket_counters(dev, main).data_ptr()
+    assert not counters.any()
+    # a graph on a stream with its counters made first
+    cap = torch.cuda.Stream()
+    fa.bwd_ticket_counters(dev, cap)
+    args = _attn_bwd_inputs(cuda, 2, 300, 300, 15, 5, 64, True, torch.float32)
+    eager = fa.flash_attention_bwd_cuda(*args)
+    graph = torch.cuda.CUDAGraph()
+    cap.wait_stream(main)
+    with torch.cuda.graph(graph, stream=cap):
+        out = fa.flash_attention_bwd_cuda(*args)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, eager))
+        assert not fa.bwd_ticket_counters(dev, cap).any()
+    # growing, or making, counters inside a capture raises
+    big = fa.bwd_ticket_counters(dev, cap).numel() + 1
+    with pytest.raises(RuntimeError, match="before the capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=cap):
+            fa.bwd_ticket_counters(dev, cap, big)
+    other = torch.cuda.Stream()
+    with pytest.raises(RuntimeError, match="before the capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=other):
+            fa.bwd_ticket_counters(dev, other)
 
 
 @pytest.mark.parametrize("which", ["q", "k", "v", "do"])
@@ -874,8 +986,9 @@ def test_graphed_train_step_counts_the_eager_launches(cuda):
 
 
 def test_graphed_train_step_makes_the_counters_before_capture(cuda):
-    """The side stream's fused-norm ticket counters exist after the first
-    (eager) call, the capture adds none, and they read zero after 3
+    """The side stream's ticket counters (the fused norm's, and the fp32
+    attention backward's) exist after the first (eager) call, the capture
+    adds none, and they read zero after 3
     replays; the capture stream's counters cannot be made inside one."""
     from repro_torch.train import train_step as tts
     cfg, ds, ocfg = _graph_setup()
@@ -887,6 +1000,7 @@ def test_graphed_train_step_makes_the_counters_before_capture(cuda):
     assert key not in fused_mod._COUNTERS
     step(params, state, ds.batch(0))
     counters = fused_mod._COUNTERS[key]
+    assert not fa._TICKETS[key][-1].any()   # the fp32 backward's, made too
     keys = set(fused_mod._COUNTERS)
     for i in range(3):
         step(params, state, ds.batch(i + 1))

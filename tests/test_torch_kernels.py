@@ -801,19 +801,87 @@ def test_flash_attention_bwd_routes_by_dtype_and_impl(dtype, impl, kernel):
     else:                           # rounded, and the split counts
         assert same == [False, False, False]
         assert not all(torch.equal(a, b) for a, b in zip(split, one))
-    with pytest.raises(ValueError, match="block_q=32"):
-        fa.flash_attention_bwd_cuda(q, k, v, do, lse, impl=impl, block_q=32)
+    with pytest.raises(ValueError, match="block_q=16"):
+        fa.flash_attention_bwd_cuda(q, k, v, do, lse, impl=impl, block_q=16)
     if kernel == "cuda_core":       # 128 is a tensor-core block only
         with pytest.raises(ValueError, match="block_k=128"):
             fa.flash_attention_bwd_cuda(q, k, v, do, lse, impl=impl,
                                         block_k=128)
-    else:                           # taken: the CPU tensors are refused
+    else:                           # 32 a CUDA-core block only
+        with pytest.raises(ValueError, match="block_k=32"):
+            fa.flash_attention_bwd_cuda(q, k, v, do, lse, impl=impl,
+                                        block_k=32)
+    for bk in fa.BWD_BLOCK_CHOICES[kernel]:   # taken: CPU tensors refused
         with pytest.raises(ValueError, match="CUDA tensors"):
             fa.flash_attention_bwd_cuda(q, k, v, do, lse, impl=impl,
-                                        block_k=64)
+                                        block_k=bk)
     for fn in (fa.flash_attention_bwd_plain, fa.flash_attention_bwd_cuda):
         with pytest.raises(ValueError, match="impl='tiled'"):
             fn(q, k, v, do, lse, impl="tiled")
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "do"])
+@pytest.mark.parametrize("dtype,impl", [(torch.float32, None),
+                                        (torch.bfloat16, "cuda_core"),
+                                        (torch.bfloat16, None)])
+def test_flash_attention_bwd_cuda_refuses_unaligned_rows(which, dtype, impl):
+    """Both pairs of backward kernels copy rows 16 bytes at a time: an
+    input whose base is not on a 16-byte boundary is refused before the
+    device is looked at (here on CPU tensors, which the wrapper otherwise
+    refuses for not lying on the card), for the CUDA-core kernels as for
+    the tensor-core ones; nothing falls back."""
+    gen = torch.Generator().manual_seed(5)
+    args = [torch.randn(1, 64, n, 64, generator=gen).to(dtype)
+            for n in (4, 2, 2, 4)]
+    lse = torch.zeros(1, 4, 64)
+    i = ("q", "k", "v", "do").index(which)
+    flat = torch.zeros(args[i].numel() + 1, dtype=dtype)
+    args[i] = flat[1:].view(args[i].shape).copy_(args[i])
+    with pytest.raises(ValueError,
+                       match=f"{which} must start on a 16-byte boundary"):
+        fa.flash_attention_bwd_cuda(*args, lse, impl=impl)
+    args[i] = args[i].clone()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_bwd_cuda(*args, lse, impl=impl)
+
+
+def test_cuda_core_bwd_blocks_mirror_the_source():
+    """``BWD_BLOCK_CHOICES["cuda_core"]`` is the source's kBlockSmall and
+    kBlockLarge (each an instantiation of both CUDA-core kernels), the
+    default pair is among them, the streamed tile is the plain version's
+    ``BWD_BLOCK``, and the wrapper names the C entry's scratch refusal."""
+    src = (Path(fa.__file__).parents[1] / "csrc"
+           / "flash_attention_bwd.cu").read_text()
+    m = re.search(r"constexpr int kBlockSmall = (\d+), kBlockLarge = (\d+);",
+                  src)
+    assert m and tuple(map(int, m.groups())) == fa.BWD_BLOCK_CHOICES[
+        "cuda_core"]
+    assert set(fa.BWD_BLOCKS["cuda_core"]) <= set(
+        fa.BWD_BLOCK_CHOICES["cuda_core"])
+    m = re.search(r"constexpr int kCols = (\d+);", src)
+    assert m and int(m.group(1)) == fa.BWD_BLOCK
+    assert "-7 scratch" in src and fa._BWD_ERRORS[-7] == "scratch"
+
+
+@pytest.mark.parametrize("b,sq,h,sms,want", [
+    (4, 1024, 15, 132, (64, 32)),       # the train shape: 960 blocks of 64
+    (4, 128, 15, 132, (32, 32)),        # the plan phase's fp32 fits
+    (2, 128, 15, 132, (32, 32)),
+    (1, 128, 15, 132, (32, 32)),
+    (4, 256, 15, 132, (32, 32)),        # 240 blocks: under two an SM
+    (11, 128, 12, 132, (32, 32)),       # 264 blocks: the limit
+    (1, 1089, 16, 132, (64, 32)),       # 18 tiles x 16 = 288 blocks
+    (4, 128, 15, 30, (64, 32)),         # a card of fewer SMs
+])
+def test_bwd_block_pair_adapts_the_cuda_core_dq_block_to_the_grid(
+        b, sq, h, sms, want):
+    """The CUDA-core dQ kernel takes 32-row blocks while its 64-row grid
+    is at most ``BWD_SMALL_GRID`` blocks an SM, else 64; the dK/dV block
+    and the tensor-core pair are the fixed defaults."""
+    assert fa.bwd_block_pair("cuda_core", b, sq, h, sms) == want
+    assert want[1] == fa.BWD_BLOCKS["cuda_core"][1]
+    assert fa.bwd_block_pair("wgmma", b, sq, h, sms) == fa.BWD_BLOCKS[
+        "wgmma"]
 
 
 def test_library_digest_covers_included_headers(tmp_path, monkeypatch):
@@ -1174,6 +1242,24 @@ def _attention_ablations():
     return attention_ablations
 
 
+@pytest.mark.parametrize("name", ["bwd_f32_base", "bwd_f32_two_stages"])
+def test_attention_bwd_f32_ablation_variants_apply(name):
+    """The fp32 backward's variants find their anchor in
+    ``csrc/flash_attention_bwd.cu`` and change only the CUDA-core kernels'
+    stage count; the bench times them in fp32 (``F32_BWD_SHAPES``: the
+    train shape and the plan phase's fit shape)."""
+    ab = _attention_ablations()
+    base = (Path(ROOT) / "src/repro_torch/csrc/flash_attention_bwd.cu"
+            ).read_text()
+    src = ab.variant_source(name)
+    removed = set(base.splitlines()) - set(src.splitlines())
+    assert len(removed) == (name != "bwd_f32_base")
+    if name == "bwd_f32_two_stages":
+        assert removed == {"constexpr int kStages = 1;"}
+        assert "constexpr int kStages = 2;" in src
+    assert ab.F32_BWD_SHAPES == ((4, 1024, 15, 5, 64), (4, 128, 15, 5, 64))
+
+
 @pytest.mark.parametrize("name", ["f32_base", "f32_two_stages",
                                   "f32_mask_every_tile", "f32_generic_copy",
                                   "f32_expf"])
@@ -1181,18 +1267,19 @@ def test_attention_fp32_ablation_variants_apply(name):
     """Each fp32 forward variant of ``bench/attention_ablations.py`` finds
     its anchor in ``csrc/flash_attention.cu`` (the bench raises otherwise)
     and changes only what it names: the source constant it flips, the
-    mask's condition, the copy's branch, the two exponentials."""
+    mask's condition, the copies' calls, the two exponentials."""
     ab = _attention_ablations()
     base = (Path(ROOT) / "src/repro_torch/csrc/flash_attention.cu").read_text()
     src = ab.variant_source(name)
     assert name.startswith("f32_") and name in ab.VARIANTS
     removed = set(base.splitlines()) - set(src.splitlines())
-    assert len(removed) == {"f32_base": 0, "f32_expf": 2}.get(name, 1)
+    assert len(removed) == {"f32_base": 0, "f32_expf": 2,
+                            "f32_generic_copy": 3}.get(name, 1)
     if name == "f32_two_stages":
         assert "constexpr int kKvStages = 2;" in src
     if name == "f32_mask_every_tile":
         assert "      if (true) {" in src
-    if name == "f32_generic_copy":
-        assert "  if constexpr (false) {" in src
+    if name == "f32_generic_copy":     # the three tile copies
+        assert "copy_rows<" not in src and src.count("copy_rows_each<") == 3
     if name == "f32_expf":
         assert src.count("expf(kLn2 * ") == 2
