@@ -104,6 +104,26 @@ Phases, each printed as it runs; any failure exits non-zero:
              ms, tokens/s, peak memory), the capture's seconds and the
              graph's nodes; both steps profiled, the "elementwise/other"
              group broken down by kernel name.
+   pipeline  ``dist/pipeline.MPMDPipeline``, the runtime that executes
+             Sailor's plans, on smollm-360M at its published widths and
+             depth, bf16, untied (the reference's cut for the pipeline),
+             ``remat="full"``: ``even_stages(cfg, [1, 1])``, two stages of
+             16 layers on ``[cuda:0, cuda:0]``, on phase 8's data and
+             optimizer.  Graphed (a CUDA graph a stage, program and input
+             shape) and eager pipelines from the same weights must be bit
+             for bit equal after 2 steps; the graphed first step's loss
+             and per-stage gradients are held against the single-device
+             ``loss_and_grads`` (phase 8's bounds); the loss must fall
+             over 4 steps on one batch; 3 pairs of steps timed in turns
+             (wall, device ms, ratio to phase 8's graphed step), one
+             graphed step profiled; per step the attention forward must
+             launch 3 x 32 x 2 times (the forward, and the backward's
+             recompute under remat), its backward 32 x 2 and no other
+             kernel; each stage's resident bytes and its programs' most
+             allocated.  Then an fp32 2-layer pipeline against
+             ``make_train_step`` (1e-4) and an ``AdaptiveDPGroup`` of two
+             such pipelines, a 2:1 assignment against the uniform one (each
+             step's loss within 1e-3).
 9. plan      Sailor's planner and simulator priced by the card: the
              ``"H100"`` entry fitted as ``measured.calibrate_cpu_host``
              fits it (``measure_block``'s one-layer forward and gradient
@@ -125,7 +145,18 @@ Phases, each printed as it runs; any failure exits non-zero:
              regions, with the datasheet and then the fitted entry (plan,
              t_iter, $/iteration, search seconds, whether the plan
              changed), and one serving plan (``plan_serving``) on the
-             first fleet with the kernel table.  The datasheet entry is
+             first fleet with the kernel table.  Then, under the bf16 fit:
+             ``calibrate_memory`` on the untied model at seq 1024, mbs 1,
+             2, 4 (graphed train steps, and the pipeline's two stage
+             programs at mbs 4): its coefficients, each point's raw and
+             fitted error, and ``simulate``'s worker peak of phase 8's
+             step under the fitted and the default memory model; the 7
+             baseline planners on the first fleet beside Sailor's plan
+             (first valid plan, t_iter, $/iteration); last
+             ``calibrate_engine`` at the reference's defaults on the
+             untied model in fp32 (its a, b and points, and one of its
+             pipeline steps profiled), after which the bf16 fit is
+             registered again.  The datasheet entry is
              restored at the end.
 10. result   one JSON line of kernel figures, the card line, then
              ``{"ok": true, "device": {...}}`` as the last line.  The
@@ -135,7 +166,7 @@ Phases, each printed as it runs; any failure exits non-zero:
              shape (``calibrate``); the norm entries their plan, share of
              the bound and the 16384-row case (``rows16384``).
 
-Each of phases 5-9 (serve continuous too) is a main path: the launch
+Each of phases 5-9 (serve continuous and pipeline too) is a main path: the launch
 counts are set to 0 just before it and read just after, and each kernel
 must have launched on the path that runs it.  Phase 3 also holds the two backward kernels
 (attention, fused add + RMSNorm) against their plain versions on the
@@ -322,6 +353,23 @@ PLAN_FLEETS = {
 PLAN_SERVE = dict(prompt_len=512, max_new_tokens=64, decode_batch=BATCH,
                   arrival_rps=4.0)
 PLAN_SLO = dict(slo_ttft_p99_s=2.0, slo_tpot_p99_s=0.2)
+# plan phase, after the comparisons above: the memory fit over the train
+# cell's shape (graphed train steps at mbs 1, 2, 4 of 2 microbatches, the
+# pipeline's two stage programs at mbs 4); the 7 baselines on the one-zone
+# fleet under the fitted H100 (metis capped at PLAN_METIS_CAP_S); then the
+# engine fit at the reference's defaults on the untied model in fp32 (the
+# dtype its rate is fitted in), which re-registers "H100": run last
+PLAN_MEM_MBS = (1, 2, 4)
+PLAN_ENGINE_SEQ = 32        # calibrate_engine's default seq_len
+PLAN_METIS_CAP_S = 5.0
+# pipeline phase: smollm-360M at its published widths and depth, bf16,
+# untied (the reference's own cut for the pipeline), two stages of 16
+# layers on the one card, [train]'s data and optimizer
+PIPE_STEPS = 2          # graphed vs eager from the same weights, compared
+PIPE_LEARN = 4          # steps on one repeated batch: the loss must fall
+PIPE_PAIRS = 3          # pairs of steps timed in turns, graphed and eager
+PIPE_GROUP_STEPS = 4    # AdaptiveDPGroup, fp32 2 layers: 2:1 vs uniform
+PIPE_GROUP_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -1040,9 +1088,12 @@ def batch_lengths(reqs):
 
 def plan_shapes():
     """(label, mbs, seq_len, dtype) of every ``measure_block`` call the
-    plan phase makes (``PLAN_FITS`` x ``BLOCK_MBS``): its attention runs at
-    (mbs, seq_len, 15/5, 64) causal and its norm at mbs x seq_len rows."""
-    for _, kw in PLAN_FITS:
+    plan phase makes (``PLAN_FITS`` x ``BLOCK_MBS``, and the engine fit's
+    ``calibrate_cpu_host`` at fp32 seq PLAN_ENGINE_SEQ, whose pipeline runs
+    at its mbs 2): its attention runs at (mbs, seq_len, 15/5, 64) causal
+    and its norm at mbs x seq_len rows."""
+    engine = ("engine", dict(seq_len=PLAN_ENGINE_SEQ, dtype="float32"))
+    for _, kw in PLAN_FITS + (engine,):
         for mbs in BLOCK_MBS:
             yield (f"plan_{kw['dtype']}_s{kw['seq_len']}_b{mbs}", mbs,
                    kw["seq_len"], getattr(torch, kw["dtype"]))
@@ -2311,6 +2362,331 @@ def phase_train_graphed(cfg, dc, ocfg, batches):
     return total, turns
 
 
+def _pipe_cfg():
+    return dataclasses.replace(get_config(ARCH), tie_embeddings=False,
+                               remat="full")
+
+
+def _pipe(pl, cfg, ocfg, full, graphed):
+    """A 2-stage pipeline on the one card, ``full``'s weights copied in."""
+    pipe = pl.MPMDPipeline(cfg, pl.even_stages(cfg, [1, 1]), ocfg,
+                           devices=["cuda:0", "cuda:0"], graphed=graphed)
+    pipe.full_params_like(full)
+    return pipe
+
+
+def _stage_slice(st, flat: dict, key: str):
+    """The single-device tree's leaf ``key`` cut to stage ``st``."""
+    if key.startswith("layers/"):
+        return flat[key][st.start:st.stop]
+    return flat[key]
+
+
+def _pipe_param_diff(a, b) -> tuple:
+    """(max |a - b| over every stage's params, bit-identical)."""
+    worst, same = 0.0, True
+    for pa, pb in zip(a.params, b.params):
+        for (_, x), (_, y) in zip(opt_lib.tree_leaves(pa),
+                                  opt_lib.tree_leaves(pb)):
+            worst = max(worst, (x.float() - y.float()).abs().max().item())
+            same &= torch.equal(x, y)
+    return worst, same
+
+
+def _pipe_stage_memory(pipe, batch) -> list:
+    """One eager step with each stage program's working set read off the
+    allocator (``max_memory_allocated`` over the call, above what was
+    allocated before it) beside the stage's resident params, AdamW state
+    and gradient buffers."""
+    seen = [dict(working_set_bytes=0) for _ in pipe.stages]
+    progs = pipe._programs
+    saved = [dict(p) for p in progs]
+
+    def wrap(i, fn):
+        def call(*a):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            seen[i]["working_set_bytes"] = max(
+                seen[i]["working_set_bytes"],
+                torch.cuda.max_memory_allocated() - before)
+            return out
+        return call
+
+    for i, p in enumerate(progs):
+        for name in p:
+            p[name] = wrap(i, p[name])
+    try:
+        pipe.train_step(batch)
+    finally:
+        for p, orig in zip(progs, saved):
+            p.update(orig)
+    for i, (p, o, acc) in enumerate(zip(pipe.params, pipe.opt_states,
+                                        pipe._acc)):
+        seen[i]["resident_bytes"] = sum(
+            t.numel() * t.element_size() for tree in (p, o["m"], o["v"], acc)
+            for _, t in opt_lib.tree_leaves(tree))
+        seen[i]["max_memory_allocated_gib"] = (
+            seen[i]["resident_bytes"] + seen[i]["working_set_bytes"]) / 2**30
+    return seen
+
+
+def _pipe_launch_check(label: str, cfg, dc, n_steps: int) -> dict:
+    """The launches counted since the last reset: per step the attention
+    forward 3 x layers x microbatches (the forward pass, and the
+    backward's recompute of the stage forward, which the full remat runs
+    once more), its backward layers x microbatches, and no other kernel
+    (the stages run the unfused sub-blocks, as the reference's)."""
+    launches = dict(ops.LAUNCHES)
+    per_step = cfg.n_layers * dc.num_microbatches
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=3 * per_step, flash_attention_bwd=per_step)
+    if launches != {k: v * n_steps for k, v in want.items()}:
+        raise AssertionError(
+            f"[pipeline] {label}: launches {json.dumps(launches)} in "
+            f"{n_steps} steps, expected {json.dumps(want)} a step")
+    log(f"[pipeline] {label}: launches in {n_steps} steps: "
+        f"{json.dumps(launches)} (per step "
+        f"{json.dumps({k: v for k, v in want.items() if v})})")
+    return launches
+
+
+def _pipe_small_check(pl, cfg) -> dict:
+    """fp32, 2 layers at full width, untied: the graphed 2-stage pipeline
+    against the single-device step from the same weights on the same
+    batches, 3 steps (every program replayed by the third).  The first
+    step's loss, each stage's gradients (of max |g|) and updated params
+    within SMALL_FP32_TOL, and every step's loss.  The single-device path
+    fuses the seam (the fused-norm kernels), the pipeline's stages do not,
+    so their gradients differ by rounding; from the second step on AdamW
+    moves an element whose gradient is near zero by up to ~lr whatever
+    the rounding did to it, so later params are printed, not held.
+    AdamW's clip is off: the pipeline clips each stage by its own norm
+    (the reference's per-stage optimizer)."""
+    small = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                                param_dtype="float32")
+    ocfg = opt_lib.OptimizerConfig(lr=1e-3, warmup_steps=1, grad_clip=0.0)
+    ds = data_lib.SyntheticDataset(small, data_lib.DataConfig(**TRAIN_DATA))
+    full = model_lib.init(small, 11, device="cuda")
+    pipe = _pipe(pl, small, ocfg, full, None)
+    ref = opt_lib.tree_unflatten((k, v.clone())
+                                 for k, v in opt_lib.tree_leaves(full))
+    state = opt_lib.init_state(ref)
+    step = train_lib.make_train_step(small, ocfg)
+
+    def rel_err(trees, flat):
+        return max((t - _stage_slice(st, flat, k)).abs().max().item()
+                   / max(1.0, _stage_slice(st, flat, k).abs().max().item())
+                   for st, tree in zip(pipe.stages, trees)
+                   for k, t in opt_lib.tree_leaves(tree))
+
+    b = ds.batch(200)
+    loss, grads = pipe.grad_step(b)
+    wl, wg = train_lib.loss_and_grads(small, ref, b)
+    flat = dict(opt_lib.tree_leaves(wg))
+    grad_err = max((t - _stage_slice(st, flat, k)).abs().max().item()
+                   / _stage_slice(st, flat, k).abs().max().item()
+                   for st, g in zip(pipe.stages, grads)
+                   for k, t in opt_lib.tree_leaves(g))
+    pipe.apply_grads(grads)
+    rows = []
+    for i in range(3):
+        if i:
+            b = ds.batch(200 + i)
+            loss = pipe.train_step(b)
+        _, _, m = step(ref, state, b)
+        rows.append(dict(loss=loss, single=m["loss"].item(), params_err=rel_err(
+            pipe.params, dict(opt_lib.tree_leaves(ref)))))
+        ok = abs(loss - m["loss"].item()) <= SMALL_FP32_TOL * abs(loss)
+        if i == 0:
+            rows[0].update(grad_err=grad_err,
+                           loss_and_grads_loss=wl.item())
+            ok &= grad_err <= SMALL_FP32_TOL and \
+                rows[0]["params_err"] <= SMALL_FP32_TOL
+        if not ok:
+            raise AssertionError(f"[pipeline] fp32 2 layers, step {i + 1}: "
+                                 f"{rows[-1]} (tol {SMALL_FP32_TOL})")
+    return dict(steps=rows, tol=SMALL_FP32_TOL)
+
+
+def _pipe_group_check(pl, cfg) -> dict:
+    """Two 2-stage fp32 2-layer replicas on the card as an
+    ``AdaptiveDPGroup``: a 2:1 assignment of [train]'s 8 sequences
+    against the uniform one, PIPE_GROUP_STEPS steps on one repeated batch
+    from the same weights; each step's group loss within PIPE_GROUP_TOL
+    of the uniform one's (of its size), and the loss falls."""
+    from repro_torch.core.planner.plan import BatchAssignment
+    small = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                                param_dtype="float32")
+    ocfg = opt_lib.OptimizerConfig(**TRAIN_OPT)
+    ds = data_lib.SyntheticDataset(small, data_lib.DataConfig(**TRAIN_DATA))
+    b = ds.batch(300)
+    flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in b.items()}
+    full = model_lib.init(small, 12, device="cuda")
+    gbs = TRAIN_DATA["global_batch"]
+    runs = {}
+    for label, assignment in (
+            ("uniform", BatchAssignment.uniform(dp=2, mbs=gbs // 2,
+                                                n_micro=1)),
+            ("2:1", BatchAssignment.proportional([2.0, 1.0], gbs, 1))):
+        assignment.validate(gbs)
+        group = pl.AdaptiveDPGroup.from_assignment(
+            [_pipe(pl, small, ocfg, full, None) for _ in range(2)],
+            assignment)
+        shards = pl.shard_batch_by_assignment(flat, assignment)
+        runs[label] = dict(
+            samples=[r.samples for r in assignment.replicas],
+            losses=[group.train_step(shards)
+                    for _ in range(PIPE_GROUP_STEPS)])
+    uni, ad = runs["uniform"]["losses"], runs["2:1"]["losses"]
+    if not all(abs(a - u) <= PIPE_GROUP_TOL * abs(u)
+               for a, u in zip(ad, uni)) or not ad[-1] < ad[0]:
+        raise AssertionError(f"[pipeline] AdaptiveDPGroup: 2:1 {ad} vs "
+                             f"uniform {uni} (tol {PIPE_GROUP_TOL})")
+    return dict(runs, tol=PIPE_GROUP_TOL)
+
+
+def phase_pipeline(train: dict) -> dict:
+    """The MPMD pipeline that executes Sailor's plans
+    (``dist/pipeline.py``) at smollm-360M's published widths and depth,
+    bf16, untied, two stages of 16 layers on the one card in turn, as CUDA
+    graphs (one a stage, program and shape) and eagerly from the same
+    weights on [train]'s data: graphed vs eager bit for bit, the first
+    step's loss and gradients against the single-device
+    ``loss_and_grads``, the loss falling, timed in turns, profiled, each
+    stage's memory; then an fp32 2-layer pipeline against the
+    single-device step and an ``AdaptiveDPGroup`` of two replicas.  A main
+    path for the attention kernels, forward and backward.  Returns the
+    launches over the bf16 pipelines' steps."""
+    from repro_torch.dist import pipeline as pl
+    cfg = _pipe_cfg()
+    dc = data_lib.DataConfig(**TRAIN_DATA)
+    ocfg = opt_lib.OptimizerConfig(**TRAIN_OPT)
+    ds = data_lib.SyntheticDataset(cfg, dc)
+    batches = [ds.batch(100 + i) for i in range(PIPE_STEPS + 1 + PIPE_PAIRS
+                                                + 2)]
+    full = model_lib.init(cfg, 5, device="cuda")
+    graphed, eager = _pipe(pl, cfg, ocfg, full, None), \
+        _pipe(pl, cfg, ocfg, full, False)
+    ops.reset_launches()
+    # (a) graphed vs eager from the same weights; the graphed first step
+    # as grad_step + apply_grads, its gradients kept for (e)
+    rows, same = [], True
+    first = None
+    for i in range(PIPE_STEPS):
+        b = batches[i]
+        t0 = time.perf_counter()
+        if i == 0:
+            gl, gg = graphed.grad_step(b)
+            first = (gl, [{k: t.clone() for k, t in opt_lib.tree_leaves(g)}
+                          for g in gg])
+            graphed.apply_grads(gg)
+        else:
+            gl = graphed.train_step(b)
+        torch.cuda.synchronize()
+        g_s = time.perf_counter() - t0
+        el = eager.train_step(b)
+        diff, ident = _pipe_param_diff(graphed, eager)
+        same &= ident and gl == el
+        rows.append(dict(step=i + 1, graphed_loss=gl, eager_loss=el,
+                         params_max_abs_diff=diff, graphed_call_s=g_s))
+        if not (abs(gl - el) <= TRAIN_LOSS_TOL * abs(el)):
+            raise AssertionError(f"[pipeline] step {i + 1}: graphed loss "
+                                 f"{gl} vs eager {el}")
+    if not same:
+        raise AssertionError(f"[pipeline] graphed vs eager not bit-identical "
+                             f"after {PIPE_STEPS} steps: {rows}")
+    log(f"[pipeline] graphed vs eager: " + json.dumps(dict(
+        steps=rows, bit_identical=same,
+        graphs={i: sorted(str(k[0]) for k in g.graphs)
+                for i, g in enumerate(graphed.graphs)},
+        capture_s={i: sum(g.capture_seconds.values())
+                   for i, g in enumerate(graphed.graphs)})))
+    # (b) the loss falls over PIPE_LEARN steps on one repeated batch
+    learn = [graphed.train_step(batches[PIPE_STEPS])
+             for _ in range(PIPE_LEARN)]
+    if not all(np.isfinite(learn)) or not learn[-1] < learn[0]:
+        raise AssertionError(f"[pipeline] losses {learn}: not finite, or "
+                             f"the last is not below the first")
+    # (c) timed in turns, graphed and eager, each on its own weights
+    runs = {"eager": [], "graphed": []}
+    pipes = {"eager": eager, "graphed": graphed}
+    for j in range(PIPE_PAIRS):
+        b = batches[PIPE_STEPS + 1 + j]
+        order = ("eager", "graphed") if j % 2 == 0 else ("graphed", "eager")
+        for kind in order:
+            wall, dev, _, loss = _timed_step(
+                lambda: pipes[kind].train_step(b))
+            runs[kind].append((wall, dev, loss))
+    n_graphed = PIPE_STEPS + PIPE_LEARN + PIPE_PAIRS
+    n_eager = PIPE_STEPS + PIPE_PAIRS
+    tokens = dc.global_batch * dc.seq_len
+    turns = {}
+    for kind, r in runs.items():
+        wall = statistics.median(x[0] for x in r)
+        turns[kind] = dict(step_wall_ms=wall,
+                           step_wall_ms_all=[x[0] for x in r],
+                           step_device_ms=statistics.median(x[1] for x in r),
+                           tokens_per_s=tokens / (wall / 1e3),
+                           losses=[x[2] for x in r])
+    g_wall = turns["graphed"]["step_wall_ms"]
+    train_wall = train["graphed"]["step_wall_ms"]
+    log(f"[pipeline] in turns ({PIPE_PAIRS} pairs; smollm-360M untied, "
+        f"{cfg.n_layers} layers as 2 stages of {cfg.n_layers // 2} on one "
+        f"card, {dc.num_microbatches} x ({dc.micro_batch} x {dc.seq_len}) "
+        f"tokens, full remat, bf16): " + json.dumps(dict(
+            turns, losses_learn=learn,
+            wall_speedup=turns["eager"]["step_wall_ms"] / g_wall,
+            train_graphed_step_wall_ms=train_wall,
+            ratio_to_train_graphed=g_wall / train_wall)))
+    # (d) one graphed step profiled
+    dev_ms = profile_window(
+        "pipeline_step", lambda: graphed.train_step(batches[-1]), g_wall, 1,
+        breakdown=True)
+    launches = _pipe_launch_check("graphed and eager", cfg, dc,
+                                  n_graphed + n_eager + 1)
+    log("[pipeline] per-stage memory (eager step; working set = the most "
+        "one stage program allocated above what was allocated before it): "
+        + json.dumps(_pipe_stage_memory(eager, batches[-2])))
+    # (e) the first step against the single-device loss_and_grads
+    wl, wg = train_lib.loss_and_grads(cfg, full, batches[0])
+    wl = wl.item()
+    flat = dict(opt_lib.tree_leaves(wg))
+    gl, grads = first
+    worst, min_cos = 0.0, 1.0
+    for st, g in zip(graphed.stages, grads):
+        for k, t in g.items():
+            w = _stage_slice(st, flat, k)
+            rel = ((t - w).abs().max() / w.abs().max()).item()
+            cos = _cosine(t, w)
+            worst, min_cos = max(worst, rel), min(min_cos, cos)
+            if not (rel <= TRAIN_GRAD_TOL and cos >= TRAIN_COSINE):
+                raise AssertionError(
+                    f"[pipeline] stage {st.index} grad {k} vs single device: "
+                    f"max |dg| / max |g| {rel:.3e}, cosine {cos:.6f}")
+    if not abs(gl - wl) <= TRAIN_LOSS_TOL * abs(wl):
+        raise AssertionError(f"[pipeline] first-step loss {gl} vs single "
+                             f"device {wl}")
+    del grads, first, wg, flat
+    log("[pipeline] first step vs the single-device loss_and_grads (same "
+        "untied weights and batch): " + json.dumps(dict(
+            loss=gl, single_loss=wl, max_rel_grad_err=worst,
+            min_cosine=min_cos, tol=TRAIN_GRAD_TOL,
+            cosine_min=TRAIN_COSINE)))
+    del graphed, eager, full
+    # (f) fp32 2 layers against the single-device step; (g) the DP group
+    log("[pipeline] fp32 2 layers vs make_train_step: "
+        + json.dumps(_pipe_small_check(pl, cfg)))
+    log("[pipeline] AdaptiveDPGroup, fp32 2 layers, 2 replicas of 2 "
+        "stages: " + json.dumps(_pipe_group_check(pl, cfg)))
+    if dev_ms is not None:
+        log(f"[pipeline] device ms of a graphed step {dev_ms:.3f}, busy "
+            f"{dev_ms / g_wall:.3f}")
+    return launches
+
+
 def _fit(cfg, label: str, kw: dict):
     """The ``"H100"`` entry fitted as ``measured.calibrate_cpu_host(cfg,
     **kw)`` fits it, step by step (``catalog_entry``, ``measure_block``,
@@ -2360,14 +2736,15 @@ def _plan_launch_check(n_fits: int) -> dict:
     return launches
 
 
-def _sim_step(cfg, seq: int, gbs: int, mbs: int):
+def _sim_step(cfg, seq: int, gbs: int, mbs: int, **kw):
     """``simulate`` of the graphed train step's own shape on one H100, on a
-    fresh ``JobProfile`` (its prices are cached per profile)."""
+    fresh ``JobProfile`` (its prices are cached per profile); ``kw`` goes
+    to ``simulate`` (``mem_cfg``)."""
     prof = JobProfile(TrainJob(cfg, seq_len=seq, global_batch=gbs,
                                remat="full"))
     plan = homogeneous_plan("H100", PLAN_ZONE, 1, 1, 1,
                             prof.n_partition_units, mbs, gbs)
-    return simulate(prof, plan, single_zone("H100", 1, zone=PLAN_ZONE))
+    return simulate(prof, plan, single_zone("H100", 1, zone=PLAN_ZONE), **kw)
 
 
 def _plans(cfg, entry: str) -> dict:
@@ -2476,10 +2853,146 @@ def phase_plan(cfg, train: dict, table_path: str) -> dict:
                 cost_per_token=b.cost_per_token,
                 search_time_s=res.search_time_s,
                 n_evaluated=res.n_evaluated)))
+        kernel_costs.clear_kernel_tables()
+
+        # the memory fit, the baselines beside Sailor under the fitted H100,
+        # then the engine fit, which re-registers "H100" (fp32, seq 32):
+        # the bf16 fit goes back after it
+        _memory_fit(cfg, train)
+        measured.register_calibrated(fit, "H100")
+        _baselines(cfg, after)
+        _engine_fit()
+        measured.register_calibrated(fit, "H100")
     finally:
         measured.register_calibrated(datasheet, "H100")
         kernel_costs.clear_kernel_tables()
     return launches
+
+
+def _memory_fit(cfg, train: dict) -> None:
+    """``calibrate_memory`` over the train cell's shape on the untied model
+    (graphed train steps at PLAN_MEM_MBS, 2 microbatches; the pipeline's
+    two stage programs at the last), each point's raw and fitted relative
+    error, and ``simulate``'s worker peak for [train]'s own shape under
+    the fitted ``MemoryModelConfig`` and the default one, beside [train]'s
+    measured peaks."""
+    from repro_torch.core.simulator.memory import combine_peak
+    t0 = time.perf_counter()
+    seq = TRAIN_DATA["seq_len"]
+    cal = measured.calibrate_memory([_pipe_cfg()], seq_len=seq,
+                                    mbs_grid=PLAN_MEM_MBS, device="cuda")
+    mc = cal.mem_cfg
+    points = []
+    for r in cal.points:
+        fitted = combine_peak(r["static"], r["act"], mc)
+        points.append(dict(
+            kind=r["kind"], mbs=r["mbs"], stage=r.get("stage"),
+            actual_gib=r["actual"] / 2**30, raw_pred_gib=r["raw_pred"] / 2**30,
+            fitted_gib=fitted / 2**30,
+            raw_rel_err=(r["raw_pred"] - r["actual"]) / r["actual"],
+            fitted_rel_err=(fitted - r["actual"]) / r["actual"]))
+    log("[plan] memory fit (calibrate_memory, smollm-360M untied, bf16, seq "
+        f"{seq}, full remat; the allocator's peak over a graphed program's "
+        "capture): " + json.dumps(dict(
+            fragmentation=mc.fragmentation,
+            act_fragmentation=mc.act_fragmentation,
+            runtime_overhead=mc.runtime_overhead,
+            base=dict(param_bytes=mc.param_bytes, grad_bytes=mc.grad_bytes,
+                      opt_bytes=mc.opt_bytes, act_bytes=mc.act_bytes),
+            points=points, seconds=time.perf_counter() - t0)))
+    gbs = TRAIN_DATA["global_batch"]
+    mbs = gbs // TRAIN_DATA["num_microbatches"]
+    rows = {}
+    for label, kw in (("default", {}), ("fitted", dict(mem_cfg=mc))):
+        peak = _sim_step(cfg, seq, gbs, mbs, **kw).peak_mem[0][0]["peak"]
+        rows[label] = dict(
+            simulated_worker_peak_gib=peak / 2**30,
+            rel_err_vs_eager=(peak / 2**30 - train["eager"]["peak_mem_gib"])
+            / train["eager"]["peak_mem_gib"],
+            rel_err_vs_graphed=(peak / 2**30
+                                - train["graphed"]["peak_mem_gib"])
+            / train["graphed"]["peak_mem_gib"])
+    log("[plan] simulated vs measured peak memory of [train]'s step, "
+        "default and fitted MemoryModelConfig: " + json.dumps(dict(
+            rows, train_eager_peak_mem_gib=train["eager"]["peak_mem_gib"],
+            train_graphed_peak_mem_gib=train["graphed"]["peak_mem_gib"])))
+
+
+def _baselines(cfg, sailor: dict) -> None:
+    """The paper's comparison with a measured H100: each of the 7 baseline
+    planners on the one-zone fleet under the fitted ``"H100"``, its first
+    plan valid under Sailor's simulator (``evaluate_ranked``), t_iter and
+    $/iteration, beside Sailor's max-throughput plan there."""
+    from repro_torch.core.planner.baselines import REGISTRY
+    from repro_torch.core.planner.baselines.common import evaluate_ranked
+    cluster = PLAN_FLEETS["hetero_zone"]
+    job = TrainJob(cfg=cfg, seq_len=TRAIN_DATA["seq_len"],
+                   global_batch=PLAN_GLOBAL_BATCH)
+    prof = JobProfile(job)
+    ours = sailor[("hetero_zone", MAX_THROUGHPUT)].best
+    rows = {}
+    for name in sorted(REGISTRY):
+        kw = {"time_cap_s": PLAN_METIS_CAP_S} if name == "metis" else {}
+        res = REGISTRY[name](job, cluster, **kw)
+        best, n_oom = evaluate_ranked(res, prof, cluster,
+                                      Objective(MAX_THROUGHPUT))
+        row = dict(n_plans=len(res.ranked_plans), n_oom=n_oom,
+                   search_time_s=res.search_time_s, meta=res.meta)
+        if best is not None:
+            row.update(describe=best.plan.describe(), t_iter_s=best.t_iter,
+                       cost_per_iter=best.cost_per_iter,
+                       t_iter_vs_sailor=best.t_iter / ours.t_iter,
+                       cost_vs_sailor=best.cost_per_iter
+                       / ours.cost_per_iter)
+        rows[name] = row
+    log("[plan] baselines vs Sailor (smollm-360M, "
+        f"{PLAN_GLOBAL_BATCH} x {TRAIN_DATA['seq_len']} tokens, hetero_zone, "
+        "fitted H100, max throughput; a baseline with no plan has none "
+        "valid here: FlashFlex needs a depth divisible by the fleet's GPU "
+        "types): " + json.dumps(dict(
+            sailor=dict(describe=ours.plan.describe(), t_iter_s=ours.t_iter,
+                        cost_per_iter=ours.cost_per_iter),
+            baselines=rows)))
+
+
+def _engine_fit() -> None:
+    """``calibrate_engine`` at the reference's defaults (seq 32, mbs 2,
+    n_micro 1, 2, 4, pp up to 2 but the card count: 1) on smollm-360M
+    untied in fp32, the dtype its ``calibrate_cpu_host`` rate is fitted
+    in: the fitted overheads a and b and each point; then one graphed step
+    of the n_micro 2 point profiled (``[profile] engine_step``), which
+    says whether the residual the overheads absorb is the host's or the
+    card's."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(_pipe_cfg(), dtype="float32",
+                              param_dtype="float32")
+    cal = measured.calibrate_engine(cfg, seq_len=PLAN_ENGINE_SEQ,
+                                    device="cuda")
+    e = cal.engine_cfg
+    log("[plan] engine fit (calibrate_engine, smollm-360M untied, fp32, "
+        f"seq {PLAN_ENGINE_SEQ}, mbs 2, graphed pipeline, host clock): "
+        + json.dumps(dict(
+            fixed_overhead_s=e.fixed_overhead_s,
+            per_task_overhead_s=e.per_task_overhead_s,
+            fitted_peak_tflops=cal.accelerator.peak_flops / 1e12,
+            points=[dict(r, residual_s=r["t_measured"] - r["t_raw_pred"])
+                    for r in cal.points],
+            seconds=time.perf_counter() - t0)))
+    # where the residual goes: one graphed step of the n_micro 2 point, as
+    # measure_pipeline_step builds it, timed by the host clock and profiled
+    from repro_torch.dist import pipeline as pl
+    pipe = pl.MPMDPipeline(cfg, pl.even_stages(cfg, [1]),
+                           opt_lib.OptimizerConfig(lr=1e-3))
+    pipe.init_params(0)
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 2, PLAN_ENGINE_SEQ)).astype(np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    for _ in range(2):               # warm, then capture
+        pipe.train_step(batch)
+    walls = [_timed_step(lambda: pipe.train_step(batch))[0]
+             for _ in range(3)]
+    profile_window("engine_step", lambda: pipe.train_step(batch),
+                   statistics.median(walls), 1, breakdown=True)
 
 
 def _plan_row(res) -> dict:
@@ -2504,6 +3017,7 @@ def main() -> int:
     cal_launches = phase_calibrate(serve_dev)
     fused_launches = phase_fused()
     train_launches, train = phase_train()
+    pipeline_launches = phase_pipeline(train)
     plan_launches = phase_plan(cfg, train, table_path())
     # launches: each kernel's count on the main path that runs it, which
     # also runs the timed case's shape
@@ -2520,6 +3034,7 @@ def main() -> int:
             name=name, route="cuda", **SOURCES[name], path=path_of[name],
             launches=counts[path_of[name]][name],
             launches_plan=plan_launches[name],
+            launches_pipeline=pipeline_launches[name],
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

@@ -255,7 +255,8 @@ class SailorPlanner:
             raise NotImplementedError(
                 f"SailorPlanner(audit={audit!r}): the post-plan audit "
                 f"(repro/analysis/audit.py) reads XLA HLO and is not ported "
-                f"yet (ROADMAP.md section 1, item 13); pass audit=None")
+                f"yet (ROADMAP.md section 1, \"XLA-bound tooling\"); pass "
+                f"audit=None")
         self.audit = audit
         self.auditor = auditor
         # adaptive-vs-uniform and bounded-staleness sync as searched plan

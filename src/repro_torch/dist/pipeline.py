@@ -1,0 +1,624 @@
+"""MPMD pipeline runner (counterpart of ``repro/dist/pipeline.py``).
+
+Each pipeline stage runs its own programs (forward, backward, optimizer
+update) on its own device, and activations and their gradients move
+between stages by copies.  ``even_stages(cfg, tps=[1, 1])`` splits the
+layers over two stages.  The reference gives each stage its own (dp, tp)
+mesh; tensor and data parallelism inside a stage wait for the port of the
+mesh rules (``ROADMAP.md`` §1, "Mesh"), so every stage here holds one
+device and a stage with ``tp > 1`` or ``dp > 1`` raises.
+
+Devices: one per stage, ``cuda:0 ... cuda:{n-1}`` by default (the
+reference's ``jax.devices()`` prefix).  A caller may repeat a device
+(``[cuda:0, cuda:0]``): the stages then run on it in turn, which is how a
+2-stage plan runs on one card.
+
+Schedule: microbatched 1F1B-style, at most ``n_stages`` microbatches in
+flight; each backward recomputes its stage's forward from the stage input
+kept by the forward, so only the stage inputs are retained.  Gradients
+add up over microbatches in fp32 buffers, one per stage (as the port's
+single-device step does; the reference adds them in the params' dtype),
+and the per-stage AdamW update runs in place where the params live.
+
+Programs as CUDA graphs (``graphed=``, the servers' convention and the
+counterpart of the reference's per-stage ``jax.jit``): None graphs the
+stages whose device is a CUDA device and runs CPU stages eagerly, True
+graphs every stage (a CPU stage raises), False runs every stage eagerly.
+A stage's graphs are ``graphs.GraphedShapes``: one graph per (program,
+input shape), its first call eager, its second captured.  A graph writes
+its outputs into the same tensors at every replay, so every input a stage
+keeps is a copy (``_to_stage`` always copies, also onto the device the
+tensor is on) and losses are cloned.
+
+The pipeline matches the single-device step: running layers [0, k) then
+[k, n) is running [0, n), and the loss and update math are
+``models/model.py``'s and ``train/optimizer.py``'s.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import graphs
+from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import Decl, init_from_decls
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fused as fused_mod
+from repro_torch.models import layers as L
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import masked_ce_sums
+from repro_torch.train import optimizer as opt_lib
+
+# the reference's sharding policies (``repro/dist/sharding.py::POLICIES``);
+# with one device a stage every policy places every tensor whole
+POLICIES = ("replicated", "tp", "fsdp_tp")
+MESH_ITEM = ('ROADMAP.md §1, "Mesh": the port of dist/sharding.py\'s '
+             'policy rules and dist/mesh.py')
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    """One pipeline stage: layers [start, stop) at (dp, tp)."""
+    index: int
+    start: int
+    stop: int
+    tp: int
+    dp: int = 1
+    first: bool = False
+    last: bool = False
+
+    @property
+    def n_layers(self) -> int:
+        return self.stop - self.start
+
+    @property
+    def n_devices(self) -> int:
+        return self.dp * self.tp
+
+
+def even_stages(cfg: ModelConfig, tps: Sequence[int],
+                dp: int = 1) -> List[Stage]:
+    """Split ``cfg.n_layers`` as evenly as possible over ``len(tps)`` stages.
+
+    Remainder layers go to the earliest stages.  Device-agnostic, so the
+    planner can call it.
+    """
+    n_stages = len(tps)
+    if not 1 <= n_stages <= cfg.n_layers:
+        raise ValueError(f"{n_stages} stages for {cfg.n_layers} layers")
+    base, rem = divmod(cfg.n_layers, n_stages)
+    stages, start = [], 0
+    for i, tp in enumerate(tps):
+        stop = start + base + (1 if i < rem else 0)
+        stages.append(Stage(index=i, start=start, stop=stop, tp=int(tp),
+                            dp=int(dp), first=(i == 0),
+                            last=(i == n_stages - 1)))
+        start = stop
+    return stages
+
+
+def stage_decls(cfg: ModelConfig, stage: Stage) -> Dict[str, Any]:
+    """Parameter declarations owned by one stage."""
+    sub = dataclasses.replace(cfg, n_layers=stage.n_layers)
+    d: Dict[str, Any] = {"layers": transformer.layer_decls(sub)}
+    if stage.first:
+        d["embed"] = Decl((cfg.vocab_size, cfg.d_model),
+                          ("vocab", "embed"), init="embed")
+    if stage.last:
+        d["ln_f"] = Decl((cfg.d_model,), ("embed",), init="ones")
+        d["lm_head"] = Decl((cfg.d_model, cfg.vocab_size),
+                            ("embed", "vocab"), scale_dim=-2)
+    return d
+
+
+def _slice_full_params(full: Any, stage: Stage,
+                       device: torch.device) -> Dict[str, Any]:
+    """The stage's slice of a full params tree, copied onto ``device``
+    (a copy also where ``full`` lies there: the stage's in-place update
+    must not write into ``full``)."""
+    def own(t):
+        return t.to(device, copy=True)
+
+    out: Dict[str, Any] = {"layers": {
+        k: own(v[stage.start:stage.stop]) for k, v in full["layers"].items()}}
+    if stage.first:
+        out["embed"] = own(full["embed"])
+    if stage.last:
+        out["ln_f"] = own(full["ln_f"])
+        out["lm_head"] = own(full["lm_head"])
+    return out
+
+
+def _stage_apply(cfg: ModelConfig, stage: Stage, params, x):
+    """Stage forward: tokens (first) or hidden states -> hidden states:
+    ``attn_block`` then ``ffn_block`` a layer, unfused, each layer under
+    ``cfg.remat`` when a gradient will be taken."""
+    if stage.first:
+        x = transformer.embed(cfg, params, x)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    impl = L.pick_attn_impl(cfg.attn_impl, s, x.device)
+
+    def body(h, lp):
+        h, _ = transformer.attn_block(cfg, lp, h, positions, impl)
+        return transformer.ffn_block(cfg, lp, h)
+
+    step = transformer._remat(body, cfg.remat) \
+        if transformer._needs_grad(params) else body
+    stacked = {name: w.unbind(0) for name, w in params["layers"].items()}
+    for i in range(stage.n_layers):
+        x = step(x, {name: w[i] for name, w in stacked.items()})
+    if stage.last:
+        x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return x
+
+
+def _stage_loss(cfg: ModelConfig, stage: Stage, params, x, labels):
+    """Last-stage tail: layers + final norm + head + masked CE
+    (``model.masked_ce_sums``, the single-device loss's math)."""
+    h = _stage_apply(cfg, stage, params, x)
+    logits = (h @ params["lm_head"].to(h.dtype)).float()
+    nll_sum, n_tok, _ = masked_ce_sums(logits, labels)
+    return nll_sum / torch.clamp_min(n_tok, 1)
+
+
+def _leaves(params):
+    """Detached leaves that share ``params``' storage, the gradients' leaves
+    (as ``train_step.loss_and_grads_on_device`` takes them), and the tree
+    of them."""
+    paths, leaves = zip(*[(k, p.detach().requires_grad_())
+                          for k, p in graphs.tree_leaves(params)])
+    return paths, leaves, opt_lib.tree_unflatten(zip(paths, leaves))
+
+
+def stage_programs(cfg: ModelConfig, stage: Stage,
+                   opt_cfg: opt_lib.OptimizerConfig) -> Dict[str, Callable]:
+    """The stage's three programs (the reference's ``_build_programs``):
+    ``fwd(p, x)``; ``bwd``, which recomputes the forward with autograd:
+    ``bwd_last(p, x, labels) -> (loss, grads, gx)`` (gx None on a single
+    stage, whose x is tokens), ``bwd_mid(p, x, gy) -> (grads, gx)``,
+    ``bwd_first(p, x, gy) -> grads``; and ``update(p, o, g)``, the in-place
+    AdamW step, which keeps ``o["step"]`` the tensor it was (the counterpart
+    of the reference's donated update).  None of them syncs with the host,
+    so each can be captured as a CUDA graph."""
+    def fwd(p, x):
+        with torch.no_grad():
+            return _stage_apply(cfg, stage, p, x)
+
+    def bwd_last(p, x, labels):
+        paths, leaves, tree = _leaves(p)
+        if stage.first:
+            loss = _stage_loss(cfg, stage, tree, x, labels)
+            grads = torch.autograd.grad(loss, leaves)
+            return (loss.detach(),
+                    opt_lib.tree_unflatten(zip(paths, grads)), None)
+        xl = x.detach().requires_grad_()
+        loss = _stage_loss(cfg, stage, tree, xl, labels)
+        *grads, gx = torch.autograd.grad(loss, leaves + (xl,))
+        return loss.detach(), opt_lib.tree_unflatten(zip(paths, grads)), gx
+
+    def bwd_mid(p, x, gy):
+        paths, leaves, tree = _leaves(p)
+        xl = x.detach().requires_grad_()
+        y = _stage_apply(cfg, stage, tree, xl)
+        *grads, gx = torch.autograd.grad(y, leaves + (xl,), gy)
+        return opt_lib.tree_unflatten(zip(paths, grads)), gx
+
+    def bwd_first(p, x, gy):
+        paths, leaves, tree = _leaves(p)
+        y = _stage_apply(cfg, stage, tree, x)
+        grads = torch.autograd.grad(y, leaves, gy)
+        return opt_lib.tree_unflatten(zip(paths, grads))
+
+    def update(p, o, g):
+        step = o["step"]
+        try:
+            opt_lib.apply_updates(p, g, o, opt_cfg)
+            step.copy_(o["step"])
+        finally:
+            o["step"] = step
+
+    if stage.last:
+        bwd = bwd_last
+    elif stage.first:
+        bwd = bwd_first
+    else:
+        bwd = bwd_mid
+    return {"fwd": fwd, "bwd": bwd, "update": update}
+
+
+def _default_devices() -> List[torch.device]:
+    resolve_device(None)            # raises without a card
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+class MPMDPipeline:
+    """Multi-program multi-data pipeline, one device a stage.
+
+    Supports the dense family with untied embeddings; stage 0 owns the
+    embedding table, the last stage owns the final norm + LM head.
+    ``devices`` (one ``torch.device`` a stage; a device may repeat),
+    ``policy`` (a no-op for one-device stages, as the reference's on a
+    one-device mesh) and ``graphed`` are described in the module
+    docstring.
+    """
+
+    def __init__(self, cfg: ModelConfig, stages: Sequence[Stage],
+                 opt_cfg: opt_lib.OptimizerConfig,
+                 devices: Optional[Sequence] = None,
+                 policy: str = "fsdp_tp", graphed: Optional[bool] = None):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"MPMD pipeline supports the dense family (the port has no "
+                f"MoE yet), not {cfg.family!r}")
+        if cfg.tie_embeddings:
+            raise NotImplementedError(
+                "tied embeddings span first+last stage; untie for MPMD")
+        if stages[0].start != 0 or stages[-1].stop != cfg.n_layers:
+            raise ValueError(f"stages do not cover [0, {cfg.n_layers})")
+        for a, b in zip(stages, stages[1:]):
+            if a.stop != b.start:
+                raise ValueError(f"stages not contiguous: [{a.start},{a.stop})"
+                                 f" then [{b.start},{b.stop})")
+        if (not stages[0].first or not stages[-1].last
+                or any(s.first for s in stages[1:])
+                or any(s.last for s in stages[:-1])):
+            raise ValueError("stage first/last flags inconsistent with order")
+        for st in stages:
+            if st.tp > 1 or st.dp > 1:
+                raise NotImplementedError(
+                    f"stage {st.index} has tp={st.tp}, dp={st.dp}: tensor "
+                    f"and data parallelism inside a stage wait for "
+                    f"{MESH_ITEM}")
+        if policy not in POLICIES:
+            raise KeyError(f"unknown sharding policy {policy!r}; "
+                           f"known: {sorted(POLICIES)}")
+        self.cfg = cfg
+        self.stages = list(stages)
+        self.opt_cfg = opt_cfg
+        devices = _default_devices() if devices is None else \
+            [torch.device(d) for d in devices]
+        need = sum(st.n_devices for st in self.stages)
+        if need > len(devices):
+            raise ValueError(f"plan needs {need} devices, "
+                             f"have {len(devices)}")
+        self.devices: List[torch.device] = devices[:need]
+        if graphed and any(d.type != "cuda" for d in self.devices):
+            raise ValueError(f"MPMDPipeline(graphed=True): a CUDA graph "
+                             f"needs every stage on a CUDA device, got "
+                             f"{[str(d) for d in self.devices]}")
+        self.graphed = graphed
+        self.params: Optional[List[Any]] = None
+        self.opt_states: Optional[List[Any]] = None
+        self._acc: List[Any] = []
+        self._programs = [stage_programs(cfg, st, opt_cfg)
+                          for st in self.stages]
+        self.graphs: List[Optional[graphs.GraphedShapes]] = []
+        self._static: List[Dict[Any, List[torch.Tensor]]] = []
+
+    def attach_telemetry(self, bus, injector=None, zones=None) -> None:
+        raise NotImplementedError(
+            "MPMDPipeline.attach_telemetry: the telemetry bus waits for the "
+            "port of manager/ and telemetry/ (ROADMAP.md §1, \"manager/ and "
+            "telemetry/\")")
+
+    # --- parameter loading -----------------------------------------------------
+
+    def _loaded(self, params: List[Any]) -> None:
+        """Optimizer state, gradient buffers and each stage's graphs for
+        freshly loaded params (graphs are bound to the params' storage)."""
+        self.params = params
+        self.opt_states = [opt_lib.init_state(p) for p in params]
+        self._acc = [opt_lib.tree_unflatten(
+            (k, torch.zeros(t.shape, dtype=torch.float32, device=t.device))
+            for k, t in graphs.tree_leaves(p)) for p in params]
+        self.graphs, self._static = [], []
+        for i, (p, dev) in enumerate(zip(params, self.devices)):
+            on = dev.type == "cuda" if self.graphed is None else self.graphed
+            g = None
+            if on:
+                g = graphs.GraphedShapes(p, f"pipeline stage {i}")
+                # made before any capture (they cannot be made inside one)
+                fused_mod.ticket_counters(g.device, g.stream)
+                fa.bwd_ticket_counters(g.device, g.stream)
+            self.graphs.append(g)
+            self._static.append({})
+
+    def full_params_like(self, full: Any) -> Any:
+        """Load a full single-program params tree (the port's layout, as
+        ``bridge.params_from_numpy`` makes it) into the pipeline: each stage
+        gets a copy of its slice on its device, and fresh AdamW state.
+        Returns ``full`` unchanged (the stages never write into it), so a
+        single-program reference can run on the same weights."""
+        self._loaded([_slice_full_params(full, st, dev)
+                      for st, dev in zip(self.stages, self.devices)])
+        return full
+
+    def init_params(self, seed: int) -> None:
+        """Seeded per-stage params (no full copy): stage i draws from its
+        own ``torch.Generator`` on its device, seeded by the i-th child of
+        ``np.random.SeedSequence(seed)`` (the reference splits its key)."""
+        kids = np.random.SeedSequence(seed).spawn(len(self.stages))
+        params = []
+        for st, dev, kid in zip(self.stages, self.devices, kids):
+            gen = torch.Generator(device=dev).manual_seed(
+                int(kid.generate_state(1)[0]))
+            params.append(init_from_decls(stage_decls(self.cfg, st), gen,
+                                          self.cfg.param_dtype, dev))
+        self._loaded(params)
+
+    # --- programs and transfers ------------------------------------------------
+
+    def _run(self, i: int, name: str, *inputs):
+        """Stage ``i``'s program ``name`` on its params: eagerly, or through
+        the stage's graph for these input shapes (the inputs copied into
+        the graph's static buffers first)."""
+        prog = self._programs[i][name]
+        g = self.graphs[i]
+        if name == "update":    # reads the stage's gradient buffers
+            def update():
+                return prog(self.params[i], self.opt_states[i], self._acc[i])
+            return update() if g is None else g.run(
+                (name,), update, f" at stage {i} update")
+        if g is None:
+            return prog(self.params[i], *inputs)
+        key = (name,) + tuple((tuple(t.shape), t.dtype) for t in inputs)
+        static = self._static[i].get(key)
+        if static is None:
+            static = self._static[i][key] = [torch.empty_like(t)
+                                             for t in inputs]
+        for s, t in zip(static, inputs):
+            s.copy_(t)
+        return g.run(key, lambda: prog(self.params[i], *static),
+                     f" at stage {i} {name} {[tuple(t.shape) for t in inputs]}")
+
+    def _to_stage(self, idx: int, arr) -> torch.Tensor:
+        """A copy of ``arr`` (numpy or tensor) on stage ``idx``'s device,
+        also where it already lies there: what the schedule keeps must not
+        be a graph's output, which its next replay overwrites."""
+        return torch.as_tensor(arr).to(self.devices[idx], copy=True)
+
+    # --- the step --------------------------------------------------------------
+
+    def _forward_micro(self, tokens) -> Dict[str, Any]:
+        """Run one microbatch through every stage; keep per-stage inputs
+        (backward recomputes the stage forward from them)."""
+        inputs = []
+        x = tokens
+        for i in range(len(self.stages)):
+            x = self._to_stage(i, x)
+            inputs.append(x)
+            x = self._run(i, "fwd", x)
+        return {"inputs": inputs}
+
+    def _backward_micro(self, ctx: Dict[str, Any], labels):
+        """Reverse sweep; returns (loss, per-stage grads)."""
+        n = len(self.stages)
+        grads: List[Any] = [None] * n
+        labels = self._to_stage(n - 1, labels)
+        loss, grads[n - 1], gx = self._run(n - 1, "bwd",
+                                           ctx["inputs"][n - 1], labels)
+        for i in range(n - 2, 0, -1):
+            gx = self._to_stage(i, gx)
+            grads[i], gx = self._run(i, "bwd", ctx["inputs"][i], gx)
+        if n > 1:
+            gx = self._to_stage(0, gx)
+            grads[0] = self._run(0, "bwd", ctx["inputs"][0], gx)
+        return loss, grads
+
+    @torch.no_grad()
+    def _accumulate(self, grads: List[Any], wm: Optional[float],
+                    first: bool) -> None:
+        for acc, g in zip(self._acc, grads):
+            for (_, a), (_, gi) in zip(graphs.tree_leaves(acc),
+                                       graphs.tree_leaves(g)):
+                if wm is not None:
+                    gi = gi.float() * wm
+                if first:
+                    a.copy_(gi)
+                else:
+                    a.add_(gi)
+
+    def grad_step(self, batch: Dict[str, Any],
+                  weights: Optional[Sequence[float]] = None):
+        """Forward/backward over a (num_micro, batch, seq) token batch
+        WITHOUT applying the optimizer update.
+
+        Returns ``(loss, grads)``, ``grads`` the per-stage combined
+        gradient trees: the pipeline's fp32 gradient buffers, which the
+        next ``grad_step`` overwrites.  ``weights=None`` averages
+        microbatches uniformly (``g = (1/M) sum_m g_m``).  With ``weights``
+        given, microbatch ``m`` contributes ``weights[m] * g_m`` and the
+        loss is the same weighted sum (float64 on the host) — the adaptive
+        combine where microbatch ``m`` of ``b_m`` samples carries ``w_m =
+        b_m / B``.  Weights may sum to less than 1 when a DP group
+        (:class:`AdaptiveDPGroup`) normalizes across its replicas.  The
+        losses are read back once, at the end.
+        """
+        if self.params is None:
+            raise RuntimeError("load parameters first (full_params_like / "
+                               "init_params)")
+        tokens, labels = batch["tokens"], batch["labels"]
+        num_micro = tokens.shape[0]
+        n = len(self.stages)
+        w = None
+        if weights is not None:
+            w = np.asarray(weights, dtype=np.float32)
+            if w.shape != (num_micro,):
+                raise ValueError(f"weights shape {w.shape} does not match "
+                                 f"{num_micro} microbatches")
+        losses: List[torch.Tensor] = []
+
+        # 1F1B-style: bound in-flight microbatches by the stage count; each
+        # backward drains the oldest pending forward.
+        pending: collections.deque = collections.deque()
+        next_mb = 0
+        while next_mb < num_micro or pending:
+            if next_mb < num_micro and len(pending) < n:
+                pending.append(
+                    (next_mb, self._forward_micro(tokens[next_mb])))
+                next_mb += 1
+            else:
+                mb, ctx = pending.popleft()
+                loss, grads = self._backward_micro(ctx, labels[mb])
+                losses.append(loss.clone())    # a graph output: kept apart
+                self._accumulate(grads, None if w is None else float(w[mb]),
+                                 first=len(losses) == 1)
+
+        host = torch.stack(losses).cpu().numpy()
+        if w is None:
+            inv = 1.0 / num_micro
+            with torch.no_grad():
+                for acc in self._acc:
+                    for _, a in graphs.tree_leaves(acc):
+                        a.mul_(inv)
+            loss = float(np.sum(host) * inv)
+        else:
+            loss = float(np.sum(host.astype(np.float64)
+                                * w.astype(np.float64)))
+        return loss, list(self._acc)
+
+    def apply_grads(self, grads: Sequence[Any]) -> None:
+        """Apply per-stage gradient trees (tensors on any device) through
+        the stage optimizers — the update half of :meth:`train_step`.
+        Trees other than the pipeline's own buffers are copied into them
+        first."""
+        if self.params is None:
+            raise RuntimeError("load parameters first (full_params_like / "
+                               "init_params)")
+        for i in range(len(self.stages)):
+            if grads[i] is not self._acc[i]:
+                with torch.no_grad():
+                    for (_, a), (_, g) in zip(
+                            graphs.tree_leaves(self._acc[i]),
+                            graphs.tree_leaves(grads[i]), strict=True):
+                        a.copy_(g)
+            self._run(i, "update")
+
+    def train_step(self, batch: Dict[str, Any],
+                   weights: Optional[Sequence[float]] = None) -> float:
+        """One optimizer step over a (num_micro, batch, seq) token batch.
+
+        Returns the mean over microbatches of the per-microbatch masked
+        mean loss, at the pre-update parameters — the normalization of the
+        single-program ``train_step.loss_and_grads``.  With ``weights``,
+        gradient accumulation and the loss use the given per-microbatch
+        weights instead (see :meth:`grad_step`).
+        """
+        out, grads = self.grad_step(batch, weights)
+        self.apply_grads(grads)
+        return out
+
+
+class AdaptiveDPGroup:
+    """Data-parallel group of :class:`MPMDPipeline` replicas under an
+    adaptive per-replica batch assignment.
+
+    Replica ``r`` runs its OWN microbatch stack (``n_r`` microbatches of
+    ``b_r`` sequences); gradients combine on the host with the unbiased
+    weights ``w_r = b_r * n_r / B`` — inside a replica each microbatch
+    carries ``w_r / n_r = b_r / B``, so the group total equals the
+    full-batch mean gradient (up to float association).
+
+    ``staleness=k`` opts into bounded-staleness sync: the combined
+    gradient of step ``t`` is applied at step ``t + k`` (the first ``k``
+    steps apply nothing).  ``k=0`` applies the current combined gradient
+    immediately — the synchronous path.
+    """
+
+    def __init__(self, replicas: Sequence[MPMDPipeline],
+                 weights: Optional[Sequence[float]] = None,
+                 staleness: int = 0):
+        if not replicas:
+            raise ValueError("empty DP group")
+        self.replicas = list(replicas)
+        r = len(self.replicas)
+        self.weights = [1.0 / r] * r if weights is None \
+            else [float(x) for x in weights]
+        if len(self.weights) != r:
+            raise ValueError(f"{len(self.weights)} weights for {r} replicas")
+        if staleness < 0:
+            raise ValueError(f"staleness={staleness} (must be >= 0)")
+        self.staleness = int(staleness)
+        self._pending: collections.deque = collections.deque()
+
+    @classmethod
+    def from_assignment(cls, replicas: Sequence[MPMDPipeline], assignment,
+                        staleness: int = 0) -> "AdaptiveDPGroup":
+        """Group with weights from a planner ``plan.BatchAssignment``."""
+        return cls(replicas, weights=list(assignment.weights()),
+                   staleness=staleness)
+
+    def train_step(self, batches: Sequence[Dict[str, Any]]) -> float:
+        """One DP step: per-replica weighted grad accumulation over each
+        replica's own (n_r, b_r, seq) stack, host-side weighted combine,
+        delayed apply under bounded staleness.  Returns the group loss
+        (the ``w_r``-weighted mean microbatch loss)."""
+        if len(batches) != len(self.replicas):
+            raise ValueError(f"{len(batches)} batches for "
+                             f"{len(self.replicas)} replicas")
+        loss = 0.0
+        grads_per_rep: List[Sequence[Any]] = []
+        for r, (rep, batch) in enumerate(zip(self.replicas, batches)):
+            n_micro = batch["tokens"].shape[0]
+            w_micro = [self.weights[r] / n_micro] * n_micro
+            l_r, g_r = rep.grad_step(batch, weights=w_micro)
+            loss += l_r
+            grads_per_rep.append(g_r)
+        self._pending.append(self._combine(grads_per_rep))
+        if len(self._pending) > self.staleness:
+            self._apply(self._pending.popleft())
+        return loss
+
+    def flush(self) -> int:
+        """Apply every still-buffered combined gradient (end-of-training
+        drain under ``staleness > 0``).  Returns how many were applied."""
+        n = 0
+        while self._pending:
+            self._apply(self._pending.popleft())
+            n += 1
+        return n
+
+    @staticmethod
+    def _combine(grads_per_rep: Sequence[Sequence[Any]]) -> List[Any]:
+        """Host-side sum of the replicas' already-weighted per-stage
+        gradient trees, as fp32 CPU tensors added in replica order (the
+        reference's ``np.add``)."""
+        out: List[Any] = []
+        for i in range(len(grads_per_rep[0])):
+            acc = {k: t.to("cpu", torch.float32, copy=True)
+                   for k, t in graphs.tree_leaves(grads_per_rep[0][i])}
+            for g_r in grads_per_rep[1:]:
+                for k, t in graphs.tree_leaves(g_r[i]):
+                    acc[k].add_(t.to("cpu", torch.float32))
+            out.append(opt_lib.tree_unflatten(acc.items()))
+        return out
+
+    def _apply(self, combined: List[Any]) -> None:
+        for rep in self.replicas:
+            rep.apply_grads(combined)
+
+
+def shard_batch_by_assignment(batch: Dict[str, Any], assignment
+                              ) -> List[Dict[str, Any]]:
+    """Split a flat (B, seq) batch (numpy arrays or tensors) into
+    per-replica (n_r, b_r, seq) microbatch stacks following a
+    ``plan.BatchAssignment`` (contiguous split; exact conservation
+    guarantees the slices tile the batch)."""
+    out: List[Dict[str, Any]] = []
+    off = 0
+    for rb in assignment.replicas:
+        take = rb.samples
+        rep_batch = {}
+        for k, v in batch.items():
+            sl = v[off:off + take]
+            rep_batch[k] = sl.reshape((rb.n_micro, rb.mbs) + tuple(
+                sl.shape[1:]))
+        out.append(rep_batch)
+        off += take
+    return out

@@ -13,6 +13,9 @@
 * ``attn_impl="kernel"`` runs the flash-attention kernel and, at the
   residual seam between attention and FFN, the fused add+RMSNorm kernel;
   any other impl takes the plain path for both.
+* ``attn_block`` and ``ffn_block`` are the two sub-blocks unfused, the
+  form the pipeline's stages run (``dist/pipeline.py``, as the
+  reference's).
 """
 from __future__ import annotations
 
@@ -120,6 +123,11 @@ def attn_delta(cfg: ModelConfig, p, x, positions, impl: str):
     return _proj_out(o, p["wo"]), (k, v)
 
 
+def attn_block(cfg: ModelConfig, p, x, positions, impl: str):
+    delta, kv = attn_delta(cfg, p, x, positions, impl)
+    return x + delta, kv
+
+
 def _ffn(cfg: ModelConfig, p, h):
     """FFN applied to an already-normed hidden state."""
     if cfg.ffn_act == "swiglu":
@@ -131,6 +139,11 @@ def _ffn(cfg: ModelConfig, p, h):
     else:
         raise ValueError(f"unknown ffn_act {cfg.ffn_act!r}")
     return act(h @ p["w_up"]) @ p["w_down"]
+
+
+def ffn_block(cfg: ModelConfig, p, x):
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + _ffn(cfg, p, h)
 
 
 def decoder_block(cfg: ModelConfig, p, x, positions, impl: str):

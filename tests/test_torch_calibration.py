@@ -452,3 +452,127 @@ def test_measure_block_programs_match_the_reference():
         assert np.abs(g.numpy() - w).max() <= 1e-4 * np.abs(w).max(), k
     assert all(p.grad is None and not p.requires_grad
                for _, p in graphs.tree_leaves(tp))
+
+
+# --- the engine and memory calibrations ---------------------------------------------
+
+# measured pipeline steps (pp, n_micro) -> seconds, handed to both packages
+_PIPE_T = {(1, 1): 0.12, (1, 2): 0.19, (1, 4): 0.36,
+           (2, 1): 0.21, (2, 2): 0.32, (2, 4): 0.55}
+
+
+def _untied(P):
+    return dataclasses.replace(P("smollm_360m").reduced(),
+                               tie_embeddings=False)
+
+
+def test_pipeline_ops_equal():
+    for pp in (1, 2, 3, 4):
+        for n_micro in (1, 2, 4, 8):
+            assert tmeasured._pipeline_ops(pp, n_micro) == \
+                jmeasured._pipeline_ops(pp, n_micro)
+
+
+@pytest.mark.parametrize("n_dev", [1, 2])
+def test_calibrate_engine_equals_reference_on_the_same_rows(monkeypatch,
+                                                            n_dev):
+    """With ``measure_block`` and ``measure_pipeline_step`` patched to the
+    same rows in both packages, the fitted ``EngineConfig``, the points
+    and the registered accelerator are the reference's.  ``pp`` runs over
+    the distinct devices: 1 on the CPU; 2 cards (the count patched, and
+    the card keyed ``"cpu-host"`` so both price one entry) give the
+    reference's 2-device grid."""
+    for hw in (jhw, thw):
+        monkeypatch.setitem(hw.ACCELERATORS, "cpu-host",
+                            hw.ACCELERATORS["cpu-host"])
+    rows = _ROWS[0]
+    monkeypatch.setattr(jmeasured, "measure_block",
+                        lambda cfg, s, *a, **kw: rows)
+    monkeypatch.setattr(tmeasured, "measure_block",
+                        lambda cfg, s, *a, **kw: rows)
+    seen = []
+    monkeypatch.setattr(jmeasured, "measure_pipeline_step",
+                        lambda cfg, pp, nm, mbs, s: _PIPE_T[pp, nm])
+    monkeypatch.setattr(tmeasured, "measure_pipeline_step",
+                        lambda cfg, pp, nm, mbs, s, **kw: seen.append(
+                            (pp, nm, mbs, s, cfg.tie_embeddings,
+                             kw["device"].type)) or _PIPE_T[pp, nm])
+    monkeypatch.setattr(jmeasured.jax, "devices", lambda *a: [None] * n_dev)
+    device = "cpu"
+    if n_dev == 2:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        monkeypatch.setattr(tmeasured.at, "default_chip",
+                            lambda dev: "cpu-host")
+        device = "cuda"
+    got = tmeasured.calibrate_engine(_untied(tget), device=device)
+    want = jmeasured.calibrate_engine(_untied(jget))
+    assert dataclasses.asdict(got.engine_cfg) == \
+        dataclasses.asdict(want.engine_cfg)
+    assert got.engine_cfg.fixed_overhead_s > 0
+    assert got.points == want.points and len(got.points) == 3 * n_dev
+    assert dataclasses.asdict(got.accelerator) == \
+        dataclasses.asdict(want.accelerator)
+    assert thw.ACCELERATORS["cpu-host"] == got.accelerator
+    assert seen == [(pp, nm, 2, 32, False, device)
+                    for pp in range(1, n_dev + 1) for nm in (1, 2, 4)]
+
+
+def test_measure_pipeline_step_runs_the_eager_pipeline_on_the_cpu():
+    t = tmeasured.measure_pipeline_step(_untied(tget), 2, 2, 2, 16, iters=1,
+                                        device="cpu")
+    assert np.isfinite(t) and t > 0
+
+
+def test_memory_points_and_fit_equal_the_reference(monkeypatch):
+    """The reference's ``calibrate_memory`` on its own compiled programs
+    (reduced smollm, untied, fp32: ``test_memory.py``'s call), each XLA
+    peak recorded; the port's points on the same config, their truth
+    patched to those peaks in the same order, give its ``static``, ``act``
+    and ``raw_pred``, and ``fit_memory`` on its rows its
+    ``MemoryModelConfig``."""
+    peaks = []
+    real = jmeasured.xla_peak_bytes
+    monkeypatch.setattr(jmeasured, "xla_peak_bytes",
+                        lambda c: peaks.append(real(c)) or peaks[-1])
+    want = jmeasured.calibrate_memory([_untied(jget)], seq_len=32,
+                                      mbs_grid=(1, 2))
+    truth, calls = iter(peaks), []
+    monkeypatch.setattr(tmeasured, "_train_peak",
+                        lambda cfg, s, mbs, nm, dev: calls.append(
+                            ("train", s, mbs, nm)) or next(truth))
+    monkeypatch.setattr(tmeasured, "_stage_peak",
+                        lambda cfg, st, s, mbs, dev: calls.append(
+                            ("stage", st.index, s, mbs)) or next(truth))
+    tcfg = _untied(tget)
+    rows = (tmeasured._train_memory_points(tcfg, 32, (1, 2))
+            + tmeasured._stage_memory_points(tcfg, 32, 2))
+    assert rows == want.points and len(rows) == 4
+    assert calls == [("train", 32, 1, 2), ("train", 32, 2, 2),
+                     ("stage", 0, 32, 2), ("stage", 1, 32, 2)]
+    base = tmeasured._host_mem_base(tcfg)
+    assert dataclasses.asdict(base) == \
+        dataclasses.asdict(jmeasured._host_mem_base())
+    assert dataclasses.asdict(tmeasured.fit_memory(rows, base)) == \
+        dataclasses.asdict(want.mem_cfg)
+
+
+def test_memory_base_takes_the_runtime_dtypes():
+    """bf16 params and activations are priced at 2 bytes; gradient sums
+    and AdamW's moments stay fp32 (the port's buffers)."""
+    cfg = dataclasses.replace(tget("smollm_360m"), tie_embeddings=False)
+    base = tmeasured._host_mem_base(cfg)
+    assert (base.param_bytes, base.grad_bytes, base.opt_bytes,
+            base.act_bytes) == (2, 4, 8, 2)
+    assert (base.fragmentation, base.act_fragmentation,
+            base.runtime_overhead, base.dp_bucket_frac) == (1.0, 1.0, 0.0,
+                                                            0.0)
+
+
+def test_calibrate_memory_raises_on_the_cpu(monkeypatch):
+    monkeypatch.setattr(tmeasured, "_train_peak",
+                        lambda *a: pytest.fail("measured"))
+    with pytest.raises(ValueError, match="allocator"):
+        tmeasured.calibrate_memory([_untied(tget)], device="cpu")
+    with pytest.raises(ValueError, match="allocator"):
+        tmeasured.program_peak_bytes(lambda: None, 0, "cpu")

@@ -11,6 +11,7 @@ Tolerances: bf16 2e-2, fp32 2e-5; SSD y 4e-2 / 1e-4 and state 1e-2 / 1e-4
 """
 import dataclasses
 import json
+import math
 
 import pytest
 import torch
@@ -1504,3 +1505,114 @@ def test_calibrate_cpu_host_fits_the_h100_entry(cuda):
     assert dataclasses.asdict(spec) == dataclasses.asdict(dataclasses.replace(
         h100, peak_flops=spec.peak_flops, efficiency=1.0))
     assert 0 < spec.peak_flops < h100.peak_flops
+
+
+# --- the MPMD pipeline (dist/pipeline.py) and the memory truth ---------------------
+#
+# 2 layers at smollm-360M's widths, bf16, full remat, untied, two stages on
+# the one card: graphed (one CUDA graph a stage, program and input shape)
+# against eager from the same weights.
+
+def _pipe_setup(graphed_too=True):
+    from repro_torch.dist import pipeline as pl
+    from repro_torch.train import data as tdata
+    from repro_torch.train import optimizer as topt
+    cfg = dataclasses.replace(get_config("smollm_360m"), n_layers=2,
+                              remat="full", tie_embeddings=False)
+    ds = tdata.SyntheticDataset(cfg, tdata.DataConfig(
+        seq_len=256, global_batch=4, num_microbatches=2))
+    ocfg = topt.OptimizerConfig(lr=1e-3, warmup_steps=2)
+    full = tm.init(cfg, 0)
+
+    def make(graphed):
+        pipe = pl.MPMDPipeline(cfg, pl.even_stages(cfg, [1, 1]), ocfg,
+                               devices=["cuda:0", "cuda:0"], graphed=graphed)
+        pipe.full_params_like(full)
+        return pipe
+
+    return cfg, ds, make
+
+
+def test_graphed_pipeline_matches_eager_bit_for_bit(cuda):
+    """Two steps (the first captures each stage's forward and backward at
+    its second microbatch, the second its update): losses and every
+    stage's params equal bit for bit; each stage holds three graphs."""
+    from repro_torch.train import optimizer as topt
+    cfg, ds, make = _pipe_setup()
+    g, e = make(None), make(False)
+    assert e.graphs == [None, None] and all(x is not None for x in g.graphs)
+    for i in range(2):
+        b = ds.batch(i)
+        assert g.train_step(b) == e.train_step(b), i
+        for pg, pe in zip(g.params, e.params):
+            assert all(torch.equal(x, y) for (_, x), (_, y) in zip(
+                topt.tree_leaves(pg), topt.tree_leaves(pe))), i
+    for st in g.graphs:
+        assert sorted(k[0] for k in st.graphs) == ["bwd", "fwd", "update"]
+    assert [int(o["step"]) for o in g.opt_states] == [2, 2]
+
+
+def test_graphed_pipeline_counts_the_eager_launches(cuda):
+    """A step launches the attention forward 3 x layers x microbatches
+    times (forward, the backward's recompute, remat) and its backward
+    layers x microbatches, no fused norm, graphed or eager; a replayed
+    step adds what the captures recorded."""
+    cfg, ds, make = _pipe_setup()
+    e, g = make(False), make(None)
+    b = ds.batch(0)
+    ops.reset_launches()
+    e.train_step(b)
+    eager = dict(ops.LAUNCHES)
+    none = {k: 0 for k in eager}
+    assert eager == none | dict(flash_attention=3 * 2 * 2,
+                                flash_attention_bwd=2 * 2)
+    ops.reset_launches()
+    for i in range(3):    # warm + capture + replay, then replays
+        g.train_step(b)
+        assert ops.LAUNCHES == {k: (i + 1) * n for k, n in eager.items()}
+    recorded = dict(none)
+    for st in g.graphs:
+        for key, launches in st.capture_launches.items():
+            calls = 1 if key[0] == "update" else 2    # microbatches
+            for k, n in launches.items():
+                recorded[k] += calls * n
+    assert recorded == eager
+
+
+def test_pipeline_keeps_its_stage_inputs_across_replays(cuda):
+    """The stage inputs a forward keeps for the backward are copies: the
+    next microbatch's replay of the same graphs leaves them as they were.
+    ``_to_stage`` copies onto the device the tensor is on too."""
+    cfg, ds, make = _pipe_setup()
+    g = make(None)
+    b = ds.batch(0)
+    g.train_step(b)
+    g.train_step(b)                  # every graph captured
+    ctx0 = g._forward_micro(b["tokens"][0])
+    kept = [t.clone() for t in ctx0["inputs"]]
+    ctx1 = g._forward_micro(b["tokens"][1])
+    assert all(torch.equal(a, k) for a, k in zip(ctx0["inputs"], kept))
+    assert not torch.equal(ctx0["inputs"][1], ctx1["inputs"][1])
+    x = torch.ones(3, device="cuda")
+    y = g._to_stage(0, x)
+    assert torch.equal(x, y) and y.data_ptr() != x.data_ptr()
+
+
+def test_program_peak_bytes_grows_with_mbs(cuda):
+    """The allocator's peak over the graphed train step's capture and over
+    a stage program's grows with the microbatch and lies above the
+    params, AdamW state and gradient buffers it holds."""
+    from repro_torch.core.profiler import measured
+    from repro_torch.dist import pipeline as pl
+    cfg, _, _ = _pipe_setup()
+    from repro_torch.dist.sharding import iter_decls
+    # bf16 params, fp32 AdamW m and v
+    resident = sum(math.prod(d.shape) * (2 + 8)
+                   for _, d in iter_decls(tm.decls(cfg)))
+    train = [measured._train_peak(cfg, 256, mbs, 2, "cuda")
+             for mbs in (1, 2, 4)]
+    assert resident < train[0] < train[1] < train[2], (resident, train)
+    for st in pl.even_stages(cfg, [1, 1]):
+        stage = [measured._stage_peak(cfg, st, 256, mbs, "cuda")
+                 for mbs in (1, 4)]
+        assert 0 < stage[0] < stage[1], (st.index, stage)

@@ -1,0 +1,427 @@
+"""The port's MPMD pipeline (``repro_torch/dist/pipeline.py``) vs the
+reference's, on the CPU.
+
+The reference's ``MPMDPipeline.train_step`` does not run on this jax
+(``ROADMAP.md`` §3, R2), but its stage functions do: the port's stage
+programs are held against ``_stage_apply`` / ``_stage_loss`` under
+``jax.vjp`` / ``jax.value_and_grad`` and against ``optimizer.apply_updates``
+(1e-5), and the port's whole pipeline against the port's single-device
+``make_train_step`` (itself held against the reference in
+``test_torch_train.py``), on the same seeded numpy weights.  AdamW clips
+each stage's gradients by the stage's own norm (the reference's
+per-stage optimizer), so where updated params are compared the clip is
+off (``grad_clip=0``).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.planner.plan import BatchAssignment as JAssign
+from repro.dist import pipeline as jpl
+from repro.dist.sharding import Decl as JDecl
+from repro.train import optimizer as jopt
+from repro.models import model as jm
+from repro.train.checkpoint import _flatten, _unflatten
+from repro_torch import bridge
+from repro_torch import graphs
+from repro_torch.core.planner.plan import BatchAssignment, ReplicaBatch
+from repro_torch.dist import pipeline as tpl
+from repro_torch.dist.sharding import iter_decls
+from repro_torch.train import optimizer as topt
+from repro_torch.train import train_step as tts
+from test_torch_model import configs, numpy_params
+
+TOL = 1e-5
+CPU = torch.device("cpu")
+
+
+def _cfgs(n_layers=4, **kw):
+    return configs("smollm_360m", n_layers=n_layers, tie_embeddings=False,
+                   **kw)
+
+
+def _batch(cfg, n_micro, mbs, seq, seed=0):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size,
+                        (n_micro, mbs, seq + 1)).astype(np.int32)
+    return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+
+
+def _close(got, want, what, tol=TOL):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, what
+    err = np.abs(got - want).max()
+    assert err <= tol * max(1.0, np.abs(want).max()), (what, err)
+
+
+# --- stages and their declarations -------------------------------------------------
+
+@pytest.mark.parametrize("tps", [[1], [1, 1], [2, 1, 1], [1, 1, 1, 1],
+                                 [4, 2]])
+def test_even_stages_and_stage_decls_equal(tps):
+    jcfg, tcfg = _cfgs(n_layers=7)
+    js, ts = jpl.even_stages(jcfg, tps, dp=2), tpl.even_stages(tcfg, tps,
+                                                               dp=2)
+    assert [dataclasses.asdict(s) for s in ts] == \
+        [dataclasses.asdict(s) for s in js]
+    assert [(s.n_layers, s.n_devices) for s in ts] == \
+        [(s.n_layers, s.n_devices) for s in js]
+    for j, t in zip(js, ts):
+        jd = {"/".join(str(p.key) for p in path): d
+              for path, d in jax.tree_util.tree_flatten_with_path(
+                  jpl.stage_decls(jcfg, j),
+                  is_leaf=lambda x: isinstance(x, JDecl))[0]}
+        td = dict(iter_decls(tpl.stage_decls(tcfg, t)))
+        assert {k: dataclasses.asdict(d) for k, d in td.items()} == \
+            {k: dataclasses.asdict(d) for k, d in jd.items()}
+
+
+def test_even_stages_refuses_more_stages_than_layers():
+    _, tcfg = _cfgs(n_layers=2)
+    with pytest.raises(ValueError, match="3 stages for 2 layers"):
+        tpl.even_stages(tcfg, [1, 1, 1])
+
+
+# --- the stage programs against the reference's stage functions --------------------
+
+def _stage_inputs(jcfg, st, mbs=2, seq=16, seed=3):
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(0, jcfg.vocab_size, (mbs, seq)).astype(np.int32)
+         if st.first else
+         rng.standard_normal((mbs, seq, jcfg.d_model)).astype(np.float32))
+    y = (rng.integers(0, jcfg.vocab_size, (mbs, seq)).astype(np.int32)
+         if st.last else
+         rng.standard_normal((mbs, seq, jcfg.d_model)).astype(np.float32))
+    return x, y
+
+
+def _both_stage_params(jcfg, tcfg, st, seed=5):
+    flat = numpy_params(jcfg, seed)
+    full_t = bridge.params_from_numpy(tcfg, flat, device="cpu")
+    full_j = jax.tree.map(jnp.asarray, _unflatten(jm.decls(jcfg), flat))
+    return (jpl._slice_full_params(full_j, st),
+            tpl._slice_full_params(full_t, st, CPU))
+
+
+def _grads_flat(tree):
+    return {k: np.asarray(v) for k, v in _flatten(tree).items()}
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("tps", [[1], [1, 1, 1]])
+def test_stage_programs_match_the_reference(remat, tps):
+    """Each stage's forward, backward (bwd_first, bwd_mid, bwd_last; the
+    single stage's bwd_last on tokens) and update against the reference's
+    ``_stage_apply`` / ``_stage_loss`` under ``jax.vjp`` /
+    ``jax.value_and_grad`` and ``apply_updates``, fp32, 1e-5."""
+    jcfg, tcfg = _cfgs(remat=remat)
+    ocfg_j = jopt.OptimizerConfig(lr=1e-2, warmup_steps=1)
+    ocfg_t = topt.OptimizerConfig(lr=1e-2, warmup_steps=1)
+    for js, ts in zip(jpl.even_stages(jcfg, tps), tpl.even_stages(tcfg, tps)):
+        jp, tp = _both_stage_params(jcfg, tcfg, js)
+        x, y = _stage_inputs(jcfg, js)
+        progs = tpl.stage_programs(tcfg, ts, ocfg_t)
+        tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+        apply_ = lambda p, xx, js=js: jpl._stage_apply(jcfg, js, p, xx)  # noqa: E731
+
+        got = progs["fwd"](tp, tx)
+        _close(got, apply_(jp, jnp.asarray(x)), f"stage {js.index} fwd")
+
+        out = progs["bwd"](tp, tx, ty)
+        if js.last:
+            loss_ = lambda p, xx, ll, js=js: jpl._stage_loss(  # noqa: E731
+                jcfg, js, p, xx, ll)
+            if js.first:
+                wl, wg = jax.value_and_grad(loss_)(jp, jnp.asarray(x),
+                                                   jnp.asarray(y))
+                wx = None
+            else:
+                wl, (wg, wx) = jax.value_and_grad(loss_, argnums=(0, 1))(
+                    jp, jnp.asarray(x), jnp.asarray(y))
+            tl, tg, tgx = out
+            _close(tl, wl, "loss")
+            assert (tgx is None) == (wx is None)
+            if wx is not None:
+                _close(tgx, wx, "gx")
+        elif js.first:
+            _, vjp = jax.vjp(lambda p: apply_(p, jnp.asarray(x)), jp)
+            (wg,) = vjp(jnp.asarray(y))
+            tg = out
+        else:
+            _, vjp = jax.vjp(apply_, jp, jnp.asarray(x))
+            wg, wx = vjp(jnp.asarray(y))
+            tg, tgx = out
+            _close(tgx, wx, "gx")
+        want = _grads_flat(wg)
+        got = dict(graphs.tree_leaves(tg))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            _close(got[k], want[k], f"stage {js.index} grad {k}")
+
+        # the in-place update against the reference's, on the same grads
+        # (AdamW's first step is ~ lr sign(g): it would magnify rounding)
+        to = topt.init_state(tp)
+        step0 = to["step"]
+        same = topt.tree_unflatten((k, torch.from_numpy(np.array(v)))
+                                   for k, v in want.items())
+        assert progs["update"](tp, to, same) is None
+        assert to["step"] is step0 and int(step0) == 1
+        jnew, _, _ = jopt.apply_updates(jp, wg, jopt.init_state(jp), ocfg_j)
+        jnew = _grads_flat(jnew)
+        for k, t in graphs.tree_leaves(tp):
+            _close(t, jnew[k], f"stage {js.index} updated {k}")
+
+
+# --- the pipeline against the single-device step -----------------------------------
+
+def _full(tcfg, jcfg, seed=9):
+    return bridge.params_from_numpy(tcfg, numpy_params(jcfg, seed),
+                                    device="cpu")
+
+
+def _param_err(pipe, full):
+    """Max |pipeline param - full param| over every stage's slice."""
+    worst = 0.0
+    for st, p in zip(pipe.stages, pipe.params):
+        for k, t in graphs.tree_leaves(p):
+            if k.startswith("layers/"):
+                w = full["layers"][k[len("layers/"):]][st.start:st.stop]
+            else:
+                w = full[k]
+            worst = max(worst, (t - w).abs().max().item())
+    return worst
+
+
+@pytest.mark.parametrize("n_stages", [2, 3])
+def test_pipeline_matches_the_single_device_step(n_stages):
+    """Two steps on ``[cpu] * n``: the loss within 1e-5 of
+    ``make_train_step``'s at every step, the params after each within
+    1e-5, and ``full`` (the loaded tree) never written."""
+    jcfg, tcfg = _cfgs()
+    ocfg = topt.OptimizerConfig(lr=1e-3, warmup_steps=1, grad_clip=0.0)
+    full = _full(tcfg, jcfg)
+    before = {k: v.clone() for k, v in graphs.tree_leaves(full)}
+    pipe = tpl.MPMDPipeline(tcfg, tpl.even_stages(tcfg, [1] * n_stages),
+                            ocfg, devices=["cpu"] * n_stages)
+    assert pipe.full_params_like(full) is full
+    ref = _full(tcfg, jcfg)
+    state = topt.init_state(ref)
+    step = tts.make_train_step(tcfg, ocfg)
+    for i in range(2):
+        batch = _batch(tcfg, 2, 2, 16, seed=i)
+        loss = pipe.train_step(batch)
+        _, _, m = step(ref, state, batch)
+        assert isinstance(loss, float)
+        assert abs(loss - m["loss"].item()) <= TOL * abs(loss), (i, loss)
+        assert _param_err(pipe, ref) <= TOL, i
+    assert all(torch.equal(v, before[k])
+               for k, v in graphs.tree_leaves(full))
+    assert [int(o["step"]) for o in pipe.opt_states] == [2] * n_stages
+
+
+def test_pipeline_grads_match_loss_and_grads():
+    """``grad_step`` (no update) gives ``loss_and_grads``' loss and each
+    stage's slice of its gradients (fp32 buffers), clip on or off."""
+    jcfg, tcfg = _cfgs()
+    full = _full(tcfg, jcfg)
+    pipe = tpl.MPMDPipeline(tcfg, tpl.even_stages(tcfg, [1, 1]),
+                            topt.OptimizerConfig(), devices=["cpu", "cpu"])
+    pipe.full_params_like(full)
+    batch = _batch(tcfg, 3, 2, 16)
+    loss, grads = pipe.grad_step(batch)
+    wl, wg = tts.loss_and_grads(tcfg, full, batch)
+    assert abs(loss - wl.item()) <= TOL * abs(loss)
+    flat = dict(graphs.tree_leaves(wg))
+    for st, g in zip(pipe.stages, grads):
+        for k, t in graphs.tree_leaves(g):
+            assert t.dtype == torch.float32
+            w = flat[k][st.start:st.stop] if k.startswith("layers/") \
+                else flat[k]
+            _close(t, w, k)
+
+
+def test_uniform_weights_equal_no_weights():
+    jcfg, tcfg = _cfgs(n_layers=2)
+    batch = _batch(tcfg, 4, 2, 8)
+    out = []
+    for weights in (None, [0.25] * 4):
+        pipe = tpl.MPMDPipeline(tcfg, tpl.even_stages(tcfg, [1, 1]),
+                                topt.OptimizerConfig(),
+                                devices=["cpu", "cpu"])
+        pipe.full_params_like(_full(tcfg, jcfg))
+        loss, grads = pipe.grad_step(batch, weights=weights)
+        out.append((loss, [{k: t.clone() for k, t in graphs.tree_leaves(g)}
+                           for g in grads]))
+    assert abs(out[0][0] - out[1][0]) <= 1e-6 * abs(out[0][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        for k in a:
+            _close(a[k], b[k].numpy(), k, tol=1e-6)
+    pipe = tpl.MPMDPipeline(tcfg, tpl.even_stages(tcfg, [1, 1]),
+                            topt.OptimizerConfig(), devices=["cpu", "cpu"])
+    pipe.full_params_like(_full(tcfg, jcfg))
+    with pytest.raises(ValueError, match="does not match 4 microbatches"):
+        pipe.grad_step(batch, weights=[0.5, 0.5])
+
+
+def test_init_params_draws_each_stage_from_its_own_generator():
+    _, tcfg = _cfgs()
+    stages = tpl.even_stages(tcfg, [1, 1])
+    a, b, c = (tpl.MPMDPipeline(tcfg, stages, topt.OptimizerConfig(),
+                                devices=["cpu", "cpu"]) for _ in range(3))
+    a.init_params(0)
+    b.init_params(0)
+    c.init_params(1)
+    for st, p, q, r in zip(stages, a.params, b.params, c.params):
+        shapes = {k: d.shape
+                  for k, d in iter_decls(tpl.stage_decls(tcfg, st))}
+        assert {k: tuple(t.shape) for k, t in graphs.tree_leaves(p)} == \
+            shapes
+        assert all(torch.equal(x, y) for (_, x), (_, y) in zip(
+            graphs.tree_leaves(p), graphs.tree_leaves(q)))
+        assert not torch.equal(p["layers"]["wq"], r["layers"]["wq"])
+    assert not torch.equal(a.params[0]["layers"]["wq"],
+                           a.params[1]["layers"]["wq"])
+    assert a.train_step(_batch(tcfg, 2, 2, 8)) > 0
+
+
+# --- the adaptive DP group ------------------------------------------------------------
+
+def _group_run(tcfg, jcfg, assignment, staleness=0, steps=3):
+    reps = []
+    for _ in range(len(assignment.replicas)):
+        pipe = tpl.MPMDPipeline(tcfg, tpl.even_stages(tcfg, [1, 1]),
+                                topt.OptimizerConfig(lr=1e-3),
+                                devices=["cpu", "cpu"])
+        pipe.full_params_like(_full(tcfg, jcfg, seed=7))
+        reps.append(pipe)
+    group = tpl.AdaptiveDPGroup.from_assignment(reps, assignment,
+                                                staleness=staleness)
+    rng = np.random.default_rng(0)
+    t = rng.integers(0, tcfg.vocab_size, (8, 17)).astype(np.int32)
+    batch = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    losses = [group.train_step(tpl.shard_batch_by_assignment(batch,
+                                                             assignment))
+              for _ in range(steps)]
+    return losses, group
+
+
+def test_adaptive_group_is_deterministic_and_tracks_uniform():
+    """The reference's ``test_adaptive.py`` scenario (2-stage replicas of
+    a 4-layer model, one repeated batch of 8) on the CPU with fewer
+    steps: staleness 0 repeats bit for bit, and a 2:1 assignment tracks
+    the uniform one (fp association only) and learns."""
+    jcfg, tcfg = _cfgs()
+    uni = BatchAssignment.uniform(dp=2, mbs=4, n_micro=1)
+    l_uni, g_uni = _group_run(tcfg, jcfg, uni)
+    l_again, _ = _group_run(tcfg, jcfg, uni, staleness=0)
+    assert l_uni == l_again
+    ad = BatchAssignment(replicas=(ReplicaBatch(6, 1), ReplicaBatch(2, 1)))
+    ad.validate(8)
+    l_ad, g_ad = _group_run(tcfg, jcfg, ad)
+    for a, b in zip(l_uni, l_ad):
+        assert abs(a - b) < 1e-4 * abs(a), (l_uni, l_ad)
+    assert l_ad[-1] < l_ad[0]
+    # every replica holds the same params after the combined updates
+    for rep in g_ad.replicas[1:]:
+        for p, q in zip(rep.params, g_ad.replicas[0].params):
+            assert all(torch.equal(x, y) for (_, x), (_, y) in zip(
+                graphs.tree_leaves(p), graphs.tree_leaves(q)))
+
+
+def test_adaptive_group_staleness_and_flush():
+    """Staleness 1: the first step applies nothing, each later one the
+    previous step's gradient, and ``flush`` drains the last one."""
+    jcfg, tcfg = _cfgs(n_layers=2)
+    uni = BatchAssignment.uniform(dp=2, mbs=4, n_micro=1)
+    losses, group = _group_run(tcfg, jcfg, uni, staleness=1, steps=2)
+    assert losses[0] == losses[1]          # nothing applied after step 1
+    assert [int(o["step"]) for o in group.replicas[0].opt_states] == [1, 1]
+    assert group.flush() == 1 and group.flush() == 0
+    assert [int(o["step"]) for o in group.replicas[0].opt_states] == [2, 2]
+    with pytest.raises(ValueError, match="staleness"):
+        tpl.AdaptiveDPGroup(group.replicas, staleness=-1)
+    with pytest.raises(ValueError, match="1 batches for 2 replicas"):
+        group.train_step([{}])
+
+
+def test_adaptive_combine_sums_in_replica_order():
+    g = [[{"a": torch.tensor([1.0, 2.0])}],
+         [{"a": torch.tensor([0.5, 0.25], dtype=torch.bfloat16)}]]
+    out = tpl.AdaptiveDPGroup._combine(g)
+    assert out[0]["a"].dtype == torch.float32
+    assert out[0]["a"].tolist() == [1.5, 2.25]
+    assert g[0][0]["a"].tolist() == [1.0, 2.0]      # inputs untouched
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_shard_batch_by_assignment_equal(as_tensor):
+    batch = {"tokens": np.arange(24 * 4).reshape(24, 4),
+             "labels": np.arange(24 * 4).reshape(24, 4) + 1000}
+    for t, j in ((BatchAssignment.proportional([2.0, 1.0], 24, 2),
+                  JAssign.proportional([2.0, 1.0], 24, 2)),
+                 (BatchAssignment.uniform(3, 2, 4),
+                  JAssign.uniform(3, 2, 4))):
+        tb = {k: torch.from_numpy(v) for k, v in batch.items()} \
+            if as_tensor else batch
+        got = tpl.shard_batch_by_assignment(tb, t)
+        want = jpl.shard_batch_by_assignment(
+            {k: jnp.asarray(v) for k, v in batch.items()}, j)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert sorted(g) == sorted(w)
+            for k in g:
+                gv = g[k].numpy() if as_tensor else g[k]
+                np.testing.assert_array_equal(gv, np.asarray(w[k]))
+
+
+# --- what raises -------------------------------------------------------------------
+
+def test_pipeline_refusals(monkeypatch):
+    jcfg, tcfg = _cfgs()
+    ocfg = topt.OptimizerConfig()
+    st = tpl.even_stages(tcfg, [1, 1])
+    cpu2 = ["cpu", "cpu"]
+    with pytest.raises(NotImplementedError, match="Mesh"):
+        tpl.MPMDPipeline(tcfg, tpl.even_stages(tcfg, [2, 1]), ocfg,
+                         devices=["cpu"] * 3)
+    with pytest.raises(NotImplementedError, match="Mesh"):
+        tpl.MPMDPipeline(tcfg, tpl.even_stages(tcfg, [1, 1], dp=2), ocfg,
+                         devices=["cpu"] * 4)
+    with pytest.raises(NotImplementedError, match="tied embeddings"):
+        tpl.MPMDPipeline(dataclasses.replace(tcfg, tie_embeddings=True),
+                         st, ocfg, devices=cpu2)
+    with pytest.raises(NotImplementedError, match="'moe'"):
+        tpl.MPMDPipeline(dataclasses.replace(tcfg, family="moe"), st, ocfg,
+                         devices=cpu2)
+    with pytest.raises(ValueError, match="do not cover"):
+        tpl.MPMDPipeline(tcfg, st[:1], ocfg, devices=cpu2)
+    with pytest.raises(ValueError, match="not contiguous"):
+        tpl.MPMDPipeline(tcfg, [st[0], dataclasses.replace(st[1], start=3)],
+                         ocfg, devices=cpu2)
+    with pytest.raises(ValueError, match="flags"):
+        tpl.MPMDPipeline(tcfg, [st[0], dataclasses.replace(st[1],
+                                                           last=False)],
+                         ocfg, devices=cpu2)
+    with pytest.raises(KeyError, match="unknown sharding policy"):
+        tpl.MPMDPipeline(tcfg, st, ocfg, devices=cpu2, policy="zero3")
+    with pytest.raises(ValueError, match="plan needs 2 devices, have 1"):
+        tpl.MPMDPipeline(tcfg, st, ocfg, devices=["cpu"])
+    with pytest.raises(ValueError, match="graphed=True"):
+        tpl.MPMDPipeline(tcfg, st, ocfg, devices=cpu2, graphed=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpl.MPMDPipeline(tcfg, st, ocfg)
+    pipe = tpl.MPMDPipeline(tcfg, st, ocfg, devices=cpu2, policy="replicated")
+    with pytest.raises(NotImplementedError, match="manager/ and telemetry/"):
+        pipe.attach_telemetry(bus=None)
+    with pytest.raises(RuntimeError, match="load parameters first"):
+        pipe.train_step(_batch(tcfg, 1, 1, 8))
+    assert pipe.graphs == []
+    pipe.full_params_like(_full(tcfg, jcfg))
+    assert pipe.graphs == [None, None]       # the CPU runs eagerly

@@ -225,7 +225,8 @@ def test_audit_raises_until_the_audit_is_ported():
     job = _job(T)
     assert tsearch.SailorPlanner(job, audit=None).audit is None
     for audit in ("warn", "error"):
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(NotImplementedError,
+                           match='"XLA-bound tooling"'):
             tsearch.SailorPlanner(job, audit=audit)
     with pytest.raises(ValueError):
         tsearch.SailorPlanner(job, audit="maybe")
