@@ -124,6 +124,27 @@ Phases, each printed as it runs; any failure exits non-zero:
              ``make_train_step`` (1e-4) and an ``AdaptiveDPGroup`` of two
              such pipelines, a 2:1 assignment against the uniform one (each
              step's loss within 1e-3).
+   mesh      the sharded (data, model) train step
+             (``train_step.jit_train_step`` over ``dist/spmd.py``: one
+             process runs every mesh position in lockstep, each from its
+             own blocks, with the collectives XLA inserts for the
+             reference) on smollm-360M at its published widths and depth,
+             bf16, full remat, on phase 8's data, optimizer and weights,
+             on two meshes whose positions are all ``cuda:0``: (2, 2)
+             ``fsdp_tp`` (FFN, vocab and 'embed' sharded, attention
+             replicated) and (1, 5) ``tp`` (3/1 heads and d_ff 512 a
+             position, vocab replicated).  For each: every position's
+             elements and resident bytes beside the simulator's ``params
+             / tp``; the first step's loss and gradients against the
+             single-device ``loss_and_grads`` (phase 8's bounds); the loss
+             falling over 4 steps; 3 eager steps timed (median) beside
+             phase 8's eager step; the launches a step (each position the
+             attention forward and the fused norm 2 x 32 x 2 times, each
+             backward 32 x 2); every replica of a block, of params, ``m``
+             and ``v``, equal bit for bit; one step profiled
+             (``[profile] mesh_step_*``).  Then an fp32 2-layer model on
+             (2, 2) against ``make_train_step`` (1e-4).  Phase 3 holds
+             each position's attention and norm shapes (``mesh_*``).
 9. plan      Sailor's planner and simulator priced by the card: the
              ``"H100"`` entry fitted as ``measured.calibrate_cpu_host``
              fits it (``measure_block``'s one-layer forward and gradient
@@ -166,7 +187,7 @@ Phases, each printed as it runs; any failure exits non-zero:
              shape (``calibrate``); the norm entries their plan, share of
              the bound and the 16384-row case (``rows16384``).
 
-Each of phases 5-9 (serve continuous and pipeline too) is a main path: the launch
+Each of phases 5-9 (serve continuous, pipeline and mesh too) is a main path: the launch
 counts are set to 0 just before it and read just after, and each kernel
 must have launched on the path that runs it.  Phase 3 also holds the two backward kernels
 (attention, fused add + RMSNorm) against their plain versions on the
@@ -370,6 +391,13 @@ PIPE_LEARN = 4          # steps on one repeated batch: the loss must fall
 PIPE_PAIRS = 3          # pairs of steps timed in turns, graphed and eager
 PIPE_GROUP_STEPS = 4    # AdaptiveDPGroup, fp32 2 layers: 2:1 vs uniform
 PIPE_GROUP_TOL = 1e-3
+# mesh phase: smollm-360M at its published widths and depth, bf16, full
+# remat, [train]'s data, optimizer and weights (seed 0); each mesh's
+# positions all on cuda:0, driven by one process in lockstep
+MESH_CASES = (("fsdp_tp", (2, 2)), ("tp", (1, 5)))
+MESH_LEARN = 4          # steps on one repeated batch: the loss must fall
+MESH_TIMED = 3          # eager steps timed (median) beside [train]'s
+MESH_SMALL_STEPS = 3    # fp32 2 layers on (2, 2) against make_train_step
 
 
 def log(msg: str) -> None:
@@ -1099,6 +1127,22 @@ def plan_shapes():
                    kw["seq_len"], getattr(torch, kw["dtype"]))
 
 
+def mesh_shapes():
+    """(label, local batch, query heads, KV heads, dtype) of the attention
+    each position of a ``[mesh]`` mesh runs at [train]'s seq, its norms
+    at local batch x seq rows: the bf16 meshes of MESH_CASES and the fp32
+    2-layer check's (2, 2).  Heads that divide 'model' are split over it
+    (K/V heads divide wherever the query heads do, on these meshes)."""
+    cfg = get_config(ARCH)
+    h, kh = cfg.n_heads, cfg.n_kv_heads
+    mb = TRAIN_DATA["global_batch"] // TRAIN_DATA["num_microbatches"]
+    cases = [(shape, torch.bfloat16) for _, shape in MESH_CASES]
+    for (dp, tp), dt in cases + [((2, 2), torch.float32)]:
+        split = h % tp == 0 and kh % tp == 0
+        yield (f"mesh_{dp}x{tp}_{_dname(dt)}", mb // dp,
+               h // tp if split else h, kh // tp if split else kh, dt)
+
+
 def phase_kernels(main_lens):
     """Every kernel against its plain version at the shapes of the main
     paths that run it (serve, serve continuous, calibrate, fused) and at
@@ -1127,6 +1171,11 @@ def phase_kernels(main_lens):
     # the plan phase's fits: every measure_block shape, causal
     for label, mbs, seq, dt in plan_shapes():
         attn.append(attention_case(gen, label, mbs, seq, seq, h, kh, d, True,
+                                   dt))
+    # the mesh phase's local shapes, a position's
+    sl = TRAIN_DATA["seq_len"]
+    for label, bl, hq, hk, dt in mesh_shapes():
+        attn.append(attention_case(gen, label, bl, sl, sl, hq, hk, d, True,
                                    dt))
     attn += [
         attention_case(gen, "ragged_s509", BATCH, 509, 509, h, kh, d, True,
@@ -1193,6 +1242,9 @@ def phase_kernels(main_lens):
     norm.append(fused_case(gen, f"continuous_rows{cb}", cb, dm, bf16))
     for label, mbs, seq, dt in plan_shapes():
         norm.append(fused_case(gen, f"{label}_rows{mbs * seq}", mbs * seq, dm,
+                               dt))
+    for label, bl, _, _, dt in mesh_shapes():
+        norm.append(fused_case(gen, f"{label}_rows{bl * sl}", bl * sl, dm,
                                dt))
     norm += [fused_case(gen, "ragged_rows4071", 4071, dm, bf16),
              fused_case(gen, "f32_rows1000", 1000, dm, f32),
@@ -1335,6 +1387,9 @@ def phase_kernels(main_lens):
                                False, bf16),
             attention_bwd_case(gen, "sq70_sk130_d32", 1, 70, 130, 4, 4, 32,
                                True, bf16)]
+    for label, bl, hq, hk, dt in mesh_shapes():
+        abwd.append(attention_bwd_case(gen, label, bl, sl, sl, hq, hk, d,
+                                       True, dt))
     # the plan phase's gradients; the fp32 fit's largest shape timed (the
     # fp32 kernel's only path)
     for label, mbs, seq, dt in plan_shapes():
@@ -1370,6 +1425,9 @@ def phase_kernels(main_lens):
     for label, mbs, seq, dt in plan_shapes():
         nbwd.append(fused_bwd_case(gen, f"{label}_rows{mbs * seq}",
                                    mbs * seq, dm, dt))
+    for label, bl, _, _, dt in mesh_shapes():
+        nbwd.append(fused_bwd_case(gen, f"{label}_rows{bl * sl}", bl * sl,
+                                   dm, dt))
     nbwd[0]["rows16384"] = {key: nbwd[1][key] for key in (
         "shape", "plan", "ms", "bound_ms", "share_of_bound", "plain_ms",
         "max_abs_err")}
@@ -2687,6 +2745,240 @@ def phase_pipeline(train: dict) -> dict:
     return launches
 
 
+def _mesh_of(shape):
+    from repro_torch.dist.mesh import data_model_mesh
+    n = shape[0] * shape[1]
+    return data_model_mesh(*shape, [torch.device("cuda", 0)] * n)
+
+
+def _mesh_replicas_equal(*trees) -> bool:
+    """Every replica of every block of ``trees`` equal bit for bit."""
+    from repro_torch.dist import placement as pm
+    for tree in trees:
+        for _, x in pm.tree_items(tree):
+            for group in x.mesh.groups(pm.replica_axes(x.spec, x.mesh)):
+                if not all(torch.equal(x.blocks[p], x.blocks[group[0]])
+                           for p in group[1:]):
+                    return False
+    return True
+
+
+def _mesh_memory(cfg, mesh, params, state) -> dict:
+    """Each position's elements and resident bytes (its params, ``m`` and
+    ``v`` blocks) beside the simulator's ``params / tp`` for the same
+    (dp, tp) (``core/simulator/memory.py``: ``M_model = params / tp *
+    mul_factor``, the fp32 gradient included)."""
+    from repro_torch.core.simulator.memory import DEFAULT_MEM
+    from repro_torch.dist import placement as pm
+    tp = mesh.shape["model"]
+    prof = JobProfile(TrainJob(cfg, seq_len=TRAIN_DATA["seq_len"],
+                               global_batch=TRAIN_DATA["global_batch"]))
+    total = prof.stage_params(0, len(prof.layer_kinds()))
+    rows = []
+    for p in range(mesh.size):
+        elems = sum(x.blocks[p].numel() for _, x in pm.tree_items(params))
+        resident = sum(x.blocks[p].numel() * x.blocks[p].element_size()
+                       for tree in (params, state["m"], state["v"])
+                       for _, x in pm.tree_items(tree))
+        rows.append(dict(position=mesh.coords(p), elements=elems,
+                         resident_bytes=resident,
+                         with_fp32_grad_bytes=elems * DEFAULT_MEM.mul_factor))
+    return dict(per_position=rows, params=total, params_over_tp=total / tp,
+                ratio=rows[0]["elements"] / (total / tp),
+                sim_m_model_bytes=total / tp * DEFAULT_MEM.mul_factor,
+                mul_factor=DEFAULT_MEM.mul_factor)
+
+
+def _mesh_launch_check(label: str, cfg, dc, mesh, n_steps: int) -> dict:
+    """The launches counted since the last reset: per step and position,
+    the attention forward and the fused norm 2 x layers x microbatches
+    (the forward runs again under remat), each backward layers x
+    microbatches, every other kernel none."""
+    launches = dict(ops.LAUNCHES)
+    per = cfg.n_layers * dc.num_microbatches * mesh.size
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=2 * per, fused_add_rmsnorm=2 * per,
+                flash_attention_bwd=per, fused_add_rmsnorm_bwd=per)
+    if launches != {k: v * n_steps for k, v in want.items()}:
+        raise AssertionError(
+            f"[mesh] {label}: launches {json.dumps(launches)} in {n_steps} "
+            f"steps, expected {json.dumps(want)} a step")
+    return launches
+
+
+def _mesh_grads(label, cfg, mesh, params, full, batch) -> dict:
+    """The first step's loss and gradients on the mesh (unsharded leaf by
+    leaf) against the single-device ``loss_and_grads`` on the same
+    weights and batch, at ``[pipeline]``'s bounds."""
+    from repro_torch.dist import placement as pm
+    gl, gg = train_lib.loss_and_grads(cfg, params, batch, mesh=mesh)
+    wl, wg = train_lib.loss_and_grads(cfg, full, batch)
+    flat = dict(opt_lib.tree_leaves(wg))
+    worst, min_cos = 0.0, 1.0
+    for k, x in pm.tree_items(gg):
+        t, w = pm.unshard(x, "cuda"), flat[k]
+        rel = ((t - w).abs().max() / w.abs().max()).item()
+        cos = _cosine(t, w)
+        worst, min_cos = max(worst, rel), min(min_cos, cos)
+        if not (rel <= TRAIN_GRAD_TOL and cos >= TRAIN_COSINE):
+            raise AssertionError(f"[mesh] {label} grad {k} vs single device: "
+                                 f"max |dg| / max |g| {rel:.3e}, cosine "
+                                 f"{cos:.6f}")
+    if not abs(gl.item() - wl.item()) <= TRAIN_LOSS_TOL * abs(wl.item()):
+        raise AssertionError(f"[mesh] {label}: loss {gl.item()} vs single "
+                             f"device {wl.item()}")
+    return dict(loss=gl.item(), single_loss=wl.item(), max_rel_grad_err=worst,
+                min_cosine=min_cos, tol=TRAIN_GRAD_TOL,
+                cosine_min=TRAIN_COSINE)
+
+
+def _mesh_case(policy, shape, full, batches, train) -> dict:
+    """One mesh at full width: the first step against the single device,
+    the loss falling, replicas bit for bit, the launches, the eager step
+    timed beside [train]'s and profiled, each position's memory.  Returns
+    the launches over the mesh's steps."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.dist.sharding import param_specs
+    cfg = dataclasses.replace(get_config(ARCH), remat="full",
+                              sharding=policy)
+    dc = data_lib.DataConfig(**TRAIN_DATA)
+    ocfg = opt_lib.OptimizerConfig(**TRAIN_OPT)
+    mesh = _mesh_of(shape)
+    label = f"{shape[0]}x{shape[1]} {policy}"
+    params = pm.shard_tree(full, param_specs(model_lib.decls(cfg), policy,
+                                             mesh), mesh)
+    state = opt_lib.init_sharded_state(params)
+    log(f"[mesh] {label} memory: "
+        + json.dumps(_mesh_memory(cfg, mesh, params, state)))
+    first = _mesh_grads(label, cfg, mesh, params, full, batches[0])
+    log(f"[mesh] {label} first step vs the single-device loss_and_grads "
+        f"(same weights and batch): " + json.dumps(first))
+    step = train_lib.jit_train_step(cfg, ocfg, mesh, dc.num_microbatches,
+                                    dc.micro_batch)
+    ops.reset_launches()
+    learn = []
+    for _ in range(MESH_LEARN):
+        params, state, m = step(params, state, batches[0])
+        learn.append(m["loss"].item())
+    if not all(np.isfinite(learn)) or not learn[-1] < learn[0]:
+        raise AssertionError(f"[mesh] {label}: losses {learn}: not finite, "
+                             f"or the last is not below the first")
+    rows = []
+    for i in range(MESH_TIMED):
+        wall, dev, extra, (params, state, m) = _timed_step(
+            lambda: step(params, state, batches[1 + i]))
+        rows.append((wall, dev, extra, m["loss"].item()))
+    launches = _mesh_launch_check(label, cfg, dc, mesh,
+                                  MESH_LEARN + MESH_TIMED)
+    same = _mesh_replicas_equal(params, state["m"], state["v"])
+    if not same:
+        raise AssertionError(f"[mesh] {label}: replicas of a block differ "
+                             f"after {MESH_LEARN + MESH_TIMED} steps")
+    wall = statistics.median(r[0] for r in rows)
+    train_wall = train["eager"]["step_wall_ms"]
+    tokens = dc.global_batch * dc.seq_len
+    stats = dict(
+        mesh=dict(mesh.shape), policy=policy, losses_learn=learn,
+        timed_losses=[r[3] for r in rows], step_wall_ms=wall,
+        step_wall_ms_all=[r[0] for r in rows],
+        step_device_ms=statistics.median(r[1] for r in rows),
+        working_set_gib=max(r[2] for r in rows) / 2**30,
+        tokens_per_s=tokens / (wall / 1e3),
+        train_eager_step_wall_ms=train_wall,
+        ratio_to_train_eager=wall / train_wall,
+        launches_per_step={k: v // (MESH_LEARN + MESH_TIMED)
+                           for k, v in launches.items() if v},
+        replicas_bit_identical=same)
+    log(f"[mesh] {label}: " + json.dumps(stats))
+    dev_ms = profile_window(f"mesh_step_{shape[0]}x{shape[1]}",
+                            lambda: step(params, state, batches[-1]), wall, 1)
+    if dev_ms is not None:
+        log(f"[mesh] {label}: device ms of an eager step {dev_ms:.3f}, busy "
+            f"{dev_ms / wall:.3f}")
+    return launches
+
+
+def _mesh_small_check() -> dict:
+    """fp32, 2 layers at full width on (2, 2) ``fsdp_tp``, through the
+    kernels: the sharded step against ``make_train_step`` from the same
+    weights on the same batches, MESH_SMALL_STEPS steps: every step's
+    loss, and after the first its gradients (of max |g|) and params (of
+    max(1, |p|)) within SMALL_FP32_TOL; later params are printed (AdamW
+    moves an element with a near-zero gradient by ~lr whatever the
+    rounding, ``_pipe_small_check``)."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.dist.sharding import param_specs
+    small = dataclasses.replace(get_config(ARCH), n_layers=2,
+                                dtype="float32", param_dtype="float32",
+                                remat="full", sharding="fsdp_tp")
+    ocfg = opt_lib.OptimizerConfig(lr=1e-3, warmup_steps=1)
+    ds = data_lib.SyntheticDataset(small, data_lib.DataConfig(**TRAIN_DATA))
+    mesh = _mesh_of((2, 2))
+    full = model_lib.init(small, 13, device="cuda")
+    params = pm.shard_tree(full, param_specs(model_lib.decls(small),
+                                             "fsdp_tp", mesh), mesh)
+    state = opt_lib.init_sharded_state(params)
+    ref_state = opt_lib.init_state(full)
+    b = ds.batch(400)
+    gl, gg = train_lib.loss_and_grads(small, params, b, mesh=mesh)
+    wl, wg = train_lib.loss_and_grads(small, full, b)
+    flat = dict(opt_lib.tree_leaves(wg))
+    grad_err = max(((pm.unshard(x, "cuda") - flat[k]).abs().max()
+                    / flat[k].abs().max()).item()
+                   for k, x in pm.tree_items(gg))
+    del gg, wg, flat
+    step = train_lib.jit_train_step(small, ocfg, mesh, 2,
+                                    TRAIN_DATA["global_batch"] // 2)
+    one = train_lib.make_train_step(small, ocfg)
+    rows = []
+    for i in range(MESH_SMALL_STEPS):
+        bi = b if i == 0 else ds.batch(400 + i)
+        params, state, m2 = step(params, state, bi)
+        full, ref_state, m1 = one(full, ref_state, bi)
+        got = dict(opt_lib.tree_leaves(pm.unshard_tree(params, "cuda")))
+        perr = max(((got[k] - w).abs().max()
+                    / max(1.0, w.abs().max().item())).item()
+                   for k, w in opt_lib.tree_leaves(full))
+        rows.append(dict(loss=m2["loss"].item(), single=m1["loss"].item(),
+                         params_err=perr))
+        ok = abs(rows[-1]["loss"] - rows[-1]["single"]) <= \
+            SMALL_FP32_TOL * abs(rows[-1]["single"])
+        if i == 0:
+            rows[0].update(grad_err=grad_err, loss_and_grads=gl.item(),
+                           single_loss_and_grads=wl.item())
+            ok &= grad_err <= SMALL_FP32_TOL and perr <= SMALL_FP32_TOL
+        if not ok:
+            raise AssertionError(f"[mesh] fp32 2 layers, step {i + 1}: "
+                                 f"{rows[-1]} (tol {SMALL_FP32_TOL})")
+    if not _mesh_replicas_equal(params, state["m"], state["v"]):
+        raise AssertionError("[mesh] fp32 2 layers: replicas differ")
+    return dict(steps=rows, tol=SMALL_FP32_TOL)
+
+
+def phase_mesh(train: dict) -> dict:
+    """The sharded (data, model) train step (``train_step.jit_train_step``
+    over ``dist/spmd.py``) at smollm-360M's published widths and depth,
+    bf16, on two meshes whose positions are all ``cuda:0``: (2, 2)
+    ``fsdp_tp`` (FFN, vocab and 'embed' sharded, attention replicated)
+    and (1, 5) ``tp`` (3/1 heads, d_ff 512 a position, vocab replicated);
+    then an fp32 2-layer model on (2, 2) against ``make_train_step``.  A
+    main path for the attention and fused-norm kernels, forward and
+    backward.  Returns the launches over the bf16 meshes' steps."""
+    cfg = dataclasses.replace(get_config(ARCH), remat="full")
+    dc = data_lib.DataConfig(**TRAIN_DATA)
+    ds = data_lib.SyntheticDataset(cfg, dc)
+    batches = [ds.batch(500 + i) for i in range(MESH_TIMED + 2)]
+    full = model_lib.init(cfg, 0, device="cuda")     # [train]'s weights
+    total: dict = {}
+    for policy, shape in MESH_CASES:
+        _add_counts(total, _mesh_case(policy, shape, full, batches, train))
+        torch.cuda.empty_cache()
+    del full
+    log("[mesh] fp32 2 layers on (2, 2) fsdp_tp vs make_train_step: "
+        + json.dumps(_mesh_small_check()))
+    return total
+
+
 def _fit(cfg, label: str, kw: dict):
     """The ``"H100"`` entry fitted as ``measured.calibrate_cpu_host(cfg,
     **kw)`` fits it, step by step (``catalog_entry``, ``measure_block``,
@@ -3018,6 +3310,7 @@ def main() -> int:
     fused_launches = phase_fused()
     train_launches, train = phase_train()
     pipeline_launches = phase_pipeline(train)
+    mesh_launches = phase_mesh(train)
     plan_launches = phase_plan(cfg, train, table_path())
     # launches: each kernel's count on the main path that runs it, which
     # also runs the timed case's shape
@@ -3035,6 +3328,7 @@ def main() -> int:
             launches=counts[path_of[name]][name],
             launches_plan=plan_launches[name],
             launches_pipeline=pipeline_launches[name],
+            launches_mesh=mesh_launches.get(name, 0),
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

@@ -7,6 +7,8 @@ state's ``m/layers/wq``, ``v/...`` and ``step``).  So a JAX pytree
 flattened to numpy and the reference's ``state.npz`` checkpoints (whose
 params sit under ``params/``: pass ``prefix="params/"``) both load, and
 both packages can start from the same weights and optimizer state.
+The ``sharded_*`` functions do the same for a mesh: the tree laid out by
+``param_specs(decls, cfg.sharding, mesh)`` (``dist.placement``), and back.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceArg, resolve_device, torch_dtype
-from repro_torch.dist.sharding import iter_decls, set_path
+from repro_torch.dist.placement import shard, shard_tree, unshard_tree
+from repro_torch.dist.sharding import P, iter_decls, param_specs, set_path
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 
@@ -105,3 +108,37 @@ def opt_state_to_numpy(state, prefix: str = "") -> Dict[str, np.ndarray]:
     flat[prefix + "step"] = np.asarray(
         int(state["step"].detach().cpu()), dtype=np.int32)
     return flat
+
+
+def _specs(cfg: ModelConfig, mesh):
+    return param_specs(model_lib.decls(cfg), cfg.sharding, mesh)
+
+
+def sharded_params_from_numpy(cfg: ModelConfig, flat: Dict[str, np.ndarray],
+                              mesh, prefix: str = ""):
+    """``params_from_numpy`` laid out on ``mesh`` by ``cfg.sharding``: a
+    tree of ``dist.placement.Sharded``."""
+    return shard_tree(params_from_numpy(cfg, flat, "cpu", prefix),
+                      _specs(cfg, mesh), mesh)
+
+
+def sharded_params_to_numpy(params, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Inverse of ``sharded_params_from_numpy``."""
+    return params_to_numpy(unshard_tree(params, "cpu"), prefix)
+
+
+def sharded_opt_state_from_numpy(cfg: ModelConfig,
+                                 flat: Dict[str, np.ndarray], mesh,
+                                 prefix: str = ""):
+    """``opt_state_from_numpy`` on ``mesh``: the moments laid out as the
+    params, the step replicated (``P()``)."""
+    state = opt_state_from_numpy(cfg, flat, "cpu", prefix)
+    specs = _specs(cfg, mesh)
+    return {"m": shard_tree(state["m"], specs, mesh),
+            "v": shard_tree(state["v"], specs, mesh),
+            "step": shard(state["step"], P(), mesh)}
+
+
+def sharded_opt_state_to_numpy(state, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Inverse of ``sharded_opt_state_from_numpy``."""
+    return opt_state_to_numpy(unshard_tree(state, "cpu"), prefix)

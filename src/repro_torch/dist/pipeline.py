@@ -45,7 +45,7 @@ import torch
 
 from repro_torch import graphs
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import Decl, init_from_decls
+from repro_torch.dist.sharding import POLICIES, Decl, init_from_decls
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused as fused_mod
 from repro_torch.models import layers as L
@@ -54,11 +54,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import masked_ce_sums
 from repro_torch.train import optimizer as opt_lib
 
-# the reference's sharding policies (``repro/dist/sharding.py::POLICIES``);
-# with one device a stage every policy places every tensor whole
-POLICIES = ("replicated", "tp", "fsdp_tp")
-MESH_ITEM = ('ROADMAP.md §1, "Mesh": the port of dist/sharding.py\'s '
-             'policy rules and dist/mesh.py')
+MESH_ITEM = 'ROADMAP.md §1 item 1b, "Mesh stages in the pipeline"'
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,6 +271,7 @@ class MPMDPipeline:
                     f"stage {st.index} has tp={st.tp}, dp={st.dp}: tensor "
                     f"and data parallelism inside a stage wait for "
                     f"{MESH_ITEM}")
+        # with one device a stage every policy places every tensor whole
         if policy not in POLICIES:
             raise KeyError(f"unknown sharding policy {policy!r}; "
                            f"known: {sorted(POLICIES)}")

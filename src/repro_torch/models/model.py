@@ -90,13 +90,19 @@ def decode(cfg: ModelConfig, params, cache, tokens):
     return get_module(cfg).decode(cfg, params, cache, tokens)
 
 
-def loss_fn(cfg: ModelConfig, params, batch
+def loss_fn(cfg: ModelConfig, params, batch, *, mesh=None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Next-token cross-entropy; labels == IGNORE_LABEL are masked.
 
     ``cfg.logits_chunk > 0``: the (B, S, V) fp32 logits tensor is never
     materialized, the head projection + softmax run in sequence chunks.
+    ``mesh`` (a ``dist.mesh.Mesh``; ``params`` a tree of
+    ``dist.placement.Sharded``): the sharded forward and loss over the
+    global batch (``dist/spmd.py``); the chunked loss raises there.
     """
+    if mesh is not None:
+        from repro_torch.dist import spmd
+        return spmd.loss_fn(cfg, params, batch, spmd.check_mesh(mesh))
     if cfg.logits_chunk:
         return _chunked_loss(cfg, params, batch)
     logits = forward(cfg, params, batch)

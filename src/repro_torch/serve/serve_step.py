@@ -11,8 +11,9 @@ body (``prefill_on_device``) writes its K/V, length and first token into
 rows of that state, and a decode step's (``decode_on_device``) reads and
 writes it in place; neither syncs with the host, so ``GraphedPrefill``
 captures a prefill once per prompt shape and ``GraphedDecodeStep`` a
-decode step once per batch size, and both replay.  Cache sharding
-(``cache_specs``) waits for the mesh slice.
+decode step once per batch size, and both replay.  ``cache_specs`` is the
+reference's cache layout on a mesh (a plain copy); the servers run on one
+device.
 """
 from __future__ import annotations
 
@@ -24,9 +25,50 @@ import torch
 
 from repro_torch import graphs
 from repro_torch.device import device_of
+from repro_torch.dist import sharding as shd
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve import kv_cache
+
+
+# logical rules for cache tensors: prefer kv-head sharding, fall back to
+# sequence (context-parallel decode), never both on 'model'.
+CACHE_RULES = {
+    "kv_heads": ("model",),
+    "kv_seq": ("model",),
+    "ssm_inner": ("model",),
+}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, mesh):
+    """Specs of ``model.cache_decls(cfg, batch, max_len)`` on ``mesh``:
+    kv heads over 'model' where they divide, else the sequence; the batch
+    dim over the dp axes where it divides (a plain copy of the
+    reference's)."""
+    decls = model_lib.cache_decls(cfg, batch, max_len)
+
+    def to_spec(d: shd.Decl):
+        # try kv_heads first; if it didn't shard, allow kv_seq
+        spec = shd.logical_to_spec(d.shape, d.axes,
+                                   {"kv_heads": ("model",),
+                                    "ssm_inner": ("model",)}, mesh)
+        if all(s is None for s in spec) and "kv_seq" in d.axes:
+            spec = shd.logical_to_spec(d.shape, d.axes,
+                                       {"kv_seq": ("model",)}, mesh)
+        return spec
+
+    # shard batch dim (dim 1 for stacked caches) over dp axes when divisible
+    dp = shd.batch_spec(mesh, batch)[0]
+
+    def add_dp(d: shd.Decl, spec: shd.P):
+        parts = list(spec)
+        for i, ax in enumerate(d.axes):
+            if ax is None and i == 1 and d.shape[i] == batch and dp is not None:
+                if parts[i] is None:
+                    parts[i] = dp
+        return shd.P(*parts)
+
+    return {k: add_dp(d, to_spec(d)) for k, d in decls.items()}
 
 
 def make_prefill(cfg: ModelConfig) -> Callable:

@@ -5,9 +5,20 @@ The step consumes a batch shaped ``(num_micro, micro_batch, seq)`` and
 loops over the leading dim accumulating fp32 gradients, so only one
 microbatch of activations is live at a time (``cfg.remat`` inside the
 layer loop bounds it further).  Gradients come from
-``torch.autograd.grad`` over the parameter leaves.  The mesh half
-(``batch_shardings``, ``jit_train_step``) waits for the sharded slice: a
-``mesh`` argument raises.
+``torch.autograd.grad`` over the parameter leaves.
+
+The mesh half (``mesh=`` a ``dist.mesh.Mesh``, ``batch_shardings``,
+``jit_train_step``) takes params and AdamW moments as trees of
+``dist.placement.Sharded`` laid out by ``param_specs(decls,
+cfg.sharding, mesh)``, the step replicated, and the batch by
+``batch_spec(mesh, micro_batch)``.  Each microbatch runs the sharded
+forward and loss (``dist/spmd.py``) over every position in lockstep;
+autograd gives each block its own path's gradient, and after the
+microbatches each block's fp32 sum is summed over its replicas
+(``placement.replica_group_sum``), which is the reference's gradient
+all-reduce.  The update is ``optimizer.apply_sharded_updates``.  It runs
+eagerly (no graphed form on a mesh).  A ``mesh`` that is not a ``Mesh``
+raises ``TypeError``.
 
 A step is a host part (``device_inputs``: the batch onto the device) and
 a device body (``train_step_on_device``) that makes no host sync.
@@ -23,6 +34,9 @@ import torch
 
 from repro_torch import graphs
 from repro_torch.device import device_of
+from repro_torch.dist import placement as pm
+from repro_torch.dist import spmd
+from repro_torch.dist.sharding import P, batch_spec, param_specs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused as fused_mod
 from repro_torch.models import model as model_lib
@@ -37,12 +51,6 @@ def microbatch_fields(cfg: ModelConfig) -> Tuple[str, ...]:
     if cfg.family == "vlm":
         fields.append("patches")
     return tuple(fields)
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("train_step: the mesh-sharded step is not "
-                                  "ported yet (single device only)")
 
 
 def device_inputs(cfg: ModelConfig, params, batch, micro_weights=None):
@@ -106,9 +114,14 @@ def loss_and_grads(cfg: ModelConfig, params, batch, mesh=None,
     microbatch's gradient and loss instead of the uniform ``1/num_micro``
     (the single-mesh form of the adaptive-batching gradient weights).
     ``None`` is the exact uniform path.  Returns ``(loss, grads)``, grads
-    a nested dict of fp32 tensors shaped like ``params``.
+    a nested dict of fp32 tensors shaped like ``params``.  With ``mesh``,
+    ``params`` is a tree of ``Sharded`` and so are the grads (each block
+    the true gradient: ``sharded_loss_and_grads``).
     """
-    _no_mesh(mesh)
+    if mesh is not None:
+        mesh = spmd.check_mesh(mesh)
+        return sharded_loss_and_grads(cfg, params, shard_batch(
+            cfg, batch, mesh), mesh, micro_weights)
     batch, w = device_inputs(cfg, params, batch, micro_weights)
     return loss_and_grads_on_device(cfg, params, batch, w)
 
@@ -129,8 +142,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig,
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), metrics ``{"loss", "grad_norm", "lr"}`` as 0-d tensors.  The
     update is in place (``optimizer.apply_updates``): the returned params
-    and state are the ones passed in."""
-    _no_mesh(mesh)
+    and state are the ones passed in.  With ``mesh``, the sharded step
+    (``sharded_train_step``)."""
+    if mesh is not None:
+        return sharded_train_step(cfg, opt_cfg, spmd.check_mesh(mesh),
+                                  micro_weights)
 
     def train_step(params, opt_state, batch):
         batch, w = device_inputs(cfg, params, batch, micro_weights)
@@ -138,6 +154,127 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig,
                                     w)
 
     return train_step
+
+
+# --- the mesh half ---------------------------------------------------------------
+
+def batch_shardings(cfg: ModelConfig, mesh, num_micro: int,
+                    micro_batch: int) -> Dict[str, P]:
+    """Specs of the (num_micro, micro_batch, ...) input batch's fields
+    (the reference's ``NamedSharding``s, as specs)."""
+    spec2 = batch_spec(mesh, micro_batch)
+    out = {"tokens": P(None, spec2[0], None),
+           "labels": P(None, spec2[0], None)}
+    if cfg.family == "encdec":
+        out["frames"] = P(None, spec2[0], None, None)
+    if cfg.family == "vlm":
+        out["patches"] = P(None, spec2[0], None, None)
+    return out
+
+
+def shard_batch(cfg: ModelConfig, batch, mesh) -> Dict[str, pm.Sharded]:
+    """The batch's fields (numpy arrays, tensors, or ``Sharded`` already)
+    laid out by ``batch_shardings``."""
+    out = {}
+    shape = tuple(batch["tokens"].shape)
+    specs = batch_shardings(cfg, mesh, shape[0], shape[1])
+    for k in microbatch_fields(cfg):
+        v = batch[k]
+        if not isinstance(v, pm.Sharded):
+            v = pm.shard(torch.as_tensor(v), specs[k], mesh)
+        out[k] = v
+    return out
+
+
+def sharded_loss_and_grads(cfg: ModelConfig, params, batch, mesh,
+                           micro_weights=None):
+    """``loss_and_grads`` on a mesh: ``params`` a tree of ``Sharded``,
+    ``batch`` ``shard_batch``'s.  Per microbatch the sharded loss over the
+    global microbatch and the gradient of every block (a block no counted
+    position reads gets none); the fp32 sums are then summed over each
+    block's replicas.  Returns ``(loss, grads)``: the loss a 0-d tensor on
+    the first position's device, the grads a tree of fp32 ``Sharded``
+    laid out as ``params``, every replica of a block bit for bit equal."""
+    n_micro = batch["tokens"].shape[0]
+    devs = mesh.device_list
+    w = _weights(micro_weights, n_micro, devs[0])
+    w_on = {d: None if w is None else w.to(d) for d in set(devs)}
+    paths, leaves = zip(*[
+        (k, x.with_blocks([b.detach().requires_grad_() for b in x.blocks]))
+        for k, x in pm.tree_items(params)])
+    tree = opt_lib.tree_unflatten(zip(paths, leaves))
+    blocks = [b for x in leaves for b in x.blocks]
+    acc = [torch.zeros(b.shape, dtype=torch.float32, device=b.device)
+           for b in blocks]
+    loss_sum = torch.zeros((), dtype=torch.float32, device=devs[0])
+    for i in range(n_micro):
+        mb = {k: pm.Sharded(x.shape[1:], P(*x.spec[1:]), mesh,
+                            [blk[i] for blk in x.blocks])
+              for k, x in batch.items()}
+        loss, _ = model_lib.loss_fn(cfg, tree, mb, mesh=mesh)
+        grads = torch.autograd.grad(loss, blocks, allow_unused=True)
+        with torch.no_grad():
+            for a, g in zip(acc, grads):
+                if g is not None:
+                    wi = w_on[a.device]
+                    a.add_(g.float() if wi is None else wi[i] * g.float())
+            loss_sum = loss_sum + (loss.detach() if w is None
+                                   else w[i] * loss.detach())
+    if w is None:
+        inv = 1.0 / n_micro
+        for a in acc:
+            a.mul_(inv)
+        loss_sum = loss_sum * inv
+    out, start = [], 0
+    with torch.no_grad():
+        for x in leaves:
+            n = len(x.blocks)
+            out.append(pm.replica_group_sum(
+                x.with_blocks(acc[start:start + n])))
+            start += n
+    return loss_sum, opt_lib.tree_unflatten(zip(paths, out))
+
+
+def sharded_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig,
+                       mesh, micro_weights=None) -> Callable:
+    """train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics) on ``mesh``: ``sharded_loss_and_grads`` then the in-place
+    ``apply_sharded_updates``; trees of ``Sharded`` in and out, metrics
+    ``{"loss", "grad_norm", "lr"}`` as 0-d tensors on the first
+    position's device."""
+
+    def train_step(params, opt_state, batch):
+        loss, grads = sharded_loss_and_grads(
+            cfg, params, shard_batch(cfg, batch, mesh), mesh, micro_weights)
+        params, opt_state, om = opt_lib.apply_sharded_updates(
+            params, grads, opt_state, opt_cfg)
+        return params, opt_state, {"loss": loss, **om}
+
+    return train_step
+
+
+def jit_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig, mesh,
+                   num_micro: int, micro_batch: int, micro_weights=None):
+    """The sharded step for a concrete mesh and batch shape (the
+    reference's jitted, fully-sharded step; here eager).  Params and AdamW
+    ``m``/``v`` go in laid out by ``step.param_specs``, the step
+    replicated, the batch (numpy, tensors or ``Sharded``) by
+    ``step.batch_specs``; a batch of another leading shape raises."""
+    mesh = spmd.check_mesh(mesh)
+    inner = sharded_train_step(cfg, opt_cfg, mesh, micro_weights)
+    specs = param_specs(model_lib.decls(cfg), cfg.sharding, mesh)
+    bspecs = batch_shardings(cfg, mesh, num_micro, micro_batch)
+
+    def step(params, opt_state, batch):
+        shape = tuple(batch["tokens"].shape[:2])
+        if shape != (num_micro, micro_batch):
+            raise ValueError(f"jit_train_step: batch of {shape} (num_micro, "
+                             f"micro_batch); this step was made for "
+                             f"{(num_micro, micro_batch)}")
+        return inner(params, opt_state, batch)
+
+    step.param_specs, step.batch_specs = specs, bspecs
+    return step
 
 
 def _state_leaves(opt_state) -> list:

@@ -1616,3 +1616,70 @@ def test_program_peak_bytes_grows_with_mbs(cuda):
         stage = [measured._stage_peak(cfg, st, 256, mbs, "cuda")
                  for mbs in (1, 4)]
         assert 0 < stage[0] < stage[1], (st.index, stage)
+
+
+# --- the mesh: the sharded train step on one card -----------------------------------
+
+def _mesh_setup(policy, shape):
+    """A reduced smollm (head_dim 64, fp32, full remat, the kernels) on a
+    mesh of ``cuda:0`` repeated, and the same weights on one device."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.dist.mesh import data_model_mesh
+    from repro_torch.dist.sharding import param_specs
+    from repro_torch.train import optimizer as topt
+    cfg = dataclasses.replace(get_config("smollm_360m").reduced(),
+                              head_dim=64, sharding=policy, remat="full",
+                              attn_impl="kernel")
+    n = shape[0] * shape[1]
+    mesh = data_model_mesh(*shape, [torch.device("cuda", 0)] * n)
+    single = tm.init(cfg, 0, device="cuda")
+    sharded = pm.shard_tree(single, param_specs(tm.decls(cfg), policy, mesh),
+                            mesh)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 4, 65), generator=gen)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    return cfg, mesh, single, sharded, batch, topt
+
+
+@pytest.mark.parametrize("policy,shape", [("fsdp_tp", (2, 2)),
+                                          ("tp", (1, 4))])
+def test_sharded_step_on_one_card_matches_single_device(cuda, policy, shape):
+    """The sharded step through the kernels on a mesh of one card against
+    the single-device step: loss rtol 1e-5, gradients 1e-4 of max |g|
+    (fp32), every replica bit for bit equal after 2 steps; per step each
+    position launches the attention forward and the fused norm 2 x layers
+    x microbatches (remat) and each backward layers x microbatches."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.train import train_step as tts
+    cfg, mesh, single, sharded, batch, topt = _mesh_setup(policy, shape)
+    wl, wg = tts.loss_and_grads(cfg, single, batch)
+    ops.reset_launches()
+    gl, gg = tts.loss_and_grads(cfg, sharded, batch, mesh=mesh)
+    torch.cuda.synchronize()
+    per = cfg.n_layers * 2 * mesh.size
+    assert ops.LAUNCHES == dict(
+        {k: 0 for k in ops.LAUNCHES}, flash_attention=2 * per,
+        fused_add_rmsnorm=2 * per, flash_attention_bwd=per,
+        fused_add_rmsnorm_bwd=per)
+    assert abs(gl.item() - wl.item()) <= 1e-5 * abs(wl.item())
+    got = dict(topt.tree_leaves(pm.unshard_tree(gg, "cuda")))
+    for k, w in topt.tree_leaves(wg):
+        assert (got[k] - w).abs().max() <= 1e-4 * w.abs().max(), k
+    ocfg = topt.OptimizerConfig(lr=1e-3, warmup_steps=1)
+    step = tts.jit_train_step(cfg, ocfg, mesh, 2, 4)
+    state = topt.init_sharded_state(sharded)
+    for _ in range(2):
+        sharded, state, m = step(sharded, state, batch)
+    for tree in (sharded, state["m"], state["v"]):
+        for _, x in pm.tree_items(tree):
+            for group in mesh.groups(pm.replica_axes(x.spec, mesh)):
+                assert all(torch.equal(x.blocks[p], x.blocks[group[0]])
+                           for p in group)
+
+
+def test_mesh_without_enough_cards_raises(cuda):
+    from repro_torch.dist.mesh import data_model_mesh
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"need {n + 1} devices"):
+        data_model_mesh(n + 1, 1)
+    assert data_model_mesh(1, 1).device_list == [torch.device("cuda", 0)]

@@ -350,7 +350,10 @@ _PLANNER = ["repro_torch.core.cluster"] + [
     ("plan", "objectives", "heuristics", "dp_solver", "search", "serving")
 ] + [f"repro_torch.core.simulator.{m}" for m in
      ("engine", "memory", "timing", "cost", "simulate", "serving")] + [
-    "repro_torch.serve.paged_cache", "repro_torch.core.profiler.measured"]
+    "repro_torch.serve.paged_cache", "repro_torch.core.profiler.measured",
+    # the mesh (its rules in dist.sharding, reached anyway)
+    "repro_torch.dist.mesh", "repro_torch.dist.placement",
+    "repro_torch.dist.spmd", "repro_torch.launch.mesh"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():

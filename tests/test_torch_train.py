@@ -282,9 +282,10 @@ def test_loss_and_grads_refuse_bad_weights_and_a_mesh():
                            micro_weights=(1.0,))
     with pytest.raises(ValueError, match="micro_weights"):
         tts.loss_and_grads(tcfg, tp, batch, micro_weights=(1.0,))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh must be a dist.mesh.Mesh (the sharded step: test_torch_mesh.py)
+    with pytest.raises(TypeError, match="Mesh"):
         tts.loss_and_grads(tcfg, tp, batch, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         tts.make_train_step(tcfg, topt.OptimizerConfig(), mesh=object())
 
 
