@@ -123,7 +123,21 @@ Phases, each printed as it runs; any failure exits non-zero:
              allocated.  Then an fp32 2-layer pipeline against
              ``make_train_step`` (1e-4) and an ``AdaptiveDPGroup`` of two
              such pipelines, a 2:1 assignment against the uniform one (each
-             step's loss within 1e-3).
+             step's loss within 1e-3).  Then mesh stages:
+             ``even_stages(cfg, [2, 1])``, stage 0 on a (1, 2) ``fsdp_tp``
+             mesh, three positions on ``cuda:0``, eager, from the same
+             weights: the first step's loss and gradients (gathered whole)
+             against ``loss_and_grads`` and the ``[1, 1]`` pipeline's
+             first step (phase 8's bounds), the loss falling over 4 steps,
+             3 steps timed beside the ``[1, 1]`` pipeline's eager step,
+             one profiled (``[profile] pipeline_mesh_step``), the launches
+             a step (the attention forward 3 x 16 x 2 x 2 + 3 x 16 x 2 =
+             288: 15 heads do not divide tp 2, so attention is replicated
+             on stage 0's two positions; its backward 96; no fused norm)
+             in a launch window of their own (``launches_pipeline_mesh``),
+             each stage's resident bytes a position; fp32 2 layers on
+             ``[2, 1]`` and on ``[1, 1]`` at dp 2 against
+             ``make_train_step`` (1e-4).
    mesh      the sharded (data, model) train step
              (``train_step.jit_train_step`` over ``dist/spmd.py``: one
              process runs every mesh position in lockstep, each from its
@@ -145,6 +159,24 @@ Phases, each printed as it runs; any failure exits non-zero:
              (``[profile] mesh_step_*``).  Then an fp32 2-layer model on
              (2, 2) against ``make_train_step`` (1e-4).  Phase 3 holds
              each position's attention and norm shapes (``mesh_*``).
+   elastic   ``train/elastic.ElasticTrainer`` (kill-free reshards and
+             rollbacks to ``train/checkpoint.CheckpointManager``'s async
+             checkpoints) on phase 8's model, data and optimizer (tied,
+             full remat), ``devices=[cuda:0] * 4``, the default all-data-
+             parallel plan, a checkpoint every 3 steps in a temporary
+             directory: ``build(1)``, then 8 steps with a kill-free resize
+             to 4 positions at step 3 and a failure down to 2 at step 7
+             (rollback to step 6): the state after the reshard and after
+             the restore equal, gathered whole, to the state before and to
+             the saved one, bit for bit; 9 log rows; step 6's replay
+             within phase 8's loss bound of its first run; the loss
+             falling.  Prints each reconfiguration's seconds, the
+             checkpoint's bytes, a save's snapshot and write seconds, the
+             median step wall at 1, 4 and 2 positions.  Then
+             ``launch.train.main`` (``--plan --cluster H100:8``, 3 steps at
+             the train cell's shape): a valid plan and finite losses.
+             Every step's launches counted (``launches_elastic``); phase 3
+             holds the local shapes (``elastic_*``, ``pipe_*``).
 9. plan      Sailor's planner and simulator priced by the card: the
              ``"H100"`` entry fitted as ``measured.calibrate_cpu_host``
              fits it (``measure_block``'s one-layer forward and gradient
@@ -187,7 +219,8 @@ Phases, each printed as it runs; any failure exits non-zero:
              shape (``calibrate``); the norm entries their plan, share of
              the bound and the 16384-row case (``rows16384``).
 
-Each of phases 5-9 (serve continuous, pipeline and mesh too) is a main path: the launch
+Each of phases 5-9 (serve continuous, pipeline, its mesh stages, mesh and
+elastic too) is a main path: the launch
 counts are set to 0 just before it and read just after, and each kernel
 must have launched on the path that runs it.  Phase 3 also holds the two backward kernels
 (attention, fused add + RMSNorm) against their plain versions on the
@@ -398,6 +431,26 @@ MESH_CASES = (("fsdp_tp", (2, 2)), ("tp", (1, 5)))
 MESH_LEARN = 4          # steps on one repeated batch: the loss must fall
 MESH_TIMED = 3          # eager steps timed (median) beside [train]'s
 MESH_SMALL_STEPS = 3    # fp32 2 layers on (2, 2) against make_train_step
+# pipeline phase, mesh stages: even_stages(cfg, [2, 1]), stage 0 on a
+# (1, 2) fsdp_tp mesh, three positions all on cuda:0, eager; fp32 2-layer
+# checks on [2, 1] and on [1, 1] at dp 2
+PIPE_MESH_TPS, PIPE_MESH_POLICY = (2, 1), "fsdp_tp"
+PIPE_MESH_TIMED = 3     # eager steps timed (median), then the [1, 1]'s
+PIPE_MESH_SMALL = (((2, 1), 1), ((1, 1), 2))      # (tps, dp)
+# their params after the first AdamW step (lr 1e-3), of max(1, |p|): that
+# step moves element i by lr g_i / (|g_i| + eps), so a gradient that sits
+# near eps (1e-8) moves by up to ~2 lr whatever the summation order did
+# to it; the mesh stages sum over positions in another order (their
+# gradients are held at SMALL_FP32_TOL of max |g|)
+PIPE_MESH_PARAMS_TOL = 2e-3
+# elastic phase: the train cell (tied, bf16, full remat) through
+# ElasticTrainer on [cuda:0] * 4: build(1), then 8 steps with a kill-free
+# resize to 4 positions at step 3 and a failure down to 2 at step 7 that
+# rolls back to the step-6 checkpoint
+ELASTIC_DEVICES = (1, 4, 2)
+ELASTIC_STEPS, ELASTIC_EVERY = 8, 3
+ELASTIC_EVENTS = ((3, 4, False), (7, 2, True))
+ELASTIC_LAUNCH_STEPS = 3    # launch.train --plan on the one card
 
 
 def log(msg: str) -> None:
@@ -1129,18 +1182,30 @@ def plan_shapes():
 
 def mesh_shapes():
     """(label, local batch, query heads, KV heads, dtype) of the attention
-    each position of a ``[mesh]`` mesh runs at [train]'s seq, its norms
-    at local batch x seq rows: the bf16 meshes of MESH_CASES and the fp32
-    2-layer check's (2, 2).  Heads that divide 'model' are split over it
-    (K/V heads divide wherever the query heads do, on these meshes)."""
+    each position of a mesh runs at [train]'s seq, its norms at local
+    batch x seq rows: the bf16 meshes of MESH_CASES and the fp32 2-layer
+    check's (2, 2); [pipeline]'s mesh stages (stage 0 of ``[2, 1]`` at tp
+    2, bf16 and the fp32 2-layer check's, and the fp32 ``[1, 1]`` at dp
+    2; these stages run the unfused norm, so only their attention shapes
+    are a path's); [elastic]'s meshes (dp 1, 4 and 2 at tp 1, bf16).
+    Heads that divide 'model' are split over it (K/V heads divide
+    wherever the query heads do, on these meshes)."""
     cfg = get_config(ARCH)
     h, kh = cfg.n_heads, cfg.n_kv_heads
     mb = TRAIN_DATA["global_batch"] // TRAIN_DATA["num_microbatches"]
-    cases = [(shape, torch.bfloat16) for _, shape in MESH_CASES]
-    for (dp, tp), dt in cases + [((2, 2), torch.float32)]:
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(f"mesh_{dp}x{tp}_{_dname(dt)}", (dp, tp), dt)
+             for (dp, tp), dt in [(shape, bf16) for _, shape in MESH_CASES]
+             + [((2, 2), f32)]]
+    cases += [(f"pipe_{dp}x{tp}_{_dname(dt)}", (dp, tp), dt)
+              for (dp, tp), dt in (((1, 2), bf16), ((1, 2), f32),
+                                   ((2, 1), f32))]
+    cases += [(f"elastic_{dp}x1_bf16", (dp, 1), bf16)
+              for dp in sorted(set(ELASTIC_DEVICES))]
+    for label, (dp, tp), dt in cases:
         split = h % tp == 0 and kh % tp == 0
-        yield (f"mesh_{dp}x{tp}_{_dname(dt)}", mb // dp,
-               h // tp if split else h, kh // tp if split else kh, dt)
+        yield (label, mb // dp, h // tp if split else h,
+               kh // tp if split else kh, dt)
 
 
 def phase_kernels(main_lens):
@@ -2425,12 +2490,25 @@ def _pipe_cfg():
                                remat="full")
 
 
-def _pipe(pl, cfg, ocfg, full, graphed):
-    """A 2-stage pipeline on the one card, ``full``'s weights copied in."""
-    pipe = pl.MPMDPipeline(cfg, pl.even_stages(cfg, [1, 1]), ocfg,
-                           devices=["cuda:0", "cuda:0"], graphed=graphed)
+def _pipe(pl, cfg, ocfg, full, graphed, tps=(1, 1), dp=1,
+          policy=PIPE_MESH_POLICY):
+    """A pipeline of ``even_stages(cfg, tps, dp)`` with every position on
+    the one card, ``full``'s weights copied in."""
+    stages = pl.even_stages(cfg, list(tps), dp=dp)
+    pipe = pl.MPMDPipeline(cfg, stages, ocfg, policy=policy,
+                           devices=["cuda:0"] * sum(s.n_devices
+                                                    for s in stages),
+                           graphed=graphed)
     pipe.full_params_like(full)
     return pipe
+
+
+def _stage_leaves(tree):
+    """(path, whole tensor on the card) of a stage's tree, a mesh stage's
+    ``Sharded`` leaves gathered."""
+    from repro_torch.dist import placement as pm
+    return [(k, pm.unshard(t, "cuda") if isinstance(t, pm.Sharded) else t)
+            for k, t in pm.tree_items(tree)]
 
 
 def _stage_slice(st, flat: dict, key: str):
@@ -2511,43 +2589,46 @@ def _pipe_launch_check(label: str, cfg, dc, n_steps: int) -> dict:
     return launches
 
 
-def _pipe_small_check(pl, cfg) -> dict:
-    """fp32, 2 layers at full width, untied: the graphed 2-stage pipeline
-    against the single-device step from the same weights on the same
-    batches, 3 steps (every program replayed by the third).  The first
-    step's loss, each stage's gradients (of max |g|) and updated params
-    within SMALL_FP32_TOL, and every step's loss.  The single-device path
-    fuses the seam (the fused-norm kernels), the pipeline's stages do not,
-    so their gradients differ by rounding; from the second step on AdamW
-    moves an element whose gradient is near zero by up to ~lr whatever
-    the rounding did to it, so later params are printed, not held.
-    AdamW's clip is off: the pipeline clips each stage by its own norm
-    (the reference's per-stage optimizer)."""
+def _pipe_small_check(pl, cfg, tps=(1, 1), dp=1,
+                      params_tol=SMALL_FP32_TOL) -> dict:
+    """fp32, 2 layers at full width, untied: the 2-stage pipeline
+    ``even_stages(small, tps, dp)`` (its one-device stages graphed, its
+    mesh stages eager, every position on the one card) against the
+    single-device step from the same weights on the same batches, 3 steps
+    (every program replayed by the third).  The first step's loss, each
+    stage's gradients (of max |g|; a mesh stage's gathered whole) within
+    SMALL_FP32_TOL, the updated params within ``params_tol`` (of max(1,
+    |p|)), and every step's loss.  The
+    single-device path fuses the seam (the fused-norm kernels), the
+    pipeline's stages do not, so their gradients differ by rounding; from
+    the second step on AdamW moves an element whose gradient is near zero
+    by up to ~lr whatever the rounding did to it, so later params are
+    printed, not held.  AdamW's clip is off: the pipeline clips each stage
+    by its own norm (the reference's per-stage optimizer)."""
     small = dataclasses.replace(cfg, n_layers=2, dtype="float32",
                                 param_dtype="float32")
     ocfg = opt_lib.OptimizerConfig(lr=1e-3, warmup_steps=1, grad_clip=0.0)
     ds = data_lib.SyntheticDataset(small, data_lib.DataConfig(**TRAIN_DATA))
     full = model_lib.init(small, 11, device="cuda")
-    pipe = _pipe(pl, small, ocfg, full, None)
+    pipe = _pipe(pl, small, ocfg, full, None, tps, dp)
     ref = opt_lib.tree_unflatten((k, v.clone())
                                  for k, v in opt_lib.tree_leaves(full))
     state = opt_lib.init_state(ref)
     step = train_lib.make_train_step(small, ocfg)
 
-    def rel_err(trees, flat):
-        return max((t - _stage_slice(st, flat, k)).abs().max().item()
-                   / max(1.0, _stage_slice(st, flat, k).abs().max().item())
-                   for st, tree in zip(pipe.stages, trees)
-                   for k, t in opt_lib.tree_leaves(tree))
+    def rel_err(trees, flat, floor):
+        worst = 0.0
+        for st, tree in zip(pipe.stages, trees):
+            for k, t in _stage_leaves(tree):
+                w = _stage_slice(st, flat, k)
+                worst = max(worst, (t - w).abs().max().item()
+                            / max(floor, w.abs().max().item()))
+        return worst
 
     b = ds.batch(200)
     loss, grads = pipe.grad_step(b)
     wl, wg = train_lib.loss_and_grads(small, ref, b)
-    flat = dict(opt_lib.tree_leaves(wg))
-    grad_err = max((t - _stage_slice(st, flat, k)).abs().max().item()
-                   / _stage_slice(st, flat, k).abs().max().item()
-                   for st, g in zip(pipe.stages, grads)
-                   for k, t in opt_lib.tree_leaves(g))
+    grad_err = rel_err(grads, dict(opt_lib.tree_leaves(wg)), 0.0)
     pipe.apply_grads(grads)
     rows = []
     for i in range(3):
@@ -2556,17 +2637,19 @@ def _pipe_small_check(pl, cfg) -> dict:
             loss = pipe.train_step(b)
         _, _, m = step(ref, state, b)
         rows.append(dict(loss=loss, single=m["loss"].item(), params_err=rel_err(
-            pipe.params, dict(opt_lib.tree_leaves(ref)))))
+            pipe.params, dict(opt_lib.tree_leaves(ref)), 1.0)))
         ok = abs(loss - m["loss"].item()) <= SMALL_FP32_TOL * abs(loss)
         if i == 0:
             rows[0].update(grad_err=grad_err,
                            loss_and_grads_loss=wl.item())
             ok &= grad_err <= SMALL_FP32_TOL and \
-                rows[0]["params_err"] <= SMALL_FP32_TOL
+                rows[0]["params_err"] <= params_tol
         if not ok:
-            raise AssertionError(f"[pipeline] fp32 2 layers, step {i + 1}: "
-                                 f"{rows[-1]} (tol {SMALL_FP32_TOL})")
-    return dict(steps=rows, tol=SMALL_FP32_TOL)
+            raise AssertionError(f"[pipeline] fp32 2 layers {list(tps)} dp "
+                                 f"{dp}, step {i + 1}: {rows[-1]} (tol "
+                                 f"{SMALL_FP32_TOL}, params {params_tol})")
+    return dict(tps=list(tps), dp=dp, steps=rows, tol=SMALL_FP32_TOL,
+                params_tol=params_tol)
 
 
 def _pipe_group_check(pl, cfg) -> dict:
@@ -2606,6 +2689,134 @@ def _pipe_group_check(pl, cfg) -> dict:
     return dict(runs, tol=PIPE_GROUP_TOL)
 
 
+def _pipe_position_bytes(pipe) -> list:
+    """Each stage's resident bytes a position: its params, AdamW ``m`` and
+    ``v`` and fp32 gradient buffers (a mesh stage's blocks a position)."""
+    from repro_torch.dist import placement as pm
+    rows = []
+    for st, mesh, p, o, acc in zip(pipe.stages, pipe.meshes, pipe.params,
+                                   pipe.opt_states, pipe._acc):
+        per = [0] * mesh.size
+        for tree in (p, o["m"], o["v"], acc):
+            for _, x in pm.tree_items(tree):
+                blocks = x.blocks if isinstance(x, pm.Sharded) else [x]
+                for pos, blk in enumerate(blocks):
+                    per[pos] += blk.numel() * blk.element_size()
+        rows.append(dict(stage=st.index, mesh=dict(mesh.shape),
+                         layers=[st.start, st.stop],
+                         resident_bytes_per_position=per))
+    return rows
+
+
+def _pipe_mesh_case(pl, cfg, dc, ocfg, batches, full, one_wall) -> dict:
+    """Mesh stages at full width: ``even_stages(cfg, [2, 1])``, stage 0 on
+    a (1, 2) ``fsdp_tp`` mesh, every position on the one card, eager.  The
+    first step's loss and gradients (gathered whole) against the
+    single-device ``loss_and_grads`` (phase 8's bounds) and against the
+    ``[1, 1]`` pipeline's first step on the same weights; the loss falling
+    over PIPE_LEARN steps; PIPE_MESH_TIMED steps timed beside the ``[1,
+    1]`` pipeline's eager step; one profiled; the launches a step (each
+    position the attention forward 3 x its layers x microbatches, its
+    backward layers x microbatches, no fused norm); the resident bytes a
+    position.  Returns the launches over the mesh pipeline's steps."""
+    mesh = _pipe(pl, cfg, ocfg, full, None, PIPE_MESH_TPS)
+    label = f"{list(PIPE_MESH_TPS)} {PIPE_MESH_POLICY}"
+    if mesh.graphs[0] is not None or mesh.graphs[1] is None:
+        raise AssertionError(f"[pipeline] {label}: the mesh stage must run "
+                             f"eagerly, the one-device stage graphed")
+    log(f"[pipeline] {label} memory: "
+        + json.dumps(_pipe_position_bytes(mesh)))
+    ops.reset_launches()
+    gl, grads = mesh.grad_step(batches[0])
+    first = [{k: t.clone() for k, t in _stage_leaves(g)} for g in grads]
+    mesh.apply_grads(grads)
+    learn = [mesh.train_step(batches[PIPE_STEPS])
+             for _ in range(PIPE_LEARN)]
+    if not all(np.isfinite(learn)) or not learn[-1] < learn[0]:
+        raise AssertionError(f"[pipeline] {label}: losses {learn}: not "
+                             f"finite, or the last is not below the first")
+    rows = []
+    for i in range(PIPE_MESH_TIMED):
+        wall, dev, extra, loss = _timed_step(
+            lambda: mesh.train_step(batches[PIPE_STEPS + 1 + i]))
+        rows.append((wall, dev, extra, loss))
+    wall = statistics.median(r[0] for r in rows)
+    dev_ms = profile_window("pipeline_mesh_step",
+                            lambda: mesh.train_step(batches[-1]), wall, 1)
+    n_steps = 1 + PIPE_LEARN + PIPE_MESH_TIMED + 1
+    launches = dict(ops.LAUNCHES)
+    want = {name: 0 for name in launches}
+    for st in mesh.stages:
+        n = st.n_layers * dc.num_microbatches * st.n_devices
+        want["flash_attention"] += 3 * n
+        want["flash_attention_bwd"] += n
+    if launches != {k: v * n_steps for k, v in want.items()}:
+        raise AssertionError(
+            f"[pipeline] {label}: launches {json.dumps(launches)} in "
+            f"{n_steps} steps, expected {json.dumps(want)} a step")
+    del mesh
+    # the first step against loss_and_grads and the [1, 1] pipeline's
+    wl, wg = train_lib.loss_and_grads(cfg, full, batches[0])
+    wl = wl.item()
+    flat = dict(opt_lib.tree_leaves(wg))
+    del wg
+    one = _pipe(pl, cfg, ocfg, full, False)
+    ol, og = one.grad_step(batches[0])
+    ones = [dict(opt_lib.tree_leaves(g)) for g in og]
+    stages = pl.even_stages(cfg, list(PIPE_MESH_TPS))
+    worst = dict(single=0.0, one_device=0.0)
+    min_cos = dict(single=1.0, one_device=1.0)
+    for st, g in zip(stages, first):
+        for k, t in g.items():
+            for kind, w in (("single", _stage_slice(st, flat, k)),
+                            ("one_device", ones[st.index][k])):
+                rel = ((t - w).abs().max() / w.abs().max()).item()
+                cos = _cosine(t, w)
+                worst[kind] = max(worst[kind], rel)
+                min_cos[kind] = min(min_cos[kind], cos)
+                if not (rel <= TRAIN_GRAD_TOL and cos >= TRAIN_COSINE):
+                    raise AssertionError(
+                        f"[pipeline] {label} stage {st.index} grad {k} vs "
+                        f"{kind}: max |dg| / max |g| {rel:.3e}, cosine "
+                        f"{cos:.6f}")
+    for kind, ref in (("single", wl), ("one_device", ol)):
+        if not abs(gl - ref) <= TRAIN_LOSS_TOL * abs(ref):
+            raise AssertionError(f"[pipeline] {label}: first-step loss {gl} "
+                                 f"vs {kind} {ref}")
+    del first, flat, ones, og
+    log(f"[pipeline] {label} first step vs the single-device loss_and_grads "
+        f"and the [1, 1] pipeline (same untied weights and batch): "
+        + json.dumps(dict(loss=gl, single_loss=wl, one_device_loss=ol,
+                          max_rel_grad_err=worst, min_cosine=min_cos,
+                          tol=TRAIN_GRAD_TOL, cosine_min=TRAIN_COSINE)))
+    # the [1, 1] pipeline's eager step in the same call
+    one_rows = [_timed_step(lambda: one.train_step(
+        batches[PIPE_STEPS + 1 + i]))[:2] for i in range(PIPE_MESH_TIMED)]
+    one_eager = statistics.median(r[0] for r in one_rows)
+    del one
+    tokens = dc.global_batch * dc.seq_len
+    stats = dict(
+        tps=list(PIPE_MESH_TPS), policy=PIPE_MESH_POLICY, losses_learn=learn,
+        timed_losses=[r[3] for r in rows], step_wall_ms=wall,
+        step_wall_ms_all=[r[0] for r in rows],
+        step_device_ms=statistics.median(r[1] for r in rows),
+        working_set_gib=max(r[2] for r in rows) / 2**30,
+        tokens_per_s=tokens / (wall / 1e3),
+        one_device_eager_step_wall_ms=one_eager,
+        one_device_eager_step_device_ms=statistics.median(
+            r[1] for r in one_rows),
+        ratio_to_one_device_eager=wall / one_eager,
+        one_device_graphed_step_wall_ms=one_wall,
+        launches_per_step={k: v // n_steps for k, v in launches.items()
+                           if v})
+    if dev_ms is not None:
+        stats.update(profiled_device_ms=dev_ms, busy=dev_ms / wall)
+    log(f"[pipeline] {label} (smollm-360M untied, stages of "
+        f"{[s.n_layers for s in stages]} layers on one card, eager): "
+        + json.dumps(stats))
+    return launches
+
+
 def phase_pipeline(train: dict) -> dict:
     """The MPMD pipeline that executes Sailor's plans
     (``dist/pipeline.py``) at smollm-360M's published widths and depth,
@@ -2615,9 +2826,11 @@ def phase_pipeline(train: dict) -> dict:
     step's loss and gradients against the single-device
     ``loss_and_grads``, the loss falling, timed in turns, profiled, each
     stage's memory; then an fp32 2-layer pipeline against the
-    single-device step and an ``AdaptiveDPGroup`` of two replicas.  A main
+    single-device step and an ``AdaptiveDPGroup`` of two replicas.  Then
+    the mesh stages (``_pipe_mesh_case``) and their fp32 checks.  A main
     path for the attention kernels, forward and backward.  Returns the
-    launches over the bf16 pipelines' steps."""
+    launches over the bf16 ``[1, 1]`` pipelines' steps and over the mesh
+    stages' pipeline's."""
     from repro_torch.dist import pipeline as pl
     cfg = _pipe_cfg()
     dc = data_lib.DataConfig(**TRAIN_DATA)
@@ -2733,16 +2946,27 @@ def phase_pipeline(train: dict) -> dict:
             loss=gl, single_loss=wl, max_rel_grad_err=worst,
             min_cosine=min_cos, tol=TRAIN_GRAD_TOL,
             cosine_min=TRAIN_COSINE)))
-    del graphed, eager, full
-    # (f) fp32 2 layers against the single-device step; (g) the DP group
+    del graphed, eager
+    torch.cuda.empty_cache()
+    # (f) mesh stages at full width, from the same weights; its own launch
+    # window (set to 0 inside, read after its steps)
+    mesh_launches = _pipe_mesh_case(pl, cfg, dc, ocfg, batches, full, g_wall)
+    del full
+    torch.cuda.empty_cache()
+    # (g) fp32 2 layers against the single-device step, one-device stages
+    # and mesh stages; (h) the DP group
     log("[pipeline] fp32 2 layers vs make_train_step: "
         + json.dumps(_pipe_small_check(pl, cfg)))
+    for tps, dp in PIPE_MESH_SMALL:
+        log(f"[pipeline] fp32 2 layers {list(tps)} dp {dp} vs "
+            f"make_train_step: " + json.dumps(_pipe_small_check(
+                pl, cfg, tps, dp, PIPE_MESH_PARAMS_TOL)))
     log("[pipeline] AdaptiveDPGroup, fp32 2 layers, 2 replicas of 2 "
         "stages: " + json.dumps(_pipe_group_check(pl, cfg)))
     if dev_ms is not None:
         log(f"[pipeline] device ms of a graphed step {dev_ms:.3f}, busy "
             f"{dev_ms / g_wall:.3f}")
-    return launches
+    return launches, mesh_launches
 
 
 def _mesh_of(shape):
@@ -2977,6 +3201,150 @@ def phase_mesh(train: dict) -> dict:
     log("[mesh] fp32 2 layers on (2, 2) fsdp_tp vs make_train_step: "
         + json.dumps(_mesh_small_check()))
     return total
+
+
+def _whole_state(tr) -> dict:
+    """The trainer's params, ``m``, ``v`` and step gathered whole on the
+    card, by path."""
+    from repro_torch.dist import placement as pm
+    return {k: pm.unshard(x, "cuda") for k, x in pm.tree_items(
+        {"params": tr.params, "opt": tr.opt_state})}
+
+
+def _same_state(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def phase_elastic() -> dict:
+    """Sailor's elastic runtime (``train/elastic.ElasticTrainer`` over
+    ``jit_train_step``, ``train/checkpoint.CheckpointManager``) on the
+    train cell (smollm-360M at its published widths and depth, tied,
+    bf16, full remat, [train]'s data and optimizer), ``devices=[cuda:0] *
+    4``, the default all-data-parallel plan, a checkpoint every
+    ELASTIC_EVERY steps into a temporary directory deleted at the end:
+    ``build(1)``, then ELASTIC_STEPS steps with a kill-free resize to 4
+    positions at step 3 and a failure down to 2 at step 7, which rolls
+    back to the step-6 checkpoint.  The state just after the reshard must
+    equal the state before it, and the state just after the restore the
+    saved one, gathered whole, bit for bit; step 6's replayed loss within
+    phase 8's loss bound of its first run; the loss lower at the end.
+    Prints each reconfiguration's seconds, the checkpoint's bytes, the
+    seconds of a save's synchronous snapshot and of its write
+    (``wait()``), and the median step wall at each position count.  Then
+    ``launch.train.main`` plans on 8 H100s and trains the plan's model on
+    the card.  A main path for the attention and fused-norm kernels,
+    forward and backward; returns the launches over the phase."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.elastic import ElasticTrainer
+    cfg = dataclasses.replace(get_config(ARCH), remat="full")
+    dc = data_lib.DataConfig(**TRAIN_DATA)
+    ocfg = opt_lib.OptimizerConfig(**TRAIN_OPT)
+    workdir = tempfile.mkdtemp(prefix="elastic-")
+    ops.reset_launches()
+    try:
+        tr = ElasticTrainer(cfg, ocfg, dc, workdir,
+                            checkpoint_every=ELASTIC_EVERY,
+                            devices=[torch.device("cuda", 0)]
+                            * max(ELASTIC_DEVICES))
+        saved, checks, save_s = {}, [], []
+        change, save = tr.on_availability_change, tr.ckpt.save
+
+        def on_change(n, failure=False):
+            before = None if failure else _whole_state(tr)
+            change(n, failure)
+            after = _whole_state(tr)
+            want = saved[tr.step] if failure else before
+            checks.append(dict(kind="rollback" if failure else "kill-free",
+                               mesh=dict(tr.mesh.shape),
+                               bit_identical=_same_state(after, want)))
+            del before, after, want
+
+        def on_save(step, state, blocking=False):
+            saved.clear()
+            saved[step] = _whole_state(tr)
+            t0 = time.perf_counter()
+            save(step, state, blocking)
+            save_s.append(time.perf_counter() - t0)
+
+        tr.on_availability_change, tr.ckpt.save = on_change, on_save
+        tr.ckpt.keep = 1        # the latest is all a rollback reads
+        tr.build(ELASTIC_DEVICES[0])
+        log_rows = tr.train(ELASTIC_STEPS, events=list(ELASTIC_EVENTS))
+        saved.clear()
+        kinds = [r["kind"] for r in tr.reconfigs]
+        first = {r["step"]: r["loss"] for r in log_rows[:ELASTIC_EVENTS[1][0]]}
+        back = tr.reconfigs[1]["resumed_at"]
+        replay = [r for r in log_rows if r["step"] == back][-1]["loss"]
+        losses = [r["loss"] for r in log_rows]
+        if (kinds != ["kill-free", "rollback"] or back != 6
+                or len(log_rows) != ELASTIC_STEPS + 1
+                or not all(c["bit_identical"] for c in checks)
+                or not abs(replay - first[back]) <= TRAIN_LOSS_TOL
+                * abs(first[back])
+                or not all(np.isfinite(losses))
+                or not losses[-1] < losses[0]):
+            raise AssertionError(f"[elastic] reconfigs {tr.reconfigs}, "
+                                 f"checks {checks}, log {log_rows}")
+        walls = {}
+        for r in log_rows:
+            walls.setdefault(r["n_devices"], []).append(r["time_s"] * 1e3)
+        # one more save of the final state, timed: its snapshot and write
+        tr.ckpt.wait()
+        t0 = time.perf_counter()
+        save(ELASTIC_STEPS, {"params": tr.params, "opt": tr.opt_state})
+        snap = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tr.ckpt.wait()
+        write = time.perf_counter() - t0
+        path = os.path.join(workdir, f"step-{ELASTIC_STEPS}", "state.npz")
+        nbytes = os.path.getsize(path)
+        disk = shutil.disk_usage(workdir)
+        log("[elastic] " + json.dumps(dict(
+            reconfigs=tr.reconfigs, checks=checks, losses=losses,
+            steps=[r["step"] for r in log_rows],
+            replayed_step=back, replayed_loss=replay,
+            first_run_loss=first[back], loss_tol=TRAIN_LOSS_TOL,
+            step_wall_ms_by_positions={
+                n: dict(median=statistics.median(w), all=w)
+                for n, w in walls.items()},
+            train_save_snapshot_s=save_s, checkpoint_bytes=nbytes,
+            save_snapshot_s=snap, save_write_s=write,
+            disk_free_bytes=disk.free)))
+        del tr
+        torch.cuda.empty_cache()
+        # launch/train.py: plan, then train on the card
+        res, lt = launch_train.main([
+            "--arch", ARCH, "--plan", "--cluster", "H100:8",
+            "--steps", str(ELASTIC_LAUNCH_STEPS),
+            "--seq-len", str(TRAIN_DATA["seq_len"]),
+            "--global-batch", str(TRAIN_DATA["global_batch"]),
+            "--num-micro", str(TRAIN_DATA["num_microbatches"]),
+            "--workdir", os.path.join(workdir, "launch")])
+        lt_losses = [r["loss"] for r in lt.log]
+        if not (res.best is not None and res.best.valid
+                and len(lt_losses) == ELASTIC_LAUNCH_STEPS
+                and all(np.isfinite(lt_losses))):
+            raise AssertionError(f"[elastic] launch.train: plan "
+                                 f"{res.best}, losses {lt_losses}")
+        positions = sum(r["n_devices"] for r in log_rows + lt.log)
+        del lt
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    launches = dict(ops.LAUNCHES)
+    per = cfg.n_layers * dc.num_microbatches * positions
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=2 * per, fused_add_rmsnorm=2 * per,
+                flash_attention_bwd=per, fused_add_rmsnorm_bwd=per)
+    if launches != want:
+        raise AssertionError(f"[elastic] launches {json.dumps(launches)}, "
+                             f"expected {json.dumps(want)} ({positions} "
+                             f"position-steps)")
+    log(f"[elastic] launch.train: plan {res.best.plan.describe()!r}, t_iter "
+        f"{res.best.t_iter}, losses {lt_losses}; launches over the phase "
+        f"({positions} position-steps): {json.dumps(launches)}")
+    return launches
 
 
 def _fit(cfg, label: str, kw: dict):
@@ -3309,8 +3677,9 @@ def main() -> int:
     cal_launches = phase_calibrate(serve_dev)
     fused_launches = phase_fused()
     train_launches, train = phase_train()
-    pipeline_launches = phase_pipeline(train)
+    pipeline_launches, pipe_mesh_launches = phase_pipeline(train)
     mesh_launches = phase_mesh(train)
+    elastic_launches = phase_elastic()
     plan_launches = phase_plan(cfg, train, table_path())
     # launches: each kernel's count on the main path that runs it, which
     # also runs the timed case's shape
@@ -3329,6 +3698,8 @@ def main() -> int:
             launches_plan=plan_launches[name],
             launches_pipeline=pipeline_launches[name],
             launches_mesh=mesh_launches.get(name, 0),
+            launches_pipeline_mesh=pipe_mesh_launches.get(name, 0),
+            launches_elastic=elastic_launches.get(name, 0),
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

@@ -5,8 +5,10 @@ Keys are the "/"-joined pytree paths that ``repro/train/checkpoint.py``'s
 ``_flatten`` writes (``embed``, ``ln_f``, ``layers/wq``, ...; the AdamW
 state's ``m/layers/wq``, ``v/...`` and ``step``).  So a JAX pytree
 flattened to numpy and the reference's ``state.npz`` checkpoints (whose
-params sit under ``params/``: pass ``prefix="params/"``) both load, and
-both packages can start from the same weights and optimizer state.
+params sit under ``params/``: pass ``prefix="params/"``) both load (a bf16 leaf
+of such a file comes back from ``np.load`` as raw 2-byte ``|V2`` records,
+whether ``ml_dtypes`` is imported or not, and is read as bfloat16 bits),
+and both packages can start from the same weights and optimizer state.
 The ``sharded_*`` functions do the same for a mesh: the tree laid out by
 ``param_specs(decls, cfg.sharding, mesh)`` (``dist.placement``), and back.
 """
@@ -26,7 +28,10 @@ from repro_torch.models.config import ModelConfig
 
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:
     arr = np.asarray(arr)
-    if arr.dtype.name == "bfloat16":     # ml_dtypes' bfloat16 (JAX arrays)
+    # ml_dtypes' bfloat16 (JAX arrays), or the raw |V2 records np.load
+    # returns for it from an .npz: bfloat16 bits either way
+    if arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V"
+                                        and arr.dtype.itemsize == 2):
         return torch.from_numpy(arr.view(np.uint16).copy()).view(
             torch.bfloat16)
     return torch.from_numpy(np.array(arr, copy=True))   # owned, writable

@@ -1,34 +1,54 @@
 """MPMD pipeline runner (counterpart of ``repro/dist/pipeline.py``).
 
 Each pipeline stage runs its own programs (forward, backward, optimizer
-update) on its own device, and activations and their gradients move
-between stages by copies.  ``even_stages(cfg, tps=[1, 1])`` splits the
-layers over two stages.  The reference gives each stage its own (dp, tp)
-mesh; tensor and data parallelism inside a stage wait for the port of the
-mesh rules (``ROADMAP.md`` §1, "Mesh"), so every stage here holds one
-device and a stage with ``tp > 1`` or ``dp > 1`` raises.
+update) on its own devices, and activations and their gradients move
+between stages by copies.  ``even_stages(cfg, tps=[2, 1])`` splits the
+layers over two stages, the first at tp 2.  Stage ``i`` holds the
+('data', 'model') mesh ``data_model_mesh(st.dp, st.tp, devices[off:off +
+st.n_devices])``, its devices taken in order as the reference takes them.
 
-Devices: one per stage, ``cuda:0 ... cuda:{n-1}`` by default (the
+* A one-device stage holds plain tensors and runs the stage body
+  (``_stage_apply``) on its device, eagerly or as CUDA graphs.
+* A stage of more positions (a mesh stage) holds its params, AdamW
+  state and gradient buffers as ``placement.Sharded`` trees laid out by
+  ``param_specs(stage_decls(cfg, st), policy, mesh)`` and runs the same
+  body through ``dist/spmd.py``'s lockstep layer (the unfused seam,
+  ``ln_f``, the head and the vocab-parallel CE), eagerly.  Its block
+  gradients are summed over their replicas after the microbatches
+  (``placement.replica_group_sum``) and its update is
+  ``optimizer.apply_sharded_updates``, clipped by the stage's own norm.
+
+Devices: one per mesh position, ``cuda:0 ... cuda:{n-1}`` by default (the
 reference's ``jax.devices()`` prefix).  A caller may repeat a device
-(``[cuda:0, cuda:0]``): the stages then run on it in turn, which is how a
-2-stage plan runs on one card.
+(``[cuda:0] * 3``): the positions then run on it in turn, which is how a
+``[2, 1]`` plan runs on one card.
+
+Stage boundaries (``_to_stage``): an activation, the labels and an
+activation's gradient are laid out on the receiving stage as the
+reference lays them out, by ``batch_spec(mesh, B)`` (the batch split over
+'data' where dp divides it, whole elsewhere): a sharded one is gathered
+from its owners (index 0 on every replica axis) and re-split.  What a
+stage keeps is always a copy.  Autograd through a mesh stage gives each
+'model' copy of its input only its own path's share of the gradient, so
+the gradient sent back is the sum over the input's 'model' group, in
+group order; the gradient received is fed to the owners of the output,
+the copies the next stage read.
 
 Schedule: microbatched 1F1B-style, at most ``n_stages`` microbatches in
 flight; each backward recomputes its stage's forward from the stage input
 kept by the forward, so only the stage inputs are retained.  Gradients
-add up over microbatches in fp32 buffers, one per stage (as the port's
+add up over microbatches in fp32 buffers, one per block (as the port's
 single-device step does; the reference adds them in the params' dtype),
 and the per-stage AdamW update runs in place where the params live.
 
 Programs as CUDA graphs (``graphed=``, the servers' convention and the
 counterpart of the reference's per-stage ``jax.jit``): None graphs the
-stages whose device is a CUDA device and runs CPU stages eagerly, True
-graphs every stage (a CPU stage raises), False runs every stage eagerly.
-A stage's graphs are ``graphs.GraphedShapes``: one graph per (program,
-input shape), its first call eager, its second captured.  A graph writes
-its outputs into the same tensors at every replay, so every input a stage
-keeps is a copy (``_to_stage`` always copies, also onto the device the
-tensor is on) and losses are cloned.
+one-device stages on a CUDA device and runs the others eagerly, True
+graphs every stage (a CPU stage or a mesh stage raises), False runs every
+stage eagerly.  A stage's graphs are ``graphs.GraphedShapes``: one graph
+per (program, input shape), its first call eager, its second captured.
+A graph writes its outputs into the same tensors at every replay, so
+every input a stage keeps is a copy and losses are cloned.
 
 The pipeline matches the single-device step: running layers [0, k) then
 [k, n) is running [0, n), and the loss and update math are
@@ -38,6 +58,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -45,7 +66,11 @@ import torch
 
 from repro_torch import graphs
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import POLICIES, Decl, init_from_decls
+from repro_torch.dist import placement as pm
+from repro_torch.dist import spmd
+from repro_torch.dist.mesh import Mesh, data_model_mesh
+from repro_torch.dist.sharding import (POLICIES, Decl, P, batch_spec,
+                                       init_from_decls, param_specs)
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused as fused_mod
 from repro_torch.models import layers as L
@@ -53,9 +78,6 @@ from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import masked_ce_sums
 from repro_torch.train import optimizer as opt_lib
-
-MESH_ITEM = 'ROADMAP.md §1 item 1b, "Mesh stages in the pipeline"'
-
 
 @dataclasses.dataclass(frozen=True)
 class Stage:
@@ -112,22 +134,23 @@ def stage_decls(cfg: ModelConfig, stage: Stage) -> Dict[str, Any]:
     return d
 
 
+def _stage_view(full: Any, stage: Stage) -> Dict[str, Any]:
+    """The stage's slice of a full params tree, as views."""
+    out: Dict[str, Any] = {"layers": {
+        k: v[stage.start:stage.stop] for k, v in full["layers"].items()}}
+    for k in (("embed",) if stage.first else ()) + (
+            ("ln_f", "lm_head") if stage.last else ()):
+        out[k] = full[k]
+    return out
+
+
 def _slice_full_params(full: Any, stage: Stage,
                        device: torch.device) -> Dict[str, Any]:
     """The stage's slice of a full params tree, copied onto ``device``
     (a copy also where ``full`` lies there: the stage's in-place update
     must not write into ``full``)."""
-    def own(t):
-        return t.to(device, copy=True)
-
-    out: Dict[str, Any] = {"layers": {
-        k: own(v[stage.start:stage.stop]) for k, v in full["layers"].items()}}
-    if stage.first:
-        out["embed"] = own(full["embed"])
-    if stage.last:
-        out["ln_f"] = own(full["ln_f"])
-        out["lm_head"] = own(full["lm_head"])
-    return out
+    return pm.tree_map(lambda _, t: t.to(device, copy=True),
+                       _stage_view(full, stage))
 
 
 def _stage_apply(cfg: ModelConfig, stage: Stage, params, x):
@@ -228,20 +251,157 @@ def stage_programs(cfg: ModelConfig, stage: Stage,
     return {"fwd": fwd, "bwd": bwd, "update": update}
 
 
+def _mesh_stage_apply(cfg: ModelConfig, stage: Stage, mesh: Mesh, params,
+                      x: pm.Sharded):
+    """``_stage_apply`` on ``mesh`` in lockstep (``dist/spmd.py``), up to
+    the last layer: ``x`` the tokens (first stage) or hidden states laid
+    out by ``batch_spec``; returns one hidden-state block a position and
+    the ``spmd.Layout``.  Each layer runs under ``cfg.remat`` when a
+    gradient will be taken."""
+    b, s = x.shape[:2]
+    lay = spmd.layout(cfg, params, mesh, b, s)
+    impl = L.pick_attn_impl(cfg.attn_impl, s, mesh.device_list[0])
+    xs = spmd._embed(cfg, mesh, lay, params, x.blocks) if stage.first \
+        else list(x.blocks)
+    remat = torch.is_grad_enabled() and any(
+        blk.requires_grad for _, t in pm.tree_items(params)
+        for blk in t.blocks)
+    return spmd.run_layers(cfg, mesh, lay, params["layers"], xs, impl, remat,
+                           fused=False), lay
+
+
+def _sharded_leaves(params):
+    """``_leaves`` for a tree of ``Sharded``: (paths, leaves whose blocks
+    are detached and require grad, the tree of them, their blocks)."""
+    paths, leaves = zip(*[
+        (k, x.with_blocks([b.detach().requires_grad_() for b in x.blocks]))
+        for k, x in pm.tree_items(params)])
+    blocks = [b for x in leaves for b in x.blocks]
+    return paths, leaves, opt_lib.tree_unflatten(zip(paths, leaves)), blocks
+
+
+def _block_grads(paths, leaves, grads) -> Dict[str, Any]:
+    """The tree of ``Sharded`` gradients from autograd's flat list (a block
+    no counted position reads gets None)."""
+    out, start = [], 0
+    for x in leaves:
+        n = len(x.blocks)
+        out.append(x.with_blocks(list(grads[start:start + n])))
+        start += n
+    return opt_lib.tree_unflatten(zip(paths, out))
+
+
+def _input_grad(x: pm.Sharded, grads) -> pm.Sharded:
+    """The gradient of a stage input: each position's share (None where its
+    path reaches no counted loss) summed over its 'model' group in group
+    order, never over 'data' (whose positions hold other sequences)."""
+    blocks = [torch.zeros_like(b) if g is None else g
+              for b, g in zip(x.blocks, grads)]
+    return x.with_blocks(pm.all_reduce_sum(blocks, x.mesh, spmd.MODEL))
+
+
+def mesh_stage_programs(cfg: ModelConfig, stage: Stage,
+                        opt_cfg: opt_lib.OptimizerConfig,
+                        mesh: Mesh) -> Dict[str, Callable]:
+    """``stage_programs`` for a stage on a mesh of more than one position:
+    params a tree of ``Sharded``; ``x``, ``gy`` and ``labels`` ``Sharded``
+    laid out by ``batch_spec(mesh, B)``.  ``fwd`` returns the hidden
+    states as a ``Sharded`` of that layout (every 'model' copy equal); the
+    backward programs take the gradient of the output at its owners (the
+    copies the next stage reads), and return the parameter gradients as
+    ``Sharded`` trees (one block a position, not yet summed over
+    replicas) and the input's gradient (``_input_grad``); ``update`` is
+    ``apply_sharded_updates`` in place.  Eager only."""
+    def hidden(x, xs):
+        return pm.Sharded((*x.shape[:2], cfg.d_model),
+                          P(x.spec[0], None, None), mesh, xs)
+
+    def requires_grad(x):
+        return x.with_blocks([b.detach().requires_grad_() for b in x.blocks])
+
+    def fwd(p, x):
+        with torch.no_grad():
+            xs, _ = _mesh_stage_apply(cfg, stage, mesh, p, x)
+            if stage.last:
+                xs = spmd.final_norm(cfg, mesh, p, xs)
+        return hidden(x, xs)
+
+    def bwd_last(p, x, labels):
+        paths, leaves, tree, blocks = _sharded_leaves(p)
+        xin = x if stage.first else requires_grad(x)
+        xs, lay = _mesh_stage_apply(cfg, stage, mesh, tree, xin)
+        loss, _ = spmd.ce_loss(mesh, lay,
+                               spmd.head_logits(cfg, mesh, lay, tree, xs),
+                               labels.blocks)
+        ins = blocks if stage.first else blocks + xin.blocks
+        gs = torch.autograd.grad(loss, ins, allow_unused=True)
+        gx = None if stage.first else _input_grad(xin, gs[len(blocks):])
+        return loss.detach(), _block_grads(paths, leaves, gs), gx
+
+    def backward(p, x, gy, with_input):
+        paths, leaves, tree, blocks = _sharded_leaves(p)
+        xin = requires_grad(x) if with_input else x
+        xs, _ = _mesh_stage_apply(cfg, stage, mesh, tree, xin)
+        own = pm.owners(gy.spec, mesh)
+        ins = blocks + xin.blocks if with_input else blocks
+        gs = torch.autograd.grad([xs[q] for q in own], ins,
+                                 [gy.blocks[q] for q in own],
+                                 allow_unused=True)
+        grads = _block_grads(paths, leaves, gs)
+        if not with_input:
+            return grads
+        return grads, _input_grad(xin, gs[len(blocks):])
+
+    def update(p, o, g):
+        opt_lib.apply_sharded_updates(p, g, o, opt_cfg)
+
+    bwd = bwd_last if stage.last else functools.partial(
+        backward, with_input=not stage.first)
+    return {"fwd": fwd, "bwd": bwd, "update": update}
+
+
+def _tensors(tree) -> List[Optional[torch.Tensor]]:
+    """Every tensor of a tree whose leaves are tensors or ``Sharded`` (a
+    leaf's blocks in position order), in path order."""
+    out: List[Optional[torch.Tensor]] = []
+    for _, x in pm.tree_items(tree):
+        out.extend(x.blocks if isinstance(x, pm.Sharded) else [x])
+    return out
+
+
+def _full(x) -> torch.Tensor:
+    """A leaf as a whole tensor: a ``Sharded`` one gathered to the CPU."""
+    return pm.unshard(x, "cpu") if isinstance(x, pm.Sharded) else x
+
+
+@torch.no_grad()
+def _copy_into(dst, src) -> None:
+    """Copy a gradient leaf (a tensor or ``Sharded``, on any device) into a
+    buffer leaf of the same logical shape."""
+    if not isinstance(dst, pm.Sharded):
+        dst.copy_(pm.unshard(src, dst.device)
+                  if isinstance(src, pm.Sharded) else src)
+        return
+    full = _full(src)
+    for pos, blk in enumerate(dst.blocks):
+        blk.copy_(full[pm.block_slices(dst.shape, dst.spec, dst.mesh, pos)])
+
+
 def _default_devices() -> List[torch.device]:
     resolve_device(None)            # raises without a card
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 class MPMDPipeline:
-    """Multi-program multi-data pipeline, one device a stage.
+    """Multi-program multi-data pipeline over per-stage meshes.
 
     Supports the dense family with untied embeddings; stage 0 owns the
     embedding table, the last stage owns the final norm + LM head.
-    ``devices`` (one ``torch.device`` a stage; a device may repeat),
-    ``policy`` (a no-op for one-device stages, as the reference's on a
-    one-device mesh) and ``graphed`` are described in the module
-    docstring.
+    ``devices`` (one ``torch.device`` a mesh position, stages in order; a
+    device may repeat), ``policy`` (the sharding policy of the mesh
+    stages' params; a no-op for one-device stages, as the reference's on
+    a one-device mesh) and ``graphed`` are described in the module
+    docstring.  ``meshes[i]`` is stage ``i``'s mesh.
     """
 
     def __init__(self, cfg: ModelConfig, stages: Sequence[Stage],
@@ -265,12 +425,6 @@ class MPMDPipeline:
                 or any(s.first for s in stages[1:])
                 or any(s.last for s in stages[:-1])):
             raise ValueError("stage first/last flags inconsistent with order")
-        for st in stages:
-            if st.tp > 1 or st.dp > 1:
-                raise NotImplementedError(
-                    f"stage {st.index} has tp={st.tp}, dp={st.dp}: tensor "
-                    f"and data parallelism inside a stage wait for "
-                    f"{MESH_ITEM}")
         # with one device a stage every policy places every tensor whole
         if policy not in POLICIES:
             raise KeyError(f"unknown sharding policy {policy!r}; "
@@ -285,6 +439,22 @@ class MPMDPipeline:
             raise ValueError(f"plan needs {need} devices, "
                              f"have {len(devices)}")
         self.devices: List[torch.device] = devices[:need]
+        self.meshes: List[Mesh] = []
+        off = 0
+        for st in self.stages:
+            self.meshes.append(data_model_mesh(
+                st.dp, st.tp, self.devices[off:off + st.n_devices]))
+            off += st.n_devices
+        self._specs = [param_specs(stage_decls(cfg, st), policy, m)
+                       if st.n_devices > 1 else None
+                       for st, m in zip(self.stages, self.meshes)]
+        if graphed:
+            for st in self.stages:
+                if st.n_devices > 1:
+                    raise ValueError(
+                        f"MPMDPipeline(graphed=True): stage {st.index} is a "
+                        f"mesh stage (dp={st.dp}, tp={st.tp}), which runs "
+                        f"eagerly; pass graphed=None or False")
         if graphed and any(d.type != "cuda" for d in self.devices):
             raise ValueError(f"MPMDPipeline(graphed=True): a CUDA graph "
                              f"needs every stage on a CUDA device, got "
@@ -293,8 +463,10 @@ class MPMDPipeline:
         self.params: Optional[List[Any]] = None
         self.opt_states: Optional[List[Any]] = None
         self._acc: List[Any] = []
-        self._programs = [stage_programs(cfg, st, opt_cfg)
-                          for st in self.stages]
+        self._programs = [
+            mesh_stage_programs(cfg, st, opt_cfg, m) if st.n_devices > 1
+            else stage_programs(cfg, st, opt_cfg)
+            for st, m in zip(self.stages, self.meshes)]
         self.graphs: List[Optional[graphs.GraphedShapes]] = []
         self._static: List[Dict[Any, List[torch.Tensor]]] = []
 
@@ -306,17 +478,36 @@ class MPMDPipeline:
 
     # --- parameter loading -----------------------------------------------------
 
+    def _on_mesh(self, i: int) -> bool:
+        return self.stages[i].n_devices > 1
+
+    def _device(self, i: int) -> torch.device:
+        """Stage ``i``'s device (its mesh's first position's)."""
+        return self.meshes[i].device_list[0]
+
     def _loaded(self, params: List[Any]) -> None:
         """Optimizer state, gradient buffers and each stage's graphs for
         freshly loaded params (graphs are bound to the params' storage)."""
+        def zeros(t):
+            return torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+
         self.params = params
-        self.opt_states = [opt_lib.init_state(p) for p in params]
-        self._acc = [opt_lib.tree_unflatten(
-            (k, torch.zeros(t.shape, dtype=torch.float32, device=t.device))
-            for k, t in graphs.tree_leaves(p)) for p in params]
+        self.opt_states, self._acc = [], []
+        for i, p in enumerate(params):
+            if self._on_mesh(i):
+                self.opt_states.append(opt_lib.init_sharded_state(p))
+                self._acc.append(pm.tree_map(
+                    lambda _, x: x.with_blocks([zeros(b) for b in x.blocks]),
+                    p))
+            else:
+                self.opt_states.append(opt_lib.init_state(p))
+                self._acc.append(opt_lib.tree_unflatten(
+                    (k, zeros(t)) for k, t in graphs.tree_leaves(p)))
         self.graphs, self._static = [], []
-        for i, (p, dev) in enumerate(zip(params, self.devices)):
-            on = dev.type == "cuda" if self.graphed is None else self.graphed
+        for i, p in enumerate(params):
+            dev = self._device(i)
+            on = (dev.type == "cuda" and not self._on_mesh(i)) \
+                if self.graphed is None else self.graphed
             g = None
             if on:
                 g = graphs.GraphedShapes(p, f"pipeline stage {i}")
@@ -326,27 +517,38 @@ class MPMDPipeline:
             self.graphs.append(g)
             self._static.append({})
 
+    def _place(self, i: int, params: Any) -> Any:
+        """A mesh stage's full params laid out on its mesh (copies)."""
+        return pm.shard_tree(params, self._specs[i], self.meshes[i])
+
     def full_params_like(self, full: Any) -> Any:
         """Load a full single-program params tree (the port's layout, as
         ``bridge.params_from_numpy`` makes it) into the pipeline: each stage
-        gets a copy of its slice on its device, and fresh AdamW state.
-        Returns ``full`` unchanged (the stages never write into it), so a
-        single-program reference can run on the same weights."""
-        self._loaded([_slice_full_params(full, st, dev)
-                      for st, dev in zip(self.stages, self.devices)])
+        gets a copy of its slice on its device (a mesh stage: laid out on
+        its mesh), and fresh AdamW state.  Returns ``full`` unchanged (the
+        stages never write into it), so a single-program reference can run
+        on the same weights."""
+        self._loaded([
+            self._place(i, _stage_view(full, st)) if self._on_mesh(i)
+            else _slice_full_params(full, st, self._device(i))
+            for i, st in enumerate(self.stages)])
         return full
 
     def init_params(self, seed: int) -> None:
         """Seeded per-stage params (no full copy): stage i draws from its
         own ``torch.Generator`` on its device, seeded by the i-th child of
-        ``np.random.SeedSequence(seed)`` (the reference splits its key)."""
+        ``np.random.SeedSequence(seed)`` (the reference splits its key);
+        a mesh stage then lays its tensors out on its mesh, so one seed
+        gives the same logical params whatever the stages' (dp, tp)."""
         kids = np.random.SeedSequence(seed).spawn(len(self.stages))
         params = []
-        for st, dev, kid in zip(self.stages, self.devices, kids):
+        for i, (st, kid) in enumerate(zip(self.stages, kids)):
+            dev = self._device(i)
             gen = torch.Generator(device=dev).manual_seed(
                 int(kid.generate_state(1)[0]))
-            params.append(init_from_decls(stage_decls(self.cfg, st), gen,
-                                          self.cfg.param_dtype, dev))
+            p = init_from_decls(stage_decls(self.cfg, st), gen,
+                                self.cfg.param_dtype, dev)
+            params.append(self._place(i, p) if self._on_mesh(i) else p)
         self._loaded(params)
 
     # --- programs and transfers ------------------------------------------------
@@ -374,11 +576,24 @@ class MPMDPipeline:
         return g.run(key, lambda: prog(self.params[i], *static),
                      f" at stage {i} {name} {[tuple(t.shape) for t in inputs]}")
 
-    def _to_stage(self, idx: int, arr) -> torch.Tensor:
-        """A copy of ``arr`` (numpy or tensor) on stage ``idx``'s device,
-        also where it already lies there: what the schedule keeps must not
-        be a graph's output, which its next replay overwrites."""
-        return torch.as_tensor(arr).to(self.devices[idx], copy=True)
+    def _to_stage(self, idx: int, arr):
+        """A copy of ``arr`` (numpy, a tensor, or a ``Sharded`` of another
+        stage) on stage ``idx``: on its device, or laid out on its mesh by
+        ``batch_spec`` (a ``Sharded`` source gathered from its owners
+        first); a copy also where it already lies there: what the schedule
+        keeps must not be a graph's output, which its next replay
+        overwrites."""
+        dev = self._device(idx)
+        if isinstance(arr, pm.Sharded):
+            full = pm.unshard(arr, dev)
+        else:
+            full = torch.as_tensor(arr)
+            if not self._on_mesh(idx):
+                return full.to(dev, copy=True)
+        if not self._on_mesh(idx):
+            return full
+        mesh = self.meshes[idx]
+        return pm.shard(full, batch_spec(mesh, full.shape[0]), mesh)
 
     # --- the step --------------------------------------------------------------
 
@@ -412,8 +627,11 @@ class MPMDPipeline:
     def _accumulate(self, grads: List[Any], wm: Optional[float],
                     first: bool) -> None:
         for acc, g in zip(self._acc, grads):
-            for (_, a), (_, gi) in zip(graphs.tree_leaves(acc),
-                                       graphs.tree_leaves(g)):
+            for a, gi in zip(_tensors(acc), _tensors(g), strict=True):
+                if gi is None:          # a block no counted position read
+                    if first:
+                        a.zero_()
+                    continue
                 if wm is not None:
                     gi = gi.float() * wm
                 if first:
@@ -421,13 +639,27 @@ class MPMDPipeline:
                 else:
                     a.add_(gi)
 
+    @torch.no_grad()
+    def _replica_sums(self) -> None:
+        """Each mesh stage's block gradients summed over their replicas,
+        in place (``train_step.sharded_loss_and_grads``' last step)."""
+        for i, acc in enumerate(self._acc):
+            if not self._on_mesh(i):
+                continue
+            for _, x in pm.tree_items(acc):
+                for dst, src in zip(x.blocks,
+                                    pm.replica_group_sum(x).blocks):
+                    if src is not dst:
+                        dst.copy_(src)
+
     def grad_step(self, batch: Dict[str, Any],
                   weights: Optional[Sequence[float]] = None):
         """Forward/backward over a (num_micro, batch, seq) token batch
         WITHOUT applying the optimizer update.
 
         Returns ``(loss, grads)``, ``grads`` the per-stage combined
-        gradient trees: the pipeline's fp32 gradient buffers, which the
+        gradient trees: the pipeline's fp32 gradient buffers (``Sharded``
+        trees on a mesh stage, every replica of a block equal), which the
         next ``grad_step`` overwrites.  ``weights=None`` averages
         microbatches uniformly (``g = (1/M) sum_m g_m``).  With ``weights``
         given, microbatch ``m`` contributes ``weights[m] * g_m`` and the
@@ -472,29 +704,30 @@ class MPMDPipeline:
             inv = 1.0 / num_micro
             with torch.no_grad():
                 for acc in self._acc:
-                    for _, a in graphs.tree_leaves(acc):
+                    for a in _tensors(acc):
                         a.mul_(inv)
             loss = float(np.sum(host) * inv)
         else:
             loss = float(np.sum(host.astype(np.float64)
                                 * w.astype(np.float64)))
+        self._replica_sums()
         return loss, list(self._acc)
 
     def apply_grads(self, grads: Sequence[Any]) -> None:
-        """Apply per-stage gradient trees (tensors on any device) through
-        the stage optimizers — the update half of :meth:`train_step`.
-        Trees other than the pipeline's own buffers are copied into them
-        first."""
+        """Apply per-stage gradient trees (tensors on any device, or
+        ``Sharded``) through the stage optimizers — the update half of
+        :meth:`train_step`.  Trees other than the pipeline's own buffers
+        are copied into them first (a whole tensor into a mesh stage's
+        buffers block by block)."""
         if self.params is None:
             raise RuntimeError("load parameters first (full_params_like / "
                                "init_params)")
         for i in range(len(self.stages)):
             if grads[i] is not self._acc[i]:
-                with torch.no_grad():
-                    for (_, a), (_, g) in zip(
-                            graphs.tree_leaves(self._acc[i]),
-                            graphs.tree_leaves(grads[i]), strict=True):
-                        a.copy_(g)
+                for (_, a), (_, g) in zip(pm.tree_items(self._acc[i]),
+                                          pm.tree_items(grads[i]),
+                                          strict=True):
+                    _copy_into(a, g)
             self._run(i, "update")
 
     def train_step(self, batch: Dict[str, Any],
@@ -585,14 +818,15 @@ class AdaptiveDPGroup:
     def _combine(grads_per_rep: Sequence[Sequence[Any]]) -> List[Any]:
         """Host-side sum of the replicas' already-weighted per-stage
         gradient trees, as fp32 CPU tensors added in replica order (the
-        reference's ``np.add``)."""
+        reference's ``np.add``); a ``Sharded`` leaf is gathered whole to
+        the CPU first."""
         out: List[Any] = []
         for i in range(len(grads_per_rep[0])):
-            acc = {k: t.to("cpu", torch.float32, copy=True)
-                   for k, t in graphs.tree_leaves(grads_per_rep[0][i])}
+            acc = {k: _full(t).to("cpu", torch.float32, copy=True)
+                   for k, t in pm.tree_items(grads_per_rep[0][i])}
             for g_r in grads_per_rep[1:]:
-                for k, t in graphs.tree_leaves(g_r[i]):
-                    acc[k].add_(t.to("cpu", torch.float32))
+                for k, t in pm.tree_items(g_r[i]):
+                    acc[k].add_(_full(t).to("cpu", torch.float32))
             out.append(opt_lib.tree_unflatten(acc.items()))
         return out
 

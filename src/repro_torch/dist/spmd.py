@@ -84,7 +84,7 @@ def layout(cfg: ModelConfig, params, mesh: Mesh, batch: int,
         tp=sizes.get(MODEL, 1), batch=pm.part_axes(b),
         heads=q[2] == MODEL, kv=layers["wk"].spec[2] == MODEL,
         ff=(layers["w_up"].spec[2] == MODEL),
-        vocab_embed=params["embed"].spec[0] == MODEL,
+        vocab_embed="embed" in params and params["embed"].spec[0] == MODEL,
         vocab_logits=logits[2] == MODEL)
 
 
@@ -136,11 +136,14 @@ def _kv_heads(cfg: ModelConfig, lay: Layout, mesh: Mesh, pos: int,
 
 
 def _layer_fn(cfg: ModelConfig, mesh: Mesh, lay: Layout, specs: Dict[str, P],
-              positions: List[torch.Tensor], impl: str):
+              positions: List[torch.Tensor], impl: str, fused: bool = True):
     """One decoder layer over every position (the lockstep body that
     ``cfg.remat`` checkpoints): ``xs`` one (b, S, D) residual a position,
     ``lws`` one dict of this layer's blocks a position; ``positions`` the
-    RoPE positions on each position's device."""
+    RoPE positions on each position's device.  ``fused`` runs the seam as
+    ``decoder_block`` does (``rms_norm_residual``); False as
+    ``attn_block`` then ``ffn_block`` (the residual add, then a plain
+    ``rms_norm``), the pipeline stage's body."""
     split = {"wq": (1,), "bq": (0,), "wo": (0,)} if lay.heads else {}
     n = mesh.size
 
@@ -164,9 +167,13 @@ def _layer_fn(cfg: ModelConfig, mesh: Mesh, lay: Layout, specs: Dict[str, P],
         delta = pm.all_reduce_sum(part, mesh, MODEL) if lay.heads else part
         ys, part = [], []
         for p in range(n):
-            h, y = L.rms_norm_residual(
-                xs[p], delta[p], w[p]["ln2"], cfg.norm_eps,
-                impl="kernel" if impl == "kernel" else "jnp")
+            if fused:
+                h, y = L.rms_norm_residual(
+                    xs[p], delta[p], w[p]["ln2"], cfg.norm_eps,
+                    impl="kernel" if impl == "kernel" else "jnp")
+            else:
+                y = xs[p] + delta[p]
+                h = L.rms_norm(y, w[p]["ln2"], cfg.norm_eps)
             part.append(T._ffn(cfg, w[p], h))
             ys.append(y)
         ffn = pm.all_reduce_sum(part, mesh, MODEL) if lay.ff else part
@@ -199,6 +206,47 @@ def _embed(cfg: ModelConfig, mesh: Mesh, lay: Layout, params,
     return [x.to(dtype) for x in pm.all_reduce_sum(rows, mesh, MODEL)]
 
 
+def run_layers(cfg: ModelConfig, mesh: Mesh, lay: Layout, layers,
+               xs: List[torch.Tensor], impl: str, remat: bool,
+               fused: bool = True) -> List[torch.Tensor]:
+    """Every layer of ``layers`` (a tree of ``Sharded`` stacked on a
+    leading layer dim) over every position in lockstep, each layer under
+    ``cfg.remat`` when ``remat``; ``xs`` one residual a position."""
+    devs = mesh.device_list
+    s = xs[0].shape[1]
+    arange = {d: torch.arange(s, device=d) for d in set(devs)}
+    specs = {name: P(*st.spec[1:]) for name, st in layers.items()}
+    stacked = [{name: st.blocks[p].unbind(0) for name, st in layers.items()}
+               for p in range(mesh.size)]
+    body = _layer_fn(cfg, mesh, lay, specs, [arange[d] for d in devs], impl,
+                     fused)
+    step = T._remat(body, cfg.remat) if remat else body
+    for i in range(next(iter(layers.values())).shape[0]):
+        xs = step(xs, [{name: w[i] for name, w in st.items()}
+                       for st in stacked])
+    return xs
+
+
+def final_norm(cfg: ModelConfig, mesh: Mesh, params,
+               xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    ln_f = _local(mesh, params["ln_f"].spec, params["ln_f"].blocks)
+    return [L.rms_norm(x, w, cfg.norm_eps) for x, w in zip(xs, ln_f)]
+
+
+def head_logits(cfg: ModelConfig, mesh: Mesh, lay: Layout, params,
+                xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """``ln_f`` then the head: per position its fp32 logits block."""
+    if cfg.tie_embeddings:
+        heads = [e.T for e in _local(
+            mesh, params["embed"].spec, params["embed"].blocks,
+            (0,) if lay.vocab_logits else ())]
+    else:
+        heads = _local(mesh, params["lm_head"].spec, params["lm_head"].blocks,
+                       (1,) if lay.vocab_logits else ())
+    return [(h @ w.to(h.dtype)).float()
+            for h, w in zip(final_norm(cfg, mesh, params, xs), heads)]
+
+
 def forward(cfg: ModelConfig, params, batch, mesh: Mesh,
             attn_impl: Optional[str] = None):
     """Per position (in position order) its logits block (b_local, S,
@@ -212,34 +260,13 @@ def forward(cfg: ModelConfig, params, batch, mesh: Mesh,
     tokens = _local_batch(batch, mesh, "tokens")
     lay = layout(cfg, params, mesh, *tokens.shape)
     tokens, s = tokens.blocks, tokens.shape[1]
-    devs = mesh.device_list
-    arange = {d: torch.arange(s, device=d) for d in set(devs)}
-    impl = attn_impl or L.pick_attn_impl(cfg.attn_impl, s, devs[0])
+    impl = attn_impl or L.pick_attn_impl(cfg.attn_impl, s,
+                                         mesh.device_list[0])
     xs = _embed(cfg, mesh, lay, params, tokens)
-    layers = params["layers"]
-    specs = {name: P(*st.spec[1:]) for name, st in layers.items()}
     grad = torch.is_grad_enabled() and any(
         b.requires_grad for _, st in pm.tree_items(params) for b in st.blocks)
-    stacked = [{name: st.blocks[p].unbind(0) for name, st in layers.items()}
-               for p in range(mesh.size)]
-    body = _layer_fn(cfg, mesh, lay, specs, [arange[d] for d in devs], impl)
-    step = T._remat(body, cfg.remat) if grad else body
-    for i in range(cfg.n_layers):
-        xs = step(xs, [{name: w[i] for name, w in st.items()}
-                       for st in stacked])
-    ln_f = _local(mesh, params["ln_f"].spec, params["ln_f"].blocks)
-    if cfg.tie_embeddings:
-        heads = [e.T for e in _local(
-            mesh, params["embed"].spec, params["embed"].blocks,
-            (0,) if lay.vocab_logits else ())]
-    else:
-        heads = _local(mesh, params["lm_head"].spec, params["lm_head"].blocks,
-                       (1,) if lay.vocab_logits else ())
-    logits = []
-    for p in range(mesh.size):
-        h = L.rms_norm(xs[p], ln_f[p], cfg.norm_eps)
-        logits.append((h @ heads[p].to(h.dtype)).float())
-    return logits, lay
+    xs = run_layers(cfg, mesh, lay, params["layers"], xs, impl, grad)
+    return head_logits(cfg, mesh, lay, params, xs), lay
 
 
 def _ce_sums(mesh: Mesh, lay: Layout, logits: List[torch.Tensor],
@@ -285,13 +312,11 @@ def loss_owners(mesh: Mesh, batch_axes: Tuple[str, ...]) -> List[int]:
     return pm.owners(P(batch_axes or None), mesh)
 
 
-def loss_fn(cfg: ModelConfig, params, batch, mesh: Mesh,
-            attn_impl: Optional[str] = None):
-    """Masked next-token CE over the global batch on ``mesh``: (loss,
-    {"loss", "tokens", "accuracy"}), 0-d tensors on the first position's
-    device."""
-    logits, lay = forward(cfg, params, batch, mesh, attn_impl)
-    labels = _local_batch(batch, mesh, "labels").blocks
+def ce_loss(mesh: Mesh, lay: Layout, logits: List[torch.Tensor],
+            labels: List[torch.Tensor]):
+    """The masked mean CE of per-position logits blocks over the global
+    batch, counted once (``loss_owners``): (loss, {"loss", "tokens",
+    "accuracy"}), 0-d tensors on the first position's device."""
     sums = _ce_sums(mesh, lay, logits, labels)
     dev0 = mesh.device_list[0]
     owners = loss_owners(mesh, lay.batch)
@@ -301,3 +326,13 @@ def loss_fn(cfg: ModelConfig, params, batch, mesh: Mesh,
     denom = torch.clamp_min(n_tok, 1)
     loss = nll / denom
     return loss, {"loss": loss, "tokens": n_tok, "accuracy": n_corr / denom}
+
+
+def loss_fn(cfg: ModelConfig, params, batch, mesh: Mesh,
+            attn_impl: Optional[str] = None):
+    """Masked next-token CE over the global batch on ``mesh``: (loss,
+    {"loss", "tokens", "accuracy"}), 0-d tensors on the first position's
+    device."""
+    logits, lay = forward(cfg, params, batch, mesh, attn_impl)
+    return ce_loss(mesh, lay, logits,
+                   _local_batch(batch, mesh, "labels").blocks)

@@ -1683,3 +1683,120 @@ def test_mesh_without_enough_cards_raises(cuda):
     with pytest.raises(ValueError, match=f"need {n + 1} devices"):
         data_model_mesh(n + 1, 1)
     assert data_model_mesh(1, 1).device_list == [torch.device("cuda", 0)]
+
+
+# --- the runtime: mesh stages, checkpoints, the elastic trainer ----------------------
+
+def test_mesh_stage_pipeline_on_one_card(cuda):
+    """``even_stages(cfg, [2, 1])`` on ``[cuda:0] * 3`` through the kernels
+    (stage 0 a (1, 2) mesh): the first step's loss (rtol 1e-5) and every
+    stage's gradients (1e-4 of max |g|, fp32) against the ``[1, 1]``
+    pipeline on the same weights; per step each position launches the
+    attention forward 3 x its layers x microbatches and its backward
+    layers x microbatches, and no fused norm (the stages are unfused)."""
+    from repro_torch.dist import pipeline as pl
+    from repro_torch.dist import placement as pm
+    from repro_torch.train import data as tdata
+    from repro_torch.train import optimizer as topt
+    cfg = dataclasses.replace(get_config("smollm_360m").reduced(),
+                              head_dim=64, remat="full", attn_impl="kernel",
+                              tie_embeddings=False)
+    ds = tdata.SyntheticDataset(cfg, tdata.DataConfig(
+        seq_len=64, global_batch=4, num_microbatches=2))
+    ocfg = topt.OptimizerConfig(lr=1e-3, warmup_steps=1, grad_clip=0.0)
+    full = tm.init(cfg, 0, device="cuda")
+    pipes = {}
+    for tps in ((2, 1), (1, 1)):
+        stages = pl.even_stages(cfg, list(tps))
+        pipes[tps] = pl.MPMDPipeline(
+            cfg, stages, ocfg, graphed=None,
+            devices=["cuda:0"] * sum(s.n_devices for s in stages))
+        pipes[tps].full_params_like(full)
+    mesh, one = pipes[(2, 1)], pipes[(1, 1)]
+    assert mesh.graphs[0] is None and mesh.graphs[1] is not None
+    b = ds.batch(0)
+    ops.reset_launches()
+    loss, grads = mesh.grad_step(b)
+    torch.cuda.synchronize()
+    want = {k: 0 for k in ops.LAUNCHES}
+    for st in mesh.stages:
+        n = st.n_layers * 2 * st.n_devices
+        want["flash_attention"] += 3 * n
+        want["flash_attention_bwd"] += n
+    assert ops.LAUNCHES == want
+    wl, wg = one.grad_step(b)
+    assert abs(loss - wl) <= 1e-5 * abs(wl)
+    for g, w in zip(grads, wg):
+        got = dict(pm.tree_items(g))
+        for k, t in topt.tree_leaves(w):
+            x = pl._full(got[k]).to("cuda")
+            assert (x - t).abs().max() <= 1e-4 * t.abs().max(), k
+    mesh.apply_grads(grads)
+    assert mesh.train_step(ds.batch(1)) < loss
+
+
+def test_bf16_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """bf16 params and fp32 AdamW state on the card save (the snapshot a
+    synchronous copy to the host) and restore onto the card bit for bit,
+    also after an in-place step taken while the write was in flight."""
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import optimizer as topt
+    cfg = dataclasses.replace(get_config("smollm_360m"), n_layers=2)
+    params = tm.init(cfg, 3, device="cuda")
+    state = topt.init_state(params)
+    grads = topt.tree_unflatten((k, torch.randn_like(t, dtype=torch.float32))
+                                for k, t in topt.tree_leaves(params))
+    ocfg = topt.OptimizerConfig(lr=1e-2, warmup_steps=1)
+    topt.apply_updates(params, grads, state, ocfg)
+    tree = {"params": params, "opt": state}
+    saved = {k: t.clone() for k, t in topt.tree_leaves(tree)}
+    mgr = ck.CheckpointManager(str(tmp_path))
+    mgr.save(1, tree, blocking=False)
+    topt.apply_updates(params, grads, state, ocfg)
+    got, step = mgr.restore(tree)
+    assert step == 1
+    for k, t in topt.tree_leaves(got):
+        assert t.device.type == "cuda" and t.dtype == saved[k].dtype, k
+        assert torch.equal(t, saved[k]), k
+    assert got["params"]["embed"].dtype == torch.bfloat16
+
+
+def test_kill_free_reshard_on_one_card(cuda, tmp_path):
+    """An ``ElasticTrainer`` on ``[cuda:0] * 4`` through the kernels:
+    (1, 1) then a kill-free (2, 2): the unsharded state bit for bit, and
+    the next step's loss within 1e-5 of a trainer that stayed on (1,
+    1)."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.train import data as tdata
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.elastic import ElasticTrainer, RuntimePlan
+    cfg = dataclasses.replace(get_config("smollm_360m").reduced(),
+                              head_dim=64, sharding="fsdp_tp",
+                              attn_impl="kernel")
+    dc = tdata.DataConfig(seq_len=64, global_batch=4)
+    ocfg = topt.OptimizerConfig(lr=1e-3, warmup_steps=2)
+    shapes = iter([(1, 1), (2, 2)])
+    tr = ElasticTrainer(cfg, ocfg, dc, str(tmp_path / "a"),
+                        devices=["cuda:0"] * 4,
+                        plan_fn=lambda n: RuntimePlan(n, *next(shapes)))
+    stay = ElasticTrainer(cfg, ocfg, dc, str(tmp_path / "b"),
+                          devices=["cuda:0"])
+    for t in (tr, stay):
+        t.build(1)
+        t.train(2)
+
+    def whole(t):
+        return {k: pm.unshard(x, "cuda") for k, x in pm.tree_items(
+            {"p": t.params, "o": t.opt_state})}
+
+    before = whole(tr)
+    tr.on_availability_change(4)
+    assert dict(tr.mesh.shape) == {"data": 2, "model": 2}
+    after = whole(tr)
+    assert all(torch.equal(after[k], before[k]) for k in before)
+    ops.reset_launches()
+    tr.train(1)
+    stay.train(1)
+    assert ops.LAUNCHES["flash_attention_bwd"] > 0
+    assert abs(tr.log[-1]["loss"] - stay.log[-1]["loss"]) <= \
+        1e-5 * abs(stay.log[-1]["loss"])

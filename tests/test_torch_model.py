@@ -353,7 +353,10 @@ _PLANNER = ["repro_torch.core.cluster"] + [
     "repro_torch.serve.paged_cache", "repro_torch.core.profiler.measured",
     # the mesh (its rules in dist.sharding, reached anyway)
     "repro_torch.dist.mesh", "repro_torch.dist.placement",
-    "repro_torch.dist.spmd", "repro_torch.launch.mesh"]
+    "repro_torch.dist.spmd", "repro_torch.launch.mesh",
+    # the runtime that trains the plans
+    "repro_torch.train.checkpoint", "repro_torch.train.elastic",
+    "repro_torch.launch.train"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():

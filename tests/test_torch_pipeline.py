@@ -1,5 +1,5 @@
 """The port's MPMD pipeline (``repro_torch/dist/pipeline.py``) vs the
-reference's, on the CPU.
+reference's, on the CPU (mesh stages on ``[cpu] * n`` positions).
 
 The reference's ``MPMDPipeline.train_step`` does not run on this jax
 (``ROADMAP.md`` §3, R2), but its stage functions do: the port's stage
@@ -30,12 +30,17 @@ from repro_torch import bridge
 from repro_torch import graphs
 from repro_torch.core.planner.plan import BatchAssignment, ReplicaBatch
 from repro_torch.dist import pipeline as tpl
-from repro_torch.dist.sharding import iter_decls
+from repro_torch.dist import placement as pm
+from repro_torch.dist.mesh import data_model_mesh
+from repro_torch.dist.sharding import batch_spec, iter_decls, param_specs
 from repro_torch.train import optimizer as topt
 from repro_torch.train import train_step as tts
 from test_torch_model import configs, numpy_params
 
 TOL = 1e-5
+# params after a step on a mesh (test_torch_mesh.py; the reference's own
+# sharded test, tests/test_distributed.py:100-101)
+PARAM_RTOL, PARAM_ATOL = 2e-3, 2e-4
 CPU = torch.device("cpu")
 
 
@@ -387,12 +392,12 @@ def test_pipeline_refusals(monkeypatch):
     ocfg = topt.OptimizerConfig()
     st = tpl.even_stages(tcfg, [1, 1])
     cpu2 = ["cpu", "cpu"]
-    with pytest.raises(NotImplementedError, match="Mesh"):
+    with pytest.raises(ValueError, match="graphed=True.*stage 0 is a mesh"):
         tpl.MPMDPipeline(tcfg, tpl.even_stages(tcfg, [2, 1]), ocfg,
-                         devices=["cpu"] * 3)
-    with pytest.raises(NotImplementedError, match="Mesh"):
+                         devices=["cpu"] * 3, graphed=True)
+    with pytest.raises(ValueError, match="plan needs 4 devices, have 3"):
         tpl.MPMDPipeline(tcfg, tpl.even_stages(tcfg, [1, 1], dp=2), ocfg,
-                         devices=["cpu"] * 4)
+                         devices=["cpu"] * 3)
     with pytest.raises(NotImplementedError, match="tied embeddings"):
         tpl.MPMDPipeline(dataclasses.replace(tcfg, tie_embeddings=True),
                          st, ocfg, devices=cpu2)
@@ -425,3 +430,226 @@ def test_pipeline_refusals(monkeypatch):
     assert pipe.graphs == []
     pipe.full_params_like(_full(tcfg, jcfg))
     assert pipe.graphs == [None, None]       # the CPU runs eagerly
+
+
+# --- mesh stages (tp > 1 or dp > 1 inside a stage) ----------------------------------
+
+def _summed(grads, params):
+    """A mesh stage's block gradients (None where no counted position read
+    the block) summed over their replicas, gathered whole."""
+    flat = dict(pm.tree_items(params))
+    return {k: pm.unshard(pm.replica_group_sum(x.with_blocks([
+        torch.zeros_like(b) if g is None else g
+        for g, b in zip(x.blocks, flat[k].blocks)])), "cpu")
+        for k, x in pm.tree_items(grads)}
+
+
+@pytest.mark.parametrize("dp,tp", [(1, 2), (2, 2), (1, 4)])
+def test_mesh_stage_programs_match_the_reference(dp, tp):
+    """Each stage's programs on a (dp, tp) mesh of CPU positions, unsharded
+    (block gradients summed over their replicas; the input's gradient
+    summed over 'model'), against the reference's ``_stage_apply`` /
+    ``_stage_loss`` under ``jax.vjp`` / ``jax.value_and_grad``, 1e-5;
+    and the update (``apply_sharded_updates``) against its
+    ``apply_updates``."""
+    jcfg, tcfg = _cfgs(n_layers=3, remat="full")
+    ocfg_j = jopt.OptimizerConfig(lr=1e-2, warmup_steps=1)
+    ocfg_t = topt.OptimizerConfig(lr=1e-2, warmup_steps=1)
+    mesh = data_model_mesh(dp, tp, [CPU] * (dp * tp))
+    for js, ts in zip(jpl.even_stages(jcfg, [tp] * 3, dp=dp),
+                      tpl.even_stages(tcfg, [tp] * 3, dp=dp)):
+        jp, tp_full = _both_stage_params(jcfg, tcfg, js)
+        params = pm.shard_tree(tp_full, param_specs(
+            tpl.stage_decls(tcfg, ts), "fsdp_tp", mesh), mesh)
+        x, y = _stage_inputs(jcfg, js)
+        lay = lambda a: pm.shard(torch.from_numpy(a),  # noqa: E731
+                                 batch_spec(mesh, a.shape[0]), mesh)
+        progs = tpl.mesh_stage_programs(tcfg, ts, ocfg_t, mesh)
+        apply_ = lambda p, xx, js=js: jpl._stage_apply(jcfg, js, p, xx)  # noqa: E731
+        out = progs["fwd"](params, lay(x))
+        _close(pm.unshard(out, "cpu"), apply_(jp, jnp.asarray(x)),
+               f"stage {js.index} fwd")
+        if js.last:
+            loss_ = lambda p, xx, ll, js=js: jpl._stage_loss(  # noqa: E731
+                jcfg, js, p, xx, ll)
+            wl, (wg, wx) = jax.value_and_grad(loss_, argnums=(0, 1))(
+                jp, jnp.asarray(x), jnp.asarray(y))
+            tl, tg, tgx = progs["bwd"](params, lay(x), lay(y))
+            _close(tl, wl, "loss")
+        elif js.first:
+            _, vjp = jax.vjp(lambda p: apply_(p, jnp.asarray(x)), jp)
+            (wg,) = vjp(jnp.asarray(y))
+            tg, tgx, wx = progs["bwd"](params, lay(x), lay(y)), None, None
+        else:
+            _, vjp = jax.vjp(apply_, jp, jnp.asarray(x))
+            wg, wx = vjp(jnp.asarray(y))
+            tg, tgx = progs["bwd"](params, lay(x), lay(y))
+        if wx is not None:
+            _close(pm.unshard(tgx, "cpu"), wx, f"stage {js.index} gx")
+        want = _grads_flat(wg)
+        got = _summed(tg, params)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            _close(got[k], want[k], f"stage {js.index} grad {k}")
+        state = topt.init_sharded_state(params)
+        grads = pm.shard_tree(topt.tree_unflatten(
+            (k, torch.from_numpy(np.array(v))) for k, v in want.items()),
+            param_specs(tpl.stage_decls(tcfg, ts), "fsdp_tp", mesh), mesh)
+        assert progs["update"](params, state, grads) is None
+        jnew = _grads_flat(jopt.apply_updates(jp, wg, jopt.init_state(jp),
+                                              ocfg_j)[0])
+        for k, t in pm.tree_items(params):
+            _close(pm.unshard(t, "cpu"), jnew[k], f"updated {k}")
+
+
+def test_input_grad_sums_over_model_not_data():
+    """A stage input's gradient: each position's share summed over its
+    'model' group in group order (None as zero); the 'data' positions,
+    which hold other sequences, are never added."""
+    mesh = data_model_mesh(2, 2, [CPU] * 4)
+    x = pm.shard(torch.zeros(4, 3, 2), batch_spec(mesh, 4), mesh)
+    shares = [torch.full((2, 3, 2), float(10 ** p)) for p in range(4)]
+    got = tpl._input_grad(x, shares)
+    assert [b[0, 0, 0].item() for b in got.blocks] == [11.0, 11.0,
+                                                       1100.0, 1100.0]
+    got = tpl._input_grad(x, [shares[0], None, None, shares[3]])
+    assert [b[0, 0, 0].item() for b in got.blocks] == [1.0, 1.0,
+                                                       1000.0, 1000.0]
+    full = pm.unshard(got, "cpu")
+    assert full[:2].eq(1.0).all() and full[2:].eq(1000.0).all()
+
+
+def _mesh_pipe(tcfg, tps, dp, ocfg, full, policy="fsdp_tp"):
+    stages = tpl.even_stages(tcfg, tps, dp=dp)
+    pipe = tpl.MPMDPipeline(tcfg, stages, ocfg, policy=policy,
+                            devices=["cpu"] * sum(s.n_devices
+                                                  for s in stages))
+    pipe.full_params_like(full)
+    return pipe
+
+
+def _stage_params_full(pipe):
+    """Every stage's params gathered whole, keyed like the full tree's
+    slices: {(stage, path): tensor}."""
+    return {(st.index, k): tpl._full(t) for st, p in zip(pipe.stages,
+                                                         pipe.params)
+            for k, t in pm.tree_items(p)}
+
+
+@pytest.mark.parametrize("tps,dp,policy", [([4, 2], 1, "fsdp_tp"),
+                                           ([2, 1], 2, "fsdp_tp"),
+                                           ([2, 2], 2, "tp")])
+def test_mesh_stage_pipeline_matches_one_device_and_single_step(tps, dp,
+                                                                policy):
+    """The reference's heterogeneous ``tps=[4, 2]`` case
+    (``tests/test_distributed.py:41-68``) and ``[2, 1]`` at dp 2 on CPU
+    positions, from the same weights as the ``[1, 1]`` pipeline and
+    ``make_train_step``: the first step's loss (1e-5) and every stage's
+    gradients (1e-5 of max |g|) against ``loss_and_grads`` and the ``[1,
+    1]`` pipeline's, the params after that step (clip off) at the mesh
+    tests' bounds (``test_torch_mesh.py``), then the second step's loss,
+    against both.  The params take the reference's sharded test's rtol
+    2e-3 / atol 2e-4, not 1e-5:
+    AdamW's first step is ~lr sign(g), so an element whose gradient is
+    near zero moves by up to ~lr whatever the summation order did to it.
+    Every replica of a block stays bit for bit equal."""
+    jcfg, tcfg = _cfgs()
+    ocfg = topt.OptimizerConfig(lr=1e-3, warmup_steps=1, grad_clip=0.0)
+    full = _full(tcfg, jcfg)
+    pipe = _mesh_pipe(tcfg, tps, dp, ocfg, full, policy)
+    assert [dict(m.shape) for m in pipe.meshes] == \
+        [{"data": dp, "model": tp} for tp in tps]
+    one = _mesh_pipe(tcfg, [1, 1], 1, ocfg, full)
+    batch = _batch(tcfg, 2, 4, 16)
+    loss, grads = pipe.grad_step(batch)
+    l1, g1 = one.grad_step(batch)
+    wl, wg = tts.loss_and_grads(tcfg, full, batch)
+    assert abs(loss - wl.item()) <= TOL * abs(loss)
+    assert abs(loss - l1) <= TOL * abs(loss)
+    flat = dict(graphs.tree_leaves(wg))
+    for st, g, h in zip(pipe.stages, grads, g1):
+        ones = dict(graphs.tree_leaves(h))
+        for k, x in pm.tree_items(g):
+            t = tpl._full(x)
+            w = flat[k][st.start:st.stop] if k.startswith("layers/") \
+                else flat[k]
+            _close(t, w, f"stage {st.index} grad {k}")
+            _close(t, ones[k].numpy(), f"stage {st.index} grad {k} vs [1, 1]")
+    pipe.apply_grads(grads)
+    one.apply_grads(g1)
+    ref = _full(tcfg, jcfg)
+    state = topt.init_state(ref)
+    step = tts.make_train_step(tcfg, ocfg)
+    step(ref, state, batch)
+    got, ones = _stage_params_full(pipe), _stage_params_full(one)
+    assert got.keys() == ones.keys()
+    for (i, k), t in got.items():
+        st = pipe.stages[i]
+        w = ref["layers"][k[len("layers/"):]][st.start:st.stop] \
+            if k.startswith("layers/") else ref[k]
+        for want in (w, ones[(i, k)]):
+            np.testing.assert_allclose(t.numpy(), want.numpy(),
+                                       rtol=PARAM_RTOL, atol=PARAM_ATOL,
+                                       err_msg=f"stage {i} {k}")
+    b2 = _batch(tcfg, 2, 4, 16, seed=1)
+    loss2, l2 = pipe.train_step(b2), one.train_step(b2)
+    _, _, m = step(ref, state, b2)
+    assert abs(loss2 - m["loss"].item()) <= TOL * abs(loss2)
+    assert abs(loss2 - l2) <= TOL * abs(loss2)
+    for st, p, o in zip(pipe.stages, pipe.params, pipe.opt_states):
+        if st.n_devices > 1:
+            for _, x in pm.tree_items({"p": p, "m": o["m"], "v": o["v"]}):
+                for group in x.mesh.groups(pm.replica_axes(x.spec, x.mesh)):
+                    assert all(torch.equal(x.blocks[q], x.blocks[group[0]])
+                               for q in group[1:])
+            assert [int(s) for s in o["step"].blocks] == [2] * st.n_devices
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        graphs.tree_leaves(full), graphs.tree_leaves(_full(tcfg, jcfg))))
+
+
+def test_init_params_same_logical_params_for_any_tps():
+    """One seed gives the same logical params whatever the stages' (dp,
+    tp): each stage draws its full tensors as a one-device stage does,
+    then lays them out on its mesh."""
+    _, tcfg = _cfgs()
+    ocfg = topt.OptimizerConfig()
+    seen = []
+    for tps, dp in (([1, 1], 1), ([2, 1], 1), ([4, 2], 1), ([1, 2], 2)):
+        stages = tpl.even_stages(tcfg, tps, dp=dp)
+        pipe = tpl.MPMDPipeline(tcfg, stages, ocfg,
+                                devices=["cpu"] * sum(s.n_devices
+                                                      for s in stages))
+        pipe.init_params(0)
+        seen.append(_stage_params_full(pipe))
+    for other in seen[1:]:
+        assert other.keys() == seen[0].keys()
+        assert all(torch.equal(other[k], seen[0][k]) for k in seen[0])
+
+
+def test_adaptive_group_of_mesh_stage_pipelines_matches_one_device():
+    """An ``AdaptiveDPGroup`` of two ``[2, 1]`` pipelines (stage 0 on a
+    (1, 2) mesh) under a 2:1 assignment gives the losses and params of the
+    same group of ``[1, 1]`` pipelines: the loss 1e-5, the params after
+    the step at the mesh bounds."""
+    jcfg, tcfg = _cfgs(n_layers=2)
+    ocfg = topt.OptimizerConfig(lr=1e-3, warmup_steps=1, grad_clip=0.0)
+    ad = BatchAssignment(replicas=(ReplicaBatch(6, 1), ReplicaBatch(2, 1)))
+    rng = np.random.default_rng(0)
+    t = rng.integers(0, tcfg.vocab_size, (8, 17)).astype(np.int32)
+    shards = tpl.shard_batch_by_assignment(
+        {"tokens": t[:, :-1], "labels": t[:, 1:]}, ad)
+    runs = []
+    for tps in ([2, 1], [1, 1]):
+        reps = [_mesh_pipe(tcfg, tps, 1, ocfg, _full(tcfg, jcfg, seed=7))
+                for _ in range(2)]
+        group = tpl.AdaptiveDPGroup.from_assignment(reps, ad)
+        losses = [group.train_step(shards)]
+        runs.append((losses, [_stage_params_full(r) for r in reps]))
+    (lm, pm_), (lo, po) = runs
+    for a, b in zip(lm, lo):
+        assert abs(a - b) <= TOL * abs(b), (lm, lo)
+    for rep_m, rep_o in zip(pm_, po):
+        for k in rep_o:
+            np.testing.assert_allclose(rep_m[k].numpy(), rep_o[k].numpy(),
+                                       rtol=PARAM_RTOL, atol=PARAM_ATOL,
+                                       err_msg=str(k))
