@@ -177,6 +177,37 @@ Phases, each printed as it runs; any failure exits non-zero:
              the train cell's shape): a valid plan and finite losses.
              Every step's launches counted (``launches_elastic``); phase 3
              holds the local shapes (``elastic_*``, ``pipe_*``).
+   manager   Sailor's control plane (``manager/``, ``telemetry/``) driving
+             the runtime.  (a) ``manager.Controller`` (availability
+             monitor, incremental replanner on smollm-360M at seq 1024 on
+             H100s, transition model, ``hysteresis_s`` 120) over the
+             elastic phase's trainer on ``[cuda:0] * 4``, a step every 60
+             feed seconds, 11 steps, a checkpoint every 3: 4 H100s, 3 at
+             t = 120, 4 at 240, 2 at 480 (a bulk preemption), 4 at 540 and
+             2 at 600 (a blip).  The decisions (without straggler rows)
+             must be the reference controller's on this feed
+             (``MANAGER_OUTCOMES``, pinned on the CPU by
+             ``tests/test_torch_manager.py``), the reconfigurations follow
+             them, the rollback resumes at the last checkpoint's step,
+             every loss is finite, one ``step_time`` a step on the sim
+             clock, the audit file equals the decision log, and every
+             runtime plan is one of phase 3's ``elastic_*`` shapes.
+             Prints each decision (event, action, reason, search ms,
+             cache), each priced transition beside the measured
+             ``reconfig_s`` (a rollback's priced restore, setup and lost
+             work beside its measured replay), ``_state_bytes()`` beside
+             the checkpoint's bytes, and the step wall at each position
+             count.  (b) telemetry on the pipeline phase's graphed ``[1,
+             1]`` pipeline: with a bus and without, from the same weights,
+             4 pairs of steps in turns after warm-up and capture (losses,
+             graphs and launches a step equal; the walls are the cost of
+             the synchronizations); then a ``DetectorBank``, a
+             ``RootCauseAnalyzer`` and a 2x compute delay on stage 1 from
+             step 14, 20 steps: no anomaly before it, a ``Straggler`` on a
+             stage-1 stream within 4 steps, verdict ``slow-chip`` at (1,
+             0), the reference's sample counts.  Launches counted over (a)
+             and (b) apart (``launches_manager``,
+             ``launches_pipeline_telemetry``).
 9. plan      Sailor's planner and simulator priced by the card: the
              ``"H100"`` entry fitted as ``measured.calibrate_cpu_host``
              fits it (``measure_block``'s one-layer forward and gradient
@@ -219,8 +250,8 @@ Phases, each printed as it runs; any failure exits non-zero:
              shape (``calibrate``); the norm entries their plan, share of
              the bound and the 16384-row case (``rows16384``).
 
-Each of phases 5-9 (serve continuous, pipeline, its mesh stages, mesh and
-elastic too) is a main path: the launch
+Each of phases 5-9 (serve continuous, pipeline, its mesh stages, mesh,
+elastic and manager's two paths too) is a main path: the launch
 counts are set to 0 just before it and read just after, and each kernel
 must have launched on the path that runs it.  Phase 3 also holds the two backward kernels
 (attention, fused add + RMSNorm) against their plain versions on the
@@ -451,6 +482,26 @@ ELASTIC_DEVICES = (1, 4, 2)
 ELASTIC_STEPS, ELASTIC_EVERY = 8, 3
 ELASTIC_EVENTS = ((3, 4, False), (7, 2, True))
 ELASTIC_LAUNCH_STEPS = 3    # launch.train --plan on the one card
+# manager phase (a): Sailor's controller over [elastic]'s trainer on
+# [cuda:0] * 4, a step every MANAGER_STEP_S feed seconds; the feed's
+# (time_s, H100s available): a graceful drop to 3 (runs on 2), the 4 back
+# (clears the hysteresis at t = 360), a bulk preemption to 2, and a blip
+# to 4 that reverts before the hysteresis ends.  The outcomes and
+# reconfigurations are the reference Controller's on this feed
+# (tests/test_torch_manager.py pins them on a stub trainer).
+MANAGER_START, MANAGER_STEPS, MANAGER_EVERY = 4, 11, 3
+MANAGER_STEP_S, MANAGER_HYSTERESIS_S = 60.0, 120.0
+MANAGER_FEED = ((120.0, 3), (240.0, 4), (480.0, 2), (540.0, 4), (600.0, 2))
+MANAGER_OUTCOMES = ("start", "reshard", "defer", "reshard", "rollback",
+                    "defer", "defer")
+MANAGER_RECONFIGS = (("kill-free", 2), ("kill-free", 4), ("rollback", 2))
+# manager phase (b): [pipeline]'s graphed [1, 1] pipeline, pairs of steps
+# detached and attached (no fault) in turns; then the bus with the
+# detectors and RCA, a compute delay on stage 1 from step 14 (after the
+# detectors' warm-up of 12), 20 steps
+TEL_STEPS, TEL_FAULT_STEP, TEL_FAULT_FACTOR = 20, 14, 2.0
+TEL_DETECT_WITHIN = 4       # steps from the fault to its Straggler
+TEL_PAIRS = 4
 
 
 def log(msg: str) -> None:
@@ -2569,7 +2620,8 @@ def _pipe_stage_memory(pipe, batch) -> list:
     return seen
 
 
-def _pipe_launch_check(label: str, cfg, dc, n_steps: int) -> dict:
+def _pipe_launch_check(label: str, cfg, dc, n_steps: int,
+                       prefix: str = "[pipeline]") -> dict:
     """The launches counted since the last reset: per step the attention
     forward 3 x layers x microbatches (the forward pass, and the
     backward's recompute of the stage forward, which the full remat runs
@@ -2581,9 +2633,9 @@ def _pipe_launch_check(label: str, cfg, dc, n_steps: int) -> dict:
     want.update(flash_attention=3 * per_step, flash_attention_bwd=per_step)
     if launches != {k: v * n_steps for k, v in want.items()}:
         raise AssertionError(
-            f"[pipeline] {label}: launches {json.dumps(launches)} in "
+            f"{prefix} {label}: launches {json.dumps(launches)} in "
             f"{n_steps} steps, expected {json.dumps(want)} a step")
-    log(f"[pipeline] {label}: launches in {n_steps} steps: "
+    log(f"{prefix} {label}: launches in {n_steps} steps: "
         f"{json.dumps(launches)} (per step "
         f"{json.dumps({k: v for k, v in want.items() if v})})")
     return launches
@@ -3328,23 +3380,318 @@ def phase_elastic() -> dict:
                 and all(np.isfinite(lt_losses))):
             raise AssertionError(f"[elastic] launch.train: plan "
                                  f"{res.best}, losses {lt_losses}")
-        positions = sum(r["n_devices"] for r in log_rows + lt.log)
+        rows = log_rows + lt.log
+        positions = sum(r["n_devices"] for r in rows)
         del lt
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    launches = _elastic_launch_check("[elastic]", cfg, dc, rows)
+    log(f"[elastic] launch.train: plan {res.best.plan.describe()!r}, t_iter "
+        f"{res.best.t_iter}, losses {lt_losses}; launches over the phase "
+        f"({positions} position-steps): {json.dumps(launches)}")
+    return launches
+
+
+def _elastic_launch_check(label: str, cfg, dc, rows) -> dict:
+    """The launches counted since the last reset, against the trainer's
+    log ``rows``: each position-step launches the attention forward and
+    the fused norm 2 x layers x microbatches times (the forward, and its
+    recompute under full remat), each backward layers x microbatches."""
     launches = dict(ops.LAUNCHES)
+    positions = sum(r["n_devices"] for r in rows)
     per = cfg.n_layers * dc.num_microbatches * positions
     want = {name: 0 for name in launches}
     want.update(flash_attention=2 * per, fused_add_rmsnorm=2 * per,
                 flash_attention_bwd=per, fused_add_rmsnorm_bwd=per)
     if launches != want:
-        raise AssertionError(f"[elastic] launches {json.dumps(launches)}, "
+        raise AssertionError(f"{label} launches {json.dumps(launches)}, "
                              f"expected {json.dumps(want)} ({positions} "
                              f"position-steps)")
-    log(f"[elastic] launch.train: plan {res.best.plan.describe()!r}, t_iter "
-        f"{res.best.t_iter}, losses {lt_losses}; launches over the phase "
-        f"({positions} position-steps): {json.dumps(launches)}")
     return launches
+
+
+def _manager_controller() -> dict:
+    """(a) Sailor's control loop (``manager.Controller``: the availability
+    monitor, the incremental replanner, the transition model) driving
+    [elastic]'s trainer on [cuda:0] * MANAGER_START through MANAGER_FEED:
+    the decisions must be the reference controller's on this feed
+    (MANAGER_OUTCOMES, MANAGER_RECONFIGS), the rollback must resume at
+    the last checkpoint's step, every loss finite, a ``step_time`` sample
+    a step on the controller's sim clock, the audit file equal to the
+    decision log.  Prints each decision, each priced transition beside
+    the trainer's measured ``reconfig_s``, ``_state_bytes()`` beside the
+    checkpoint's bytes and the step wall at each position count."""
+    import shutil
+    import tempfile
+    from repro_torch.manager import (AvailabilityMonitor, Controller,
+                                     ControllerConfig, IncrementalReplanner,
+                                     ListFeed, TransitionConfig,
+                                     TransitionModel)
+    from repro_torch.telemetry import TelemetryBus, read_jsonl
+    from repro_torch.train.elastic import ElasticTrainer
+    cfg = dataclasses.replace(get_config(ARCH), remat="full")
+    dc = data_lib.DataConfig(**TRAIN_DATA)
+    ocfg = opt_lib.OptimizerConfig(**TRAIN_OPT)
+    workdir = tempfile.mkdtemp(prefix="manager-")
+    audit = os.path.join(workdir, "audit.jsonl")
+    ops.reset_launches()
+    try:
+        tr = ElasticTrainer(cfg, ocfg, dc, os.path.join(workdir, "ckpt"),
+                            checkpoint_every=MANAGER_EVERY,
+                            devices=[torch.device("cuda", 0)] * MANAGER_START)
+        tr.ckpt.keep = 1        # the latest is all a rollback reads
+        job = TrainJob(cfg=get_config(ARCH), seq_len=TRAIN_DATA["seq_len"],
+                       global_batch=TRAIN_DATA["global_batch"])
+        feed = ListFeed([(t, single_zone("H100", n))
+                         for t, n in MANAGER_FEED])
+        ctl = Controller(
+            tr, AvailabilityMonitor(single_zone("H100", MANAGER_START),
+                                    [feed]),
+            IncrementalReplanner(job, Objective(MAX_THROUGHPUT)),
+            transition=TransitionModel(TransitionConfig(
+                hysteresis_s=MANAGER_HYSTERESIS_S)),
+            config=ControllerConfig(step_time_s=MANAGER_STEP_S,
+                                    max_devices=MANAGER_START,
+                                    audit_path=audit))
+        bus = TelemetryBus()
+        ctl.attach_telemetry(bus)
+        # what the loop priced (each decide's details) and built (plans)
+        priced, plans = [], []
+        decide, build = ctl.transition.decide, tr.build
+
+        def on_decide(**kw):
+            d = decide(**kw)
+            priced.append(dict(time_s=ctl.sim_time, kind=d.kind,
+                               cost_s=d.cost_s, details=d.details,
+                               state_bytes=kw["state_bytes"],
+                               t_iter_old_s=kw["t_iter_old_s"]))
+            return d
+
+        def on_build(n, *a, **k):
+            build(n, *a, **k)
+            plans.append(tr.plan)
+
+        ctl.transition.decide, tr.build = on_decide, on_build
+        rows = ctl.run(MANAGER_STEPS)
+        ckpt_step = tr.ckpt.latest_step()
+        ckpt_bytes = os.path.getsize(os.path.join(
+            workdir, "ckpt", f"step-{ckpt_step}", "state.npz"))
+        records = read_jsonl(audit)
+        decisions = [d for d in ctl.decisions if not d.get("straggler")]
+        outcomes = [d["action"] for d in decisions]
+        reconfigs = [(r["kind"], r["n_devices"]) for r in tr.reconfigs]
+        losses = [r["loss"] for r in rows]
+        times = [s.time_s for s in bus.series("step_time", ())]
+        rollback = [r for r in tr.reconfigs if r["kind"] == "rollback"]
+        audit_ok = [{k: v for k, v in r.items()
+                     if k not in ("kind", "wall_time_s")} for r in records] \
+            == json.loads(json.dumps(ctl.decisions))
+        if (outcomes != list(MANAGER_OUTCOMES)
+                or reconfigs != list(MANAGER_RECONFIGS)
+                or not rollback or rollback[-1]["resumed_at"]
+                != rollback[-1]["step"] // MANAGER_EVERY * MANAGER_EVERY
+                or not all(np.isfinite(losses))
+                or len(times) != len(rows) or max(times) > ctl.sim_time
+                or not audit_ok
+                or any(p.tp != 1 or p.dp not in ELASTIC_DEVICES
+                       for p in plans)):
+            raise AssertionError(
+                f"[manager] outcomes {outcomes} (want "
+                f"{list(MANAGER_OUTCOMES)}), reconfigs {tr.reconfigs}, "
+                f"losses {losses}, step_time at {times} (sim clock "
+                f"{ctl.sim_time}), audit equal {audit_ok}, plans {plans} "
+                f"(phase 3 holds dp {ELASTIC_DEVICES} at tp 1)\n"
+                + ctl.summary())
+        for d in ctl.decisions:
+            log("[manager] decision " + json.dumps(dict(
+                time_s=d["time_s"], step=d["step"], event=d["event"],
+                action=d["action"], reason=d["reason"],
+                search_ms=d["search_ms"], cache=d["cache"],
+                n_devices=d["n_devices"],
+                transition_cost_s=d.get("transition_cost_s"))))
+        # each committed transition: what the model priced, what it took
+        commits = [p for p in priced if p["kind"] in ("reshard", "rollback")]
+        if len(commits) != len(tr.reconfigs):
+            raise AssertionError(f"[manager] {len(commits)} priced commits "
+                                 f"for reconfigs {tr.reconfigs}")
+        tm = ctl.transition
+        for p, r in zip(commits, tr.reconfigs):
+            row = dict(kind=r["kind"], at_step=r["step"],
+                       resumed_at=r["resumed_at"], n_devices=r["n_devices"],
+                       priced_s=p["cost_s"],
+                       reshard_cost_s=p["details"]["reshard_cost_s"],
+                       measured_reconfig_s=r["reconfig_s"])
+            if r["kind"] == "rollback":
+                lost = p["details"]["lost_steps"]
+                start = max(i for i, x in enumerate(rows)
+                            if x["step"] == r["resumed_at"])
+                replay = [x["time_s"] for x in rows[start:start + lost]]
+                row.update(
+                    rollback_cost_s=p["cost_s"], lost_steps=lost,
+                    priced_restore_s=p["state_bytes"] / tm.cfg.restore_bw,
+                    priced_setup_s=tm.cfg.comm_setup_s,
+                    priced_lost_work_s=lost * p["t_iter_old_s"],
+                    measured_replay_s=sum(replay),
+                    measured_total_s=r["reconfig_s"] + sum(replay))
+            log("[manager] transition priced vs measured " + json.dumps(row))
+        walls = {}
+        for r in rows:
+            walls.setdefault(r["n_devices"], []).append(r["time_s"] * 1e3)
+        log("[manager] " + json.dumps(dict(
+            state_bytes_priced=ctl._state_bytes(),
+            checkpoint_bytes=ckpt_bytes, checkpoint_step=ckpt_step,
+            ratio=ckpt_bytes / ctl._state_bytes(),
+            step_wall_ms_by_positions={
+                n: dict(median=statistics.median(w), all=w)
+                for n, w in walls.items()},
+            losses=losses, steps=[r["step"] for r in rows],
+            plans=[dataclasses.asdict(p) for p in plans],
+            replanner=ctl.replanner.stats,
+            step_time_at=times, sim_time=ctl.sim_time,
+            audit_records=len(records))))
+        launches = _elastic_launch_check("[manager]", cfg, dc, rows)
+        del tr, ctl
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[manager] launches over the controller's run: "
+        f"{json.dumps(launches)}")
+    return launches
+
+
+def _manager_pipeline() -> dict:
+    """(b) Telemetry on [pipeline]'s graphed ``[1, 1]`` pipeline
+    (``attach_telemetry``): two pipelines from the same weights, one with
+    a bus, TEL_PAIRS pairs of steps in turns after their warm-up and
+    capture: the same losses bit for bit, the same graphs and the same
+    launches a step; then the bus with a ``DetectorBank``, a
+    ``RootCauseAnalyzer`` and a compute delay on stage 1 from step
+    TEL_FAULT_STEP: no anomaly before it, a ``Straggler`` from a stage-1
+    stream within TEL_DETECT_WITHIN steps, classified ``slow-chip`` on
+    stage 1, and the reference's sample counts."""
+    from repro_torch.dist import pipeline as pl
+    from repro_torch.manager import EventBus, Straggler
+    from repro_torch.telemetry import (DetectorBank, FaultInjector, FaultSpec,
+                                       RootCauseAnalyzer, TelemetryBus)
+    cfg = _pipe_cfg()
+    dc = data_lib.DataConfig(**TRAIN_DATA)
+    ocfg = opt_lib.OptimizerConfig(**TRAIN_OPT)
+    ds = data_lib.SyntheticDataset(cfg, dc)
+    batches = [ds.batch(100 + i) for i in range(TEL_STEPS)]
+    zones = ("stage0", "stage1")
+    full = model_lib.init(cfg, 5, device="cuda")
+    pipes = {"detached": _pipe(pl, cfg, ocfg, full, None),
+             "attached": _pipe(pl, cfg, ocfg, full, None)}
+    del full
+    pipes["attached"].attach_telemetry(TelemetryBus(), zones=zones)
+    ops.reset_launches()
+    steps, same = 0, True
+    runs = {k: [] for k in pipes}
+    per_step = {k: [] for k in pipes}
+    for j in range(2 + TEL_PAIRS):       # warm-up, capture, then in turns
+        b = batches[j]
+        order = tuple(pipes) if j % 2 == 0 else tuple(reversed(pipes))
+        out = {}
+        for kind in order:
+            before = dict(ops.LAUNCHES)
+            wall, dev, _, out[kind] = _timed_step(
+                lambda: pipes[kind].train_step(b))
+            per_step[kind].append({k: ops.LAUNCHES[k] - before[k]
+                                   for k in before})
+            if j >= 2:
+                runs[kind].append((wall, dev))
+            steps += 1
+        same &= out["detached"] == out["attached"]
+    graphs_of = {k: [sorted(map(str, g.graphs)) for g in p.graphs]
+                 for k, p in pipes.items()}
+    captured = {k: [g.capture_launches for g in p.graphs]
+                for k, p in pipes.items()}
+    if not (same and graphs_of["detached"] == graphs_of["attached"]
+            and captured["detached"] == captured["attached"]
+            and per_step["detached"] == per_step["attached"]):
+        raise AssertionError(
+            f"[manager] telemetry attached vs detached: losses equal "
+            f"{same}, graphs {graphs_of}, launches a step {per_step}")
+    turns = {k: dict(step_wall_ms=statistics.median(x[0] for x in r),
+                     step_wall_ms_all=[x[0] for x in r],
+                     step_device_ms=statistics.median(x[1] for x in r))
+             for k, r in runs.items()}
+    log(f"[manager] pipeline telemetry in turns ({TEL_PAIRS} pairs, no "
+        f"fault; the graphed [1, 1] pipeline): " + json.dumps(dict(
+            turns, bit_identical=same,
+            wall_ratio=turns["attached"]["step_wall_ms"]
+            / turns["detached"]["step_wall_ms"],
+            samples_a_step=pipes["attached"]._telemetry.n_samples
+            // (2 + TEL_PAIRS),
+            graphs=graphs_of["attached"])))
+    del pipes["detached"]
+    torch.cuda.empty_cache()
+    # the fault: a bus, the detectors and RCA, stage 1 slowed from
+    # TEL_FAULT_STEP (the pipeline is warm: its graphs replay)
+    pipe = pipes["attached"]
+    bus, events = TelemetryBus(), EventBus()
+    bank = DetectorBank(bus, events)
+    rca = RootCauseAnalyzer(bank)
+    pipe.attach_telemetry(bus, zones=zones, injector=FaultInjector([
+        FaultSpec("compute_delay", zone="stage1", acc_type="host",
+                  start_step=TEL_FAULT_STEP, factor=TEL_FAULT_FACTOR)]))
+    losses = [pipe.train_step(batches[i]) for i in range(TEL_STEPS)]
+    steps += TEL_STEPS
+    early = [a for a in bank.anomalies if a.step < TEL_FAULT_STEP]
+    stage1 = [a for a in bank.anomalies
+              if a.metric in ("fwd_time", "bwd_time") and a.key == (1, 0)]
+    stragglers = events.of_type(Straggler)
+    verdict = rca.classify(stragglers[0]) if stragglers else None
+    nm = dc.num_microbatches
+    counts = dict(fwd=[len(bus.values("fwd_time", (i, 0))) for i in (0, 1)],
+                  bwd=[len(bus.values("bwd_time", (i, 0))) for i in (0, 1)],
+                  p2p=len(bus.values("p2p_time", (0, 1, 0, 0))),
+                  step=len(bus.values("step_time", ())),
+                  heartbeat=[len(bus.values("heartbeat", (i, 0)))
+                             for i in (0, 1)])
+    zone_of = bus.latest("fwd_time", (1, 0)).meta.get("zone")
+    if (early or not stage1 or not stragglers
+            or min(a.step for a in stage1)
+            >= TEL_FAULT_STEP + TEL_DETECT_WITHIN
+            or verdict.kind != "slow-chip" or verdict.target != (1, 0)
+            or zone_of != "stage1"
+            or counts != dict(fwd=[TEL_STEPS * nm] * 2,
+                              bwd=[TEL_STEPS * nm] * 2,
+                              p2p=2 * TEL_STEPS * nm, step=TEL_STEPS,
+                              heartbeat=[TEL_STEPS] * 2)
+            or not all(np.isfinite(losses))):
+        raise AssertionError(
+            f"[manager] fault on stage1 from step {TEL_FAULT_STEP}: "
+            f"anomalies {bank.anomalies}, events "
+            f"{[e.describe() for e in events.log]}, verdict {verdict}, "
+            f"zone {zone_of}, sample counts {counts}, losses {losses}")
+    log("[manager] compute delay on stage1 " + json.dumps(dict(
+        fault_step=TEL_FAULT_STEP, factor=TEL_FAULT_FACTOR,
+        anomalies=[dict(metric=a.metric, key=a.key, step=a.step,
+                        value=a.value, baseline=a.baseline, factor=a.factor,
+                        zone=a.meta.get("zone")) for a in bank.anomalies],
+        events=[e.describe() for e in events.log],
+        verdict=verdict.describe(), verdict_kind=verdict.kind,
+        verdict_target=verdict.target, remediation=verdict.remediation,
+        evidence=verdict.evidence, sample_counts=counts,
+        step_time_ms=[v * 1e3 for v in bus.values("step_time", ())])))
+    launches = _pipe_launch_check("manager telemetry", cfg, dc, steps,
+                                  prefix="[manager]")
+    del pipe, pipes
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_manager() -> tuple:
+    """Sailor's control plane (``manager/``, ``telemetry/``) driving the
+    runtime on the card: (a) the controller over the elastic trainer,
+    (b) telemetry and fault injection on the graphed pipeline.  Each is a
+    main path for the attention kernels (and (a) the fused norm), forward
+    and backward; returns the launches over each."""
+    t0 = time.perf_counter()
+    out = _manager_controller(), _manager_pipeline()
+    log(f"[manager] phase seconds {time.perf_counter() - t0:.1f}")
+    return out
 
 
 def _fit(cfg, label: str, kw: dict):
@@ -3680,6 +4027,7 @@ def main() -> int:
     pipeline_launches, pipe_mesh_launches = phase_pipeline(train)
     mesh_launches = phase_mesh(train)
     elastic_launches = phase_elastic()
+    manager_launches, tel_launches = phase_manager()
     plan_launches = phase_plan(cfg, train, table_path())
     # launches: each kernel's count on the main path that runs it, which
     # also runs the timed case's shape
@@ -3700,6 +4048,8 @@ def main() -> int:
             launches_mesh=mesh_launches.get(name, 0),
             launches_pipeline_mesh=pipe_mesh_launches.get(name, 0),
             launches_elastic=elastic_launches.get(name, 0),
+            launches_manager=manager_launches.get(name, 0),
+            launches_pipeline_telemetry=tel_launches.get(name, 0),
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

@@ -50,6 +50,14 @@ per (program, input shape), its first call eager, its second captured.
 A graph writes its outputs into the same tensors at every replay, so
 every input a stage keeps is a copy and losses are cloned.
 
+Telemetry (``attach_telemetry``, the reference's sample schema and fault
+injection): each stage program and transfer is timed from an idle card
+(every CUDA device of the pipeline synchronized) to every CUDA device its
+output lies on synchronized, where the reference blocks on its output
+only: work dispatched before a span (the gradient sums) would otherwise
+land in it.  ``step_time`` runs to the update's end on the card.
+Detached, the step reads no clock and synchronizes nothing.
+
 The pipeline matches the single-device step: running layers [0, k) then
 [k, n) is running [0, n), and the loss and update math are
 ``models/model.py``'s and ``train/optimizer.py``'s.
@@ -59,6 +67,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -387,6 +396,25 @@ def _copy_into(dst, src) -> None:
         blk.copy_(full[pm.block_slices(dst.shape, dst.spec, dst.mesh, pos)])
 
 
+def _cuda_devices(out: Any) -> set:
+    """The CUDA devices a stage output's tensors lie on: a tensor, a
+    ``Sharded`` (every block's), or a tuple, list or dict of them."""
+    if isinstance(out, torch.Tensor):
+        return {out.device} if out.is_cuda else set()
+    if isinstance(out, pm.Sharded):
+        return {b.device for b in out.blocks if b.is_cuda}
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (list, tuple)):
+        return set().union(*map(_cuda_devices, out))
+    return set()
+
+
+def _synchronize(devices) -> None:
+    for d in devices:
+        torch.cuda.synchronize(d)
+
+
 def _default_devices() -> List[torch.device]:
     resolve_device(None)            # raises without a card
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -469,12 +497,80 @@ class MPMDPipeline:
             for st, m in zip(self.stages, self.meshes)]
         self.graphs: List[Optional[graphs.GraphedShapes]] = []
         self._static: List[Dict[Any, List[torch.Tensor]]] = []
+        self._telemetry = None          # TelemetryBus (attach_telemetry)
+        self._injector = None           # telemetry.FaultInjector
+        self._tel_zones: List[str] = []
+        self._tel_step = 0
 
-    def attach_telemetry(self, bus, injector=None, zones=None) -> None:
-        raise NotImplementedError(
-            "MPMDPipeline.attach_telemetry: the telemetry bus waits for the "
-            "port of manager/ and telemetry/ (ROADMAP.md §1, \"manager/ and "
-            "telemetry/\")")
+    # --- telemetry (opt-in; nothing added when detached) -----------------------
+
+    def attach_telemetry(self, bus, injector=None,
+                         zones: Optional[Sequence[str]] = None) -> None:
+        """Stream per-microbatch timings onto a ``telemetry.TelemetryBus``.
+
+        When attached, ``train_step`` times every per-stage forward /
+        backward program and inter-stage transfer, each from an idle card
+        to its output's devices synchronized (so timings are the card's
+        work, not dispatch), and emits the shared sample schema —
+        ``fwd_time``/``bwd_time`` keyed ``(stage, 0)``, ``p2p_time`` keyed
+        ``(stage, stage+1, 0, 0)``, per-stage heartbeats, and
+        ``step_time`` — then closes the step with ``bus.end_step``.
+        ``zones`` labels each stage's pool in the sample meta (defaults
+        to ``stage<i>``) so detectors and the RCA layer can map streams
+        to cluster coordinates.  ``injector`` (a
+        ``telemetry.FaultInjector``) perturbs the *real* pipeline: active
+        compute-delay/link-degrade faults matching a stage's zone sleep
+        the corresponding extra seconds, and hung stages stop
+        heartbeating.  Attached, the step adds synchronizations and host
+        sleeps only: the same launches, graphs and losses as detached.
+        """
+        self._telemetry = bus
+        self._injector = injector
+        self._tel_zones = list(zones) if zones is not None else \
+            [f"stage{i}" for i in range(len(self.stages))]
+        self._tel_step = 0
+
+    def _emit(self, metric: str, key, value: float, **meta) -> None:
+        from repro_torch.telemetry.bus import Sample, wall_clock
+        self._telemetry.emit(Sample(metric, key, wall_clock(),
+                                    self._tel_step, value, meta))
+
+    def _idle(self) -> None:
+        """Wait for every card the pipeline runs on."""
+        _synchronize({d for d in self.devices if d.type == "cuda"})
+
+    def _timed(self, fn, metric: str, key, zone: str, acc: str = "host",
+               **meta):
+        """Run ``fn`` from an idle card, wait for its output, emit its wall
+        seconds; inject fault delay."""
+        self._idle()
+        t0 = time.perf_counter()
+        out = fn()
+        _synchronize(_cuda_devices(out))
+        dt = time.perf_counter() - t0
+        if self._injector is not None:
+            if metric in ("fwd_time", "bwd_time"):
+                extra = self._injector.compute_delay_s(
+                    self._tel_step, zone, acc, dt)
+            elif metric == "p2p_time":
+                extra = dt * (self._injector.link_factor(
+                    self._tel_step, zone, meta.get("zone_b", "")) - 1.0)
+            else:
+                extra = 0.0
+            if extra > 0:
+                time.sleep(extra)
+                dt += extra
+        self._emit(metric, key, dt, zone=zone, acc_type=acc, **meta)
+        return out
+
+    def _span(self, fn, metric: str, key, stage: int,
+              to: Optional[int] = None):
+        """``fn()``; with a bus attached, timed (``_timed``) as ``metric``
+        in stage ``stage``'s zone (a transfer: towards stage ``to``'s)."""
+        if self._telemetry is None:
+            return fn()
+        meta = {} if to is None else {"zone_b": self._tel_zones[to]}
+        return self._timed(fn, metric, key, self._tel_zones[stage], **meta)
 
     # --- parameter loading -----------------------------------------------------
 
@@ -603,9 +699,12 @@ class MPMDPipeline:
         inputs = []
         x = tokens
         for i in range(len(self.stages)):
-            x = self._to_stage(i, x)
+            x = self._to_stage(0, x) if i == 0 else self._span(
+                lambda x=x, i=i: self._to_stage(i, x),
+                "p2p_time", (i - 1, i, 0, 0), i - 1, to=i)
             inputs.append(x)
-            x = self._run(i, "fwd", x)
+            x = self._span(lambda i=i, x=x: self._run(i, "fwd", x),
+                           "fwd_time", (i, 0), i)
         return {"inputs": inputs}
 
     def _backward_micro(self, ctx: Dict[str, Any], labels):
@@ -613,14 +712,21 @@ class MPMDPipeline:
         n = len(self.stages)
         grads: List[Any] = [None] * n
         labels = self._to_stage(n - 1, labels)
-        loss, grads[n - 1], gx = self._run(n - 1, "bwd",
-                                           ctx["inputs"][n - 1], labels)
+        loss, grads[n - 1], gx = self._span(
+            lambda: self._run(n - 1, "bwd", ctx["inputs"][n - 1], labels),
+            "bwd_time", (n - 1, 0), n - 1)
         for i in range(n - 2, 0, -1):
-            gx = self._to_stage(i, gx)
-            grads[i], gx = self._run(i, "bwd", ctx["inputs"][i], gx)
+            gx = self._span(lambda gx=gx, i=i: self._to_stage(i, gx),
+                            "p2p_time", (i, i + 1, 0, 0), i, to=i + 1)
+            grads[i], gx = self._span(
+                lambda i=i, gx=gx: self._run(i, "bwd", ctx["inputs"][i], gx),
+                "bwd_time", (i, 0), i)
         if n > 1:
-            gx = self._to_stage(0, gx)
-            grads[0] = self._run(0, "bwd", ctx["inputs"][0], gx)
+            gx = self._span(lambda gx=gx: self._to_stage(0, gx),
+                            "p2p_time", (0, 1, 0, 0), 0, to=1)
+            grads[0] = self._span(
+                lambda gx=gx: self._run(0, "bwd", ctx["inputs"][0], gx),
+                "bwd_time", (0, 0), 0)
         return loss, grads
 
     @torch.no_grad()
@@ -738,10 +844,26 @@ class MPMDPipeline:
         mean loss, at the pre-update parameters — the normalization of the
         single-program ``train_step.loss_and_grads``.  With ``weights``,
         gradient accumulation and the loss use the given per-microbatch
-        weights instead (see :meth:`grad_step`).
+        weights instead (see :meth:`grad_step`).  With telemetry
+        attached, ``step_time`` runs to the update's end on the card.
         """
+        tel = self._telemetry
+        t_start = time.perf_counter() if tel is not None else 0.0
         out, grads = self.grad_step(batch, weights)
         self.apply_grads(grads)
+        if tel is not None:
+            from repro_torch.telemetry.bus import wall_clock
+            self._idle()
+            for i in range(len(self.stages)):
+                zone = self._tel_zones[i]
+                if self._injector is None or \
+                        not self._injector.hung(self._tel_step, zone, "host"):
+                    self._emit("heartbeat", (i, 0), 1.0, zone=zone,
+                               acc_type="host",
+                               chips=self.stages[i].n_devices)
+            self._emit("step_time", (), time.perf_counter() - t_start)
+            tel.end_step(self._tel_step, wall_clock())
+            self._tel_step += 1
         return out
 
 

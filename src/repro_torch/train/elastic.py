@@ -21,10 +21,15 @@ slower than ``factor``x the running median flags the event to the
 controller, which (like Sailor) re-invokes the planner — here recorded and
 surfaced in metrics so tests and callers can assert on it.
 
+Telemetry (``telemetry=`` a ``telemetry.TelemetryBus``): after each step
+the loop emits ``step_time``, ``data_stall`` (the data fetch's seconds)
+and a heartbeat, then closes the step with ``end_step``, at ``clock()``
+when a caller (``manager.Controller``) pins it and at the wall clock
+otherwise, as the reference's ``_emit_telemetry`` does.
+
 Where the reference differs: ``devices=`` (default every CUDA device;
-raises without a card), ``build(n, init_seed=)`` in place of ``init_key``
-(``model.init``'s seeded weights), and ``telemetry=`` other than None
-raises until the telemetry bus is ported.
+raises without a card) and ``build(n, init_seed=)`` in place of
+``init_key`` (``model.init``'s seeded weights).
 """
 from __future__ import annotations
 
@@ -97,11 +102,6 @@ class ElasticTrainer:
                  checkpoint_every: int = 20,
                  plan_fn: Optional[Callable[[int], RuntimePlan]] = None,
                  telemetry=None, devices: Optional[Sequence] = None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "ElasticTrainer(telemetry=...): the telemetry bus waits for "
-                "the port of manager/ and telemetry/ (ROADMAP.md §1, "
-                "\"manager/ and telemetry/\")")
         if devices is None:
             resolve_device(None)            # raises without a card
             devices = [torch.device("cuda", i)
@@ -115,9 +115,14 @@ class ElasticTrainer:
         self.checkpoint_every = checkpoint_every
         self.plan_fn = plan_fn or self._default_plan
         self.detector = StragglerDetector()
-        # the reference's telemetry bus and its clock (the manager's
-        # controller pins the clock); no bus is attached in the port
+        # optional telemetry.TelemetryBus: the step loop then emits
+        # step_time / data_stall / heartbeat samples and closes each step
+        # with end_step, feeding the control plane's online detectors
+        # alongside (not instead of) the in-loop StragglerDetector.
         self.telemetry = telemetry
+        # telemetry timestamps come from this clock; the manager's
+        # controller pins it to its sim clock so bus events interleave
+        # time-ordered with feed events (None = wall clock).
         self.clock: Optional[Callable[[], float]] = None
         self.log: List[Dict[str, Any]] = []
         self.reconfigs: List[Dict[str, Any]] = []
@@ -206,6 +211,21 @@ class ElasticTrainer:
             "n_devices": n_devices, "kind": kind,
             "reconfig_s": time.perf_counter() - t0})
 
+    # --- telemetry -------------------------------------------------------------------
+    def _emit_telemetry(self, step_s: float, data_s: float) -> None:
+        """One step's samples onto the attached bus (no-op when detached)."""
+        if self.telemetry is None:
+            return
+        from repro_torch.telemetry.bus import Sample, wall_clock
+        t = self.clock() if self.clock is not None else wall_clock()
+        emit = self.telemetry.emit
+        emit(Sample("step_time", (), t, self.step, step_s))
+        emit(Sample("data_stall", (), t, self.step, data_s))
+        emit(Sample("heartbeat", (0, 0), t, self.step, 1.0,
+                    {"zone": "local", "acc_type": "host",
+                     "chips": self.plan.n_devices if self.plan else 0}))
+        self.telemetry.end_step(self.step, t)
+
     # --- training -------------------------------------------------------------------
     def train(self, num_steps: int,
               events: Sequence[Tuple[int, int, bool]] = ()) -> List[Dict]:
@@ -224,7 +244,9 @@ class ElasticTrainer:
             if self.step in ev:
                 for n, failure in ev.pop(self.step):
                     self.on_availability_change(n, failure)
+            t_data = time.perf_counter()
             batch = self.data.batch(self.step)
+            t_data = time.perf_counter() - t_data      # input-pipeline wait
             t0 = time.perf_counter()
             self.params, self.opt_state, metrics = self.step_fn(
                 self.params, self.opt_state, batch)
@@ -234,6 +256,7 @@ class ElasticTrainer:
             self.log.append({"step": self.step, "time_s": dt, "loss": loss,
                              "n_devices": self.plan.n_devices,
                              "straggler_flag": straggler})
+            self._emit_telemetry(dt, t_data)
             self.step += 1
             if self.step % self.checkpoint_every == 0:
                 self.ckpt.save(self.step, {

@@ -270,13 +270,49 @@ def jax_reduced():
     return jget("smollm_360m").reduced()
 
 
+# --- telemetry ---------------------------------------------------------------------
+
+def test_elastic_trainer_emits_telemetry(tmp_path):
+    """The reference's ``test_elastic_trainer_emits_telemetry``
+    (``tests/test_telemetry.py:445-470``) on the port, on two CPU
+    positions: a ``step_time``, ``data_stall`` (>= 0) and heartbeat a
+    step at the pinned clock, the heartbeat's ``chips`` the plan's
+    positions, ``end_step`` a step; and the losses of a detached trainer
+    from the same seed, bit for bit."""
+    from repro_torch.telemetry import TelemetryBus
+    cfg = _cfg()
+    dc = data_lib.DataConfig(seq_len=16, global_batch=8)
+    bus = TelemetryBus()
+    ends = []
+    bus.on_step(lambda step, t: ends.append((step, t)))
+    tr = ElasticTrainer(cfg, _opt(), dc, str(tmp_path / "on"),
+                        checkpoint_every=100, telemetry=bus,
+                        devices=["cpu"] * 2)
+    tr.clock = lambda: 123.0            # pinned clock (controller mode)
+    tr.train(5)
+    assert len(bus.values("step_time", ())) == 5
+    assert len(bus.values("data_stall", ())) == 5
+    hb = bus.latest("heartbeat", (0, 0))
+    assert hb.meta == {"zone": "local", "acc_type": "host",
+                       "chips": tr.plan.n_devices} and tr.plan.n_devices == 2
+    assert hb.time_s == 123.0
+    assert all(v >= 0 for v in bus.values("data_stall", ()))
+    assert bus.values("step_time", ()) == [r["time_s"] for r in tr.log]
+    assert ends == [(i, 123.0) for i in range(5)]
+    off = ElasticTrainer(cfg, _opt(), dc, str(tmp_path / "off"),
+                         checkpoint_every=100, devices=["cpu"] * 2)
+    off.train(5)
+    assert [r["loss"] for r in off.log] == [r["loss"] for r in tr.log]
+    # without a pinned clock the samples carry the wall clock
+    tr.clock = None
+    tr.train(1)
+    assert bus.latest("step_time", ()).time_s > 1e9
+
+
 # --- what raises ---------------------------------------------------------------------
 
 def test_elastic_refusals(tmp_path, monkeypatch):
     cfg, dc = _cfg(), data_lib.DataConfig(seq_len=16, global_batch=4)
-    with pytest.raises(NotImplementedError, match="manager/ and telemetry/"):
-        ElasticTrainer(cfg, _opt(), dc, str(tmp_path), telemetry=object(),
-                       devices=["cpu"])
     tr = ElasticTrainer(cfg, _opt(), dc, str(tmp_path), devices=["cpu"] * 2)
     with pytest.raises(ValueError, match="has 2 devices"):
         tr.build(3)

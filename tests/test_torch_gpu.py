@@ -1800,3 +1800,106 @@ def test_kill_free_reshard_on_one_card(cuda, tmp_path):
     assert ops.LAUNCHES["flash_attention_bwd"] > 0
     assert abs(tr.log[-1]["loss"] - stay.log[-1]["loss"]) <= \
         1e-5 * abs(stay.log[-1]["loss"])
+
+
+def _controller_setup(workdir, devices, audit=None):
+    """``manager.Controller`` over an ``ElasticTrainer`` (reduced smollm
+    through the kernels, seq 64, global batch 4 in 2 microbatches) on
+    ``devices``, its replanner pricing smollm-360M at seq 1024 on H100s:
+    2 H100s, then 1 at t = 240 (a bulk preemption: rollback to the step-3
+    checkpoint), 2 again at t = 300 (held through the 120 s hysteresis,
+    then a kill-free reshard)."""
+    from repro_torch.core.cluster import single_zone
+    from repro_torch.core.planner.objectives import MAX_THROUGHPUT, Objective
+    from repro_torch.core.profiler.analytic import TrainJob
+    from repro_torch.manager import (AvailabilityMonitor, Controller,
+                                     ControllerConfig, IncrementalReplanner,
+                                     ListFeed, TransitionConfig,
+                                     TransitionModel)
+    from repro_torch.train import data as tdata
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.elastic import ElasticTrainer
+    cfg = dataclasses.replace(get_config("smollm_360m").reduced(),
+                              head_dim=64, attn_impl="kernel")
+    tr = ElasticTrainer(cfg, topt.OptimizerConfig(lr=1e-3, warmup_steps=2),
+                        tdata.DataConfig(seq_len=64, global_batch=4,
+                                         num_microbatches=2),
+                        str(workdir), checkpoint_every=3, devices=devices)
+    h100 = lambda n: single_zone("H100", n)       # noqa: E731
+    ctl = Controller(
+        tr, AvailabilityMonitor(h100(2), [ListFeed([(240.0, h100(1)),
+                                                    (300.0, h100(2))])]),
+        IncrementalReplanner(TrainJob(cfg=get_config("smollm_360m"),
+                                      seq_len=1024, global_batch=8),
+                             Objective(MAX_THROUGHPUT)),
+        transition=TransitionModel(TransitionConfig(hysteresis_s=120.0)),
+        config=ControllerConfig(step_time_s=60.0, max_devices=2,
+                                audit_path=audit))
+    return tr, ctl
+
+
+CONTROLLER_OUTCOMES = ["start", "rollback", "defer", "reshard"]
+CONTROLLER_RECONFIGS = [("rollback", 1, 4, 3), ("kill-free", 2, 6, 6)]
+
+
+def test_controller_drives_the_elastic_trainer_on_the_card(cuda, tmp_path):
+    """The control loop on ``[cuda:0] * 2``: the decisions and the
+    reconfigurations (kind, positions, step, resumed at), finite losses,
+    the kernels launched on every step, a ``step_time`` a step on the
+    controller's sim clock, and the audit file's records."""
+    from repro_torch.telemetry import TelemetryBus, read_jsonl
+    tr, ctl = _controller_setup(tmp_path / "ckpt", ["cuda:0"] * 2,
+                                audit=str(tmp_path / "audit.jsonl"))
+    bus = TelemetryBus()
+    ctl.attach_telemetry(bus)
+    ops.reset_launches()
+    log = ctl.run(9)
+    assert [d["action"] for d in ctl.decisions
+            if not d.get("straggler")] == CONTROLLER_OUTCOMES
+    assert [(r["kind"], r["n_devices"], r["step"], r["resumed_at"])
+            for r in tr.reconfigs] == CONTROLLER_RECONFIGS
+    assert all(math.isfinite(r["loss"]) for r in log) and len(log) == 9
+    positions = sum(r["n_devices"] for r in log)
+    assert ops.LAUNCHES["flash_attention_bwd"] == \
+        tr.cfg.n_layers * 2 * positions
+    assert ops.LAUNCHES["fused_add_rmsnorm_bwd"] == \
+        tr.cfg.n_layers * 2 * positions
+    assert [s.time_s for s in bus.series("step_time", ())] == \
+        [60.0 * i for i in range(9)]
+    recs = read_jsonl(str(tmp_path / "audit.jsonl"))
+    assert [r["action"] for r in recs] == [d["action"]
+                                           for d in ctl.decisions]
+
+
+def test_graphed_pipeline_with_a_bus_matches_detached_bit_for_bit(cuda):
+    """A bus attached to the graphed pipeline adds synchronizations and
+    clock reads only: the same losses and params bit for bit as a
+    detached one from the same weights, the same launches a step, the same
+    graphs with the same captured launches; and the reference's sample
+    counts."""
+    from repro_torch.telemetry import TelemetryBus
+    from repro_torch.train import optimizer as topt
+    cfg, ds, make = _pipe_setup()
+    off, on = make(None), make(None)
+    bus = TelemetryBus()
+    on.attach_telemetry(bus)
+    for i in range(3):        # warm, capture, replay
+        b = ds.batch(i)
+        ops.reset_launches()
+        lo = off.train_step(b)
+        a = dict(ops.LAUNCHES)
+        ops.reset_launches()
+        ln = on.train_step(b)
+        assert ln == lo and dict(ops.LAUNCHES) == a, i
+    for pa, pb in zip(on.params, off.params):
+        assert all(torch.equal(x, y) for (_, x), (_, y) in zip(
+            topt.tree_leaves(pa), topt.tree_leaves(pb)))
+    assert [sorted(g.graphs) for g in on.graphs] == \
+        [sorted(g.graphs) for g in off.graphs]
+    assert [g.capture_launches for g in on.graphs] == \
+        [g.capture_launches for g in off.graphs]
+    for i in range(2):
+        assert len(bus.values("fwd_time", (i, 0))) == 3 * 2
+        assert len(bus.values("bwd_time", (i, 0))) == 3 * 2
+    assert len(bus.values("step_time", ())) == 3
+    assert all(v > 0 for v in bus.values("p2p_time", (0, 1, 0, 0)))

@@ -356,7 +356,13 @@ _PLANNER = ["repro_torch.core.cluster"] + [
     "repro_torch.dist.spmd", "repro_torch.launch.mesh",
     # the runtime that trains the plans
     "repro_torch.train.checkpoint", "repro_torch.train.elastic",
-    "repro_torch.launch.train"]
+    "repro_torch.launch.train"] + [
+    # the control plane that drives it
+    f"repro_torch.manager.{m}" for m in
+    ("events", "monitor", "transition", "replan", "controller", "autoscale")
+] + [f"repro_torch.telemetry.{m}" for m in
+     ("bus", "detectors", "rca", "faults")] + [
+    "repro_torch.manager", "repro_torch.telemetry"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():

@@ -423,8 +423,6 @@ def test_pipeline_refusals(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpl.MPMDPipeline(tcfg, st, ocfg)
     pipe = tpl.MPMDPipeline(tcfg, st, ocfg, devices=cpu2, policy="replicated")
-    with pytest.raises(NotImplementedError, match="manager/ and telemetry/"):
-        pipe.attach_telemetry(bus=None)
     with pytest.raises(RuntimeError, match="load parameters first"):
         pipe.train_step(_batch(tcfg, 1, 1, 8))
     assert pipe.graphs == []
@@ -653,3 +651,172 @@ def test_adaptive_group_of_mesh_stage_pipelines_matches_one_device():
             np.testing.assert_allclose(rep_m[k].numpy(), rep_o[k].numpy(),
                                        rtol=PARAM_RTOL, atol=PARAM_ATOL,
                                        err_msg=str(k))
+
+
+# --- telemetry (attach_telemetry) ---------------------------------------------------
+
+def _tel_pipe(tcfg, jcfg, tps, full=None, **kw):
+    stages = tpl.even_stages(tcfg, tps)
+    pipe = tpl.MPMDPipeline(tcfg, stages, topt.OptimizerConfig(lr=1e-3),
+                            devices=["cpu"] * sum(s.n_devices
+                                                  for s in stages), **kw)
+    pipe.full_params_like(_full(tcfg, jcfg) if full is None else full)
+    return pipe
+
+
+@pytest.mark.parametrize("tps", [[2, 2], [1, 1]])
+def test_pipeline_emits_telemetry(tps):
+    """The reference's ``test_pipeline_emits_telemetry``
+    (``tests/test_telemetry.py:406-443``) on the port: ``tps=[2, 2]`` on
+    ``[cpu] * 4`` (mesh stages), and ``[1, 1]``; 3 steps of 2
+    microbatches: a ``fwd_time`` and ``bwd_time`` sample a microbatch and
+    stage, a ``p2p_time`` a microbatch each way, one ``step_time`` and one
+    heartbeat a stage a step (``chips`` the stage's positions), the
+    zones in the meta."""
+    from repro_torch.telemetry import TelemetryBus
+    jcfg, tcfg = _cfgs()
+    pipe = _tel_pipe(tcfg, jcfg, tps)
+    bus = TelemetryBus()
+    ends = []
+    bus.on_step(lambda step, t: ends.append(step))
+    pipe.attach_telemetry(bus)
+    NM = 2
+    batch = _batch(tcfg, NM, 4, 16)
+    for _ in range(3):
+        pipe.train_step(batch)
+    for i in range(2):
+        assert len(bus.values("fwd_time", (i, 0))) == 3 * NM
+        assert len(bus.values("bwd_time", (i, 0))) == 3 * NM
+        hb = bus.series("heartbeat", (i, 0))
+        assert [s.step for s in hb] == [0, 1, 2]
+        assert hb[-1].meta == {"zone": f"stage{i}", "acc_type": "host",
+                               "chips": tps[i]}
+        assert bus.latest("fwd_time", (i, 0)).meta["zone"] == f"stage{i}"
+    p2p = bus.series("p2p_time", (0, 1, 0, 0))
+    assert len(p2p) == 2 * 3 * NM
+    assert {(s.meta["zone"], s.meta["zone_b"]) for s in p2p} == \
+        {("stage0", "stage1")}
+    assert len(bus.values("step_time", ())) == 3 and ends == [0, 1, 2]
+    assert all(v > 0 for v in bus.values("step_time", ()))
+    assert all(v > 0 for k in bus.keys("fwd_time")
+               for v in bus.values("fwd_time", k))
+    assert bus.keys("p2p_time") == [(0, 1, 0, 0)]
+
+
+@pytest.mark.parametrize("tps", [[1, 1], [2, 1], [1, 1, 1]])
+def test_attached_bus_leaves_the_step_bit_for_bit(tps):
+    """A bus attached without a fault adds only synchronizations and
+    clock reads: the losses, gradients and params of two steps and a
+    ``grad_step`` equal a detached pipeline's from the same weights, bit
+    for bit."""
+    from repro_torch.telemetry import TelemetryBus
+    jcfg, tcfg = _cfgs()
+    full = _full(tcfg, jcfg)
+    off, on = (_tel_pipe(tcfg, jcfg, tps, full) for _ in range(2))
+    on.attach_telemetry(TelemetryBus(), zones=[f"z{i}" for i in
+                                               range(len(tps))])
+    for seed in range(2):
+        batch = _batch(tcfg, 2, 4, 16, seed=seed)
+        assert on.train_step(batch) == off.train_step(batch)
+    batch = _batch(tcfg, 3, 4, 16, seed=5)
+    (la, ga), (lb, gb) = on.grad_step(batch), off.grad_step(batch)
+    assert la == lb
+    for a, b in zip(ga, gb):
+        for (ka, xa), (kb, xb) in zip(pm.tree_items(a), pm.tree_items(b)):
+            assert ka == kb and torch.equal(tpl._full(xa), tpl._full(xb))
+    assert _stage_params_full(on).keys() == _stage_params_full(off).keys()
+    assert all(torch.equal(x, _stage_params_full(off)[k])
+               for k, x in _stage_params_full(on).items())
+    assert on._telemetry.n_samples > 0 and off._telemetry is None
+
+
+@pytest.mark.parametrize("kind", ["compute_delay", "link_degrade"])
+def test_injected_fault_slows_the_stage_samples(kind, monkeypatch):
+    """Under an injected fault the affected samples are at least
+    ``factor`` x the span measured without the delay (the injector is
+    handed that span), the host sleeps the difference, and nothing else
+    is delayed."""
+    from repro_torch.telemetry import FaultInjector, FaultSpec, TelemetryBus
+    jcfg, tcfg = _cfgs(n_layers=2)
+    pipe = _tel_pipe(tcfg, jcfg, [1, 1])
+    factor, start = 3.0, 1
+    spec = FaultSpec("compute_delay", zone="stage1", acc_type="host",
+                     start_step=start, factor=factor) \
+        if kind == "compute_delay" else \
+        FaultSpec("link_degrade", zone="stage0", zone_b="stage1",
+                  start_step=start, factor=factor)
+    inj = FaultInjector([spec])
+    spans, slept = [], []
+    real_delay = inj.compute_delay_s
+
+    def delay(step, zone, acc, base_s):
+        spans.append((step, zone, base_s))
+        return real_delay(step, zone, acc, base_s)
+
+    inj.compute_delay_s = delay
+    sleep = tpl.time.sleep
+    monkeypatch.setattr(tpl.time, "sleep",
+                        lambda s: (slept.append(s), sleep(s)))
+    bus = TelemetryBus()
+    pipe.attach_telemetry(bus, injector=inj)
+    for _ in range(3):
+        pipe.train_step(_batch(tcfg, 2, 2, 8))
+    metrics = ("fwd_time", "bwd_time") if kind == "compute_delay" \
+        else ("p2p_time",)
+    hit = [s for m in metrics for k in bus.keys(m)
+           for s in bus.series(m, k) if s.step >= start
+           and (s.meta["zone"] == "stage1" or m == "p2p_time")]
+    assert len(hit) == 2 * 2 * 2
+    assert len(slept) == len(hit)
+    if kind == "compute_delay":
+        base = {(st, z): [] for st, z, _ in spans}
+        for st, z, b in spans:
+            base[(st, z)].append(b)
+        for s in hit:
+            # the sample is the span plus the sleep: factor x the span
+            assert any(s.value >= factor * b * (1 - 1e-12)
+                       for b in base[(s.step, "stage1")])
+        assert all(x > 0 for x in slept)
+    untouched = [s for m in ("fwd_time", "bwd_time", "p2p_time")
+                 for k in bus.keys(m) for s in bus.series(m, k)
+                 if s not in hit]
+    assert untouched and len(untouched) + len(hit) == \
+        sum(len(bus.series(m, k)) for m in ("fwd_time", "bwd_time",
+                                            "p2p_time")
+            for k in bus.keys(m))
+    assert sum(slept) <= sum(bus.values("step_time", ()))
+
+
+def test_worker_hang_silences_the_heartbeat_until_node_failure():
+    """A hung stage stops heartbeating; ``miss_limit`` silent steps later
+    ``DetectorBank`` publishes one ``NodeFailure`` through
+    ``monitor.observe_failure`` (the snapshot loses the stage's chips),
+    and not before."""
+    from repro_torch.core.cluster import multi_zone
+    from repro_torch.manager import AvailabilityMonitor, EventBus, NodeFailure
+    from repro_torch.telemetry import (DetectorBank, FaultInjector,
+                                       FaultSpec, TelemetryBus)
+    jcfg, tcfg = _cfgs(n_layers=2)
+    pipe = _tel_pipe(tcfg, jcfg, [1, 2])
+    cluster = multi_zone({"za": ("r", {"host": 1}), "zb": ("r", {"host": 2})})
+    bus, events = TelemetryBus(), EventBus()
+    monitor = AvailabilityMonitor(cluster, feeds=[], bus=events)
+    DetectorBank(bus, events, monitor=monitor, heartbeat_miss=3)
+    hang = 2
+    pipe.attach_telemetry(bus, zones=("za", "zb"), injector=FaultInjector(
+        [FaultSpec("worker_hang", zone="zb", acc_type="host",
+                   start_step=hang)]))
+    seen = []
+    for step in range(7):
+        pipe.train_step(_batch(tcfg, 2, 2, 8, seed=step))
+        seen.append(len(events.of_type(NodeFailure)))
+    beats = {k: [s.step for s in bus.series("heartbeat", k)]
+             for k in ((0, 0), (1, 0))}
+    assert beats == {(0, 0): list(range(7)), (1, 0): list(range(hang))}
+    # silent from step 2: the last beat at step 1, 3 steps missed at 4
+    assert seen == [0, 0, 0, 0, 1, 1, 1]
+    fail = events.of_type(NodeFailure)[0]
+    assert (fail.zone, fail.acc_type, fail.lost, fail.available) == \
+        ("zb", "host", 2, 0)
+    assert fail.cluster is monitor.current
+    assert monitor.current.zone("zb").capacity["host"] == 0
