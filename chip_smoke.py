@@ -208,6 +208,44 @@ Phases, each printed as it runs; any failure exits non-zero:
              0), the reference's sample counts.  Launches counted over (a)
              and (b) apart (``launches_manager``,
              ``launches_pipeline_telemetry``).
+   autotune  the block autotuner (``kernels/autotune.py``): each of its
+             four tuners at the calibrate grid's held-out shapes
+             (``AUTOTUNE_SHAPES``), bf16 and fp32, from an empty cache and
+             again from a second one (the same winner or not), every
+             candidate's ms, the winner's output against its plain
+             version at that tile, its time against the default tile's
+             (``vs_default``); then ``calibrate_kernels(autotune_blocks=
+             True)`` into a temporary cache directory and that table's
+             held-out error (tuned kernels measured) beside phase 6's
+             untuned table's (``launches_autotune``).
+   moe serve the MoE family at published widths, 2 layers, bf16, seeded
+             weights, through ``BatchedServer`` graphed (after two warm
+             runs of the same requests, so the timed run replays every
+             graph) and eager, tokens equal: dbrx-132b (16 experts, top-4) on
+             phase 5's requests; mixtral-8x22b (8 experts, top-2, window
+             4096) on 2 prompts of 4608 tokens and 32 new (the prefill
+             runs ``attn_window_linear``, the cache the 4096-slot ring),
+             its prefill logits against ``attention(impl="naive",
+             window=4096)`` with the plain norm (``LOGITS_TOL``).  tok/s
+             and the prefill kernels' launches of each run
+             (``launches_moe_serve``: the servers' alone, not the logit
+             checks').
+   moe train dbrx-132b at published widths, 1 layer, bf16, full remat, 4 x
+             1024 tokens in one microbatch, AdamW: 3 eager steps, then
+             the graphed step from the same seeded weights on the same
+             batches (one model at a time), losses bit for bit; the loss
+             falling over 8 graphed steps on one batch; 3 timed (wall,
+             device ms, tokens/s), peaks, one profiled
+             (``[profile] moe_train_step``; ``launches_moe_train``).
+   moe pipeline  ``MPMDPipeline(family="moe")`` at dbrx's widths with 2
+             layers, 4 experts, top-2 (``MOE_PIPE_CUT``), untied, 2
+             microbatches of 2 x 1024 tokens: ``[1, 1]`` eager then
+             graphed (losses bit for bit), ``[2, 1]`` eager (stage 0 a (1, 2) mesh: 2 experts a
+             position, expert parallel); each first loss against the
+             one-device ``loss_and_grads``, step walls, resident bytes a
+             position (``launches_moe_pipeline``: the pipelines' alone,
+             not the one-device check's).  Phase 3 holds the
+             MoE paths' attention and norm shapes (``moe_*``).
 9. plan      Sailor's planner and simulator priced by the card: the
              ``"H100"`` entry fitted as ``measured.calibrate_cpu_host``
              fits it (``measure_block``'s one-layer forward and gradient
@@ -251,7 +289,8 @@ Phases, each printed as it runs; any failure exits non-zero:
              the bound and the 16384-row case (``rows16384``).
 
 Each of phases 5-9 (serve continuous, pipeline, its mesh stages, mesh,
-elastic and manager's two paths too) is a main path: the launch
+elastic, manager's two paths, autotune and the three MoE phases too) is
+a main path: the launch
 counts are set to 0 just before it and read just after, and each kernel
 must have launched on the path that runs it.  Phase 3 also holds the two backward kernels
 (attention, fused add + RMSNorm) against their plain versions on the
@@ -274,6 +313,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -502,6 +542,34 @@ MANAGER_RECONFIGS = (("kill-free", 2), ("kill-free", 4), ("rollback", 2))
 TEL_STEPS, TEL_FAULT_STEP, TEL_FAULT_FACTOR = 20, 14, 2.0
 TEL_DETECT_WITHIN = 4       # steps from the fault to its Straggler
 TEL_PAIRS = 4
+
+
+# [autotune]: each tuner at the [calibrate] grid's held-out shapes (HELD_OUT;
+# the fused norm at the RMSNorm's rows), bf16 and fp32
+AUTOTUNE_SHAPES = [(op, shape) for op, shape in HELD_OUT
+                   if op != "flash_decode"] + [
+    ("fused_add_rmsnorm", shape) for op, shape in HELD_OUT
+    if op == "rmsnorm"]
+AUTOTUNE_ITERS = 10
+# the MoE family at published widths (dbrx-132b: hf:databricks/dbrx-base;
+# mixtral-8x22b: arXiv:2401.04088), cut in depth only
+MOE_SERVE_LAYERS = 2
+MIXTRAL_PROMPT, MIXTRAL_ROWS, MIXTRAL_NEW = 4608, 2, 32
+# mixtral's fp32 prefill logits (spread ~1), window-linear + fused kernel vs
+# naive + plain norm: the same fp32 terms summed in other orders through 2
+# layers of width 6144 (~1e-6 relative each); a masking or indexing fault
+# gives O(1) errors
+MIXTRAL_F32_TOL = 1e-3
+MOE_TRAIN_LAYERS = 1
+# one microbatch of 4 x 1024: its bf16 gradients feed AdamW with no fp32
+# sum beside them (train_step.loss_and_grads_on_device); two microbatches'
+# 18 GB of fp32 sums do not fit beside 4.49 B params' AdamW state
+MOE_TRAIN_DATA = dict(seq_len=1024, global_batch=4, num_microbatches=1)
+MOE_PIPE_DATA = dict(seq_len=1024, global_batch=4, num_microbatches=2)
+MOE_GRAPH_STEPS, MOE_FALL_STEPS, MOE_TIMED = 3, 8, 3
+# [moe pipeline]: dbrx's widths with the reference's reduced() expert counts
+MOE_PIPE_CUT = dict(n_layers=2, n_experts=4, top_k=2)
+MOE_PIPE_STEPS, MOE_PIPE_TIMED = 3, 3
 
 
 def log(msg: str) -> None:
@@ -1231,6 +1299,38 @@ def plan_shapes():
                    kw["seq_len"], getattr(torch, kw["dtype"]))
 
 
+def moe_shapes():
+    """(label, batch, seq, query heads, KV heads, dtype, backward) of the
+    attention on the MoE paths (dbrx-132b's 48/8 heads of 128): [moe
+    serve]'s prefills at [serve]'s batch lengths (forward), [moe train]'s
+    and [moe pipeline]'s microbatches (both directions; the pipeline's
+    stage 0 at tp 2 splits the heads).  Their norms run at batch x seq
+    rows of d_model 6144 (the pipeline's unfused: attention only), and
+    mixtral's prefill norm at its rows (``moe_norm_rows``)."""
+    reqs = serve_requests(get_config("dbrx_132b"), 0, N_REQUESTS)
+    cfg = get_config("dbrx_132b")
+    h, kh = cfg.n_heads, cfg.n_kv_heads
+    def micro(data):
+        return (data["global_batch"] // data["num_microbatches"],
+                data["seq_len"])
+
+    for s in sorted(set(batch_lengths(reqs))):
+        yield (f"moe_serve_s{s}", BATCH, s, h, kh, torch.bfloat16, False)
+    yield ("moe_train", *micro(MOE_TRAIN_DATA), h, kh, torch.bfloat16, True)
+    yield ("moe_pipe", *micro(MOE_PIPE_DATA), h, kh, torch.bfloat16, True)
+    yield ("moe_pipe_1x2", *micro(MOE_PIPE_DATA), h // 2, kh // 2,
+           torch.bfloat16, True)
+
+
+def moe_norm_rows():
+    """(label, rows, backward) of the fused norm on the MoE paths."""
+    for label, b, s, _, _, _, bwd in moe_shapes():
+        if not label.startswith("moe_pipe"):
+            yield (f"{label}_rows{b * s}", b * s, bwd)
+    yield (f"moe_mixtral_rows{MIXTRAL_ROWS * MIXTRAL_PROMPT}",
+           MIXTRAL_ROWS * MIXTRAL_PROMPT, False)
+
+
 def mesh_shapes():
     """(label, local batch, query heads, KV heads, dtype) of the attention
     each position of a mesh runs at [train]'s seq, its norms at local
@@ -1293,6 +1393,11 @@ def phase_kernels(main_lens):
     for label, bl, hq, hk, dt in mesh_shapes():
         attn.append(attention_case(gen, label, bl, sl, sl, hq, hk, d, True,
                                    dt))
+    # the MoE paths' (dbrx: head dim 128, GQA 6)
+    moe_d = get_config("dbrx_132b").hd
+    for label, mb_, s_, hq, hk, dt, _ in moe_shapes():
+        attn.append(attention_case(gen, label, mb_, s_, s_, hq, hk, moe_d,
+                                   True, dt))
     attn += [
         attention_case(gen, "ragged_s509", BATCH, 509, 509, h, kh, d, True,
                        bf16),
@@ -1362,6 +1467,9 @@ def phase_kernels(main_lens):
     for label, bl, _, _, dt in mesh_shapes():
         norm.append(fused_case(gen, f"{label}_rows{bl * sl}", bl * sl, dm,
                                dt))
+    moe_dm = get_config("dbrx_132b").d_model
+    for label, n, _ in moe_norm_rows():
+        norm.append(fused_case(gen, label, n, moe_dm, bf16))
     norm += [fused_case(gen, "ragged_rows4071", 4071, dm, bf16),
              fused_case(gen, "f32_rows1000", 1000, dm, f32),
              fused_case(gen, "f32_4096x512", 4096, 512, f32),
@@ -1506,6 +1614,11 @@ def phase_kernels(main_lens):
     for label, bl, hq, hk, dt in mesh_shapes():
         abwd.append(attention_bwd_case(gen, label, bl, sl, sl, hq, hk, d,
                                        True, dt))
+    for label, mb_, s_, hq, hk, dt, bwd in moe_shapes():
+        if bwd:
+            abwd.append(attention_bwd_case(gen, label, mb_, s_, s_, hq, hk,
+                                           get_config("dbrx_132b").hd, True,
+                                           dt))
     # the plan phase's gradients; the fp32 fit's largest shape timed (the
     # fp32 kernel's only path)
     for label, mbs, seq, dt in plan_shapes():
@@ -1544,6 +1657,10 @@ def phase_kernels(main_lens):
     for label, bl, _, _, dt in mesh_shapes():
         nbwd.append(fused_bwd_case(gen, f"{label}_rows{bl * sl}", bl * sl,
                                    dm, dt))
+    for label, n, bwd in moe_norm_rows():
+        if bwd:
+            nbwd.append(fused_bwd_case(gen, label, n,
+                                       get_config("dbrx_132b").d_model, bf16))
     nbwd[0]["rows16384"] = {key: nbwd[1][key] for key in (
         "shape", "plan", "ms", "bound_ms", "share_of_bound", "plain_ms",
         "max_abs_err")}
@@ -2126,9 +2243,10 @@ def table_path() -> str:
                         f"kernel-costs-{at.default_chip('cuda')}.json")
 
 
-def phase_calibrate(serve_dev: dict) -> dict:
+def phase_calibrate(serve_dev: dict) -> tuple:
     """Kernel calibration at full width, the table's held-out accuracy,
-    and what it does to the analytic price of a smollm-360M layer."""
+    and what it does to the analytic price of a smollm-360M layer.
+    Returns the launches and the accuracy (for [autotune])."""
     cfg = get_config(ARCH)
     path = table_path()
     ops.reset_launches()
@@ -2178,7 +2296,7 @@ def phase_calibrate(serve_dev: dict) -> dict:
             prefill_batch=[BATCH, serve_dev["prefill_len"]],
             decode_batch=BATCH, decode_cache=smax))))
     kernel_costs.clear_kernel_tables()
-    return launches
+    return launches, acc
 
 
 def phase_fused() -> dict:
@@ -3694,6 +3812,387 @@ def phase_manager() -> tuple:
     return out
 
 
+# --- [autotune] and the MoE family ------------------------------------------------
+
+def _release() -> int:
+    """Free what dropped references held: a graphed server or pipeline
+    sits in reference cycles (its graphs and their pools with it) until
+    the collector runs, and a model of the MoE phases needs the card's
+    memory back.  Returns the bytes still allocated."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _tuned_check(dtype: torch.dtype, op: str):
+    """``kernels_bench.autotuned``'s check: the kernel at the winning tile
+    against its plain version at that tile (phase 3's tolerances)."""
+    def check(got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for i, (g, w) in enumerate(zip(got, want)):
+            tol = SSD_TOL[dtype][i] if op == "ssd_scan" else TOL[dtype]
+            check_close(f"[autotune] {op} {dtype} output {i}", g, w, dtype,
+                        tol)
+    return check
+
+
+def phase_autotune(untuned: dict) -> dict:
+    """The block autotuner (``kernels/autotune.py``) on the card: each
+    tuner at the [calibrate] grid's held-out shapes (``AUTOTUNE_SHAPES``),
+    bf16 and fp32, from an empty cache and again from another (does the
+    second tune pick the same winner?), every candidate's ms, the winner's
+    output against its plain version and its time against the default
+    tile's; then ``calibrate_kernels(autotune_blocks=True)`` into a
+    temporary cache directory and its table's held-out error (the tuned
+    kernels measured) beside [calibrate]'s untuned table's.  A main path
+    for the five calibrated kernels."""
+    import tempfile
+    ops.reset_launches()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="autotune-", dir=os.path.join(ROOT,
+                                                                "build"))
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        for op, shape in AUTOTUNE_SHAPES:
+            r = kernels_bench.autotuned(
+                op, shape, dtype, cache_dir=tmp, iters=AUTOTUNE_ITERS,
+                device="cuda", check=_tuned_check(getattr(torch, dtype), op))
+            row = dict(op=op, shape=list(shape), dtype=dtype,
+                       winner=r["config"], default=r["default"],
+                       candidates_ms=[[c["config"], c["s"] * 1e3]
+                                      for c in r["candidates"]],
+                       tuned_ms=r["tuned_s"] * 1e3,
+                       default_ms=r["default_s"] * 1e3,
+                       vs_default=r["vs_default"],
+                       same_winner=r["same_winner"])
+            rows.append(row)
+            log(f"[autotune] {json.dumps(row)}")
+    same = sum(r["same_winner"] for r in rows)
+    log(f"[autotune] the second tune from an empty cache picked the same "
+        f"winner in {same} of {len(rows)} tunes")
+    old = os.environ.get("REPRO_KERNEL_CACHE_DIR")
+    os.environ["REPRO_KERNEL_CACHE_DIR"] = os.path.join(tmp, "calibrate")
+    at._shared_cache.cache_clear()
+    try:
+        t0 = time.perf_counter()
+        cal = measured.calibrate_kernels(at.default_chip("cuda"),
+                                         dtypes=("bfloat16", "float32"),
+                                         iters=10, autotune_blocks=True,
+                                         register=False, **CAL_GRID)
+        t_cal = time.perf_counter() - t0
+        acc = kernels_bench.cost_table_accuracy(
+            cal.table, HELD_OUT, dtypes=("bfloat16", "float32"), iters=10,
+            blocks="auto")
+        with open(at.default_cache_path(at.default_chip("cuda"))) as f:
+            winners = {k: v["config"] for k, v in json.load(f).items()}
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_KERNEL_CACHE_DIR", None)
+        else:
+            os.environ["REPRO_KERNEL_CACHE_DIR"] = old
+        at._shared_cache.cache_clear()
+    log(f"[autotune] calibrate_kernels(autotune_blocks=True): "
+        f"{cal.table.n_points()} points in {t_cal:.1f}s, "
+        f"{len(winners)} tuned shapes: {json.dumps(winners)}")
+    for dtype, res in acc.items():
+        keys = ("median_table_err", "suite_table_err", "median_roofline_err",
+                "suite_roofline_err")
+        log(f"[autotune] held-out error {dtype}: " + json.dumps(dict(
+            tuned={k: res[k] for k in keys},
+            untuned={k: untuned[dtype][k] for k in keys})))
+        for r in res["rows"]:
+            log(f"[autotune] accuracy {dtype} {json.dumps(r)}")
+    launches = _path_launches("autotune", CALIBRATE_KERNELS)
+    log(f"[autotune] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+def _moe_params(cfg):
+    params = model_lib.init(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in opt_lib.tree_leaves(params))
+    log(f"[moe] {cfg.name}, {cfg.n_layers} layers at published widths "
+        f"({cfg.param_dtype}): {n / 1e9:.3f}B params, "
+        f"{n * 2 / 1e9:.2f} GB")
+    return params
+
+
+def _serve_moe(label, cfg, params, reqs, warm, max_len, batch) -> dict:
+    """``BatchedServer`` graphed and eager on the same requests, each after
+    two warm runs of ``warm`` (a graph's shape runs eagerly first, is
+    captured the second time, replayed after): the tokens equal; tok/s
+    and the launches of each timed run."""
+    out = {}
+    runs = {}
+    for graphed in (None, False):
+        name = "graphed" if graphed is None else "eager"
+        server = BatchedServer(cfg, params, max_len=max_len,
+                               batch_size=batch, graphed=graphed)
+        for _ in range(2):
+            server.run(_fresh_requests(warm))
+        before = dict(ops.LAUNCHES)
+        got = _fresh_requests(reqs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.run(got)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = got
+        tokens = sum(len(r.output) for r in got)
+        out[name] = dict(
+            steady_s=wall, tokens=tokens, steady_tok_s=tokens / wall,
+            launches={k: ops.LAUNCHES[k] - before[k]
+                      for k in ("flash_attention", "fused_add_rmsnorm")})
+        del server
+    _same_tokens(label, runs["graphed"], runs["eager"])
+    out["graphed_tokens_equal_eager"] = True
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[moe serve] {label}: {json.dumps(out)}")
+    return out
+
+
+def _window_prefill_check(label, cfg, params, toks, tol) -> None:
+    """Mixtral's prefill logits through the served path (past the window:
+    ``attn_window_linear``; the fused norm kernel) against the plain path
+    (``attention(impl="naive", window=...)``, the full score matrix under
+    the window mask; the unfused norm), on the same weights and tokens.
+    In bf16 a hidden state that rounds otherwise can flip a token's
+    experts, an O(1) change to its logits, so the bf16 row is reported
+    (largest and 99.9th-percentile difference, top-1 agreement) and the
+    fp32 row held to ``tol``."""
+    with torch.no_grad():
+        served = model_lib.forward(cfg, params, {"tokens": toks})
+        plain = model_lib.forward(cfg, params, {"tokens": toks},
+                                  attn_impl="naive")
+    err = (served - plain).abs()
+    per_pos = err.amax(-1).flatten().float()
+    row = dict(shape=list(served.shape), dtype=cfg.dtype,
+               max_abs_diff=err.max().item(),
+               p999_position_max_abs_diff=torch.quantile(
+                   per_pos, 0.999).item(),
+               median_position_max_abs_diff=per_pos.median().item(),
+               last_token_max_abs_diff=err[:, -1].max().item(),
+               top1_agreement=(served.argmax(-1) == plain.argmax(-1))
+               .float().mean().item(),
+               logits_spread=served.std().item(), tol=tol)
+    log(f"[moe serve] mixtral prefill logits {label}, window-linear + "
+        f"kernels vs naive window attention + plain norm: "
+        f"{json.dumps(row)}")
+    if tol is not None and not row["max_abs_diff"] <= tol:
+        raise AssertionError(f"[moe serve] mixtral {label} prefill logits "
+                             f"differ from the plain path by "
+                             f"{row['max_abs_diff']} (tol {tol})")
+
+
+def phase_moe_serve() -> dict:
+    """The MoE family served at published widths, cut to MOE_SERVE_LAYERS
+    layers, bf16, seeded weights: dbrx-132b on [serve]'s requests, and
+    mixtral-8x22b on MIXTRAL_ROWS prompts of MIXTRAL_PROMPT tokens (past
+    its 4096-token window: the prefill runs ``attn_window_linear``, the
+    cache is the 4096-slot ring) and MIXTRAL_NEW tokens, graphed and
+    eager with equal tokens; mixtral's prefill logits against the plain
+    path (``attention(impl="naive", window=4096)``, the unfused norm).
+    A main path for the prefill kernels (dbrx: attention and the fused
+    norm; mixtral: the fused norm, its attention routed to the window)."""
+    ops.reset_launches()
+    t_phase = time.perf_counter()
+    log(f"[moe serve] allocated at the start: {_release() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("dbrx_132b"),
+                              n_layers=MOE_SERVE_LAYERS)
+    params = _moe_params(cfg)
+    reqs = serve_requests(cfg, 0, N_REQUESTS)
+    # warmed on the same requests, so the timed run replays every prefill
+    # and decode graph
+    dbrx = _serve_moe(cfg.name, cfg, params, reqs, reqs,
+                      PROMPT_MAX + MAX_NEW + 8, BATCH)
+    if not all(dbrx[r]["launches"]["flash_attention"] for r in
+               ("graphed", "eager")):
+        raise AssertionError("[moe serve] dbrx: no attention kernel launch")
+    del params
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("mixtral_8x22b"),
+                              n_layers=MOE_SERVE_LAYERS)
+    params = _moe_params(cfg)
+    rng = np.random.default_rng(2)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, MIXTRAL_PROMPT, dtype=np.int32),
+        max_new_tokens=MIXTRAL_NEW) for i in range(MIXTRAL_ROWS)]
+    mix = _serve_moe(cfg.name, cfg, params, reqs, reqs,
+                     MIXTRAL_PROMPT + MIXTRAL_NEW + 8, MIXTRAL_ROWS)
+    if any(mix[r]["launches"]["flash_attention"] for r in
+           ("graphed", "eager")):
+        raise AssertionError("[moe serve] mixtral: a prompt past the window "
+                             "reached the attention kernel")
+    # the servers' launches, read before the logit checks launch their own
+    launches = _path_launches("moe serve", SERVE_KERNELS)
+    toks = torch.from_numpy(np.stack([r.prompt for r in reqs])).cuda()
+    _window_prefill_check("bf16 (served)", cfg, params, toks, None)
+    del params
+    _release()
+    f32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    _window_prefill_check("fp32", f32, model_lib.init(f32, 0, device="cuda"),
+                          toks, MIXTRAL_F32_TOL)
+    _release()
+    log(f"[moe serve] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+def phase_moe_train() -> dict:
+    """dbrx-132b at published widths, 1 layer, bf16, full remat, AdamW on
+    MOE_TRAIN_DATA: MOE_GRAPH_STEPS eager steps from seeded weights, then
+    the graphed step (``make_graphed_train_step``) from the same weights
+    on the same batches, losses bit for bit (one copy of the model at a
+    time: two do not fit beside their AdamW state); then the loss falling
+    over MOE_FALL_STEPS graphed steps on one batch, MOE_TIMED steps timed,
+    one profiled.  A main path for the attention and fused-norm kernels,
+    forward and backward."""
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("dbrx_132b"),
+                              n_layers=MOE_TRAIN_LAYERS, remat="full")
+    dc = data_lib.DataConfig(**MOE_TRAIN_DATA)
+    ocfg = opt_lib.OptimizerConfig(**TRAIN_OPT)
+    ds = data_lib.SyntheticDataset(cfg, dc)
+    batches = [ds.batch(200 + i) for i in range(MOE_GRAPH_STEPS + 1)]
+    tokens = dc.global_batch * dc.seq_len
+    ops.reset_launches()
+    log(f"[moe train] allocated at the start: {_release() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    params = _moe_params(cfg)
+    state = opt_lib.init_state(params)
+    step = train_lib.make_train_step(cfg, ocfg)
+    eager, e_wall = [], []
+    for b in batches[:MOE_GRAPH_STEPS]:
+        wall, _, _, (params, state, m) = _timed_step(
+            lambda b=b: step(params, state, b))
+        eager.append(m["loss"].clone())
+        e_wall.append(wall)
+    e_peak = torch.cuda.max_memory_allocated()
+    resident = _resident_bytes(params, state)
+    del params, state, m
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    params = model_lib.init(cfg, 0, device="cuda")
+    state = opt_lib.init_state(params)
+    g = train_lib.make_graphed_train_step(cfg, ocfg, params, state,
+                                          batches[0])
+    graphed = []
+    for i, b in enumerate(batches[:MOE_GRAPH_STEPS]):
+        _, _, m = g(params, state, b)
+        graphed.append(m["loss"].clone())
+        if i == 0:      # the capture's pool takes what the eager call freed
+            torch.cuda.synchronize()
+            _release()
+    same = all(torch.equal(a, b) for a, b in zip(eager, graphed))
+    row = dict(eager=[x.item() for x in eager],
+               graphed=[x.item() for x in graphed], bit_identical=same)
+    log(f"[moe train] losses, graphed vs eager: {json.dumps(row)}")
+    if not same:
+        raise AssertionError("[moe train] graphed losses differ from eager")
+    fall = [g(params, state, batches[-1])[2]["loss"].item()
+            for _ in range(MOE_FALL_STEPS)]
+    if not all(np.isfinite(fall)) or not fall[-1] < fall[0]:
+        raise AssertionError(f"[moe train] losses {fall}: not finite, or the "
+                             f"last is not below the first")
+    g_peak = torch.cuda.max_memory_allocated()
+    walls, devs = [], []
+    for _ in range(MOE_TIMED):
+        wall, dev, _, _ = _timed_step(lambda: g(params, state, batches[-1]))
+        walls.append(wall)
+        devs.append(dev)
+    stats = dict(
+        arch=cfg.name, layers=cfg.n_layers, data=MOE_TRAIN_DATA,
+        falling_losses=fall, eager_step_wall_ms=statistics.median(e_wall),
+        eager_tokens_per_s=tokens / (statistics.median(e_wall) / 1e3),
+        step_wall_ms=statistics.median(walls), step_wall_ms_all=walls,
+        step_device_ms=statistics.median(devs),
+        tokens_per_s=tokens / (statistics.median(walls) / 1e3),
+        resident_bytes=resident, eager_peak_mem_gib=e_peak / 2**30,
+        graphed_peak_mem_gib=g_peak / 2**30,
+        capture_s=g.capture_seconds)
+    log(f"[moe train] {json.dumps(stats)}")
+    profile_window("moe_train_step", lambda: g(params, state, batches[-1]),
+                   statistics.median(walls), 1)
+    del params, state, g
+    _release()
+    launches = _path_launches("moe train", TRAIN_KERNELS)
+    log(f"[moe train] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+def phase_moe_pipeline() -> dict:
+    """``MPMDPipeline(family="moe")`` at dbrx's widths cut to
+    MOE_PIPE_CUT (2 layers, 4 experts, top-2), bf16, untied, full remat,
+    on MOE_PIPE_DATA:
+    two one-device stages on the card, eager then graphed from the same
+    weights (losses bit for bit), then ``tps=[2, 1]`` eager (stage 0 a (1,
+    2) mesh: 4 experts on 2 positions, expert parallel); each pipeline's
+    first loss against the one-device ``loss_and_grads`` of the same
+    weights, its step wall and per-stage resident bytes.  A main path for
+    the attention kernels, forward and backward."""
+    from repro_torch.dist import pipeline as pl
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("dbrx_132b"), tie_embeddings=False,
+                              remat="full", **MOE_PIPE_CUT)
+    dc = data_lib.DataConfig(**MOE_PIPE_DATA)
+    ocfg = opt_lib.OptimizerConfig(**TRAIN_OPT)
+    ds = data_lib.SyntheticDataset(cfg, dc)
+    batches = [ds.batch(300 + i) for i in range(MOE_PIPE_STEPS)]
+    log(f"[moe pipeline] allocated at the start: "
+        f"{_release() / 2**30:.2f} GiB")
+    full = _moe_params(cfg)
+    want, grads = train_lib.loss_and_grads(cfg, full, batches[0])
+    want = want.item()
+    del grads
+    ops.reset_launches()        # the pipelines' launches, not the check's
+    rows, losses = {}, {}
+    for label, tps, graphed in (("[1, 1] eager", (1, 1), False),
+                                ("[1, 1] graphed", (1, 1), None),
+                                ("[2, 1] eager", (2, 1), False)):
+        _release()
+        pipe = _pipe(pl, cfg, ocfg, full, graphed, tps=tps)
+        if tps[0] == 2 and \
+                pipe.params[0]["layers"]["we_up"].spec[1] != "model":
+            raise AssertionError("[moe pipeline] stage 0's experts are not "
+                                 "split over 'model'")
+        out, walls = [], []
+        # the compared steps (a graphed pipeline's first eager, its second
+        # capturing), then MOE_PIPE_TIMED more on the last batch
+        for b in batches + [batches[-1]] * MOE_PIPE_TIMED:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append(pipe.train_step(b))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        losses[label] = out[:len(batches)]
+        rows[label] = dict(
+            losses=out, first_vs_one_device=abs(out[0] - want) / abs(want),
+            step_wall_ms_all=walls,
+            step_wall_ms=statistics.median(walls[len(batches):]),
+            tokens_per_s=dc.global_batch * dc.seq_len
+            / (statistics.median(walls[len(batches):]) / 1e3),
+            per_stage=_pipe_position_bytes(pipe))
+        log(f"[moe pipeline] {label}: {json.dumps(rows[label])}")
+        if not rows[label]["first_vs_one_device"] <= TRAIN_LOSS_TOL:
+            raise AssertionError(f"[moe pipeline] {label}: first loss "
+                                 f"{out[0]} against {want} on one device")
+        del pipe
+    if losses["[1, 1] eager"] != losses["[1, 1] graphed"]:
+        raise AssertionError("[moe pipeline] graphed losses differ from "
+                             "eager")
+    log(f"[moe pipeline] one-device loss {want}; [1, 1] graphed losses "
+        f"equal eager bit for bit")
+    del full
+    _release()
+    launches = _path_launches("moe pipeline", ("flash_attention",
+                                               "flash_attention_bwd"))
+    log(f"[moe pipeline] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
 def _fit(cfg, label: str, kw: dict):
     """The ``"H100"`` entry fitted as ``measured.calibrate_cpu_host(cfg,
     **kw)`` fits it, step by step (``catalog_entry``, ``measure_block``,
@@ -4010,6 +4509,7 @@ def _plan_row(res) -> dict:
 
 
 def main() -> int:
+    t_run = time.perf_counter()
     smi = phase_card()
     phase_build()
     cfg = get_config(ARCH)
@@ -4021,13 +4521,17 @@ def main() -> int:
     serve_launches, serve_dev, params = phase_serve(reqs, warm)
     phase_serve_continuous(params)
     del params
-    cal_launches = phase_calibrate(serve_dev)
+    cal_launches, cal_accuracy = phase_calibrate(serve_dev)
     fused_launches = phase_fused()
     train_launches, train = phase_train()
     pipeline_launches, pipe_mesh_launches = phase_pipeline(train)
     mesh_launches = phase_mesh(train)
     elastic_launches = phase_elastic()
     manager_launches, tel_launches = phase_manager()
+    autotune_launches = phase_autotune(cal_accuracy)
+    moe_serve_launches = phase_moe_serve()
+    moe_train_launches = phase_moe_train()
+    moe_pipeline_launches = phase_moe_pipeline()
     plan_launches = phase_plan(cfg, train, table_path())
     # launches: each kernel's count on the main path that runs it, which
     # also runs the timed case's shape
@@ -4050,6 +4554,10 @@ def main() -> int:
             launches_elastic=elastic_launches.get(name, 0),
             launches_manager=manager_launches.get(name, 0),
             launches_pipeline_telemetry=tel_launches.get(name, 0),
+            launches_autotune=autotune_launches.get(name, 0),
+            launches_moe_serve=moe_serve_launches.get(name, 0),
+            launches_moe_train=moe_train_launches.get(name, 0),
+            launches_moe_pipeline=moe_pipeline_launches.get(name, 0),
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
@@ -4063,6 +4571,7 @@ def main() -> int:
                                          "plan_f32")
                if key in row}))
     print(json.dumps({"kernels": kernels}))
+    log(f"[run] wall seconds {time.perf_counter() - t_run:.1f}")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,15 +5,17 @@ easy to find.  It imports ``torch`` and never ``jax`` or ``repro``: what it
 needs from the reference it keeps as its own copy.  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"`` (see ``device.py``).
 
-Ported so far (the serving main path with continuous batching, dense
-family, kernel calibration and single-device training):
-  configs/           every architecture config (the model runs the dense family)
-  models/            config, layers, transformer, model (with the loss)
+Ported so far (the serving main path with continuous batching, the dense
+and MoE families, kernel calibration and the block autotuner, training):
+  configs/           every architecture config (the model runs the dense and
+                     MoE families)
+  models/            config, layers, transformer, moe, model (with the loss)
   dist/sharding.py   ``Decl`` + seeded init
   kernels/           flash attention (prefill and decode), fused add+RMSNorm,
                      RMSNorm, the SSD scan, add, and the backward of flash
                      attention and of the fused add+RMSNorm (CUDA C++ in
-                     csrc/); chip identity and kernel timing (autotune.py)
+                     csrc/); chip identity, kernel timing and the block
+                     autotuner with its on-disk cache (autotune.py)
   train/             synthetic data, AdamW, the microbatched train step
   core/profiler/     accelerator catalog (+ "H100"), kernel cost tables, the
                      analytic profile, kernel calibration

@@ -12,13 +12,19 @@
                          sums over the suite (what ``JobProfile``'s measured
                          delta corrects per layer).
 
+``autotuned``            section 2 (the reference's ``_autotune``): one
+                         op's tuner from an empty cache, every candidate's
+                         time, the winner against the default tile
+                         (``vs_default``) and whether a second tune from
+                         another empty cache picks the same winner.
+
 Times come from ``kernels.autotune.bench_time``: CUDA-event device time on
-the card, host time on the CPU.  Sections 1-2 of the reference (attention
-implementations, autotuned blocks) wait for SWA, the mamba2 model and the
-autotuner.
+the card, host time on the CPU.  Section 1 of the reference (attention
+implementations) waits for the mamba2 model.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterable, Sequence, Tuple
 
 import numpy as np
@@ -28,7 +34,11 @@ from repro_torch.core.profiler import kernel_costs
 from repro_torch.core.profiler.hw_specs import get_accelerator
 from repro_torch.device import DeviceArg, resolve_device, torch_dtype
 from repro_torch.kernels import autotune as at
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fused as fused_mod
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd as ssd_mod
 
 
 def _inputs(rng: np.random.Generator, dev: torch.device, dtype: str):
@@ -57,24 +67,23 @@ def fused_vs_unfused(rows: int = 4096, d: int = 512, dtype: str = "float32",
     return {"fused_s": t_fu, "unfused_s": t_un, "speedup": t_un / t_fu}
 
 
-def _op_call(arr, rng, dev, op: str, shape: Tuple[int, ...]):
-    """A call of ``op``'s kernel at its cost-table shape key."""
+def _op_inputs(arr, rng, dev, op: str, shape: Tuple[int, ...]):
+    """The inputs of ``op``'s kernel at its cost-table shape key, in its
+    wrapper's argument order."""
     if op == "flash_attention":
         bh, s, s2, d, _ = shape
-        q, k, v = arr(1, s, bh, d), arr(1, s2, bh, d), arr(1, s2, bh, d)
-        return lambda: kops.flash_attention(q, k, v, causal=True)
+        return arr(1, s, bh, d), arr(1, s2, bh, d), arr(1, s2, bh, d)
     if op == "flash_decode":
         bh, sk, d = shape
-        q, k, v = arr(1, 1, bh, d), arr(1, sk, bh, d), arr(1, sk, bh, d)
-        n = torch.tensor(sk, dtype=torch.int32, device=dev)
-        return lambda: kops.flash_attention_decode(q, k, v, cache_len=n)
-    if op in ("rmsnorm", "fused_add_rmsnorm"):
+        return (arr(1, 1, bh, d), arr(1, sk, bh, d), arr(1, sk, bh, d),
+                torch.tensor(sk, dtype=torch.int32, device=dev))
+    if op == "rmsnorm":
+        rows, d = shape
+        return arr(rows, d), arr(d)
+    if op == "fused_add_rmsnorm":
         rows, d = shape
         x, sc = arr(rows, d), arr(d)
-        if op == "rmsnorm":
-            return lambda: kops.rmsnorm(x, sc)
-        r = arr(rows, d)
-        return lambda: kops.fused_add_rmsnorm(x, r, sc)
+        return x, arr(rows, d), sc
     if op == "ssd_scan":
         bs, s, h, p, n = shape
         x = arr(bs, s, h, p)
@@ -82,18 +91,36 @@ def _op_call(arr, rng, dev, op: str, shape: Tuple[int, ...]):
             np.float32)).to(dev)
         a = -torch.from_numpy(rng.uniform(0.5, 2.0, (h,)).astype(
             np.float32)).to(dev)
-        b, c = arr(bs, s, n), arr(bs, s, n)
-        return lambda: kops.ssd_scan(x, dt, a, b, c)
+        return x, dt, a, arr(bs, s, n), arr(bs, s, n)
     raise ValueError(f"unknown kernel op {op!r}")
+
+
+def _op_call(arr, rng, dev, op: str, shape: Tuple[int, ...], blocks=None):
+    """A call of ``op``'s kernel at its cost-table shape key; ``blocks``
+    its tile argument (None: the default, "auto": the tuned tile)."""
+    args = _op_inputs(arr, rng, dev, op, shape)
+    if op == "flash_attention":
+        return lambda: kops.flash_attention(*args, causal=bool(shape[4]),
+                                            block_q=blocks, block_k=blocks)
+    if op == "flash_decode":
+        return lambda: kops.flash_attention_decode(*args[:3],
+                                                   cache_len=args[3])
+    if op == "rmsnorm":
+        return lambda: kops.rmsnorm(*args, block_rows=blocks)
+    if op == "fused_add_rmsnorm":
+        return lambda: kops.fused_add_rmsnorm(*args, block_rows=blocks)
+    return lambda: kops.ssd_scan(*args, chunk=blocks)
 
 
 def cost_table_accuracy(table: kernel_costs.KernelCostTable,
                         held: Iterable[Tuple[str, Tuple[int, ...]]], *,
                         dtypes: Sequence[str] = ("float32",),
-                        iters: int = 5, device: DeviceArg = None) -> Dict:
+                        iters: int = 5, device: DeviceArg = None,
+                        blocks=None) -> Dict:
     """Score ``table`` against measured truth on the ``held`` (op, shape)
     pairs, which must lie inside the table's work range, and against the
-    roofline of the table's chip.
+    roofline of the table's chip.  ``blocks="auto"`` measures the tuned
+    kernels (a table from ``calibrate_kernels(autotune_blocks=True)``).
 
     Returns, per dtype: ``rows`` (op, shape, measured, table and roofline
     seconds and relative errors), ``median_table_err``,
@@ -112,7 +139,8 @@ def cost_table_accuracy(table: kernel_costs.KernelCostTable,
             if pred_t is None:
                 raise ValueError(f"cost_table_accuracy: {op} {shape} "
                                  f"{dtype} lies outside the table's range")
-            actual = at.bench_time(_op_call(arr, rng, dev, op, shape),
+            actual = at.bench_time(_op_call(arr, rng, dev, op, shape,
+                                            blocks),
                                    iters=iters, device=dev)
             pred_r = kernel_costs.roofline_time(op, shape, dtype, acc)
             rows.append({"op": op, "shape": list(shape), "actual_s": actual,
@@ -131,3 +159,72 @@ def cost_table_accuracy(table: kernel_costs.KernelCostTable,
             "suite_roofline_err": abs(sum(r["roofline_s"] for r in rows)
                                       - total) / total}
     return out
+
+
+def _tuned_op(arr, rng, dev, op: str, shape: Tuple[int, ...]):
+    """(tune(cache) -> config, run(config), plain(config), the default
+    config) for ``op`` at its cost-table shape key; ``run`` calls the
+    kernel at the given tile whatever ``REPRO_KERNEL_AUTOTUNE`` says,
+    ``plain`` its plain version at that tile."""
+    eps = 1e-5
+    if op not in ("flash_attention", "rmsnorm", "fused_add_rmsnorm",
+                  "ssd_scan"):
+        raise ValueError(f"no tuner for kernel op {op!r}")
+    args = _op_inputs(arr, rng, dev, op, shape)
+    if op == "flash_attention":
+        causal = bool(shape[4])
+        return (lambda cache: at.tune_flash_attention(*args, causal=causal,
+                                                      cache=cache),
+                lambda c: kops.flash_attention(*args, causal=causal, **c),
+                lambda c: fa.flash_attention_plain(*args, causal=causal,
+                                                   **c),
+                {"block_q": fa.default_block_q(args[0].dtype),
+                 "block_k": fa.BLOCK_K})
+    if op == "rmsnorm":
+        return (lambda cache: at.tune_rmsnorm(*args, eps=eps, cache=cache),
+                lambda c: kops._rmsnorm(*args, eps, c["block_rows"]),
+                lambda c: rn.rmsnorm_plain(*args, eps=eps),
+                {"block_rows": None})
+    if op == "fused_add_rmsnorm":
+        cpu = kops._on_cpu(*args)
+        return (lambda cache: at.tune_fused_add_rmsnorm(*args, eps=eps,
+                                                        cache=cache),
+                lambda c: kops._fused_fwd(*args, eps, c["block_rows"], cpu),
+                lambda c: fused_mod.fused_add_rmsnorm_plain(*args, eps=eps),
+                {"block_rows": None})
+    return (lambda cache: at.tune_ssd_scan(*args, cache=cache),
+            lambda c: kops.ssd_scan(*args, **c),
+            lambda c: ssd_mod.ssd_scan_passes_plain(*args, **c),
+            {"chunk": ssd_mod.CHUNK})
+
+
+def autotuned(op: str, shape: Tuple[int, ...], dtype: str = "float32", *,
+              cache_dir: str, iters: int = 5, device: DeviceArg = None,
+              check=None) -> Dict:
+    """Tune ``op`` at its cost-table ``shape`` key into an empty cache
+    under ``cache_dir``, then again into a second one: ``config`` (the
+    first tune's winner), ``candidates`` (every candidate's config and
+    seconds, from the first tune), ``same_winner`` (the second tune's
+    winner equals the first's), ``tuned_s`` / ``default_s`` (``bench_time``
+    of the winner and of the default tile) and ``vs_default``
+    (default / tuned: above 1 the tune paid).  ``check(got, want)``, if
+    given, is called on the kernel's output at the winning tile and its
+    plain version's at that tile (each a tensor or a tuple of them)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    tune, run, plain, default = _tuned_op(_inputs(rng, dev, dtype), rng, dev,
+                                          op, shape)
+    tag = f"{op}-{dtype}-" + "x".join(map(str, shape))
+    first = at.AutotuneCache(os.path.join(cache_dir, f"{tag}-a.json"))
+    cfg = tune(first)
+    (entry,) = first._data.values()
+    again = tune(at.AutotuneCache(os.path.join(cache_dir, f"{tag}-b.json")))
+    if check is not None:
+        check(run(cfg), plain(cfg))
+    t_tuned = at.bench_time(lambda: run(cfg), iters=iters, device=dev)
+    t_def = at.bench_time(lambda: run(default), iters=iters, device=dev)
+    return {"op": op, "shape": list(shape), "dtype": dtype, "config": cfg,
+            "default": default,
+            "candidates": [{"config": c, "s": t} for c, t in entry["tuned"]],
+            "same_winner": again == cfg, "tuned_s": t_tuned,
+            "default_s": t_def, "vs_default": t_def / t_tuned}

@@ -568,13 +568,14 @@ def calibrate_kernels(chip: Optional[str] = None, *,
     plain versions on the CPU (``at.bench_time``).
 
     Same grids, op names, shape keys and input draws as the reference
-    (``np.random.default_rng(0)``, in its order).  The table is registered
+    (``np.random.default_rng(0)``, in its order).  With ``autotune_blocks``
+    the autotuner picks each kernel's tile first (``block="auto"``, the
+    winner cached on disk, ``kernels/autotune.py``), so the table prices
+    the tuned kernels; the decode kernel has no tuner and keeps its
+    default, as in the reference.  The table is registered
     into :mod:`kernel_costs` (``register=False`` to skip) and optionally
     saved to ``path`` (JSON, loadable by either package).
     """
-    if autotune_blocks:
-        raise NotImplementedError("calibrate_kernels(autotune_blocks=True): "
-                                  "the block autotuner is not ported yet")
     dev = resolve_device(device)
     chip = chip or at.default_chip(dev)
     acc = get_accelerator(chip) if chip in ACCELERATORS else None
@@ -599,13 +600,14 @@ def calibrate_kernels(chip: Optional[str] = None, *,
                 op, shape, dtype, acc)
         points.append(row)
 
+    blocks = "auto" if autotune_blocks else None
     for dtype in dtypes:
         for bh, s, d in attn_shapes:
             q = _arr((1, s, bh, d), dtype)
             k, v = _arr(q.shape, dtype), _arr(q.shape, dtype)
             _add("flash_attention", (bh, s, s, d, 1), dtype,
                  lambda q=q, k=k, v=v: kops.flash_attention(
-                     q, k, v, causal=True))
+                     q, k, v, causal=True, block_q=blocks, block_k=blocks))
         for bh, sk, d in decode_shapes:
             q = _arr((1, 1, bh, d), dtype)
             k, v = _arr((1, sk, bh, d), dtype), _arr((1, sk, bh, d), dtype)
@@ -616,10 +618,11 @@ def calibrate_kernels(chip: Optional[str] = None, *,
         for rows, d in norm_shapes:
             x, sc = _arr((rows, d), dtype), _arr((d,), dtype)
             _add("rmsnorm", (rows, d), dtype,
-                 lambda x=x, sc=sc: kops.rmsnorm(x, sc))
+                 lambda x=x, sc=sc: kops.rmsnorm(x, sc, block_rows=blocks))
             r = _arr((rows, d), dtype)
             _add("fused_add_rmsnorm", (rows, d), dtype,
-                 lambda x=x, r=r, sc=sc: kops.fused_add_rmsnorm(x, r, sc))
+                 lambda x=x, r=r, sc=sc: kops.fused_add_rmsnorm(
+                     x, r, sc, block_rows=blocks))
         for bs, s, h, p, n in ssd_shapes:
             x = _arr((bs, s, h, p), dtype)
             dt = _f32(rng.uniform(0.001, 0.1, (bs, s, h)))
@@ -628,7 +631,7 @@ def calibrate_kernels(chip: Optional[str] = None, *,
             cc = _arr((bs, s, n), dtype)
             _add("ssd_scan", (bs, s, h, p, n), dtype,
                  lambda x=x, dt=dt, a=a, bb=bb, cc=cc: kops.ssd_scan(
-                     x, dt, a, bb, cc))
+                     x, dt, a, bb, cc, chunk=blocks))
     if register:
         kernel_costs.register_kernel_table(table)
     if path:

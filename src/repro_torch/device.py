@@ -36,6 +36,12 @@ def torch_dtype(name: Union[str, torch.dtype]) -> torch.dtype:
                          f"known: {sorted(_DTYPES)}") from None
 
 
+def dtype_name(dtype: Union[str, torch.dtype]) -> str:
+    """``torch_dtype``'s inverse: ``torch.bfloat16`` -> ``"bfloat16"``,
+    the name configs, cost tables and autotune keys write."""
+    return dtype if isinstance(dtype, str) else str(dtype).split(".")[-1]
+
+
 def device_of(tree) -> Optional[torch.device]:
     """Device of the first tensor in a (nested dict) params tree."""
     if isinstance(tree, torch.Tensor):

@@ -423,7 +423,8 @@ def _default_devices() -> List[torch.device]:
 class MPMDPipeline:
     """Multi-program multi-data pipeline over per-stage meshes.
 
-    Supports the dense family with untied embeddings; stage 0 owns the
+    Supports the dense and MoE families with untied embeddings (a mesh
+    stage places the experts as ``dist/spmd.py`` does); stage 0 owns the
     embedding table, the last stage owns the final norm + LM head.
     ``devices`` (one ``torch.device`` a mesh position, stages in order; a
     device may repeat), ``policy`` (the sharding policy of the mesh
@@ -436,10 +437,10 @@ class MPMDPipeline:
                  opt_cfg: opt_lib.OptimizerConfig,
                  devices: Optional[Sequence] = None,
                  policy: str = "fsdp_tp", graphed: Optional[bool] = None):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"MPMD pipeline supports the dense family (the port has no "
-                f"MoE yet), not {cfg.family!r}")
+                f"MPMD pipeline supports the dense and moe families, not "
+                f"{cfg.family!r}")
         if cfg.tie_embeddings:
             raise NotImplementedError(
                 "tied embeddings span first+last stage; untie for MPMD")

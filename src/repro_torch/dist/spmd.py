@@ -15,7 +15,12 @@ reference:
   heads, ``w_down`` over 'ff', the vocab-parallel embedding lookup) is
   followed by ``all_reduce_sum`` over 'model';
 * a dim that is replicated needs neither: its work is computed on every
-  position, as GSPMD computes it.
+  position, as GSPMD computes it;
+* the MoE FFN (``_moe_part``): experts over 'model' (expert parallel) or
+  ``e_ff`` over 'model' (tensor parallel inside each expert), the 'model'
+  group summing either way; the global dispatch routes the whole batch at
+  every position (gathered over 'data'), so capacity and drops are the
+  one-device step's.
 
 Activations are laid out as the reference constrains them, by
 ``sharding.sanitize`` of its hints: the batch over ``batch_spec``'s dp
@@ -66,7 +71,8 @@ class Layout:
     batch: Tuple[str, ...]      # axes the batch dim is split over
     heads: bool                 # query heads (wq, bq, wo) over 'model'
     kv: bool                    # K/V heads (wk, wv, bk, bv) over 'model'
-    ff: bool                    # the FFN's hidden dim over 'model'
+    ff: bool                    # the FFN's hidden dim (or e_ff) over 'model'
+    experts: bool               # the MoE experts over 'model'
     vocab_embed: bool           # the lookup's table rows over 'model'
     vocab_logits: bool          # the logits' vocab over 'model'
 
@@ -80,10 +86,14 @@ def layout(cfg: ModelConfig, params, mesh: Mesh, batch: int,
     logits = sanitize((batch, seq, cfg.vocab_size),
                       batch_spec(mesh, batch, None, MODEL), sizes)
     layers = params["layers"]
+    moe = cfg.family == "moe"
+    # stacked (layers, experts, embed, e_ff) or (layers, embed, ff)
+    ff = layers["we_up"].spec[3] if moe else layers["w_up"].spec[2]
     return Layout(
         tp=sizes.get(MODEL, 1), batch=pm.part_axes(b),
         heads=q[2] == MODEL, kv=layers["wk"].spec[2] == MODEL,
-        ff=(layers["w_up"].spec[2] == MODEL),
+        ff=ff == MODEL,
+        experts=moe and layers["we_up"].spec[1] == MODEL,
         vocab_embed="embed" in params and params["embed"].spec[0] == MODEL,
         vocab_logits=logits[2] == MODEL)
 
@@ -165,7 +175,7 @@ def _layer_fn(cfg: ModelConfig, mesh: Mesh, lay: Layout, specs: Dict[str, P],
                             block_remat=cfg.attn_block_remat)
             part.append(T._proj_out(o, w[p]["wo"]))
         delta = pm.all_reduce_sum(part, mesh, MODEL) if lay.heads else part
-        ys, part = [], []
+        ys, hs, part = [], [], []
         for p in range(n):
             if fused:
                 h, y = L.rms_norm_residual(
@@ -174,12 +184,44 @@ def _layer_fn(cfg: ModelConfig, mesh: Mesh, lay: Layout, specs: Dict[str, P],
             else:
                 y = xs[p] + delta[p]
                 h = L.rms_norm(y, w[p]["ln2"], cfg.norm_eps)
-            part.append(T._ffn(cfg, w[p], h))
+            hs.append(h)
             ys.append(y)
-        ffn = pm.all_reduce_sum(part, mesh, MODEL) if lay.ff else part
+            if cfg.family != "moe":
+                part.append(T._ffn(cfg, w[p], h))
+        if cfg.family == "moe":
+            part = _moe_part(cfg, mesh, lay, w, hs)
+        ffn = pm.all_reduce_sum(part, mesh, MODEL) \
+            if lay.ff or lay.experts else part
         return [y + f for y, f in zip(ys, ffn)]
 
     return body
+
+
+def _moe_part(cfg: ModelConfig, mesh: Mesh, lay: Layout,
+              w: List[Dict[str, torch.Tensor]], hs: List[torch.Tensor]
+              ) -> List[torch.Tensor]:
+    """Each position's part of the MoE FFN of its normed hidden ``hs[p]``,
+    summed over 'model' by the caller where the experts or ``e_ff`` are
+    split there (``models/moe.py``).  The routing equals the one-device
+    routing: the global dispatch, whose capacity and drops span every
+    token of the batch, gathers the batch over its dp axes first (each
+    position then routes the whole batch and keeps its own rows); the
+    per-sequence dispatch needs no gather."""
+    gather = lay.batch and not (cfg.moe_dispatch == "per_seq"
+                                and hs[0].shape[0] > 1)
+    full = pm.all_gather(hs, mesh, lay.batch, 0) if gather else hs
+    out = []
+    for p in range(mesh.size):
+        experts = None
+        if lay.experts:
+            n = cfg.n_experts // lay.tp
+            experts = (_model_index(mesh, p) * n,
+                       (_model_index(mesh, p) + 1) * n)
+        y = T._ffn(cfg, w[p], full[p], experts)
+        if gather:      # this position's rows of the gathered batch
+            y = y[pm.block_slices(y.shape[:1], P(lay.batch), mesh, p)[0]]
+        out.append(y)
+    return out
 
 
 def _local_batch(batch, mesh: Mesh, key: str) -> pm.Sharded:

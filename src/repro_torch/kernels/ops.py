@@ -17,9 +17,14 @@ run as ``torch.autograd.Function``s whose backward is a kernel too
 on the CPU).  Inputs that need no gradient keep the forward-only path,
 with no LSE buffer.
 
-Block sizes: ``None`` takes the kernel's default tile; an int pins it
-(the kernel is built for a few tiles, see ``check_args``).  ``"auto"``
-waits for the autotuner's port and raises.
+Block sizes: an int pins the tile (the kernel is built for a few tiles,
+see ``check_args``); ``None`` takes the kernel's default tile, or, when
+autotuning is on (``REPRO_KERNEL_AUTOTUNE=1``, ``autotune.enabled``) or
+the block is ``"auto"``, the per-(op, shape, dtype, chip) winner from
+``autotune.py``'s persistent cache, as the reference's wrappers do.
+``flash_attention_decode`` has no tuner (nor has the reference): its
+``"auto"`` takes the default tile.  A tune that misses the cache inside a
+CUDA graph capture raises (``autotune.autotune``).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import add as add_mod
+from repro_torch.kernels import autotune as at
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused as fused_mod
 from repro_torch.kernels import rmsnorm as rn
@@ -46,14 +52,17 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _block(arg: BlockArg, default: int, name: str) -> int:
-    if arg is None:
+def _tune(block: BlockArg) -> bool:
+    return block == "auto" or (block is None and at.enabled())
+
+
+def _block(arg: BlockArg, default: Optional[int], name: str
+           ) -> Optional[int]:
+    if arg is None or arg == "auto":
         return default
-    if arg == "auto":
-        raise NotImplementedError(f"{name}='auto': the block autotuner is "
-                                  "not ported yet; pass None or an int")
     if isinstance(arg, bool) or not isinstance(arg, int):
-        raise TypeError(f"{name} must be None or an int, got {arg!r}")
+        raise TypeError(f"{name} must be None, 'auto' or an int, got "
+                        f"{arg!r}")
     return arg
 
 
@@ -80,6 +89,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bf16 runs the tensor-core kernel, fp32 the CUDA-core one (``block_q``
     64 or 128 for either); None takes the kernel's default.
     Differentiable: see ``_FlashAttention``."""
+    if _tune(block_q) or _tune(block_k):
+        fa.check_args(q, k, v, fa.default_block_q(q.dtype), fa.BLOCK_K)
+        cfg = at.tune_flash_attention(q, k, v, causal=causal)
+        block_q, block_k = cfg["block_q"], cfg["block_k"]
     bq = _block(block_q, fa.default_block_q(q.dtype), "block_q")
     bk = _block(block_k, fa.BLOCK_K, "block_k")
     fa.check_args(q, k, v, bq, bk)
@@ -136,12 +149,13 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention_decode(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *,
                            cache_len: Union[int, torch.Tensor],
-                           block_k: BlockArg = None,
+                           block_k: BlockArg = "auto",
                            n_splits: Optional[int] = None) -> torch.Tensor:
     """Decode-shaped attention: q: (B, 1, H, D); k, v: (B, S, K, D) caches;
     ``cache_len`` the (dynamic) valid prefix, an int or a 0-d integer
     tensor. -> (B, 1, H, D).  ``n_splits`` pins the split-K count (None:
-    ``flash_attention.decode_splits``); one call counts one launch."""
+    ``flash_attention.decode_splits``); ``block_k`` "auto" or None is the
+    default tile (there is no decode tuner); one call counts one launch."""
     bk = _block(block_k, fa.BLOCK_K, "block_k")
     fa.check_decode_args(q, k, v, bk)
     if _on_cpu(q, k, v):
@@ -158,8 +172,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, H, P); dt: (B, S, H); a: (H,); b, c: (B, S, N).
     Returns (y (B, S, H, P), final_state (B, H, P, N) fp32)."""
+    if _tune(chunk):
+        ssd_mod.check_args(x, dt, a, b, c, ssd_mod.CHUNK)
+        chunk = at.tune_ssd_scan(x, dt, a, b, c)["chunk"]
     ck = _block(chunk, ssd_mod.CHUNK, "chunk")
     ssd_mod.check_args(x, dt, a, b, c, ck)
+    return _ssd_scan(x, dt, a, b, c, ck)
+
+
+def _ssd_scan(x, dt, a, b, c, ck):
     if _on_cpu(x, dt, a, b, c):
         return ssd_mod.ssd_scan_passes_plain(x, dt, a, b, c, chunk=ck)
     out = ssd_mod.ssd_scan_cuda(x, dt, a, b, c, chunk=ck)
@@ -170,8 +191,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
             block_rows: BlockArg = None) -> torch.Tensor:
     """x: (..., d); scale: (d,)."""
+    if _tune(block_rows):
+        rn.check_args(x, scale, rn.BLOCK_ROWS)
+        block_rows = at.tune_rmsnorm(x, scale, eps=eps)["block_rows"]
     br = _block(block_rows, rn.BLOCK_ROWS, "block_rows")
     rn.check_args(x, scale, br)
+    return _rmsnorm(x, scale, eps, br)
+
+
+def _rmsnorm(x, scale, eps, br):
     if _on_cpu(x, scale):
         return rn.rmsnorm_plain(x, scale, eps=eps)
     out = rn.rmsnorm_cuda(x, scale, eps=eps, block_rows=br)
@@ -195,6 +223,10 @@ def fused_add_rmsnorm(x: torch.Tensor, res: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (rmsnorm(x + res) * scale, x + res) in one pass.
     Differentiable: see ``_FusedAddRMSNorm``."""
+    if _tune(block_rows):
+        fused_mod.check_args(x, res, scale, fused_mod.BLOCK_ROWS)
+        block_rows = at.tune_fused_add_rmsnorm(x, res, scale,
+                                               eps=eps)["block_rows"]
     br = _block(block_rows, fused_mod.BLOCK_ROWS, "block_rows")
     fused_mod.check_args(x, res, scale, br)
     cpu = _on_cpu(x, res, scale)

@@ -12,7 +12,7 @@ Families:
   ssm     - pure Mamba2 (SSD), attention-free
   encdec  - encoder-decoder transformer (whisper-style; conv frontend stubbed)
   vlm     - decoder LM consuming stubbed vision patch embeddings + text
-Only ``dense`` is ported so far.
+``dense`` and ``moe`` are ported so far.
 """
 from __future__ import annotations
 

@@ -12,8 +12,9 @@ Attention implementations:
 All softmax statistics are computed in float32 regardless of input dtype.
 ``attn_decode(impl="kernel")`` takes the decode kernel for a scalar
 length and no window, as the reference's ``impl="pallas"`` does.
-Sliding-window prefill (``attn_window_linear``) waits for its slice and
-raises ``NotImplementedError``.
+Sliding-window prefill past the window takes ``attn_window_linear`` (a
+loop over query blocks, each against its ``window + q_block`` keys), as
+the reference routes it; the kernel path routes a window there too.
 """
 from __future__ import annotations
 
@@ -170,9 +171,42 @@ def attn_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
-def attn_window_linear(q, k, v, *, window: int, q_block: int = 512):
-    raise NotImplementedError(
-        "attn_window_linear (sliding-window prefill) is not ported yet")
+def attn_window_linear(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       *, window: int, q_block: int = 512) -> torch.Tensor:
+    """Causal sliding-window attention, linear in seq length.
+
+    Loops over query blocks; each block attends to a slice of ``window +
+    q_block`` keys ending at the block's last token, from K/V padded at the
+    front so every slice is in bounds (the reference's scan).  Used for SWA
+    prefill (mixtral) where full chunked attention would waste O(S^2)
+    work.  ``s`` must be a multiple of ``q_block`` (or at most it).
+    """
+    b, s, h, hd = q.shape
+    n_kv = k.shape[2]
+    q_block = min(q_block, s)
+    if s % q_block:
+        raise ValueError(f"attn_window_linear: seq {s} is not a multiple of "
+                         f"q_block {q_block}")
+    span = window + q_block
+    kp = F.pad(k, (0, 0, 0, 0, span, 0))
+    vp = F.pad(v, (0, 0, 0, 0, span, 0))
+    qg = _split_gqa(q, n_kv)
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    out = []
+    for i in range(s // q_block):
+        qc = qg[:, i * q_block:(i + 1) * q_block]
+        # q block [i*qb, (i+1)*qb) sees KV [(i+1)*qb - span, (i+1)*qb)
+        start = (i + 1) * q_block                  # slice start in padded kv
+        kc, vc = kp[:, start:start + span], vp[:, start:start + span]
+        q_pos = i * q_block + torch.arange(q_block, device=dev)
+        k_pos = start - span + torch.arange(span, device=dev)
+        sc = torch.einsum("bqkgh,bskh->bkgqs", qc, kc).float() * scale
+        bias = _mask_bias(q_pos, k_pos, True, window, None)
+        bias = torch.where(k_pos[None, :] < 0, NEG_INF, bias)
+        p = torch.softmax(sc + bias[None, None, None], dim=-1)
+        out.append(torch.einsum("bkgqs,bskh->bqkgh", p.to(vc.dtype), vc))
+    return torch.cat(out, 1).reshape(b, s, h, hd)
 
 
 def attn_decode(q: torch.Tensor, k_cache: torch.Tensor,

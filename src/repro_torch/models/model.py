@@ -6,7 +6,8 @@ Every family module exposes the same surface:
     forward(cfg, params, batch, *, return_cache, attn_impl, return_hidden)
     decode(cfg, params, cache, tokens)
     cache_decls(cfg, batch, max_len)
-Only the dense family is ported; the others raise.  ``init`` and
+The dense and MoE families are ported (both ``models/transformer.py``, as
+in the reference); the others raise.  ``init`` and
 ``init_cache`` place their tensors on ``cuda`` unless the caller passes
 another ``device``.
 """
@@ -44,9 +45,10 @@ def masked_ce_sums(logits: torch.Tensor, labels: torch.Tensor):
 
 
 def get_module(cfg: ModelConfig) -> ModuleType:
-    if cfg.family != "dense":
+    if cfg.family not in transformer.FAMILIES:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (dense only)")
+            f"model family {cfg.family!r} is not ported yet (dense and moe "
+            f"only)")
     return transformer
 
 

@@ -1,5 +1,5 @@
-"""Decoder-only transformer, dense family (counterpart of
-``repro/models/transformer.py``).
+"""Decoder-only transformer, dense and MoE families (counterpart of
+``repro/models/transformer.py``; the VLM family is not ported).
 
 * Parameters are stacked over layers (leading ``layers`` dim), as in the
   reference; a Python loop over the layer index takes the place of
@@ -16,6 +16,9 @@
 * ``attn_block`` and ``ffn_block`` are the two sub-blocks unfused, the
   form the pipeline's stages run (``dist/pipeline.py``, as the
   reference's).
+* ``family="moe"`` swaps the FFN for ``models/moe.py``'s routed experts;
+  a window (mixtral) makes the prefill ``attn_window_linear`` and the
+  cache a ring of ``window`` slots.
 """
 from __future__ import annotations
 
@@ -30,14 +33,17 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.device import torch_dtype
 from repro_torch.dist.sharding import Decl
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
+
+FAMILIES = ("dense", "moe")
 
 
 # --- declarations ---------------------------------------------------------------
 
 def layer_decls(cfg: ModelConfig, stacked: bool = True) -> Dict[str, Decl]:
     """One decoder layer; ``stacked`` prepends the layers dim."""
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     d, hd = cfg.d_model, cfg.hd
     h, kv = cfg.n_heads, cfg.n_kv_heads
@@ -59,7 +65,9 @@ def layer_decls(cfg: ModelConfig, stacked: bool = True) -> Dict[str, Decl]:
         out["bq"] = decl((h, hd), ("heads", None), init="zeros")
         out["bk"] = decl((kv, hd), ("kv_heads", None), init="zeros")
         out["bv"] = decl((kv, hd), ("kv_heads", None), init="zeros")
-    if cfg.ffn_act == "swiglu":
+    if cfg.family == "moe":
+        out.update(moe_mod.moe_decls(cfg, pre, pax))
+    elif cfg.ffn_act == "swiglu":
         out.update({
             "w_gate": decl((d, cfg.d_ff), ("embed", "ff"), scale_dim=-2),
             "w_up": decl((d, cfg.d_ff), ("embed", "ff"), scale_dim=-2),
@@ -128,8 +136,11 @@ def attn_block(cfg: ModelConfig, p, x, positions, impl: str):
     return x + delta, kv
 
 
-def _ffn(cfg: ModelConfig, p, h):
-    """FFN applied to an already-normed hidden state."""
+def _ffn(cfg: ModelConfig, p, h, experts=None):
+    """FFN applied to an already-normed hidden state; ``experts`` the
+    (lo, hi) range of experts ``p`` holds (a mesh position's, ``moe_ffn``)."""
+    if cfg.family == "moe":
+        return moe_mod.moe_ffn(cfg, p, h, experts=experts)
     if cfg.ffn_act == "swiglu":
         return L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
     if cfg.ffn_act == "gelu":    # jax.nn.gelu's default is the tanh form

@@ -106,8 +106,26 @@ def _bias_corrections(cfg: OptimizerConfig, step: torch.Tensor):
     return 1.0 - cfg.beta1 ** step.float(), 1.0 - cfg.beta2 ** step.float()
 
 
+# elements of a leaf updated in one pass: a larger leaf is updated a slice
+# at a time, so its fp32 temporaries are a slice's (256 MB each), not the
+# leaf's (4.2 GB each for dbrx-132b's 1.06 B-element expert weights)
+ADAMW_SLICE = 1 << 26
+
+
 def _adamw(cfg: OptimizerConfig, p, g, m, v, scale, lr, bc) -> None:
-    """One leaf's AdamW update, in place, in fp32."""
+    """One leaf's AdamW update, in place, in fp32, ``ADAMW_SLICE``
+    elements at a time (every op is elementwise, so the result is one
+    pass's bits).  ``p``, ``m`` and ``v`` are updated through flat views,
+    so they must be contiguous (params and their moments are); ``g`` may
+    be any layout."""
+    p, m, v = (t.view(-1) for t in (p, m, v))
+    g = g.reshape(-1)
+    for i in range(0, p.numel(), ADAMW_SLICE):
+        s = slice(i, i + ADAMW_SLICE)
+        _adamw_elems(cfg, p[s], g[s], m[s], v[s], scale, lr, bc)
+
+
+def _adamw_elems(cfg: OptimizerConfig, p, g, m, v, scale, lr, bc) -> None:
     b1, b2 = cfg.beta1, cfg.beta2
     bc1, bc2 = bc
     g32 = g.float() * scale

@@ -1903,3 +1903,145 @@ def test_graphed_pipeline_with_a_bus_matches_detached_bit_for_bit(cuda):
         assert len(bus.values("bwd_time", (i, 0))) == 3 * 2
     assert len(bus.values("step_time", ())) == 3
     assert all(v > 0 for v in bus.values("p2p_time", (0, 1, 0, 0)))
+
+
+# --- the block autotuner and the MoE family --------------------------------------
+
+def _moe_cfg(**kw):
+    """dbrx's routing (16 experts, top-4) at a narrow width, bf16."""
+    return dataclasses.replace(get_config("dbrx_132b"), n_layers=2,
+                               d_model=256, n_heads=4, n_kv_heads=2,
+                               head_dim=64, d_ff=512, vocab_size=512,
+                               **kw)
+
+
+@pytest.mark.parametrize("dispatch", ["global", "per_seq"])
+def test_moe_ffn_graphed_equals_eager(cuda, dispatch):
+    """The FFN's forward and backward captured in one CUDA graph replay
+    bit for bit what the eager calls give (no atomics decide a value:
+    ``models/moe.py``), capacity binding (cf 0.5)."""
+    from repro_torch.models import moe as tmoe
+    cfg = _moe_cfg(capacity_factor=0.5, moe_dispatch=dispatch)
+    p = {k: v[0].detach().requires_grad_()
+         for k, v in tm.init(cfg, 0)["layers"].items()
+         if k in ("router", "we_gate", "we_up", "we_down")}
+    x = _rand(cuda, 4, 128, cfg.d_model, dtype=torch.bfloat16)
+    go = _rand(cuda, 4, 128, cfg.d_model, dtype=torch.bfloat16)
+    names = sorted(p)
+
+    def body():
+        out = tmoe.moe_ffn(cfg, p, x)
+        return (out,) + torch.autograd.grad(out, [p[k] for k in names], go)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        want = [t.clone() for t in body()]
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = body()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, w in zip(outs, want):
+            assert torch.equal(got, w)
+    assert torch.equal(want[0], tmoe.moe_ffn(cfg, p, x))
+
+
+def test_tuning_under_a_capture_raises(cuda, tmp_path, monkeypatch):
+    """A cache miss inside a capture raises (no timing in the capture); a
+    cached winner is read there, and the captured call replays it."""
+    from repro_torch.kernels import autotune as at
+    monkeypatch.setenv("REPRO_KERNEL_CACHE_DIR", str(tmp_path))
+    at._shared_cache.cache_clear()
+    x = _rand(cuda, 512, 960, dtype=torch.bfloat16)
+    sc = _rand(cuda, 960, dtype=torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with pytest.raises(RuntimeError, match="capturing a graph"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=side):
+            ops.rmsnorm(x, sc, block_rows="auto")
+    torch.cuda.synchronize()
+    want = ops.rmsnorm(x, sc, block_rows="auto")      # tunes, eagerly
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = ops.rmsnorm(x, sc, block_rows="auto")    # a cache hit
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    at._shared_cache.cache_clear()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_auto_blocks_match_the_fixed_tiles(cuda, dtype, tmp_path,
+                                           monkeypatch):
+    """``block="auto"`` on each tuned kernel equals its default tile's
+    output within the kernel tolerances (the norms and the SSD chunks
+    compute the same values at any tile: exactly, for the norms)."""
+    from repro_torch.kernels import autotune as at
+    monkeypatch.setenv("REPRO_KERNEL_CACHE_DIR", str(tmp_path))
+    at._shared_cache.cache_clear()
+    tol = TOL[dtype]
+    q = _rand(cuda, 2, 300, 8, 64, dtype=dtype)
+    k = _rand(cuda, 2, 300, 4, 64, dtype=dtype)
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, k, block_q="auto", block_k="auto").float(),
+        ops.flash_attention(q, k, k).float(), rtol=tol, atol=tol)
+    x = _rand(cuda, 3000, 960, dtype=dtype)
+    r = _rand(cuda, 3000, 960, dtype=dtype)
+    sc = _rand(cuda, 960, dtype=dtype)
+    assert torch.equal(ops.rmsnorm(x, sc, block_rows="auto"),
+                       ops.rmsnorm(x, sc))
+    for a, b in zip(ops.fused_add_rmsnorm(x, r, sc, block_rows="auto"),
+                    ops.fused_add_rmsnorm(x, r, sc)):
+        assert torch.equal(a, b)
+    sx = _rand(cuda, 1, 512, 4, 32, dtype=dtype)
+    dt = torch.rand(1, 512, 4, device="cuda", generator=cuda) * 0.1 + 1e-3
+    a = -(torch.rand(4, device="cuda", generator=cuda) * 1.5 + 0.5)
+    bb = _rand(cuda, 1, 512, 16, dtype=dtype)
+    cc = _rand(cuda, 1, 512, 16, dtype=dtype)
+    ya, sa = ops.ssd_scan(sx, dt, a, bb, cc, chunk="auto")
+    yd, sd = ops.ssd_scan(sx, dt, a, bb, cc)
+    ytol, stol = (4e-2, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    torch.testing.assert_close(ya.float(), yd.float(), rtol=ytol, atol=ytol)
+    torch.testing.assert_close(sa, sd, rtol=stol, atol=stol)
+    assert len(json.loads((tmp_path / f"autotune-{at.default_chip()}.json")
+                          .read_text())) == 4
+    at._shared_cache.cache_clear()
+
+
+def test_moe_servers_and_train_step_graphed_equal_eager(cuda):
+    """Narrow dbrx and mixtral (a 64-token window, prompts past it):
+    ``BatchedServer`` graphed and eager give the same tokens, and the
+    graphed train step's losses equal the eager step's bit for bit."""
+    from repro_torch.serve.serve_step import BatchedServer, Request
+    from repro_torch.train import data as tdata
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+    for cfg in (_moe_cfg(), _moe_cfg(window=64, n_experts=8, top_k=2)):
+        params = tm.init(cfg, 0)
+        gen = torch.Generator().manual_seed(1)
+        outs = []
+        for graphed in (None, False):
+            reqs = [Request(rid=i, prompt=torch.randint(
+                0, cfg.vocab_size, (n,), generator=gen).numpy(),
+                max_new_tokens=8) for i, n in enumerate((20, 96, 130))]
+            gen.manual_seed(1)
+            BatchedServer(cfg, params, max_len=160, batch_size=2,
+                          graphed=graphed).run(reqs)
+            outs.append([r.output for r in reqs])
+        assert outs[0] == outs[1], cfg.name
+    cfg = _moe_cfg(remat="full")
+    ds = tdata.SyntheticDataset(cfg, tdata.DataConfig(
+        seq_len=128, global_batch=4, num_microbatches=2))
+    ocfg = topt.OptimizerConfig(lr=1e-3, warmup_steps=2)
+    ep = tm.init(cfg, 0)
+    gp = tm.init(cfg, 0)
+    es, gs = topt.init_state(ep), topt.init_state(gp)
+    eager = tts.make_train_step(cfg, ocfg)
+    graphed = tts.make_graphed_train_step(cfg, ocfg, gp, gs, ds.batch(0))
+    for i in range(3):
+        _, _, em = eager(ep, es, ds.batch(i))
+        _, _, gm = graphed(gp, gs, ds.batch(i))
+        assert torch.equal(gm["loss"], em["loss"]), i

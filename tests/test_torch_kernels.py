@@ -540,12 +540,16 @@ def _t(*shape, dtype=torch.float32, device="cpu"):
     return torch.zeros(*shape, dtype=dtype, device=device)
 
 
-def test_block_args():
+def test_block_args(tmp_path, monkeypatch):
+    """Ints pin the tile, None and "auto" resolve (the autotuner's tests
+    are ``test_torch_autotune.py``), anything else raises."""
+    monkeypatch.setenv("REPRO_KERNEL_CACHE_DIR", str(tmp_path))
     q = _t(1, 8, 2, 64)
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        ops.flash_attention(q, q, q, block_q="auto")
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        ops.fused_add_rmsnorm(_t(2, 64), _t(2, 64), _t(64), block_rows="auto")
+    assert ops.flash_attention(q, q, q, block_q="auto").shape == q.shape
+    assert ops.fused_add_rmsnorm(_t(2, 64), _t(2, 64), _t(64),
+                                 block_rows="auto")[0].shape == (2, 64)
+    with pytest.raises(TypeError):
+        ops.rmsnorm(_t(2, 64), _t(64), block_rows="fast")
     with pytest.raises(ValueError, match="block_q"):
         ops.flash_attention(q, q, q, block_q=48)
     with pytest.raises(TypeError):

@@ -188,8 +188,9 @@ def test_attn_decode_per_row_matches_reference(window, impl):
 
 def test_attn_decode_waits_for_later_slices():
     """Per-row lengths are ported (the rows equal the scalar path's at the
-    same length, bit for bit); an unknown impl and sliding-window prefill
-    still raise."""
+    same length, bit for bit); an unknown impl still raises.  Sliding-window
+    prefill is ported (``test_torch_moe.py`` holds it against the
+    reference): the dispatch reaches it."""
     (_, tq), (_, tk), (_, tv) = _qkv(2, 1, 8, 4, 2, 16)
     rows = TL.attn_decode(tq, tk, tv, cache_len=torch.tensor([3, 8]))
     for i, n in enumerate((3, 8)):
@@ -201,9 +202,9 @@ def test_attn_decode_waits_for_later_slices():
     q, c = torch.zeros(2, 1, 4, 16), torch.zeros(2, 8, 2, 16)
     with pytest.raises(ValueError, match="unknown impl"):
         TL.attn_decode(q, c, c, cache_len=3, impl="pallas")
-    with pytest.raises(NotImplementedError):
-        TL.attention(torch.zeros(1, 16, 2, 16), torch.zeros(1, 16, 2, 16),
-                     torch.zeros(1, 16, 2, 16), impl="chunked", window=4)
+    z = torch.zeros(1, 16, 2, 16)
+    assert torch.equal(TL.attention(z, z, z, impl="chunked", window=4),
+                       TL.attn_window_linear(z, z, z, window=4))
 
 
 @pytest.mark.parametrize("s", [64, 45])

@@ -92,13 +92,13 @@ def test_unported_archs_raise():
     """Every config resolves (the profiler prices every family); a family
     whose model is not ported raises where the model is built."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tm.get_module(tget("mixtral_8x22b"))
+        tm.get_module(tget("internvl2_26b"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tm.init(tget("mamba2-130m"), 0, device="cpu")
     with pytest.raises(KeyError):
         tget("no_such_arch")
     with pytest.raises(NotImplementedError):
-        tm.get_module(dataclasses.replace(tget("smollm_360m"), family="moe"))
+        tm.get_module(dataclasses.replace(tget("smollm_360m"), family="vlm"))
 
 
 @pytest.mark.parametrize("arch", ["smollm_360m", "qwen1_5_0_5b",
@@ -362,7 +362,9 @@ _PLANNER = ["repro_torch.core.cluster"] + [
     ("events", "monitor", "transition", "replan", "controller", "autoscale")
 ] + [f"repro_torch.telemetry.{m}" for m in
      ("bus", "detectors", "rca", "faults")] + [
-    "repro_torch.manager", "repro_torch.telemetry"]
+    "repro_torch.manager", "repro_torch.telemetry",
+    # the MoE family and the autotuner's bench
+    "repro_torch.models.moe", "repro_torch.bench.kernels_bench"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():

@@ -401,8 +401,8 @@ def test_pipeline_refusals(monkeypatch):
     with pytest.raises(NotImplementedError, match="tied embeddings"):
         tpl.MPMDPipeline(dataclasses.replace(tcfg, tie_embeddings=True),
                          st, ocfg, devices=cpu2)
-    with pytest.raises(NotImplementedError, match="'moe'"):
-        tpl.MPMDPipeline(dataclasses.replace(tcfg, family="moe"), st, ocfg,
+    with pytest.raises(NotImplementedError, match="'ssm'"):
+        tpl.MPMDPipeline(dataclasses.replace(tcfg, family="ssm"), st, ocfg,
                          devices=cpu2)
     with pytest.raises(ValueError, match="do not cover"):
         tpl.MPMDPipeline(tcfg, st[:1], ocfg, devices=cpu2)
