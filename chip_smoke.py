@@ -246,6 +246,37 @@ Phases, each printed as it runs; any failure exits non-zero:
              position (``launches_moe_pipeline``: the pipelines' alone,
              not the one-device check's).  Phase 3 holds the
              MoE paths' attention and norm shapes (``moe_*``).
+   ssm serve mamba2-130m at published widths and all 24 layers, bf16,
+             seeded weights: ``BatchedServer`` on [serve]'s 16 requests,
+             graphed and eager after a warm run, equal tokens,
+             ``steady_tok_s``; the SSD kernel (the prefill's ``"kernel"``
+             route) 24 launches a prefill, nothing else.  Then an fp32
+             copy of the weights prefills (2, 2048) through the
+             ``"kernel"`` and the ``"chunked"`` route: last-position
+             logits within ``ROUTE_TOL``, final SSM states within
+             ``ROUTE_STATE_TOL``.
+   hybrid serve  zamba2-2.7b at published widths and all 54 layers
+             (2.42 B params, bf16): the same 16 requests, graphed and
+             eager, equal tokens; the SSD kernel 54 and the attention
+             kernel 9 (the shared block's applications) launches a
+             prefill.  An fp32 (1, 1024) prefill at 12 layers (two
+             groups) through both SSD routes, logits within ``ROUTE_TOL``.
+   ssm train mamba2-130m at 24 layers on 8 x 1024 tokens in 2
+             microbatches, then zamba2-2.7b at 12 layers on 4 x 1024:
+             eager and graphed steps from the same weights on the same
+             batches (losses equal; bit for bit reported), finite loss
+             and gradient norm over 3 steps at the published init,
+             ``step_wall_ms``, ``step_device_ms``, ``tokens_per_s`` and
+             peak memory.  The train path takes the differentiable
+             ``"chunked"`` SSD: the SSD kernel launches 0 times, by
+             design; zamba2's shared block runs the attention kernel
+             forward and backward at head dim 80.  Phase 3 holds the
+             SSD kernel at both families' prefill shapes and the
+             attention kernel at the hybrid's (``ssm_*``, ``hybrid_*``),
+             timed at (2, 1024, 80, 64, 64) and (2, 1024, 32/32, 80)
+             (``more``), and checks that ``ops.ssd_scan``, ``ops.rmsnorm``
+             and ``ops.add`` raise on the card where a gradient would be
+             taken.
 9. plan      Sailor's planner and simulator priced by the card: the
              ``"H100"`` entry fitted as ``measured.calibrate_cpu_host``
              fits it (``measure_block``'s one-layer forward and gradient
@@ -570,6 +601,19 @@ MOE_GRAPH_STEPS, MOE_FALL_STEPS, MOE_TIMED = 3, 8, 3
 # [moe pipeline]: dbrx's widths with the reference's reduced() expert counts
 MOE_PIPE_CUT = dict(n_layers=2, n_experts=4, top_k=2)
 MOE_PIPE_STEPS, MOE_PIPE_TIMED = 3, 3
+# the state-space phases ([ssm serve], [hybrid serve], [ssm train])
+SSM_ARCH, HYBRID_ARCH = "mamba2_130m", "zamba2_2_7b"
+# fp32 prefills through the SSD kernel and through ssd_chunked: the same
+# fp32 terms summed in other orders through every layer; a chunking or
+# indexing fault gives O(1) errors
+ROUTE_TOL, ROUTE_STATE_TOL = 1e-3, 1e-4
+SSM_ROUTE_SHAPE = (2, 2048)
+HYBRID_ROUTE_SHAPE, HYBRID_ROUTE_LAYERS = (1, 1024), 12
+SSM_TRAIN_DATA = dict(seq_len=1024, global_batch=8, num_microbatches=2)
+HYBRID_TRAIN_DATA = dict(seq_len=1024, global_batch=4, num_microbatches=2)
+HYBRID_TRAIN_LAYERS = 12     # two applications of the shared block
+SSM_TRAIN_STEPS = 3
+SSM_TIMED = 3           # graphed replays timed after the compared steps
 
 
 def log(msg: str) -> None:
@@ -1359,6 +1403,56 @@ def mesh_shapes():
                kh // tp if split else kh, dt)
 
 
+def hybrid_attention_cases(gen, main_lens) -> list:
+    """The attention kernel at zamba2-2.7b's shared block (32/32 heads,
+    head dim 80): [hybrid serve]'s prefills at [serve]'s batch lengths, the
+    fp32 route check's (1, 1024), and (2, 1024) bf16 timed beside SDPA
+    (``[ssm train]``'s microbatch)."""
+    c = get_config(HYBRID_ARCH)
+    h, kh, d = c.n_heads, c.n_kv_heads, c.hd
+    rows = [attention_case(gen, f"hybrid_serve_s{s}", BATCH, s, s, h, kh, d,
+                           True, torch.bfloat16)
+            for s in sorted(set(main_lens))]
+    b, s = HYBRID_ROUTE_SHAPE
+    rows.append(attention_case(gen, f"hybrid_route_f32_s{s}", b, s, s, h,
+                               kh, d, True, torch.float32))
+    mb = HYBRID_TRAIN_DATA["global_batch"] // \
+        HYBRID_TRAIN_DATA["num_microbatches"]
+    s = HYBRID_TRAIN_DATA["seq_len"]
+    rows.append(attention_case(gen, f"hybrid_b{mb}_s{s}_d{d}", mb, s, s, h,
+                               kh, d, True, torch.bfloat16, timed=True))
+    return rows
+
+
+def grad_refusals(gen) -> None:
+    """The kernels without a backward raise on the card where a gradient
+    would be taken (the kernel's fresh output would drop it silently)."""
+    x = torch.randn(2, 64, 3, 16, generator=gen, device="cuda")
+    dt = torch.rand(2, 64, 3, generator=gen, device="cuda") * 0.1
+    a = -torch.rand(3, generator=gen, device="cuda") - 0.5
+    b = torch.randn(2, 64, 8, generator=gen, device="cuda")
+    rows, sc = torch.randn(8, 64, device="cuda"), torch.ones(64,
+                                                              device="cuda")
+    calls = {"ssd_scan": lambda t: ops.ssd_scan(t, dt, a, b, b, chunk=32),
+             "rmsnorm": lambda t: ops.rmsnorm(t, sc),
+             "add": lambda t: ops.add(t, rows)}
+    before = dict(ops.LAUNCHES)
+    for name, call in calls.items():
+        leaf = (x if name == "ssd_scan" else rows).clone().requires_grad_()
+        try:
+            call(leaf)
+        except RuntimeError as err:
+            if "has no backward" not in str(err):
+                raise
+        else:
+            raise AssertionError(f"ops.{name} ran under autograd on the "
+                                 f"card")
+    if dict(ops.LAUNCHES) != before:
+        raise AssertionError("a refused call launched its kernel")
+    log("[kernels] ops.ssd_scan, ops.rmsnorm, ops.add raise under autograd "
+        "on the card")
+
+
 def phase_kernels(main_lens):
     """Every kernel against its plain version at the shapes of the main
     paths that run it (serve, serve continuous, calibrate, fused) and at
@@ -1431,8 +1525,13 @@ def phase_kernels(main_lens):
     attn += [cal_row, cal,
              attention_case(gen, "calibrate_s2048_float32", 1, 2048, 2048,
                             bh, bh, d, True, f32, timed=True)]
+    hybrid_attn = hybrid_attention_cases(gen, main_lens)
     serve_row = attn[0]
     serve_row["earlier_ms"] = attn[1]["ms"]
+    serve_row["more"] = [{key: row[key] for key in (
+        "label", "shape", "dtype", "ms", "bound_ms", "bound_by",
+        "share_of_bound", "tflops", "plain_ms", "library_ms", "max_abs_err")}
+        for row in hybrid_attn if "ms" in row]
     serve_row["calibrate"] = {key: cal_row[key] for key in (
         "shape", "ms", "bound_ms", "bound_by", "share_of_bound", "tflops",
         "library_ms", "max_abs_err")}
@@ -1577,6 +1676,27 @@ def phase_kernels(main_lens):
         ssd[0].setdefault("more", []).append({key: extra[key] for key in (
             "label", "shape", "dtype", "ms", "bound_ms", "share_of_bound",
             "plain_ms", "passes_ms")})
+    # the state-space paths: [ssm serve]'s and [hybrid serve]'s prefills at
+    # [serve]'s batch lengths, their fp32 route checks, and zamba2-2.7b's
+    # geometry (H 80, P 64, N 64) timed at (2, 1024)
+    ssm_geo = {arch: (c.ssm_nheads, c.ssm_headdim, c.ssm_state)
+               for arch, c in ((a, get_config(a))
+                               for a in (SSM_ARCH, HYBRID_ARCH))}
+    for s_ in sorted(set(main_lens)):
+        ssd.append(ssd_case(gen, f"ssm_serve_s{s_}", BATCH, s_,
+                            *ssm_geo[SSM_ARCH], bf16))
+        ssd.append(ssd_case(gen, f"hybrid_serve_s{s_}", BATCH, s_,
+                            *ssm_geo[HYBRID_ARCH], bf16))
+    ssd.append(ssd_case(gen, "ssm_route_f32", *SSM_ROUTE_SHAPE,
+                        *ssm_geo[SSM_ARCH], f32))
+    ssd.append(ssd_case(gen, "hybrid_route_f32", *HYBRID_ROUTE_SHAPE,
+                        *ssm_geo[HYBRID_ARCH], f32))
+    extra = ssd_case(gen, "zamba2_b2_s1024", 2, 1024, *ssm_geo[HYBRID_ARCH],
+                     bf16, timed=True)
+    ssd[0]["more"].append({key: extra[key] for key in (
+        "label", "shape", "dtype", "ms", "bound_ms", "bound_by",
+        "share_of_bound", "plain_ms", "passes_ms", "max_abs_err")})
+    grad_refusals(gen)
     adds = [add_case(gen, "rows4096", BATCH * 512, dm, bf16, timed=True),
             add_case(gen, "f32_4096x512", 4096, 512, f32, timed=True)]
     adds[0]["f32"] = _f32_point(_labelled(adds, "f32_4096x512"))
@@ -1619,6 +1739,15 @@ def phase_kernels(main_lens):
             abwd.append(attention_bwd_case(gen, label, mb_, s_, s_, hq, hk,
                                            get_config("dbrx_132b").hd, True,
                                            dt))
+    # [ssm train]'s hybrid microbatch: the shared block at head dim 80
+    hcfg = get_config(HYBRID_ARCH)
+    hmb = HYBRID_TRAIN_DATA["global_batch"] // \
+        HYBRID_TRAIN_DATA["num_microbatches"]
+    hs = HYBRID_TRAIN_DATA["seq_len"]
+    hyb = attention_bwd_case(gen, f"hybrid_train_s{hs}_d{hcfg.hd}", hmb, hs,
+                             hs, hcfg.n_heads, hcfg.n_kv_heads, hcfg.hd,
+                             True, bf16, timed=True)
+    abwd.append(hyb)
     # the plan phase's gradients; the fp32 fit's largest shape timed (the
     # fp32 kernel's only path)
     for label, mbs, seq, dt in plan_shapes():
@@ -1631,6 +1760,10 @@ def phase_kernels(main_lens):
             + json.dumps({key: row[key] for key in (
                 "shape", "ms", "earlier_ms", "library_ms", "bound_ms",
                 "share_of_bound", "blocks_ms")}))
+    abwd[0]["more"] = [{key: hyb[key] for key in (
+        "label", "shape", "dtype", "ms", "earlier_ms", "bound_ms", "bound_by",
+        "share_of_bound", "tflops", "plain_ms", "library_ms", "max_abs_err",
+        "blocks_ms")}]
     abwd[0]["f32"] = {key: abwd[1][key] for key in (
         "ms", "earlier_ms", "bound_ms", "bound_by", "share_of_bound",
         "plain_ms", "library_ms", "max_abs_err", "blocks_ms")}
@@ -2025,7 +2158,7 @@ def _prefill_in_turns(label, cfg, params, graph, state, toks, row=None):
     return dict(out, logits=logits, run=lambda kind: steps[kind]())
 
 
-def _decode_in_turns(cfg, params, graph, state, rows, plen):
+def _decode_in_turns(cfg, params, graph, state, rows, plen, label="serve"):
     """Decode ms a step, graphed and eager, in turns from the same cache
     state: ``state`` (the graph's) holds a ``plen``-token prefill in its
     first ``rows`` rows; the graph takes 2 steps at those rows (eager,
@@ -2036,10 +2169,11 @@ def _decode_in_turns(cfg, params, graph, state, rows, plen):
     Returns the medians and ``run(kind, steps)`` for the profiles."""
     # the tensor length reads nothing on the host, so the room for the
     # graphed side's steps (2, the pairs, the profile) is checked here
+    # (a state-space state has no slots to run past)
     need = plen + 2 + DECODE_PAIRS + DECODE_PROFILED
-    size = state["k"].shape[2]
+    size = state["k"].shape[2] if "k" in state else need
     if need > size:
-        raise ValueError(f"[serve] decode in turns: a {plen}-token prefill "
+        raise ValueError(f"[{label}] decode in turns: a {plen}-token prefill "
                          f"and {need - plen} steps write past the cache's "
                          f"{size} slots")
     steps = {"graphed": lambda: graph(params, state, rows)}
@@ -2049,11 +2183,11 @@ def _decode_in_turns(cfg, params, graph, state, rows, plen):
     steps["eager"] = lambda: serve_step.decode_on_device(
         cfg, params, serve_step.rows_of(other, rows))
     times = _in_turns(steps, DECODE_PAIRS)
-    for key in ("k", "v", "len", "cur"):
+    for key in serve_step.cache_keys(state) + ["len", "cur"]:
         a, b = serve_step.rows_of(state, rows)[key], \
             serve_step.rows_of(other, rows)[key]
         if not torch.equal(a, b):
-            raise AssertionError(f"[serve] decode in turns: graphed and "
+            raise AssertionError(f"[{label}] decode in turns: graphed and "
                                  f"eager {key} differ after {DECODE_PAIRS} "
                                  f"steps each")
 
@@ -2061,7 +2195,7 @@ def _decode_in_turns(cfg, params, graph, state, rows, plen):
         for _ in range(n):
             steps[kind]()
     out = {f"{kind}_ms": statistics.median(t) for kind, t in times.items()}
-    log("[serve] decode in turns (" + f"{DECODE_PAIRS} pairs, batch {rows}, "
+    log(f"[{label}] decode in turns (" + f"{DECODE_PAIRS} pairs, batch {rows}, "
         f"from the same cache state; caches, lengths and tokens equal "
         f"after): " + json.dumps(dict(
             out, graphed_ms_all=times["graphed"], eager_ms_all=times["eager"],
@@ -4193,6 +4327,281 @@ def phase_moe_pipeline() -> dict:
     return launches
 
 
+def _ssm_params(cfg, label: str):
+    params = model_lib.init(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in opt_lib.tree_leaves(params))
+    log(f"[{label}] {cfg.name}, {cfg.n_layers} layers at published widths "
+        f"({cfg.param_dtype}): {n / 1e9:.3f}B params, "
+        f"{n * 2 / 1e9:.2f} GB")
+    return params
+
+
+def _serve_ssm(label, cfg, params, reqs, per_prefill: dict) -> dict:
+    """``BatchedServer`` graphed and eager on ``reqs``, each after a warm
+    run on the same requests (the timed graphed run replays every prefill
+    and decode graph): equal tokens, ``steady_tok_s``, and each timed
+    run's launches, which must be ``per_prefill`` a prefill and nothing
+    else."""
+    n_prefill = -(-len(reqs) // BATCH)
+    out, runs = {}, {}
+    for graphed in (None, False):
+        name = "graphed" if graphed is None else "eager"
+        server = BatchedServer(cfg, params, max_len=PROMPT_MAX + MAX_NEW + 8,
+                               batch_size=BATCH, graphed=graphed)
+        server.run(_fresh_requests(reqs))
+        got = _fresh_requests(reqs)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.run(got)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        want = {k: per_prefill.get(k, 0) * n_prefill for k in launches}
+        if launches != want:
+            raise AssertionError(f"[{label}] {name} launches {launches}, "
+                                 f"expected {want}")
+        runs[name] = got
+        tokens = sum(len(r.output) for r in got)
+        out[name] = dict(steady_s=wall, tokens=tokens,
+                         steady_tok_s=tokens / wall, prefills=n_prefill,
+                         decode_steps=server.decode_steps,
+                         launches={k: v for k, v in launches.items() if v})
+        if graphed is None:
+            out[name]["graphs"] = dict(
+                prefill=[list(k) for k in server.prefill_graph.graphs],
+                decode=sorted(server.decode_graph.graphs))
+        del server
+        _release()
+    _same_tokens(label, runs["graphed"], runs["eager"])
+    out["graphed_tokens_equal_eager"] = True
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{label}] {json.dumps(out)}")
+    return out
+
+
+def _ssm_turns(label, cfg, params, reqs) -> dict:
+    """The first batch's prefill and single decode steps, graphed and
+    eager in turns from the same state (``_prefill_in_turns``,
+    ``_decode_in_turns``: equal bit for bit after)."""
+    batch = reqs[:BATCH]
+    plen = max(len(r.prompt) for r in batch)
+    toks = np.zeros((len(batch), plen), np.int64)
+    for i, r in enumerate(batch):
+        toks[i, plen - len(r.prompt):] = r.prompt
+    state = serve_step.decode_state(cfg, BATCH, PROMPT_MAX + MAX_NEW + 8,
+                                    per_row=False, device="cuda")
+    pre = _prefill_in_turns(label, cfg, params, serve_step.GraphedPrefill(
+        cfg, params, state), state, toks)
+    dec = _decode_in_turns(cfg, params, serve_step.GraphedDecodeStep(
+        cfg, params, state), state, len(batch), plen, label)
+    row = dict(prefill_shape=list(toks.shape),
+               prefill_graphed_ms=pre["graphed_ms"],
+               prefill_eager_ms=pre["eager_ms"],
+               decode_graphed_ms=dec["graphed_ms"],
+               decode_eager_ms=dec["eager_ms"])
+    profile_window(f"{cfg.name}_decode", lambda: dec["run"]("graphed", 4),
+                   4 * dec["graphed_ms"], 4)
+    del state, pre, dec
+    _release()
+    return row
+
+
+def _route_check(label, cfg, params, shape, seed: int) -> dict:
+    """An fp32 prefill of ``shape`` through the SSD kernel route and the
+    ``"chunked"`` route (``ssd_chunked``) on the same weights and tokens:
+    last-position logits within ROUTE_TOL, final SSM states within
+    ROUTE_STATE_TOL, each as max |kernel - chunked|."""
+    mod = model_lib.get_module(cfg)
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).cuda()
+    res = {}
+    with torch.no_grad():
+        for impl in ("kernel", "chunked"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = mod.forward(cfg, params, {"tokens": toks},
+                                        return_cache=True, ssd_impl=impl)
+            torch.cuda.synchronize()
+            res[impl] = (logits[:, -1].clone(), cache["ssm"].clone(),
+                         (time.perf_counter() - t0) * 1e3)
+            del logits, cache
+    dl = (res["kernel"][0] - res["chunked"][0]).abs().max().item()
+    ds = (res["kernel"][1] - res["chunked"][1]).abs().max().item()
+    row = dict(shape=list(shape), layers=cfg.n_layers, dtype=cfg.dtype,
+               logits_max_abs_diff=dl, state_max_abs_diff=ds,
+               logits_spread=res["chunked"][0].std().item(),
+               state_max_abs=res["chunked"][1].abs().max().item(),
+               kernel_route_wall_ms=res["kernel"][2],
+               chunked_route_wall_ms=res["chunked"][2],
+               tol=[ROUTE_TOL, ROUTE_STATE_TOL])
+    log(f"[{label}] fp32 prefill, kernel route vs chunked route: "
+        f"{json.dumps(row)}")
+    if not (dl <= ROUTE_TOL and ds <= ROUTE_STATE_TOL):
+        raise AssertionError(f"[{label}] the SSD routes differ: logits "
+                             f"{dl}, states {ds}")
+    return row
+
+
+def phase_ssm_serve() -> dict:
+    """mamba2-130m served at published widths and depth (``[ssm serve]``),
+    then its SSD routes held against each other in fp32.  A main path for
+    the SSD kernel: 24 launches a prefill."""
+    t_phase = time.perf_counter()
+    log(f"[ssm serve] allocated at the start: {_release() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(SSM_ARCH)
+    params = _ssm_params(cfg, "ssm serve")
+    reqs = serve_requests(cfg, 0, N_REQUESTS)
+    _serve_ssm("ssm serve", cfg, params, reqs, {"ssd_scan": cfg.n_layers})
+    # the servers' launches: the timed eager run's (each run checked alike)
+    launches = dict(ops.LAUNCHES)
+    log(f"[ssm serve] in turns: "
+        f"{json.dumps(_ssm_turns('ssm serve', cfg, params, reqs))}")
+    f32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    copy = opt_lib.tree_unflatten([(k, v.float()) for k, v in
+                                   opt_lib.tree_leaves(params)])
+    _route_check("ssm serve", f32, copy, SSM_ROUTE_SHAPE, 3)
+    del params
+    _release()
+    log(f"[ssm serve] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+def phase_hybrid_serve() -> dict:
+    """zamba2-2.7b served at published widths and all 54 layers
+    (``[hybrid serve]``), then its SSD routes in fp32 at 12 layers.  A
+    main path for the SSD kernel (54 launches a prefill) and the attention
+    kernel (9: the shared block's applications)."""
+    t_phase = time.perf_counter()
+    log(f"[hybrid serve] allocated at the start: "
+        f"{_release() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(HYBRID_ARCH)
+    params = _ssm_params(cfg, "hybrid serve")
+    reqs = serve_requests(cfg, 0, N_REQUESTS)
+    groups = cfg.n_layers // cfg.attn_every
+    _serve_ssm("hybrid serve", cfg, params, reqs,
+               {"ssd_scan": cfg.n_layers, "flash_attention": groups})
+    launches = dict(ops.LAUNCHES)
+    log(f"[hybrid serve] in turns: "
+        f"{json.dumps(_ssm_turns('hybrid serve', cfg, params, reqs))}")
+    del params
+    _release()
+    f32 = dataclasses.replace(cfg, n_layers=HYBRID_ROUTE_LAYERS,
+                              dtype="float32", param_dtype="float32")
+    _route_check("hybrid serve", f32, model_lib.init(f32, 0, device="cuda"),
+                 HYBRID_ROUTE_SHAPE, 4)
+    _release()
+    log(f"[hybrid serve] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+def _ssm_train_case(cfg, data: dict) -> dict:
+    """Eager steps from seeded weights, then the graphed step
+    (``make_graphed_train_step``) from the same weights on the same
+    batches (one copy of the model at a time), SSM_TRAIN_STEPS each:
+    losses compared (bit for bit reported), loss and gradient norm finite
+    at every step, the graphed steps timed."""
+    dc = data_lib.DataConfig(**data)
+    ocfg = opt_lib.OptimizerConfig(**TRAIN_OPT)
+    ds = data_lib.SyntheticDataset(cfg, dc)
+    batches = [ds.batch(300 + i) for i in range(SSM_TRAIN_STEPS)]
+    tokens = dc.global_batch * dc.seq_len
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    params = model_lib.init(cfg, 0, device="cuda")
+    state = opt_lib.init_state(params)
+    step = train_lib.make_train_step(cfg, ocfg)
+    eager, e_wall, e_dev = [], [], []
+    for b in batches:
+        wall, dev, _, (params, state, m) = _timed_step(
+            lambda b=b: step(params, state, b))
+        eager.append({k: m[k].clone() for k in ("loss", "grad_norm")})
+        e_wall.append(wall)
+        e_dev.append(dev)
+    e_peak = torch.cuda.max_memory_allocated()
+    resident = _resident_bytes(params, state)
+    del params, state, m
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    params = model_lib.init(cfg, 0, device="cuda")
+    state = opt_lib.init_state(params)
+    g = train_lib.make_graphed_train_step(cfg, ocfg, params, state,
+                                          batches[0])
+    graphed, g_wall, g_dev = [], [], []
+    for i, b in enumerate(batches):
+        wall, dev, _, (_, _, m) = _timed_step(
+            lambda b=b: g(params, state, b))
+        graphed.append({k: m[k].clone() for k in ("loss", "grad_norm")})
+        g_wall.append(wall)
+        g_dev.append(dev)
+    timed = [_timed_step(lambda: g(params, state, batches[-1]))[:2]
+             for _ in range(SSM_TIMED)]
+    g_peak = torch.cuda.max_memory_allocated()
+    vals = [x[k].item() for x in eager + graphed for k in x]
+    if not all(np.isfinite(vals)):
+        raise AssertionError(f"[ssm train] {cfg.name}: non-finite loss or "
+                             f"gradient norm {vals}")
+    same = all(torch.equal(a["loss"], b["loss"])
+               for a, b in zip(eager, graphed))
+    diff = max((a["loss"] - b["loss"]).abs().item()
+               for a, b in zip(eager, graphed))
+    if not diff <= 1e-3 * abs(eager[0]["loss"].item()):
+        raise AssertionError(f"[ssm train] {cfg.name}: graphed losses differ "
+                             f"from eager by {diff}")
+    # graphed: SSM_TIMED replays after the compared steps (the first of
+    # those ran eagerly, the second captured); eager: steps 2.. (step 1
+    # builds and loads)
+    wall = statistics.median(t[0] for t in timed)
+    stats = dict(
+        arch=cfg.name, layers=cfg.n_layers, data=data,
+        eager_losses=[x["loss"].item() for x in eager],
+        graphed_losses=[x["loss"].item() for x in graphed],
+        grad_norms=[x["grad_norm"].item() for x in graphed],
+        losses_bit_identical=same, max_loss_diff=diff,
+        step_wall_ms=wall, step_wall_ms_all=[t[0] for t in timed],
+        step_device_ms=statistics.median(t[1] for t in timed),
+        compared_graphed_wall_ms=g_wall, compared_graphed_device_ms=g_dev,
+        tokens_per_s=tokens / (wall / 1e3),
+        eager_step_wall_ms=statistics.median(e_wall[1:]),
+        eager_step_device_ms=statistics.median(e_dev[1:]),
+        eager_tokens_per_s=tokens / (statistics.median(e_wall[1:]) / 1e3),
+        resident_bytes=resident, eager_peak_mem_gib=e_peak / 2**30,
+        graphed_peak_mem_gib=g_peak / 2**30, capture_s=g.capture_seconds)
+    log(f"[ssm train] {json.dumps(stats)}")
+    profile_window(f"{cfg.name}_train_step", lambda: g(params, state,
+                                                       batches[-1]),
+                   wall, 1)
+    del params, state, g
+    _release()
+    return stats
+
+
+def phase_ssm_train() -> dict:
+    """mamba2-130m at 24 layers and zamba2-2.7b at 12 (``[ssm train]``),
+    bf16, full remat, at published widths: the train path takes the
+    differentiable ``"chunked"`` SSD (the kernel has no backward), so the
+    SSD kernel must not launch; the hybrid's shared block runs the
+    attention kernel forward and backward at head dim 80."""
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    log(f"[ssm train] allocated at the start: {_release() / 2**30:.2f} GiB")
+    _ssm_train_case(get_config(SSM_ARCH), SSM_TRAIN_DATA)
+    mamba = dict(ops.LAUNCHES)
+    _ssm_train_case(dataclasses.replace(get_config(HYBRID_ARCH),
+                                        n_layers=HYBRID_TRAIN_LAYERS),
+                    HYBRID_TRAIN_DATA)
+    launches = dict(ops.LAUNCHES)
+    if launches["ssd_scan"] or any(mamba.values()):
+        raise AssertionError(f"[ssm train] kernel launches on the chunked "
+                             f"path: mamba2 {mamba}, both {launches}")
+    _path_launches("ssm train", ("flash_attention", "flash_attention_bwd"))
+    log(f"[ssm train] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
 def _fit(cfg, label: str, kw: dict):
     """The ``"H100"`` entry fitted as ``measured.calibrate_cpu_host(cfg,
     **kw)`` fits it, step by step (``catalog_entry``, ``measure_block``,
@@ -4532,6 +4941,9 @@ def main() -> int:
     moe_serve_launches = phase_moe_serve()
     moe_train_launches = phase_moe_train()
     moe_pipeline_launches = phase_moe_pipeline()
+    ssm_serve_launches = phase_ssm_serve()
+    hybrid_serve_launches = phase_hybrid_serve()
+    ssm_train_launches = phase_ssm_train()
     plan_launches = phase_plan(cfg, train, table_path())
     # launches: each kernel's count on the main path that runs it, which
     # also runs the timed case's shape
@@ -4558,6 +4970,9 @@ def main() -> int:
             launches_moe_serve=moe_serve_launches.get(name, 0),
             launches_moe_train=moe_train_launches.get(name, 0),
             launches_moe_pipeline=moe_pipeline_launches.get(name, 0),
+            launches_ssm_serve=ssm_serve_launches.get(name, 0),
+            launches_hybrid_serve=hybrid_serve_launches.get(name, 0),
+            launches_ssm_train=ssm_train_launches.get(name, 0),
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

@@ -57,6 +57,36 @@ from repro_torch.models.model import IGNORE_LABEL, masked_ce_sums
 MODEL = "model"
 
 
+def check_family(cfg: ModelConfig, mesh: Mesh) -> None:
+    """The transformer families run on any mesh.  The state-space families
+    (ssm, hybrid) have no sharded layers yet: on a mesh of one position
+    they run the one-device model (``_one_position``), on a larger one they
+    raise: ROADMAP §1 item "The state-space families on a mesh" ports
+    them."""
+    if cfg.family not in T.FAMILIES and mesh.size != 1:
+        raise NotImplementedError(
+            f"family {cfg.family!r} on a mesh of {mesh.size} positions is "
+            f"not ported yet (dense and moe only; one position runs the "
+            f"one-device model; ROADMAP §1 item \"The state-space families "
+            f"on a mesh\")")
+
+
+def _one_position(cfg: ModelConfig, params, batch, mesh: Mesh,
+                  attn_impl: Optional[str]):
+    """A family without sharded layers on a mesh of one position: the
+    one-device model on the position's blocks (each the whole tensor),
+    and the plain ``Layout``."""
+    from repro_torch.models import model as model_lib
+    tokens = _local_batch(batch, mesh, "tokens")
+    tree = pm.tree_map(lambda _, x: x.blocks[0], params)
+    logits = model_lib.forward(cfg, tree, {"tokens": tokens.blocks[0]},
+                               attn_impl=attn_impl)
+    b = batch_spec(mesh, tokens.shape[0])[0]
+    return [logits], Layout(tp=1, batch=pm.part_axes(b), heads=False,
+                            kv=False, ff=False, experts=False,
+                            vocab_embed=False, vocab_logits=False)
+
+
 def check_mesh(mesh) -> Mesh:
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a repro_torch.dist.mesh.Mesh, got "
@@ -296,6 +326,9 @@ def forward(cfg: ModelConfig, params, batch, mesh: Mesh,
     ``Sharded``; ``batch["tokens"]`` a (B, S) ``Sharded`` or a tensor laid
     out here by ``batch_spec``."""
     check_mesh(mesh)
+    check_family(cfg, mesh)
+    if cfg.family not in T.FAMILIES:
+        return _one_position(cfg, params, batch, mesh, attn_impl)
     if cfg.logits_chunk:
         raise NotImplementedError(
             "logits_chunk > 0 on a mesh (the chunked loss) is not ported")

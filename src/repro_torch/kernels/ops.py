@@ -15,7 +15,11 @@ gradient will be taken (grad mode on and an input that requires one) they
 run as ``torch.autograd.Function``s whose backward is a kernel too
 (``flash_attention_bwd``, ``fused_add_rmsnorm_bwd``; the plain backward
 on the CPU).  Inputs that need no gradient keep the forward-only path,
-with no LSE buffer.
+with no LSE buffer.  ``ssd_scan``, ``rmsnorm`` and ``add`` have no
+backward (nor has the reference's kernel): where a gradient would be taken
+they raise, on the CPU too, so no device can drop one silently (the
+kernel fills a fresh buffer that autograd cannot see through).  Training
+takes the differentiable forms (``mamba2.ssd_chunked``, ``layers.rms_norm``).
 
 Block sizes: an int pins the tile (the kernel is built for a few tiles,
 see ``check_args``); ``None`` takes the kernel's default tile, or, when
@@ -80,6 +84,15 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
 
 def _wants_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    if _wants_grad(*tensors):
+        raise RuntimeError(
+            f"ops.{name}: the kernel has no backward, and a gradient would "
+            f"be taken through it (grad mode on and an input that requires "
+            f"one); call it under torch.no_grad() or take the "
+            f"differentiable form")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -171,7 +184,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, *, chunk: BlockArg = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, H, P); dt: (B, S, H); a: (H,); b, c: (B, S, N).
-    Returns (y (B, S, H, P), final_state (B, H, P, N) fp32)."""
+    Returns (y (B, S, H, P), final_state (B, H, P, N) fp32).  Forward
+    only: raises where a gradient would be taken."""
+    _refuse_grad("ssd_scan", x, dt, a, b, c)
     if _tune(chunk):
         ssd_mod.check_args(x, dt, a, b, c, ssd_mod.CHUNK)
         chunk = at.tune_ssd_scan(x, dt, a, b, c)["chunk"]
@@ -190,7 +205,9 @@ def _ssd_scan(x, dt, a, b, c, ck):
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
             block_rows: BlockArg = None) -> torch.Tensor:
-    """x: (..., d); scale: (d,)."""
+    """x: (..., d); scale: (d,).  Forward only: raises where a gradient
+    would be taken."""
+    _refuse_grad("rmsnorm", x, scale)
     if _tune(block_rows):
         rn.check_args(x, scale, rn.BLOCK_ROWS)
         block_rows = at.tune_rmsnorm(x, scale, eps=eps)["block_rows"]
@@ -208,7 +225,9 @@ def _rmsnorm(x, scale, eps, br):
 
 
 def add(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """y = x + r in the inputs' dtype (the unfused baseline's add pass)."""
+    """y = x + r in the inputs' dtype (the unfused baseline's add pass).
+    Forward only: raises where a gradient would be taken."""
+    _refuse_grad("add", x, r)
     add_mod.check_args(x, r)
     if _on_cpu(x, r):
         return add_mod.add_plain(x, r)

@@ -5,11 +5,11 @@ Every family module exposes the same surface:
     decls(cfg) -> nested dict of Decl
     forward(cfg, params, batch, *, return_cache, attn_impl, return_hidden)
     decode(cfg, params, cache, tokens)
-    cache_decls(cfg, batch, max_len)
-The dense and MoE families are ported (both ``models/transformer.py``, as
-in the reference); the others raise.  ``init`` and
-``init_cache`` place their tensors on ``cuda`` unless the caller passes
-another ``device``.
+    cache_decls(cfg, batch, max_len)   (or state_decls for ssm)
+The dense and MoE families (``models/transformer.py``, as in the
+reference), ssm (``models/mamba2.py``) and hybrid (``models/hybrid.py``)
+are ported; encdec and vlm raise.  ``init`` and ``init_cache`` place
+their tensors on ``cuda`` unless the caller passes another ``device``.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceArg, resolve_device, torch_dtype
 from repro_torch.dist import sharding as shd
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, mamba2, transformer
 from repro_torch.models.config import ModelConfig
 
 IGNORE_LABEL = -100
@@ -44,12 +44,16 @@ def masked_ce_sums(logits: torch.Tensor, labels: torch.Tensor):
     return (torch.where(mask, nll, 0.0).sum(), mask.sum(), correct.sum())
 
 
+_MODULES = {"dense": transformer, "moe": transformer, "ssm": mamba2,
+            "hybrid": hybrid}
+
+
 def get_module(cfg: ModelConfig) -> ModuleType:
-    if cfg.family not in transformer.FAMILIES:
+    if cfg.family not in _MODULES:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (dense and moe "
-            f"only)")
-    return transformer
+            f"model family {cfg.family!r} is not ported yet (dense, moe, "
+            f"ssm and hybrid only)")
+    return _MODULES[cfg.family]
 
 
 def decls(cfg: ModelConfig):
@@ -66,12 +70,16 @@ def init(cfg: ModelConfig, seed: int = 0, *, device: DeviceArg = None):
 
 
 def cache_decls(cfg: ModelConfig, batch: int, max_len: int):
-    return get_module(cfg).cache_decls(cfg, batch, max_len)
+    mod = get_module(cfg)
+    if cfg.family == "ssm":
+        return mamba2.state_decls(cfg, batch, max_len)
+    return mod.cache_decls(cfg, batch, max_len)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                start_len: int = 0, *, device: DeviceArg = None):
-    """Zeroed KV cache in ``cfg.dtype``; ``len`` is a Python int."""
+    """Zeroed cache in ``cfg.dtype`` (every leaf, the SSM state too, as in
+    the reference); ``len`` is a Python int."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     c = {k: torch.zeros(d.shape, dtype=dtype, device=dev)
@@ -82,10 +90,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def forward(cfg: ModelConfig, params, batch, *, return_cache: bool = False,
             attn_impl=None, return_hidden: bool = False):
+    kw = {}
+    if return_hidden:        # transformer families only (chunked loss)
+        kw["return_hidden"] = True
     return get_module(cfg).forward(cfg, params, batch,
                                    return_cache=return_cache,
-                                   attn_impl=attn_impl,
-                                   return_hidden=return_hidden)
+                                   attn_impl=attn_impl, **kw)
 
 
 def decode(cfg: ModelConfig, params, cache, tokens):
@@ -96,8 +106,9 @@ def loss_fn(cfg: ModelConfig, params, batch, *, mesh=None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Next-token cross-entropy; labels == IGNORE_LABEL are masked.
 
-    ``cfg.logits_chunk > 0``: the (B, S, V) fp32 logits tensor is never
-    materialized, the head projection + softmax run in sequence chunks.
+    ``cfg.logits_chunk > 0`` (transformer families): the (B, S, V) fp32
+    logits tensor is never materialized, the head projection + softmax run
+    in sequence chunks.
     ``mesh`` (a ``dist.mesh.Mesh``; ``params`` a tree of
     ``dist.placement.Sharded``): the sharded forward and loss over the
     global batch (``dist/spmd.py``); the chunked loss raises there.
@@ -105,7 +116,7 @@ def loss_fn(cfg: ModelConfig, params, batch, *, mesh=None
     if mesh is not None:
         from repro_torch.dist import spmd
         return spmd.loss_fn(cfg, params, batch, spmd.check_mesh(mesh))
-    if cfg.logits_chunk:
+    if cfg.logits_chunk and cfg.family in transformer.FAMILIES:
         return _chunked_loss(cfg, params, batch)
     logits = forward(cfg, params, batch)
     nll_sum, n_tok, n_corr = masked_ce_sums(logits, batch["labels"])

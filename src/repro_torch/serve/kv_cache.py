@@ -2,7 +2,8 @@
 
 Cache layouts are declared by each model family (``model.cache_decls``):
 stacked-over-layers (L, B, S, K, hd) tensors, ring buffers capped at the
-window for SWA archs, plus ``len``: a Python int from ``forward``, a
+window for SWA archs, constant (L, B, H, P, N) SSM and (L, B, 3, C) conv
+states for the state-space families, plus ``len``: a Python int from ``forward``, a
 device tensor in the servers' decode state (``serve_step.decode_state``).
 """
 from __future__ import annotations

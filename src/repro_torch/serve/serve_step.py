@@ -11,7 +11,10 @@ body (``prefill_on_device``) writes its K/V, length and first token into
 rows of that state, and a decode step's (``decode_on_device``) reads and
 writes it in place; neither syncs with the host, so ``GraphedPrefill``
 captures a prefill once per prompt shape and ``GraphedDecodeStep`` a
-decode step once per batch size, and both replay.  ``cache_specs`` is the
+decode step once per batch size, and both replay.  The state holds the
+family's cache leaves (``model.cache_decls``: ``k``/``v`` for attention,
+``ssm``/``conv`` for the state-space families, all four for the hybrid),
+the batch their dim 1.  ``cache_specs`` is the
 reference's cache layout on a mesh (a plain copy); the servers run on one
 device.
 """
@@ -26,6 +29,7 @@ import torch
 from repro_torch import graphs
 from repro_torch.device import device_of
 from repro_torch.dist import sharding as shd
+from repro_torch.models import mamba2
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve import kv_cache
@@ -88,30 +92,47 @@ def make_decode(cfg: ModelConfig) -> Callable:
 
 # --- the served decode step: static buffers, device body, CUDA graphs -------------
 
+def cache_keys(state: Dict[str, torch.Tensor]) -> List[str]:
+    """The cache leaves of a decode state (every key but ``len`` and
+    ``cur``), in the state's order."""
+    return [k for k in state if k not in ("len", "cur")]
+
+
 def decode_state(cfg: ModelConfig, rows: int, max_len: int, *,
                  per_row: bool, device) -> Dict[str, torch.Tensor]:
-    """Static buffers of a served decode: ``k``, ``v`` (``init_cache``),
-    ``len`` (int64: 0-d for a lockstep batch, ``(rows,)`` per row, at 1)
-    and ``cur`` ((rows, 1) int64, the tokens the next step reads)."""
+    """Static buffers of a served decode: the cache's leaves
+    (``init_cache``, in ``cfg.dtype``, but ``ssm`` in fp32: a decode step
+    carries the SSM state in fp32, as the reference's does, and writes it
+    in place), ``len`` (int64: 0-d for a lockstep batch, ``(rows,)`` per
+    row, at 1) and ``cur`` ((rows, 1) int64, the tokens the next step
+    reads)."""
     cache = model_lib.init_cache(cfg, rows, max_len, device=device)
+    state = {k: v for k, v in cache.items() if k != "len"}
+    if "ssm" in state:
+        state["ssm"] = state["ssm"].float()
     shape = (rows,) if per_row else ()
-    return {"k": cache["k"], "v": cache["v"],
-            "len": torch.ones(shape, dtype=torch.int64, device=device),
-            "cur": torch.zeros((rows, 1), dtype=torch.int64, device=device)}
+    state["len"] = torch.ones(shape, dtype=torch.int64, device=device)
+    state["cur"] = torch.zeros((rows, 1), dtype=torch.int64, device=device)
+    return state
 
 
 def rows_of(state: Dict[str, torch.Tensor], n: int) -> Dict[str, torch.Tensor]:
     """The first ``n`` rows of a decode state, as views of its buffers."""
     ln = state["len"]
-    return {"k": state["k"][:, :n], "v": state["v"][:, :n],
-            "len": ln if ln.dim() == 0 else ln[:n], "cur": state["cur"][:n]}
+    out = {k: state[k][:, :n] for k in cache_keys(state)}
+    out["len"] = ln if ln.dim() == 0 else ln[:n]
+    out["cur"] = state["cur"][:n]
+    return out
 
 
 def prefill_on_device(cfg: ModelConfig, params,
                       state: Dict[str, torch.Tensor], tokens: torch.Tensor,
                       rows: Union[int, torch.Tensor]) -> torch.Tensor:
     """One served prefill's device body: ``make_prefill`` on ``tokens``
-    (B, S), its K/V written into rows of ``state`` from slot 0, in place,
+    (B, S), its cache written into rows of ``state`` (K/V from slot 0), in
+    place (an SSM state rounded to ``cfg.dtype`` first: the reference's
+    ``grow_cache`` casts it into its ``cfg.dtype`` buffer, and its decode
+    carries it in fp32 from there, as the state's fp32 buffer does),
     those rows' ``len`` set to S and the greedy first token written into
     their ``cur``.  ``rows`` is an int ``B`` (the prefix ``[0, B)``, as
     ``rows_of`` gives it: the static server) or a (B,) int64 tensor of row
@@ -121,18 +142,22 @@ def prefill_on_device(cfg: ModelConfig, params,
     temporary.  It reads no value on the host, copies nothing to or from
     it and branches on no tensor's value, so a CUDA graph can capture it."""
     logits, cache = make_prefill(cfg)(params, {"tokens": tokens})
+    if "ssm" in cache:
+        cache = mamba2.round_state(cfg, cache)
     logits = logits.clone()
     first = torch.argmax(logits, dim=-1)[:, None]
+    keys = cache_keys(state)
     if isinstance(rows, torch.Tensor):
-        n = cache["k"].shape[2]
-        for key in ("k", "v"):
-            dst = state[key][:, :, :n]
-            dst.index_copy_(1, rows, cache[key].to(dst.dtype))
+        for key in keys:
+            src = cache[key]
+            dst = state[key][(slice(None), slice(None)) + tuple(
+                slice(0, d) for d in src.shape[2:])]
+            dst.index_copy_(1, rows, src.to(dst.dtype))
         state["len"].index_fill_(0, rows, cache["len"])
         state["cur"].index_copy_(0, rows, first)
     else:
         view = rows_of(state, rows)
-        kv_cache.grow_cache(cache, {"k": view["k"], "v": view["v"]})
+        kv_cache.grow_cache(cache, {k: view[k] for k in keys})
         view["len"].fill_(cache["len"])
         view["cur"].copy_(first)
     return logits
@@ -141,14 +166,15 @@ def prefill_on_device(cfg: ModelConfig, params,
 def decode_on_device(cfg: ModelConfig, params,
                      state: Dict[str, torch.Tensor]) -> torch.Tensor:
     """One decode step's device body on ``state`` (``rows_of`` views):
-    each row's new K/V row goes into the cache, ``len + 1`` into ``len``
+    each row's new K/V row (and SSM and conv state) goes into the cache,
+    ``len + 1`` into ``len``
     and the greedy next token into ``cur``, all in place.  Returns the
     last-position logits (B, V).  It reads no value on the host, copies
     nothing to or from it and branches on no tensor's value, so a CUDA
     graph can capture it."""
-    logits, new = model_lib.decode(
-        cfg, params, {"k": state["k"], "v": state["v"], "len": state["len"]},
-        state["cur"])
+    cache = {k: state[k] for k in cache_keys(state)}
+    cache["len"] = state["len"]
+    logits, new = model_lib.decode(cfg, params, cache, state["cur"])
     logits = logits[:, -1]
     state["len"].copy_(new["len"])
     state["cur"].copy_(torch.argmax(logits, dim=-1)[:, None])
@@ -363,7 +389,7 @@ class BatchedServer:
         gather copies first, so no row is read after it was written."""
         idx = torch.tensor(live, device=self.device)
         n = len(live)
-        for key in ("k", "v"):
+        for key in cache_keys(self.state):
             buf = self.state[key]
             buf[:, :n].copy_(buf[:, idx])
         cur = self.state["cur"]
@@ -373,8 +399,10 @@ class BatchedServer:
         b = len(reqs)
         plen = max(len(r.prompt) for r in reqs)
         steps = max(r.max_new_tokens for r in reqs) - 1
-        size = self.state["k"].shape[2]
-        if not self.cfg.window and plen + steps > size:
+        # a state-space cache has no slots to run past (the reference's
+        # state ignores max_len)
+        size = self.state["k"].shape[2] if "k" in self.state else None
+        if size is not None and not self.cfg.window and plen + steps > size:
             raise ValueError(f"BatchedServer: a {plen}-token prompt and "
                              f"{steps} decode steps write past the cache's "
                              f"{size} slots (max_len)")

@@ -2045,3 +2045,119 @@ def test_moe_servers_and_train_step_graphed_equal_eager(cuda):
         _, _, em = eager(ep, es, ds.batch(i))
         _, _, gm = graphed(gp, gs, ds.batch(i))
         assert torch.equal(gm["loss"], em["loss"]), i
+
+
+# --- the state-space families (mamba2, the zamba2 hybrid) --------------------------
+
+def _ssm_cfgs(dtype):
+    """Reduced mamba2 and zamba2 (the hybrid at 2 and 4 layers: one and
+    two applications of its shared block) in ``dtype``."""
+    out = []
+    for arch, layers in (("mamba2_130m", 2), ("zamba2_2_7b", 2),
+                         ("zamba2_2_7b", 4)):
+        out.append(dataclasses.replace(get_config(arch).reduced(),
+                                       n_layers=layers, dtype=dtype,
+                                       param_dtype=dtype))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_servers_graphed_equal_eager(cuda, dtype):
+    """``BatchedServer`` graphed and eager give the same tokens, and each
+    prefill launches the SSD kernel once a layer (the hybrid's attention
+    kernel once an application)."""
+    from repro_torch.serve.serve_step import BatchedServer, Request
+    for cfg in _ssm_cfgs(dtype):
+        params = tm.init(cfg, 0)
+        outs, counts = [], []
+        for graphed in (None, False):
+            gen = torch.Generator().manual_seed(2)
+            reqs = [Request(rid=i, prompt=torch.randint(
+                0, cfg.vocab_size, (n,), generator=gen).numpy(),
+                max_new_tokens=m) for i, (n, m) in enumerate(
+                    ((20, 8), (37, 3), (9, 6)))]
+            ops.reset_launches()
+            BatchedServer(cfg, params, max_len=64, batch_size=2,
+                          graphed=graphed).run(reqs)
+            outs.append([r.output for r in reqs])
+            counts.append(dict(ops.LAUNCHES))
+        assert outs[0] == outs[1], cfg.name
+        groups = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+        for c in counts:
+            assert c["ssd_scan"] == 2 * cfg.n_layers, (cfg.name, c)
+            assert c["flash_attention"] == 2 * groups, (cfg.name, c)
+
+
+def test_ssd_routes_agree_on_the_card(cuda):
+    """fp32 prefills through the SSD kernel and through ``ssd_chunked``:
+    logits within 1e-3, final states within 1e-4 (mamba2-130m's SSD
+    geometry at 2 layers and 512 tokens; the reduced hybrid at 4)."""
+    from repro_torch.models import mamba2
+    cfgs = [dataclasses.replace(get_config("mamba2_130m"), n_layers=2,
+                                dtype="float32", param_dtype="float32"),
+            _ssm_cfgs("float32")[2]]
+    for cfg in cfgs:
+        params = tm.init(cfg, 0)
+        toks = torch.randint(0, cfg.vocab_size, (2, 512), device="cuda",
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(3))
+        mod = tm.get_module(cfg)
+        with torch.no_grad():
+            ops.reset_launches()
+            lk, ck = mod.forward(cfg, params, {"tokens": toks},
+                                 return_cache=True, ssd_impl="kernel")
+            assert ops.LAUNCHES["ssd_scan"] == cfg.n_layers
+            lc, cc = mod.forward(cfg, params, {"tokens": toks},
+                                 return_cache=True, ssd_impl="chunked")
+            assert ops.LAUNCHES["ssd_scan"] == cfg.n_layers
+        assert (lk[:, -1] - lc[:, -1]).abs().max().item() <= 1e-3
+        assert (ck["ssm"] - cc["ssm"]).abs().max().item() <= 1e-4
+        assert mamba2.pick_ssd_impl(toks.device, prefill=True,
+                                    grad=False) == "kernel"
+
+
+@pytest.mark.parametrize("fn", ["ssd_scan", "rmsnorm", "add"])
+def test_forward_only_wrappers_raise_under_autograd(cuda, fn):
+    x = _rand(cuda, 2, 64, 3, 16, dtype=torch.float32)
+    dt = 0.1 * torch.rand(2, 64, 3, generator=cuda, device="cuda")
+    a = -0.5 - torch.rand(3, generator=cuda, device="cuda")
+    b = _rand(cuda, 2, 64, 8, dtype=torch.float32)
+    rows = _rand(cuda, 8, 64, dtype=torch.float32)
+    sc = torch.ones(64, device="cuda")
+    call = {"ssd_scan": lambda t: ops.ssd_scan(t, dt, a, b, b, chunk=32),
+            "rmsnorm": lambda t: ops.rmsnorm(t, sc),
+            "add": lambda t: ops.add(t, rows)}[fn]
+    base = x if fn == "ssd_scan" else rows
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="has no backward"):
+        call(base.clone().requires_grad_())
+    assert ops.LAUNCHES[fn] == 0
+    with torch.no_grad():
+        call(base.clone().requires_grad_())
+    assert ops.LAUNCHES[fn] == 1
+
+
+def test_ssm_train_steps_graphed_equal_eager(cuda):
+    """The graphed train step's losses equal the eager step's for both
+    families (bf16); the train path takes the chunked SSD: no SSD kernel
+    launch."""
+    from repro_torch.train import data as tdata
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+    for cfg in _ssm_cfgs("bfloat16")[::2]:
+        cfg = dataclasses.replace(cfg, remat="full", attn_impl="auto")
+        ds = tdata.SyntheticDataset(cfg, tdata.DataConfig(
+            seq_len=64, global_batch=4, num_microbatches=2))
+        ocfg = topt.OptimizerConfig(lr=1e-3, warmup_steps=2)
+        ep, gp = tm.init(cfg, 0), tm.init(cfg, 0)
+        es, gs = topt.init_state(ep), topt.init_state(gp)
+        eager = tts.make_train_step(cfg, ocfg)
+        graphed = tts.make_graphed_train_step(cfg, ocfg, gp, gs,
+                                              ds.batch(0))
+        ops.reset_launches()
+        for i in range(3):
+            _, _, em = eager(ep, es, ds.batch(i))
+            _, _, gm = graphed(gp, gs, ds.batch(i))
+            assert torch.equal(gm["loss"], em["loss"]), (cfg.name, i)
+            assert torch.isfinite(gm["grad_norm"])
+        assert ops.LAUNCHES["ssd_scan"] == 0

@@ -94,7 +94,7 @@ def test_unported_archs_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tm.get_module(tget("internvl2_26b"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tm.init(tget("mamba2-130m"), 0, device="cpu")
+        tm.init(tget("whisper_tiny"), 0, device="cpu")
     with pytest.raises(KeyError):
         tget("no_such_arch")
     with pytest.raises(NotImplementedError):

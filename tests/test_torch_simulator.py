@@ -196,11 +196,19 @@ def test_kv_cache_bytes_equal_dense(batch, ctx, page):
 
 
 def test_kv_cache_bytes_raises_for_an_unported_family():
-    """The reference prices a mamba2 cache from its model's declarations;
-    the port has no such model yet and raises as its ``get_module`` does."""
-    assert jmem.kv_cache_bytes(jget("mamba2-130m"), 1, 64) > 0
+    """The state-space families are priced as the reference prices them
+    (``==``, three contexts; mamba2's state constant in context), from the
+    models' declarations; an unported family (whisper's encdec) raises as
+    its ``get_module`` does."""
+    for arch in ("mamba2-130m", "zamba2-2.7b"):
+        got = [tmem.kv_cache_bytes(tget(arch), 2, ctx) for ctx in
+               (64, 549, 4096)]
+        assert got == [jmem.kv_cache_bytes(jget(arch), 2, ctx)
+                       for ctx in (64, 549, 4096)]
+        assert (len(set(got)) == 1) == (arch == "mamba2-130m")
+    assert jmem.kv_cache_bytes(jget("whisper-tiny"), 1, 64) > 0
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tmem.kv_cache_bytes(tget("mamba2-130m"), 1, 64)
+        tmem.kv_cache_bytes(tget("whisper-tiny"), 1, 64)
 
 
 # --- the paged cache's page budget ------------------------------------------------
