@@ -264,7 +264,7 @@ Phases, each printed as it runs; any failure exits non-zero:
    ssm train mamba2-130m at 24 layers on 8 x 1024 tokens in 2
              microbatches, then zamba2-2.7b at 12 layers on 4 x 1024:
              eager and graphed steps from the same weights on the same
-             batches (losses equal; bit for bit reported), finite loss
+             batches (losses equal bit for bit), finite loss
              and gradient norm over 3 steps at the published init,
              ``step_wall_ms``, ``step_device_ms``, ``tokens_per_s`` and
              peak memory.  The train path takes the differentiable
@@ -277,6 +277,34 @@ Phases, each printed as it runs; any failure exits non-zero:
              (``more``), and checks that ``ops.ssd_scan``, ``ops.rmsnorm``
              and ``ops.add`` raise on the card where a gradient would be
              taken.
+   vlm serve internvl2-26b at published widths and all 48 layers (19.86
+             B params, bf16), 256 zero patches before each prompt as the
+             reference's server gives them: [serve]'s 16 requests,
+             graphed and eager after a warm run, equal tokens,
+             ``steady_tok_s``; the attention kernel and the fused norm
+             48 launches each a prefill, nothing else; the first batch's
+             prefill and decode steps in turns.  An fp32 prefill at 2
+             layers (``VLM_ROUTE_SHAPE`` after the patches): the kernel
+             route against chunked attention and the plain norm, logits
+             within ``VLM_F32_TOL``.
+   encdec serve  whisper-tiny at its published size (4 + 4 layers,
+             1500 frames, bf16), zero frames: the same requests graphed
+             and eager, equal tokens, 0 kernel launches (its attention is
+             naive or chunked by length, as the reference's); the
+             first batch in turns; fp32 on the card against the port's
+             CPU forward of the same weights (seeded frames): logits, the
+             prefill cache and 3 decode steps within ``ENCDEC_F32_TOL``.
+   vlm train internvl2-26b at 2 layers (1.92 B params), 4 x 1024
+             positions (256 patches, labels masked) in 2 microbatches,
+             full remat; whisper-tiny (``encdec train``) at all layers,
+             8 x 448 tokens over 1500 frames in 2 microbatches: the
+             graphed step against the eager one from the same weights on
+             the same batches, losses bit for bit and finite over 3
+             steps, step wall and device ms, tokens/s, peaks; internvl2's
+             graph launches the attention and fused-norm kernels forward
+             2 and backward 1 a layer a microbatch, whisper none.  Phase
+             3 holds the attention and norm kernels at the vlm paths'
+             shapes (``vlm_*``).
 9. plan      Sailor's planner and simulator priced by the card: the
              ``"H100"`` entry fitted as ``measured.calibrate_cpu_host``
              fits it (``measure_block``'s one-layer forward and gradient
@@ -320,7 +348,8 @@ Phases, each printed as it runs; any failure exits non-zero:
              the bound and the 16384-row case (``rows16384``).
 
 Each of phases 5-9 (serve continuous, pipeline, its mesh stages, mesh,
-elastic, manager's two paths, autotune and the three MoE phases too) is
+elastic, manager's two paths, autotune, the three MoE, the three
+state-space and the four stubbed-frontend phases too) is
 a main path: the launch
 counts are set to 0 just before it and read just after, and each kernel
 must have launched on the path that runs it.  Phase 3 also holds the two backward kernels
@@ -387,7 +416,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
-from repro_torch.serve import serve_step  # noqa: E402
+from repro_torch.serve import kv_cache, serve_step  # noqa: E402
 from repro_torch.serve.scheduler import (ContinuousBatchingServer,  # noqa: E402
                                          ServerStats, _next_pow2)
 from repro_torch.serve.serve_step import BatchedServer, Request  # noqa: E402
@@ -614,6 +643,20 @@ HYBRID_TRAIN_DATA = dict(seq_len=1024, global_batch=4, num_microbatches=2)
 HYBRID_TRAIN_LAYERS = 12     # two applications of the shared block
 SSM_TRAIN_STEPS = 3
 SSM_TIMED = 3           # graphed replays timed after the compared steps
+# the stubbed-frontend phases ([vlm serve], [encdec serve], [vlm train],
+# [encdec train]): internvl2-26b (arXiv:2404.16821) and whisper-tiny
+# (arXiv:2212.04356) at published widths, zero patches or frames served
+VLM_ARCH, ENCDEC_ARCH = "internvl2_26b", "whisper_tiny"
+# internvl2's fp32 prefill logits, the kernel route (attention kernel and
+# fused norm) against the chunked attention and plain norm, 2 layers
+VLM_ROUTE_LAYERS, VLM_ROUTE_SHAPE = 2, (2, 512)
+VLM_F32_TOL = MIXTRAL_F32_TOL
+# whisper fp32 on the card against the port's CPU forward of the same
+# weights: logits, the prefill cache and 3 decode steps
+ENCDEC_F32_TOL, ENCDEC_CHECK_SHAPE, ENCDEC_CHECK_STEPS = 1e-4, (2, 64), 3
+VLM_TRAIN_LAYERS = 2    # 1.92 B params: their AdamW state fits beside them
+VLM_TRAIN_DATA = dict(seq_len=1024, global_batch=4, num_microbatches=2)
+ENCDEC_TRAIN_DATA = dict(seq_len=448, global_batch=8, num_microbatches=2)
 
 
 def log(msg: str) -> None:
@@ -1375,6 +1418,23 @@ def moe_norm_rows():
            MIXTRAL_ROWS * MIXTRAL_PROMPT, False)
 
 
+def vlm_shapes():
+    """(label, batch, seq, dtype, backward) of the attention on the vlm
+    paths (internvl2-26b's 48/8 heads of 128 over its 256 patches and the
+    text): [vlm serve]'s prefills at [serve]'s batch lengths, its fp32
+    route check's (forward), [vlm train]'s microbatch (both directions).
+    Their fused norms run at batch x seq rows of d_model 6144."""
+    cfg = get_config(VLM_ARCH)
+    p = cfg.n_patches
+    for s in sorted(set(batch_lengths(serve_requests(cfg, 0, N_REQUESTS)))):
+        yield (f"vlm_serve_s{p + s}", BATCH, p + s, torch.bfloat16, False)
+    b, s = VLM_ROUTE_SHAPE
+    yield (f"vlm_route_f32_s{p + s}", b, p + s, torch.float32, False)
+    yield ("vlm_train", VLM_TRAIN_DATA["global_batch"]
+           // VLM_TRAIN_DATA["num_microbatches"], VLM_TRAIN_DATA["seq_len"],
+           torch.bfloat16, True)
+
+
 def mesh_shapes():
     """(label, local batch, query heads, KV heads, dtype) of the attention
     each position of a mesh runs at [train]'s seq, its norms at local
@@ -1492,6 +1552,11 @@ def phase_kernels(main_lens):
     for label, mb_, s_, hq, hk, dt, _ in moe_shapes():
         attn.append(attention_case(gen, label, mb_, s_, s_, hq, hk, moe_d,
                                    True, dt))
+    # the vlm paths' (internvl2: head dim 128, GQA 6, patches + text)
+    vcfg = get_config(VLM_ARCH)
+    for label, b_, s_, dt, _ in vlm_shapes():
+        attn.append(attention_case(gen, label, b_, s_, s_, vcfg.n_heads,
+                                   vcfg.n_kv_heads, vcfg.hd, True, dt))
     attn += [
         attention_case(gen, "ragged_s509", BATCH, 509, 509, h, kh, d, True,
                        bf16),
@@ -1569,6 +1634,9 @@ def phase_kernels(main_lens):
     moe_dm = get_config("dbrx_132b").d_model
     for label, n, _ in moe_norm_rows():
         norm.append(fused_case(gen, label, n, moe_dm, bf16))
+    for label, b_, s_, dt, _ in vlm_shapes():
+        norm.append(fused_case(gen, f"{label}_rows{b_ * s_}", b_ * s_,
+                               vcfg.d_model, dt))
     norm += [fused_case(gen, "ragged_rows4071", 4071, dm, bf16),
              fused_case(gen, "f32_rows1000", 1000, dm, f32),
              fused_case(gen, "f32_4096x512", 4096, 512, f32),
@@ -1739,6 +1807,12 @@ def phase_kernels(main_lens):
             abwd.append(attention_bwd_case(gen, label, mb_, s_, s_, hq, hk,
                                            get_config("dbrx_132b").hd, True,
                                            dt))
+    vcfg = get_config(VLM_ARCH)
+    for label, b_, s_, dt, bwd in vlm_shapes():
+        if bwd:
+            abwd.append(attention_bwd_case(gen, label, b_, s_, s_,
+                                           vcfg.n_heads, vcfg.n_kv_heads,
+                                           vcfg.hd, True, dt))
     # [ssm train]'s hybrid microbatch: the shared block at head dim 80
     hcfg = get_config(HYBRID_ARCH)
     hmb = HYBRID_TRAIN_DATA["global_batch"] // \
@@ -1794,6 +1868,10 @@ def phase_kernels(main_lens):
         if bwd:
             nbwd.append(fused_bwd_case(gen, label, n,
                                        get_config("dbrx_132b").d_model, bf16))
+    for label, b_, s_, dt, bwd in vlm_shapes():
+        if bwd:
+            nbwd.append(fused_bwd_case(gen, f"{label}_rows{b_ * s_}",
+                                       b_ * s_, vcfg.d_model, dt))
     nbwd[0]["rows16384"] = {key: nbwd[1][key] for key in (
         "shape", "plan", "ms", "bound_ms", "share_of_bound", "plain_ms",
         "max_abs_err")}
@@ -4337,17 +4415,24 @@ def _ssm_params(cfg, label: str):
     return params
 
 
+def _serve_len(cfg) -> int:
+    """The servers' ``max_len``: the longest prompt, the new tokens and 8,
+    and before them a vlm's patch positions (``launch.serve``'s sizing)."""
+    patches = cfg.n_patches if cfg.family == "vlm" else 0
+    return patches + PROMPT_MAX + MAX_NEW + 8
+
+
 def _serve_ssm(label, cfg, params, reqs, per_prefill: dict) -> dict:
     """``BatchedServer`` graphed and eager on ``reqs``, each after a warm
     run on the same requests (the timed graphed run replays every prefill
     and decode graph): equal tokens, ``steady_tok_s``, and each timed
     run's launches, which must be ``per_prefill`` a prefill and nothing
-    else."""
+    else (the state-space and the stubbed-frontend phases)."""
     n_prefill = -(-len(reqs) // BATCH)
     out, runs = {}, {}
     for graphed in (None, False):
         name = "graphed" if graphed is None else "eager"
-        server = BatchedServer(cfg, params, max_len=PROMPT_MAX + MAX_NEW + 8,
+        server = BatchedServer(cfg, params, max_len=_serve_len(cfg),
                                batch_size=BATCH, graphed=graphed)
         server.run(_fresh_requests(reqs))
         got = _fresh_requests(reqs)
@@ -4390,12 +4475,13 @@ def _ssm_turns(label, cfg, params, reqs) -> dict:
     toks = np.zeros((len(batch), plen), np.int64)
     for i, r in enumerate(batch):
         toks[i, plen - len(r.prompt):] = r.prompt
-    state = serve_step.decode_state(cfg, BATCH, PROMPT_MAX + MAX_NEW + 8,
+    state = serve_step.decode_state(cfg, BATCH, _serve_len(cfg),
                                     per_row=False, device="cuda")
     pre = _prefill_in_turns(label, cfg, params, serve_step.GraphedPrefill(
         cfg, params, state), state, toks)
+    held = int(state["len"])        # the prefill's positions, patches too
     dec = _decode_in_turns(cfg, params, serve_step.GraphedDecodeStep(
-        cfg, params, state), state, len(batch), plen, label)
+        cfg, params, state), state, len(batch), held, label)
     row = dict(prefill_shape=list(toks.shape),
                prefill_graphed_ms=pre["graphed_ms"],
                prefill_eager_ms=pre["eager_ms"],
@@ -4498,12 +4584,13 @@ def phase_hybrid_serve() -> dict:
     return launches
 
 
-def _ssm_train_case(cfg, data: dict) -> dict:
+def _ssm_train_case(cfg, data: dict, label: str = "ssm train") -> dict:
     """Eager steps from seeded weights, then the graphed step
     (``make_graphed_train_step``) from the same weights on the same
     batches (one copy of the model at a time), SSM_TRAIN_STEPS each:
-    losses compared (bit for bit reported), loss and gradient norm finite
-    at every step, the graphed steps timed."""
+    losses equal bit for bit, loss and gradient norm finite at every
+    step, the graphed steps timed; ``capture_launches`` the graph's
+    launches a step (the state-space and the stubbed-frontend phases)."""
     dc = data_lib.DataConfig(**data)
     ocfg = opt_lib.OptimizerConfig(**TRAIN_OPT)
     ds = data_lib.SyntheticDataset(cfg, dc)
@@ -4542,15 +4629,15 @@ def _ssm_train_case(cfg, data: dict) -> dict:
     g_peak = torch.cuda.max_memory_allocated()
     vals = [x[k].item() for x in eager + graphed for k in x]
     if not all(np.isfinite(vals)):
-        raise AssertionError(f"[ssm train] {cfg.name}: non-finite loss or "
+        raise AssertionError(f"[{label}] {cfg.name}: non-finite loss or "
                              f"gradient norm {vals}")
     same = all(torch.equal(a["loss"], b["loss"])
                for a, b in zip(eager, graphed))
     diff = max((a["loss"] - b["loss"]).abs().item()
                for a, b in zip(eager, graphed))
-    if not diff <= 1e-3 * abs(eager[0]["loss"].item()):
-        raise AssertionError(f"[ssm train] {cfg.name}: graphed losses differ "
-                             f"from eager by {diff}")
+    if not same:
+        raise AssertionError(f"[{label}] {cfg.name}: graphed losses differ "
+                             f"from eager by {diff}: not bit for bit")
     # graphed: SSM_TIMED replays after the compared steps (the first of
     # those ran eagerly, the second captured); eager: steps 2.. (step 1
     # builds and loads)
@@ -4569,8 +4656,10 @@ def _ssm_train_case(cfg, data: dict) -> dict:
         eager_step_device_ms=statistics.median(e_dev[1:]),
         eager_tokens_per_s=tokens / (statistics.median(e_wall[1:]) / 1e3),
         resident_bytes=resident, eager_peak_mem_gib=e_peak / 2**30,
-        graphed_peak_mem_gib=g_peak / 2**30, capture_s=g.capture_seconds)
-    log(f"[ssm train] {json.dumps(stats)}")
+        graphed_peak_mem_gib=g_peak / 2**30, capture_s=g.capture_seconds,
+        capture_launches={k: v for k, v in g.capture_launches.items()
+                          if v})
+    log(f"[{label}] {json.dumps(stats)}")
     profile_window(f"{cfg.name}_train_step", lambda: g(params, state,
                                                        batches[-1]),
                    wall, 1)
@@ -4599,6 +4688,205 @@ def phase_ssm_train() -> dict:
                              f"path: mamba2 {mamba}, both {launches}")
     _path_launches("ssm train", ("flash_attention", "flash_attention_bwd"))
     log(f"[ssm train] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+def _vlm_route_check(cfg, params) -> dict:
+    """internvl2's fp32 prefill logits at VLM_ROUTE_SHAPE tokens after its
+    patches (seeded, std 0.02 as the train data's): the kernel route (the
+    attention kernel and the fused add + RMSNorm) against
+    ``attn_impl="chunked"`` with the plain norm, on the same weights;
+    within VLM_F32_TOL (the same fp32 terms summed in other orders)."""
+    rng = np.random.default_rng(5)
+    b, s = VLM_ROUTE_SHAPE
+    batch = {"tokens": torch.from_numpy(
+                 rng.integers(0, cfg.vocab_size, (b, s))).cuda(),
+             "patches": torch.from_numpy(0.02 * rng.standard_normal(
+                 (b, cfg.n_patches, cfg.d_model)).astype(np.float32)).cuda()}
+    res = {}
+    with torch.no_grad():
+        for impl in ("kernel", "chunked"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[impl] = model_lib.forward(cfg, params, batch, attn_impl=impl)
+            torch.cuda.synchronize()
+            res[impl + "_ms"] = (time.perf_counter() - t0) * 1e3
+    err = (res["kernel"] - res["chunked"]).abs()
+    row = dict(shape=list(res["kernel"].shape), layers=cfg.n_layers,
+               dtype=cfg.dtype, max_abs_diff=err.max().item(),
+               last_token_max_abs_diff=err[:, -1].max().item(),
+               logits_spread=res["chunked"].std().item(),
+               kernel_route_wall_ms=res["kernel_ms"],
+               chunked_route_wall_ms=res["chunked_ms"], tol=VLM_F32_TOL)
+    log(f"[vlm serve] fp32 prefill, kernel route vs chunked attention + "
+        f"plain norm: {json.dumps(row)}")
+    if not row["max_abs_diff"] <= VLM_F32_TOL:
+        raise AssertionError(f"[vlm serve] the fp32 routes differ by "
+                             f"{row['max_abs_diff']} (tol {VLM_F32_TOL})")
+    return row
+
+
+def phase_vlm_serve() -> dict:
+    """internvl2-26b served at published widths and all 48 layers, bf16,
+    on [serve]'s requests with the reference server's 256 zero patches
+    before each prompt (``[vlm serve]``): graphed and eager with equal
+    tokens, each timed run launching the attention kernel and the fused
+    norm once a layer a prefill and nothing else; the first batch's
+    prefill and decode steps in turns; then the fp32 route check at
+    VLM_ROUTE_LAYERS layers.  A main path for both prefill kernels."""
+    t_phase = time.perf_counter()
+    log(f"[vlm serve] allocated at the start: {_release() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(VLM_ARCH)
+    params = _ssm_params(cfg, "vlm serve")
+    reqs = serve_requests(cfg, 0, N_REQUESTS)
+    _serve_ssm("vlm serve", cfg, params, reqs,
+               {name: cfg.n_layers for name in SERVE_KERNELS})
+    # the servers' launches, read before the checks launch their own
+    launches = _path_launches("vlm serve", SERVE_KERNELS)
+    log(f"[vlm serve] in turns: "
+        f"{json.dumps(_ssm_turns('vlm serve', cfg, params, reqs))}")
+    del params
+    _release()
+    f32 = dataclasses.replace(cfg, n_layers=VLM_ROUTE_LAYERS,
+                              dtype="float32", param_dtype="float32")
+    _vlm_route_check(f32, model_lib.init(f32, 0, device="cuda"))
+    _release()
+    log(f"[vlm serve] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+def _encdec_cpu_check(cfg) -> dict:
+    """whisper fp32 on the card against the port's CPU forward of the same
+    weights, on seeded frames (std 1) and tokens of ENCDEC_CHECK_SHAPE:
+    logits, every prefill cache leaf, then ENCDEC_CHECK_STEPS decode steps
+    (logits each, the caches after) from the grown cache, all within
+    ENCDEC_F32_TOL."""
+    f32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    card = model_lib.init(f32, 0, device="cuda")
+    host = opt_lib.tree_unflatten([(k, v.cpu()) for k, v in
+                                   opt_lib.tree_leaves(card)])
+    rng = np.random.default_rng(6)
+    b, s = ENCDEC_CHECK_SHAPE
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (b, s))),
+             "frames": torch.from_numpy(rng.standard_normal(
+                 (b, cfg.n_frames, cfg.d_model)).astype(np.float32))}
+    nxt = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1)))
+           for _ in range(ENCDEC_CHECK_STEPS)]
+    worst: dict = {}
+
+    def run(params, dev):
+        out = []
+        with torch.no_grad():
+            logits, cache = model_lib.forward(
+                f32, params, {k: v.to(dev) for k, v in batch.items()},
+                return_cache=True)
+            out.append(("prefill logits", logits))
+            out += [(f"prefill {k}", cache[k]) for k in ("k", "v", "ck",
+                                                         "cv")]
+            cache = kv_cache.grow_cache(cache, model_lib.init_cache(
+                f32, b, s + ENCDEC_CHECK_STEPS, device=dev))
+            for i, t in enumerate(nxt):
+                logits, cache = model_lib.decode(f32, params, cache, t.to(dev))
+                out.append((f"decode {i} logits", logits))
+            out += [(f"decoded {k}", cache[k]) for k in ("k", "v")]
+        return out
+
+    t0 = time.perf_counter()
+    got = run(card, "cuda")
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = run(host, "cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    for (name, g), (_, w) in zip(got, want):
+        worst[name] = (g.cpu() - w).abs().max().item()
+    row = dict(shape=[b, s], frames=cfg.n_frames, max_abs_diff=worst,
+               logits_spread=want[0][1].std().item(), card_wall_ms=card_ms,
+               cpu_wall_ms=cpu_ms, tol=ENCDEC_F32_TOL)
+    log(f"[encdec serve] fp32 on the card vs the port on the CPU: "
+        f"{json.dumps(row)}")
+    bad = {k: v for k, v in worst.items() if not v <= ENCDEC_F32_TOL}
+    if bad:
+        raise AssertionError(f"[encdec serve] card vs CPU past "
+                             f"{ENCDEC_F32_TOL}: {bad}")
+    return row
+
+
+def phase_encdec_serve() -> dict:
+    """whisper-tiny served at its published size (4 + 4 layers, 1500
+    frames), bf16, on [serve]'s requests with the reference server's zero
+    frames (``[encdec serve]``): graphed and eager with equal tokens and
+    no kernel launch (the family's attention is naive or chunked by
+    length, in the reference too); the first batch's prefill and decode
+    steps in turns; then fp32 on the card against the CPU."""
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    log(f"[encdec serve] allocated at the start: "
+        f"{_release() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(ENCDEC_ARCH)
+    params = _ssm_params(cfg, "encdec serve")
+    reqs = serve_requests(cfg, 0, N_REQUESTS)
+    _serve_ssm("encdec serve", cfg, params, reqs, {})
+    launches = dict(ops.LAUNCHES)
+    log(f"[encdec serve] in turns: "
+        f"{json.dumps(_ssm_turns('encdec serve', cfg, params, reqs))}")
+    del params
+    _release()
+    _encdec_cpu_check(cfg)
+    _release()
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"[encdec serve] kernel launches on a path "
+                             f"that runs none: {dict(ops.LAUNCHES)}")
+    log(f"[encdec serve] launches on the path: {json.dumps(launches)}")
+    log(f"[encdec serve] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+def phase_vlm_train() -> dict:
+    """internvl2-26b at published widths cut to VLM_TRAIN_LAYERS layers,
+    bf16, full remat (``[vlm train]``): 4 x 1024 positions (256 patches,
+    their labels masked, and 768 text tokens) in 2 microbatches, the
+    graphed step against the eager one from the same weights on the same
+    batches, losses bit for bit; the graph's launches a step are the
+    attention and fused-norm kernels, forward twice (remat) and backward
+    once a layer a microbatch."""
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    log(f"[vlm train] allocated at the start: {_release() / 2**30:.2f} GiB")
+    cfg = dataclasses.replace(get_config(VLM_ARCH),
+                              n_layers=VLM_TRAIN_LAYERS, remat="full")
+    stats = _ssm_train_case(cfg, VLM_TRAIN_DATA, "vlm train")
+    per = cfg.n_layers * VLM_TRAIN_DATA["num_microbatches"]
+    want = dict(flash_attention=2 * per, fused_add_rmsnorm=2 * per,
+                flash_attention_bwd=per, fused_add_rmsnorm_bwd=per)
+    if stats["capture_launches"] != want:
+        raise AssertionError(f"[vlm train] launches a step "
+                             f"{stats['capture_launches']}, expected {want}")
+    launches = _path_launches("vlm train", TRAIN_KERNELS)
+    log(f"[vlm train] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+def phase_encdec_train() -> dict:
+    """whisper-tiny at its published size, all layers, bf16, full remat
+    (``[encdec train]``): 8 x 448 text tokens over 1500 frames in 2
+    microbatches, the graphed step against the eager one, losses bit for
+    bit; no kernel launches."""
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    log(f"[encdec train] allocated at the start: "
+        f"{_release() / 2**30:.2f} GiB")
+    _ssm_train_case(get_config(ENCDEC_ARCH), ENCDEC_TRAIN_DATA,
+                    "encdec train")
+    launches = dict(ops.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"[encdec train] kernel launches on a path "
+                             f"that runs none: {launches}")
+    log(f"[encdec train] launches on the path: {json.dumps(launches)}")
+    log(f"[encdec train] phase seconds {time.perf_counter() - t_phase:.1f}")
     return launches
 
 
@@ -4944,6 +5232,10 @@ def main() -> int:
     ssm_serve_launches = phase_ssm_serve()
     hybrid_serve_launches = phase_hybrid_serve()
     ssm_train_launches = phase_ssm_train()
+    vlm_serve_launches = phase_vlm_serve()
+    encdec_serve_launches = phase_encdec_serve()
+    vlm_train_launches = phase_vlm_train()
+    encdec_train_launches = phase_encdec_train()
     plan_launches = phase_plan(cfg, train, table_path())
     # launches: each kernel's count on the main path that runs it, which
     # also runs the timed case's shape
@@ -4973,6 +5265,10 @@ def main() -> int:
             launches_ssm_serve=ssm_serve_launches.get(name, 0),
             launches_hybrid_serve=hybrid_serve_launches.get(name, 0),
             launches_ssm_train=ssm_train_launches.get(name, 0),
+            launches_vlm_serve=vlm_serve_launches.get(name, 0),
+            launches_encdec_serve=encdec_serve_launches.get(name, 0),
+            launches_vlm_train=vlm_train_launches.get(name, 0),
+            launches_encdec_train=encdec_train_launches.get(name, 0),
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

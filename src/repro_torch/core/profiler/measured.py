@@ -94,10 +94,21 @@ def one_layer(cfg: ModelConfig, dtype: str = "float32") -> ModelConfig:
 def block_batch(one: ModelConfig, mbs: int, seq_len: int,
                 device: DeviceArg = None) -> Dict[str, torch.Tensor]:
     """``measure_block``'s batch, the reference's: all-zero tokens and
-    labels (the port's models are dense, so no frames or patches)."""
+    labels, and the stubbed frontends' zero ``frames`` (encdec) or
+    ``patches`` (vlm, ``model.stub_inputs``).  A vlm's labels also cover
+    its ``n_patches`` patch positions, as ``IGNORE_LABEL`` (the train
+    data's layout): the reference's labels cover the text alone, so its
+    loss cannot broadcast them against the logits and its
+    ``measure_block`` raises on the family (ROADMAP §3, fault R10)."""
     dev = resolve_device(device)
-    return {k: torch.zeros((mbs, seq_len), dtype=torch.int32, device=dev)
-            for k in ("tokens", "labels")}
+    out = {k: torch.zeros((mbs, seq_len), dtype=torch.int32, device=dev)
+           for k in ("tokens", "labels")}
+    out.update(model_lib.stub_inputs(one, mbs, dev))
+    if one.family == "vlm":
+        ign = torch.full((mbs, one.n_patches), model_lib.IGNORE_LABEL,
+                         dtype=torch.int32, device=dev)
+        out["labels"] = torch.cat([ign, out["labels"]], dim=1)
+    return out
 
 
 def block_programs(one: ModelConfig, params, batch

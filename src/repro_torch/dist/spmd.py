@@ -57,31 +57,43 @@ from repro_torch.models.model import IGNORE_LABEL, masked_ce_sums
 MODEL = "model"
 
 
+# the families with sharded layers; the others run on one position only
+SHARDED_FAMILIES = ("dense", "moe")
+_MESH_ITEMS = {
+    "ssm": "The state-space families on a mesh",
+    "hybrid": "The state-space families on a mesh",
+    "encdec": "The encoder-decoder and vision-language families on a mesh",
+    "vlm": "The encoder-decoder and vision-language families on a mesh",
+}
+
+
 def check_family(cfg: ModelConfig, mesh: Mesh) -> None:
-    """The transformer families run on any mesh.  The state-space families
-    (ssm, hybrid) have no sharded layers yet: on a mesh of one position
-    they run the one-device model (``_one_position``), on a larger one they
-    raise: ROADMAP §1 item "The state-space families on a mesh" ports
-    them."""
-    if cfg.family not in T.FAMILIES and mesh.size != 1:
+    """The dense and MoE families run on any mesh.  The others (ssm,
+    hybrid, encdec, vlm) have no sharded layers yet: on a mesh of one
+    position they run the one-device model (``_one_position``), on a larger
+    one they raise, naming the ROADMAP §1 item that ports them."""
+    if cfg.family not in SHARDED_FAMILIES and mesh.size != 1:
         raise NotImplementedError(
             f"family {cfg.family!r} on a mesh of {mesh.size} positions is "
             f"not ported yet (dense and moe only; one position runs the "
-            f"one-device model; ROADMAP §1 item \"The state-space families "
-            f"on a mesh\")")
+            f"one-device model; ROADMAP §1 item "
+            f"\"{_MESH_ITEMS.get(cfg.family, cfg.family)}\")")
 
 
 def _one_position(cfg: ModelConfig, params, batch, mesh: Mesh,
                   attn_impl: Optional[str]):
     """A family without sharded layers on a mesh of one position: the
     one-device model on the position's blocks (each the whole tensor),
-    and the plain ``Layout``."""
+    the batch's ``tokens`` and any ``frames`` or ``patches``, and the
+    plain ``Layout``."""
     from repro_torch.models import model as model_lib
-    tokens = _local_batch(batch, mesh, "tokens")
     tree = pm.tree_map(lambda _, x: x.blocks[0], params)
-    logits = model_lib.forward(cfg, tree, {"tokens": tokens.blocks[0]},
+    local = {k: _local_batch(batch, mesh, k)
+             for k in ("tokens", "frames", "patches") if k in batch}
+    logits = model_lib.forward(cfg, tree, {k: x.blocks[0]
+                                           for k, x in local.items()},
                                attn_impl=attn_impl)
-    b = batch_spec(mesh, tokens.shape[0])[0]
+    b = batch_spec(mesh, local["tokens"].shape[0])[0]
     return [logits], Layout(tp=1, batch=pm.part_axes(b), heads=False,
                             kv=False, ff=False, experts=False,
                             vocab_embed=False, vocab_logits=False)
@@ -327,7 +339,7 @@ def forward(cfg: ModelConfig, params, batch, mesh: Mesh,
     out here by ``batch_spec``."""
     check_mesh(mesh)
     check_family(cfg, mesh)
-    if cfg.family not in T.FAMILIES:
+    if cfg.family not in SHARDED_FAMILIES:
         return _one_position(cfg, params, batch, mesh, attn_impl)
     if cfg.logits_chunk:
         raise NotImplementedError(

@@ -11,7 +11,12 @@ through the paged continuous-batching scheduler (``max_slots`` =
 ``--batch-size``, ``max_ctx`` = prompt + new tokens + 8) instead of the
 static lockstep batch; a request whose prompt bucket and decode steps
 would write past ``max_ctx`` raises (``ContinuousBatchingServer.submit``).
-The weights are seeded random numbers at the config's widths.
+The weights are seeded random numbers at the config's widths.  A vlm
+config's cache also holds its ``n_patches`` patch positions, so its
+``max_len`` is ``n_patches`` + prompt + new tokens + 8 (the reference's
+omits the patches and fails in its ``grow_cache``: ROADMAP §3, fault R9);
+encdec and vlm prompts come with the zero frames or patches that the
+reference's server gives them.
 """
 from __future__ import annotations
 
@@ -62,6 +67,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     params = model_lib.init(cfg, 0, device=args.device)
     device = torch.device(args.device)
     max_len = args.prompt_len + args.max_new + 8
+    if cfg.family == "vlm":
+        max_len += cfg.n_patches
     if args.continuous:
         server = ContinuousBatchingServer(cfg, params,
                                           max_slots=args.batch_size,

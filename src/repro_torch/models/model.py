@@ -6,10 +6,13 @@ Every family module exposes the same surface:
     forward(cfg, params, batch, *, return_cache, attn_impl, return_hidden)
     decode(cfg, params, cache, tokens)
     cache_decls(cfg, batch, max_len)   (or state_decls for ssm)
-The dense and MoE families (``models/transformer.py``, as in the
-reference), ssm (``models/mamba2.py``) and hybrid (``models/hybrid.py``)
-are ported; encdec and vlm raise.  ``init`` and ``init_cache`` place
-their tensors on ``cuda`` unless the caller passes another ``device``.
+The dense, MoE and VLM families (``models/transformer.py``, as in the
+reference), ssm (``models/mamba2.py``), hybrid (``models/hybrid.py``) and
+encdec (``models/encdec.py``): every family of the catalog.  ``init`` and
+``init_cache`` place their tensors on ``cuda`` unless the caller passes
+another ``device``.  ``stub_inputs`` is the zero ``frames`` or
+``patches`` that the server and the block profiler feed the stubbed
+frontends, as the reference's do.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceArg, resolve_device, torch_dtype
 from repro_torch.dist import sharding as shd
-from repro_torch.models import hybrid, mamba2, transformer
+from repro_torch.models import encdec, hybrid, mamba2, transformer
 from repro_torch.models.config import ModelConfig
 
 IGNORE_LABEL = -100
@@ -44,16 +47,30 @@ def masked_ce_sums(logits: torch.Tensor, labels: torch.Tensor):
     return (torch.where(mask, nll, 0.0).sum(), mask.sum(), correct.sum())
 
 
-_MODULES = {"dense": transformer, "moe": transformer, "ssm": mamba2,
-            "hybrid": hybrid}
+_MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+            "ssm": mamba2, "hybrid": hybrid, "encdec": encdec}
+# the families whose loss takes ``cfg.logits_chunk`` (the reference's)
+CHUNKED_LOSS_FAMILIES = ("dense", "moe", "vlm")
 
 
 def get_module(cfg: ModelConfig) -> ModuleType:
     if cfg.family not in _MODULES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (dense, moe, "
-            f"ssm and hybrid only)")
+        raise NotImplementedError(f"unknown model family {cfg.family!r}")
     return _MODULES[cfg.family]
+
+
+def stub_inputs(cfg: ModelConfig, batch: int, device
+                ) -> Dict[str, torch.Tensor]:
+    """The stubbed frontend's zero input for ``batch`` rows: ``frames``
+    (B, n_frames, D) for encdec, ``patches`` (B, n_patches, D) for vlm,
+    fp32; nothing for the other families."""
+    shape = {"encdec": ("frames", cfg.n_frames),
+             "vlm": ("patches", cfg.n_patches)}.get(cfg.family)
+    if shape is None:
+        return {}
+    name, n = shape
+    return {name: torch.zeros((batch, n, cfg.d_model), dtype=torch.float32,
+                              device=device)}
 
 
 def decls(cfg: ModelConfig):
@@ -116,7 +133,7 @@ def loss_fn(cfg: ModelConfig, params, batch, *, mesh=None
     if mesh is not None:
         from repro_torch.dist import spmd
         return spmd.loss_fn(cfg, params, batch, spmd.check_mesh(mesh))
-    if cfg.logits_chunk and cfg.family in transformer.FAMILIES:
+    if cfg.logits_chunk and cfg.family in CHUNKED_LOSS_FAMILIES:
         return _chunked_loss(cfg, params, batch)
     logits = forward(cfg, params, batch)
     nll_sum, n_tok, n_corr = masked_ce_sums(logits, batch["labels"])

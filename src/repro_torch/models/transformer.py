@@ -1,5 +1,5 @@
-"""Decoder-only transformer, dense and MoE families (counterpart of
-``repro/models/transformer.py``; the VLM family is not ported).
+"""Decoder-only transformer: dense, MoE and VLM families (counterpart of
+``repro/models/transformer.py``).
 
 * Parameters are stacked over layers (leading ``layers`` dim), as in the
   reference; a Python loop over the layer index takes the place of
@@ -19,6 +19,10 @@
 * ``family="moe"`` swaps the FFN for ``models/moe.py``'s routed experts;
   a window (mixtral) makes the prefill ``attn_window_linear`` and the
   cache a ring of ``window`` slots.
+* ``family="vlm"`` (internvl2) prepends the batch's stub patch embeddings
+  ``patches`` (B, n_patches, D), projected by ``vision_proj``, to the
+  token embeddings: positions, the attention's impl and the cache's
+  ``len`` run over ``n_patches + S``; decode is the dense decode.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "vlm")      # the families this module runs
 
 
 # --- declarations ---------------------------------------------------------------
@@ -91,6 +95,9 @@ def decls(cfg: ModelConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         d["lm_head"] = Decl((cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
                             scale_dim=-2)
+    if cfg.family == "vlm":
+        d["vision_proj"] = Decl((cfg.d_model, cfg.d_model), ("embed", None),
+                                scale_dim=-2)
     return d
 
 
@@ -248,6 +255,10 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     for the chunked loss instead of the logits."""
     tokens = batch["tokens"]
     x = embed(cfg, params, tokens)
+    if cfg.family == "vlm":
+        dt = torch_dtype(cfg.dtype)
+        patches = batch["patches"].to(dt) @ params["vision_proj"]
+        x = torch.cat([patches.to(dt), x], dim=1)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     impl = attn_impl or L.pick_attn_impl(cfg.attn_impl, s, x.device)

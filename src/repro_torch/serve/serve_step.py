@@ -13,8 +13,11 @@ writes it in place; neither syncs with the host, so ``GraphedPrefill``
 captures a prefill once per prompt shape and ``GraphedDecodeStep`` a
 decode step once per batch size, and both replay.  The state holds the
 family's cache leaves (``model.cache_decls``: ``k``/``v`` for attention,
-``ssm``/``conv`` for the state-space families, all four for the hybrid),
-the batch their dim 1.  ``cache_specs`` is the
+``ssm``/``conv`` for the state-space families, all four for the hybrid,
+``k``/``v`` and the cross-attention's ``ck``/``cv`` for encdec), the
+batch their dim 1.  The encdec and vlm prefills take zero ``frames`` or
+``patches`` (``model.stub_inputs``), as the reference's server gives
+them.  ``cache_specs`` is the
 reference's cache layout on a mesh (a plain copy); the servers run on one
 device.
 """
@@ -133,15 +136,20 @@ def prefill_on_device(cfg: ModelConfig, params,
     place (an SSM state rounded to ``cfg.dtype`` first: the reference's
     ``grow_cache`` casts it into its ``cfg.dtype`` buffer, and its decode
     carries it in fp32 from there, as the state's fp32 buffer does),
-    those rows' ``len`` set to S and the greedy first token written into
-    their ``cur``.  ``rows`` is an int ``B`` (the prefix ``[0, B)``, as
-    ``rows_of`` gives it: the static server) or a (B,) int64 tensor of row
-    indices on the state's device (a per-row state: the continuous
-    server's row, so one graph serves every row).  Returns the last-position
+    those rows' ``len`` set to the cache's (S, or ``n_patches + S`` for
+    vlm) and the greedy first token written into their ``cur``.  The
+    stubbed frontends' zero ``frames`` or ``patches`` are made on the
+    device inside the body, so a graph captures them.  ``rows`` is an int
+    ``B`` (the prefix ``[0, B)``, as ``rows_of`` gives it: the static
+    server) or a (B,) int64 tensor of row indices on the state's device (a
+    per-row state: the continuous server's row, so one graph serves every
+    row).  Returns the last-position
     logits (B, V) as a tensor of their own, so the (B, S, V) logits are a
     temporary.  It reads no value on the host, copies nothing to or from
     it and branches on no tensor's value, so a CUDA graph can capture it."""
-    logits, cache = make_prefill(cfg)(params, {"tokens": tokens})
+    batch = {"tokens": tokens,
+             **model_lib.stub_inputs(cfg, tokens.shape[0], tokens.device)}
+    logits, cache = make_prefill(cfg)(params, batch)
     if "ssm" in cache:
         cache = mamba2.round_state(cfg, cache)
     logits = logits.clone()
@@ -358,7 +366,8 @@ class BatchedServer:
     prefill has no pad mask, so a longer pad would change its logits
     against the reference's.  A batch whose prompt and decode steps would
     write past ``max_len`` raises before its prefill (the reference clamps
-    the write into the cache).
+    the write into the cache); a vlm batch counts its ``n_patches`` patch
+    positions, which its prefill's cache holds before the prompt.
     """
 
     def __init__(self, cfg: ModelConfig, params, max_len: int = 512,
@@ -402,10 +411,13 @@ class BatchedServer:
         # a state-space cache has no slots to run past (the reference's
         # state ignores max_len)
         size = self.state["k"].shape[2] if "k" in self.state else None
-        if size is not None and not self.cfg.window and plen + steps > size:
-            raise ValueError(f"BatchedServer: a {plen}-token prompt and "
-                             f"{steps} decode steps write past the cache's "
-                             f"{size} slots (max_len)")
+        extra = self.cfg.n_patches if self.cfg.family == "vlm" else 0
+        if size is not None and not self.cfg.window and \
+                extra + plen + steps > size:
+            what = f"{extra} patches, " if extra else ""
+            raise ValueError(f"BatchedServer: {what}a {plen}-token prompt "
+                             f"and {steps} decode steps write past the "
+                             f"cache's {size} slots (max_len)")
         toks = np.zeros((b, plen), np.int64)
         for i, r in enumerate(reqs):
             toks[i, plen - len(r.prompt):] = r.prompt     # left-pad

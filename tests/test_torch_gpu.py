@@ -2161,3 +2161,118 @@ def test_ssm_train_steps_graphed_equal_eager(cuda):
             assert torch.equal(gm["loss"], em["loss"]), (cfg.name, i)
             assert torch.isfinite(gm["grad_norm"])
         assert ops.LAUNCHES["ssd_scan"] == 0
+
+
+# --- the stubbed-frontend families (whisper's encdec, internvl2's vlm) -------------
+
+def _stub_cfgs(dtype):
+    """Reduced whisper-tiny and internvl2-26b in ``dtype``, head dim 64."""
+    return [dataclasses.replace(get_config(arch).reduced(), head_dim=64,
+                                dtype=dtype, param_dtype=dtype)
+            for arch in ("whisper_tiny", "internvl2_26b")]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vlm_forward_kernel_path_matches_plain(cuda, dtype):
+    """The reduced vlm's forward on the card: the kernel route (the
+    attention kernel and the fused norm, once a layer each) against the
+    plain path (naive attention, unfused norm) on the same weights,
+    patches and tokens; logits 1e-4 (fp32) or 5e-2 (bf16)."""
+    cfg = _stub_cfgs(dtype)[1]
+    params = tm.init(cfg, 0)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40),
+                                     device="cuda", generator=gen),
+             "patches": torch.randn(2, cfg.n_patches, cfg.d_model,
+                                    device="cuda", generator=gen)}
+    with torch.no_grad():
+        ops.reset_launches()
+        got = tm.forward(cfg, params, batch)
+        assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+        assert ops.LAUNCHES["fused_add_rmsnorm"] == cfg.n_layers
+        want = tm.forward(cfg, params, batch, attn_impl="naive")
+    assert got.shape == (2, cfg.n_patches + 40, cfg.vocab_size)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stub_families_serve_graphed_equal_eager(cuda, dtype):
+    """``BatchedServer`` graphed and eager give the same tokens (mixed
+    lengths: compaction), and ``GraphedPrefill`` / ``GraphedDecodeStep``
+    equal the eager bodies bit for bit on a copy of the state; whisper
+    launches no kernel, the vlm's prefill its two once a layer."""
+    from repro_torch.serve import serve_step as tss
+    for cfg in _stub_cfgs(dtype):
+        params = tm.init(cfg, 0)
+        outs, counts = [], []
+        for graphed in (None, False):
+            gen = torch.Generator().manual_seed(2)
+            reqs = [tss.Request(rid=i, prompt=torch.randint(
+                0, cfg.vocab_size, (n,), generator=gen).numpy(),
+                max_new_tokens=m) for i, (n, m) in enumerate(
+                    ((20, 8), (37, 3), (9, 6)))]
+            ops.reset_launches()
+            tss.BatchedServer(cfg, params, max_len=64, batch_size=2,
+                              graphed=graphed).run(reqs)
+            outs.append([r.output for r in reqs])
+            counts.append(dict(ops.LAUNCHES))
+        assert outs[0] == outs[1], cfg.name
+        per = cfg.n_layers if cfg.family == "vlm" else 0
+        for c in counts:
+            assert c["flash_attention"] == 2 * per, (cfg.name, c)
+            assert c["fused_add_rmsnorm"] == 2 * per, (cfg.name, c)
+            assert sum(c.values()) == 4 * per, (cfg.name, c)
+        gst = tss.decode_state(cfg, 2, 48, per_row=False, device="cuda")
+        est = {k: v.clone() for k, v in gst.items()}
+        pre = tss.GraphedPrefill(cfg, params, gst)
+        dec = tss.GraphedDecodeStep(cfg, params, gst)
+        toks = torch.randint(0, cfg.vocab_size, (2, 13),
+                             generator=torch.Generator().manual_seed(3))
+        with torch.inference_mode():
+            for _ in range(3):
+                got = pre(params, gst, toks.numpy()).clone()
+                want = tss.prefill_on_device(cfg, params, est, toks.cuda(), 2)
+                assert torch.equal(got, want), cfg.name
+            for _ in range(4):
+                got = dec(params, gst, 2).clone()
+                want = tss.decode_on_device(cfg, params,
+                                            tss.rows_of(est, 2))
+                assert torch.equal(got, want), cfg.name
+        assert (2, 13) in pre.graphs and 2 in dec.graphs
+        for key in gst:
+            assert torch.equal(gst[key], est[key]), (cfg.name, key)
+
+
+def test_stub_families_train_steps_graphed_equal_eager(cuda):
+    """``make_graphed_train_step`` binds ``frames`` or ``patches`` among its
+    static inputs: its losses equal the eager step's bit for bit over 3
+    batches (bf16, full remat); whisper launches no kernel, the vlm its
+    forward and backward kernels."""
+    from repro_torch.train import data as tdata
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+    for cfg in _stub_cfgs("bfloat16"):
+        cfg = dataclasses.replace(cfg, remat="full")
+        ds = tdata.SyntheticDataset(cfg, tdata.DataConfig(
+            seq_len=64, global_batch=4, num_microbatches=2))
+        ocfg = topt.OptimizerConfig(lr=1e-3, warmup_steps=2)
+        ep, gp = tm.init(cfg, 0), tm.init(cfg, 0)
+        es, gs = topt.init_state(ep), topt.init_state(gp)
+        eager = tts.make_train_step(cfg, ocfg)
+        graphed = tts.make_graphed_train_step(cfg, ocfg, gp, gs,
+                                              ds.batch(0))
+        stub = "frames" if cfg.family == "encdec" else "patches"
+        assert stub in graphed._static
+        ops.reset_launches()
+        for i in range(3):
+            _, _, em = eager(ep, es, ds.batch(i))
+            _, _, gm = graphed(gp, gs, ds.batch(i))
+            assert torch.equal(gm["loss"], em["loss"]), (cfg.name, i)
+            assert torch.isfinite(gm["grad_norm"])
+        n = sum(ops.LAUNCHES.values())
+        if cfg.family == "encdec":
+            assert n == 0, ops.LAUNCHES
+        else:
+            assert ops.LAUNCHES["flash_attention_bwd"] > 0
+            assert ops.LAUNCHES["fused_add_rmsnorm_bwd"] > 0

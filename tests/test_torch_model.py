@@ -89,16 +89,23 @@ def test_configs_are_the_reference_configs(arch):
 
 
 def test_unported_archs_raise():
-    """Every config resolves (the profiler prices every family); a family
-    whose model is not ported raises where the model is built."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tm.get_module(tget("internvl2_26b"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tm.init(tget("whisper_tiny"), 0, device="cpu")
+    """Every config of the catalog builds: its family's module resolves and
+    its declarations count ``total_params()``; an unknown family still
+    raises where the model is built, and so does an unknown arch."""
+    for arch in ARCH_IDS + PAPER_IDS:
+        cfg = tget(arch)
+        assert tm.get_module(cfg) is not None, arch
+        assert sum(int(np.prod(d.shape))
+                   for _, d in iter_decls(tm.decls(cfg))) == \
+            jm.param_count(jget(arch)), arch
     with pytest.raises(KeyError):
         tget("no_such_arch")
-    with pytest.raises(NotImplementedError):
-        tm.get_module(dataclasses.replace(tget("smollm_360m"), family="vlm"))
+    with pytest.raises(NotImplementedError, match="unknown model family"):
+        tm.get_module(dataclasses.replace(tget("smollm_360m"),
+                                          family="audio"))
+    with pytest.raises(NotImplementedError, match="unknown model family"):
+        tm.init(dataclasses.replace(tget("smollm_360m").reduced(),
+                                    family="audio"), 0, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["smollm_360m", "qwen1_5_0_5b",

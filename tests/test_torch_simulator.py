@@ -195,20 +195,18 @@ def test_kv_cache_bytes_equal_dense(batch, ctx, page):
             jmem.kv_cache_bytes(jget(arch), batch, ctx, page)
 
 
-def test_kv_cache_bytes_raises_for_an_unported_family():
-    """The state-space families are priced as the reference prices them
-    (``==``, three contexts; mamba2's state constant in context), from the
-    models' declarations; an unported family (whisper's encdec) raises as
-    its ``get_module`` does."""
-    for arch in ("mamba2-130m", "zamba2-2.7b"):
+def test_kv_cache_bytes_equal_for_the_other_families():
+    """The state-space, encoder-decoder and vision-language families are
+    priced as the reference prices them (``==``, three contexts; mamba2's
+    state constant in context; whisper's cross-attention cache constant,
+    its self-attention cache growing), from the models' declarations."""
+    for arch in ("mamba2-130m", "zamba2-2.7b", "whisper-tiny",
+                 "internvl2-26b"):
         got = [tmem.kv_cache_bytes(tget(arch), 2, ctx) for ctx in
                (64, 549, 4096)]
         assert got == [jmem.kv_cache_bytes(jget(arch), 2, ctx)
-                       for ctx in (64, 549, 4096)]
+                       for ctx in (64, 549, 4096)], arch
         assert (len(set(got)) == 1) == (arch == "mamba2-130m")
-    assert jmem.kv_cache_bytes(jget("whisper-tiny"), 1, 64) > 0
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tmem.kv_cache_bytes(tget("whisper-tiny"), 1, 64)
 
 
 # --- the paged cache's page budget ------------------------------------------------
