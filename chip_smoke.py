@@ -277,6 +277,27 @@ Phases, each printed as it runs; any failure exits non-zero:
              (``more``), and checks that ``ops.ssd_scan``, ``ops.rmsnorm``
              and ``ops.add`` raise on the card where a gradient would be
              taken.
+   ssm mesh  the sharded (data, model) train step of the state-space
+             families (``dist/spmd_ssm.py``), eager, bf16, full remat, on
+             [ssm train]'s data, optimizer and seed-0 weights, every
+             position on ``cuda:0``: mamba2-130m (24 layers) on (2, 2)
+             ``fsdp_tp`` and (1, 4) ``tp``, zamba2-2.7b (12 layers) on
+             (1, 2) ``tp``.  For each: every position's resident bytes
+             beside ``params / tp``; the first step's loss and gradients
+             against the one-device ``loss_and_grads`` ([mesh]'s bounds,
+             or twice the one-device bf16 step's own distance from fp32
+             where that is larger); the forward without a gradient, whose
+             SSD kernel launches once a layer on every position (96 for
+             mamba2, 24 and 4 attention launches for zamba2), its logits
+             against one device's; 3 eager steps timed (median wall and
+             device ms), replicas bit for bit, one profiled
+             (``[profile] ssm_mesh_step_*``); the launches on a
+             ``launches_ssm_mesh`` line.  Then both families in fp32 at 2
+             layers on (2, 2) against ``make_train_step`` (loss, gradients
+             and one step within 1e-3).  Phase 3 holds the positions'
+             and the one-device references' SSD and attention shapes
+             (``ssm_mesh_*``) and times the SSD at mamba2's tp-4 position,
+             (4, 1024, 6, 64, 128).
    vlm serve internvl2-26b at published widths and all 48 layers (19.86
              B params, bf16), 256 zero patches before each prompt as the
              reference's server gives them: [serve]'s 16 requests,
@@ -348,7 +369,7 @@ Phases, each printed as it runs; any failure exits non-zero:
              the bound and the 16384-row case (``rows16384``).
 
 Each of phases 5-9 (serve continuous, pipeline, its mesh stages, mesh,
-elastic, manager's two paths, autotune, the three MoE, the three
+elastic, manager's two paths, autotune, the three MoE, the four
 state-space and the four stubbed-frontend phases too) is
 a main path: the launch
 counts are set to 0 just before it and read just after, and each kernel
@@ -375,6 +396,7 @@ import ctypes
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -643,6 +665,28 @@ HYBRID_TRAIN_DATA = dict(seq_len=1024, global_batch=4, num_microbatches=2)
 HYBRID_TRAIN_LAYERS = 12     # two applications of the shared block
 SSM_TRAIN_STEPS = 3
 SSM_TIMED = 3           # graphed replays timed after the compared steps
+# [ssm mesh]: the sharded (data, model) train step of the state-space
+# families (dist/spmd_ssm.py), eager, full remat, bf16, each mesh's
+# positions all on cuda:0, on [ssm train]'s data, optimizer and seed-0
+# weights: mamba2-130m at all 24 layers, zamba2-2.7b at HYBRID_TRAIN_LAYERS
+SSM_MESH_CASES = ((SSM_ARCH, "fsdp_tp", (2, 2)), (SSM_ARCH, "tp", (1, 4)),
+                  (HYBRID_ARCH, "tp", (1, 2)))
+SSM_MESH_TIMED = 3      # eager steps timed (median)
+# the first step's gradients and the forward's logits against one device:
+# the mesh sums 'model' partial products in bf16 (as GSPMD's all-reduce of
+# a bf16 product does), one device rounds the whole product once, and the
+# SSD's bf16 rounding compounds over 24 layers; so beside [mesh]'s bounds
+# (TRAIN_GRAD_TOL and TRAIN_COSINE, LOGITS_TOL) each is also allowed twice
+# the one-device bf16 step's own distance from the same step in fp32 (the
+# same weights cast up)
+# then fp32, 2 layers at published widths (zamba2's shared block every 2,
+# as in its reduced config), on (2, 2) fsdp_tp against make_train_step:
+# the loss, the gradients (of max |g|) and the params after one step (of
+# max(1, |p|)) within SSM_MESH_F32_TOL, but a param whose gradient is near
+# zero (at most 1e-4 of its leaf's max), which AdamW's first step moves by
+# lr g / (|g| + eps) in (-lr, lr) whatever the summation order: 2 lr
+SSM_MESH_SMALL_DATA = dict(seq_len=256, global_batch=4, num_microbatches=2)
+SSM_MESH_F32_TOL = 1e-3
 # the stubbed-frontend phases ([vlm serve], [encdec serve], [vlm train],
 # [encdec train]): internvl2-26b (arXiv:2404.16821) and whisper-tiny
 # (arXiv:2212.04356) at published widths, zero patches or frames served
@@ -1557,6 +1601,11 @@ def phase_kernels(main_lens):
     for label, b_, s_, dt, _ in vlm_shapes():
         attn.append(attention_case(gen, label, b_, s_, s_, vcfg.n_heads,
                                    vcfg.n_kv_heads, vcfg.hd, True, dt))
+    # [ssm mesh]'s positions' (the hybrid's shared block, head dim 80)
+    for kernel, label, (b_, s_, hq, hk, d_), dt, _ in ssm_mesh_shapes():
+        if kernel == "flash_attention":
+            attn.append(attention_case(gen, label, b_, s_, s_, hq, hk, d_,
+                                       True, dt))
     attn += [
         attention_case(gen, "ragged_s509", BATCH, 509, 509, h, kh, d, True,
                        bf16),
@@ -1764,6 +1813,17 @@ def phase_kernels(main_lens):
     ssd[0]["more"].append({key: extra[key] for key in (
         "label", "shape", "dtype", "ms", "bound_ms", "bound_by",
         "share_of_bound", "plain_ms", "passes_ms", "max_abs_err")})
+    # [ssm mesh]'s positions' SSD, mamba2-130m's at tp 4 timed
+    for kernel, label, shape, dt, _ in ssm_mesh_shapes():
+        if kernel == "ssd_scan":
+            row = ssd_case(gen, label, *shape, dt,
+                           timed=label == "ssm_mesh_mamba2_130m_1x4")
+            ssd.append(row)
+            if "ms" in row:
+                ssd[0]["more"].append({key: row[key] for key in (
+                    "label", "shape", "dtype", "ms", "bound_ms", "bound_by",
+                    "share_of_bound", "plain_ms", "passes_ms",
+                    "max_abs_err")})
     grad_refusals(gen)
     adds = [add_case(gen, "rows4096", BATCH * 512, dm, bf16, timed=True),
             add_case(gen, "f32_4096x512", 4096, 512, f32, timed=True)]
@@ -1813,6 +1873,10 @@ def phase_kernels(main_lens):
             abwd.append(attention_bwd_case(gen, label, b_, s_, s_,
                                            vcfg.n_heads, vcfg.n_kv_heads,
                                            vcfg.hd, True, dt))
+    for kernel, label, (b_, s_, hq, hk, d_), dt, bwd in ssm_mesh_shapes():
+        if kernel == "flash_attention" and bwd:
+            abwd.append(attention_bwd_case(gen, label, b_, s_, s_, hq, hk,
+                                           d_, True, dt))
     # [ssm train]'s hybrid microbatch: the shared block at head dim 80
     hcfg = get_config(HYBRID_ARCH)
     hmb = HYBRID_TRAIN_DATA["global_batch"] // \
@@ -1963,15 +2027,17 @@ def profile_window(label: str, fn, wall_ms: float, per: int,
                    breakdown: bool = False):
     """Device time by kernel group over one run of ``fn`` (torch.profiler,
     read from its Chrome trace so kernels launched outside PyTorch's own
-    operators count too).  ``busy`` is that device time over ``wall_ms``,
+    operators count too; it traces the card's activity only: nothing here
+    reads the host's operator events, and an eager mesh step holds
+    hundreds of thousands of them, several times the step's own wall to
+    record and export).  ``busy`` is that device time over ``wall_ms``,
     the same work's wall time measured without the profiler.
     ``breakdown`` also prints the "elementwise/other" group by kernel
     name: the 10 largest, ms and launches a step (or call).  Returns the
     device ms, or None when the trace holds no kernel."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     path = os.path.join(ROOT, "build", f"chip_smoke_trace_{label}.json")
@@ -3369,17 +3435,19 @@ def _mesh_replicas_equal(*trees) -> bool:
     return True
 
 
-def _mesh_memory(cfg, mesh, params, state) -> dict:
+def _mesh_memory(cfg, mesh, params, state, data=TRAIN_DATA) -> dict:
     """Each position's elements and resident bytes (its params, ``m`` and
     ``v`` blocks) beside the simulator's ``params / tp`` for the same
     (dp, tp) (``core/simulator/memory.py``: ``M_model = params / tp *
-    mul_factor``, the fp32 gradient included)."""
+    mul_factor``, the fp32 gradient included) and the declared params /
+    tp."""
     from repro_torch.core.simulator.memory import DEFAULT_MEM
     from repro_torch.dist import placement as pm
     tp = mesh.shape["model"]
-    prof = JobProfile(TrainJob(cfg, seq_len=TRAIN_DATA["seq_len"],
-                               global_batch=TRAIN_DATA["global_batch"]))
+    prof = JobProfile(TrainJob(cfg, seq_len=data["seq_len"],
+                               global_batch=data["global_batch"]))
     total = prof.stage_params(0, len(prof.layer_kinds()))
+    declared = sum(math.prod(x.shape) for _, x in pm.tree_items(params))
     rows = []
     for p in range(mesh.size):
         elems = sum(x.blocks[p].numel() for _, x in pm.tree_items(params))
@@ -3390,6 +3458,7 @@ def _mesh_memory(cfg, mesh, params, state) -> dict:
                          resident_bytes=resident,
                          with_fp32_grad_bytes=elems * DEFAULT_MEM.mul_factor))
     return dict(per_position=rows, params=total, params_over_tp=total / tp,
+                declared_params=declared, declared_over_tp=declared / tp,
                 ratio=rows[0]["elements"] / (total / tp),
                 sim_m_model_bytes=total / tp * DEFAULT_MEM.mul_factor,
                 mul_factor=DEFAULT_MEM.mul_factor)
@@ -4545,10 +4614,7 @@ def phase_ssm_serve() -> dict:
     launches = dict(ops.LAUNCHES)
     log(f"[ssm serve] in turns: "
         f"{json.dumps(_ssm_turns('ssm serve', cfg, params, reqs))}")
-    f32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    copy = opt_lib.tree_unflatten([(k, v.float()) for k, v in
-                                   opt_lib.tree_leaves(params)])
-    _route_check("ssm serve", f32, copy, SSM_ROUTE_SHAPE, 3)
+    _route_check("ssm serve", *_f32_copy(cfg, params), SSM_ROUTE_SHAPE, 3)
     del params
     _release()
     log(f"[ssm serve] phase seconds {time.perf_counter() - t_phase:.1f}")
@@ -4689,6 +4755,351 @@ def phase_ssm_train() -> dict:
     _path_launches("ssm train", ("flash_attention", "flash_attention_bwd"))
     log(f"[ssm train] phase seconds {time.perf_counter() - t_phase:.1f}")
     return launches
+
+
+def _ssm_mesh_cfg(arch: str, policy: str, **kw):
+    """[ssm mesh]'s model: published widths, full remat, zamba2 at
+    HYBRID_TRAIN_LAYERS."""
+    if arch == HYBRID_ARCH:
+        kw.setdefault("n_layers", HYBRID_TRAIN_LAYERS)
+    return dataclasses.replace(get_config(arch), remat="full",
+                               sharding=policy, **kw)
+
+
+def _ssm_mesh_small_cfg(arch: str):
+    cfg = _ssm_mesh_cfg(arch, "fsdp_tp", n_layers=2, dtype="float32",
+                        param_dtype="float32")
+    return dataclasses.replace(cfg, attn_every=2) if cfg.attn_every else cfg
+
+
+def _position_heads(n: int, tp: int) -> int:
+    """Heads a position holds: split over 'model' where it divides them."""
+    return n // tp if n % tp == 0 else n
+
+
+def ssm_mesh_shapes():
+    """(kernel, label, shape, dtype, backward) of what [ssm mesh] runs:
+    ``ssd_scan`` (b, S, heads, P, N) in the forward without a gradient on
+    one microbatch, each bf16 mesh's position and the one device it is
+    held against (in bf16 and in fp32, ``_f32_copy``); the attention (b, S,
+    heads, K/V heads, D) of the hybrid's shared block on its mesh and on
+    one device (bf16 and fp32) and in the fp32 2-layer check, on (2, 2)
+    and on one device, forward and backward."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    seen = set()
+    for arch, policy, (dp, tp) in SSM_MESH_CASES:
+        cfg = _ssm_mesh_cfg(arch, policy)
+        data = SSM_TRAIN_DATA if arch == SSM_ARCH else HYBRID_TRAIN_DATA
+        mb = data["global_batch"] // data["num_microbatches"]
+        s = data["seq_len"]
+        ssd = (cfg.ssm_headdim, cfg.ssm_state)
+        attn = (cfg.n_heads, cfg.n_kv_heads)
+        tags = [(f"ssm_mesh_{arch}_{dp}x{tp}", mb // dp, tp, (bf16,))]
+        if arch not in seen:
+            seen.add(arch)
+            tags.append((f"ssm_mesh_{arch}_one_device", mb, 1, (bf16, f32)))
+        for tag, b, t, dtypes in tags:
+            for dt in dtypes:
+                label = tag if dt == bf16 else f"{tag}_f32"
+                yield ("ssd_scan", label,
+                       (b, s, _position_heads(cfg.ssm_nheads, t), *ssd), dt,
+                       False)
+                if cfg.attn_every:
+                    yield ("flash_attention", label,
+                           (b, s, *(_position_heads(n, t) for n in attn),
+                            cfg.hd), dt, True)
+    small = _ssm_mesh_small_cfg(HYBRID_ARCH)
+    d = SSM_MESH_SMALL_DATA
+    mb = d["global_batch"] // d["num_microbatches"]
+    yield ("flash_attention", "ssm_mesh_f32_2x2",
+           (mb // 2, d["seq_len"], _position_heads(small.n_heads, 2),
+            _position_heads(small.n_kv_heads, 2), small.hd), f32, True)
+    yield ("flash_attention", "ssm_mesh_f32_one_device",
+           (mb, d["seq_len"], small.n_heads, small.n_kv_heads, small.hd),
+           f32, True)
+
+
+def _f32_copy(cfg, params):
+    """``cfg`` and ``params`` in fp32 (the same weights cast up)."""
+    return (dataclasses.replace(cfg, dtype="float32", param_dtype="float32"),
+            opt_lib.tree_unflatten([(k, v.float()) for k, v in
+                                    opt_lib.tree_leaves(params)]))
+
+
+def _ssm_mesh_reference(cfg, full, batch, toks) -> dict:
+    """What every mesh of a family is held against: the one-device
+    ``loss_and_grads`` on ``batch`` and the last position's logits of the
+    one-device forward without a gradient on ``toks``, in bf16 and from the
+    same weights in fp32 (``_f32_copy``: the bf16 step's own rounding)."""
+    wl, wg = train_lib.loss_and_grads(cfg, full, batch)
+    cfg32, full32 = _f32_copy(cfg, full)
+    fl, fg = train_lib.loss_and_grads(cfg32, full32, batch)
+    with torch.no_grad():
+        logits = model_lib.forward(cfg, full, {"tokens": toks})[:, -1].clone()
+        logits32 = model_lib.forward(cfg32, full32, {"tokens": toks})[
+            :, -1].clone()
+    del full32
+    _release()
+    return dict(loss=wl.item(), grads=dict(opt_lib.tree_leaves(wg)),
+                loss32=fl.item(), grads32=dict(opt_lib.tree_leaves(fg)),
+                logits=logits, logits32=logits32)
+
+
+def _ssm_mesh_grads(label, cfg, mesh, params, batch, ref) -> dict:
+    """The first step's loss and gradients on the mesh (unsharded leaf by
+    leaf) against the one-device ones (``ref``): the loss within
+    TRAIN_LOSS_TOL, each leaf's cosine at least TRAIN_COSINE and its
+    max |dg| / max |g| within the larger of TRAIN_GRAD_TOL and twice the
+    one-device bf16 gradient's own distance from the fp32 one's."""
+    from repro_torch.dist import placement as pm
+    gl, gg = train_lib.loss_and_grads(cfg, params, batch, mesh=mesh)
+    worst, floor, min_cos = 0.0, 0.0, 1.0
+    for k, x in pm.tree_items(gg):
+        t, w, f = (pm.unshard(x, "cuda").float(), ref["grads"][k].float(),
+                   ref["grads32"][k])
+        rel = ((t - w).abs().max() / w.abs().max()).item()
+        own = ((w - f).abs().max() / f.abs().max()).item()
+        cos = _cosine(t, w)
+        worst, floor = max(worst, rel), max(floor, own)
+        min_cos = min(min_cos, cos)
+        if not (rel <= max(TRAIN_GRAD_TOL, 2 * own) and cos >= TRAIN_COSINE):
+            raise AssertionError(
+                f"[ssm mesh] {label} grad {k} vs single device: max |dg| / "
+                f"max |g| {rel:.3e} (one device bf16 vs fp32 {own:.3e}), "
+                f"cosine {cos:.6f}")
+    if not abs(gl.item() - ref["loss"]) <= TRAIN_LOSS_TOL * abs(ref["loss"]):
+        raise AssertionError(f"[ssm mesh] {label}: loss {gl.item()} vs "
+                             f"single device {ref['loss']}")
+    return dict(loss=gl.item(), single_loss=ref["loss"],
+                fp32_loss=ref["loss32"], max_rel_grad_err=worst,
+                single_bf16_vs_fp32=floor, min_cosine=min_cos,
+                tol=TRAIN_GRAD_TOL, cosine_min=TRAIN_COSINE)
+
+
+def _ssm_mesh_forward(label, cfg, mesh, params, toks, ref) -> dict:
+    """The forward without a gradient on ``toks`` (one microbatch): every
+    position launches the SSD kernel on its heads once a layer, and the
+    hybrid's shared block the attention kernel once an application; the
+    last position's logits against the one-device forward's (``ref``),
+    within the larger of LOGITS_TOL and twice the one-device bf16 logits'
+    distance from the fp32 ones'.  Returns the mesh forward's launches."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import P
+    with torch.no_grad():
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blocks, lay = spmd.forward(cfg, params, {"tokens": toks}, mesh)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = dict(ops.LAUNCHES)
+    spec = P(lay.batch or None, None, "model" if lay.vocab_logits else None)
+    got = pm.unshard(pm.Sharded((*toks.shape, cfg.vocab_size), spec, mesh,
+                                blocks), "cuda")[:, -1]
+    del blocks
+    groups = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+    want_launches = {k: 0 for k in launches}
+    want_launches.update(ssd_scan=cfg.n_layers * mesh.size,
+                         flash_attention=groups * mesh.size)
+    want = ref["logits"]
+    diff = (got - want).abs().max().item()
+    floor = (want - ref["logits32"]).abs().max().item()
+    tol = max(LOGITS_TOL, 2 * floor)
+    row = dict(tokens=list(toks.shape), wall_ms=wall, ssm_heads=lay.ssm_heads,
+               logits_max_abs_diff=diff, single_bf16_vs_fp32=floor,
+               logits_spread=want.std().item(), tol=tol,
+               finite=bool(torch.isfinite(got).all()),
+               launches={k: v for k, v in launches.items() if v})
+    log(f"[ssm mesh] {label} forward without a gradient vs one device: "
+        + json.dumps(row))
+    if launches != want_launches or not row["finite"] or not diff <= tol:
+        raise AssertionError(f"[ssm mesh] {label} forward: {row}, expected "
+                             f"launches {want_launches}")
+    return launches
+
+
+def _ssm_mesh_case(cfg, shape, full, batches, ref) -> dict:
+    """One mesh at published widths: each position's memory, the first
+    step's loss and gradients against one device (``_ssm_mesh_grads``),
+    the forward without a gradient on the first batch's first microbatch
+    (``_ssm_mesh_forward``), SSM_MESH_TIMED eager steps timed (the SSD on
+    its differentiable route: no SSD launch; the hybrid's attention
+    kernel forward and backward once an application, microbatch and
+    position), replicas bit for bit, one step profiled.  Returns the
+    launches of the forward and of the steps."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.dist.sharding import param_specs
+    data = SSM_TRAIN_DATA if cfg.family == "ssm" else HYBRID_TRAIN_DATA
+    dc = data_lib.DataConfig(**data)
+    ocfg = opt_lib.OptimizerConfig(**TRAIN_OPT)
+    mesh = _mesh_of(shape)
+    label = (f"{cfg.name} {cfg.n_layers} layers {shape[0]}x{shape[1]} "
+             f"{cfg.sharding}")
+    params = pm.shard_tree(full, param_specs(model_lib.decls(cfg),
+                                             cfg.sharding, mesh), mesh)
+    state = opt_lib.init_sharded_state(params)
+    log(f"[ssm mesh] {label} memory: "
+        + json.dumps(_mesh_memory(cfg, mesh, params, state, data)))
+    first = _ssm_mesh_grads(label, cfg, mesh, params, batches[0], ref)
+    log(f"[ssm mesh] {label} first step vs the single-device loss_and_grads "
+        f"(same weights and batch): " + json.dumps(first))
+    toks = torch.as_tensor(batches[0]["tokens"][0], device="cuda")
+    forward = _ssm_mesh_forward(label, cfg, mesh, params, toks, ref)
+    step = train_lib.jit_train_step(cfg, ocfg, mesh, dc.num_microbatches,
+                                    dc.micro_batch)
+    ops.reset_launches()
+    rows = []
+    for i in range(SSM_MESH_TIMED):
+        wall, dev, extra, (params, state, m) = _timed_step(
+            lambda i=i: step(params, state, batches[1 + i]))
+        rows.append((wall, dev, extra, m["loss"].item(),
+                     m["grad_norm"].item()))
+    steps = dict(ops.LAUNCHES)
+    per = (cfg.n_layers // cfg.attn_every if cfg.attn_every else 0) \
+        * dc.num_microbatches * mesh.size
+    want = {k: 0 for k in steps}
+    want.update(flash_attention=per * SSM_MESH_TIMED,
+                flash_attention_bwd=per * SSM_MESH_TIMED)
+    if steps != want:
+        raise AssertionError(f"[ssm mesh] {label}: launches {steps} in "
+                             f"{SSM_MESH_TIMED} steps, expected {want}")
+    vals = [v for r in rows for v in r[3:]]
+    same = _mesh_replicas_equal(params, state["m"], state["v"])
+    if not (all(np.isfinite(vals)) and same):
+        raise AssertionError(f"[ssm mesh] {label}: losses and gradient "
+                             f"norms {vals}, replicas equal {same}")
+    wall = statistics.median(r[0] for r in rows)
+    tokens = dc.global_batch * dc.seq_len
+    stats = dict(
+        arch=cfg.name, layers=cfg.n_layers, mesh=dict(mesh.shape),
+        policy=cfg.sharding, data=data, losses=[r[3] for r in rows],
+        grad_norms=[r[4] for r in rows], step_wall_ms=wall,
+        step_wall_ms_all=[r[0] for r in rows],
+        step_device_ms=statistics.median(r[1] for r in rows),
+        working_set_gib=max(r[2] for r in rows) / 2**30,
+        tokens_per_s=tokens / (wall / 1e3),
+        launches_per_step={k: v // SSM_MESH_TIMED for k, v in steps.items()
+                           if v},
+        replicas_bit_identical=same)
+    log(f"[ssm mesh] {label}: " + json.dumps(stats))
+    name = cfg.name.replace("-", "_").replace(".", "_")
+    dev_ms = profile_window(f"ssm_mesh_step_{name}_{shape[0]}x{shape[1]}",
+                            lambda: step(params, state, batches[-1]), wall,
+                            1)
+    if dev_ms is not None:
+        log(f"[ssm mesh] {label}: device ms of an eager step {dev_ms:.3f}, "
+            f"busy {dev_ms / wall:.3f}")
+    return dict(forward=forward, steps=steps)
+
+
+def _ssm_mesh_small_check(arch: str) -> dict:
+    """fp32, 2 layers at published widths on (2, 2) ``fsdp_tp`` through
+    the kernels: the sharded loss, gradients and one step against
+    ``loss_and_grads`` and ``make_train_step`` from the same weights on
+    the same batch, within SSM_MESH_F32_TOL (near-zero gradients' params:
+    2 lr)."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.dist.sharding import param_specs
+    cfg = _ssm_mesh_small_cfg(arch)
+    ocfg = opt_lib.OptimizerConfig(lr=1e-3, warmup_steps=1)
+    dc = data_lib.DataConfig(**SSM_MESH_SMALL_DATA)
+    b = data_lib.SyntheticDataset(cfg, dc).batch(400)
+    mesh = _mesh_of((2, 2))
+    full = model_lib.init(cfg, 13, device="cuda")
+    params = pm.shard_tree(full, param_specs(model_lib.decls(cfg),
+                                             cfg.sharding, mesh), mesh)
+    gl, gg = train_lib.loss_and_grads(cfg, params, b, mesh=mesh)
+    wl, wg = train_lib.loss_and_grads(cfg, full, b)
+    flat = dict(opt_lib.tree_leaves(wg))
+    grad_err = max(((pm.unshard(x, "cuda") - flat[k]).abs().max()
+                    / flat[k].abs().max()).item()
+                   for k, x in pm.tree_items(gg))
+    near = {k: g.abs() <= 1e-4 * g.abs().max() for k, g in flat.items()}
+    del gg, wg, flat
+    params, state, m2 = train_lib.jit_train_step(
+        cfg, ocfg, mesh, dc.num_microbatches, dc.micro_batch)(
+        params, opt_lib.init_sharded_state(params), b)
+    full, _, m1 = train_lib.make_train_step(cfg, ocfg)(
+        full, opt_lib.init_state(full), b)
+    got = dict(opt_lib.tree_leaves(pm.unshard_tree(params, "cuda")))
+    params_err = near_err = 0.0
+    for k, w in opt_lib.tree_leaves(full):
+        diff = (got[k] - w).abs()
+        off = diff[~near[k]]
+        if off.numel():
+            params_err = max(params_err, off.max().item()
+                             / max(1.0, w.abs().max().item()))
+        if near[k].any():
+            near_err = max(near_err, diff[near[k]].max().item())
+    row = dict(arch=cfg.name, layers=cfg.n_layers, data=SSM_MESH_SMALL_DATA,
+               loss=gl.item(), single_loss=wl.item(),
+               step_loss=m2["loss"].item(), single_step_loss=m1["loss"].item(),
+               grad_err=grad_err, params_err=params_err,
+               near_zero_params_err=near_err, tol=SSM_MESH_F32_TOL,
+               near_zero_bound=2 * ocfg.lr,
+               replicas_bit_identical=_mesh_replicas_equal(params,
+                                                           state["m"],
+                                                           state["v"]))
+    ok = (abs(row["loss"] - row["single_loss"])
+          <= SSM_MESH_F32_TOL * abs(row["single_loss"])
+          and abs(row["step_loss"] - row["single_step_loss"])
+          <= SSM_MESH_F32_TOL * abs(row["single_step_loss"])
+          and grad_err <= SSM_MESH_F32_TOL
+          and params_err <= SSM_MESH_F32_TOL
+          and near_err <= 2 * ocfg.lr and row["replicas_bit_identical"])
+    if not ok:
+        raise AssertionError(f"[ssm mesh] fp32 2 layers: {row}")
+    del params, state, full, got
+    _release()
+    return row
+
+
+def phase_ssm_mesh() -> dict:
+    """The state-space families through the sharded (data, model) train
+    step (``train_step.jit_train_step`` over ``dist/spmd_ssm.py``), every
+    position on ``cuda:0``, eager, bf16 (``[ssm mesh]``): mamba2-130m on
+    (2, 2) ``fsdp_tp`` and (1, 4) ``tp``, zamba2-2.7b at 12 layers on
+    (1, 2) ``tp``, each family's meshes held against one device run once
+    (``_ssm_mesh_reference``); then both in fp32 at 2 layers on (2, 2)
+    against ``make_train_step``.  A main path for the SSD kernel (every
+    position, every layer, in a forward without a gradient) and, through
+    the hybrid's shared block, the attention kernel forward and backward.
+    Returns the launches of the bf16 meshes' forwards and steps."""
+    t_phase = time.perf_counter()
+    log(f"[ssm mesh] allocated at the start: {_release() / 2**30:.2f} GiB")
+    total: dict = {}
+    by_mesh = {}
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        meshes = [(p, s) for a, p, s in SSM_MESH_CASES if a == arch]
+        cfg = _ssm_mesh_cfg(arch, meshes[0][0])
+        data = SSM_TRAIN_DATA if arch == SSM_ARCH else HYBRID_TRAIN_DATA
+        ds = data_lib.SyntheticDataset(cfg, data_lib.DataConfig(**data))
+        batches = [ds.batch(300 + i) for i in range(SSM_MESH_TIMED + 1)]
+        full = model_lib.init(cfg, 0, device="cuda")  # [ssm train]'s weights
+        ref = _ssm_mesh_reference(cfg, full, batches[0], torch.as_tensor(
+            batches[0]["tokens"][0], device="cuda"))
+        for policy, shape in meshes:
+            got = _ssm_mesh_case(dataclasses.replace(cfg, sharding=policy),
+                                 shape, full, batches, ref)
+            by_mesh[f"{arch} {shape[0]}x{shape[1]} {policy}"] = {
+                k: {n: c for n, c in v.items() if c} for k, v in got.items()}
+            for v in got.values():
+                _add_counts(total, v)
+            _release()
+        del full, ref
+        _release()
+    log(f"[ssm mesh] launches_ssm_mesh {json.dumps(by_mesh)}")
+    missing = [n for n in ("ssd_scan", "flash_attention",
+                           "flash_attention_bwd") if not total.get(n)]
+    if missing:
+        raise AssertionError(f"[ssm mesh] no launch of {missing} on the "
+                             f"path ({total})")
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        log(f"[ssm mesh] fp32 2 layers on (2, 2) fsdp_tp vs make_train_step: "
+            + json.dumps(_ssm_mesh_small_check(arch)))
+    log(f"[ssm mesh] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return total
 
 
 def _vlm_route_check(cfg, params) -> dict:
@@ -5232,6 +5643,7 @@ def main() -> int:
     ssm_serve_launches = phase_ssm_serve()
     hybrid_serve_launches = phase_hybrid_serve()
     ssm_train_launches = phase_ssm_train()
+    ssm_mesh_launches = phase_ssm_mesh()
     vlm_serve_launches = phase_vlm_serve()
     encdec_serve_launches = phase_encdec_serve()
     vlm_train_launches = phase_vlm_train()
@@ -5265,6 +5677,7 @@ def main() -> int:
             launches_ssm_serve=ssm_serve_launches.get(name, 0),
             launches_hybrid_serve=hybrid_serve_launches.get(name, 0),
             launches_ssm_train=ssm_train_launches.get(name, 0),
+            launches_ssm_mesh=ssm_mesh_launches.get(name, 0),
             launches_vlm_serve=vlm_serve_launches.get(name, 0),
             launches_encdec_serve=encdec_serve_launches.get(name, 0),
             launches_vlm_train=vlm_train_launches.get(name, 0),

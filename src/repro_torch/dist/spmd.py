@@ -20,7 +20,10 @@ reference:
   ``e_ff`` over 'model' (tensor parallel inside each expert), the 'model'
   group summing either way; the global dispatch routes the whole batch at
   every position (gathered over 'data'), so capacity and drops are the
-  one-device step's.
+  one-device step's;
+* the state-space families' Mamba-2 layers and the hybrid's shared block
+  (``dist/spmd_ssm.py``): the SSD heads over 'model' where it divides
+  them.
 
 Activations are laid out as the reference constrains them, by
 ``sharding.sanitize`` of its hints: the batch over ``batch_spec``'s dp
@@ -50,6 +53,7 @@ from repro_torch.dist import placement as pm
 from repro_torch.dist.mesh import Mesh
 from repro_torch.dist.sharding import P, batch_spec, sanitize
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import IGNORE_LABEL, masked_ce_sums
@@ -58,25 +62,24 @@ MODEL = "model"
 
 
 # the families with sharded layers; the others run on one position only
-SHARDED_FAMILIES = ("dense", "moe")
+SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+SSM_FAMILIES = ("ssm", "hybrid")        # their layers: dist/spmd_ssm.py
 _MESH_ITEMS = {
-    "ssm": "The state-space families on a mesh",
-    "hybrid": "The state-space families on a mesh",
     "encdec": "The encoder-decoder and vision-language families on a mesh",
     "vlm": "The encoder-decoder and vision-language families on a mesh",
 }
 
 
 def check_family(cfg: ModelConfig, mesh: Mesh) -> None:
-    """The dense and MoE families run on any mesh.  The others (ssm,
-    hybrid, encdec, vlm) have no sharded layers yet: on a mesh of one
+    """The dense, MoE and state-space families run on any mesh.  The
+    others (encdec, vlm) have no sharded layers yet: on a mesh of one
     position they run the one-device model (``_one_position``), on a larger
     one they raise, naming the ROADMAP §1 item that ports them."""
     if cfg.family not in SHARDED_FAMILIES and mesh.size != 1:
         raise NotImplementedError(
             f"family {cfg.family!r} on a mesh of {mesh.size} positions is "
-            f"not ported yet (dense and moe only; one position runs the "
-            f"one-device model; ROADMAP §1 item "
+            f"not ported yet ({', '.join(SHARDED_FAMILIES)} only; one "
+            f"position runs the one-device model; ROADMAP §1 item "
             f"\"{_MESH_ITEMS.get(cfg.family, cfg.family)}\")")
 
 
@@ -96,7 +99,8 @@ def _one_position(cfg: ModelConfig, params, batch, mesh: Mesh,
     b = batch_spec(mesh, local["tokens"].shape[0])[0]
     return [logits], Layout(tp=1, batch=pm.part_axes(b), heads=False,
                             kv=False, ff=False, experts=False,
-                            vocab_embed=False, vocab_logits=False)
+                            vocab_embed=False, vocab_logits=False,
+                            ssm_heads=False)
 
 
 def check_mesh(mesh) -> Mesh:
@@ -117,27 +121,43 @@ class Layout:
     experts: bool               # the MoE experts over 'model'
     vocab_embed: bool           # the lookup's table rows over 'model'
     vocab_logits: bool          # the logits' vocab over 'model'
+    ssm_heads: bool             # the Mamba-2 layers' SSD heads over 'model'
 
 
 def layout(cfg: ModelConfig, params, mesh: Mesh, batch: int,
            seq: int) -> Layout:
+    """The attention and FFN fields read the decoder layers, or the
+    hybrid's unstacked ``shared_attn`` (all False for ``ssm``);
+    ``ssm_heads`` holds where 'model' divides the SSD heads and
+    ``gate_ln`` is stored over it (``dist/spmd_ssm.py``)."""
     sizes = dict(mesh.shape)
+    tp = sizes.get(MODEL, 1)
     b = batch_spec(mesh, batch)[0]
-    q = sanitize((batch, seq, cfg.n_heads, cfg.hd),
-                 batch_spec(mesh, batch, None, MODEL, None), sizes)
     logits = sanitize((batch, seq, cfg.vocab_size),
                       batch_spec(mesh, batch, None, MODEL), sizes)
-    layers = params["layers"]
-    moe = cfg.family == "moe"
-    # stacked (layers, experts, embed, e_ff) or (layers, embed, ff)
-    ff = layers["we_up"].spec[3] if moe else layers["w_up"].spec[2]
+    attn = {"heads": False, "kv": False, "ff": False, "experts": False}
+    if cfg.family != "ssm":
+        q = sanitize((batch, seq, cfg.n_heads, cfg.hd),
+                     batch_spec(mesh, batch, None, MODEL, None), sizes)
+        hyb = cfg.family == "hybrid"
+        layers = params["shared_attn" if hyb else "layers"]
+        at = 0 if hyb else 1            # the stacked tree's layer dim
+        moe = cfg.family == "moe"
+        # (experts, embed, e_ff) or (embed, ff), after any layer dim
+        ff = layers["we_up"].spec[at + 2] if moe \
+            else layers["w_up"].spec[at + 1]
+        attn = dict(heads=q[2] == MODEL,
+                    kv=layers["wk"].spec[at + 1] == MODEL, ff=ff == MODEL,
+                    experts=moe and layers["we_up"].spec[at] == MODEL)
+    ssm = cfg.family in SSM_FAMILIES and \
+        params["layers"]["gate_ln"].spec[1] == MODEL and \
+        cfg.ssm_nheads % tp == 0
+    # a 'model' axis of one position splits nothing (as GSPMD partitions
+    # nothing over it): the lookup and the loss are the one-device ones
+    vocab = tp > 1 and "embed" in params and params["embed"].spec[0] == MODEL
     return Layout(
-        tp=sizes.get(MODEL, 1), batch=pm.part_axes(b),
-        heads=q[2] == MODEL, kv=layers["wk"].spec[2] == MODEL,
-        ff=ff == MODEL,
-        experts=moe and layers["we_up"].spec[1] == MODEL,
-        vocab_embed="embed" in params and params["embed"].spec[0] == MODEL,
-        vocab_logits=logits[2] == MODEL)
+        tp=tp, batch=pm.part_axes(b), **attn, vocab_embed=vocab,
+        vocab_logits=tp > 1 and logits[2] == MODEL, ssm_heads=ssm)
 
 
 def _model_index(mesh: Mesh, pos: int) -> int:
@@ -352,7 +372,14 @@ def forward(cfg: ModelConfig, params, batch, mesh: Mesh,
     xs = _embed(cfg, mesh, lay, params, tokens)
     grad = torch.is_grad_enabled() and any(
         b.requires_grad for _, st in pm.tree_items(params) for b in st.blocks)
-    xs = run_layers(cfg, mesh, lay, params["layers"], xs, impl, grad)
+    if cfg.family in SSM_FAMILIES:
+        from repro_torch.dist import spmd_ssm
+        ssd = mamba2.pick_ssd_impl(mesh.device_list[0], prefill=True,
+                                   grad=grad)
+        xs = spmd_ssm.run_backbone(cfg, mesh, lay, params, xs, impl, ssd,
+                                   grad)
+    else:
+        xs = run_layers(cfg, mesh, lay, params["layers"], xs, impl, grad)
     return head_logits(cfg, mesh, lay, params, xs), lay
 
 

@@ -212,28 +212,30 @@ def _conv1d_causal(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return F.silu(y), xp[:, -(k - 1):]
 
 
-def mamba_block(cfg: ModelConfig, p, x: torch.Tensor, *,
-                state: Optional[Dict] = None, return_state: bool = False,
-                impl: str = "chunked"):
-    """One mamba2 layer. x: (B,S,D). ``state``: {'ssm','conv'} to continue
-    from (decode); ``impl`` the SSD's route (``SSD_IMPLS``): the kernel
-    takes no state, so ``"kernel"`` with one raises."""
-    if impl not in SSD_IMPLS:
-        raise ValueError(f"mamba_block: unknown SSD impl {impl!r}")
-    if impl == "kernel" and state is not None:
-        raise ValueError("mamba_block: the SSD kernel starts from a zero "
-                         "state; a carried state takes impl='chunked'")
-    bs, s, _ = x.shape
-    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
-    res = x
-    xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    proj = xn @ p["w_in"]
+def mix_in(xn: torch.Tensor, w_in: torch.Tensor, conv_w: torch.Tensor,
+           conv_b: torch.Tensor, di: int, n: int, h: int,
+           conv_state: Optional[torch.Tensor] = None):
+    """The in-projection of the normed ``xn``, split ``[z | x | B | C |
+    dt]``, and the causal conv over ``[x | B | C]``: (z, x, B, C, dt before
+    its softplus, the conv's new state).  ``di`` and ``h`` are the widths
+    of x and dt these weights hold: the whole layer's, or a mesh
+    position's heads (``dist/spmd_ssm.py``); B and C are always whole."""
+    proj = xn @ w_in
     z, xin, bb, cc, dt = torch.split(proj, [di, di, n, n, h], dim=-1)
     conv_in = torch.cat([xin, bb, cc], dim=-1)
-    conv_state = None if state is None else state["conv"]
-    conv_out, new_conv = _conv1d_causal(conv_in, p["conv_w"], p["conv_b"],
-                                        conv_state)
+    conv_out, new_conv = _conv1d_causal(conv_in, conv_w, conv_b, conv_state)
     xin, bb, cc = torch.split(conv_out, [di, n, n], dim=-1)
+    return z, xin, bb, cc, dt, new_conv
+
+
+def ssd_skip(cfg: ModelConfig, p, xin: torch.Tensor, dt: torch.Tensor,
+             bb: torch.Tensor, cc: torch.Tensor, impl: str,
+             ssm_state: Optional[torch.Tensor] = None):
+    """The SSD with its skip term over the heads of ``xin`` (B, S, h*P):
+    ``p``'s ``dt_bias``, ``a_log`` and ``d_skip`` hold those h heads.
+    Returns (y (B, S, h*P), final state (B, h, P, N) fp32)."""
+    bs, s, di = xin.shape
+    h = dt.shape[-1]
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     a = -torch.exp(p["a_log"].float())
     xh = xin.reshape(bs, s, h, cfg.ssm_headdim)
@@ -245,10 +247,29 @@ def mamba_block(cfg: ModelConfig, p, x: torch.Tensor, *,
                                   bb.contiguous(), cc.contiguous(),
                                   chunk=chunk)
     else:
-        ssm_state = None if state is None else state["ssm"]
         y, st_fin = ssd_chunked(xh, dt, a, bb, cc, chunk, ssm_state)
     y = y + xh * p["d_skip"][None, None, :, None].to(y.dtype)
-    y = y.reshape(bs, s, di)
+    return y.reshape(bs, s, di), st_fin
+
+
+def mamba_block(cfg: ModelConfig, p, x: torch.Tensor, *,
+                state: Optional[Dict] = None, return_state: bool = False,
+                impl: str = "chunked"):
+    """One mamba2 layer. x: (B,S,D). ``state``: {'ssm','conv'} to continue
+    from (decode); ``impl`` the SSD's route (``SSD_IMPLS``): the kernel
+    takes no state, so ``"kernel"`` with one raises."""
+    if impl not in SSD_IMPLS:
+        raise ValueError(f"mamba_block: unknown SSD impl {impl!r}")
+    if impl == "kernel" and state is not None:
+        raise ValueError("mamba_block: the SSD kernel starts from a zero "
+                         "state; a carried state takes impl='chunked'")
+    res = x
+    xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    z, xin, bb, cc, dt, new_conv = mix_in(
+        xn, p["w_in"], p["conv_w"], p["conv_b"], cfg.d_inner, cfg.ssm_state,
+        cfg.ssm_nheads, None if state is None else state["conv"])
+    y, st_fin = ssd_skip(cfg, p, xin, dt, bb, cc, impl,
+                         None if state is None else state["ssm"])
     y = L.rms_norm(y * F.silu(z), p["gate_ln"], cfg.norm_eps)
     out = res + (y @ p["w_out"]).to(x.dtype)
     if return_state:

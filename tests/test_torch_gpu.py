@@ -2163,6 +2163,38 @@ def test_ssm_train_steps_graphed_equal_eager(cuda):
         assert ops.LAUNCHES["ssd_scan"] == 0
 
 
+def test_ssm_mesh_forward_launches_the_ssd_kernel_on_every_position(cuda):
+    """mamba2-130m at 2 layers, fp32, without a gradient on a (1, 4) ``tp``
+    mesh of ``cuda:0``: every position launches ``ssd_scan`` on its 6 of
+    the 24 heads once a layer (layers x 4 launches), and the logits are
+    within 1e-3 of the one-device kernel route's."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.dist import spmd
+    from repro_torch.dist.mesh import data_model_mesh
+    from repro_torch.dist.sharding import P, param_specs
+    cfg = dataclasses.replace(get_config("mamba2_130m"), n_layers=2,
+                              dtype="float32", param_dtype="float32",
+                              sharding="tp")
+    params = tm.init(cfg, 0)
+    mesh = data_model_mesh(1, 4, [torch.device("cuda", 0)] * 4)
+    sharded = pm.shard_tree(params, param_specs(tm.decls(cfg), "tp", mesh),
+                            mesh)
+    toks = torch.randint(0, cfg.vocab_size, (2, 512), device="cuda",
+                         generator=cuda)
+    with torch.no_grad():
+        ops.reset_launches()
+        want = tm.forward(cfg, params, {"tokens": toks})
+        assert ops.LAUNCHES["ssd_scan"] == cfg.n_layers
+        ops.reset_launches()
+        blocks, lay = spmd.forward(cfg, sharded, {"tokens": toks}, mesh)
+        assert ops.LAUNCHES["ssd_scan"] == cfg.n_layers * mesh.size
+    assert lay.ssm_heads
+    spec = P(lay.batch or None, None, "model" if lay.vocab_logits else None)
+    got = pm.unshard(pm.Sharded(tuple(want.shape), spec, mesh, blocks),
+                     "cuda")
+    assert (got - want).abs().max().item() <= 1e-3
+
+
 # --- the stubbed-frontend families (whisper's encdec, internvl2's vlm) -------------
 
 def _stub_cfgs(dtype):

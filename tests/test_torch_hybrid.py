@@ -1,7 +1,7 @@
 """The port's Zamba2 hybrid (``repro_torch/models/hybrid.py``: mamba2
 layers and one shared attention + FFN block) against the reference, on the
 same seeded numpy weights (``test_torch_model``), and the refusals both
-state-space families share.
+state-space families share (their mesh step: ``test_torch_mesh_ssm.py``).
 
 The reduced config has ``attn_every`` 2: at its own 2 layers the shared
 block runs once, at ``n_layers=4`` twice (two groups), so its gradient is
@@ -288,8 +288,8 @@ def test_launch_serve_runs_on_cpu(arch, capsys):
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_launch_train_runs_on_cpu(arch, capsys, tmp_path):
-    """``launch.train`` trains on a one-position mesh, where both families
-    run the one-device model."""
+    """``launch.train`` trains on a one-position mesh (the sharded step,
+    bit for bit the one-device step there)."""
     tlaunch_train.main(["--arch", arch, "--reduced", "--device", "cpu",
                         "--steps", "2", "--workdir", str(tmp_path)])
     assert "[train] 2 steps" in capsys.readouterr().out
@@ -324,9 +324,11 @@ def test_one_position_mesh_matches_the_single_device_step(arch):
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_unported_paths_refuse_both_families(arch):
-    """The continuous server (the reference asserts dense or moe), the
-    MPMD pipeline (likewise) and a mesh of more than one position (no
-    sharded layers yet) raise."""
+    """The continuous server and the MPMD pipeline (the reference asserts
+    dense or moe in both) raise.  A mesh of more than one position runs
+    both families (``tests/test_torch_mesh_ssm.py``); the encoder-decoder
+    and vision-language families still raise there, naming the ROADMAP
+    item that ports them."""
     _, tcfg = configs(arch)
     tp = tm.init(tcfg, 0, device="cpu")
     with pytest.raises(ValueError, match="continuous batching"):
@@ -334,13 +336,9 @@ def test_unported_paths_refuse_both_families(arch):
     with pytest.raises(NotImplementedError, match="dense and moe"):
         tpl.MPMDPipeline(tcfg, [], topt.OptimizerConfig())
     mesh = data_model_mesh(2, 1, [CPU] * 2)
-    with pytest.raises(NotImplementedError,
-                       match="state-space families on a mesh"):
-        tts.make_train_step(tcfg, topt.OptimizerConfig(), mesh=mesh)
-    from repro_torch.dist import placement as pm
-    from repro_torch.dist.sharding import param_specs
-    sp = pm.shard_tree(tp, param_specs(tm.decls(tcfg), tcfg.sharding, mesh),
-                       mesh)
-    with pytest.raises(NotImplementedError,
-                       match="state-space families on a mesh"):
-        tts.loss_and_grads(tcfg, sp, _mesh_batch(tcfg, 9), mesh=mesh)
+    tts.make_train_step(tcfg, topt.OptimizerConfig(), mesh=mesh)
+    for other in ("whisper_tiny", "internvl2_26b"):
+        with pytest.raises(NotImplementedError, match="The encoder-decoder "
+                           "and vision-language families on a mesh"):
+            tts.make_train_step(tget(other).reduced(),
+                                topt.OptimizerConfig(), mesh=mesh)
