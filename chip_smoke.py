@@ -159,6 +159,21 @@ Phases, each printed as it runs; any failure exits non-zero:
              (``[profile] mesh_step_*``).  Then an fp32 2-layer model on
              (2, 2) against ``make_train_step`` (1e-4).  Phase 3 holds
              each position's attention and norm shapes (``mesh_*``).
+   dryrun    ``launch/dryrun``'s fake-tensor trace of [mesh]'s (2, 2)
+             ``fsdp_tp`` cell (the train cell's tokens, devices
+             ``[cuda:0] * 4``): its host seconds, FLOPs, bytes, peak live
+             bytes and roofline seconds; then one real step of the cell
+             with the collective record on (``placement.
+             record_collectives``), whose record must equal the fake
+             one entry for entry and whose launches must equal the fake
+             run's ``FAKE_CALLS``; the fake peak over
+             ``max_memory_allocated``, the roofline beside a profiled
+             step's device ms (``launches_dryrun``: three steps).
+   audit     the real step's record audited against ``predicted_comm``
+             (tp 2, dp 2; advisory: findings by kind, ``rel_diff``); the
+             collective-audit demo (``analysis/demo``) on ``[cuda:0] * 8``,
+             whose clean variant must audit clean and seeded one fail;
+             ``plan_for`` with ``audit="warn"`` on the [plan] fleets.
    elastic   ``train/elastic.ElasticTrainer`` (kill-free reshards and
              rollbacks to ``train/checkpoint.CheckpointManager``'s async
              checkpoints) on phase 8's model, data and optimizer (tied,
@@ -369,7 +384,7 @@ Phases, each printed as it runs; any failure exits non-zero:
              the bound and the 16384-row case (``rows16384``).
 
 Each of phases 5-9 (serve continuous, pipeline, its mesh stages, mesh,
-elastic, manager's two paths, autotune, the three MoE, the four
+dryrun's real steps, elastic, manager's two paths, autotune, the three MoE, the four
 state-space and the four stubbed-frontend phases too) is
 a main path: the launch
 counts are set to 0 just before it and read just after, and each kernel
@@ -3654,6 +3669,149 @@ def phase_mesh(train: dict) -> dict:
     return total
 
 
+def _dryrun_cell(cfg, mesh):
+    """[mesh]'s (2, 2) cell as the dry run builds it: the train cell's
+    tokens in its microbatches."""
+    from repro_torch.launch import shapes as shapes_mod
+    from repro_torch.models.config import ShapeConfig
+    shape = ShapeConfig("mesh_train", "train", TRAIN_DATA["seq_len"],
+                        TRAIN_DATA["global_batch"],
+                        TRAIN_DATA["num_microbatches"])
+    return shapes_mod.build_cell(cfg, shape, mesh)
+
+
+def phase_dryrun() -> tuple:
+    """The dry run against the card on [mesh]'s (2, 2) ``fsdp_tp`` cell:
+    the fake trace (host seconds, its costs on ``cuda:0``), then one real
+    step with the collective record on, held to the fake run (record
+    entry for entry, launches equal to ``FAKE_CALLS``), its peak memory
+    beside the fake peak, and a second step's wall and a third's device
+    ms (``[profile] dryrun_mesh_step_2x2``: the kernels' time) beside the
+    roofline.  Returns the real steps' launches and what [audit] reads."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.dist.sharding import param_specs
+    from repro_torch.launch import dryrun
+    cfg = dataclasses.replace(get_config(ARCH), remat="full",
+                              sharding="fsdp_tp")
+    mesh = _mesh_of((2, 2))
+    cell = _dryrun_cell(cfg, mesh)
+    trace = dryrun.trace_cell(cell)
+    cost = dryrun.device_costs(cell, trace)["cuda:0"]
+    acc = ACCELERATORS["H100"]
+    terms = dict(compute_s=cost.flops / acc.peak_flops,
+                 memory_s=cost.bytes_accessed / acc.mem_bw,
+                 collective_s=cost.collective_traffic
+                 / acc.collective_link_bw)
+    roofline_s = max(terms.values())
+    fake = dict(host_s=trace.host_s, flops=cost.flops,
+                bytes_accessed=cost.bytes_accessed,
+                peak_bytes=cost.peak_bytes,
+                base_bytes=trace.cost.base["meta:0"],
+                collective_traffic=cost.collective_traffic,
+                roofline=dict(terms, roofline_s=roofline_s),
+                entries=len(trace.record.entries),
+                kernel_calls={k: v for k, v in trace.kernel_calls.items()
+                              if v})
+    log("[dryrun] fake trace of the (2, 2) fsdp_tp cell on [cuda:0] * 4: "
+        + json.dumps(fake))
+    dc = data_lib.DataConfig(**TRAIN_DATA)
+    batch = data_lib.SyntheticDataset(cfg, dc).batch(500)
+    full = model_lib.init(cfg, 0, device="cuda")
+    params = pm.shard_tree(full, param_specs(model_lib.decls(cfg),
+                                             cfg.sharding, mesh), mesh)
+    del full
+    state = opt_lib.init_sharded_state(params)
+    step = train_lib.jit_train_step(cfg, opt_lib.OptimizerConfig(**TRAIN_OPT),
+                                    mesh, dc.num_microbatches, dc.micro_batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    with pm.record_collectives() as record:
+        params, state, m = step(params, state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(ops.LAUNCHES)
+    same_record = record.entries == trace.record.entries
+    if not same_record:
+        first = next(i for i, (a, b) in enumerate(zip(
+            record.entries, trace.record.entries)) if a != b) \
+            if len(record.entries) == len(trace.record.entries) else None
+        raise AssertionError(
+            f"[dryrun] the real record ({len(record.entries)} entries) is "
+            f"not the fake one ({len(trace.record.entries)}); first "
+            f"difference at {first}")
+    if launches != trace.kernel_calls:
+        raise AssertionError(f"[dryrun] launches {json.dumps(launches)} != "
+                             f"FAKE_CALLS {json.dumps(trace.kernel_calls)}")
+    batch2 = data_lib.SyntheticDataset(cfg, dc).batch(501)
+    wall, _, _, (params, state, m2) = _timed_step(
+        lambda: step(params, state, batch2))
+    dev_ms = profile_window("dryrun_mesh_step_2x2",
+                            lambda: step(params, state, batch2), wall, 1)
+    launches = dict(ops.LAUNCHES)         # the three steps
+    kinds: dict = {}
+    for e in record.entries:
+        key = f"{e.kind}/{e.phase}"
+        kinds[key] = kinds.get(key, 0) + 1
+    log("[dryrun] real step vs the fake trace: " + json.dumps(dict(
+        records_equal=same_record, entries=len(record.entries),
+        entries_by_kind_phase=kinds,
+        launches_equal_fake_calls=True,
+        launches_per_step={k: v // 3 for k, v in launches.items() if v},
+        loss=m["loss"].item(), loss_2=m2["loss"].item(),
+        real_peak_bytes=peak, real_base_bytes=base,
+        fake_peak_bytes=cost.peak_bytes,
+        fake_over_real_peak=cost.peak_bytes / peak,
+        fake_over_real_above_base=(cost.peak_bytes - fake["base_bytes"])
+        / (peak - base),
+        roofline_s=roofline_s, step_device_ms=dev_ms, step_wall_ms=wall,
+        device_over_roofline=None if dev_ms is None
+        else dev_ms / 1e3 / roofline_s,
+        fake_host_s=trace.host_s)))
+    del params, state
+    torch.cuda.empty_cache()
+    return launches, dict(cfg=cfg, cell=cell, mesh=mesh, record=record)
+
+
+def phase_audit(dry: dict) -> None:
+    """The collective audit on the card: the real step's record against
+    ``predicted_comm`` (advisory, as the reference's ``--audit``), the
+    demo's two variants on ``[cuda:0] * 8`` (its exit rule holds or the
+    script fails), and ``plan_for`` with ``audit="warn"`` on the [plan]
+    fleets."""
+    import tempfile
+    from repro_torch.analysis import demo
+    from repro_torch.launch import dryrun
+    rep = dryrun._audit_cell(dry["cfg"], dry["cell"], dry["mesh"],
+                             dry["record"], tag="smollm_360m__mesh_2x2")
+    log("[audit] real (2, 2) fsdp_tp step vs predicted_comm (tp 2, dp 2): "
+        + json.dumps(dict(ok=rep["ok"], by_kind=rep["by_kind"],
+                          rel_diff=rep["summary"].get("rel_diff"),
+                          actual={k: v["traffic"] for k, v in
+                                  rep["summary"]["actual"].items()},
+                          predicted=rep["summary"]["predicted"])))
+    with tempfile.TemporaryDirectory() as out:
+        rc = demo.main(["--out", out])
+        reports = {v: json.load(open(os.path.join(out, f"demo_{v}.json")))
+                   for v in ("clean", "seeded")}
+    log("[audit] demo on [cuda:0] * 8: " + json.dumps(dict(
+        rc=rc, clean_findings=len(reports["clean"]["findings"]),
+        clean_rel_diff=reports["clean"]["summary"].get("rel_diff"),
+        seeded_by_kind=reports["seeded"]["by_kind"])))
+    if rc != 0:
+        raise AssertionError(f"[audit] demo exit {rc}: clean must audit "
+                             f"clean, seeded must fail")
+    for fleet, cluster in PLAN_FLEETS.items():
+        res = plan_for(get_config(ARCH), cluster, Objective(MAX_THROUGHPUT),
+                       seq_len=TRAIN_DATA["seq_len"],
+                       global_batch=PLAN_GLOBAL_BATCH, audit="warn")
+        log(f"[audit] plan_for({fleet}, audit='warn'): " + json.dumps(dict(
+            plan=res.best.plan.describe(), audit=res.stats["audit"])))
+
+
 def _whole_state(tr) -> dict:
     """The trainer's params, ``m``, ``v`` and step gathered whole on the
     card, by path."""
@@ -5634,6 +5792,9 @@ def main() -> int:
     train_launches, train = phase_train()
     pipeline_launches, pipe_mesh_launches = phase_pipeline(train)
     mesh_launches = phase_mesh(train)
+    dryrun_launches, dry = phase_dryrun()
+    phase_audit(dry)
+    del dry
     elastic_launches = phase_elastic()
     manager_launches, tel_launches = phase_manager()
     autotune_launches = phase_autotune(cal_accuracy)
@@ -5666,6 +5827,7 @@ def main() -> int:
             launches_plan=plan_launches[name],
             launches_pipeline=pipeline_launches[name],
             launches_mesh=mesh_launches.get(name, 0),
+            launches_dryrun=dryrun_launches.get(name, 0),
             launches_pipeline_mesh=pipe_mesh_launches.get(name, 0),
             launches_elastic=elastic_launches.get(name, 0),
             launches_manager=manager_launches.get(name, 0),

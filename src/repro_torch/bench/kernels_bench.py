@@ -186,10 +186,10 @@ def _tuned_op(arr, rng, dev, op: str, shape: Tuple[int, ...]):
                 lambda c: rn.rmsnorm_plain(*args, eps=eps),
                 {"block_rows": None})
     if op == "fused_add_rmsnorm":
-        cpu = kops._on_cpu(*args)
+        route = kops._route(*args)
         return (lambda cache: at.tune_fused_add_rmsnorm(*args, eps=eps,
                                                         cache=cache),
-                lambda c: kops._fused_fwd(*args, eps, c["block_rows"], cpu),
+                lambda c: kops._fused_fwd(*args, eps, c["block_rows"], route),
                 lambda c: fused_mod.fused_add_rmsnorm_plain(*args, eps=eps),
                 {"block_rows": None})
     return (lambda cache: at.tune_ssd_scan(*args, cache=cache),

@@ -243,20 +243,14 @@ class SailorPlanner:
         # planner held by manager.replan.IncrementalReplanner).
         self.memo = memo if memo is not None \
             else CandidateMemo(self.profile, enabled=share_tables)
-        # opt-in post-plan static audit (the reference's repro.analysis):
-        # None (off), "warn" or "error".  The audit reads XLA HLO and is
-        # not ported (``ROADMAP.md`` §1 item 13, the XLA-bound tooling),
-        # so "warn" and "error" raise here: a plan is never returned as
-        # audited when no audit ran.
+        # opt-in post-plan static audit (repro_torch.analysis): None (off),
+        # "warn" (findings recorded in stats["audit"] + warning) or "error"
+        # (an audit with error findings raises analysis.AuditError).
+        # ``auditor`` is any callable (plan, cluster) -> Report; defaults
+        # to the structural ``analysis.audit.plan_audit``.
         if audit not in (None, "warn", "error"):
             raise ValueError(f"audit must be None|'warn'|'error', "
                              f"got {audit!r}")
-        if audit is not None:
-            raise NotImplementedError(
-                f"SailorPlanner(audit={audit!r}): the post-plan audit "
-                f"(repro/analysis/audit.py) reads XLA HLO and is not ported "
-                f"yet (ROADMAP.md section 1, \"XLA-bound tooling\"); pass "
-                f"audit=None")
         self.audit = audit
         self.auditor = auditor
         # adaptive-vs-uniform and bounded-staleness sync as searched plan
@@ -346,9 +340,22 @@ class SailorPlanner:
 
     def _post_plan_audit(self, result: PlanResult,
                          cluster: ClusterSpec) -> PlanResult:
-        """The reference's opt-in static audit of the winning plan; with
-        ``audit=None``, the only value the port's constructor takes, it
-        returns ``result`` unchanged, as the reference's does."""
+        """Opt-in static audit of the winning plan (``audit=`` ctor arg).
+        ``warn`` records the report in ``stats["audit"]`` (and warns);
+        ``error`` raises :class:`repro_torch.analysis.audit.AuditError` so a
+        caller cannot commit an unauditable plan by accident."""
+        if self.audit is None or result.best is None:
+            return result
+        from repro_torch.analysis import audit as audit_mod
+        auditor = self.auditor or audit_mod.plan_audit
+        report = auditor(result.best.plan, cluster)
+        result.stats["audit"] = report.to_dict()
+        if not report.ok:
+            if self.audit == "error":
+                raise audit_mod.AuditError(report)
+            import warnings
+            warnings.warn(f"plan audit failed (audit='warn'): "
+                          f"{report.render()}", stacklevel=3)
         return result
 
     def _search(self, cluster: ClusterSpec, objective: Objective, *,

@@ -1,7 +1,8 @@
 """Device and dtype helpers shared by the port's entry points."""
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -23,6 +24,33 @@ def resolve_device(device: DeviceArg = None) -> torch.device:
             "repro_torch: no CUDA device is available; pass device='cpu' "
             "to run on the CPU")
     return dev
+
+
+# True inside ``meta_stands_for_cuda``: the dry run (``launch/dryrun.py``)
+# runs a step on fake tensors whose devices are ``meta`` stand-ins for
+# the mesh's cards, and the routes picked by device must be the card's
+_META_IS_CUDA = False
+
+
+@contextlib.contextmanager
+def meta_stands_for_cuda() -> Iterator[None]:
+    """Within the block, ``is_cuda_like`` takes a ``meta`` device for a CUDA
+    device, so a step on ``meta`` stand-ins picks the kernel routes the
+    card would take."""
+    global _META_IS_CUDA
+    old, _META_IS_CUDA = _META_IS_CUDA, True
+    try:
+        yield
+    finally:
+        _META_IS_CUDA = old
+
+
+def is_cuda_like(device: Union[str, torch.device]) -> bool:
+    """Whether the routes picked by device (the attention kernel, the SSD
+    kernel) take the card's: a CUDA device, or a ``meta`` stand-in inside
+    ``meta_stands_for_cuda``."""
+    kind = torch.device(device).type
+    return kind == "cuda" or (kind == "meta" and _META_IS_CUDA)
 
 
 def torch_dtype(name: Union[str, torch.dtype]) -> torch.dtype:

@@ -17,9 +17,23 @@ out-of-place sums or concatenations in the group's fixed order
 (``Mesh.groups``), so autograd differentiates them and every member of a
 group on the same kind of device gets the same bits.  Members that share a
 device share the result tensor (nothing writes into it).
+
+Every collective goes through ``_collective``, so a record there is the
+port's ground truth of what a program communicates (as the post-SPMD HLO
+is the reference's): ``with record_collectives() as rec:`` appends one
+``CollectiveEntry`` a call to ``rec.entries``.  Autograd runs the
+backward's collectives through the copies and sums, and no call reaches
+``_collective``: a gradient hook on the outputs of a call whose outputs
+require a gradient records its transpose (all-reduce to all-reduce,
+all-gather to reduce-scatter) when the first of their gradients is
+computed; the hook reads the gradient's size and changes no value.  A
+forward that runs again inside the backward (a checkpoint's recompute)
+records again, as ``"recompute"``.  With no record active the
+collectives record and hook nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -28,6 +42,7 @@ from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.device import dtype_name
 from repro_torch.dist.mesh import Mesh
 from repro_torch.dist.sharding import P, set_path
 
@@ -161,17 +176,90 @@ def _axes(axes: Axes) -> Tuple[str, ...]:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
+@dataclasses.dataclass(frozen=True)
+class CollectiveEntry:
+    """One collective as the record holds it: ``kind`` (``all-reduce``,
+    ``all-reduce-max``, ``all-reduce-min``, ``all-gather``, or a
+    backward's ``reduce-scatter``), the mesh ``axes`` it runs over, its
+    ``groups`` as flat positions (``Mesh.groups``), the bytes and dtype
+    of one member's result, and its ``phase`` (``fwd``, ``bwd``, or
+    ``recompute`` for a forward run inside the backward)."""
+    kind: str
+    axes: Tuple[str, ...]
+    groups: Tuple[Tuple[int, ...], ...]
+    nbytes: int
+    dtype: str
+    phase: str
+
+
+class CollectiveRecord:
+    """The collectives run while the record was active, in order."""
+
+    def __init__(self):
+        self.entries: List[CollectiveEntry] = []
+
+
+_RECORDS: List[CollectiveRecord] = []
+_TRANSPOSE = {"all-reduce": "all-reduce", "all-gather": "reduce-scatter"}
+
+
+@contextlib.contextmanager
+def record_collectives() -> Iterator[CollectiveRecord]:
+    """Record every collective (and the backward's transposes) run in the
+    block; records nest, each getting every entry."""
+    rec = CollectiveRecord()
+    _RECORDS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDS.remove(rec)
+
+
+def _record(kind: str, axes: Tuple[str, ...], groups: List[List[int]],
+            out: List[torch.Tensor]) -> None:
+    first = out[groups[0][0]]
+    in_backward = torch._C._current_graph_task_id() != -1
+    groups_t = tuple(tuple(g) for g in groups)
+    entry = CollectiveEntry(kind, axes, groups_t, first.nbytes,
+                            dtype_name(first.dtype),
+                            "recompute" if in_backward else "fwd")
+    recs = list(_RECORDS)
+    for rec in recs:
+        rec.entries.append(entry)
+    if kind not in _TRANSPOSE or not torch.is_grad_enabled():
+        return
+    outs = {id(t): t for t in out if t.requires_grad}
+    fired = []
+
+    def hook(grad: torch.Tensor) -> None:
+        if fired:
+            return
+        fired.append(True)
+        nbytes = grad.nbytes
+        if kind == "all-gather":
+            nbytes //= len(groups_t[0])
+        back = CollectiveEntry(_TRANSPOSE[kind], axes, groups_t, nbytes,
+                               dtype_name(grad.dtype), "bwd")
+        for rec in recs:
+            if rec in _RECORDS:
+                rec.entries.append(back)
+
+    for t in outs.values():
+        t.register_hook(hook)
+
+
 def _collective(xs: Sequence[torch.Tensor], mesh: Mesh, axes: Axes,
-                combine: Callable[[List[torch.Tensor]], torch.Tensor]
-                ) -> List[torch.Tensor]:
+                combine: Callable[[List[torch.Tensor]], torch.Tensor],
+                kind: str) -> List[torch.Tensor]:
     """Per group of ``mesh.groups(axes)``, per distinct device among its
     members: ``combine`` of the members' tensors copied to that device,
-    in group order."""
+    in group order.  ``kind`` names it in an active record."""
     if len(xs) != mesh.size:
         raise ValueError(f"{len(xs)} tensors for a mesh of {mesh.size}")
     devs = mesh.device_list
     out: List[Any] = [None] * mesh.size
-    for group in mesh.groups(_axes(axes)):
+    groups = mesh.groups(_axes(axes))
+    for group in groups:
         if len(group) == 1:
             out[group[0]] = xs[group[0]]
             continue
@@ -180,6 +268,9 @@ def _collective(xs: Sequence[torch.Tensor], mesh: Mesh, axes: Axes,
             if devs[p] not in made:
                 made[devs[p]] = combine([xs[q].to(devs[p]) for q in group])
             out[p] = made[devs[p]]
+    if _RECORDS and len(groups[0]) > 1:
+        _record(kind, tuple(a for a in _axes(axes) if a in mesh.shape),
+                groups, out)
     return out
 
 
@@ -188,7 +279,8 @@ def all_reduce_sum(xs: Sequence[torch.Tensor], mesh: Mesh,
     """Each member of a group over ``axes`` gets the sum of the group's
     tensors, added in group order.  Differentiable (its own transpose)."""
     return _collective(xs, mesh, axes,
-                       lambda ts: functools.reduce(operator.add, ts))
+                       lambda ts: functools.reduce(operator.add, ts),
+                       "all-reduce")
 
 
 def all_reduce_max(xs: Sequence[torch.Tensor], mesh: Mesh,
@@ -196,13 +288,15 @@ def all_reduce_max(xs: Sequence[torch.Tensor], mesh: Mesh,
     """The elementwise max over each group (for a softmax's shift; take it
     of detached tensors)."""
     return _collective(xs, mesh, axes,
-                       lambda ts: functools.reduce(torch.maximum, ts))
+                       lambda ts: functools.reduce(torch.maximum, ts),
+                       "all-reduce-max")
 
 
 def all_reduce_min(xs: Sequence[torch.Tensor], mesh: Mesh,
                    axes: Axes) -> List[torch.Tensor]:
     return _collective(xs, mesh, axes,
-                       lambda ts: functools.reduce(torch.minimum, ts))
+                       lambda ts: functools.reduce(torch.minimum, ts),
+                       "all-reduce-min")
 
 
 def all_gather(xs: Sequence[torch.Tensor], mesh: Mesh, axes: Axes,
@@ -211,7 +305,8 @@ def all_gather(xs: Sequence[torch.Tensor], mesh: Mesh, axes: Axes,
     group order (the blocks of a dim sharded over ``axes``, whole again).
     Differentiable: the backward sums each block's gradient over the
     members that gathered it (a reduce-scatter)."""
-    return _collective(xs, mesh, axes, lambda ts: torch.cat(ts, dim))
+    return _collective(xs, mesh, axes, lambda ts: torch.cat(ts, dim),
+                       "all-gather")
 
 
 def replica_group_sum(x: Sharded) -> Sharded:

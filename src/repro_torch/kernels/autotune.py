@@ -282,11 +282,11 @@ def tune_flash_attention(q, k, v, *, causal: bool,
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     shape = (b * h, sq, sk, d, int(causal)) + ((kh,) if kh != h else ())
-    cpu = ops._on_cpu(q, k, v)
+    route = ops._route(q, k, v)
 
     def bench(c: Config) -> float:     # the forward alone, at this tile
         return bench_time(lambda: ops._flash_fwd(
-            q, k, v, causal, c["block_q"], c["block_k"], cpu,
+            q, k, v, causal, c["block_q"], c["block_k"], route,
             return_lse=False), device=q.device)
 
     return autotune("flash_attention", shape, dtype_name(q.dtype),
@@ -314,11 +314,11 @@ def tune_fused_add_rmsnorm(x, res, scale, *, eps: float,
     from repro_torch.kernels import ops
     rows = _rows(x)
 
-    cpu = ops._on_cpu(x, res, scale)
+    route = ops._route(x, res, scale)
 
     def bench(c: Config) -> float:     # the forward alone, at this tile
         return bench_time(lambda: ops._fused_fwd(
-            x, res, scale, eps, c["block_rows"], cpu), device=x.device)
+            x, res, scale, eps, c["block_rows"], route), device=x.device)
 
     return autotune("fused_add_rmsnorm", (rows, x.shape[-1]),
                     dtype_name(x.dtype), rows_candidates(rows), bench,

@@ -29,13 +29,28 @@ the block is ``"auto"``, the per-(op, shape, dtype, chip) winner from
 ``flash_attention_decode`` has no tuner (nor has the reference): its
 ``"auto"`` takes the default tile.  A tune that misses the cache inside a
 CUDA graph capture raises (``autotune.autotune``).
+
+Fake tensors (``torch._subclasses.FakeTensor``, the dry run's stand-ins,
+``launch/dryrun.py``) take a third route: the wrapper checks its
+arguments, returns empty tensors of the kernel's output shapes, dtypes
+and device (the LSE too where the differentiable form keeps it), counts
+the call in ``FAKE_CALLS`` (never in ``LAUNCHES``) and hands every
+function in ``FAKE_SINKS`` the kernel's FLOPs, bytes (``fake_cost``) and
+device.  It launches nothing, computes nothing, tunes nothing
+(``"auto"`` and ``REPRO_KERNEL_AUTOTUNE`` take the default tile) and
+touches no module cache (built libraries, ticket counters, the tuner's
+cache).  It is not a fallback: a real CUDA tensor still takes the kernel
+or raises, and a CPU tensor its plain version.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
+from repro_torch.core.profiler.kernel_costs import op_flops_bytes
+from repro_torch.device import dtype_name
 from repro_torch.kernels import add as add_mod
 from repro_torch.kernels import autotune as at
 from repro_torch.kernels import flash_attention as fa
@@ -51,9 +66,73 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_bwd": 0, "fused_add_rmsnorm_bwd": 0}
 
 
+# the fake route's calls, by wrapper, and the dry run's cost counters
+FAKE_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
+FAKE_SINKS: List[Callable[[str, float, float, torch.device], None]] = []
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def reset_fake_calls() -> None:
+    for name in FAKE_CALLS:
+        FAKE_CALLS[name] = 0
+
+
+def fake_cost(name: str, *tensors: torch.Tensor) -> Tuple[float, float]:
+    """(FLOPs, HBM bytes) of one call of wrapper ``name`` on these inputs:
+    the forward kernels by the planner's formulas
+    (``kernel_costs.op_flops_bytes``, causal attention halved, the LSE's
+    fp32 write added), the two backward kernels by the same conventions
+    (attention: five products of the forward's two, reading q, k, v, dO,
+    the LSE, writing dQ, dK, dV; the fused norm: reading dh, dy, x, res
+    and scale, writing dsum and dscale, ten operations an element)."""
+    x = tensors[0]
+    dt = dtype_name(x.dtype)
+    es = x.element_size()
+    if name in ("flash_attention", "flash_attention_bwd"):
+        q, k, causal = tensors[0], tensors[1], tensors[-1]
+        b, sq, h, d = q.shape
+        bh, sk = b * h, k.shape[1]
+        flops, nbytes = op_flops_bytes("flash_attention",
+                                       (bh, sq, sk, d, int(causal)), dt)
+        if name == "flash_attention":
+            return flops, nbytes + 4.0 * bh * sq
+        return 2.5 * flops, es * bh * d * (3 * sq + 4 * sk) + 4.0 * bh * sq
+    if name == "flash_attention_decode":
+        b, _, h, d = x.shape
+        return op_flops_bytes("flash_decode", (b * h, tensors[1].shape[1], d),
+                              dt)
+    if name == "ssd_scan":
+        bs, s, h, p = x.shape
+        return op_flops_bytes("ssd_scan", (bs, s, h, p, tensors[3].shape[-1]),
+                              dt)
+    rows, d = x.numel() // max(x.shape[-1], 1), x.shape[-1]
+    if name in ("rmsnorm", "fused_add_rmsnorm"):
+        return op_flops_bytes(name, (rows, d), dt)
+    if name == "fused_add_rmsnorm_bwd":
+        return 10.0 * rows * d, es * (5 * rows * d + 2 * d)
+    if name == "add":
+        return float(rows * d), 3.0 * es * rows * d
+    raise ValueError(f"fake_cost: unknown wrapper {name!r}")
+
+
+def _fake_call(name: str, *tensors) -> None:
+    FAKE_CALLS[name] += 1
+    if FAKE_SINKS:
+        flops, nbytes = fake_cost(name, *tensors)
+        for sink in FAKE_SINKS:
+            sink(name, flops, nbytes, tensors[0].device)
+
+
+def _route(*tensors: torch.Tensor) -> str:
+    """``"fake"`` where any input is a fake tensor, else ``"cpu"`` or
+    ``"cuda"`` by ``_on_cpu``."""
+    if any(isinstance(t, FakeTensor) for t in tensors):
+        return "fake"
+    return "cpu" if _on_cpu(*tensors) else "cuda"
 
 
 def _tune(block: BlockArg) -> bool:
@@ -102,21 +181,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bf16 runs the tensor-core kernel, fp32 the CUDA-core one (``block_q``
     64 or 128 for either); None takes the kernel's default.
     Differentiable: see ``_FlashAttention``."""
-    if _tune(block_q) or _tune(block_k):
+    route = _route(q, k, v)
+    if route != "fake" and (_tune(block_q) or _tune(block_k)):
         fa.check_args(q, k, v, fa.default_block_q(q.dtype), fa.BLOCK_K)
         cfg = at.tune_flash_attention(q, k, v, causal=causal)
         block_q, block_k = cfg["block_q"], cfg["block_k"]
     bq = _block(block_q, fa.default_block_q(q.dtype), "block_q")
     bk = _block(block_k, fa.BLOCK_K, "block_k")
     fa.check_args(q, k, v, bq, bk)
-    cpu = _on_cpu(q, k, v)
     if _wants_grad(q, k, v):
-        return _FlashAttention.apply(q, k, v, causal, bq, bk, cpu)
-    return _flash_fwd(q, k, v, causal, bq, bk, cpu, return_lse=False)
+        return _FlashAttention.apply(q, k, v, causal, bq, bk, route)
+    return _flash_fwd(q, k, v, causal, bq, bk, route, return_lse=False)
 
 
-def _flash_fwd(q, k, v, causal, bq, bk, cpu, *, return_lse):
-    if cpu:
+def _flash_fwd(q, k, v, causal, bq, bk, route, *, return_lse):
+    if route == "fake":
+        _fake_call("flash_attention", q, k, v, causal)
+        o = torch.empty_like(q, memory_format=torch.contiguous_format)
+        if not return_lse:
+            return o
+        b, sq, h, _ = q.shape
+        return o, q.new_empty((b, h, sq), dtype=torch.float32)
+    if route == "cpu":
         return fa.flash_attention_plain(q, k, v, causal=causal, block_q=bq,
                                         block_k=bk, return_lse=return_lse)
     out = fa.flash_attention_cuda(q, k, v, causal=causal, block_q=bq,
@@ -132,7 +218,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of flash attention from its inputs, the output's
     gradient dO and the forward's row LSE (B, H, Sq) fp32; one call counts
     one launch (of two kernels)."""
-    if _on_cpu(q, k, v, do, lse):
+    route = _route(q, k, v, do, lse)
+    if route == "fake":
+        _fake_call("flash_attention_bwd", q, k, v, causal)
+        return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                     for t in (q, k, v))
+    if route == "cpu":
         return fa.flash_attention_bwd_plain(q, k, v, do, lse, causal=causal)
     out = fa.flash_attention_bwd_cuda(q, k, v, do, lse, causal=causal)
     LAUNCHES["flash_attention_bwd"] += 1
@@ -142,11 +233,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class _FlashAttention(torch.autograd.Function):
     """Forward with the row LSE saved beside q, k and v (the backward needs
     no O); backward through ``flash_attention_bwd``.  CPU tensors take both
-    plain versions, so the CPU tests run this same wiring."""
+    plain versions, so the CPU tests run this same wiring; fake tensors
+    both fake routes."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, bq, bk, cpu):
-        o, lse = _flash_fwd(q, k, v, causal, bq, bk, cpu, return_lse=True)
+    def forward(ctx, q, k, v, causal, bq, bk, route):
+        o, lse = _flash_fwd(q, k, v, causal, bq, bk, route, return_lse=True)
         ctx.save_for_backward(q, k, v, lse)
         ctx.causal = causal
         return o
@@ -171,7 +263,11 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor,
     default tile (there is no decode tuner); one call counts one launch."""
     bk = _block(block_k, fa.BLOCK_K, "block_k")
     fa.check_decode_args(q, k, v, bk)
-    if _on_cpu(q, k, v):
+    route = _route(q, k, v)
+    if route == "fake":
+        _fake_call("flash_attention_decode", q, k)
+        return torch.empty_like(q, memory_format=torch.contiguous_format)
+    if route == "cpu":
         return fa.flash_attention_decode_plain(q, k, v, cache_len=cache_len,
                                                block_k=bk, n_splits=n_splits)
     out = fa.flash_attention_decode_cuda(q, k, v, cache_len=cache_len,
@@ -187,7 +283,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     Returns (y (B, S, H, P), final_state (B, H, P, N) fp32).  Forward
     only: raises where a gradient would be taken."""
     _refuse_grad("ssd_scan", x, dt, a, b, c)
-    if _tune(chunk):
+    if _tune(chunk) and _route(x, dt, a, b, c) != "fake":
         ssd_mod.check_args(x, dt, a, b, c, ssd_mod.CHUNK)
         chunk = at.tune_ssd_scan(x, dt, a, b, c)["chunk"]
     ck = _block(chunk, ssd_mod.CHUNK, "chunk")
@@ -196,7 +292,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 def _ssd_scan(x, dt, a, b, c, ck):
-    if _on_cpu(x, dt, a, b, c):
+    route = _route(x, dt, a, b, c)
+    if route == "fake":
+        _fake_call("ssd_scan", x, dt, a, b)
+        bs, _, h, p = x.shape
+        return (torch.empty_like(x, memory_format=torch.contiguous_format),
+                x.new_empty((bs, h, p, b.shape[-1]), dtype=torch.float32))
+    if route == "cpu":
         return ssd_mod.ssd_scan_passes_plain(x, dt, a, b, c, chunk=ck)
     out = ssd_mod.ssd_scan_cuda(x, dt, a, b, c, chunk=ck)
     LAUNCHES["ssd_scan"] += 1
@@ -208,7 +310,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
     """x: (..., d); scale: (d,).  Forward only: raises where a gradient
     would be taken."""
     _refuse_grad("rmsnorm", x, scale)
-    if _tune(block_rows):
+    if _tune(block_rows) and _route(x, scale) != "fake":
         rn.check_args(x, scale, rn.BLOCK_ROWS)
         block_rows = at.tune_rmsnorm(x, scale, eps=eps)["block_rows"]
     br = _block(block_rows, rn.BLOCK_ROWS, "block_rows")
@@ -217,7 +319,11 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
 
 
 def _rmsnorm(x, scale, eps, br):
-    if _on_cpu(x, scale):
+    route = _route(x, scale)
+    if route == "fake":
+        _fake_call("rmsnorm", x)
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+    if route == "cpu":
         return rn.rmsnorm_plain(x, scale, eps=eps)
     out = rn.rmsnorm_cuda(x, scale, eps=eps, block_rows=br)
     LAUNCHES["rmsnorm"] += 1
@@ -229,7 +335,11 @@ def add(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     Forward only: raises where a gradient would be taken."""
     _refuse_grad("add", x, r)
     add_mod.check_args(x, r)
-    if _on_cpu(x, r):
+    route = _route(x, r)
+    if route == "fake":
+        _fake_call("add", x)
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+    if route == "cpu":
         return add_mod.add_plain(x, r)
     out = add_mod.add_cuda(x, r)
     LAUNCHES["add"] += 1
@@ -242,20 +352,24 @@ def fused_add_rmsnorm(x: torch.Tensor, res: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (rmsnorm(x + res) * scale, x + res) in one pass.
     Differentiable: see ``_FusedAddRMSNorm``."""
-    if _tune(block_rows):
+    route = _route(x, res, scale)
+    if _tune(block_rows) and route != "fake":
         fused_mod.check_args(x, res, scale, fused_mod.BLOCK_ROWS)
         block_rows = at.tune_fused_add_rmsnorm(x, res, scale,
                                                eps=eps)["block_rows"]
     br = _block(block_rows, fused_mod.BLOCK_ROWS, "block_rows")
     fused_mod.check_args(x, res, scale, br)
-    cpu = _on_cpu(x, res, scale)
     if _wants_grad(x, res, scale):
-        return _FusedAddRMSNorm.apply(x, res, scale, eps, br, cpu)
-    return _fused_fwd(x, res, scale, eps, br, cpu)
+        return _FusedAddRMSNorm.apply(x, res, scale, eps, br, route)
+    return _fused_fwd(x, res, scale, eps, br, route)
 
 
-def _fused_fwd(x, res, scale, eps, br, cpu):
-    if cpu:
+def _fused_fwd(x, res, scale, eps, br, route):
+    if route == "fake":
+        _fake_call("fused_add_rmsnorm", x)
+        return tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
+                     for _ in range(2))
+    if route == "cpu":
         return fused_mod.fused_add_rmsnorm_plain(x, res, scale, eps=eps)
     out = fused_mod.fused_add_rmsnorm_cuda(x, res, scale, eps=eps,
                                            block_rows=br)
@@ -270,7 +384,12 @@ def fused_add_rmsnorm_bwd(dh: torch.Tensor, dy: torch.Tensor,
     """(dsum, dscale) of the fused add + RMSNorm from the gradients of its
     two outputs (h, y): dsum is the gradient of both x and res.  One call
     is one kernel launch (dscale's sum across blocks included)."""
-    if _on_cpu(dh, dy, x, res, scale):
+    route = _route(dh, dy, x, res, scale)
+    if route == "fake":
+        _fake_call("fused_add_rmsnorm_bwd", x)
+        return (torch.empty_like(x, memory_format=torch.contiguous_format),
+                torch.empty_like(scale))
+    if route == "cpu":
         return fused_mod.fused_add_rmsnorm_bwd_plain(dh, dy, x, res, scale,
                                                      eps=eps)
     out = fused_mod.fused_add_rmsnorm_bwd_cuda(dh, dy, x, res, scale,
@@ -285,8 +404,8 @@ class _FusedAddRMSNorm(torch.autograd.Function):
     gradient in as zeros."""
 
     @staticmethod
-    def forward(ctx, x, res, scale, eps, br, cpu):
-        h, y = _fused_fwd(x, res, scale, eps, br, cpu)
+    def forward(ctx, x, res, scale, eps, br, route):
+        h, y = _fused_fwd(x, res, scale, eps, br, route)
         ctx.save_for_backward(x, res, scale)
         ctx.eps = eps
         return h, y

@@ -80,9 +80,8 @@ class ControllerConfig:
     # stream every decision to this JSONL file (same trace format as the
     # telemetry bus export — one control-plane format end to end)
     audit_path: Optional[str] = None
-    # static plan auditor (the reference's repro.analysis, not ported:
-    # it reads XLA HLO; ROADMAP.md §1, "XLA-bound tooling"): callable
-    # (plan, cluster) -> Report.  When set, every replan target of an
+    # static plan auditor, e.g. ``repro_torch.analysis.plan_audit``:
+    # callable (plan, cluster) -> Report.  When set, every replan target of an
     # *optional* transition is audited and error findings veto the move
     # (transition.decide(audit_failed=True) -> DEFER).  Mandatory moves
     # (shrinks, failures) are never vetoed.

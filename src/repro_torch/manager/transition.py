@@ -105,7 +105,7 @@ class TransitionModel:
         a ``slow-chip``/``slow-link`` verdict returns ``ROUTE_AROUND``
         with the persistence gate waived: the detector's own persistence
         + cooldown already established that the degradation is sustained.
-        ``audit_failed``: the static audit (not ported) of the
+        ``audit_failed``: the static audit (``analysis.plan_audit``) of the
         replan target reported errors.  An *optional* move onto a plan
         whose program the simulator provably mispriced is vetoed (DEFER)
         — its projected gain can't be trusted.  Mandatory moves and

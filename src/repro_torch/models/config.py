@@ -2,8 +2,9 @@
 
 One ``ModelConfig`` drives the port's model init/forward and the analytic
 profiler.  The dataclass is kept field for field as the reference has it,
-so the two packages read the same configs; ``ShapeConfig`` is not needed by
-the port yet.
+so the two packages read the same configs.  ``ShapeConfig``, ``SHAPES``
+and ``get_shape`` are the reference's input-shape cells, which the dry
+run (``launch/dryrun.py``) builds its stand-ins for.
 
 Families:
   dense   - decoder-only transformer (GQA/MQA, RoPE, SwiGLU)
@@ -12,11 +13,12 @@ Families:
   ssm     - pure Mamba2 (SSD), attention-free
   encdec  - encoder-decoder transformer (whisper-style; conv frontend stubbed)
   vlm     - decoder LM consuming stubbed vision patch embeddings + text
-``dense`` and ``moe`` are ported so far.
+Every family is ported.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,3 +191,30 @@ class ModelConfig:
             sharding="replicated", remat="none",
         )
         return small
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str                  # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+    # microbatches for gradient accumulation (train only); 0 -> auto
+    num_microbatches: int = 0
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", "train", 4096, 256),
+    ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    ShapeConfig("decode_32k", "decode", 32768, 128),
+    ShapeConfig("long_500k", "decode", 524288, 1),
+)
+
+
+def get_shape(name: str) -> ShapeConfig:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(f"unknown shape {name!r}; known: {[s.name for s in SHAPES]}")

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.device import is_cuda_like
 from repro_torch.kernels import ops as kops
 
 NEG_INF = -1e30
@@ -280,11 +281,12 @@ def attention(q, k, v, *, impl: str = "chunked", causal: bool = True,
 
 def pick_attn_impl(cfg_impl: str, seq_len: int,
                    device: Union[str, torch.device]) -> str:
-    """Resolve ``attn_impl="auto"``: the kernel on CUDA, else naive for
+    """Resolve ``attn_impl="auto"``: the kernel on CUDA (or a dry run's
+    stand-in for it, ``device.is_cuda_like``), else naive for
     short sequences and the chunked online softmax beyond (full scores
     don't fit)."""
     if cfg_impl != "auto":
         return cfg_impl
-    if torch.device(device).type == "cuda":
+    if is_cuda_like(device):
         return "kernel"
     return "naive" if seq_len <= 2048 else "chunked"

@@ -32,7 +32,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from repro_torch.device import torch_dtype
+from repro_torch.device import is_cuda_like, torch_dtype
 from repro_torch.dist.sharding import Decl
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
@@ -190,7 +190,7 @@ def pick_ssd_impl(device: Union[str, torch.device], *, prefill: bool,
     from a zero state) that takes no gradient; else ``"chunked"`` (a
     decode step from a carried state, which the kernel does not take; any
     call under autograd, the kernel having no backward; the CPU)."""
-    if torch.device(device).type == "cuda" and prefill and not grad:
+    if is_cuda_like(device) and prefill and not grad:
         return "kernel"
     return "chunked"
 

@@ -1685,6 +1685,35 @@ def test_mesh_without_enough_cards_raises(cuda):
     assert data_model_mesh(1, 1).device_list == [torch.device("cuda", 0)]
 
 
+@pytest.mark.parametrize("policy,shape", [("fsdp_tp", (2, 2)),
+                                          ("tp", (1, 4))])
+def test_dryrun_record_and_calls_match_the_card(cuda, policy, shape):
+    """The dry run's fake trace of a sharded step (``launch/dryrun``) against
+    the same step on a mesh of ``cuda:0`` repeated, through the kernels:
+    the collective records equal entry for entry, the step's ``LAUNCHES``
+    equal the trace's ``FAKE_CALLS``, and the record leaves the loss bit
+    for bit."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shapes as shapes_mod
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train import train_step as tts
+    cfg, mesh, _, sharded, batch, topt = _mesh_setup(policy, shape)
+    cell = shapes_mod.build_cell(cfg, ShapeConfig("t", "train", 64, 8, 2),
+                                 mesh)
+    trace = dryrun.trace_cell(cell)
+    step = tts.jit_train_step(cfg, topt.OptimizerConfig(), mesh, 2, 4)
+    state = topt.init_sharded_state(sharded)
+    loss_off, _ = tts.loss_and_grads(cfg, sharded, batch, mesh=mesh)
+    ops.reset_launches()
+    with pm.record_collectives() as record:
+        _, _, m = step(sharded, state, batch)
+    torch.cuda.synchronize()
+    assert record.entries == trace.record.entries
+    assert ops.LAUNCHES == trace.kernel_calls
+    assert torch.equal(m["loss"], loss_off)
+
+
 # --- the runtime: mesh stages, checkpoints, the elastic trainer ----------------------
 
 def test_mesh_stage_pipeline_on_one_card(cuda):

@@ -371,7 +371,12 @@ _PLANNER = ["repro_torch.core.cluster"] + [
      ("bus", "detectors", "rca", "faults")] + [
     "repro_torch.manager", "repro_torch.telemetry",
     # the MoE family and the autotuner's bench
-    "repro_torch.models.moe", "repro_torch.bench.kernels_bench"]
+    "repro_torch.models.moe", "repro_torch.bench.kernels_bench"] + [
+    # the dry run and the collective record's analysis
+    f"repro_torch.launch.{m}" for m in
+    ("shapes", "comm", "program_cost", "dryrun")] + [
+    f"repro_torch.analysis.{m}" for m in
+    ("findings", "collectives", "audit", "sharding_lint", "lint", "demo")]
 
 
 def test_port_imports_neither_jax_nor_the_reference():

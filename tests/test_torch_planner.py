@@ -6,7 +6,9 @@ The port keeps plain-Python copies of ``core/cluster.py`` and
 plans and numbers exactly (``==``).  The port's ``"H100"`` entry is added
 to the reference's catalog with ``monkeypatch`` (its file is not edited),
 so fleets that hold the port's card plan alike in both.  The post-plan
-audit reads XLA HLO and is not ported: ``audit=`` other than None raises.
+audit (``audit="warn"|"error"``) runs the port's structural
+``analysis.plan_audit``, as the reference's runs its own
+(``tests/test_torch_analysis.py`` holds the two reports equal).
 """
 import dataclasses
 import types
@@ -222,11 +224,20 @@ def test_serving_planner_equal():
 
 
 def test_audit_raises_until_the_audit_is_ported():
+    """The audit is ported: ``audit="warn"`` and ``"error"`` plan, audit
+    the winner with ``plan_audit`` and record the report (a feasible
+    plan audits clean, on both packages alike); an unknown mode still
+    raises ``ValueError``."""
     job = _job(T)
     assert tsearch.SailorPlanner(job, audit=None).audit is None
+    cluster = tcluster.heterogeneous_zone({"H100": 8, "A100-40": 8})
+    jc = jcluster.heterogeneous_zone({"H100": 8, "A100-40": 8})
     for audit in ("warn", "error"):
-        with pytest.raises(NotImplementedError,
-                           match='"XLA-bound tooling"'):
-            tsearch.SailorPlanner(job, audit=audit)
+        res = tsearch.SailorPlanner(job, audit=audit).plan(
+            cluster, tobj.Objective(tobj.MAX_THROUGHPUT))
+        ref = jsearch.SailorPlanner(_job(J), audit=audit).plan(
+            jc, jobj.Objective(jobj.MAX_THROUGHPUT))
+        assert res.stats["audit"]["ok"] is True
+        assert res.stats["audit"] == ref.stats["audit"]
     with pytest.raises(ValueError):
         tsearch.SailorPlanner(job, audit="maybe")
