@@ -174,6 +174,22 @@ Phases, each printed as it runs; any failure exits non-zero:
              collective-audit demo (``analysis/demo``) on ``[cuda:0] * 8``,
              whose clean variant must audit clean and seeded one fail;
              ``plan_for`` with ``audit="warn"`` on the [plan] fleets.
+   serve mesh  the sharded prefill and decode step (``serve_step.
+             make_prefill(cfg, mesh)``, ``make_decode(cfg, mesh)``),
+             every position on ``cuda:0``, eager, bf16: smollm-360M at
+             32 layers on (2, 2) ``fsdp_tp`` (the cache split over the
+             sequence) and (1, 5) ``tp`` (3 query heads and 1 K/V head a
+             position), 8 prompts of 512, ``grow_cache`` to 576, 32
+             decode steps; dbrx and mixtral (past its window) at 2 layers
+             on (1, 2), mamba2-130m at 24 on (1, 4), zamba2-2.7b at 12 on
+             (1, 2).  Each against the one-device steps fed the same
+             tokens (first tokens equal; every step's logits within the
+             larger of ``LOGITS_TOL`` and twice the one-device bf16 run's
+             distance from fp32), the first prefill's launches equal to
+             the dry run's ``FAKE_CALLS`` and its collective record to the
+             fake one, no launch in the decode steps; the second prefill's
+             and the median step's wall beside one device's
+             (``launches_serve_mesh``).
    elastic   ``train/elastic.ElasticTrainer`` (kill-free reshards and
              rollbacks to ``train/checkpoint.CheckpointManager``'s async
              checkpoints) on phase 8's model, data and optimizer (tied,
@@ -384,7 +400,7 @@ Phases, each printed as it runs; any failure exits non-zero:
              the bound and the 16384-row case (``rows16384``).
 
 Each of phases 5-9 (serve continuous, pipeline, its mesh stages, mesh,
-dryrun's real steps, elastic, manager's two paths, autotune, the three MoE, the four
+dryrun's real steps, serve mesh, elastic, manager's two paths, autotune, the three MoE, the four
 state-space and the four stubbed-frontend phases too) is
 a main path: the launch
 counts are set to 0 just before it and read just after, and each kernel
@@ -702,6 +718,25 @@ SSM_MESH_TIMED = 3      # eager steps timed (median)
 # lr g / (|g| + eps) in (-lr, lr) whatever the summation order: 2 lr
 SSM_MESH_SMALL_DATA = dict(seq_len=256, global_batch=4, num_microbatches=2)
 SSM_MESH_F32_TOL = 1e-3
+# [serve mesh]: the sharded prefill and decode step (serve_step.make_prefill
+# and make_decode with a mesh; dist/spmd_serve.py), eager, bf16, every
+# position on cuda:0, seed-0 weights at published widths: smollm-360M at
+# all 32 layers on MESH_CASES' meshes (8 prompts of 512, grow_cache to 576,
+# 32 greedy steps), then (arch, layers, policy, mesh, rows, prompt, steps)
+# at the depth each serve phase uses (mixtral's prompt past its window)
+SERVE_MESH_ROWS, SERVE_MESH_PROMPT, SERVE_MESH_LEN = 8, 512, 576
+SERVE_MESH_STEPS = 32
+SERVE_MESH_OTHERS = (
+    ("dbrx_132b", MOE_SERVE_LAYERS, "tp", (1, 2), 4, 512, 8),
+    ("mixtral_8x22b", MOE_SERVE_LAYERS, "tp", (1, 2), MIXTRAL_ROWS,
+     MIXTRAL_PROMPT, 8),
+    (SSM_ARCH, 24, "tp", (1, 4), 4, 512, 8),
+    (HYBRID_ARCH, HYBRID_TRAIN_LAYERS, "tp", (1, 2), 4, 512, 8))
+# each step's logits against one device's: the mesh sums 'model' partial
+# products in bf16 and splits the decode's softmax by slots, one device
+# rounds each product once; so beside LOGITS_TOL each is allowed twice
+# the one-device bf16 run's own largest distance from the same run in
+# fp32 (the same weights cast up, fed the same tokens)
 # the stubbed-frontend phases ([vlm serve], [encdec serve], [vlm train],
 # [encdec train]): internvl2-26b (arXiv:2404.16821) and whisper-tiny
 # (arXiv:2212.04356) at published widths, zero patches or frames served
@@ -1621,6 +1656,12 @@ def phase_kernels(main_lens):
         if kernel == "flash_attention":
             attn.append(attention_case(gen, label, b_, s_, s_, hq, hk, d_,
                                        True, dt))
+    # [serve mesh]'s prefills: each position's and the fp32 one device's
+    for kernel, label, shape, dt in serve_mesh_shapes():
+        if kernel == "flash_attention":
+            b_, s_, hq, hk, d_ = shape
+            attn.append(attention_case(gen, label, b_, s_, s_, hq, hk, d_,
+                                       True, dt))
     attn += [
         attention_case(gen, "ragged_s509", BATCH, 509, 509, h, kh, d, True,
                        bf16),
@@ -1701,6 +1742,9 @@ def phase_kernels(main_lens):
     for label, b_, s_, dt, _ in vlm_shapes():
         norm.append(fused_case(gen, f"{label}_rows{b_ * s_}", b_ * s_,
                                vcfg.d_model, dt))
+    for kernel, label, shape, dt in serve_mesh_shapes():
+        if kernel == "fused_add_rmsnorm":
+            norm.append(fused_case(gen, label, *shape, dt))
     norm += [fused_case(gen, "ragged_rows4071", 4071, dm, bf16),
              fused_case(gen, "f32_rows1000", 1000, dm, f32),
              fused_case(gen, "f32_4096x512", 4096, 512, f32),
@@ -1828,6 +1872,10 @@ def phase_kernels(main_lens):
     ssd[0]["more"].append({key: extra[key] for key in (
         "label", "shape", "dtype", "ms", "bound_ms", "bound_by",
         "share_of_bound", "plain_ms", "passes_ms", "max_abs_err")})
+    # [serve mesh]'s prefills' SSD: each position's and the fp32 one device's
+    for kernel, label, shape, dt in serve_mesh_shapes():
+        if kernel == "ssd_scan":
+            ssd.append(ssd_case(gen, label, *shape, dt))
     # [ssm mesh]'s positions' SSD, mamba2-130m's at tp 4 timed
     for kernel, label, shape, dt, _ in ssm_mesh_shapes():
         if kernel == "ssd_scan":
@@ -3812,6 +3860,168 @@ def phase_audit(dry: dict) -> None:
             plan=res.best.plan.describe(), audit=res.stats["audit"])))
 
 
+def _serve_mesh_reference(cfg, params, toks, max_len, steps) -> dict:
+    """One device, eager: the bf16 prefill (twice: the second timed),
+    ``grow_cache`` and ``steps`` greedy decode steps (their tokens drive
+    every run of the case), timed;
+    then the same weights cast to fp32 (``_f32_copy``) fed the same
+    tokens.  Returns each step's logits in both and the tokens."""
+    def run(cfg, params, tokens=None):
+        prefill = serve_step.make_prefill(cfg)
+        decode = serve_step.make_decode(cfg)
+        b = toks.shape[0]
+        with torch.no_grad():
+            prefill(params, {"tokens": toks})        # warm: the timed
+            torch.cuda.synchronize()                 # prefill is the 2nd
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            cache = kv_cache.grow_cache(cache, model_lib.init_cache(
+                cfg, b, max_len, device="cuda"))
+            outs, fed, walls = [logits.float()], [], []
+            for i in range(steps):
+                nxt = outs[-1].argmax(-1)[:, None] if tokens is None \
+                    else tokens[i]
+                fed.append(nxt)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = decode(params, cache, nxt)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                outs.append(logits.float())
+        del cache
+        return outs, fed, prefill_ms, statistics.median(walls)
+    outs, tokens, prefill_ms, decode_ms = run(cfg, params)
+    cfg32, params32 = _f32_copy(cfg, params)
+    outs32 = run(cfg32, params32, tokens)[0]
+    del params32
+    _release()
+    floor = max((a - b).abs().max().item() for a, b in zip(outs, outs32))
+    return dict(logits=outs, tokens=tokens, prefill_ms=prefill_ms,
+                decode_ms=decode_ms, floor=floor)
+
+
+def _serve_mesh_case(label, cfg, shape, rows, prompt, max_len, steps,
+                     smi) -> dict:
+    """One [serve mesh] case: the one-device reference, the dry run's fake
+    trace of the prefill cell, then the mesh's prefill (launches equal to
+    ``FAKE_CALLS``, its collective record the fake one), a second one
+    timed, ``grow_cache`` and ``steps`` decode steps fed the reference's
+    tokens (no launch: the decode's plain route), each step's logits held
+    to the reference.  Each side's wall is the second prefill's (the
+    first warms the side) and the median step's.  Returns the launches of
+    the mesh's two prefills and steps."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.dist.sharding import param_specs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shapes as shapes_mod
+    from repro_torch.models.config import ShapeConfig
+    mesh = _mesh_of(shape)
+    full = model_lib.init(cfg, 0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (rows, prompt), device="cuda",
+                         generator=gen)
+    ref = _serve_mesh_reference(cfg, full, toks, max_len, steps)
+    params = pm.shard_tree(full, param_specs(model_lib.decls(cfg),
+                                             cfg.sharding, mesh), mesh)
+    del full
+    _release()
+    t0 = time.perf_counter()
+    trace = dryrun.trace_cell(shapes_mod.build_cell(
+        cfg, ShapeConfig("serve_mesh", "prefill", prompt, rows), mesh))
+    fake_s = time.perf_counter() - t0
+    prefill = serve_step.make_prefill(cfg, mesh)
+    decode = serve_step.make_decode(cfg, mesh)
+    with torch.no_grad():
+        ops.reset_launches()
+        with pm.record_collectives() as record:
+            prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_launches = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()                 # the second prefill
+        logits, cache = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        cache = kv_cache.grow_cache(cache, model_lib.init_cache(
+            cfg, rows, max_len, mesh=mesh))
+        outs, walls = [pm.unshard(logits, "cuda")], []
+        for nxt in ref["tokens"]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = decode(params, cache, nxt)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            outs.append(pm.unshard(logits, "cuda"))
+        launches = dict(ops.LAUNCHES)
+    diffs = [(a - b).abs().max().item() for a, b in zip(outs, ref["logits"])]
+    tol = max(LOGITS_TOL, 2 * ref["floor"])
+    # the reference's token i is its greedy pick from its logits i
+    agree = [(o.argmax(-1)[:, None] == t).float().mean().item()
+             for o, t in zip(outs, ref["tokens"])]
+    first_equal = agree[0] == 1.0
+    row = dict(
+        mesh=dict(mesh.shape), layers=cfg.n_layers, dtype=cfg.dtype,
+        rows=rows, prompt=prompt, buffer=max_len, steps=steps,
+        cache_specs={k: [str(p) for p in v.spec]
+                     for k, v in cache.items() if k != "len"},
+        first_tokens_equal=first_equal,
+        greedy_agreement=statistics.mean(agree),
+        logits_max_abs_diff=max(diffs), prefill_logits_max_abs_diff=diffs[0],
+        single_bf16_vs_fp32=ref["floor"], tol=tol,
+        finite=all(bool(torch.isfinite(o).all()) for o in outs),
+        prefill_launches={k: v for k, v in prefill_launches.items() if v},
+        fake_calls_equal=prefill_launches == trace.kernel_calls,
+        records_equal=record.entries == trace.record.entries,
+        record_entries=len(record.entries), fake_trace_host_s=fake_s,
+        decode_launches={k: v - 2 * prefill_launches[k]
+                         for k, v in launches.items()
+                         if v != 2 * prefill_launches[k]},
+        prefill_wall_ms=prefill_ms,
+        one_device_prefill_wall_ms=ref["prefill_ms"],
+        prefill_ratio=prefill_ms / ref["prefill_ms"],
+        decode_step_wall_ms=statistics.median(walls),
+        one_device_decode_step_wall_ms=ref["decode_ms"],
+        decode_ratio=statistics.median(walls) / ref["decode_ms"], card=smi)
+    log(f"[serve mesh] {label}: " + json.dumps(row))
+    if not (first_equal and row["finite"] and max(diffs) <= tol
+            and row["fake_calls_equal"] and row["records_equal"]
+            and not row["decode_launches"]):
+        raise AssertionError(f"[serve mesh] {label}: {row}; FAKE_CALLS "
+                             f"{json.dumps(trace.kernel_calls)}")
+    del params, cache, ref, outs
+    _release()
+    return launches
+
+
+def phase_serve_mesh(smi: str) -> dict:
+    """Serving on a mesh (``serve_step.make_prefill(cfg, mesh)`` and
+    ``make_decode(cfg, mesh)`` over ``dist/spmd_serve.py``), every position
+    on ``cuda:0``, eager, bf16 (``[serve mesh]``): smollm-360M at all 32
+    layers on (2, 2) ``fsdp_tp`` (query heads replicated, the cache split
+    over the sequence) and (1, 5) ``tp`` (3 query heads and 1 K/V head a
+    position), then dbrx and mixtral (past its window) at 2 layers on (1,
+    2), mamba2-130m at 24 on (1, 4) and zamba2-2.7b at 12 on (1, 2).  A
+    main path for the attention and fused-norm kernels (a layer a
+    position a prefill) and the SSD scan (the same).  Returns the launches
+    of the mesh runs (the one-device references run outside the count)."""
+    t_phase = time.perf_counter()
+    log(f"[serve mesh] allocated at the start: "
+        f"{_release() / 2**30:.2f} GiB")
+    total: dict = {}
+    for case in serve_mesh_cases():
+        _add_counts(total, _serve_mesh_case(*case, smi))
+    log(f"[serve mesh] launches_serve_mesh "
+        + json.dumps({k: v for k, v in total.items() if v}))
+    missing = [n for n in ("flash_attention", "fused_add_rmsnorm",
+                           "ssd_scan") if not total.get(n)]
+    if missing:
+        raise AssertionError(f"[serve mesh] no launch of {missing} on the "
+                             f"path ({total})")
+    log(f"[serve mesh] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return total
+
+
 def _whole_state(tr) -> dict:
     """The trainer's params, ``m``, ``v`` and step gathered whole on the
     card, by path."""
@@ -4977,6 +5187,63 @@ def ssm_mesh_shapes():
            f32, True)
 
 
+def serve_mesh_cases():
+    """(label, cfg, mesh shape, rows, prompt, buffer, steps) of [serve
+    mesh]."""
+    for policy, shape in MESH_CASES:
+        yield (f"{ARCH} {shape[0]}x{shape[1]} {policy}",
+               dataclasses.replace(get_config(ARCH), sharding=policy), shape,
+               SERVE_MESH_ROWS, SERVE_MESH_PROMPT, SERVE_MESH_LEN,
+               SERVE_MESH_STEPS)
+    for arch, layers, policy, shape, rows, prompt, steps in \
+            SERVE_MESH_OTHERS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  sharding=policy)
+        yield (f"{arch} {shape[0]}x{shape[1]} {policy}", cfg, shape, rows,
+               prompt, prompt + steps + 8, steps)
+
+
+def _local_heads(h: int, kh: int, tp: int):
+    """(query heads, K/V heads) a position's prefill attention runs
+    (``spmd.layout`` and ``spmd._kv_heads`` under the ``tp`` rules):
+    the query heads split where 'model' divides them, the K/V heads their
+    block where it divides those, else the ones its query heads read."""
+    if h % tp:
+        return h, kh
+    n, g = h // tp, h // kh
+    if kh % tp == 0:
+        return n, kh // tp
+    return n, (n // g if n % g == 0 else 1 if g % n == 0 else n)
+
+
+def serve_mesh_shapes():
+    """(kernel, label, shape, dtype) of what [serve mesh]'s prefills launch:
+    each mesh position's (attention (b, S, heads, K/V heads, D), the fused
+    norm (rows, D), the SSD (b, S, heads, P, N)) in bf16 and the one-device
+    fp32 prefill it is held against."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for label, cfg, (dp, tp), rows, prompt, _, _ in serve_mesh_cases():
+        tag = "serve_mesh_" + label.split()[0] + f"_{dp}x{tp}"
+        for name, b, t, dt in ((tag, rows // dp if rows % dp == 0 else rows,
+                                tp, bf16), (tag + "_one_device_f32", rows, 1,
+                                            f32)):
+            if cfg.family in ("ssm", "hybrid"):
+                yield ("ssd_scan", name,
+                       (b, prompt, _position_heads(cfg.ssm_nheads, t),
+                        cfg.ssm_headdim, cfg.ssm_state), dt)
+            if cfg.family == "ssm" or cfg.window:
+                continue          # no attention, or a window's plain path
+            yield ("flash_attention", name,
+                   (b, prompt, *_local_heads(cfg.n_heads, cfg.n_kv_heads, t),
+                    cfg.hd), dt)
+        if cfg.family in ("dense", "moe"):
+            for name, b, dt in ((tag, rows // dp if rows % dp == 0 else rows,
+                                 bf16),
+                                (tag + "_one_device_f32", rows, f32)):
+                yield ("fused_add_rmsnorm", f"{name}_rows{b * prompt}",
+                       (b * prompt, cfg.d_model), dt)
+
+
 def _f32_copy(cfg, params):
     """``cfg`` and ``params`` in fp32 (the same weights cast up)."""
     return (dataclasses.replace(cfg, dtype="float32", param_dtype="float32"),
@@ -5795,6 +6062,7 @@ def main() -> int:
     dryrun_launches, dry = phase_dryrun()
     phase_audit(dry)
     del dry
+    serve_mesh_launches = phase_serve_mesh(smi)
     elastic_launches = phase_elastic()
     manager_launches, tel_launches = phase_manager()
     autotune_launches = phase_autotune(cal_accuracy)
@@ -5828,6 +6096,7 @@ def main() -> int:
             launches_pipeline=pipeline_launches[name],
             launches_mesh=mesh_launches.get(name, 0),
             launches_dryrun=dryrun_launches.get(name, 0),
+            launches_serve_mesh=serve_mesh_launches.get(name, 0),
             launches_pipeline_mesh=pipe_mesh_launches.get(name, 0),
             launches_elastic=elastic_launches.get(name, 0),
             launches_manager=manager_launches.get(name, 0),

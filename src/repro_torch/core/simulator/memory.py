@@ -245,7 +245,12 @@ def kv_cache_bytes(cfg, batch: int, ctx: int, page_size: int = 16) -> int:
     ``ceil(ctx/page)`` pages of ``page_size`` tokens are allocated per
     sequence.  Family-aware via the model's own ``cache_decls``: attention
     K/V grow with context (SWA archs cap at the window because the decl
-    does), SSM conv/state buffers are constant-size, hybrids mix both."""
+    does), SSM conv/state buffers are constant-size, hybrids mix both.
+    Each leaf is priced in the dtype the served decode state allocates it
+    in (``serve_step.decode_state``): ``cfg.dtype``, but the SSM state
+    ``ssm`` in fp32, which a decode step carries and writes in place (the
+    reference prices it in ``cfg.dtype``, the dtype its ``grow_cache``
+    casts it into)."""
     from repro_torch.models.model import cache_decls  # lazy: models pull in torch
     page = max(int(page_size), 1)
     pages = max(-(-int(ctx) // page), 1)
@@ -257,7 +262,8 @@ def kv_cache_bytes(cfg, batch: int, ctx: int, page_size: int = 16) -> int:
         n = 1
         for d in decl.shape:
             n *= d
-        total += n * dt
+        total += n * (kernel_costs.DTYPE_BYTES["float32"] if name == "ssm"
+                      else dt)
     return total
 
 

@@ -84,23 +84,35 @@ def check_family(cfg: ModelConfig, mesh: Mesh) -> None:
 
 
 def _one_position(cfg: ModelConfig, params, batch, mesh: Mesh,
-                  attn_impl: Optional[str]):
+                  attn_impl: Optional[str], return_cache: bool = False):
     """A family without sharded layers on a mesh of one position: the
     one-device model on the position's blocks (each the whole tensor),
     the batch's ``tokens`` and any ``frames`` or ``patches``, and the
-    plain ``Layout``."""
+    plain ``Layout``; with ``return_cache`` its cache too, each leaf a
+    ``Sharded`` of one block (``len`` as the model gives it)."""
     from repro_torch.models import model as model_lib
     tree = pm.tree_map(lambda _, x: x.blocks[0], params)
     local = {k: _local_batch(batch, mesh, k)
              for k in ("tokens", "frames", "patches") if k in batch}
-    logits = model_lib.forward(cfg, tree, {k: x.blocks[0]
-                                           for k, x in local.items()},
-                               attn_impl=attn_impl)
-    b = batch_spec(mesh, local["tokens"].shape[0])[0]
-    return [logits], Layout(tp=1, batch=pm.part_axes(b), heads=False,
-                            kv=False, ff=False, experts=False,
-                            vocab_embed=False, vocab_logits=False,
-                            ssm_heads=False)
+    out = model_lib.forward(cfg, tree, {k: x.blocks[0]
+                                        for k, x in local.items()},
+                            attn_impl=attn_impl, return_cache=return_cache)
+    lay = plain_layout(mesh, local["tokens"].shape[0])
+    if not return_cache:
+        return [out], lay
+    logits, cache = out
+    return [logits], lay, {
+        k: v if k == "len" else pm.Sharded(tuple(v.shape),
+                                           P(*[None] * v.dim()), mesh, [v])
+        for k, v in cache.items()}
+
+
+def plain_layout(mesh: Mesh, batch: int) -> "Layout":
+    """The ``Layout`` of a mesh of one position: nothing split but the
+    batch over its (size-1) dp axes."""
+    return Layout(tp=1, batch=pm.part_axes(batch_spec(mesh, batch)[0]),
+                  heads=False, kv=False, ff=False, experts=False,
+                  vocab_embed=False, vocab_logits=False, ssm_heads=False)
 
 
 def check_mesh(mesh) -> Mesh:
@@ -207,56 +219,94 @@ def _kv_heads(cfg: ModelConfig, lay: Layout, mesh: Mesh, pos: int,
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
+def layer_weights(mesh: Mesh, lay: Layout, specs: Dict[str, P],
+                  lws: List[Dict[str, torch.Tensor]]
+                  ) -> List[Dict[str, torch.Tensor]]:
+    """One layer's blocks as each position computes with them
+    (``_local``): a replicated ``wq``, ``bq`` and ``wo`` sliced to the
+    position's query heads where the heads are sharded."""
+    split = {"wq": (1,), "bq": (0,), "wo": (0,)} if lay.heads else {}
+    w: List[Dict[str, torch.Tensor]] = [dict() for _ in range(mesh.size)]
+    for name, spec in specs.items():
+        blocks = _local(mesh, spec, [lw[name] for lw in lws],
+                        split.get(name, ()))
+        for p in range(mesh.size):
+            w[p][name] = blocks[p]
+    return w
+
+
+def ffn_half(cfg: ModelConfig, mesh: Mesh, lay: Layout,
+             w: List[Dict[str, torch.Tensor]], xs: List[torch.Tensor],
+             part: List[torch.Tensor], impl: str, fused: bool
+             ) -> List[torch.Tensor]:
+    """The layer after attention: ``part`` each position's attention
+    output projected by its ``wo`` block (summed over 'model' here where
+    the heads are split), the residual seam, the FFN (dense or MoE) and its
+    sum over 'model' where 'ff' or the experts are split."""
+    delta = pm.all_reduce_sum(part, mesh, MODEL) if lay.heads else part
+    ys, hs, part = [], [], []
+    for p in range(mesh.size):
+        if fused:
+            h, y = L.rms_norm_residual(
+                xs[p], delta[p], w[p]["ln2"], cfg.norm_eps,
+                impl="kernel" if impl == "kernel" else "jnp")
+        else:
+            y = xs[p] + delta[p]
+            h = L.rms_norm(y, w[p]["ln2"], cfg.norm_eps)
+        hs.append(h)
+        ys.append(y)
+        if cfg.family != "moe":
+            part.append(T._ffn(cfg, w[p], h))
+    if cfg.family == "moe":
+        part = _moe_part(cfg, mesh, lay, w, hs)
+    ffn = pm.all_reduce_sum(part, mesh, MODEL) \
+        if lay.ff or lay.experts else part
+    return [y + f for y, f in zip(ys, ffn)]
+
+
 def _layer_fn(cfg: ModelConfig, mesh: Mesh, lay: Layout, specs: Dict[str, P],
-              positions: List[torch.Tensor], impl: str, fused: bool = True):
+              positions: List[torch.Tensor], impl: str, fused: bool = True,
+              kv_out: Optional[list] = None):
     """One decoder layer over every position (the lockstep body that
     ``cfg.remat`` checkpoints): ``xs`` one (b, S, D) residual a position,
     ``lws`` one dict of this layer's blocks a position; ``positions`` the
     RoPE positions on each position's device.  ``fused`` runs the seam as
     ``decoder_block`` does (``rms_norm_residual``); False as
     ``attn_block`` then ``ffn_block`` (the residual add, then a plain
-    ``rms_norm``), the pipeline stage's body."""
-    split = {"wq": (1,), "bq": (0,), "wo": (0,)} if lay.heads else {}
+    ``rms_norm``), the pipeline stage's body.  ``kv_out`` (a prefill's;
+    never under a gradient) gets one list a call: each position's (k, v)
+    as its projection gave them, the K/V heads ``kv_heads_held`` names."""
     n = mesh.size
 
     def body(xs, lws):
-        w = [dict() for _ in range(n)]
-        for name, spec in specs.items():
-            blocks = _local(mesh, spec, [lw[name] for lw in lws],
-                            split.get(name, ()))
-            for p in range(n):
-                w[p][name] = blocks[p]
-        part = []
+        w = layer_weights(mesh, lay, specs, lws)
+        part, kept = [], []
         for p in range(n):
             h = L.rms_norm(xs[p], w[p]["ln1"], cfg.norm_eps)
             q, k, v = T._qkv(cfg, w[p], h, positions[p])
+            kept.append((k, v))
             k, v = _kv_heads(cfg, lay, mesh, p, k, v)
             o = L.attention(q, k, v, impl=impl, causal=True,
                             window=cfg.window, q_pos=positions[p],
                             k_pos=positions[p],
                             block_remat=cfg.attn_block_remat)
             part.append(T._proj_out(o, w[p]["wo"]))
-        delta = pm.all_reduce_sum(part, mesh, MODEL) if lay.heads else part
-        ys, hs, part = [], [], []
-        for p in range(n):
-            if fused:
-                h, y = L.rms_norm_residual(
-                    xs[p], delta[p], w[p]["ln2"], cfg.norm_eps,
-                    impl="kernel" if impl == "kernel" else "jnp")
-            else:
-                y = xs[p] + delta[p]
-                h = L.rms_norm(y, w[p]["ln2"], cfg.norm_eps)
-            hs.append(h)
-            ys.append(y)
-            if cfg.family != "moe":
-                part.append(T._ffn(cfg, w[p], h))
-        if cfg.family == "moe":
-            part = _moe_part(cfg, mesh, lay, w, hs)
-        ffn = pm.all_reduce_sum(part, mesh, MODEL) \
-            if lay.ff or lay.experts else part
-        return [y + f for y, f in zip(ys, ffn)]
+        if kv_out is not None:
+            kv_out.append(kept)
+        return ffn_half(cfg, mesh, lay, w, xs, part, impl, fused)
 
     return body
+
+
+def kv_heads_held(cfg: ModelConfig, lay: Layout, mesh: Mesh,
+                  pos: int) -> Tuple[int, int]:
+    """The K/V heads [lo, hi) a position's K/V projection computes: its
+    block where ``wk`` is stored over 'model', else all of them."""
+    if not lay.kv:
+        return 0, cfg.n_kv_heads
+    n = cfg.n_kv_heads // lay.tp
+    a = _model_index(mesh, pos)
+    return a * n, (a + 1) * n
 
 
 def _moe_part(cfg: ModelConfig, mesh: Mesh, lay: Layout,
@@ -312,10 +362,12 @@ def _embed(cfg: ModelConfig, mesh: Mesh, lay: Layout, params,
 
 def run_layers(cfg: ModelConfig, mesh: Mesh, lay: Layout, layers,
                xs: List[torch.Tensor], impl: str, remat: bool,
-               fused: bool = True) -> List[torch.Tensor]:
+               fused: bool = True, kv_out: Optional[list] = None
+               ) -> List[torch.Tensor]:
     """Every layer of ``layers`` (a tree of ``Sharded`` stacked on a
     leading layer dim) over every position in lockstep, each layer under
-    ``cfg.remat`` when ``remat``; ``xs`` one residual a position."""
+    ``cfg.remat`` when ``remat``; ``xs`` one residual a position;
+    ``kv_out`` gets each layer's K/V (``_layer_fn``)."""
     devs = mesh.device_list
     s = xs[0].shape[1]
     arange = {d: torch.arange(s, device=d) for d in set(devs)}
@@ -323,7 +375,7 @@ def run_layers(cfg: ModelConfig, mesh: Mesh, lay: Layout, layers,
     stacked = [{name: st.blocks[p].unbind(0) for name, st in layers.items()}
                for p in range(mesh.size)]
     body = _layer_fn(cfg, mesh, lay, specs, [arange[d] for d in devs], impl,
-                     fused)
+                     fused, kv_out)
     step = T._remat(body, cfg.remat) if remat else body
     for i in range(next(iter(layers.values())).shape[0]):
         xs = step(xs, [{name: w[i] for name, w in st.items()}
@@ -352,35 +404,71 @@ def head_logits(cfg: ModelConfig, mesh: Mesh, lay: Layout, params,
 
 
 def forward(cfg: ModelConfig, params, batch, mesh: Mesh,
-            attn_impl: Optional[str] = None):
+            attn_impl: Optional[str] = None, return_cache: bool = False):
     """Per position (in position order) its logits block (b_local, S,
     V_local) in fp32, and the ``Layout``.  ``params`` is a tree of
     ``Sharded``; ``batch["tokens"]`` a (B, S) ``Sharded`` or a tensor laid
-    out here by ``batch_spec``."""
+    out here by ``batch_spec``.  ``return_cache`` (a prefill) adds a third
+    item, the decode cache: ``Sharded`` leaves laid out by
+    ``serve_step.cache_specs(cfg, B, S, mesh)`` and ``len`` S
+    (``dist/spmd_serve.py``)."""
     check_mesh(mesh)
     check_family(cfg, mesh)
     if cfg.family not in SHARDED_FAMILIES:
-        return _one_position(cfg, params, batch, mesh, attn_impl)
+        return _one_position(cfg, params, batch, mesh, attn_impl,
+                             return_cache)
     if cfg.logits_chunk:
         raise NotImplementedError(
             "logits_chunk > 0 on a mesh (the chunked loss) is not ported")
     tokens = _local_batch(batch, mesh, "tokens")
     lay = layout(cfg, params, mesh, *tokens.shape)
-    tokens, s = tokens.blocks, tokens.shape[1]
+    (rows, s), tokens = tokens.shape, tokens.blocks
     impl = attn_impl or L.pick_attn_impl(cfg.attn_impl, s,
                                          mesh.device_list[0])
     xs = _embed(cfg, mesh, lay, params, tokens)
     grad = torch.is_grad_enabled() and any(
         b.requires_grad for _, st in pm.tree_items(params) for b in st.blocks)
+    if return_cache and grad:
+        raise ValueError("forward(return_cache=True) on a mesh is a prefill: "
+                         "it takes no gradient")
+    kept: Optional[dict] = {"kv": [], "ssm": [], "conv": []} \
+        if return_cache else None
     if cfg.family in SSM_FAMILIES:
         from repro_torch.dist import spmd_ssm
         ssd = mamba2.pick_ssd_impl(mesh.device_list[0], prefill=True,
                                    grad=grad)
         xs = spmd_ssm.run_backbone(cfg, mesh, lay, params, xs, impl, ssd,
-                                   grad)
+                                   grad, kept)
     else:
-        xs = run_layers(cfg, mesh, lay, params["layers"], xs, impl, grad)
-    return head_logits(cfg, mesh, lay, params, xs), lay
+        xs = run_layers(cfg, mesh, lay, params["layers"], xs, impl, grad,
+                        kv_out=None if kept is None else kept["kv"])
+    logits = head_logits(cfg, mesh, lay, params, xs)
+    if not return_cache:
+        return logits, lay
+    from repro_torch.dist import spmd_serve
+    return logits, lay, spmd_serve.prefill_cache(cfg, mesh, lay, rows, s,
+                                                  kept)
+
+
+def logits_sharded(mesh: Mesh, lay: Layout,
+                   blocks: List[torch.Tensor]) -> pm.Sharded:
+    """Per-position logits blocks (b_local, S, V_local) as one ``Sharded``
+    (B, S, V): the batch over ``lay.batch``, the vocab over 'model' where
+    ``lay.vocab_logits``."""
+    part = lay.batch[0] if len(lay.batch) == 1 else (lay.batch or None)
+    spec = P(part, None, MODEL if lay.vocab_logits else None)
+    b, s, v = blocks[0].shape
+    for axes, dim in ((lay.batch, 0), ((MODEL,) if lay.vocab_logits else (),
+                                       2)):
+        n = 1
+        for a in axes:
+            n *= mesh.shape[a]
+        if dim == 0:
+            b *= n
+        else:
+            v *= n
+    return pm.Sharded((b, s, v), pm.check_spec((b, s, v), spec, mesh), mesh,
+                      list(blocks))
 
 
 def _ce_sums(mesh: Mesh, lay: Layout, logits: List[torch.Tensor],

@@ -44,10 +44,16 @@ unstacked ``shared_attn`` tree, before each group of ``attn_every``
 layers; autograd sums its gradient over the applications.  As in the
 one-device model, ``cfg.remat`` wraps each Mamba-2 layer and not the
 shared block.
+
+Serving (``dist/spmd_serve.py``): a prefill keeps each Mamba-2 layer's
+final SSD state and conv tail per position (``run_backbone``'s
+``kept``), and ``decode_layer`` steps one token against the cache laid
+out by ``serve_step.cache_specs``, the SSD on ``ssd_chunked`` from the
+carried state.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -77,6 +83,17 @@ def _whole(mesh: Mesh, spec: Sequence, blocks: List[torch.Tensor]
     return blocks
 
 
+def model_whole(mesh: Mesh, spec: Sequence, blocks: List[torch.Tensor]
+                ) -> List[torch.Tensor]:
+    """Blocks gathered whole over 'model' only (each dim the spec stores
+    over 'model'), the other dims left as they lie (a cache's batch over
+    the dp axes)."""
+    for dim, part in enumerate(spec):
+        if MODEL in pm.part_axes(part):
+            blocks = pm.all_gather(blocks, mesh, pm.part_axes(part), dim)
+    return blocks
+
+
 def _take(w: torch.Tensor, dim: int,
           ranges: Sequence[Tuple[int, int]]) -> torch.Tensor:
     """The (start, length) ranges of ``w``'s ``dim``, concatenated in
@@ -84,12 +101,20 @@ def _take(w: torch.Tensor, dim: int,
     return torch.cat([w.narrow(dim, start, n) for start, n in ranges], dim)
 
 
-def _mamba_fn(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout,
-              specs: Dict[str, P], impl: str):
-    """One Mamba-2 layer over every position (the lockstep body that
-    ``cfg.remat`` checkpoints): ``xs`` one (b, S, D) residual a position,
-    ``lws`` one dict of this layer's blocks a position; ``impl`` the SSD's
-    route."""
+def _mamba_step(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout,
+                specs: Dict[str, P], impl: str):
+    """One Mamba-2 layer over every position in lockstep: ``step(xs, lws,
+    state=None, tails=False)``, ``xs`` one (b, S, D) residual a position,
+    ``lws`` one dict of this layer's blocks a position, ``impl`` the SSD's
+    route; returns (xs, ssm states, conv tails).  ``state`` (a
+    decode step's) is one {"ssm", "conv"} a position: the SSD state of the
+    heads the position computes (``held_heads``) and the conv state whole
+    (b, K-1, d_inner + 2N); None starts from zero (a prefill).  With
+    ``tails`` (or a ``state``) each position gets its layer's final SSD
+    state (its heads, fp32) and the conv's last K-1 inputs whole: where the
+    heads are split, a position's tail holds the x channels of its heads
+    only, so their x parts are ``all_gather``ed over 'model' (K-1 rows of
+    d_inner / tp a position); else both lists are None."""
     n = mesh.size
     di, sn, h, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, \
         cfg.ssm_headdim
@@ -99,30 +124,44 @@ def _mamba_fn(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout,
     def gathered(lws, name):
         return _whole(mesh, specs[name], [lw[name] for lw in lws])
 
-    def whole_body(xs, lws):
+    def whole_step(xs, lws, state=None, tails=False):
         w = {name: gathered(lws, name) for name in specs}
-        return [mamba2.mamba_block(cfg, {k: v[p] for k, v in w.items()},
-                                   xs[p], impl=impl)[0] for p in range(n)]
+        keep = tails or state is not None
+        out, sts, convs = [], [], []
+        for p in range(n):
+            y, st = mamba2.mamba_block(
+                cfg, {k: v[p] for k, v in w.items()}, xs[p],
+                state=None if state is None else state[p],
+                return_state=keep, impl=impl)
+            out.append(y)
+            if keep:
+                sts.append(st["ssm"])
+                convs.append(st["conv"])
+        return (out, sts, convs) if keep else (out, None, None)
 
-    def body(xs, lws):
+    def step(xs, lws, state=None, tails=False):
         ln = spmd._local(mesh, specs["ln"], [lw["ln"] for lw in lws])
         w_in, conv_w, conv_b = (gathered(lws, k)
                                 for k in ("w_in", "conv_w", "conv_b"))
         heads = {k: spmd._local(mesh, specs[k], [lw[k] for lw in lws], (0,))
                  for k in _HEAD_LEAVES}
-        gs = []
+        gs, sts, convs = [], [], []
         for p in range(n):
             a = spmd._model_index(mesh, p)
             cols = [(a * dl, dl), (di + a * dl, dl), (2 * di, 2 * sn),
                     (2 * di + 2 * sn + a * hl, hl)]
             chans = [(a * dl, dl), (di, 2 * sn)]
             xn = L.rms_norm(xs[p], ln[p], cfg.norm_eps)
-            z, xin, bb, cc, dt, _ = mamba2.mix_in(
+            z, xin, bb, cc, dt, conv = mamba2.mix_in(
                 xn, _take(w_in[p], 1, cols), _take(conv_w[p], 1, chans),
-                _take(conv_b[p], 0, chans), dl, sn, hl)
-            y, _ = mamba2.ssd_skip(cfg, {k: v[p] for k, v in heads.items()},
-                                   xin, dt, bb, cc, impl)
+                _take(conv_b[p], 0, chans), dl, sn, hl,
+                None if state is None else _take(state[p]["conv"], 2, chans))
+            y, st = mamba2.ssd_skip(cfg, {k: v[p] for k, v in heads.items()},
+                                    xin, dt, bb, cc, impl,
+                                    None if state is None else state[p]["ssm"])
             gs.append(y * F.silu(z))
+            sts.append(st)
+            convs.append(conv)
         # layers.rms_norm over all di channels: the mean of squares of each
         # position's di / tp channels, summed over 'model', over tp
         means = pm.all_reduce_sum(
@@ -134,25 +173,53 @@ def _mamba_fn(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout,
                  ).to(g.dtype) * heads["gate_ln"][p]
             part.append(y @ heads["w_out"][p])
         out = pm.all_reduce_sum(part, mesh, MODEL)
-        return [x + o.to(x.dtype) for x, o in zip(xs, out)]
+        out = [x + o.to(x.dtype) for x, o in zip(xs, out)]
+        if not tails and state is None:
+            return out, None, None
+        xt = pm.all_gather([c[..., :dl] for c in convs], mesh, MODEL, 2)
+        return out, sts, [torch.cat([x, c[..., dl:]], -1)
+                          for x, c in zip(xt, convs)]
 
-    return body if lay.ssm_heads else whole_body
+    return step if lay.ssm_heads else whole_step
+
+
+def held_heads(cfg: ModelConfig, lay: spmd.Layout, mesh: Mesh,
+               pos: int) -> Tuple[int, int]:
+    """The SSD heads [lo, hi) whose state a position computes: its block
+    where the heads are split (``Layout.ssm_heads``), else all of them."""
+    if not lay.ssm_heads:
+        return 0, cfg.ssm_nheads
+    hl = cfg.ssm_nheads // lay.tp
+    a = spmd._model_index(mesh, pos)
+    return a * hl, (a + 1) * hl
 
 
 def run_backbone(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout, params,
                  xs: List[torch.Tensor], attn_impl: str, ssd_impl: str,
-                 remat: bool) -> List[torch.Tensor]:
+                 remat: bool, kept: Optional[dict] = None
+                 ) -> List[torch.Tensor]:
     """The Mamba-2 layers of ``params["layers"]`` (``Sharded`` stacked on a
     leading layer dim) over every position in lockstep, each under
     ``cfg.remat`` when ``remat``; for the hybrid, the shared block before
     each group of ``attn_every`` of them.  ``xs`` one residual a
-    position."""
+    position.  ``kept`` (a prefill's) gets one list a layer a position in
+    ``kept["ssm"]`` and ``kept["conv"]`` (``_mamba_step``'s states) and
+    the shared block's K/V an application in ``kept["kv"]``."""
     layers = params["layers"]
     specs = {name: P(*st.spec[1:]) for name, st in layers.items()}
     stacked = [{name: st.blocks[p].unbind(0) for name, st in layers.items()}
                for p in range(mesh.size)]
-    body = _mamba_fn(cfg, mesh, lay, specs, ssd_impl)
-    step = T._remat(body, cfg.remat) if remat else body
+    layer = _mamba_step(cfg, mesh, lay, specs, ssd_impl)
+    if kept is None:
+        def body(xs, lws):      # the lockstep body cfg.remat checkpoints
+            return layer(xs, lws)[0]
+        step = T._remat(body, cfg.remat) if remat else body
+    else:
+        def step(xs, lws):
+            xs, sts, tails = layer(xs, lws, tails=True)
+            kept["ssm"].append(sts)
+            kept["conv"].append(tails)
+            return xs
 
     def run(lo: int, hi: int, xs):
         for i in range(lo, hi):
@@ -167,10 +234,56 @@ def run_backbone(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout, params,
     arange = {d: torch.arange(xs[0].shape[1], device=d) for d in set(devs)}
     block = spmd._layer_fn(hybrid._dense_view(cfg), mesh, lay,
                            {name: st.spec for name, st in shared.items()},
-                           [arange[d] for d in devs], attn_impl, fused=False)
+                           [arange[d] for d in devs], attn_impl, fused=False,
+                           kv_out=None if kept is None else kept["kv"])
     shared_blocks = [{name: st.blocks[p] for name, st in shared.items()}
                      for p in range(mesh.size)]
     ae = cfg.attn_every
     for g in range(hybrid.n_groups(cfg)):
         xs = run(g * ae, (g + 1) * ae, block(xs, shared_blocks))
+    return xs
+
+
+def decode_layer(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout,
+                 specs: Dict[str, P], lws: List[Dict[str, torch.Tensor]],
+                 xs: List[torch.Tensor], ssm: pm.Sharded, conv: pm.Sharded,
+                 i: int, new_ssm: Optional[list]) -> List[torch.Tensor]:
+    """Layer ``i``'s one-token step over every position against the cache
+    leaves ``ssm`` and ``conv`` (``Sharded``, laid out by
+    ``serve_step.cache_specs``), ``mamba2.decode_layer`` on a mesh.  A
+    position reads what its heads need and writes its own blocks back:
+
+    * the conv state is stored in contiguous channel blocks over 'model'
+      (``ssm_inner``), which are not the channels a position's heads read
+      (x of its heads, B and C whole): each layer ``all_gather``s it whole
+      over 'model' ((b, K-1, d_inner + 2N) a position) and, after the
+      step, writes its own block of the new state (``_mamba_step``'s
+      gathered tail: K-1 rows of d_inner / tp a position);
+    * the SSD state is stored with its heads over 'model' where they
+      divide it, the heads a position computes where ``Layout.ssm_heads``
+      holds; where it does not (the mixer runs whole), the state is
+      gathered whole first.
+
+    The new fp32 SSD state is written in place into an fp32 ``ssm`` (the
+    served state), else appended to ``new_ssm`` per position."""
+    step = _mamba_step(cfg, mesh, lay, specs, "chunked")
+    conv_i = [b[i] for b in conv.blocks]
+    ssm_i = [b[i] for b in ssm.blocks]
+    conv_whole = model_whole(mesh, conv.spec[1:], conv_i)
+    ssm_spec = P(*ssm.spec[1:])
+    state_ssm = ssm_i if lay.ssm_heads else \
+        model_whole(mesh, ssm_spec, ssm_i)
+    state = [{"ssm": s, "conv": c} for s, c in zip(state_ssm, conv_whole)]
+    xs, sts, tails = step(xs, lws, state)
+    for p in range(mesh.size):
+        csl = pm.block_slices(conv.shape[1:], P(*conv.spec[1:]), mesh, p)
+        conv_i[p].copy_(tails[p][(slice(None),) * 2 + (csl[2],)])
+        st = sts[p]
+        lo = held_heads(cfg, lay, mesh, p)[0]
+        hsl = pm.block_slices(ssm.shape[1:], ssm_spec, mesh, p)[1]
+        st = st[:, hsl.start - lo:hsl.stop - lo]
+        if ssm.dtype == torch.float32:
+            ssm_i[p].copy_(st)
+        else:
+            new_ssm[p].append(st)
     return xs

@@ -3,7 +3,8 @@
 
 For each cell this shows, without a card:
   * the port's own step runs on the mesh (the sharded train step,
-    ``train_step.jit_train_step``; prefill and decode on one position),
+    ``train_step.jit_train_step``; the sharded prefill and decode step,
+    ``serve_step.make_prefill(cfg, mesh)`` and ``make_decode(cfg, mesh)``),
   * the per-device peak live bytes against the chip's memory (``--chip``,
     default ``"H100"``, the port's card, where the reference's default is
     its ``tpu-v5e``),
@@ -22,9 +23,9 @@ meshes are the production shapes over fake devices ``cuda:0`` ..
 eager program runs all its positions in lockstep in one process: a
 production cell is millions of ops, minutes of host time.
 
-Serving cells on more than one position and encdec/vlm train cells on
-more than one position come back as skips (``shapes.applicable``); any
-other exception is a FAIL, and the CLI exits non-zero on one.
+encdec and vlm cells on more than one position come back as skips
+(``shapes.applicable``); any other exception is a FAIL, and the CLI exits
+non-zero on one.
 
 Artifacts land in artifacts/dryrun/<arch>__<shape>__<mesh>.json.
 
@@ -74,14 +75,9 @@ def step_fn_for(cell: shapes_mod.Cell, mesh):
         shape = cell.args[2]["tokens"].shape
         return ts_lib.jit_train_step(cfg, opt_cfg, mesh, shape[0], shape[1])
 
-    def whole(tree):            # a one-position mesh's blocks
-        return pm.tree_map(lambda _, x: x.blocks[0], tree)
     if cell.kind == "prefill":
-        prefill = serve_step.make_prefill(cfg)
-        return lambda params, batch: prefill(whole(params), whole(batch))
-    decode = serve_step.make_decode(cfg)
-    return lambda params, cache, tokens: decode(
-        whole(params), whole(cache), tokens.blocks[0])
+        return serve_step.make_prefill(cfg, mesh)
+    return serve_step.make_decode(cfg, mesh)
 
 
 @dataclasses.dataclass

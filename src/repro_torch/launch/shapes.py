@@ -20,10 +20,8 @@ picked by device is the card's.
 Applicability rules (the reference's, plus the port's own):
   * long_500k needs sub-quadratic attention -> run only for ssm/hybrid/SWA
     archs; full-attention archs return a skip marker.
-  * prefill and decode run the one-device model on a mesh of one
-    position; the port has no sharded prefill or decode yet (ROADMAP §1,
-    "Serving on a mesh"), so on more positions they skip.
-  * encdec and vlm train on one position only (``spmd.check_family``).
+  * encdec and vlm train and serve on one position only
+    (``spmd.check_family``).
 """
 from __future__ import annotations
 
@@ -44,9 +42,6 @@ from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig, ShapeConfig, get_shape
 from repro_torch.serve import serve_step
 
-SERVING_ON_A_MESH = "Serving on a mesh"
-
-
 @dataclasses.dataclass
 class Cell:
     cfg: ModelConfig
@@ -66,12 +61,7 @@ def applicable(cfg: ModelConfig, shape: ShapeConfig,
     if shape.name == "long_500k" and not cfg.subquadratic:
         return ("long_500k requires sub-quadratic attention; "
                 f"{cfg.name} is full-attention (skip per assignment)")
-    n = 1 if mesh is None else mesh.size
-    if shape.kind != "train" and n > 1:
-        return (f"{shape.kind} on a mesh of {n} positions is not ported: "
-                f"the port's prefill and decode run on one position "
-                f"(ROADMAP §1 item \"{SERVING_ON_A_MESH}\")")
-    if shape.kind == "train" and mesh is not None:
+    if mesh is not None:
         try:
             spmd.check_family(cfg, mesh)
         except NotImplementedError as e:

@@ -5,6 +5,7 @@ Every family module exposes the same surface:
     decls(cfg) -> nested dict of Decl
     forward(cfg, params, batch, *, return_cache, attn_impl, return_hidden)
     decode(cfg, params, cache, tokens)
+(``forward`` and ``decode`` here also take the reference's ``mesh``).
     cache_decls(cfg, batch, max_len)   (or state_decls for ssm)
 The dense, MoE and VLM families (``models/transformer.py``, as in the
 reference), ssm (``models/mamba2.py``), hybrid (``models/hybrid.py``) and
@@ -94,19 +95,54 @@ def cache_decls(cfg: ModelConfig, batch: int, max_len: int):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               start_len: int = 0, *, device: DeviceArg = None):
+               start_len: int = 0, *, device: DeviceArg = None, mesh=None):
     """Zeroed cache in ``cfg.dtype`` (every leaf, the SSM state too, as in
-    the reference); ``len`` is a Python int."""
-    dev = resolve_device(device)
+    the reference); ``len`` is a Python int.  ``mesh`` (a
+    ``dist.mesh.Mesh``): each leaf a ``dist.placement.Sharded`` laid out
+    by ``serve_step.cache_specs``, its blocks on the positions' devices
+    (``device`` is not taken then), the decode buffer that
+    ``kv_cache.grow_cache`` re-lays a sharded prefill's cache into."""
     dtype = torch_dtype(cfg.dtype)
-    c = {k: torch.zeros(d.shape, dtype=dtype, device=dev)
-         for k, d in cache_decls(cfg, batch, max_len).items() if k != "len"}
+    decls = cache_decls(cfg, batch, max_len)
+    if mesh is not None:
+        from repro_torch.dist import placement as pm
+        from repro_torch.serve.serve_step import cache_specs
+        specs = cache_specs(cfg, batch, max_len, mesh)
+        c = {}
+        for k, d in decls.items():
+            if k == "len":
+                continue
+            spec = pm.check_spec(d.shape, specs[k], mesh)
+            c[k] = pm.Sharded(tuple(d.shape), spec, mesh, [
+                torch.zeros([s.stop - s.start for s in pm.block_slices(
+                    d.shape, spec, mesh, p)], dtype=dtype, device=dev)
+                for p, dev in enumerate(mesh.device_list)])
+    else:
+        dev = resolve_device(device)
+        c = {k: torch.zeros(d.shape, dtype=dtype, device=dev)
+             for k, d in decls.items() if k != "len"}
     c["len"] = int(start_len)
     return c
 
 
-def forward(cfg: ModelConfig, params, batch, *, return_cache: bool = False,
-            attn_impl=None, return_hidden: bool = False):
+def forward(cfg: ModelConfig, params, batch, *, mesh=None,
+            return_cache: bool = False, attn_impl=None,
+            return_hidden: bool = False):
+    """The family's forward.  ``mesh`` (a ``dist.mesh.Mesh``; ``params`` a
+    tree of ``dist.placement.Sharded``): the sharded forward
+    (``dist/spmd.py``); the logits come back as a ``Sharded`` (B, S, V)
+    fp32, the vocab over 'model' where the layout splits it, and with
+    ``return_cache`` the cache as ``Sharded`` leaves laid out by
+    ``serve_step.cache_specs`` (``dist/spmd_serve.py``)."""
+    if mesh is not None:
+        if return_hidden:
+            raise NotImplementedError("return_hidden on a mesh (the chunked "
+                                      "loss) is not ported")
+        from repro_torch.dist import spmd
+        out = spmd.forward(cfg, params, batch, spmd.check_mesh(mesh),
+                           attn_impl, return_cache)
+        logits = spmd.logits_sharded(mesh, out[1], out[0])
+        return (logits, out[2]) if return_cache else logits
     kw = {}
     if return_hidden:        # transformer families only (chunked loss)
         kw["return_hidden"] = True
@@ -115,7 +151,15 @@ def forward(cfg: ModelConfig, params, batch, *, return_cache: bool = False,
                                    attn_impl=attn_impl, **kw)
 
 
-def decode(cfg: ModelConfig, params, cache, tokens):
+def decode(cfg: ModelConfig, params, cache, tokens, *, mesh=None):
+    """One decode step: (logits (B, 1, V), cache).  ``mesh``: the sharded
+    step (``dist/spmd_serve.py``) on a cache of ``Sharded`` leaves, the
+    logits a ``Sharded`` as ``forward``'s."""
+    if mesh is not None:
+        from repro_torch.dist import spmd, spmd_serve
+        logits, lay, cache = spmd_serve.decode(cfg, params, cache, tokens,
+                                               spmd.check_mesh(mesh))
+        return spmd.logits_sharded(mesh, lay, logits), cache
     return get_module(cfg).decode(cfg, params, cache, tokens)
 
 

@@ -18,8 +18,10 @@ family's cache leaves (``model.cache_decls``: ``k``/``v`` for attention,
 batch their dim 1.  The encdec and vlm prefills take zero ``frames`` or
 ``patches`` (``model.stub_inputs``), as the reference's server gives
 them.  ``cache_specs`` is the
-reference's cache layout on a mesh (a plain copy); the servers run on one
-device.
+reference's cache layout on a mesh (a plain copy): ``make_prefill(cfg,
+mesh)`` and ``make_decode(cfg, mesh)`` run the sharded prefill and decode
+step on it (``dist/spmd_serve.py``); the servers run on one device, as
+the reference's ``BatchedServer`` takes no mesh.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 
 from repro_torch import graphs
 from repro_torch.device import device_of
+from repro_torch.dist import placement as pm
 from repro_torch.dist import sharding as shd
 from repro_torch.models import mamba2
 from repro_torch.models import model as model_lib
@@ -78,18 +81,38 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int, mesh):
     return {k: add_dp(d, to_spec(d)) for k, d in decls.items()}
 
 
-def make_prefill(cfg: ModelConfig) -> Callable:
+def _last(logits):
+    """The last position's logits (B, V): of a tensor, or of a mesh's
+    ``Sharded`` (B, S, V), its blocks' last positions as a ``Sharded`` of
+    the same layout."""
+    if not isinstance(logits, pm.Sharded):
+        return logits[:, -1]
+    b, _, v = logits.shape
+    return pm.Sharded((b, v), shd.P(logits.spec[0], logits.spec[2]),
+                      logits.mesh, [x[:, -1].contiguous()
+                                    for x in logits.blocks])
+
+
+def make_prefill(cfg: ModelConfig, mesh=None) -> Callable:
+    """(params, batch) -> (last-token logits, cache).  ``mesh``: the
+    sharded prefill (``params`` a tree of ``Sharded``; the logits a
+    ``Sharded`` (B, V) fp32, the cache ``Sharded`` leaves laid out by
+    ``cache_specs(cfg, B, S, mesh)``)."""
     def prefill(params, batch):
-        logits, cache = model_lib.forward(cfg, params, batch,
+        logits, cache = model_lib.forward(cfg, params, batch, mesh=mesh,
                                           return_cache=True)
-        return logits[:, -1], cache
+        return _last(logits), cache
     return prefill
 
 
-def make_decode(cfg: ModelConfig) -> Callable:
+def make_decode(cfg: ModelConfig, mesh=None) -> Callable:
+    """(params, cache, tokens) -> (logits (B, V), cache), one token for
+    the whole batch; ``mesh`` as ``make_prefill``'s, on a cache laid out
+    by ``cache_specs(cfg, B, max_len, mesh)`` (``kv_cache.grow_cache``)."""
     def decode(params, cache, tokens):
-        logits, cache = model_lib.decode(cfg, params, cache, tokens)
-        return logits[:, -1], cache
+        logits, cache = model_lib.decode(cfg, params, cache, tokens,
+                                         mesh=mesh)
+        return _last(logits), cache
     return decode
 
 

@@ -34,12 +34,14 @@ from repro_torch.configs import get_config as tget
 from repro_torch.device import meta_stands_for_cuda
 from repro_torch.dist import mesh as tmesh
 from repro_torch.dist import placement as pm
+from repro_torch.dist.sharding import param_specs
 from repro_torch.kernels import ops
 from repro_torch.launch import comm, dryrun
 from repro_torch.launch import program_cost as pc
 from repro_torch.launch import shapes as tshapes
 from repro_torch.models import config as tconfig
 from repro_torch.models import model as tmodel
+from repro_torch.serve import serve_step as tss
 from repro_torch.train import data as tdata
 from repro_torch.train import optimizer as topt
 from repro_torch.train import train_step as tts
@@ -158,9 +160,10 @@ def test_stand_ins_are_the_references(arch):
 
 def test_build_cell_blocks_and_skips():
     """A train cell's blocks are fakes on the stand-ins, one a position
-    with its own storage; serving cells on more than one position skip
-    naming the ROADMAP item, encdec/vlm train cells with the mesh step's
-    refusal, and long_500k as in the reference."""
+    with its own storage; serving cells on more than one position build
+    (the decode cache laid out by ``cache_specs``), encdec/vlm train and
+    serving cells skip with the mesh step's refusal, and long_500k as in
+    the reference."""
     mesh = _cuda_mesh(2, 4)
     cfg = tget("smollm_360m")
     cell = tshapes.build_cell(cfg, "train_4k", mesh, nm_override=2)
@@ -171,11 +174,13 @@ def test_build_cell_blocks_and_skips():
         [f"meta:{i}" for i in range(8)]
     assert len({b.untyped_storage()._cdata for b in wq.blocks}) == 8
     for name in ("prefill_32k", "decode_32k"):
-        skip = tshapes.build_cell(cfg, name, mesh).skip_reason
-        assert '"Serving on a mesh"' in skip
-    skip = tshapes.build_cell(tget("whisper_tiny"), "train_4k",
-                              mesh).skip_reason
-    assert "is not ported yet" in skip and "encoder-decoder" in skip
+        cell = tshapes.build_cell(cfg, name, mesh)
+        assert cell.skip_reason is None and cell.kind == name[:-4]
+    assert cell.args[1]["k"].spec == (None, "data", "model", None, None)
+    for arch in ("whisper_tiny", "internvl2_26b"):
+        for name in ("train_4k", "prefill_32k", "decode_32k"):
+            skip = tshapes.build_cell(tget(arch), name, mesh).skip_reason
+            assert "is not ported yet" in skip and "encoder-decoder" in skip
     assert "sub-quadratic" in tshapes.build_cell(
         cfg, "long_500k", _cuda_mesh(1, 1)).skip_reason
     assert tshapes.build_cell(cfg, "prefill_32k",
@@ -340,6 +345,57 @@ def test_fake_record_equals_the_real_record():
         flash_attention_bwd=per, fused_add_rmsnorm_bwd=per)
 
 
+def _real_serving(cfg, mesh, kind, batch, seq):
+    """A real prefill, or one decode step on a zeroed ``seq``-slot cache
+    (its SSD state fp32, as ``cache_fakes`` lays it out), with the record
+    on."""
+    full = tmodel.init(cfg, 0, device="cpu")
+    params = pm.shard_tree(full, param_specs(tmodel.decls(cfg), cfg.sharding,
+                                             mesh), mesh)
+    toks = torch.zeros((batch, seq if kind == "prefill" else 1),
+                       dtype=torch.int32)
+    cache = tmodel.init_cache(cfg, batch, seq, mesh=mesh)
+    if "ssm" in cache:
+        cache["ssm"] = cache["ssm"].with_blocks(
+            [b.float() for b in cache["ssm"].blocks])
+    cache["len"] = seq - 1
+    with torch.no_grad(), pm.record_collectives() as rec:
+        if kind == "prefill":
+            tss.make_prefill(cfg, mesh)(params, {"tokens": toks})
+        else:
+            tss.make_decode(cfg, mesh)(params, cache, toks)
+    return rec
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("granite_20b", (2, 2)),     # the K/V sequence split, query heads split
+    ("zamba2_2_7b", (1, 2))])    # the K/V head split, the SSD heads split
+def test_fake_serving_record_equals_the_real_record(arch, shape):
+    """The prefill and decode cells traced on fakes record what the real
+    steps record on ``[cpu] * n``, entry for entry; the prefill's fake
+    kernel calls are the card's launches (a layer a position), the decode
+    step's none."""
+    cfg = dataclasses.replace(tget(arch).reduced(), sharding="fsdp_tp")
+    n = shape[0] * shape[1]
+    for kind in ("prefill", "decode"):
+        cell = tshapes.build_cell(cfg, tconfig.ShapeConfig(
+            "small", kind, 16, 4), _cuda_mesh(*shape))
+        trace = dryrun.trace_cell(cell)
+        real = _real_serving(cfg, tmesh.data_model_mesh(*shape, ["cpu"] * n),
+                             kind, 4, 16)
+        assert trace.record.entries == real.entries, kind
+        assert real.entries, kind
+        calls = {k: v for k, v in trace.kernel_calls.items() if v}
+        if kind == "decode":
+            assert calls == {}
+        elif cfg.family == "hybrid":
+            assert calls == {"flash_attention": n * cfg.n_layers
+                             // cfg.attn_every, "ssd_scan": n * cfg.n_layers}
+        else:
+            assert calls == {"flash_attention": n * cfg.n_layers,
+                             "fused_add_rmsnorm": n * cfg.n_layers}
+
+
 def test_collective_bytes_by_kind():
     entries = [pm.CollectiveEntry("all-reduce", ("model",), ((0, 1), (2, 3)),
                                   1024, "float32", "fwd"),
@@ -420,7 +476,9 @@ def test_dryrun_flops_near_the_references():
 def test_run_cell_small_mesh_train_cell(tmp_path):
     """``run_cell`` on an 8-position mesh of fake ``cuda:i`` devices, as the
     reference's ``test_dryrun_small_mesh_cell`` calls it: the record's
-    fields, the audit under ``audit=True``; serving cells skip."""
+    fields, the audit under ``audit=True``; the serving cells run
+    (the sharded prefill through the kernels' fake route, the decode step
+    on the plain route), their audit left out as in the reference."""
     mesh = _cuda_mesh(2, 4)
     over = dict(_reduced_overrides("smollm_360m"), num_microbatches=1,
                 sharding="fsdp_tp")
@@ -441,11 +499,19 @@ def test_run_cell_small_mesh_train_cell(tmp_path):
     assert "rel_diff" in rec["audit"]["summary"]
     saved = json.load(open(tmp_path / "smollm_360m__train_4k__single.json"))
     assert saved["per_device"] == rec["per_device"]
-    for name in ("prefill_32k", "decode_32k"):
+    # the serving cells on (2, 2) (the K/V head split; the sequence
+    # split's record: test_fake_serving_record_equals_the_real_record)
+    n = over["n_layers"] * 4
+    for name, calls in (("prefill_32k", {"flash_attention": n,
+                                         "fused_add_rmsnorm": n}),
+                        ("decode_32k", {})):
         r = dryrun.run_cell("smollm_360m", name, False, str(tmp_path),
-                            mesh=mesh, overrides=over)
-        assert r["ok"] and r["skipped"]
-        assert "Serving on a mesh" in r["skip_reason"]
+                            mesh=_cuda_mesh(2, 2), overrides=over,
+                            audit=True)
+        assert r["ok"] and not r["skipped"], r.get("traceback")
+        assert r["kernel_calls"] == calls and "audit" not in r
+        assert r["per_device"]["flops"] > 0 and r["fits_hbm"] is True
+        assert {"all-reduce", "all-gather"} <= set(r["collectives_raw"])
 
 
 def test_run_cell_serving_on_one_position_and_fail(tmp_path):

@@ -2224,6 +2224,56 @@ def test_ssm_mesh_forward_launches_the_ssd_kernel_on_every_position(cuda):
     assert (got - want).abs().max().item() <= 1e-3
 
 
+@pytest.mark.parametrize("arch,policy,shape", [
+    ("smollm_360m", "fsdp_tp", (2, 2)), ("smollm_360m", "tp", (1, 4)),
+    ("mamba2_130m", "tp", (1, 4))])
+def test_sharded_prefill_on_one_card_matches_the_dry_run(cuda, arch, policy,
+                                                        shape):
+    """A sharded prefill (``serve_step.make_prefill(cfg, mesh)``) at full
+    width, 2 layers, fp32, on a mesh of ``cuda:0`` repeated, through the
+    kernels: its ``LAUNCHES`` equal the dry run's ``FAKE_CALLS`` for the
+    same cell (the attention and fused-norm kernels, or the SSD scan, once
+    a layer a position), its collective record the fake one entry for
+    entry, and its last-token logits and one decode step's are within 1e-3
+    of the one-device ``make_prefill`` / ``make_decode``."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.dist.mesh import data_model_mesh
+    from repro_torch.dist.sharding import param_specs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shapes as shapes_mod
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serve import kv_cache, serve_step
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32",
+                              param_dtype="float32", sharding=policy)
+    mesh = data_model_mesh(*shape, [torch.device("cuda", 0)] * 4)
+    params = tm.init(cfg, 0)
+    sharded = pm.shard_tree(params, param_specs(tm.decls(cfg), policy, mesh),
+                            mesh)
+    b, s = 4, 256
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                         generator=cuda)
+    trace = dryrun.trace_cell(shapes_mod.build_cell(
+        cfg, ShapeConfig("t", "prefill", s, b), mesh))
+    with torch.no_grad():
+        want, c1 = serve_step.make_prefill(cfg)(params, {"tokens": toks})
+        ops.reset_launches()
+        with pm.record_collectives() as record:
+            got, cm = serve_step.make_prefill(cfg, mesh)(sharded,
+                                                         {"tokens": toks})
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES == trace.kernel_calls
+        kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+        assert ops.LAUNCHES[kernel] == cfg.n_layers * mesh.size
+        assert record.entries == trace.record.entries
+        assert (pm.unshard(got, "cuda") - want).abs().max().item() <= 1e-3
+        c1 = kv_cache.grow_cache(c1, tm.init_cache(cfg, b, s + 8))
+        cm = kv_cache.grow_cache(cm, tm.init_cache(cfg, b, s + 8, mesh=mesh))
+        nxt = want.argmax(-1)[:, None]
+        want, _ = serve_step.make_decode(cfg)(params, c1, nxt)
+        got, _ = serve_step.make_decode(cfg, mesh)(sharded, cm, nxt)
+        assert (pm.unshard(got, "cuda") - want).abs().max().item() <= 1e-3
+
+
 # --- the stubbed-frontend families (whisper's encdec, internvl2's vlm) -------------
 
 def _stub_cfgs(dtype):

@@ -190,10 +190,15 @@ def test_served_bodies_make_no_host_sync(arch):
 @pytest.mark.parametrize("batch,ctx,page", [(1, 16, 16), (8, 549, 16),
                                             (2, 8192, 64)])
 def test_kv_cache_bytes_equal(batch, ctx, page):
-    assert tmem.kv_cache_bytes(tget(ARCH), batch, ctx, page) == \
-        jmem.kv_cache_bytes(jget(ARCH), batch, ctx, page)
-    assert tpaged.page_bytes(tget(ARCH), page) == \
-        jpaged.page_bytes(jget(ARCH), page)
+    """The reference's price, but the SSM state in fp32 where it prices it
+    in ``cfg.dtype`` (bf16): the port's served decode state holds it in
+    fp32 (P6, repaired)."""
+    cfg = tget(ARCH)
+    h = cfg.n_layers * cfg.ssm_nheads * cfg.ssm_headdim * cfg.ssm_state * 2
+    assert tmem.kv_cache_bytes(cfg, batch, ctx, page) == \
+        jmem.kv_cache_bytes(jget(ARCH), batch, ctx, page) + batch * h
+    assert tpaged.page_bytes(cfg, page) == \
+        jpaged.page_bytes(jget(ARCH), page) + h
 
 
 # --- training ----------------------------------------------------------------------

@@ -39,6 +39,17 @@ LOSS_RTOL, GRAD_TOL = 1e-5, 1e-5
 PARAM_RTOL, PARAM_ATOL = 2e-3, 2e-4
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These tiny models' ops run on one thread in a fraction of the CPU
+    time the default pool spends on them, which the workers of a parallel
+    test run share; the pool's size is restored after each test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(arch, policy, **kw):
     return dataclasses.replace(get_config(arch).reduced(), sharding=policy,
                                head_dim=64, **kw)

@@ -3,10 +3,22 @@ on the meshes ``test_torch_mesh.py`` holds qwen1_5_0_5b on (its cases
 live in a file of their own, so that a test worker takes each half), at
 that file's tolerances."""
 import pytest
+import torch
 
 from test_torch_mesh import MESHES, _cfg, step_matches_single_device
 
 CASES = [("smollm_360m", shape, policy) for shape, policy in MESHES]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These tiny models' ops run on one thread in a fraction of the CPU
+    time the default pool spends on them, which the workers of a parallel
+    test run share; the pool's size is restored after each test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("micro_batch", [4, 3])

@@ -376,7 +376,10 @@ _PLANNER = ["repro_torch.core.cluster"] + [
     f"repro_torch.launch.{m}" for m in
     ("shapes", "comm", "program_cost", "dryrun")] + [
     f"repro_torch.analysis.{m}" for m in
-    ("findings", "collectives", "audit", "sharding_lint", "lint", "demo")]
+    ("findings", "collectives", "audit", "sharding_lint", "lint", "demo")
+] + [
+    # serving on a mesh
+    "repro_torch.dist.spmd_serve", "repro_torch.dist.spmd_ssm"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():

@@ -28,6 +28,7 @@ from repro.core.simulator import serving as jserving
 from repro.core.simulator import simulate as jsimulate
 from repro.core.simulator import timing as jtiming
 from repro.serve import paged_cache as jpaged
+from repro_torch.configs import ARCH_IDS
 from repro_torch.configs import get_config as tget
 from repro_torch.core import cluster as tcluster
 from repro_torch.core.planner import plan as tplan
@@ -41,6 +42,7 @@ from repro_torch.core.simulator import serving as tserving
 from repro_torch.core.simulator import simulate as tsimulate
 from repro_torch.core.simulator import timing as ttiming
 from repro_torch.serve import paged_cache as tpaged
+from repro_torch.serve import serve_step as tserve_step
 
 J = types.SimpleNamespace(get=jget, cl=jcluster, plan=jplan, an=janalytic,
                           cost=jcost, eng=jeng, mem=jmem, serving=jserving,
@@ -199,14 +201,36 @@ def test_kv_cache_bytes_equal_for_the_other_families():
     """The state-space, encoder-decoder and vision-language families are
     priced as the reference prices them (``==``, three contexts; mamba2's
     state constant in context; whisper's cross-attention cache constant,
-    its self-attention cache growing), from the models' declarations."""
+    its self-attention cache growing), from the models' declarations; but
+    the SSM state in fp32 where the reference prices it in ``cfg.dtype``
+    (bf16), as the port's served decode state holds it (P6, repaired)."""
     for arch in ("mamba2-130m", "zamba2-2.7b", "whisper-tiny",
                  "internvl2-26b"):
-        got = [tmem.kv_cache_bytes(tget(arch), 2, ctx) for ctx in
+        cfg = tget(arch)
+        fp32_state = 2 * cfg.n_layers * 2 * cfg.ssm_nheads * \
+            cfg.ssm_headdim * cfg.ssm_state if cfg.family in (
+                "ssm", "hybrid") else 0
+        got = [tmem.kv_cache_bytes(cfg, 2, ctx) for ctx in
                (64, 549, 4096)]
-        assert got == [jmem.kv_cache_bytes(jget(arch), 2, ctx)
+        assert got == [jmem.kv_cache_bytes(jget(arch), 2, ctx) + fp32_state
                        for ctx in (64, 549, 4096)], arch
         assert (len(set(got)) == 1) == (arch == "mamba2-130m")
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kv_cache_bytes_equal_the_served_decode_state(arch, dtype):
+    """The price is what the port's server allocates (P6, repaired): the
+    bytes of ``decode_state``'s cache leaves (the SSM state fp32, the rest
+    in ``cfg.dtype``), at page-aligned contexts, every catalog config
+    reduced, in bf16 and fp32."""
+    cfg = dataclasses.replace(tget(arch).reduced(), dtype=dtype)
+    for batch, ctx in ((1, 16), (3, 48), (2, 256)):
+        state = tserve_step.decode_state(cfg, batch, ctx, per_row=False,
+                                         device="meta")
+        held = sum(v.numel() * v.element_size() for k, v in state.items()
+                   if k in tserve_step.cache_keys(state))
+        assert tmem.kv_cache_bytes(cfg, batch, ctx) == held, (batch, ctx)
 
 
 # --- the paged cache's page budget ------------------------------------------------
