@@ -190,6 +190,16 @@ Phases, each printed as it runs; any failure exits non-zero:
              fake one, no launch in the decode steps; the second prefill's
              and the median step's wall beside one device's
              (``launches_serve_mesh``).
+   mesh families  whisper-tiny (4 + 4 layers, 1500 frames) on (2, 2)
+             ``fsdp_tp`` and (1, 4) ``tp`` and internvl2-26b at 2 layers
+             (256 patches) on (2, 2) ``fsdp_tp`` and (1, 2) ``tp``
+             (``dist/spmd_encdec.py``, the patches in ``spmd.forward``),
+             every position on ``cuda:0``, eager, bf16, full remat: the
+             train step (the first step's gradients against one device's,
+             3 steps, the first one's launches and collective record equal
+             to the dry run's, the eager walls beside one device's) and
+             serving as [serve mesh]'s cases, on seeded stub frames or
+             patches (``launches_mesh_families``).
    elastic   ``train/elastic.ElasticTrainer`` (kill-free reshards and
              rollbacks to ``train/checkpoint.CheckpointManager``'s async
              checkpoints) on phase 8's model, data and optimizer (tied,
@@ -400,7 +410,7 @@ Phases, each printed as it runs; any failure exits non-zero:
              the bound and the 16384-row case (``rows16384``).
 
 Each of phases 5-9 (serve continuous, pipeline, its mesh stages, mesh,
-dryrun's real steps, serve mesh, elastic, manager's two paths, autotune, the three MoE, the four
+dryrun's real steps, serve mesh, mesh families, elastic, manager's two paths, autotune, the three MoE, the four
 state-space and the four stubbed-frontend phases too) is
 a main path: the launch
 counts are set to 0 just before it and read just after, and each kernel
@@ -423,6 +433,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -751,6 +762,25 @@ ENCDEC_F32_TOL, ENCDEC_CHECK_SHAPE, ENCDEC_CHECK_STEPS = 1e-4, (2, 64), 3
 VLM_TRAIN_LAYERS = 2    # 1.92 B params: their AdamW state fits beside them
 VLM_TRAIN_DATA = dict(seq_len=1024, global_batch=4, num_microbatches=2)
 ENCDEC_TRAIN_DATA = dict(seq_len=448, global_batch=8, num_microbatches=2)
+# [mesh families]: the stubbed-frontend families through the sharded train
+# step and serving on a mesh (dist/spmd_encdec.py, the vlm's patches in
+# dist/spmd.forward), eager, bf16, full remat, every position on cuda:0,
+# seed-0 weights at published widths: (arch, layers (None: all), policy,
+# mesh, train, serve).  whisper-tiny whole (4 + 4 layers, 1500 frames):
+# on (1, 4) its 6 heads do not divide, so attention is replicated and
+# only 'ff' splits; internvl2-26b at VLM_TRAIN_LAYERS (256 patches)
+FAMILY_MESH_CASES = (
+    (ENCDEC_ARCH, None, "fsdp_tp", (2, 2), True, True),
+    (ENCDEC_ARCH, None, "tp", (1, 4), True, True),
+    (VLM_ARCH, VLM_TRAIN_LAYERS, "fsdp_tp", (2, 2), True, False),
+    (VLM_ARCH, VLM_TRAIN_LAYERS, "tp", (1, 2), False, True))
+FAMILY_MESH_STEPS = 3   # eager steps after the first compared (one recorded)
+# serving: (rows, text tokens, decode steps); the train data are [encdec
+# train]'s and [vlm train]'s; the first step's gradients and each served
+# step's logits are held to one device's as [ssm mesh] and [serve mesh]
+# hold theirs (TRAIN_GRAD_TOL, TRAIN_COSINE, LOGITS_TOL, or twice the
+# one-device bf16 run's own distance from the same run in fp32)
+FAMILY_MESH_SERVE = {ENCDEC_ARCH: (8, 448, 8), VLM_ARCH: (4, 512, 8)}
 
 
 def log(msg: str) -> None:
@@ -1662,6 +1692,12 @@ def phase_kernels(main_lens):
             b_, s_, hq, hk, d_ = shape
             attn.append(attention_case(gen, label, b_, s_, s_, hq, hk, d_,
                                        True, dt))
+    # [mesh families]' positions (internvl2) and its one-device references
+    for kernel, label, shape, dt, _ in mesh_families_shapes():
+        if kernel == "flash_attention":
+            b_, s_, hq, hk, d_ = shape
+            attn.append(attention_case(gen, label, b_, s_, s_, hq, hk, d_,
+                                       True, dt))
     attn += [
         attention_case(gen, "ragged_s509", BATCH, 509, 509, h, kh, d, True,
                        bf16),
@@ -1743,6 +1779,9 @@ def phase_kernels(main_lens):
         norm.append(fused_case(gen, f"{label}_rows{b_ * s_}", b_ * s_,
                                vcfg.d_model, dt))
     for kernel, label, shape, dt in serve_mesh_shapes():
+        if kernel == "fused_add_rmsnorm":
+            norm.append(fused_case(gen, label, *shape, dt))
+    for kernel, label, shape, dt, _ in mesh_families_shapes():
         if kernel == "fused_add_rmsnorm":
             norm.append(fused_case(gen, label, *shape, dt))
     norm += [fused_case(gen, "ragged_rows4071", 4071, dm, bf16),
@@ -1940,6 +1979,11 @@ def phase_kernels(main_lens):
         if kernel == "flash_attention" and bwd:
             abwd.append(attention_bwd_case(gen, label, b_, s_, s_, hq, hk,
                                            d_, True, dt))
+    for kernel, label, shape, dt, bwd in mesh_families_shapes():
+        if kernel == "flash_attention" and bwd:
+            b_, s_, hq, hk, d_ = shape
+            abwd.append(attention_bwd_case(gen, label, b_, s_, s_, hq, hk,
+                                           d_, True, dt))
     # [ssm train]'s hybrid microbatch: the shared block at head dim 80
     hcfg = get_config(HYBRID_ARCH)
     hmb = HYBRID_TRAIN_DATA["global_batch"] // \
@@ -1999,6 +2043,9 @@ def phase_kernels(main_lens):
         if bwd:
             nbwd.append(fused_bwd_case(gen, f"{label}_rows{b_ * s_}",
                                        b_ * s_, vcfg.d_model, dt))
+    for kernel, label, shape, dt, bwd in mesh_families_shapes():
+        if kernel == "fused_add_rmsnorm" and bwd:
+            nbwd.append(fused_bwd_case(gen, label, *shape, dt))
     nbwd[0]["rows16384"] = {key: nbwd[1][key] for key in (
         "shape", "plan", "ms", "bound_ms", "share_of_bound", "plain_ms",
         "max_abs_err")}
@@ -3860,21 +3907,22 @@ def phase_audit(dry: dict) -> None:
             plan=res.best.plan.describe(), audit=res.stats["audit"])))
 
 
-def _serve_mesh_reference(cfg, params, toks, max_len, steps) -> dict:
-    """One device, eager: the bf16 prefill (twice: the second timed),
-    ``grow_cache`` and ``steps`` greedy decode steps (their tokens drive
-    every run of the case), timed;
-    then the same weights cast to fp32 (``_f32_copy``) fed the same
-    tokens.  Returns each step's logits in both and the tokens."""
+def _serve_mesh_reference(cfg, params, batch, max_len, steps) -> dict:
+    """One device, eager: the bf16 prefill of ``batch`` (the tokens and
+    any stub frames or patches; twice: the second timed), ``grow_cache``
+    and ``steps`` greedy decode steps (their tokens drive every run of the
+    case), timed; then the same weights cast to fp32 (``_f32_copy``) fed
+    the same tokens.  Returns each step's logits in both and the
+    tokens."""
     def run(cfg, params, tokens=None):
         prefill = serve_step.make_prefill(cfg)
         decode = serve_step.make_decode(cfg)
-        b = toks.shape[0]
+        b = batch["tokens"].shape[0]
         with torch.no_grad():
-            prefill(params, {"tokens": toks})        # warm: the timed
+            prefill(params, batch)                   # warm: the timed
             torch.cuda.synchronize()                 # prefill is the 2nd
             t0 = time.perf_counter()
-            logits, cache = prefill(params, {"tokens": toks})
+            logits, cache = prefill(params, batch)
             torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t0) * 1e3
             cache = kv_cache.grow_cache(cache, model_lib.init_cache(
@@ -3903,15 +3951,17 @@ def _serve_mesh_reference(cfg, params, toks, max_len, steps) -> dict:
 
 
 def _serve_mesh_case(label, cfg, shape, rows, prompt, max_len, steps,
-                     smi) -> dict:
+                     smi, phase="serve mesh") -> dict:
     """One [serve mesh] case: the one-device reference, the dry run's fake
     trace of the prefill cell, then the mesh's prefill (launches equal to
     ``FAKE_CALLS``, its collective record the fake one), a second one
     timed, ``grow_cache`` and ``steps`` decode steps fed the reference's
     tokens (no launch: the decode's plain route), each step's logits held
     to the reference.  Each side's wall is the second prefill's (the
-    first warms the side) and the median step's.  Returns the launches of
-    the mesh's two prefills and steps."""
+    first warms the side) and the median step's.  encdec and vlm prefill
+    seeded stub frames or patches (std 0.02, as the train data's) with
+    the ``prompt`` text tokens (a vlm's cell counts its patches).  Returns
+    the launches of the mesh's two prefills and steps."""
     from repro_torch.dist import placement as pm
     from repro_torch.dist.sharding import param_specs
     from repro_torch.launch import dryrun
@@ -3922,25 +3972,30 @@ def _serve_mesh_case(label, cfg, shape, rows, prompt, max_len, steps,
     gen = torch.Generator(device="cuda").manual_seed(11)
     toks = torch.randint(0, cfg.vocab_size, (rows, prompt), device="cuda",
                          generator=gen)
-    ref = _serve_mesh_reference(cfg, full, toks, max_len, steps)
+    batch = {"tokens": toks}
+    for name, x in model_lib.stub_inputs(cfg, rows, "cuda").items():
+        batch[name] = 0.02 * torch.randn(x.shape, device="cuda",
+                                         generator=gen)
+    seq = prompt + (cfg.n_patches if cfg.family == "vlm" else 0)
+    ref = _serve_mesh_reference(cfg, full, batch, max_len, steps)
     params = pm.shard_tree(full, param_specs(model_lib.decls(cfg),
                                              cfg.sharding, mesh), mesh)
     del full
     _release()
     t0 = time.perf_counter()
     trace = dryrun.trace_cell(shapes_mod.build_cell(
-        cfg, ShapeConfig("serve_mesh", "prefill", prompt, rows), mesh))
+        cfg, ShapeConfig("serve_mesh", "prefill", seq, rows), mesh))
     fake_s = time.perf_counter() - t0
     prefill = serve_step.make_prefill(cfg, mesh)
     decode = serve_step.make_decode(cfg, mesh)
     with torch.no_grad():
         ops.reset_launches()
         with pm.record_collectives() as record:
-            prefill(params, {"tokens": toks})
+            prefill(params, batch)
         torch.cuda.synchronize()
         prefill_launches = dict(ops.LAUNCHES)
         t0 = time.perf_counter()                 # the second prefill
-        logits, cache = prefill(params, {"tokens": toks})
+        logits, cache = prefill(params, batch)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         cache = kv_cache.grow_cache(cache, model_lib.init_cache(
@@ -3983,11 +4038,11 @@ def _serve_mesh_case(label, cfg, shape, rows, prompt, max_len, steps,
         decode_step_wall_ms=statistics.median(walls),
         one_device_decode_step_wall_ms=ref["decode_ms"],
         decode_ratio=statistics.median(walls) / ref["decode_ms"], card=smi)
-    log(f"[serve mesh] {label}: " + json.dumps(row))
+    log(f"[{phase}] {label}: " + json.dumps(row))
     if not (first_equal and row["finite"] and max(diffs) <= tol
             and row["fake_calls_equal"] and row["records_equal"]
             and not row["decode_launches"]):
-        raise AssertionError(f"[serve mesh] {label}: {row}; FAKE_CALLS "
+        raise AssertionError(f"[{phase}] {label}: {row}; FAKE_CALLS "
                              f"{json.dumps(trace.kernel_calls)}")
     del params, cache, ref, outs
     _release()
@@ -4019,6 +4074,210 @@ def phase_serve_mesh(smi: str) -> dict:
         raise AssertionError(f"[serve mesh] no launch of {missing} on the "
                              f"path ({total})")
     log(f"[serve mesh] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return total
+
+
+def _family_mesh_train(cfg, shape, full, batches, ref) -> dict:
+    """One [mesh families] train case: each position's memory, the first
+    step's loss and gradients against one device (``_ssm_mesh_grads``'s
+    bounds), the dry run's fake trace of
+    the step's cell, then FAMILY_MESH_STEPS eager steps timed, the first
+    with the record on: its launches equal to ``FAKE_CALLS`` and its
+    collective record the fake one; every step's launches the same;
+    losses finite; replicas bit for bit.  Returns the steps' launches."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.dist.sharding import param_specs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shapes as shapes_mod
+    from repro_torch.models.config import ShapeConfig
+    data = ENCDEC_TRAIN_DATA if cfg.family == "encdec" else VLM_TRAIN_DATA
+    dc = data_lib.DataConfig(**data)
+    mesh = _mesh_of(shape)
+    label = (f"{cfg.name} {cfg.n_layers} layers {shape[0]}x{shape[1]} "
+             f"{cfg.sharding} train")
+    params = pm.shard_tree(full, param_specs(model_lib.decls(cfg),
+                                             cfg.sharding, mesh), mesh)
+    state = opt_lib.init_sharded_state(params)
+    log(f"[mesh families] {label} memory: "
+        + json.dumps(_mesh_memory(cfg, mesh, params, state, data)))
+    first = _ssm_mesh_grads(label, cfg, mesh, params, batches[0], ref,
+                            "mesh families")
+    log(f"[mesh families] {label} first step vs the one-device "
+        f"loss_and_grads (same weights and batch): " + json.dumps(first))
+    t0 = time.perf_counter()
+    trace = dryrun.trace_cell(shapes_mod.build_cell(
+        cfg, ShapeConfig("mesh_families", "train", dc.seq_len,
+                         dc.global_batch, dc.num_microbatches), mesh))
+    fake_s = time.perf_counter() - t0
+    step = train_lib.jit_train_step(cfg, opt_lib.OptimizerConfig(
+        **TRAIN_OPT), mesh, dc.num_microbatches, dc.micro_batch)
+    rows, launches, entries = [], [], []
+    for i in range(FAMILY_MESH_STEPS):
+        ops.reset_launches()
+        with (pm.record_collectives() if i == 0
+              else contextlib.nullcontext()) as record:
+            wall, dev, extra, (params, state, m) = _timed_step(
+                lambda i=i: step(params, state, batches[i]))
+        entries = record.entries if i == 0 else entries
+        launches.append(dict(ops.LAUNCHES))
+        rows.append((wall, dev, extra, m["loss"].item(),
+                     m["grad_norm"].item()))
+    vals = [v for r in rows for v in r[3:]]
+    same = _mesh_replicas_equal(params, state["m"], state["v"])
+    stats = dict(
+        arch=cfg.name, layers=cfg.n_layers, mesh=dict(mesh.shape),
+        policy=cfg.sharding, data=data, losses=[r[3] for r in rows],
+        grad_norms=[r[4] for r in rows],
+        step_wall_ms=statistics.median(r[0] for r in rows),
+        step_wall_ms_all=[r[0] for r in rows],
+        step_device_ms=statistics.median(r[1] for r in rows),
+        working_set_gib=max(r[2] for r in rows) / 2**30,
+        tokens_per_s=dc.global_batch * dc.seq_len
+        / (statistics.median(r[0] for r in rows) / 1e3),
+        launches_per_step={k: v for k, v in launches[0].items() if v},
+        fake_calls_equal=all(x == trace.kernel_calls for x in launches),
+        records_equal=entries == trace.record.entries,
+        record_entries=len(entries), fake_trace_host_s=fake_s,
+        replicas_bit_identical=same)
+    log(f"[mesh families] {label}: " + json.dumps(stats))
+    if not (all(np.isfinite(vals)) and same and stats["fake_calls_equal"]
+            and stats["records_equal"]):
+        raise AssertionError(f"[mesh families] {label}: {stats}; FAKE_CALLS "
+                             f"{json.dumps(trace.kernel_calls)}")
+    del params, state
+    _release()
+    total: dict = {}
+    for x in launches:
+        _add_counts(total, x)
+    return dict(total=total, wall=stats["step_wall_ms"],
+                losses=stats["losses"])
+
+
+def _family_one_device(cfg, full, batches):
+    """The median wall and the losses of FAMILY_MESH_STEPS eager
+    one-device steps (``make_train_step``) from ``full`` (updated in
+    place) on the mesh's batches, outside the launch count."""
+    step = train_lib.make_train_step(cfg, opt_lib.OptimizerConfig(
+        **TRAIN_OPT))
+    state = opt_lib.init_state(full)
+    walls, losses = [], []
+    for b in batches:
+        wall, _, _, (full, state, m) = _timed_step(
+            lambda b=b: step(full, state, b))
+        walls.append(wall)
+        losses.append(m["loss"].item())
+    del state
+    _release()
+    return statistics.median(walls), losses
+
+
+def mesh_families_cases():
+    """(arch, cfg, mesh shape, train, serve) of [mesh families]."""
+    for arch, layers, policy, shape, train, serve in FAMILY_MESH_CASES:
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
+                                  remat="full", sharding=policy)
+        yield arch, cfg, shape, train, serve
+
+
+def mesh_families_shapes():
+    """(kernel, label, shape, dtype, backward) of what [mesh families]
+    launches and its one-device references run: internvl2's attention
+    (b, S, heads, K/V heads, D) and fused norm (rows, D) on each train
+    position (bf16, both directions) and each serving position (bf16,
+    forward), and the one-device references' (the train step's fp32
+    copy; the served bf16 and fp32; its bf16 step is [vlm train]'s
+    shape); whisper's family launches none."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for arch, cfg, (dp, tp), train, serve in mesh_families_cases():
+        if cfg.family != "vlm":
+            continue
+        h, kh = _local_heads(cfg.n_heads, cfg.n_kv_heads, tp)
+        tag = f"mesh_families_{dp}x{tp}"
+        cases = []
+        if train:
+            d = VLM_TRAIN_DATA
+            mb = d["global_batch"] // d["num_microbatches"]
+            cases += [(tag, mb // dp, d["seq_len"], h, kh, bf16, True),
+                      (tag + "_one_device_f32", mb, d["seq_len"],
+                       cfg.n_heads, cfg.n_kv_heads, f32, True)]
+        if serve:
+            rows, text, _ = FAMILY_MESH_SERVE[arch]
+            s = cfg.n_patches + text
+            cases += [(tag + "_serve", rows // dp, s, h, kh, bf16, False)]
+            cases += [(f"{tag}_serve_one_device_{_dname(dt)}", rows, s,
+                       cfg.n_heads, cfg.n_kv_heads, dt, False)
+                      for dt in (bf16, f32)]
+        for label, b, s, hq, hk, dt, bwd in cases:
+            yield ("flash_attention", label, (b, s, hq, hk, cfg.hd), dt, bwd)
+            yield ("fused_add_rmsnorm", f"{label}_rows{b * s}",
+                   (b * s, cfg.d_model), dt, bwd)
+
+
+def phase_mesh_families(smi: str) -> dict:
+    """The encoder-decoder and vision-language families on a mesh
+    (``[mesh families]``): the sharded train step
+    (``train_step.jit_train_step``) and ``serve_step.make_prefill(cfg,
+    mesh)`` / ``make_decode(cfg, mesh)``, every position on ``cuda:0``,
+    eager, bf16 (FAMILY_MESH_CASES).  Each family's train meshes are held
+    against one device run once (``_grads_reference``; its eager
+    step timed after them), its serving meshes as [serve mesh]'s.  A main
+    path for the attention and fused-norm kernels, forward and backward
+    (internvl2's positions); whisper launches none.  Returns the launches
+    of the mesh runs."""
+    t_phase = time.perf_counter()
+    log(f"[mesh families] allocated at the start: "
+        f"{_release() / 2**30:.2f} GiB")
+    total: dict = {}
+    by_case = {}
+    for arch in (ENCDEC_ARCH, VLM_ARCH):
+        cases = [c for c in mesh_families_cases() if c[0] == arch]
+        trains = [(cfg, shape) for _, cfg, shape, train, _ in cases if train]
+        if trains:
+            base = trains[0][0]
+            data = ENCDEC_TRAIN_DATA if arch == ENCDEC_ARCH \
+                else VLM_TRAIN_DATA
+            ds = data_lib.SyntheticDataset(base, data_lib.DataConfig(**data))
+            batches = [ds.batch(600 + i) for i in range(FAMILY_MESH_STEPS)]
+            full = model_lib.init(base, 0, device="cuda")
+            ref = _grads_reference(base, full, batches[0])
+            walls, losses = {}, {}
+            for cfg, shape in trains:
+                got = _family_mesh_train(cfg, shape, full, batches, ref)
+                key = f"{shape[0]}x{shape[1]} {cfg.sharding}"
+                walls[key], losses[key] = got["wall"], got["losses"]
+                by_case[f"{arch} {shape[0]}x{shape[1]} train"] = {
+                    k: v for k, v in got["total"].items() if v}
+                _add_counts(total, got["total"])
+            del ref
+            _release()
+            one, one_losses = _family_one_device(base, full, batches)
+            log(f"[mesh families] {base.name} {base.n_layers} layers train "
+                f"steps, mesh vs one device (eager, same weights and "
+                f"batches): " + json.dumps(dict(
+                    one_device_step_wall_ms=one, mesh_step_wall_ms=walls,
+                    ratio={k: v / one for k, v in walls.items()},
+                    one_device_losses=one_losses, mesh_losses=losses)))
+            del full
+            _release()
+        for _, cfg, shape, _, serve in cases:
+            if not serve:
+                continue
+            rows, text, steps = FAMILY_MESH_SERVE[arch]
+            seq = text + (cfg.n_patches if cfg.family == "vlm" else 0)
+            got = _serve_mesh_case(
+                f"{arch} {cfg.n_layers} layers {shape[0]}x{shape[1]} "
+                f"{cfg.sharding} serve", cfg, shape, rows, text,
+                seq + steps + 8, steps, smi, phase="mesh families")
+            by_case[f"{arch} {shape[0]}x{shape[1]} serve"] = {
+                k: v for k, v in got.items() if v}
+            _add_counts(total, got)
+    log(f"[mesh families] launches_mesh_families {json.dumps(by_case)}")
+    missing = [n for n in TRAIN_KERNELS if not total.get(n)]
+    if missing:
+        raise AssertionError(f"[mesh families] no launch of {missing} on "
+                             f"the path ({total})")
+    log(f"[mesh families] phase seconds {time.perf_counter() - t_phase:.1f}")
     return total
 
 
@@ -5251,49 +5510,66 @@ def _f32_copy(cfg, params):
                                     opt_lib.tree_leaves(params)]))
 
 
-def _ssm_mesh_reference(cfg, full, batch, toks) -> dict:
-    """What every mesh of a family is held against: the one-device
-    ``loss_and_grads`` on ``batch`` and the last position's logits of the
-    one-device forward without a gradient on ``toks``, in bf16 and from the
-    same weights in fp32 (``_f32_copy``: the bf16 step's own rounding)."""
+def _grads_reference(cfg, full, batch) -> dict:
+    """The one-device ``loss_and_grads`` of ``batch`` in bf16 and from the
+    same weights in fp32 (``_f32_copy``: the bf16 step's own rounding):
+    the bf16 loss and gradients, the fp32 loss, and each leaf's own
+    bf16-vs-fp32 distance (of the fp32 max |g|); the fp32 gradients are
+    not kept (internvl2's 2 layers are 7.7 GB of them)."""
     wl, wg = train_lib.loss_and_grads(cfg, full, batch)
     cfg32, full32 = _f32_copy(cfg, full)
     fl, fg = train_lib.loss_and_grads(cfg32, full32, batch)
+    del full32
+    grads = dict(opt_lib.tree_leaves(wg))
+    own = {k: ((grads[k].float() - g).abs().max() / g.abs().max()).item()
+           for k, g in opt_lib.tree_leaves(fg)}
+    del fg
+    _release()
+    return dict(loss=wl.item(), loss32=fl.item(), grads=grads, own=own)
+
+
+def _ssm_mesh_reference(cfg, full, batch, toks) -> dict:
+    """What every mesh of a family is held against: ``_grads_reference``
+    of ``batch`` and the last position's logits of the one-device forward
+    without a gradient on ``toks``, in bf16 and from the same weights in
+    fp32."""
+    ref = _grads_reference(cfg, full, batch)
+    cfg32, full32 = _f32_copy(cfg, full)
     with torch.no_grad():
-        logits = model_lib.forward(cfg, full, {"tokens": toks})[:, -1].clone()
-        logits32 = model_lib.forward(cfg32, full32, {"tokens": toks})[
+        ref["logits"] = model_lib.forward(cfg, full, {"tokens": toks})[
+            :, -1].clone()
+        ref["logits32"] = model_lib.forward(cfg32, full32, {"tokens": toks})[
             :, -1].clone()
     del full32
     _release()
-    return dict(loss=wl.item(), grads=dict(opt_lib.tree_leaves(wg)),
-                loss32=fl.item(), grads32=dict(opt_lib.tree_leaves(fg)),
-                logits=logits, logits32=logits32)
+    return ref
 
 
-def _ssm_mesh_grads(label, cfg, mesh, params, batch, ref) -> dict:
+def _ssm_mesh_grads(label, cfg, mesh, params, batch, ref,
+                    phase="ssm mesh") -> dict:
     """The first step's loss and gradients on the mesh (unsharded leaf by
-    leaf) against the one-device ones (``ref``): the loss within
-    TRAIN_LOSS_TOL, each leaf's cosine at least TRAIN_COSINE and its
-    max |dg| / max |g| within the larger of TRAIN_GRAD_TOL and twice the
-    one-device bf16 gradient's own distance from the fp32 one's."""
+    leaf) against the one-device ones (``ref``, ``_grads_reference``'s):
+    the loss within TRAIN_LOSS_TOL, each leaf's cosine at least
+    TRAIN_COSINE and its max |dg| / max |g| within the larger of
+    TRAIN_GRAD_TOL and twice the one-device bf16 gradient's own distance
+    from the fp32 one's."""
     from repro_torch.dist import placement as pm
     gl, gg = train_lib.loss_and_grads(cfg, params, batch, mesh=mesh)
     worst, floor, min_cos = 0.0, 0.0, 1.0
     for k, x in pm.tree_items(gg):
-        t, w, f = (pm.unshard(x, "cuda").float(), ref["grads"][k].float(),
-                   ref["grads32"][k])
+        t, w = pm.unshard(x, "cuda").float(), ref["grads"][k].float()
         rel = ((t - w).abs().max() / w.abs().max()).item()
-        own = ((w - f).abs().max() / f.abs().max()).item()
+        own = ref["own"][k]
         cos = _cosine(t, w)
         worst, floor = max(worst, rel), max(floor, own)
         min_cos = min(min_cos, cos)
         if not (rel <= max(TRAIN_GRAD_TOL, 2 * own) and cos >= TRAIN_COSINE):
             raise AssertionError(
-                f"[ssm mesh] {label} grad {k} vs single device: max |dg| / "
+                f"[{phase}] {label} grad {k} vs single device: max |dg| / "
                 f"max |g| {rel:.3e} (one device bf16 vs fp32 {own:.3e}), "
                 f"cosine {cos:.6f}")
     if not abs(gl.item() - ref["loss"]) <= TRAIN_LOSS_TOL * abs(ref["loss"]):
-        raise AssertionError(f"[ssm mesh] {label}: loss {gl.item()} vs "
+        raise AssertionError(f"[{phase}] {label}: loss {gl.item()} vs "
                              f"single device {ref['loss']}")
     return dict(loss=gl.item(), single_loss=ref["loss"],
                 fp32_loss=ref["loss32"], max_rel_grad_err=worst,
@@ -6063,6 +6339,7 @@ def main() -> int:
     phase_audit(dry)
     del dry
     serve_mesh_launches = phase_serve_mesh(smi)
+    mesh_families_launches = phase_mesh_families(smi)
     elastic_launches = phase_elastic()
     manager_launches, tel_launches = phase_manager()
     autotune_launches = phase_autotune(cal_accuracy)
@@ -6097,6 +6374,7 @@ def main() -> int:
             launches_mesh=mesh_launches.get(name, 0),
             launches_dryrun=dryrun_launches.get(name, 0),
             launches_serve_mesh=serve_mesh_launches.get(name, 0),
+            launches_mesh_families=mesh_families_launches.get(name, 0),
             launches_pipeline_mesh=pipe_mesh_launches.get(name, 0),
             launches_elastic=elastic_launches.get(name, 0),
             launches_manager=manager_launches.get(name, 0),

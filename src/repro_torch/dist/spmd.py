@@ -23,7 +23,14 @@ reference:
   one-device step's;
 * the state-space families' Mamba-2 layers and the hybrid's shared block
   (``dist/spmd_ssm.py``): the SSD heads over 'model' where it divides
-  them.
+  them;
+* the encoder-decoder's encoder, self- and cross-attention and FFN
+  (``dist/spmd_encdec.py``): the heads and 'ff' over 'model' as the
+  dense layer's;
+* a vlm's stub patches, projected by ``vision_proj`` on each position's
+  batch block and prepended to its text before the dense stack.
+
+Every family of the catalog runs on any mesh.
 
 Activations are laid out as the reference constrains them, by
 ``sharding.sanitize`` of its hints: the batch over ``batch_spec``'s dp
@@ -59,60 +66,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import IGNORE_LABEL, masked_ce_sums
 
 MODEL = "model"
-
-
-# the families with sharded layers; the others run on one position only
-SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 SSM_FAMILIES = ("ssm", "hybrid")        # their layers: dist/spmd_ssm.py
-_MESH_ITEMS = {
-    "encdec": "The encoder-decoder and vision-language families on a mesh",
-    "vlm": "The encoder-decoder and vision-language families on a mesh",
-}
-
-
-def check_family(cfg: ModelConfig, mesh: Mesh) -> None:
-    """The dense, MoE and state-space families run on any mesh.  The
-    others (encdec, vlm) have no sharded layers yet: on a mesh of one
-    position they run the one-device model (``_one_position``), on a larger
-    one they raise, naming the ROADMAP §1 item that ports them."""
-    if cfg.family not in SHARDED_FAMILIES and mesh.size != 1:
-        raise NotImplementedError(
-            f"family {cfg.family!r} on a mesh of {mesh.size} positions is "
-            f"not ported yet ({', '.join(SHARDED_FAMILIES)} only; one "
-            f"position runs the one-device model; ROADMAP §1 item "
-            f"\"{_MESH_ITEMS.get(cfg.family, cfg.family)}\")")
-
-
-def _one_position(cfg: ModelConfig, params, batch, mesh: Mesh,
-                  attn_impl: Optional[str], return_cache: bool = False):
-    """A family without sharded layers on a mesh of one position: the
-    one-device model on the position's blocks (each the whole tensor),
-    the batch's ``tokens`` and any ``frames`` or ``patches``, and the
-    plain ``Layout``; with ``return_cache`` its cache too, each leaf a
-    ``Sharded`` of one block (``len`` as the model gives it)."""
-    from repro_torch.models import model as model_lib
-    tree = pm.tree_map(lambda _, x: x.blocks[0], params)
-    local = {k: _local_batch(batch, mesh, k)
-             for k in ("tokens", "frames", "patches") if k in batch}
-    out = model_lib.forward(cfg, tree, {k: x.blocks[0]
-                                        for k, x in local.items()},
-                            attn_impl=attn_impl, return_cache=return_cache)
-    lay = plain_layout(mesh, local["tokens"].shape[0])
-    if not return_cache:
-        return [out], lay
-    logits, cache = out
-    return [logits], lay, {
-        k: v if k == "len" else pm.Sharded(tuple(v.shape),
-                                           P(*[None] * v.dim()), mesh, [v])
-        for k, v in cache.items()}
-
-
-def plain_layout(mesh: Mesh, batch: int) -> "Layout":
-    """The ``Layout`` of a mesh of one position: nothing split but the
-    batch over its (size-1) dp axes."""
-    return Layout(tp=1, batch=pm.part_axes(batch_spec(mesh, batch)[0]),
-                  heads=False, kv=False, ff=False, experts=False,
-                  vocab_embed=False, vocab_logits=False, ssm_heads=False)
 
 
 def check_mesh(mesh) -> Mesh:
@@ -138,10 +92,12 @@ class Layout:
 
 def layout(cfg: ModelConfig, params, mesh: Mesh, batch: int,
            seq: int) -> Layout:
-    """The attention and FFN fields read the decoder layers, or the
-    hybrid's unstacked ``shared_attn`` (all False for ``ssm``);
-    ``ssm_heads`` holds where 'model' divides the SSD heads and
-    ``gate_ln`` is stored over it (``dist/spmd_ssm.py``)."""
+    """The attention and FFN fields read the decoder layers (encdec's
+    ``decoder``, whose encoder and cross-attention leaves are laid out as
+    its self-attention's), or the hybrid's unstacked ``shared_attn`` (all
+    False for ``ssm``); ``seq`` counts a vlm's patches.  ``ssm_heads``
+    holds where 'model' divides the SSD heads and ``gate_ln`` is stored
+    over it (``dist/spmd_ssm.py``)."""
     sizes = dict(mesh.shape)
     tp = sizes.get(MODEL, 1)
     b = batch_spec(mesh, batch)[0]
@@ -152,12 +108,13 @@ def layout(cfg: ModelConfig, params, mesh: Mesh, batch: int,
         q = sanitize((batch, seq, cfg.n_heads, cfg.hd),
                      batch_spec(mesh, batch, None, MODEL, None), sizes)
         hyb = cfg.family == "hybrid"
-        layers = params["shared_attn" if hyb else "layers"]
+        layers = params[{"hybrid": "shared_attn",
+                         "encdec": "decoder"}.get(cfg.family, "layers")]
         at = 0 if hyb else 1            # the stacked tree's layer dim
         moe = cfg.family == "moe"
         # (experts, embed, e_ff) or (embed, ff), after any layer dim
-        ff = layers["we_up"].spec[at + 2] if moe \
-            else layers["w_up"].spec[at + 1]
+        ff = layers["we_up"].spec[at + 2] if moe else layers[
+            "w_in" if cfg.family == "encdec" else "w_up"].spec[at + 1]
         attn = dict(heads=q[2] == MODEL,
                     kv=layers["wk"].spec[at + 1] == MODEL, ff=ff == MODEL,
                     experts=moe and layers["we_up"].spec[at] == MODEL)
@@ -223,9 +180,11 @@ def layer_weights(mesh: Mesh, lay: Layout, specs: Dict[str, P],
                   lws: List[Dict[str, torch.Tensor]]
                   ) -> List[Dict[str, torch.Tensor]]:
     """One layer's blocks as each position computes with them
-    (``_local``): a replicated ``wq``, ``bq`` and ``wo`` sliced to the
-    position's query heads where the heads are sharded."""
-    split = {"wq": (1,), "bq": (0,), "wo": (0,)} if lay.heads else {}
+    (``_local``): a replicated ``wq``, ``bq`` and ``wo`` (and encdec's
+    cross-attention ``c_wq`` and ``c_wo``) sliced to the position's query
+    heads where the heads are sharded."""
+    split = {"wq": (1,), "bq": (0,), "wo": (0,), "c_wq": (1,),
+             "c_wo": (0,)} if lay.heads else {}
     w: List[Dict[str, torch.Tensor]] = [dict() for _ in range(mesh.size)]
     for name, spec in specs.items():
         blocks = _local(mesh, spec, [lw[name] for lw in lws],
@@ -403,35 +362,52 @@ def head_logits(cfg: ModelConfig, mesh: Mesh, lay: Layout, params,
             for h, w in zip(final_norm(cfg, mesh, params, xs), heads)]
 
 
+def _prepend_patches(cfg: ModelConfig, mesh: Mesh, params,
+                     patches: pm.Sharded, xs: List[torch.Tensor]
+                     ) -> List[torch.Tensor]:
+    """A vlm's stub ``patches`` (B, n_patches, D), laid out as the batch,
+    projected on each position by ``vision_proj`` (gathered whole where it
+    is stored over 'data') and prepended to its text rows, as
+    ``transformer.forward`` does."""
+    dt = torch_dtype(cfg.dtype)
+    proj = _local(mesh, params["vision_proj"].spec,
+                  params["vision_proj"].blocks)
+    return [torch.cat([(x.to(dt) @ w).to(dt), t], dim=1)
+            for x, w, t in zip(patches.blocks, proj, xs)]
+
+
 def forward(cfg: ModelConfig, params, batch, mesh: Mesh,
             attn_impl: Optional[str] = None, return_cache: bool = False):
     """Per position (in position order) its logits block (b_local, S,
     V_local) in fp32, and the ``Layout``.  ``params`` is a tree of
     ``Sharded``; ``batch["tokens"]`` a (B, S) ``Sharded`` or a tensor laid
-    out here by ``batch_spec``.  ``return_cache`` (a prefill) adds a third
-    item, the decode cache: ``Sharded`` leaves laid out by
-    ``serve_step.cache_specs(cfg, B, S, mesh)`` and ``len`` S
-    (``dist/spmd_serve.py``)."""
+    out here by ``batch_spec``, as are encdec's ``frames`` and a vlm's
+    ``patches`` (whose n_patches positions come before the text: S counts
+    them).  ``return_cache`` (a prefill) adds a third item, the decode
+    cache: ``Sharded`` leaves laid out by ``serve_step.cache_specs(cfg, B,
+    S, mesh)`` and ``len`` S (``dist/spmd_serve.py``)."""
     check_mesh(mesh)
-    check_family(cfg, mesh)
-    if cfg.family not in SHARDED_FAMILIES:
-        return _one_position(cfg, params, batch, mesh, attn_impl,
-                             return_cache)
     if cfg.logits_chunk:
         raise NotImplementedError(
             "logits_chunk > 0 on a mesh (the chunked loss) is not ported")
     tokens = _local_batch(batch, mesh, "tokens")
-    lay = layout(cfg, params, mesh, *tokens.shape)
-    (rows, s), tokens = tokens.shape, tokens.blocks
+    rows, s = tokens.shape
+    patches = _local_batch(batch, mesh, "patches") \
+        if cfg.family == "vlm" else None
+    if patches is not None:
+        s += patches.shape[1]
+    lay = layout(cfg, params, mesh, rows, s)
     impl = attn_impl or L.pick_attn_impl(cfg.attn_impl, s,
                                          mesh.device_list[0])
-    xs = _embed(cfg, mesh, lay, params, tokens)
+    xs = _embed(cfg, mesh, lay, params, tokens.blocks)
+    if patches is not None:
+        xs = _prepend_patches(cfg, mesh, params, patches, xs)
     grad = torch.is_grad_enabled() and any(
         b.requires_grad for _, st in pm.tree_items(params) for b in st.blocks)
     if return_cache and grad:
         raise ValueError("forward(return_cache=True) on a mesh is a prefill: "
                          "it takes no gradient")
-    kept: Optional[dict] = {"kv": [], "ssm": [], "conv": []} \
+    kept: Optional[dict] = {"kv": [], "ssm": [], "conv": [], "ckv": []} \
         if return_cache else None
     if cfg.family in SSM_FAMILIES:
         from repro_torch.dist import spmd_ssm
@@ -439,6 +415,10 @@ def forward(cfg: ModelConfig, params, batch, mesh: Mesh,
                                    grad=grad)
         xs = spmd_ssm.run_backbone(cfg, mesh, lay, params, xs, impl, ssd,
                                    grad, kept)
+    elif cfg.family == "encdec":
+        from repro_torch.dist import spmd_encdec
+        frames = _local_batch(batch, mesh, "frames").blocks
+        xs = spmd_encdec.run(cfg, mesh, lay, params, xs, frames, grad, kept)
     else:
         xs = run_layers(cfg, mesh, lay, params["layers"], xs, impl, grad,
                         kv_out=None if kept is None else kept["kv"])

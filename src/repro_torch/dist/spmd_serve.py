@@ -1,7 +1,8 @@
 """Serving on a mesh: the sharded prefill's cache and the sharded
 one-token decode step (counterpart of the ``mesh`` argument the
 reference threads through ``transformer.forward(..., return_cache=True)``
-and ``transformer.decode``, ``mamba2`` and ``hybrid``'s, reached from
+and ``transformer.decode``, ``mamba2``, ``hybrid`` and ``encdec``'s,
+reached from
 ``serve_step.make_prefill(cfg, mesh)`` and ``make_decode(cfg, mesh)``).
 
 The cache is a dict of ``placement.Sharded`` leaves laid out by
@@ -13,7 +14,10 @@ The cache is a dict of ``placement.Sharded`` leaves laid out by
   batch over ``batch_spec``'s dp axes;
 * ``ssm`` (L, B, H, P, N) with its heads over 'model' where they divide
   it, ``conv`` (L, B, K-1, d_inner + 2N) with its channels in contiguous
-  blocks over 'model' (``dist/spmd_ssm.decode_layer``).
+  blocks over 'model' (``dist/spmd_ssm.decode_layer``);
+* encdec's ``ck``/``cv`` (L, B, n_frames, KV, hd), the cross-attention's
+  K/V from the prefill, their K/V heads over 'model' where they divide
+  it, the frames never split (``dist/spmd_encdec.decode_layer``).
 
 The prefill (``spmd.forward(..., return_cache=True)``) keeps each layer's
 K/V per position as its projection gave them (``spmd.kv_heads_held``: the
@@ -52,7 +56,10 @@ norms take the plain routes, as the reference's decode passes no
 ``impl``.  The state-space families' Mamba-2 layers step through
 ``dist/spmd_ssm.decode_layer``; the hybrid's shared block is this
 module's attention layer on the unstacked ``shared_attn`` (unfused, as
-``hybrid._shared_decode``).  Every collective goes through
+``hybrid._shared_decode``); encdec's decoder layers step through
+``dist/spmd_encdec.decode_layer`` (this module's self-attention, then the
+cross-attention against ``ck``/``cv``), and a vlm's are the dense ones
+(its cache's ``len`` counts the patches).  Every collective goes through
 ``placement._collective``, so ``record_collectives()`` sees them.
 """
 from __future__ import annotations
@@ -114,8 +121,10 @@ def _kv_leaf(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout, shape, spec: P,
 def prefill_cache(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout, batch: int,
                   seq: int, kept: dict) -> Dict:
     """The prefill's decode cache from what its layers kept (``kept``:
-    ``kv`` one list a layer or hybrid application, ``ssm`` and ``conv``
-    one list a Mamba-2 layer, each one entry a position), laid out by
+    ``kv`` one list a layer or hybrid application, ``ckv`` one list an
+    encdec decoder layer (its cross-attention's K/V), ``ssm`` and
+    ``conv`` one list a Mamba-2 layer, each one entry a position), laid
+    out by
     ``cache_specs(cfg, batch, seq, mesh)``; ``len`` is ``seq``.  The SSD
     states stay fp32, as the one-device prefill returns them."""
     from repro_torch.dist import spmd_ssm
@@ -125,10 +134,11 @@ def prefill_cache(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout, batch: int,
     specs = cache_specs(cfg, batch, seq, mesh)
     dense = hybrid._dense_view(cfg) if cfg.family == "hybrid" else cfg
     out: Dict = {}
-    for name in ("k", "v"):
+    for name, src in (("k", "kv"), ("v", "kv"), ("ck", "ckv"),
+                      ("cv", "ckv")):
         if name in decls:
             out[name] = _kv_leaf(dense, mesh, lay, decls[name].shape,
-                                 specs[name], kept["kv"], name == "v")
+                                 specs[name], kept[src], name[-1] == "v")
     if "ssm" in decls:
         shape, spec = decls["ssm"].shape, specs["ssm"]
         sts = []
@@ -260,16 +270,18 @@ def _split_softmax(mesh: Mesh, q: List[torch.Tensor], k: List[torch.Tensor],
     return out
 
 
-def attn_decode_layer(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout,
-                      w: List[Dict[str, torch.Tensor]], xs: List[torch.Tensor],
-                      k_all: pm.Sharded, v_all: pm.Sharded, i: int,
-                      at: List[_Slots], fused: bool = True
-                      ) -> List[torch.Tensor]:
-    """One attention + FFN layer of a decode step over every position,
-    against entry ``i`` of the cache leaves ``k_all`` / ``v_all`` (a layer,
-    or a hybrid application), ``w`` the layer's weights a position
-    (``spmd.layer_weights``), ``at`` the step's ``_slots``.  ``fused`` as
-    ``_layer_fn``'s (the hybrid's shared block runs unfused)."""
+def attn_decode_part(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout,
+                     w: List[Dict[str, torch.Tensor]],
+                     xs: List[torch.Tensor], k_all: pm.Sharded,
+                     v_all: pm.Sharded, i: int, at: List[_Slots]
+                     ) -> List[torch.Tensor]:
+    """A decode step's self-attention over every position, against entry
+    ``i`` of the cache leaves ``k_all`` / ``v_all`` (a layer, or a hybrid
+    application), ``w`` the layer's weights a position
+    (``spmd.layer_weights``), ``at`` the step's ``_slots``: ``ln1``, the
+    new K/V row written into its slot, the attention, and each position's
+    output projected by its ``wo`` block (partial over 'model' where the
+    query heads are split)."""
     mode = _kv_mode(k_all.spec)
     qs, ks, vs = [], [], []
     for p, x in enumerate(xs):
@@ -301,8 +313,19 @@ def attn_decode_layer(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout,
                 kb, vb = spmd._kv_heads(cfg, lay, mesh, p, kb, vb)
             outs.append(L.attn_decode(qs[p], kb, vb, cache_len=valid[p],
                                       window=0))
-    part = [T._proj_out(o.to(x.dtype), wp["wo"])
+    return [T._proj_out(o.to(x.dtype), wp["wo"])
             for o, x, wp in zip(outs, xs, w)]
+
+
+def attn_decode_layer(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout,
+                      w: List[Dict[str, torch.Tensor]], xs: List[torch.Tensor],
+                      k_all: pm.Sharded, v_all: pm.Sharded, i: int,
+                      at: List[_Slots], fused: bool = True
+                      ) -> List[torch.Tensor]:
+    """One attention + FFN layer of a decode step over every position
+    (``attn_decode_part``, then ``spmd.ffn_half``).  ``fused`` as
+    ``_layer_fn``'s (the hybrid's shared block runs unfused)."""
+    part = attn_decode_part(cfg, mesh, lay, w, xs, k_all, v_all, i, at)
     return spmd.ffn_half(cfg, mesh, lay, w, xs, part, "jnp", fused)
 
 
@@ -319,28 +342,6 @@ def _layer_blocks(tree, mesh: Mesh, i: Optional[int] = None
              for p in range(mesh.size)])
 
 
-def _one_position(cfg: ModelConfig, params, cache, tokens: pm.Sharded,
-                  mesh: Mesh):
-    """A family without sharded layers on a mesh of one position
-    (``spmd._one_position``): the one-device decode on the blocks."""
-    from repro_torch.models import model as model_lib
-
-    def block(x):
-        return x.blocks[0] if isinstance(x, pm.Sharded) else x
-    tree = pm.tree_map(lambda _, x: x.blocks[0], params)
-    logits, new = model_lib.decode(cfg, tree, {k: block(v) for k, v in
-                                               cache.items()},
-                                   tokens.blocks[0])
-    out = {}
-    for k, v in new.items():
-        old = cache.get(k)
-        if isinstance(old, pm.Sharded):
-            out[k] = pm.Sharded(tuple(v.shape), old.spec, mesh, [v])
-        else:
-            out[k] = v
-    return [logits], spmd.plain_layout(mesh, tokens.shape[0]), out
-
-
 def decode(cfg: ModelConfig, params, cache, tokens, mesh: Mesh):
     """One decode step on ``mesh``: (per position its fp32 logits block
     (b_local, 1, V_local), the ``Layout``, the cache).  ``cache`` is
@@ -350,10 +351,7 @@ def decode(cfg: ModelConfig, params, cache, tokens, mesh: Mesh):
     slot past a non-ring cache raises), a 0-d or (B,) tensor, or a
     ``Sharded`` leaf."""
     spmd.check_mesh(mesh)
-    spmd.check_family(cfg, mesh)
     tokens = spmd._local_batch({"tokens": tokens}, mesh, "tokens")
-    if cfg.family not in spmd.SHARDED_FAMILIES:
-        return _one_position(cfg, params, cache, tokens, mesh)
     b = tokens.shape[0]
     lay = spmd.layout(cfg, params, mesh, b, 1)
     n = cache["len"]
@@ -361,6 +359,10 @@ def decode(cfg: ModelConfig, params, cache, tokens, mesh: Mesh):
             not cfg.window and n >= cache["k"].shape[2]:
         raise IndexError(f"decode: position {n} is past the cache's "
                          f"{cache['k'].shape[2]} slots")
+    if cfg.family == "encdec" and isinstance(n, torch.Tensor) and n.dim():
+        raise ValueError(f"encdec decode: len of shape {tuple(n.shape)}; "
+                         f"the family decodes a lockstep batch (a scalar "
+                         f"len) only")
     pos = _lens(n, mesh, b)
     xs = spmd._embed(cfg, mesh, lay, params, tokens.blocks)
     out = dict(cache)
@@ -393,10 +395,18 @@ def decode(cfg: ModelConfig, params, cache, tokens, mesh: Mesh):
             out["ssm"] = ssm.with_blocks([torch.stack(s) for s in new_ssm])
     else:
         at = _slots(cfg, mesh, lay, cache["k"], pos)
+        encdec = cfg.family == "encdec"
+        if encdec:
+            from repro_torch.dist import spmd_encdec
         for i in range(cfg.n_layers):
-            specs, lws = _layer_blocks(params["layers"], mesh, i)
+            specs, lws = _layer_blocks(
+                params["decoder" if encdec else "layers"], mesh, i)
             w = spmd.layer_weights(mesh, lay, specs, lws)
-            xs = attn_decode_layer(cfg, mesh, lay, w, xs, cache["k"],
-                                   cache["v"], i, at)
+            if encdec:
+                xs = spmd_encdec.decode_layer(cfg, mesh, lay, w, xs, cache,
+                                              i, at)
+            else:
+                xs = attn_decode_layer(cfg, mesh, lay, w, xs, cache["k"],
+                                       cache["v"], i, at)
     out["len"] = _next_len(n)
     return spmd.head_logits(cfg, mesh, lay, params, xs), lay, out

@@ -23,9 +23,9 @@ meshes are the production shapes over fake devices ``cuda:0`` ..
 eager program runs all its positions in lockstep in one process: a
 production cell is millions of ops, minutes of host time.
 
-encdec and vlm cells on more than one position come back as skips
-(``shapes.applicable``); any other exception is a FAIL, and the CLI exits
-non-zero on one.
+A long_500k cell of a full-attention arch comes back as a skip
+(``shapes.applicable``, as in the reference); every other cell runs, and
+an exception is a FAIL, on which the CLI exits non-zero.
 
 Artifacts land in artifacts/dryrun/<arch>__<shape>__<mesh>.json.
 

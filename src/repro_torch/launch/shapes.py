@@ -17,11 +17,9 @@ a card it owns), and a stand-in needs neither.  The dry run prices the
 stand-ins as the cards (``device.meta_stands_for_cuda``), so every route
 picked by device is the card's.
 
-Applicability rules (the reference's, plus the port's own):
+Applicability rules (the reference's):
   * long_500k needs sub-quadratic attention -> run only for ssm/hybrid/SWA
     archs; full-attention archs return a skip marker.
-  * encdec and vlm train and serve on one position only
-    (``spmd.check_family``).
 """
 from __future__ import annotations
 
@@ -35,7 +33,6 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch.device import torch_dtype
 from repro_torch.dist import placement as pm
 from repro_torch.dist import sharding as shd
-from repro_torch.dist import spmd
 from repro_torch.dist.mesh import Mesh
 from repro_torch.dist.sharding import P
 from repro_torch.models import model as model_lib
@@ -56,16 +53,10 @@ class Cell:
     mode: Optional[FakeTensorMode] = None
 
 
-def applicable(cfg: ModelConfig, shape: ShapeConfig,
-               mesh: Optional[Mesh] = None) -> Optional[str]:
+def applicable(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
     if shape.name == "long_500k" and not cfg.subquadratic:
         return ("long_500k requires sub-quadratic attention; "
                 f"{cfg.name} is full-attention (skip per assignment)")
-    if mesh is not None:
-        try:
-            spmd.check_family(cfg, mesh)
-        except NotImplementedError as e:
-            return str(e)
     return None
 
 
@@ -198,7 +189,7 @@ def build_cell(cfg: ModelConfig, shape_name: Union[str, ShapeConfig],
         else get_shape(shape_name)
     if nm_override:
         shape = dataclasses.replace(shape, num_microbatches=nm_override)
-    skip = applicable(cfg, shape, mesh)
+    skip = applicable(cfg, shape)
     if skip:
         return Cell(cfg, shape, shape.kind, (), skip_reason=skip)
     mode = mode or FakeTensorMode()

@@ -256,8 +256,6 @@ def sharded_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig,
     ``apply_sharded_updates``; trees of ``Sharded`` in and out, metrics
     ``{"loss", "grad_norm", "lr"}`` as 0-d tensors on the first
     position's device."""
-    spmd.check_family(cfg, mesh)
-
     def train_step(params, opt_state, batch):
         loss, grads = sharded_loss_and_grads(
             cfg, params, shard_batch(cfg, batch, mesh), mesh, micro_weights)

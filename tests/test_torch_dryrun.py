@@ -161,9 +161,9 @@ def test_stand_ins_are_the_references(arch):
 def test_build_cell_blocks_and_skips():
     """A train cell's blocks are fakes on the stand-ins, one a position
     with its own storage; serving cells on more than one position build
-    (the decode cache laid out by ``cache_specs``), encdec/vlm train and
-    serving cells skip with the mesh step's refusal, and long_500k as in
-    the reference."""
+    (the decode cache laid out by ``cache_specs``), and so do encdec's and
+    vlm's train and serving cells (their frames and patches laid out as
+    the batch); only long_500k skips, as in the reference."""
     mesh = _cuda_mesh(2, 4)
     cfg = tget("smollm_360m")
     cell = tshapes.build_cell(cfg, "train_4k", mesh, nm_override=2)
@@ -177,10 +177,17 @@ def test_build_cell_blocks_and_skips():
         cell = tshapes.build_cell(cfg, name, mesh)
         assert cell.skip_reason is None and cell.kind == name[:-4]
     assert cell.args[1]["k"].spec == (None, "data", "model", None, None)
-    for arch in ("whisper_tiny", "internvl2_26b"):
+    for arch, stub in (("whisper_tiny", "frames"),
+                       ("internvl2_26b", "patches")):
         for name in ("train_4k", "prefill_32k", "decode_32k"):
-            skip = tshapes.build_cell(tget(arch), name, mesh).skip_reason
-            assert "is not ported yet" in skip and "encoder-decoder" in skip
+            cell = tshapes.build_cell(tget(arch), name, mesh)
+            assert cell.skip_reason is None
+            assert cell.kind == name.split("_")[0]
+            if name == "decode_32k":
+                assert ("ck" in cell.args[1]) == (stub == "frames")
+            else:
+                # (micro, batch, n, D) or (batch, n, D)
+                assert cell.args[-1][stub].spec[-3] == "data"
     assert "sub-quadratic" in tshapes.build_cell(
         cfg, "long_500k", _cuda_mesh(1, 1)).skip_reason
     assert tshapes.build_cell(cfg, "prefill_32k",
@@ -345,14 +352,48 @@ def test_fake_record_equals_the_real_record():
         flash_attention_bwd=per, fused_add_rmsnorm_bwd=per)
 
 
+@pytest.mark.parametrize("arch,shape", [("whisper_tiny", (2, 2)),
+                                        ("internvl2_26b", (2, 4))])
+def test_fake_family_train_record_equals_the_real_record(arch, shape):
+    """A reduced encdec and vlm train cell (full remat, two microbatches)
+    on an ``fsdp_tp`` mesh (whisper's heads all split over 2, internvl2's
+    query heads over 4 and its K/V heads whole): traced on fakes, it
+    records what the real step records on ``[cpu] * n``, entry for entry,
+    forward, recompute and backward; its fake kernel calls are the card's
+    launches: the vlm's attention and fused norm twice a layer a
+    microbatch a position (remat) and each backward once, whisper's
+    none."""
+    cfg = dataclasses.replace(_small_cfg(), **{
+        k: v for k, v in dataclasses.asdict(tget(arch).reduced()).items()
+        if k not in ("sharding", "remat")})
+    n = shape[0] * shape[1]
+    _, real = _real_step(cfg, tmesh.data_model_mesh(*shape, ["cpu"] * n),
+                         True)
+    cell = tconfig.ShapeConfig("small", "train", _DATA["seq_len"],
+                               _DATA["global_batch"], 2)
+    trace = dryrun.trace_cell(tshapes.build_cell(cfg, cell,
+                                                 _cuda_mesh(*shape)))
+    assert trace.record.entries == real.entries
+    assert {("all-gather", "recompute"), ("reduce-scatter", "bwd"),
+            ("all-reduce", "bwd")} <= {(e.kind, e.phase)
+                                       for e in real.entries}
+    calls = {k: v for k, v in trace.kernel_calls.items() if v}
+    per = cfg.n_layers * 2 * n
+    assert calls == ({} if cfg.family == "encdec" else dict(
+        flash_attention=2 * per, fused_add_rmsnorm=2 * per,
+        flash_attention_bwd=per, fused_add_rmsnorm_bwd=per))
+
+
 def _real_serving(cfg, mesh, kind, batch, seq):
-    """A real prefill, or one decode step on a zeroed ``seq``-slot cache
-    (its SSD state fp32, as ``cache_fakes`` lays it out), with the record
-    on."""
+    """A real prefill (a vlm's ``seq`` counting its patches, with the
+    stubbed frontend's zero input), or one decode step on a zeroed
+    ``seq``-slot cache (its SSD state fp32, as ``cache_fakes`` lays it
+    out), with the record on."""
     full = tmodel.init(cfg, 0, device="cpu")
     params = pm.shard_tree(full, param_specs(tmodel.decls(cfg), cfg.sharding,
                                              mesh), mesh)
-    toks = torch.zeros((batch, seq if kind == "prefill" else 1),
+    text = seq - cfg.n_patches if cfg.family == "vlm" else seq
+    toks = torch.zeros((batch, text if kind == "prefill" else 1),
                        dtype=torch.int32)
     cache = tmodel.init_cache(cfg, batch, seq, mesh=mesh)
     if "ssm" in cache:
@@ -361,7 +402,8 @@ def _real_serving(cfg, mesh, kind, batch, seq):
     cache["len"] = seq - 1
     with torch.no_grad(), pm.record_collectives() as rec:
         if kind == "prefill":
-            tss.make_prefill(cfg, mesh)(params, {"tokens": toks})
+            tss.make_prefill(cfg, mesh)(params, {
+                "tokens": toks, **tmodel.stub_inputs(cfg, batch, "cpu")})
         else:
             tss.make_decode(cfg, mesh)(params, cache, toks)
     return rec
@@ -369,12 +411,14 @@ def _real_serving(cfg, mesh, kind, batch, seq):
 
 @pytest.mark.parametrize("arch,shape", [
     ("granite_20b", (2, 2)),     # the K/V sequence split, query heads split
-    ("zamba2_2_7b", (1, 2))])    # the K/V head split, the SSD heads split
+    ("zamba2_2_7b", (1, 2)),     # the K/V head split, the SSD heads split
+    ("whisper_tiny", (1, 4)),    # the slots split, ck/cv whole
+    ("internvl2_26b", (2, 2))])  # the K/V head split after the patches
 def test_fake_serving_record_equals_the_real_record(arch, shape):
     """The prefill and decode cells traced on fakes record what the real
     steps record on ``[cpu] * n``, entry for entry; the prefill's fake
-    kernel calls are the card's launches (a layer a position), the decode
-    step's none."""
+    kernel calls are the card's launches (a layer a position; encdec's
+    none), the decode step's none."""
     cfg = dataclasses.replace(tget(arch).reduced(), sharding="fsdp_tp")
     n = shape[0] * shape[1]
     for kind in ("prefill", "decode"):
@@ -386,7 +430,7 @@ def test_fake_serving_record_equals_the_real_record(arch, shape):
         assert trace.record.entries == real.entries, kind
         assert real.entries, kind
         calls = {k: v for k, v in trace.kernel_calls.items() if v}
-        if kind == "decode":
+        if kind == "decode" or cfg.family == "encdec":
             assert calls == {}
         elif cfg.family == "hybrid":
             assert calls == {"flash_attention": n * cfg.n_layers
@@ -512,6 +556,31 @@ def test_run_cell_small_mesh_train_cell(tmp_path):
         assert r["kernel_calls"] == calls and "audit" not in r
         assert r["per_device"]["flops"] > 0 and r["fits_hbm"] is True
         assert {"all-reduce", "all-gather"} <= set(r["collectives_raw"])
+
+
+@pytest.mark.parametrize("arch", ["whisper_tiny", "internvl2_26b"])
+def test_run_cell_traces_the_stub_families_cells(arch, tmp_path):
+    """The named ``train_4k``, ``prefill_32k`` and ``decode_32k`` cells of
+    the reduced whisper and internvl2 (one microbatch) run on a (2, 2)
+    ``fsdp_tp`` mesh of fake ``cuda:i`` with no skip: the vlm's fake
+    kernel calls are the attention and fused norm (and each backward in
+    the train cell) once a layer a position, whisper's none, and no
+    decode step calls a kernel."""
+    over = dict(_reduced_overrides(arch), num_microbatches=1,
+                sharding="fsdp_tp")
+    n = over["n_layers"] * 4
+    fwd = {} if arch == "whisper_tiny" else dict(flash_attention=n,
+                                                 fused_add_rmsnorm=n)
+    bwd = {} if arch == "whisper_tiny" else dict(flash_attention_bwd=n,
+                                                 fused_add_rmsnorm_bwd=n)
+    for name, calls in (("train_4k", dict(fwd, **bwd)),
+                        ("prefill_32k", fwd), ("decode_32k", {})):
+        rec = dryrun.run_cell(arch, name, False, str(tmp_path),
+                              mesh=_cuda_mesh(2, 2), overrides=over)
+        assert rec["ok"] and not rec["skipped"], rec.get("traceback")
+        assert rec["kernel_calls"] == calls, name
+        assert rec["per_device"]["flops"] > 0, name
+        assert "all-gather" in rec["collectives_raw"], name
 
 
 def test_run_cell_serving_on_one_position_and_fail(tmp_path):

@@ -274,25 +274,25 @@ def one_position_alike(arch):
 
 
 def refusals_alike(arch):
-    """The continuous server (the reference asserts dense or moe), the
-    MPMD pipeline (likewise) and a mesh of 2 positions raise; the mesh's
-    message names the ROADMAP item that ports it."""
+    """The continuous server (the reference asserts dense or moe) and the
+    MPMD pipeline (likewise) raise; a mesh of 2 positions, which raised
+    until the family's sharded layers were ported, trains (its loss the
+    one-device step's; ``tests/test_torch_mesh_families.py`` holds the
+    rest)."""
     _, tcfg = configs(arch)
     tp = tm.init(tcfg, 0, device="cpu")
     with pytest.raises(ValueError, match="continuous batching"):
         ContinuousBatchingServer(tcfg, tp)
     with pytest.raises(NotImplementedError, match="dense and moe"):
         tpl.MPMDPipeline(tcfg, [], topt.OptimizerConfig())
-    item = "The encoder-decoder and vision-language families on a mesh"
     mesh = data_model_mesh(2, 1, [CPU] * 2)
-    with pytest.raises(NotImplementedError, match=item):
-        tts.make_train_step(tcfg, topt.OptimizerConfig(), mesh=mesh)
     sp = pm.shard_tree(tp, param_specs(tm.decls(tcfg), tcfg.sharding, mesh),
                        mesh)
     batch = tdata.SyntheticDataset(tcfg, tdata.DataConfig(
         seq_len=20, global_batch=4, num_microbatches=1)).batch(0)
-    with pytest.raises(NotImplementedError, match=item):
-        tts.loss_and_grads(tcfg, sp, batch, mesh=mesh)
+    loss, _ = tts.loss_and_grads(tcfg, sp, batch, mesh=mesh)
+    want, _ = tts.loss_and_grads(tcfg, tp, batch)
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
 
 
 def bridge_alike(arch):

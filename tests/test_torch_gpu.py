@@ -2387,3 +2387,74 @@ def test_stub_families_train_steps_graphed_equal_eager(cuda):
         else:
             assert ops.LAUNCHES["flash_attention_bwd"] > 0
             assert ops.LAUNCHES["fused_add_rmsnorm_bwd"] > 0
+
+
+@pytest.mark.parametrize("policy,shape", [("fsdp_tp", (2, 2)),
+                                          ("tp", (1, 4))])
+def test_stub_families_on_a_mesh_of_one_card(cuda, policy, shape):
+    """The reduced vlm and whisper (fp32, head dim 64) on a mesh of
+    ``cuda:0`` repeated (``dist/spmd_encdec.py``, the patches in
+    ``spmd.forward``): the sharded loss and gradients through the kernels
+    against the one-device step on the plain path (naive attention,
+    unfused norm), loss rtol 1e-5 and gradients 1e-4 of max |g|, the vlm
+    launching the attention forward and the fused norm 2 x layers x
+    microbatches a position (full remat) and each backward layers x
+    microbatches, whisper nothing; then a sharded prefill, whose launches
+    equal the dry run's ``FAKE_CALLS`` (the vlm's two kernels once a layer
+    a position), and a decode step, logits within 1e-3 of one device's."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.dist.mesh import data_model_mesh
+    from repro_torch.dist.sharding import param_specs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shapes as shapes_mod
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serve import kv_cache, serve_step
+    from repro_torch.train import data as tdata
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+    mesh = data_model_mesh(*shape, [torch.device("cuda", 0)] * 4)
+    for cfg in _stub_cfgs("float32"):
+        cfg = dataclasses.replace(cfg, sharding=policy, remat="full")
+        plain = dataclasses.replace(cfg, attn_impl="naive")
+        single = tm.init(cfg, 0)
+        sharded = pm.shard_tree(single, param_specs(tm.decls(cfg), policy,
+                                                    mesh), mesh)
+        batch = tdata.SyntheticDataset(cfg, tdata.DataConfig(
+            seq_len=64, global_batch=8, num_microbatches=2)).batch(0)
+        wl, wg = tts.loss_and_grads(plain, single, batch)
+        ops.reset_launches()
+        gl, gg = tts.loss_and_grads(cfg, sharded, batch, mesh=mesh)
+        torch.cuda.synchronize()
+        per = cfg.n_layers * 2 * mesh.size if cfg.family == "vlm" else 0
+        assert ops.LAUNCHES == dict(
+            {k: 0 for k in ops.LAUNCHES}, flash_attention=2 * per,
+            fused_add_rmsnorm=2 * per, flash_attention_bwd=per,
+            fused_add_rmsnorm_bwd=per), cfg.name
+        assert abs(gl.item() - wl.item()) <= 1e-5 * abs(wl.item())
+        got = dict(topt.tree_leaves(pm.unshard_tree(gg, "cuda")))
+        for k, w in topt.tree_leaves(wg):
+            assert (got[k] - w).abs().max() <= 1e-4 * w.abs().max(), \
+                (cfg.name, k)
+        b, s = 4, 48
+        infer = {k: torch.as_tensor(v[0], device="cuda")
+                 for k, v in batch.items() if k != "labels"}
+        infer["tokens"] = infer["tokens"][:, :s]
+        trace = dryrun.trace_cell(shapes_mod.build_cell(
+            cfg, ShapeConfig("t", "prefill", s + (cfg.n_patches if cfg.family
+                                                  == "vlm" else 0), b),
+            mesh))
+        with torch.no_grad():
+            want, c1 = serve_step.make_prefill(plain)(single, infer)
+            ops.reset_launches()
+            got, cm = serve_step.make_prefill(cfg, mesh)(sharded, infer)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES == trace.kernel_calls, cfg.name
+            assert ops.LAUNCHES["flash_attention"] == per // 2
+            assert (pm.unshard(got, "cuda") - want).abs().max() <= 1e-3
+            n = c1["len"] + 8
+            c1 = kv_cache.grow_cache(c1, tm.init_cache(cfg, b, n))
+            cm = kv_cache.grow_cache(cm, tm.init_cache(cfg, b, n, mesh=mesh))
+            nxt = want.argmax(-1)[:, None]
+            want, _ = serve_step.make_decode(cfg)(single, c1, nxt)
+            got, _ = serve_step.make_decode(cfg, mesh)(sharded, cm, nxt)
+            assert (pm.unshard(got, "cuda") - want).abs().max() <= 1e-3

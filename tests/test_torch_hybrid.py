@@ -331,9 +331,11 @@ def test_one_position_mesh_matches_the_single_device_step(arch):
 def test_unported_paths_refuse_both_families(arch):
     """The continuous server and the MPMD pipeline (the reference asserts
     dense or moe in both) raise.  A mesh of more than one position runs
-    both families (``tests/test_torch_mesh_ssm.py``); the encoder-decoder
-    and vision-language families still raise there, naming the ROADMAP
-    item that ports them."""
+    both families (``tests/test_torch_mesh_ssm.py``), and the
+    encoder-decoder and vision-language families too, which raised there
+    until their sharded layers were ported
+    (``tests/test_torch_mesh_families.py``): the sharded step is built for
+    each."""
     _, tcfg = configs(arch)
     tp = tm.init(tcfg, 0, device="cpu")
     with pytest.raises(ValueError, match="continuous batching"):
@@ -341,9 +343,7 @@ def test_unported_paths_refuse_both_families(arch):
     with pytest.raises(NotImplementedError, match="dense and moe"):
         tpl.MPMDPipeline(tcfg, [], topt.OptimizerConfig())
     mesh = data_model_mesh(2, 1, [CPU] * 2)
-    tts.make_train_step(tcfg, topt.OptimizerConfig(), mesh=mesh)
-    for other in ("whisper_tiny", "internvl2_26b"):
-        with pytest.raises(NotImplementedError, match="The encoder-decoder "
-                           "and vision-language families on a mesh"):
-            tts.make_train_step(tget(other).reduced(),
-                                topt.OptimizerConfig(), mesh=mesh)
+    for cfg in (tcfg, tget("whisper_tiny").reduced(),
+                tget("internvl2_26b").reduced()):
+        assert callable(tts.make_train_step(cfg, topt.OptimizerConfig(),
+                                            mesh=mesh))

@@ -75,14 +75,26 @@ def _numpy_params(cfg, seed):
 def _batch(cfg, seed, n_micro, micro_batch, mask_first=True):
     """Tokens and labels (n_micro, micro_batch, SEQ); with ``mask_first``
     only the first sequence of each microbatch (on the first dp position)
-    has masked labels, so the dp positions count different tokens."""
+    has masked labels, so the dp positions count different tokens.  The
+    stubbed frontends' inputs are drawn after them (std 1): encdec's
+    ``frames``, a vlm's ``patches``, whose positions lead the labels,
+    masked."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (n_micro, micro_batch, SEQ + 1))
     labels = toks[..., 1:].copy()
     if mask_first:
         labels[:, 0, : SEQ // 2] = tm.IGNORE_LABEL
-    return {"tokens": toks[..., :-1].astype(np.int32),
-            "labels": labels.astype(np.int32)}
+    out = {"tokens": toks[..., :-1].astype(np.int32)}
+    stub = {"encdec": ("frames", cfg.n_frames),
+            "vlm": ("patches", cfg.n_patches)}.get(cfg.family)
+    if stub:
+        out[stub[0]] = rng.standard_normal(
+            (n_micro, micro_batch, stub[1], cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        labels = np.concatenate([np.full(labels.shape[:2] + (
+            cfg.n_patches,), tm.IGNORE_LABEL), labels], axis=-1)
+    out["labels"] = labels.astype(np.int32)
+    return out
 
 
 def _mesh(shape):
