@@ -161,14 +161,26 @@ Phases, each printed as it runs; any failure exits non-zero:
              each position's attention and norm shapes (``mesh_*``).
    dryrun    ``launch/dryrun``'s fake-tensor trace of [mesh]'s (2, 2)
              ``fsdp_tp`` cell (the train cell's tokens, devices
-             ``[cuda:0] * 4``): its host seconds, FLOPs, bytes, peak live
-             bytes and roofline seconds; then one real step of the cell
-             with the collective record on (``placement.
-             record_collectives``), whose record must equal the fake
-             one entry for entry and whose launches must equal the fake
-             run's ``FAKE_CALLS``; the fake peak over
+             ``[cuda:0] * 4``) twice, every iteration of its loops and
+             replayed (each loop one trip of its count,
+             ``program_cost.replay``): both host seconds, and the two
+             must be one program (``dryrun.trace_differences``: FLOPs
+             and bytes within 1e-9, peak, ``FAKE_CALLS`` and record
+             equal); the replayed trace's FLOPs, bytes, peak live bytes
+             and roofline seconds; then one real step of the cell with
+             the collective record on (``placement.
+             record_collectives``), whose record must equal the
+             replayed one entry for entry and whose launches must equal
+             its ``FAKE_CALLS``; the fake peak over
              ``max_memory_allocated``, the roofline beside a profiled
-             step's device ms (``launches_dryrun``: three steps).
+             step's device ms (``launches_dryrun``: three steps).  Then
+             the chunked loss on the mesh: the cell at ``logits_chunk``
+             DRYRUN_CHUNK, its loss and gradients against the one-device
+             chunked step on the same weights (within twice one
+             device's own bf16-vs-fp32 distance), and one real step whose
+             launches and record must equal its replayed trace's, its
+             ``max_memory_allocated`` beside the unchunked step's and the
+             fake peak (``launches_dryrun_chunked``).
    audit     the real step's record audited against ``predicted_comm``
              (tp 2, dp 2; advisory: findings by kind, ``rel_diff``); the
              collective-audit demo (``analysis/demo``) on ``[cuda:0] * 8``,
@@ -582,6 +594,8 @@ TRAIN_GRAPH_STEPS, TRAIN_PAIRS = 3, 4
 # (cosine >= 0.99): a wrong index, mask or missing term gives O(1) errors
 # and cosines far below that.  The fp32 2-layer check holds 1e-4 of max |g|.
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_COSINE = 2e-2, 0.1, 0.99
+# [dryrun]'s chunked loss on the (2, 2) mesh: sequence positions a chunk
+DRYRUN_CHUNK = 256
 # plan phase: calibrate_cpu_host at the train path's dtype and length, then
 # at the reference's own call (fp32, seq 128); each measure_block program
 # runs once eagerly, then as a graph: one warm-up and 3 timed replays
@@ -3777,20 +3791,36 @@ def _dryrun_cell(cfg, mesh):
 
 def phase_dryrun() -> tuple:
     """The dry run against the card on [mesh]'s (2, 2) ``fsdp_tp`` cell:
-    the fake trace (host seconds, its costs on ``cuda:0``), then one real
-    step with the collective record on, held to the fake run (record
+    the fake trace in full and replayed (host seconds; they must be one
+    program), the replayed trace's costs on ``cuda:0``, then one real step
+    with the collective record on, held to the replayed trace (record
     entry for entry, launches equal to ``FAKE_CALLS``), its peak memory
     beside the fake peak, and a second step's wall and a third's device
     ms (``[profile] dryrun_mesh_step_2x2``: the kernels' time) beside the
-    roofline.  Returns the real steps' launches and what [audit] reads."""
+    roofline; then the chunked loss on the mesh (``_dryrun_chunked``).
+    Returns the real steps' launches, the chunked step's and what [audit]
+    reads."""
     from repro_torch.dist import placement as pm
     from repro_torch.dist.sharding import param_specs
     from repro_torch.launch import dryrun
     cfg = dataclasses.replace(get_config(ARCH), remat="full",
                               sharding="fsdp_tp")
     mesh = _mesh_of((2, 2))
+    full_trace = dryrun.trace_cell(_dryrun_cell(cfg, mesh), replay=False)
     cell = _dryrun_cell(cfg, mesh)
     trace = dryrun.trace_cell(cell)
+    diff = dryrun.trace_differences(full_trace, trace)
+    log("[dryrun] full vs replayed trace of the (2, 2) fsdp_tp cell: "
+        + json.dumps(dict(full_host_s=full_trace.host_s,
+                          replayed_host_s=trace.host_s, trips=trace.trips,
+                          ops_full=full_trace.cost.dispatched,
+                          ops_replayed=trace.cost.dispatched,
+                          entries=len(trace.record.entries),
+                          equal=not diff)))
+    if diff:
+        raise AssertionError("[dryrun] the replayed trace is not the full "
+                             "one: " + "; ".join(diff[:8]))
+    del full_trace
     cost = dryrun.device_costs(cell, trace)["cuda:0"]
     acc = ACCELERATORS["H100"]
     terms = dict(compute_s=cost.flops / acc.peak_flops,
@@ -3807,14 +3837,13 @@ def phase_dryrun() -> tuple:
                 entries=len(trace.record.entries),
                 kernel_calls={k: v for k, v in trace.kernel_calls.items()
                               if v})
-    log("[dryrun] fake trace of the (2, 2) fsdp_tp cell on [cuda:0] * 4: "
-        + json.dumps(fake))
+    log("[dryrun] replayed fake trace of the (2, 2) fsdp_tp cell on "
+        "[cuda:0] * 4: " + json.dumps(fake))
     dc = data_lib.DataConfig(**TRAIN_DATA)
     batch = data_lib.SyntheticDataset(cfg, dc).batch(500)
-    full = model_lib.init(cfg, 0, device="cuda")
-    params = pm.shard_tree(full, param_specs(model_lib.decls(cfg),
-                                             cfg.sharding, mesh), mesh)
-    del full
+    specs = param_specs(model_lib.decls(cfg), cfg.sharding, mesh)
+    params = pm.shard_tree(model_lib.init(cfg, 0, device="cuda"), specs,
+                           mesh)
     state = opt_lib.init_sharded_state(params)
     step = train_lib.jit_train_step(cfg, opt_lib.OptimizerConfig(**TRAIN_OPT),
                                     mesh, dc.num_microbatches, dc.micro_batch)
@@ -3836,8 +3865,8 @@ def phase_dryrun() -> tuple:
             if len(record.entries) == len(trace.record.entries) else None
         raise AssertionError(
             f"[dryrun] the real record ({len(record.entries)} entries) is "
-            f"not the fake one ({len(trace.record.entries)}); first "
-            f"difference at {first}")
+            f"not the replayed fake one ({len(trace.record.entries)}); "
+            f"first difference at {first}")
     if launches != trace.kernel_calls:
         raise AssertionError(f"[dryrun] launches {json.dumps(launches)} != "
                              f"FAKE_CALLS {json.dumps(trace.kernel_calls)}")
@@ -3851,7 +3880,7 @@ def phase_dryrun() -> tuple:
     for e in record.entries:
         key = f"{e.kind}/{e.phase}"
         kinds[key] = kinds.get(key, 0) + 1
-    log("[dryrun] real step vs the fake trace: " + json.dumps(dict(
+    log("[dryrun] real step vs the replayed fake trace: " + json.dumps(dict(
         records_equal=same_record, entries=len(record.entries),
         entries_by_kind_phase=kinds,
         launches_equal_fake_calls=True,
@@ -3867,8 +3896,69 @@ def phase_dryrun() -> tuple:
         else dev_ms / 1e3 / roofline_s,
         fake_host_s=trace.host_s)))
     del params, state
-    torch.cuda.empty_cache()
-    return launches, dict(cfg=cfg, cell=cell, mesh=mesh, record=record)
+    _release()
+    # the chunked step from the same seed-0 weights, made again
+    cfg_c = dataclasses.replace(cfg, logits_chunk=DRYRUN_CHUNK)
+    full = model_lib.init(cfg, 0, device="cuda")
+    ref_c = _grads_reference(cfg_c, full, batch)
+    params = pm.shard_tree(full, specs, mesh)
+    del full
+    chunked = _dryrun_chunked(cfg_c, mesh, params, batch, ref_c, peak)
+    del params, ref_c
+    _release()
+    return launches, chunked, dict(cfg=cfg, cell=cell, mesh=mesh,
+                                   record=record)
+
+
+def _dryrun_chunked(cfg, mesh, params, batch, ref, unchunked_peak) -> dict:
+    """[dryrun]'s chunked loss: ``cfg`` (``logits_chunk`` DRYRUN_CHUNK) on
+    the (2, 2) mesh from the weights ``ref`` (``_grads_reference`` of the
+    one-device chunked step) was taken from: the loss and gradients
+    against one device (``_ssm_mesh_grads``'s rule), then one real step
+    with the record on, whose launches and record must equal the cell's
+    replayed fake trace, its peak memory beside the unchunked step's
+    (``unchunked_peak``) and the fake peak (``ref``'s gradients dropped
+    first, so the card holds what the unchunked step's did).  Returns the
+    step's launches."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.launch import dryrun
+    cell = _dryrun_cell(cfg, mesh)
+    trace = dryrun.trace_cell(cell)
+    fake_peak = dryrun.device_costs(cell, trace)["cuda:0"].peak_bytes
+    grads = _ssm_mesh_grads("(2, 2) fsdp_tp chunked", cfg, mesh, params,
+                            batch, ref, phase="dryrun")
+    ref.clear()
+    dc = data_lib.DataConfig(**TRAIN_DATA)
+    state = opt_lib.init_sharded_state(params)
+    step = train_lib.jit_train_step(cfg, opt_lib.OptimizerConfig(**TRAIN_OPT),
+                                    mesh, dc.num_microbatches, dc.micro_batch)
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with pm.record_collectives() as record:
+        _, _, m = step(params, state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(ops.LAUNCHES)
+    if record.entries != trace.record.entries:
+        raise AssertionError(
+            f"[dryrun] chunked: the real record ({len(record.entries)} "
+            f"entries) is not the replayed fake one "
+            f"({len(trace.record.entries)})")
+    if launches != trace.kernel_calls:
+        raise AssertionError(
+            f"[dryrun] chunked: launches {json.dumps(launches)} != "
+            f"FAKE_CALLS {json.dumps(trace.kernel_calls)}")
+    log("[dryrun] chunked loss on the (2, 2) fsdp_tp mesh: " + json.dumps(dict(
+        logits_chunk=cfg.logits_chunk, **grads, step_loss=m["loss"].item(),
+        records_equal=True, entries=len(record.entries),
+        launches_equal_fake_calls=True,
+        launches={k: v for k, v in launches.items() if v},
+        trips=trace.trips, fake_host_s=trace.host_s,
+        real_peak_bytes=peak, unchunked_real_peak_bytes=unchunked_peak,
+        fake_peak_bytes=fake_peak)))
+    del params, state
+    return launches
 
 
 def phase_audit(dry: dict) -> None:
@@ -6335,7 +6425,7 @@ def main() -> int:
     train_launches, train = phase_train()
     pipeline_launches, pipe_mesh_launches = phase_pipeline(train)
     mesh_launches = phase_mesh(train)
-    dryrun_launches, dry = phase_dryrun()
+    dryrun_launches, dryrun_chunked_launches, dry = phase_dryrun()
     phase_audit(dry)
     del dry
     serve_mesh_launches = phase_serve_mesh(smi)
@@ -6373,6 +6463,7 @@ def main() -> int:
             launches_pipeline=pipeline_launches[name],
             launches_mesh=mesh_launches.get(name, 0),
             launches_dryrun=dryrun_launches.get(name, 0),
+            launches_dryrun_chunked=dryrun_chunked_launches.get(name, 0),
             launches_serve_mesh=serve_mesh_launches.get(name, 0),
             launches_mesh_families=mesh_families_launches.get(name, 0),
             launches_pipeline_mesh=pipe_mesh_launches.get(name, 0),

@@ -26,10 +26,11 @@ backward's collectives through the copies and sums, and no call reaches
 ``_collective``: a gradient hook on the outputs of a call whose outputs
 require a gradient records its transpose (all-reduce to all-reduce,
 all-gather to reduce-scatter) when the first of their gradients is
-computed; the hook reads the gradient's size and changes no value.  A
-forward that runs again inside the backward (a checkpoint's recompute)
-records again, as ``"recompute"``.  With no record active the
-collectives record and hook nothing.
+computed; the hook reads the gradient's size and changes no value (an
+output reached with no gradient records nothing).  A forward that runs
+again inside the backward (a checkpoint's recompute) records again, as
+``"recompute"``.  With no record active the collectives record and hook
+nothing.
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ import dataclasses
 import functools
 import math
 import operator
-from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 
@@ -231,9 +233,9 @@ def _record(kind: str, axes: Tuple[str, ...], groups: List[List[int]],
     outs = {id(t): t for t in out if t.requires_grad}
     fired = []
 
-    def hook(grad: torch.Tensor) -> None:
-        if fired:
-            return
+    def hook(grad: Optional[torch.Tensor]) -> None:
+        if fired or grad is None:   # None: a dry run's replay reached an
+            return                  # output no gradient flows through
         fired.append(True)
         nbytes = grad.nbytes
         if kind == "all-gather":

@@ -50,20 +50,24 @@ train step sums them (``placement.replica_group_sum``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import torch_dtype
 from repro_torch.dist import placement as pm
 from repro_torch.dist.mesh import Mesh
 from repro_torch.dist.sharding import P, batch_spec, sanitize
+from repro_torch.launch import program_cost as pc
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import IGNORE_LABEL, masked_ce_sums
+from repro_torch.models.model import (CHUNKED_LOSS_FAMILIES, IGNORE_LABEL,
+                                      masked_ce_sums)
 
 MODEL = "model"
 SSM_FAMILIES = ("ssm", "hybrid")        # their layers: dist/spmd_ssm.py
@@ -325,21 +329,53 @@ def run_layers(cfg: ModelConfig, mesh: Mesh, lay: Layout, layers,
                ) -> List[torch.Tensor]:
     """Every layer of ``layers`` (a tree of ``Sharded`` stacked on a
     leading layer dim) over every position in lockstep, each layer under
-    ``cfg.remat`` when ``remat``; ``xs`` one residual a position;
-    ``kv_out`` gets each layer's K/V (``_layer_fn``)."""
+    ``cfg.remat`` when ``remat`` (a gradient will be taken); ``xs`` one
+    residual a position; ``kv_out`` gets each layer's K/V
+    (``_layer_fn``).  Under the dry run's ``program_cost.replay()`` the
+    layers are one trip (``program_cost.loop``)."""
     devs = mesh.device_list
     s = xs[0].shape[1]
     arange = {d: torch.arange(s, device=d) for d in set(devs)}
     specs = {name: P(*st.spec[1:]) for name, st in layers.items()}
-    stacked = [{name: st.blocks[p].unbind(0) for name, st in layers.items()}
-               for p in range(mesh.size)]
+    n = next(iter(layers.values())).shape[0]
+    apart = last_apart(mesh, lay, remat)
+    stacked = layer_stacks(mesh, layers, apart_counts(n, apart))
     body = _layer_fn(cfg, mesh, lay, specs, [arange[d] for d in devs], impl,
                      fused, kv_out)
     step = T._remat(body, cfg.remat) if remat else body
-    for i in range(next(iter(layers.values())).shape[0]):
-        xs = step(xs, [{name: w[i] for name, w in st.items()}
-                       for st in stacked])
-    return xs
+    return pc.loop("layers", n, lambda i, xs, lws, _: step(xs, lws), xs,
+                   inputs=lambda i: layer_at(stacked, i),
+                   grow=() if kv_out is None else (kv_out,), grad=remat,
+                   retained=remat, last_apart=apart)
+
+
+def layer_stacks(mesh: Mesh, layers, counts=None
+                 ) -> List[Dict[str, Sequence]]:
+    """Each position's layers of a stacked tree (``program_cost.unstack``:
+    ``unbind``, or the replayed layers, ``counts``, under the dry run's
+    replay)."""
+    return [{name: pc.unstack(st.blocks[p], counts)
+             for name, st in layers.items()} for p in range(mesh.size)]
+
+
+def last_apart(mesh: Mesh, lay: Layout, grad: bool) -> bool:
+    """Whether a gradient reads the last layer's output of only some
+    positions and every position's output of the layers before it: the
+    logits whole on every 'model' position (the vocab not split) and
+    counted from index 0 of 'model' (``loss_owners``).  A replay then
+    takes the last layer apart (``program_cost.loop``)."""
+    return grad and lay.tp > 1 and not lay.vocab_logits
+
+
+def apart_counts(n: int, apart: bool):
+    """``layer_stacks``' counts for a loop of ``n`` layers replayed with
+    its last layer apart, or None."""
+    return ((0, n - 1), (n - 1, 1)) if apart and n >= 2 else None
+
+
+def layer_at(stacked, i: int) -> List[Dict[str, torch.Tensor]]:
+    """Layer ``i``'s blocks a position, from ``layer_stacks``."""
+    return [{name: w[i] for name, w in st.items()} for st in stacked]
 
 
 def final_norm(cfg: ModelConfig, mesh: Mesh, params,
@@ -348,18 +384,26 @@ def final_norm(cfg: ModelConfig, mesh: Mesh, params,
     return [L.rms_norm(x, w, cfg.norm_eps) for x, w in zip(xs, ln_f)]
 
 
+def head_blocks(cfg: ModelConfig, mesh: Mesh, lay: Layout, params
+                ) -> List[torch.Tensor]:
+    """Per position its block of the head (D, V_local): the tied
+    embedding's transpose or ``lm_head``, gathered whole over the axes
+    other than 'model', its vocab over 'model' where ``lay.vocab_logits``
+    (the position's own part where the weight is replicated)."""
+    if cfg.tie_embeddings:
+        return [e.T for e in _local(
+            mesh, params["embed"].spec, params["embed"].blocks,
+            (0,) if lay.vocab_logits else ())]
+    return _local(mesh, params["lm_head"].spec, params["lm_head"].blocks,
+                  (1,) if lay.vocab_logits else ())
+
+
 def head_logits(cfg: ModelConfig, mesh: Mesh, lay: Layout, params,
                 xs: List[torch.Tensor]) -> List[torch.Tensor]:
     """``ln_f`` then the head: per position its fp32 logits block."""
-    if cfg.tie_embeddings:
-        heads = [e.T for e in _local(
-            mesh, params["embed"].spec, params["embed"].blocks,
-            (0,) if lay.vocab_logits else ())]
-    else:
-        heads = _local(mesh, params["lm_head"].spec, params["lm_head"].blocks,
-                       (1,) if lay.vocab_logits else ())
     return [(h @ w.to(h.dtype)).float()
-            for h, w in zip(final_norm(cfg, mesh, params, xs), heads)]
+            for h, w in zip(final_norm(cfg, mesh, params, xs),
+                            head_blocks(cfg, mesh, lay, params))]
 
 
 def _prepend_patches(cfg: ModelConfig, mesh: Mesh, params,
@@ -377,7 +421,8 @@ def _prepend_patches(cfg: ModelConfig, mesh: Mesh, params,
 
 
 def forward(cfg: ModelConfig, params, batch, mesh: Mesh,
-            attn_impl: Optional[str] = None, return_cache: bool = False):
+            attn_impl: Optional[str] = None, return_cache: bool = False,
+            return_hidden: bool = False):
     """Per position (in position order) its logits block (b_local, S,
     V_local) in fp32, and the ``Layout``.  ``params`` is a tree of
     ``Sharded``; ``batch["tokens"]`` a (B, S) ``Sharded`` or a tensor laid
@@ -385,11 +430,15 @@ def forward(cfg: ModelConfig, params, batch, mesh: Mesh,
     ``patches`` (whose n_patches positions come before the text: S counts
     them).  ``return_cache`` (a prefill) adds a third item, the decode
     cache: ``Sharded`` leaves laid out by ``serve_step.cache_specs(cfg, B,
-    S, mesh)`` and ``len`` S (``dist/spmd_serve.py``)."""
+    S, mesh)`` and ``len`` S (``dist/spmd_serve.py``).  ``return_hidden``
+    (the chunked loss; the transformer families, as on one device):
+    (per position its final-normed hidden block (b_local, S, D), per
+    position its head block (``head_blocks``), the ``Layout``) instead."""
     check_mesh(mesh)
-    if cfg.logits_chunk:
-        raise NotImplementedError(
-            "logits_chunk > 0 on a mesh (the chunked loss) is not ported")
+    if return_hidden and (return_cache
+                          or cfg.family not in CHUNKED_LOSS_FAMILIES):
+        raise ValueError(f"return_hidden: a forward of the "
+                         f"{CHUNKED_LOSS_FAMILIES} families without a cache")
     tokens = _local_batch(batch, mesh, "tokens")
     rows, s = tokens.shape
     patches = _local_batch(batch, mesh, "patches") \
@@ -422,6 +471,9 @@ def forward(cfg: ModelConfig, params, batch, mesh: Mesh,
     else:
         xs = run_layers(cfg, mesh, lay, params["layers"], xs, impl, grad,
                         kv_out=None if kept is None else kept["kv"])
+    if return_hidden:
+        return (final_norm(cfg, mesh, params, xs),
+                head_blocks(cfg, mesh, lay, params), lay)
     logits = head_logits(cfg, mesh, lay, params, xs)
     if not return_cache:
         return logits, lay
@@ -435,19 +487,33 @@ def logits_sharded(mesh: Mesh, lay: Layout,
     """Per-position logits blocks (b_local, S, V_local) as one ``Sharded``
     (B, S, V): the batch over ``lay.batch``, the vocab over 'model' where
     ``lay.vocab_logits``."""
-    part = lay.batch[0] if len(lay.batch) == 1 else (lay.batch or None)
-    spec = P(part, None, MODEL if lay.vocab_logits else None)
-    b, s, v = blocks[0].shape
-    for axes, dim in ((lay.batch, 0), ((MODEL,) if lay.vocab_logits else (),
-                                       2)):
-        n = 1
-        for a in axes:
-            n *= mesh.shape[a]
-        if dim == 0:
-            b *= n
-        else:
-            v *= n
-    return pm.Sharded((b, s, v), pm.check_spec((b, s, v), spec, mesh), mesh,
+    return _as_sharded(mesh, P(_batch_part(lay), None,
+                               MODEL if lay.vocab_logits else None), blocks)
+
+
+def hidden_sharded(mesh: Mesh, lay: Layout, hidden: List[torch.Tensor],
+                   heads: List[torch.Tensor]
+                   ) -> Tuple[pm.Sharded, pm.Sharded]:
+    """``forward(..., return_hidden=True)``'s blocks as ``Sharded``: the
+    hidden (B, S, D), its batch over ``lay.batch``, and the head (D, V),
+    its vocab over 'model' where ``lay.vocab_logits``."""
+    return (_as_sharded(mesh, P(_batch_part(lay), None, None), hidden),
+            _as_sharded(mesh, P(None, MODEL if lay.vocab_logits else None),
+                        heads))
+
+
+def _batch_part(lay: Layout):
+    return lay.batch[0] if len(lay.batch) == 1 else (lay.batch or None)
+
+
+def _as_sharded(mesh: Mesh, spec: P, blocks: List[torch.Tensor]
+                ) -> pm.Sharded:
+    """Per-position blocks laid out by ``spec`` as one ``Sharded``: each
+    dim's global size its block's times the sizes of the axes it is
+    split over."""
+    shape = tuple(n * math.prod(mesh.shape[a] for a in pm.part_axes(part))
+                  for n, part in zip(blocks[0].shape, spec))
+    return pm.Sharded(shape, pm.check_spec(shape, spec, mesh), mesh,
                       list(blocks))
 
 
@@ -499,7 +565,76 @@ def ce_loss(mesh: Mesh, lay: Layout, logits: List[torch.Tensor],
     """The masked mean CE of per-position logits blocks over the global
     batch, counted once (``loss_owners``): (loss, {"loss", "tokens",
     "accuracy"}), 0-d tensors on the first position's device."""
-    sums = _ce_sums(mesh, lay, logits, labels)
+    return _mean_of_sums(mesh, lay, _ce_sums(mesh, lay, logits, labels))
+
+
+def chunked_ce_loss(cfg: ModelConfig, mesh: Mesh, lay: Layout,
+                    hidden: List[torch.Tensor], heads: List[torch.Tensor],
+                    labels: List[torch.Tensor]):
+    """``ce_loss`` of the head's logits over each position's final-normed
+    ``hidden`` block, ``cfg.logits_chunk`` sequence positions at a time
+    (the one-device ``model._chunked_loss``, the reference's scan): the
+    sequence padded to a multiple of the chunk with ``IGNORE_LABEL``, each
+    chunk's fp32 logits (b_local, c, V_local) and their sums
+    (``_ce_sums``, vocab-parallel where ``lay.vocab_logits``) under one
+    ``torch.utils.checkpoint`` over every position, so the backward
+    recomputes a chunk's logits and no (b, S, V_local) fp32 tensor is
+    held; the counted positions' sums add over the chunks (where the
+    vocab is whole on every position, only theirs are computed).  Each chunk
+    reads its own view of the head (an ``expand`` over the chunks), so the
+    head's gradient is the sum of the chunks' stacked gradients, taken
+    once, as the hidden's is their concatenation.  The chunks are one trip
+    under the dry run's replay (``program_cost.loop``)."""
+    s = hidden[0].shape[1]
+    c = min(cfg.logits_chunk, s)
+    pad = -s % c
+    n = (s + pad) // c
+    grad = torch.is_grad_enabled() and hidden[0].requires_grad
+    owners = loss_owners(mesh, lay.batch)
+    # the positions a chunk's sums need: every one where the vocab is
+    # split (the vocab-parallel loss), else the counted ones alone
+    need = range(mesh.size) if lay.vocab_logits else owners
+    parts, wparts, lparts = {}, {}, {}
+    for p in need:
+        x, lb = hidden[p], labels[p]
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+            lb = F.pad(lb, (0, pad), value=IGNORE_LABEL)
+        parts[p], lparts[p] = pc.split(x, c, 1), lb.split(c, 1)
+        wparts[p] = pc.unstack(heads[p].expand(n, *heads[p].shape))
+
+    def sums_of(xs, ws, lbs):
+        got = _ce_sums(mesh, lay, [(xs[p] @ ws[p].to(xs[p].dtype)).float()
+                                   for p in need], [lbs[p] for p in need])
+        return dict(zip(need, got))
+
+    def chunk(i, acc, ins, _):
+        xs, ws, lbs = ins
+        if grad:
+            got = checkpoint(sums_of, xs, ws, lbs, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            got = sums_of(xs, ws, lbs)
+        return {p: tuple(a + b for a, b in zip(mine, got[p]))
+                for p, mine in acc.items()}
+
+    devs = mesh.device_list
+    zero = {p: (torch.zeros((), dtype=torch.float32, device=devs[p]),
+                torch.zeros((), dtype=torch.int64, device=devs[p]),
+                torch.zeros((), dtype=torch.int64, device=devs[p]))
+            for p in owners}
+    sums = pc.loop("loss_chunks", n, chunk, zero,
+                   inputs=lambda i: ({p: x[i] for p, x in parts.items()},
+                                     {p: w[i] for p, w in wparts.items()},
+                                     {p: lb[i] for p, lb in lparts.items()}),
+                   grad=grad)
+    return _mean_of_sums(mesh, lay, sums)
+
+
+def _mean_of_sums(mesh: Mesh, lay: Layout, sums):
+    """(loss, metrics) of per-position (nll_sum, n_tokens, n_correct)
+    (``sums[p]``, at least for every position of ``loss_owners``),
+    counted once on the first position's device."""
     dev0 = mesh.device_list[0]
     owners = loss_owners(mesh, lay.batch)
     nll = sum(sums[p][0].to(dev0) for p in owners)
@@ -514,7 +649,12 @@ def loss_fn(cfg: ModelConfig, params, batch, mesh: Mesh,
             attn_impl: Optional[str] = None):
     """Masked next-token CE over the global batch on ``mesh``: (loss,
     {"loss", "tokens", "accuracy"}), 0-d tensors on the first position's
-    device."""
+    device; ``cfg.logits_chunk > 0`` (the transformer families) takes it
+    in sequence chunks (``chunked_ce_loss``)."""
+    labels = _local_batch(batch, mesh, "labels").blocks
+    if cfg.logits_chunk and cfg.family in CHUNKED_LOSS_FAMILIES:
+        hidden, heads, lay = forward(cfg, params, batch, mesh, attn_impl,
+                                     return_hidden=True)
+        return chunked_ce_loss(cfg, mesh, lay, hidden, heads, labels)
     logits, lay = forward(cfg, params, batch, mesh, attn_impl)
-    return ce_loss(mesh, lay, logits,
-                   _local_batch(batch, mesh, "labels").blocks)
+    return ce_loss(mesh, lay, logits, labels)

@@ -50,6 +50,7 @@ from repro_torch.dist import placement as pm
 from repro_torch.dist import spmd, spmd_serve
 from repro_torch.dist.mesh import Mesh
 from repro_torch.dist.sharding import P
+from repro_torch.launch import program_cost as pc
 from repro_torch.models import encdec
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -116,22 +117,19 @@ def _ranges(mesh: Mesh, n: int) -> List[torch.Tensor]:
     return [made[d] for d in devs]
 
 
-def _stacked(tree, mesh: Mesh
-             ) -> Tuple[Dict[str, P], List[Dict[str, tuple]]]:
-    """A stacked layer tree's per-layer specs and each position's layers."""
+def _stacked(tree, mesh: Mesh, counts=None) -> Tuple[Dict[str, P], list]:
+    """A stacked layer tree's per-layer specs and each position's layers
+    (``spmd.layer_stacks``)."""
     specs = {name: P(*st.spec[1:]) for name, st in tree.items()}
-    return specs, [{name: st.blocks[p].unbind(0) for name, st in tree.items()}
-                   for p in range(mesh.size)]
-
-
-def _layer(stacked, i: int) -> List[Dict[str, torch.Tensor]]:
-    return [{name: w[i] for name, w in st.items()} for st in stacked]
+    return specs, spmd.layer_stacks(mesh, tree, counts)
 
 
 def encode(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout, params,
-           frames: List[torch.Tensor], remat: bool) -> List[torch.Tensor]:
+           frames: List[torch.Tensor], grad: bool) -> List[torch.Tensor]:
     """``encdec.encode`` on every position's batch block of ``frames``:
-    its encoder states (b_local, n_frames, D), whole over 'model'."""
+    its encoder states (b_local, n_frames, D), whole over 'model'.
+    ``grad``: a gradient will be taken (``cfg.remat`` applies)."""
+    remat = grad and cfg.remat != "none"
     dt = torch_dtype(cfg.dtype)
 
     def whole(name):
@@ -151,8 +149,10 @@ def encode(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout, params,
         return _add(xs, _ffn(mesh, lay, w, _norm(cfg, w, xs, "ln2")))
 
     step = T._remat(body, "full") if remat else body
-    for i in range(cfg.n_encoder_layers):
-        xs = step(xs, _layer(stacked, i))
+    xs = pc.loop("encoder_layers", cfg.n_encoder_layers,
+                 lambda i, xs, lws, _: step(xs, lws), xs,
+                 inputs=lambda i: spmd.layer_at(stacked, i), grad=grad,
+                 retained=grad)
     return [L.rms_norm(x, w, cfg.norm_eps)
             for x, w in zip(xs, whole("ln_enc"))]
 
@@ -167,10 +167,12 @@ def run(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout, params,
     each layer's self-attention K/V in ``kept["kv"]`` and cross-attention
     K/V in ``kept["ckv"]``, one list a layer, one entry a position."""
     remat = grad and cfg.remat != "none"
-    enc = encode(cfg, mesh, lay, params, frames, remat)
+    enc = encode(cfg, mesh, lay, params, frames, grad)
     tpos = _ranges(mesh, xs[0].shape[1])
     fpos = _ranges(mesh, enc[0].shape[1])
-    specs, stacked = _stacked(params["decoder"], mesh)
+    apart = spmd.last_apart(mesh, lay, grad)
+    specs, stacked = _stacked(params["decoder"], mesh,
+                              spmd.apart_counts(cfg.n_layers, apart))
 
     def body(xs, lws, enc):
         w = spmd.layer_weights(mesh, lay, specs, lws)
@@ -189,9 +191,11 @@ def run(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout, params,
         return xs
 
     step = T._remat(body, "full") if remat else body
-    for i in range(cfg.n_layers):
-        xs = step(xs, _layer(stacked, i), enc)
-    return xs
+    grow = () if kept is None else (kept["kv"], kept["ckv"])
+    return pc.loop("layers", cfg.n_layers,
+                   lambda i, xs, lws, enc: step(xs, lws, enc), xs,
+                   inputs=lambda i: spmd.layer_at(stacked, i), shared=enc,
+                   grow=grow, grad=grad, retained=grad, last_apart=apart)
 
 
 def decode_layer(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout, w: Weights,

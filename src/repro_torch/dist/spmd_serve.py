@@ -73,6 +73,7 @@ from repro_torch.dist import placement as pm
 from repro_torch.dist import spmd
 from repro_torch.dist.mesh import Mesh
 from repro_torch.dist.sharding import P, batch_spec
+from repro_torch.launch import program_cost as pc
 from repro_torch.models import hybrid
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -105,8 +106,7 @@ def _kv_leaf(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout, shape, spec: P,
              kept: List[list], which: int) -> pm.Sharded:
     """The K (``which`` 0) or V leaf from each layer's per-position
     projections (``spmd._layer_fn``'s ``kv_out``)."""
-    per_layer = []
-    for layer in kept:
+    def blocks(layer):
         out = []
         for p, kv in enumerate(layer):
             x = kv[which]
@@ -114,8 +114,19 @@ def _kv_leaf(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout, shape, spec: P,
                 x = x[:, -cfg.window:]
             sl = pm.block_slices(shape[1:], P(*spec[1:]), mesh, p)
             out.append(x[:, sl[1], _held(cfg, lay, mesh, p, sl[2])])
-        per_layer.append(out)
-    return _stacked(shape, spec, mesh, per_layer)
+        return out
+    return _stacked(shape, spec, mesh, _per_entry(kept, blocks))
+
+
+def _per_entry(kept: List[list], fn) -> List[list]:
+    """``fn`` of each entry of ``kept``, once an entry object: a replayed
+    loop's entry stands in ``kept`` for every layer it replays
+    (``program_cost.loop``'s ``grow``)."""
+    done: Dict[int, list] = {}
+    for entry in kept:
+        if id(entry) not in done:
+            done[id(entry)] = fn(entry)
+    return [done[id(entry)] for entry in kept]
 
 
 def prefill_cache(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout, batch: int,
@@ -141,19 +152,22 @@ def prefill_cache(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout, batch: int,
                                  specs[name], kept[src], name[-1] == "v")
     if "ssm" in decls:
         shape, spec = decls["ssm"].shape, specs["ssm"]
-        sts = []
-        for layer in kept["ssm"]:
+
+        def states(layer):
             row = []
             for p, st in enumerate(layer):
                 lo = spmd_ssm.held_heads(cfg, lay, mesh, p)[0]
                 sl = pm.block_slices(shape[1:], P(*spec[1:]), mesh, p)
                 row.append(st[:, sl[1].start - lo:sl[1].stop - lo])
-            sts.append(row)
-        out["ssm"] = _stacked(shape, spec, mesh, sts)
-        shape, spec = decls["conv"].shape, specs["conv"]
-        out["conv"] = _stacked(shape, spec, mesh, [
-            [t[:, :, pm.block_slices(shape[1:], P(*spec[1:]), mesh, p)[2]]
-             for p, t in enumerate(layer)] for layer in kept["conv"]])
+            return row
+        out["ssm"] = _stacked(shape, spec, mesh,
+                              _per_entry(kept["ssm"], states))
+        cshape, cspec = decls["conv"].shape, specs["conv"]
+        out["conv"] = _stacked(cshape, cspec, mesh, _per_entry(
+            kept["conv"], lambda layer: [
+                t[:, :, pm.block_slices(cshape[1:], P(*cspec[1:]), mesh,
+                                        p)[2]]
+                for p, t in enumerate(layer)]))
     out["len"] = seq
     return out
 
@@ -378,19 +392,24 @@ def decode(cfg: ModelConfig, params, cache, tokens, mesh: Mesh):
                                          ssm, conv, i, new_ssm)
 
         if cfg.family == "ssm":
-            for i in range(cfg.n_layers):
-                xs = mamba(i, xs)
+            xs = pc.loop("layers", cfg.n_layers,
+                         lambda i, xs, *_: mamba(i, xs), xs, grow=new_ssm)
         else:
             dense = hybrid._dense_view(cfg)
             at = _slots(dense, mesh, lay, cache["k"], pos)
             specs, lws = _layer_blocks(params["shared_attn"], mesh)
             ae = cfg.attn_every
-            for g in range(hybrid.n_groups(cfg)):
+
+            def group(g, xs, *_):
                 w = spmd.layer_weights(mesh, lay, specs, lws)
                 xs = attn_decode_layer(dense, mesh, lay, w, xs, cache["k"],
                                        cache["v"], g, at, fused=False)
-                for i in range(g * ae, (g + 1) * ae):
-                    xs = mamba(i, xs)
+                return pc.loop("layers_per_group", ae,
+                               lambda i, xs, *_: mamba(g * ae + i, xs), xs,
+                               grow=new_ssm)
+
+            xs = pc.loop("groups", hybrid.n_groups(cfg), group, xs,
+                         grow=new_ssm)
         if new_ssm[0]:
             out["ssm"] = ssm.with_blocks([torch.stack(s) for s in new_ssm])
     else:
@@ -398,15 +417,17 @@ def decode(cfg: ModelConfig, params, cache, tokens, mesh: Mesh):
         encdec = cfg.family == "encdec"
         if encdec:
             from repro_torch.dist import spmd_encdec
-        for i in range(cfg.n_layers):
+
+        def layer(i, xs, *_):
             specs, lws = _layer_blocks(
                 params["decoder" if encdec else "layers"], mesh, i)
             w = spmd.layer_weights(mesh, lay, specs, lws)
             if encdec:
-                xs = spmd_encdec.decode_layer(cfg, mesh, lay, w, xs, cache,
-                                              i, at)
-            else:
-                xs = attn_decode_layer(cfg, mesh, lay, w, xs, cache["k"],
-                                       cache["v"], i, at)
+                return spmd_encdec.decode_layer(cfg, mesh, lay, w, xs, cache,
+                                                i, at)
+            return attn_decode_layer(cfg, mesh, lay, w, xs, cache["k"],
+                                     cache["v"], i, at)
+
+        xs = pc.loop("layers", cfg.n_layers, layer, xs)
     out["len"] = _next_len(n)
     return spmd.head_logits(cfg, mesh, lay, params, xs), lay, out

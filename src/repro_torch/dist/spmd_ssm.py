@@ -62,6 +62,7 @@ from repro_torch.dist import placement as pm
 from repro_torch.dist import spmd
 from repro_torch.dist.mesh import Mesh
 from repro_torch.dist.sharding import P
+from repro_torch.launch import program_cost as pc
 from repro_torch.models import hybrid
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
@@ -207,28 +208,40 @@ def run_backbone(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout, params,
     the shared block's K/V an application in ``kept["kv"]``."""
     layers = params["layers"]
     specs = {name: P(*st.spec[1:]) for name, st in layers.items()}
-    stacked = [{name: st.blocks[p].unbind(0) for name, st in layers.items()}
-               for p in range(mesh.size)]
+    apart = spmd.last_apart(mesh, lay, remat)
+    n, ae = cfg.n_layers, cfg.attn_every
+    if cfg.family == "ssm":
+        counts = spmd.apart_counts(n, apart)
+    else:   # the first group stands for all but the last, whose last
+        #     layer a replay takes apart
+        last = (hybrid.n_groups(cfg) - 1) * ae
+        counts = (((0, last), (last, ae - 1), (n - 1, 1)) if ae > 1
+                  else ((0, n - 1), (n - 1, 1))) if apart and n > 1 else None
+    stacked = spmd.layer_stacks(mesh, layers,
+                                [c for c in counts if c[1]] if counts
+                                else None)
     layer = _mamba_step(cfg, mesh, lay, specs, ssd_impl)
     if kept is None:
         def body(xs, lws):      # the lockstep body cfg.remat checkpoints
             return layer(xs, lws)[0]
         step = T._remat(body, cfg.remat) if remat else body
+        grow: tuple = ()
     else:
         def step(xs, lws):
             xs, sts, tails = layer(xs, lws, tails=True)
             kept["ssm"].append(sts)
             kept["conv"].append(tails)
             return xs
+        grow = (kept["ssm"], kept["conv"])
 
-    def run(lo: int, hi: int, xs):
-        for i in range(lo, hi):
-            xs = step(xs, [{name: w[i] for name, w in st.items()}
-                           for st in stacked])
-        return xs
+    def run(name: str, lo: int, n: int, xs, apart: bool):
+        return pc.loop(name, n, lambda i, xs, lws, _: step(xs, lws), xs,
+                       inputs=lambda i: spmd.layer_at(stacked, lo + i),
+                       grow=grow, grad=remat, retained=remat,
+                       last_apart=apart)
 
     if cfg.family == "ssm":
-        return run(0, cfg.n_layers, xs)
+        return run("layers", 0, n, xs, apart)
     shared = params["shared_attn"]
     devs = mesh.device_list
     arange = {d: torch.arange(xs[0].shape[1], device=d) for d in set(devs)}
@@ -238,10 +251,15 @@ def run_backbone(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout, params,
                            kv_out=None if kept is None else kept["kv"])
     shared_blocks = [{name: st.blocks[p] for name, st in shared.items()}
                      for p in range(mesh.size)]
-    ae = cfg.attn_every
-    for g in range(hybrid.n_groups(cfg)):
-        xs = run(g * ae, (g + 1) * ae, block(xs, shared_blocks))
-    return xs
+    n_groups = hybrid.n_groups(cfg)
+
+    def group(g, xs, _, blocks):
+        return run("layers_per_group", g * ae, ae, block(xs, blocks),
+                   apart and g == n_groups - 1)
+
+    return pc.loop("groups", n_groups, group, xs, shared=shared_blocks,
+                   grow=() if kept is None else (kept["kv"],) + grow,
+                   grad=remat, retained=remat, last_apart=apart)
 
 
 def decode_layer(cfg: ModelConfig, mesh: Mesh, lay: spmd.Layout,

@@ -20,8 +20,15 @@ nothing, and each kernel wrapper takes its fake route (``kernels.ops``:
 ``FAKE_CALLS``, priced by the planner's kernel formulas).  The default
 meshes are the production shapes over fake devices ``cuda:0`` ..
 ``cuda:n-1`` (``launch/mesh.make_production_mesh(devices=...)``).  The
-eager program runs all its positions in lockstep in one process: a
-production cell is millions of ops, minutes of host time.
+eager program runs all its positions in lockstep in one process, and
+every loop of the step (the layers, a hybrid's groups, the encoder's
+layers, the microbatches, the chunked loss's chunks) is replayed: its
+first iteration runs once as a trip of the loop's count
+(``program_cost.replay``, the reference's ``known_trip_count``), so the
+host's work does not grow with depth or microbatches; ``trace_cell(...,
+replay=False)`` runs every iteration (the full trace a replay equals).
+The artifact records the host seconds of the trace (``trace_s``), the
+trips it took and the collective record's entry count.
 
 A long_500k cell of a full-attention arch comes back as a skip
 (``shapes.applicable``, as in the reference); every other cell runs, and
@@ -31,7 +38,7 @@ Artifacts land in artifacts/dryrun/<arch>__<shape>__<mesh>.json.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm_360m \
-      --shape train_4k --mesh single [--out artifacts/dryrun]
+      --shape train_4k --mesh single [--audit] [--out artifacts/dryrun]
 """
 from __future__ import annotations
 
@@ -41,7 +48,7 @@ import json
 import os
 import time
 import traceback
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -50,7 +57,7 @@ from repro_torch.core.profiler.hw_specs import AcceleratorSpec, get_accelerator
 from repro_torch.device import meta_stands_for_cuda
 from repro_torch.dist import placement as pm
 from repro_torch.kernels import ops
-from repro_torch.launch import comm
+from repro_torch.launch import comm, program_cost
 from repro_torch.launch import shapes as shapes_mod
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.program_cost import CostSummary, ProgramCost
@@ -83,26 +90,68 @@ def step_fn_for(cell: shapes_mod.Cell, mesh):
 @dataclasses.dataclass
 class Trace:
     """One fake run of a cell's step: its output, its costs, its
-    collective record and its kernel calls."""
+    collective record, its kernel calls and the trips it took (loop name
+    -> count; empty for a full trace)."""
     out: object
     cost: ProgramCost
     record: pm.CollectiveRecord
     kernel_calls: Dict[str, int]
     host_s: float
+    trips: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
-def trace_cell(cell: shapes_mod.Cell, step=None) -> Trace:
-    """Run the cell's step once on its stand-ins under its fake mode."""
+def trace_cell(cell: shapes_mod.Cell, step=None, replay: bool = True
+               ) -> Trace:
+    """Run the cell's step once on its stand-ins under its fake mode:
+    each loop of the step replayed as one trip of its count
+    (``program_cost.replay``), or with ``replay=False`` every iteration
+    (the full trace a replay must equal)."""
     step = step or step_fn_for(cell, cell.mesh)
     base = [b for arg in cell.args for _, x in pm.tree_items(
         arg if isinstance(arg, dict) else {"x": arg}) for b in x.blocks]
     ops.reset_fake_calls()
+    trips: Dict[str, int] = {}
     t0 = time.perf_counter()
     with cell.mode, meta_stands_for_cuda(), \
             pm.record_collectives() as record, ProgramCost(base) as cost:
-        out = step(*cell.args)
+        if replay:
+            with program_cost.replay() as trips:
+                out = step(*cell.args)
+        else:
+            out = step(*cell.args)
     host_s = time.perf_counter() - t0
-    return Trace(out, cost, record, dict(ops.FAKE_CALLS), host_s)
+    return Trace(out, cost, record, dict(ops.FAKE_CALLS), host_s,
+                 dict(trips))
+
+
+def trace_differences(full: Trace, replayed: Trace, rel: float = 1e-9
+                      ) -> List[str]:
+    """Where a replayed trace is not the full one: per device FLOPs and
+    bytes beyond ``rel`` relative, peak live bytes not equal, fake kernel
+    calls or collective record entries not equal (empty: the same
+    program)."""
+    out = []
+    fs, rs = full.cost.summary(), replayed.cost.summary()
+    if sorted(fs) != sorted(rs):
+        out.append(f"devices {sorted(fs)} != {sorted(rs)}")
+    for dev in sorted(set(fs) & set(rs)):
+        f, r = fs[dev], rs[dev]
+        for name in ("flops", "bytes_accessed"):
+            a, b = getattr(f, name), getattr(r, name)
+            if abs(a - b) > rel * abs(a):
+                out.append(f"{dev} {name} {a!r} != {b!r}")
+        if f.peak_bytes != r.peak_bytes:
+            out.append(f"{dev} peak_bytes {f.peak_bytes} != {r.peak_bytes}")
+    if full.kernel_calls != replayed.kernel_calls:
+        out.append(f"kernel calls {full.kernel_calls} != "
+                   f"{replayed.kernel_calls}")
+    a, b = full.record.entries, replayed.record.entries
+    if a != b:
+        first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+        out.append(f"records of {len(a)} and {len(b)} entries differ from "
+                   f"entry {first}")
+    return out
 
 
 def device_costs(cell: shapes_mod.Cell, trace: Trace) -> Dict[str, CostSummary]:
@@ -201,7 +250,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         total_flops = sum(c.flops for c in per.values())
         rec.update(
             ok=True, skipped=False,
-            build_s=t_build - t0, trace_s=trace.host_s,
+            build_s=t_build - t0, trace_s=trace.host_s, trips=trace.trips,
+            record_entries=len(trace.record.entries),
+            ops_dispatched=trace.cost.dispatched,
             n_chips=n_chips, n_positions=mesh.size,
             per_device={
                 "flops": flops_dev,
@@ -264,7 +315,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="artifacts/dryrun")
     ap.add_argument("--override", action="append", default=[],
                     help="cfg overrides k=v (int/float/str), e.g. "
-                         "moe_dispatch=per_seq n_layers=2")
+                         "moe_dispatch=per_seq logits_chunk=512")
     ap.add_argument("--tag", default="",
                     help="artifact suffix for variant runs")
     ap.add_argument("--chip", default=DEFAULT_CHIP,

@@ -133,12 +133,16 @@ def forward(cfg: ModelConfig, params, batch, *, mesh=None,
     (``dist/spmd.py``); the logits come back as a ``Sharded`` (B, S, V)
     fp32, the vocab over 'model' where the layout splits it, and with
     ``return_cache`` the cache as ``Sharded`` leaves laid out by
-    ``serve_step.cache_specs`` (``dist/spmd_serve.py``)."""
+    ``serve_step.cache_specs`` (``dist/spmd_serve.py``), with
+    ``return_hidden`` the final-normed hidden (B, S, D) and the head (D,
+    V) as ``Sharded`` (``spmd.hidden_sharded``)."""
     if mesh is not None:
-        if return_hidden:
-            raise NotImplementedError("return_hidden on a mesh (the chunked "
-                                      "loss) is not ported")
         from repro_torch.dist import spmd
+        if return_hidden:
+            hidden, heads, lay = spmd.forward(
+                cfg, params, batch, spmd.check_mesh(mesh), attn_impl,
+                return_hidden=True)
+            return spmd.hidden_sharded(mesh, lay, hidden, heads)
         out = spmd.forward(cfg, params, batch, spmd.check_mesh(mesh),
                            attn_impl, return_cache)
         logits = spmd.logits_sharded(mesh, out[1], out[0])
@@ -172,7 +176,8 @@ def loss_fn(cfg: ModelConfig, params, batch, *, mesh=None
     in sequence chunks.
     ``mesh`` (a ``dist.mesh.Mesh``; ``params`` a tree of
     ``dist.placement.Sharded``): the sharded forward and loss over the
-    global batch (``dist/spmd.py``); the chunked loss raises there.
+    global batch (``dist/spmd.py``), chunked there too
+    (``spmd.chunked_ce_loss``).
     """
     if mesh is not None:
         from repro_torch.dist import spmd

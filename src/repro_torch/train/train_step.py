@@ -39,6 +39,7 @@ from repro_torch.dist import spmd
 from repro_torch.dist.sharding import P, batch_spec, param_specs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused as fused_mod
+from repro_torch.launch import program_cost as pc
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import optimizer as opt_lib
@@ -220,8 +221,11 @@ def sharded_loss_and_grads(cfg: ModelConfig, params, batch, mesh,
     blocks = [b for x in leaves for b in x.blocks]
     acc = [torch.zeros(b.shape, dtype=torch.float32, device=b.device)
            for b in blocks]
-    loss_sum = torch.zeros((), dtype=torch.float32, device=devs[0])
-    for i in range(n_micro):
+
+    def micro(i, loss_sum, *_):
+        """Microbatch ``i``'s gradients added into ``acc``; its loss into
+        ``loss_sum`` (its gradients die with the call, before the next
+        microbatch's forward)."""
         mb = {k: pm.Sharded(x.shape[1:], P(*x.spec[1:]), mesh,
                             [blk[i] for blk in x.blocks])
               for k, x in batch.items()}
@@ -232,8 +236,13 @@ def sharded_loss_and_grads(cfg: ModelConfig, params, batch, mesh,
                 if g is not None:
                     wi = w_on[a.device]
                     a.add_(g.float() if wi is None else wi[i] * g.float())
-            loss_sum = loss_sum + (loss.detach() if w is None
-                                   else w[i] * loss.detach())
+            return loss_sum + (loss.detach() if w is None
+                               else w[i] * loss.detach())
+
+    # the fp32 sums are made before the loop, so every microbatch's live
+    # bytes are the first's (the dry run replays one: program_cost.loop)
+    loss_sum = pc.loop("microbatches", n_micro, micro, torch.zeros(
+        (), dtype=torch.float32, device=devs[0]))
     if w is None:
         inv = 1.0 / n_micro
         for a in acc:

@@ -615,3 +615,102 @@ def test_stand_ins_keep_the_card_routes():
         assert layers.pick_attn_impl("auto", 128, "cpu") == "naive"
     assert mamba2.pick_ssd_impl("meta:2", prefill=True,
                                 grad=False) == "chunked"
+
+
+# --- the replay (trip counts) ------------------------------------------------------
+
+# one reduced config a family, every loop of its step at a count of 2 or
+# more: 3 layers (the hybrid 2 groups of 2; whisper 3 encoder layers too),
+# 2 microbatches, and the dense and vlm losses in chunks (16 positions in
+# chunks of 5: the last one padded); the (2, 2) mesh has its positions on
+# one device, as chip_smoke's [dryrun] cell (members of a group then share
+# a collective's result), the (1, 2) mesh one device a position
+_REPLAY = {"dense": ("smollm_360m", dict(n_layers=3, logits_chunk=5)),
+           "moe": ("dbrx_132b", dict(n_layers=3)),
+           "ssm": ("mamba2_130m", dict(n_layers=3)),
+           "hybrid": ("zamba2_2_7b", dict(n_layers=4, attn_every=2)),
+           "encdec": ("whisper_tiny", dict(n_layers=3, n_encoder_layers=3)),
+           "vlm": ("internvl2_26b", dict(n_layers=3, logits_chunk=5))}
+
+
+def _replay_cell(family, kind, policy, shape, deeper=False):
+    arch, over = _REPLAY[family]
+    n = shape[0] * shape[1]
+    devices = dryrun.fake_devices(1) * n if shape == (2, 2) \
+        else dryrun.fake_devices(n)
+    over = dict(over)
+    if deeper:
+        for k in ("n_layers", "n_encoder_layers"):
+            if k in over:
+                over[k] *= 2
+    cfg = dataclasses.replace(tget(arch).reduced(), sharding=policy, **over)
+    cell = tconfig.ShapeConfig("small", kind, 16, 8 if kind == "train" else 4,
+                               2 if kind == "train" else 0)
+    return tshapes.build_cell(cfg, cell,
+                              tmesh.data_model_mesh(*shape, devices))
+
+
+@pytest.mark.parametrize("policy,shape", [("fsdp_tp", (2, 2)),
+                                          ("tp", (1, 2))])
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("family", list(_REPLAY))
+def test_replay_equals_the_full_trace(family, kind, policy, shape):
+    """Each loop replayed as one trip of its count (``trace_cell``'s
+    default, ``program_cost.replay``) gives the full trace's program: per
+    device FLOPs and bytes within 1e-9 relative, the peak live bytes
+    exactly, the same fake kernel calls and the same collective record
+    entry for entry, every loop of the step having replayed (its trip in
+    ``trips``).  On (1, 2) the replay dispatches as many ops at twice the
+    depth."""
+    full = dryrun.trace_cell(_replay_cell(family, kind, policy, shape),
+                             replay=False)
+    rep = dryrun.trace_cell(_replay_cell(family, kind, policy, shape))
+    assert full.trips == {}
+    want = {"layers"} | ({"microbatches"} if kind == "train" else set())
+    if family == "hybrid":
+        want = want - {"layers"} | {"groups", "layers_per_group"}
+    if family == "encdec" and kind != "decode":
+        want |= {"encoder_layers"}
+    if kind == "train" and family in ("dense", "vlm"):
+        want |= {"loss_chunks"}
+    assert set(rep.trips) == want and min(rep.trips.values()) >= 2, \
+        rep.trips
+    fs, rs = full.cost.summary(), rep.cost.summary()
+    assert sorted(fs) == sorted(rs)
+    for dev, f in fs.items():
+        r = rs[dev]
+        assert r.flops == pytest.approx(f.flops, rel=1e-9, abs=0), dev
+        assert r.bytes_accessed == pytest.approx(f.bytes_accessed, rel=1e-9,
+                                                 abs=0), dev
+        assert r.peak_bytes == f.peak_bytes, dev
+    assert rep.kernel_calls == full.kernel_calls
+    assert rep.record.entries == full.record.entries
+    assert rep.cost.dispatched < full.cost.dispatched
+    if shape == (1, 2):
+        deeper = dryrun.trace_cell(_replay_cell(family, kind, policy, shape,
+                                                deeper=True))
+        assert deeper.cost.dispatched == rep.cost.dispatched
+
+
+@pytest.mark.parametrize("family,shape", [
+    ("dense", (1, 4)), ("ssm", (1, 4)), ("hybrid", (1, 4)),
+    ("encdec", (1, 4)), ("vlm", (1, 4)), ("dense", (1, 3))])
+def test_replay_equals_the_full_trace_where_the_loss_reads_some_positions(
+        family, shape):
+    """A train cell whose logits the 'model' axis does not split (vocab
+    250 on 4, or nothing split on 3): the loss reads only 'model' index
+    0's last layer, the next layer every position's, so each layer loop
+    replays its last layer apart (``spmd.last_apart``); on (1, 3) the
+    other positions are read nowhere.  The replay equals the full trace
+    as ``test_replay_equals_the_full_trace`` holds it."""
+    arch, over = _REPLAY[family]
+    over = dict(over, sharding="tp", vocab_size=250 if shape == (1, 4)
+                else 256)
+    cfg = dataclasses.replace(tget(arch).reduced(), **over)
+    cell = tconfig.ShapeConfig("small", "train", 16, 8, 2)
+
+    def trace(replay):
+        mesh = tmesh.data_model_mesh(*shape, dryrun.fake_devices(shape[1]))
+        return dryrun.trace_cell(tshapes.build_cell(cfg, cell, mesh),
+                                 replay=replay)
+    assert dryrun.trace_differences(trace(False), trace(True)) == []

@@ -1714,6 +1714,39 @@ def test_dryrun_record_and_calls_match_the_card(cuda, policy, shape):
     assert torch.equal(m["loss"], loss_off)
 
 
+@pytest.mark.parametrize("chunk", [0, 16])
+def test_dryrun_replay_equals_the_full_trace_on_the_card(cuda, chunk):
+    """The (2, 2) ``fsdp_tp`` cell traced in full and replayed (each loop
+    one trip of its count, ``program_cost.replay``) is one program
+    (``dryrun.trace_differences``), and the real step through the kernels
+    records what the replayed trace records, entry for entry, and
+    launches its ``FAKE_CALLS``; also with the chunked loss on the mesh
+    (``logits_chunk`` 16)."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shapes as shapes_mod
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train import train_step as tts
+    cfg, mesh, _, sharded, batch, topt = _mesh_setup("fsdp_tp", (2, 2))
+    cfg = dataclasses.replace(cfg, logits_chunk=chunk)
+
+    def cell():
+        return shapes_mod.build_cell(cfg, ShapeConfig("t", "train", 64, 8, 2),
+                                     mesh)
+    full = dryrun.trace_cell(cell(), replay=False)
+    trace = dryrun.trace_cell(cell())
+    assert dryrun.trace_differences(full, trace) == []
+    assert trace.trips["layers"] == cfg.n_layers
+    assert trace.trips["microbatches"] == 2
+    step = tts.jit_train_step(cfg, topt.OptimizerConfig(), mesh, 2, 4)
+    ops.reset_launches()
+    with pm.record_collectives() as record:
+        step(sharded, topt.init_sharded_state(sharded), batch)
+    torch.cuda.synchronize()
+    assert record.entries == trace.record.entries
+    assert ops.LAUNCHES == trace.kernel_calls
+
+
 # --- the runtime: mesh stages, checkpoints, the elastic trainer ----------------------
 
 def test_mesh_stage_pipeline_on_one_card(cuda):

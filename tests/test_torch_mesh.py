@@ -382,9 +382,6 @@ def test_mesh_arguments_refused():
         tts.jit_train_step(cfg, topt.OptimizerConfig(), object(), 1, 2)
     with pytest.raises(TypeError, match="Mesh"):
         tts.make_train_step(cfg, topt.OptimizerConfig(), mesh={"model": 2})
-    with pytest.raises(NotImplementedError, match="logits_chunk"):
-        tts.loss_and_grads(dataclasses.replace(cfg, logits_chunk=4), sharded,
-                           batch, mesh=mesh)
     step = tts.jit_train_step(cfg, topt.OptimizerConfig(), mesh, 1, 2)
     with pytest.raises(ValueError, match="made for"):
         step(sharded, topt.init_sharded_state(sharded),
