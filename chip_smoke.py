@@ -125,12 +125,15 @@ Phases, each printed as it runs; any failure exits non-zero:
              such pipelines, a 2:1 assignment against the uniform one (each
              step's loss within 1e-3).  Then mesh stages:
              ``even_stages(cfg, [2, 1])``, stage 0 on a (1, 2) ``fsdp_tp``
-             mesh, three positions on ``cuda:0``, eager, from the same
-             weights: the first step's loss and gradients (gathered whole)
-             against ``loss_and_grads`` and the ``[1, 1]`` pipeline's
-             first step (phase 8's bounds), the loss falling over 4 steps,
-             3 steps timed beside the ``[1, 1]`` pipeline's eager step,
-             one profiled (``[profile] pipeline_mesh_step``), the launches
+             mesh, three positions on ``cuda:0``, graphed (``graphed=
+             True``: the mesh stage too) and eager from the same weights
+             in turns, bit for bit after every step (losses, every
+             stage's params and AdamW state): the first step's loss and
+             gradients (gathered whole) against ``loss_and_grads`` and the
+             ``[1, 1]`` pipeline's first step (phase 8's bounds), the loss
+             falling over 4 steps, 3 pairs timed in turns beside the
+             ``[1, 1]`` pipeline's eager step, each side profiled
+             (``[profile] pipeline_mesh_step``, ``_graphed``), the launches
              a step (the attention forward 3 x 16 x 2 x 2 + 3 x 16 x 2 =
              288: 15 heads do not divide tp 2, so attention is replicated
              on stage 0's two positions; its backward 96; no fused norm)
@@ -150,13 +153,20 @@ Phases, each printed as it runs; any failure exits non-zero:
              position, vocab replicated).  For each: every position's
              elements and resident bytes beside the simulator's ``params
              / tp``; the first step's loss and gradients against the
-             single-device ``loss_and_grads`` (phase 8's bounds); the loss
-             falling over 4 steps; 3 eager steps timed (median) beside
-             phase 8's eager step; the launches a step (each position the
-             attention forward and the fused norm 2 x 32 x 2 times, each
-             backward 32 x 2); every replica of a block, of params, ``m``
-             and ``v``, equal bit for bit; one step profiled
-             (``[profile] mesh_step_*``).  Then an fp32 2-layer model on
+             single-device ``loss_and_grads`` (phase 8's bounds); then
+             the step graphed (``jit_train_step(..., graphed=True)``: a
+             warm call, the capture, replays) and eager from the same
+             weights on the same batches in turns, the graphed side's
+             params, ``m``, ``v``, step, loss and grad_norm equal to the
+             eager side's bit for bit after every step and a step's
+             launches equal on both: the loss falling over 2 steps; 3
+             pairs timed (each side's median) beside phase 8's eager step;
+             the capture's seconds, launches and record entries; the
+             launches a step (each position the attention forward and the
+             fused norm 2 x 32 x 2 times, each backward 32 x 2); every
+             replica of a block, of params, ``m`` and ``v``, equal bit for
+             bit; a step of each side profiled (``[profile] mesh_step_*``,
+             ``mesh_step_graphed_*``).  Then an fp32 2-layer model on
              (2, 2) against ``make_train_step`` (1e-4).  Phase 3 holds
              each position's attention and norm shapes (``mesh_*``).
    dryrun    ``launch/dryrun``'s fake-tensor trace of [mesh]'s (2, 2)
@@ -173,7 +183,10 @@ Phases, each printed as it runs; any failure exits non-zero:
              replayed one entry for entry and whose launches must equal
              its ``FAKE_CALLS``; the fake peak over
              ``max_memory_allocated``, the roofline beside a profiled
-             step's device ms (``launches_dryrun``: three steps).  Then
+             step's device ms (``launches_dryrun``: three steps); then
+             [mesh]'s graphed (2, 2) step, the same cell: its profiled
+             replay's record and launches, and its capture's record,
+             must equal the replayed trace's.  Then
              the chunked loss on the mesh: the cell at ``logits_chunk``
              DRYRUN_CHUNK, its loss and gradients against the one-device
              chunked step on the same weights (within twice one
@@ -209,7 +222,9 @@ Phases, each printed as it runs; any failure exits non-zero:
              every position on ``cuda:0``, eager, bf16, full remat: the
              train step (the first step's gradients against one device's,
              3 steps, the first one's launches and collective record equal
-             to the dry run's, the eager walls beside one device's) and
+             to the dry run's, the eager walls beside one device's; on
+             (2, 2) 5 steps, a graphed side beside them in turns, its 3
+             replays bit for bit with eager and timed) and
              serving as [serve mesh]'s cases, on seeded stub frames or
              patches (``launches_mesh_families``).
    elastic   ``train/elastic.ElasticTrainer`` (kill-free reshards and
@@ -221,7 +236,10 @@ Phases, each printed as it runs; any failure exits non-zero:
              to 4 positions at step 3 and a failure down to 2 at step 7
              (rollback to step 6): the state after the reshard and after
              the restore equal, gathered whole, to the state before and to
-             the saved one, bit for bit; 9 log rows; step 6's replay
+             the saved one, bit for bit; the step graphed
+             (``jit_train_step(..., graphed=None)`` on the one card), a
+             capture after the build and after each reconfiguration, its
+             seconds beside ``reconfig_s``; 9 log rows; step 6's replay
              within phase 8's loss bound of its first run; the loss
              falling.  Prints each reconfiguration's seconds, the
              checkpoint's bytes, a save's snapshot and write seconds, the
@@ -344,7 +362,10 @@ Phases, each printed as it runs; any failure exits non-zero:
              mamba2, 24 and 4 attention launches for zamba2), its logits
              against one device's; 3 eager steps timed (median wall and
              device ms), replicas bit for bit, one profiled
-             (``[profile] ssm_mesh_step_*``); the launches on a
+             (``[profile] ssm_mesh_step_*``); mamba2 on (2, 2) and zamba2
+             5 steps, a graphed side beside them in turns (a warm call,
+             the capture, 3 replays bit for bit with eager, timed,
+             profiled: ``ssm_mesh_step_graphed_*``); the launches on a
              ``launches_ssm_mesh`` line.  Then both families in fp32 at 2
              layers on (2, 2) against ``make_train_step`` (loss, gradients
              and one step within 1e-3).  Phase 3 holds the positions'
@@ -637,14 +658,16 @@ PIPE_GROUP_TOL = 1e-3
 # remat, [train]'s data, optimizer and weights (seed 0); each mesh's
 # positions all on cuda:0, driven by one process in lockstep
 MESH_CASES = (("fsdp_tp", (2, 2)), ("tp", (1, 5)))
-MESH_LEARN = 4          # steps on one repeated batch: the loss must fall
-MESH_TIMED = 3          # eager steps timed (median) beside [train]'s
+MESH_LEARN = 2          # steps on one repeated batch: the loss must fall
+MESH_TIMED = 3          # pairs of steps timed in turns, graphed and eager
 MESH_SMALL_STEPS = 3    # fp32 2 layers on (2, 2) against make_train_step
 # pipeline phase, mesh stages: even_stages(cfg, [2, 1]), stage 0 on a
-# (1, 2) fsdp_tp mesh, three positions all on cuda:0, eager; fp32 2-layer
+# (1, 2) fsdp_tp mesh, three positions all on cuda:0, graphed and eager
+# from the same weights in turns; fp32 2-layer
 # checks on [2, 1] and on [1, 1] at dp 2
 PIPE_MESH_TPS, PIPE_MESH_POLICY = (2, 1), "fsdp_tp"
-PIPE_MESH_TIMED = 3     # eager steps timed (median), then the [1, 1]'s
+PIPE_MESH_TIMED = 3     # pairs timed in turns, graphed and eager; then
+#                         the [1, 1]'s eager steps
 PIPE_MESH_SMALL = (((2, 1), 1), ((1, 1), 2))      # (tps, dp)
 # their params after the first AdamW step (lr 1e-3), of max(1, |p|): that
 # step moves element i by lr g_i / (|g_i| + eps), so a gradient that sits
@@ -728,6 +751,12 @@ SSM_TIMED = 3           # graphed replays timed after the compared steps
 SSM_MESH_CASES = ((SSM_ARCH, "fsdp_tp", (2, 2)), (SSM_ARCH, "tp", (1, 4)),
                   (HYBRID_ARCH, "tp", (1, 2)))
 SSM_MESH_TIMED = 3      # eager steps timed (median)
+# the family meshes whose step also runs graphed beside eager
+# (jit_train_step(graphed=True)), in turns from the same weights on the
+# same batches: a warm call, the capture, then GRAPHED_REPLAYS replays,
+# each step held bit for bit (in [ssm mesh] and [mesh families])
+GRAPHED_REPLAYS = 3
+GRAPHED_STEPS = 2 + GRAPHED_REPLAYS
 # the first step's gradients and the forward's logits against one device:
 # the mesh sums 'model' partial products in bf16 (as GSPMD's all-reduce of
 # a bf16 product does), one device rounds the whole product once, and the
@@ -789,6 +818,15 @@ FAMILY_MESH_CASES = (
     (VLM_ARCH, VLM_TRAIN_LAYERS, "fsdp_tp", (2, 2), True, False),
     (VLM_ARCH, VLM_TRAIN_LAYERS, "tp", (1, 2), False, True))
 FAMILY_MESH_STEPS = 3   # eager steps after the first compared (one recorded)
+# the family meshes graphed beside eager: (arch, mesh) of [ssm mesh] and
+# [mesh families]
+GRAPHED_FAMILY_MESHES = {(SSM_ARCH, (2, 2)), (HYBRID_ARCH, (1, 2)),
+                         (ENCDEC_ARCH, (2, 2)), (VLM_ARCH, (2, 2))}
+# families whose graphed side runs after the eager one, not in turns:
+# internvl2 at 2 layers holds 31.3 GB of params and AdamW state on (2, 2)
+# (7.83 GB a position), and two copies with their fp32 gradient sums and
+# the graph's pool do not fit in 80 GB
+GRAPHED_APART = ("vlm",)
 # serving: (rows, text tokens, decode steps); the train data are [encdec
 # train]'s and [vlm train]'s; the first step's gradients and each served
 # step's logits are held to one device's as [ssm mesh] and [serve mesh]
@@ -3282,41 +3320,85 @@ def _pipe_position_bytes(pipe) -> list:
 
 def _pipe_mesh_case(pl, cfg, dc, ocfg, batches, full, one_wall) -> dict:
     """Mesh stages at full width: ``even_stages(cfg, [2, 1])``, stage 0 on
-    a (1, 2) ``fsdp_tp`` mesh, every position on the one card, eager.  The
-    first step's loss and gradients (gathered whole) against the
+    a (1, 2) ``fsdp_tp`` mesh, every position on the one card, graphed
+    (``graphed=True``: both stages, the mesh stage too) and eager from the
+    same weights in turns: the first step's gradients, every loss and,
+    after every step, every stage's params and AdamW state bit for bit;
+    the first step's loss and gradients (gathered whole) against the
     single-device ``loss_and_grads`` (phase 8's bounds) and against the
     ``[1, 1]`` pipeline's first step on the same weights; the loss falling
-    over PIPE_LEARN steps; PIPE_MESH_TIMED steps timed beside the ``[1,
-    1]`` pipeline's eager step; one profiled; the launches a step (each
-    position the attention forward 3 x its layers x microbatches, its
-    backward layers x microbatches, no fused norm); the resident bytes a
-    position.  Returns the launches over the mesh pipeline's steps."""
-    mesh = _pipe(pl, cfg, ocfg, full, None, PIPE_MESH_TPS)
+    over PIPE_LEARN steps; PIPE_MESH_TIMED pairs timed in turns beside the
+    ``[1, 1]`` pipeline's eager step; each side profiled; the launches a
+    step (each position the attention forward 3 x its layers x
+    microbatches, its backward layers x microbatches, no fused norm; the
+    same on both sides); the resident bytes a position.  Returns the
+    launches over the mesh pipelines' steps."""
     label = f"{list(PIPE_MESH_TPS)} {PIPE_MESH_POLICY}"
-    if mesh.graphs[0] is not None or mesh.graphs[1] is None:
-        raise AssertionError(f"[pipeline] {label}: the mesh stage must run "
-                             f"eagerly, the one-device stage graphed")
+    sides = dict(graphed=_pipe(pl, cfg, ocfg, full, True, PIPE_MESH_TPS),
+                 eager=_pipe(pl, cfg, ocfg, full, False, PIPE_MESH_TPS))
+    if any(g is None for g in sides["graphed"].graphs) or any(
+            g is not None for g in sides["eager"].graphs):
+        raise AssertionError(f"[pipeline] {label}: graphed=True must graph "
+                             f"every stage, the mesh stage too, and "
+                             f"graphed=False none")
+    mesh = sides["eager"]
     log(f"[pipeline] {label} memory: "
         + json.dumps(_pipe_position_bytes(mesh)))
+
+    def same(i):
+        g, e = sides["graphed"], sides["eager"]
+        ok = all(_blocks_equal(a, b) for a, b in zip(
+            g.params + g.opt_states, e.params + e.opt_states))
+        if not ok:
+            raise AssertionError(f"[pipeline] {label}: graphed vs eager "
+                                 f"after step {i + 1}: params or state "
+                                 f"differ")
+
     ops.reset_launches()
-    gl, grads = mesh.grad_step(batches[0])
-    first = [{k: t.clone() for k, t in _stage_leaves(g)} for g in grads]
-    mesh.apply_grads(grads)
-    learn = [mesh.train_step(batches[PIPE_STEPS])
-             for _ in range(PIPE_LEARN)]
+    firsts = {}
+    for name, pipe in sides.items():
+        loss, grads = pipe.grad_step(batches[0])
+        firsts[name] = (loss, [{k: t.clone() for k, t in _stage_leaves(g)}
+                               for g in grads])
+        pipe.apply_grads(grads)
+    gl, first = firsts["eager"]
+    if firsts["graphed"][0] != gl or not all(
+            torch.equal(a[k], b[k]) for a, b in zip(firsts["graphed"][1],
+                                                    first) for k in b):
+        raise AssertionError(f"[pipeline] {label}: the first step's loss or "
+                             f"gradients differ graphed vs eager")
+    del firsts
+    same(0)
+    learn = []
+    for i in range(PIPE_LEARN):
+        le = sides["eager"].train_step(batches[PIPE_STEPS])
+        lg = sides["graphed"].train_step(batches[PIPE_STEPS])
+        if lg != le:
+            raise AssertionError(f"[pipeline] {label}: loss {lg} graphed vs "
+                                 f"{le} eager")
+        same(1 + i)
+        learn.append(le)
     if not all(np.isfinite(learn)) or not learn[-1] < learn[0]:
         raise AssertionError(f"[pipeline] {label}: losses {learn}: not "
                              f"finite, or the last is not below the first")
-    rows = []
+    rows = dict(eager=[], graphed=[])
     for i in range(PIPE_MESH_TIMED):
-        wall, dev, extra, loss = _timed_step(
-            lambda: mesh.train_step(batches[PIPE_STEPS + 1 + i]))
-        rows.append((wall, dev, extra, loss))
-    wall = statistics.median(r[0] for r in rows)
-    dev_ms = profile_window("pipeline_mesh_step",
-                            lambda: mesh.train_step(batches[-1]), wall, 1)
-    n_steps = 1 + PIPE_LEARN + PIPE_MESH_TIMED + 1
+        for name in ("eager", "graphed"):
+            pipe = sides[name]
+            rows[name].append(_timed_step(
+                lambda: pipe.train_step(batches[PIPE_STEPS + 1 + i])))
+        if rows["graphed"][-1][3] != rows["eager"][-1][3]:
+            raise AssertionError(f"[pipeline] {label}: timed loss graphed vs "
+                                 f"eager differ")
+        same(1 + PIPE_LEARN + i)
+    walls = {k: statistics.median(r[0] for r in v) for k, v in rows.items()}
+    n_steps = 2 * (1 + PIPE_LEARN + PIPE_MESH_TIMED)
     launches = dict(ops.LAUNCHES)
+    dev_ms = {name: profile_window(
+        "pipeline_mesh_step" if name == "eager"
+        else "pipeline_mesh_step_graphed",
+        lambda: sides[name].train_step(batches[-1]), walls[name], 1)
+        for name in ("eager", "graphed")}
     want = {name: 0 for name in launches}
     for st in mesh.stages:
         n = st.n_layers * dc.num_microbatches * st.n_devices
@@ -3326,7 +3408,10 @@ def _pipe_mesh_case(pl, cfg, dc, ocfg, batches, full, one_wall) -> dict:
         raise AssertionError(
             f"[pipeline] {label}: launches {json.dumps(launches)} in "
             f"{n_steps} steps, expected {json.dumps(want)} a step")
-    del mesh
+    capture_s = sum(sum(g.capture_seconds.values())
+                    for g in sides["graphed"].graphs)
+    del mesh, sides
+    _release()
     # the first step against loss_and_grads and the [1, 1] pipeline's
     wl, wg = train_lib.loss_and_grads(cfg, full, batches[0])
     wl = wl.item()
@@ -3369,23 +3454,29 @@ def _pipe_mesh_case(pl, cfg, dc, ocfg, batches, full, one_wall) -> dict:
     tokens = dc.global_batch * dc.seq_len
     stats = dict(
         tps=list(PIPE_MESH_TPS), policy=PIPE_MESH_POLICY, losses_learn=learn,
-        timed_losses=[r[3] for r in rows], step_wall_ms=wall,
-        step_wall_ms_all=[r[0] for r in rows],
-        step_device_ms=statistics.median(r[1] for r in rows),
-        working_set_gib=max(r[2] for r in rows) / 2**30,
-        tokens_per_s=tokens / (wall / 1e3),
+        graphed_bit_identical=True, capture_s=capture_s,
         one_device_eager_step_wall_ms=one_eager,
         one_device_eager_step_device_ms=statistics.median(
             r[1] for r in one_rows),
-        ratio_to_one_device_eager=wall / one_eager,
         one_device_graphed_step_wall_ms=one_wall,
         launches_per_step={k: v // n_steps for k, v in launches.items()
                            if v})
-    if dev_ms is not None:
-        stats.update(profiled_device_ms=dev_ms, busy=dev_ms / wall)
+    for name, rs in rows.items():
+        wall = walls[name]
+        stats[name] = dict(
+            timed_losses=[r[3] for r in rs], step_wall_ms=wall,
+            step_wall_ms_all=[r[0] for r in rs],
+            step_device_ms=statistics.median(r[1] for r in rs),
+            working_set_gib=max(r[2] for r in rs) / 2**30,
+            tokens_per_s=tokens / (wall / 1e3),
+            ratio_to_one_device_eager=wall / one_eager)
+        if dev_ms[name] is not None:
+            stats[name].update(profiled_device_ms=dev_ms[name],
+                               busy=dev_ms[name] / wall)
+    stats["eager_over_graphed_wall"] = walls["eager"] / walls["graphed"]
     log(f"[pipeline] {label} (smollm-360M untied, stages of "
-        f"{[s.n_layers for s in stages]} layers on one card, eager): "
-        + json.dumps(stats))
+        f"{[s.n_layers for s in stages]} layers on one card, graphed and "
+        f"eager in turns): " + json.dumps(stats))
     return launches
 
 
@@ -3631,17 +3722,206 @@ def _mesh_grads(label, cfg, mesh, params, full, batch) -> dict:
                 cosine_min=TRAIN_COSINE)
 
 
+def _blocks_equal(a, b) -> bool:
+    """Every block (or tensor) of two trees of ``Sharded`` or tensors equal
+    bit for bit."""
+    from repro_torch.dist import placement as pm
+
+    def blocks(tree):
+        return [b for _, x in pm.tree_items(tree)
+                for b in (x.blocks if isinstance(x, pm.Sharded) else [x])]
+    xs, ys = blocks(a), blocks(b)
+    return len(xs) == len(ys) and all(torch.equal(x, y)
+                                      for x, y in zip(xs, ys))
+
+
+def _mesh_sides_equal(label, i, eager, graphed) -> None:
+    """Raise unless the graphed side's (params, state, metrics) after step
+    ``i`` equal the eager side's bit for bit: params, ``m``, ``v``, the
+    step, loss and grad_norm."""
+    (ep, es, em), (gp, gs, gm) = eager, graphed
+    same = dict(params=_blocks_equal(gp, ep), m=_blocks_equal(gs["m"],
+                                                              es["m"]),
+                v=_blocks_equal(gs["v"], es["v"]),
+                step=_blocks_equal({"s": gs["step"]}, {"s": es["step"]}),
+                loss=torch.equal(gm["loss"], em["loss"]),
+                grad_norm=torch.equal(gm["grad_norm"], em["grad_norm"]))
+    if not all(same.values()):
+        raise AssertionError(f"{label}: graphed vs eager after step {i + 1}"
+                             f" not bit for bit: {same}")
+
+
+def _mesh_side(label, cfg, ocfg, mesh, full, data_cfg, graphed: bool):
+    """``full``'s weights laid out on ``mesh``, a fresh AdamW state and
+    ``jit_train_step(..., graphed=graphed)`` for them: [params, state,
+    step]."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.dist.sharding import param_specs
+    params = pm.shard_tree(full, param_specs(model_lib.decls(cfg),
+                                             cfg.sharding, mesh), mesh)
+    step = train_lib.jit_train_step(cfg, ocfg, mesh,
+                                    data_cfg.num_microbatches,
+                                    data_cfg.micro_batch, graphed=graphed)
+    if step.graphed is not graphed:
+        raise AssertionError(f"{label}: graphed={graphed} gave "
+                             f"{step.graphed}")
+    return [params, opt_lib.init_sharded_state(params), step]
+
+
+def _fingerprint(t: torch.Tensor) -> tuple:
+    """Two sums over a tensor's 32-bit words as int64 (plain, and each
+    word times its index mod 8191): equal tensors give equal pairs, and a
+    changed bit changes them."""
+    w = t.contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+    idx = torch.arange(w.numel(), device=w.device) % 8191
+    return int(w.sum()), int((w * idx).sum())
+
+
+def _side_snapshot(side) -> dict:
+    """What ``_steps_in_turns(..., apart=True)`` holds one side's end state
+    by: params and the step, every block copied to the host; ``m`` and
+    ``v`` by ``_fingerprint`` a block (their 4 fp32 bytes a parameter
+    twice over do not fit beside a second model)."""
+    from repro_torch.dist import placement as pm
+    params, state, _ = side
+    out = {}
+    for name, tree in (("params", params), ("step", {"s": state["step"]})):
+        for k, x in pm.tree_items(tree):
+            out[f"{name}/{k}"] = [b.cpu() for b in x.blocks]
+    for name in ("m", "v"):
+        for k, x in pm.tree_items(state[name]):
+            out[f"{name}/{k}"] = [_fingerprint(b) for b in x.blocks]
+    return out
+
+
+def _snapshots_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        len(a[k]) == len(b[k]) and all(
+            torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+            for x, y in zip(a[k], b[k])) for k in a)
+
+
+def _steps_in_turns(label, cfg, dc, mesh, full, batches, graphed,
+                    record_first=False, apart=False) -> dict:
+    """A step of ``jit_train_step`` (``dc``'s shape) on each of
+    ``batches`` from ``full``'s weights laid out on ``mesh``: eager
+    (``graphed=False``), timed, the first under the collective record
+    with ``record_first``;
+    with ``graphed``, a graphed side (``graphed=True``) from the same
+    weights, timed, a step's launches, loss and grad_norm equal to the
+    eager step's: in turns, every side's params, ``m``, ``v`` and step
+    held bit for bit after every step; ``apart`` (a model whose two
+    copies do not fit on the card), the eager side's n steps first and
+    the graphed side's after it, their end states held by
+    ``_side_snapshot``.  Returns each side ([params, state, step]; the
+    eager one None with ``apart``), whether the eager side's replicas are
+    equal, each side's rows (wall, device ms, working set, loss, grad
+    norm), the eager steps' launches, the record's entries, the launches
+    over every step and the capture's seconds."""
+    from repro_torch.dist import placement as pm
+    ocfg = opt_lib.OptimizerConfig(**TRAIN_OPT)
+    n = len(batches)
+    rows = {"eager": [], "graphed": []}
+    per_step, metrics, total = [], [], {}
+    entries: list = []
+
+    def one(side, name, i):
+        params, state, step = side
+        batch = batches[i]
+        ops.reset_launches()
+        with (pm.record_collectives() if record_first and i == 0
+              and name == "eager" else contextlib.nullcontext()) as rec:
+            wall, dev, extra, (side[0], side[1], m) = _timed_step(
+                lambda: step(params, state, batch))
+        if rec is not None:
+            entries.extend(rec.entries)
+        rows[name].append((wall, dev, extra, m["loss"].item(),
+                           m["grad_norm"].item()))
+        launches = dict(ops.LAUNCHES)
+        _add_counts(total, launches)
+        return m, launches
+
+    def held(i, m, launches):
+        """Raise unless the graphed step ``i`` matches the eager one."""
+        em, el = metrics[i], per_step[i]
+        if launches != el:
+            raise AssertionError(f"{label}: step {i + 1} launched "
+                                 f"{json.dumps(launches)} graphed, "
+                                 f"{json.dumps(el)} eager")
+        if not (torch.equal(m["loss"], em["loss"])
+                and torch.equal(m["grad_norm"], em["grad_norm"])):
+            raise AssertionError(f"{label}: step {i + 1} graphed loss or "
+                                 f"grad_norm differs from eager")
+
+    eager = _mesh_side(label, cfg, ocfg, mesh, full, dc, False)
+    gside = None if apart or not graphed else _mesh_side(
+        label, cfg, ocfg, mesh, full, dc, True)
+    for i in range(n):
+        m, launches = one(eager, "eager", i)
+        per_step.append(launches)
+        metrics.append({k: m[k].clone() for k in ("loss", "grad_norm")})
+        if gside is not None:
+            gm, gl = one(gside, "graphed", i)
+            held(i, gm, gl)
+            _mesh_sides_equal(label, i, (eager[0], eager[1], m),
+                              (gside[0], gside[1], gm))
+    replicas = _mesh_replicas_equal(eager[0], eager[1]["m"], eager[1]["v"])
+    out = dict(eager=eager, replicas=replicas,
+               rows={k: v for k, v in rows.items() if v or graphed},
+               per_step=per_step, entries=entries, total=total,
+               capture_s=None)
+    if apart and graphed:
+        want = _side_snapshot(eager)
+        out.update(eager=None)
+        del eager, m
+        _release()
+        gside = _mesh_side(label, cfg, ocfg, mesh, full, dc, True)
+        for i in range(n):
+            held(i, *one(gside, "graphed", i))
+        if not _snapshots_equal(_side_snapshot(gside), want):
+            raise AssertionError(f"{label}: the graphed side's params, m, v "
+                                 f"or step after {n} steps differ from the "
+                                 f"eager side's")
+    if graphed:
+        gp, gs, gstep = gside
+        if not _mesh_replicas_equal(gp, gs["m"], gs["v"]):
+            raise AssertionError(f"{label}: graphed replicas differ")
+        out.update(capture_s=gstep.capture_seconds, graphed=gside)
+    return out
+
+
+def _graphed_stats(got: dict, tokens: int) -> dict:
+    """The graphed side's replays (the calls after the warm one and the
+    capture) beside the eager steps at the same positions."""
+    g = got["rows"]["graphed"][2:]
+    e = got["rows"]["eager"][2:]
+    gw = statistics.median(r[0] for r in g)
+    ew = statistics.median(r[0] for r in e)
+    return dict(replays=len(g), graphed_bit_identical=True,
+                capture_s=got["capture_s"],
+                graphed_step_wall_ms=gw,
+                graphed_step_wall_ms_all=[r[0] for r in g],
+                graphed_step_device_ms=statistics.median(r[1] for r in g),
+                graphed_tokens_per_s=tokens / (gw / 1e3),
+                eager_same_steps_wall_ms=ew, eager_over_graphed_wall=ew / gw)
+
+
 def _mesh_case(policy, shape, full, batches, train) -> dict:
-    """One mesh at full width: the first step against the single device,
-    the loss falling, replicas bit for bit, the launches, the eager step
-    timed beside [train]'s and profiled, each position's memory.  Returns
-    the launches over the mesh's steps."""
+    """One mesh at full width: the first step against the single device;
+    then the graphed and the eager ``jit_train_step`` from the same
+    weights on the same batches in turns (MESH_LEARN steps on one batch,
+    the loss falling; MESH_TIMED pairs timed), bit for bit after every
+    step, a step's launches equal on both sides; replicas bit for bit,
+    the launches, each side's median wall beside [train]'s eager step,
+    each side profiled (device ms, busy), the capture's seconds, each
+    position's memory.  Returns the launches over the mesh's steps, and
+    the graphed side's profiled replay: its launches and collective
+    record, and its capture's record."""
     from repro_torch.dist import placement as pm
     from repro_torch.dist.sharding import param_specs
     cfg = dataclasses.replace(get_config(ARCH), remat="full",
                               sharding=policy)
     dc = data_lib.DataConfig(**TRAIN_DATA)
-    ocfg = opt_lib.OptimizerConfig(**TRAIN_OPT)
     mesh = _mesh_of(shape)
     label = f"{shape[0]}x{shape[1]} {policy}"
     params = pm.shard_tree(full, param_specs(model_lib.decls(cfg), policy,
@@ -3652,49 +3932,64 @@ def _mesh_case(policy, shape, full, batches, train) -> dict:
     first = _mesh_grads(label, cfg, mesh, params, full, batches[0])
     log(f"[mesh] {label} first step vs the single-device loss_and_grads "
         f"(same weights and batch): " + json.dumps(first))
-    step = train_lib.jit_train_step(cfg, ocfg, mesh, dc.num_microbatches,
-                                    dc.micro_batch)
-    ops.reset_launches()
-    learn = []
-    for _ in range(MESH_LEARN):
-        params, state, m = step(params, state, batches[0])
-        learn.append(m["loss"].item())
+    del params, state
+    got = _steps_in_turns(f"[mesh] {label}", cfg, dc, mesh, full,
+                          [batches[0]] * MESH_LEARN
+                          + batches[1:1 + MESH_TIMED], graphed=True)
+    learn = [r[3] for r in got["rows"]["eager"][:MESH_LEARN]]
     if not all(np.isfinite(learn)) or not learn[-1] < learn[0]:
         raise AssertionError(f"[mesh] {label}: losses {learn}: not finite, "
                              f"or the last is not below the first")
-    rows = []
-    for i in range(MESH_TIMED):
-        wall, dev, extra, (params, state, m) = _timed_step(
-            lambda: step(params, state, batches[1 + i]))
-        rows.append((wall, dev, extra, m["loss"].item()))
-    launches = _mesh_launch_check(label, cfg, dc, mesh,
-                                  MESH_LEARN + MESH_TIMED)
-    same = _mesh_replicas_equal(params, state["m"], state["v"])
+    n_steps = MESH_LEARN + MESH_TIMED
+    ops.LAUNCHES.update(got["total"])
+    launches = _mesh_launch_check(label, cfg, dc, mesh, 2 * n_steps)
+    (ep, es, estep), (gp, gs, gstep) = got["eager"], got["graphed"]
+    same = got["replicas"] and _mesh_replicas_equal(gp, gs["m"], gs["v"])
     if not same:
         raise AssertionError(f"[mesh] {label}: replicas of a block differ "
-                             f"after {MESH_LEARN + MESH_TIMED} steps")
-    wall = statistics.median(r[0] for r in rows)
+                             f"after {n_steps} steps")
     train_wall = train["eager"]["step_wall_ms"]
     tokens = dc.global_batch * dc.seq_len
-    stats = dict(
-        mesh=dict(mesh.shape), policy=policy, losses_learn=learn,
-        timed_losses=[r[3] for r in rows], step_wall_ms=wall,
-        step_wall_ms_all=[r[0] for r in rows],
-        step_device_ms=statistics.median(r[1] for r in rows),
-        working_set_gib=max(r[2] for r in rows) / 2**30,
-        tokens_per_s=tokens / (wall / 1e3),
-        train_eager_step_wall_ms=train_wall,
-        ratio_to_train_eager=wall / train_wall,
-        launches_per_step={k: v // (MESH_LEARN + MESH_TIMED)
-                           for k, v in launches.items() if v},
-        replicas_bit_identical=same)
-    log(f"[mesh] {label}: " + json.dumps(stats))
-    dev_ms = profile_window(f"mesh_step_{shape[0]}x{shape[1]}",
-                            lambda: step(params, state, batches[-1]), wall, 1)
-    if dev_ms is not None:
-        log(f"[mesh] {label}: device ms of an eager step {dev_ms:.3f}, busy "
-            f"{dev_ms / wall:.3f}")
-    return launches
+    stats = dict(mesh=dict(mesh.shape), policy=policy, losses_learn=learn,
+                 train_eager_step_wall_ms=train_wall,
+                 capture_s=gstep.capture_seconds,
+                 capture_launches=gstep.graph_step.capture_launches,
+                 capture_record_entries=len(
+                     gstep.graph_step.capture_collectives),
+                 launches_per_step={k: v // (2 * n_steps)
+                                    for k, v in launches.items() if v},
+                 replicas_bit_identical=same, graphed_bit_identical=True)
+    walls = {}
+    for name, rows in got["rows"].items():
+        rows = rows[MESH_LEARN:]
+        wall = statistics.median(r[0] for r in rows)
+        walls[name] = wall
+        stats[name] = dict(
+            timed_losses=[r[3] for r in rows], step_wall_ms=wall,
+            step_wall_ms_all=[r[0] for r in rows],
+            step_device_ms=statistics.median(r[1] for r in rows),
+            working_set_gib=max(r[2] for r in rows) / 2**30,
+            tokens_per_s=tokens / (wall / 1e3),
+            ratio_to_train_eager=wall / train_wall)
+    stats["eager_over_graphed_wall"] = walls["eager"] / walls["graphed"]
+    log(f"[mesh] {label} graphed and eager in turns: " + json.dumps(stats))
+    sfx = f"{shape[0]}x{shape[1]}"
+    for name, (p, st, step) in (("eager", got["eager"]),
+                                ("graphed", got["graphed"])):
+        ops.reset_launches()
+        with pm.record_collectives() as record:
+            dev_ms = profile_window(
+                f"mesh_step_{sfx}" if name == "eager"
+                else f"mesh_step_graphed_{sfx}",
+                lambda: step(p, st, batches[-1]), walls[name], 1)
+        if dev_ms is not None:
+            log(f"[mesh] {label}: device ms of a {name} step {dev_ms:.3f}, "
+                f"busy {dev_ms / walls[name]:.3f}")
+    # the profiled replay's launches and record: [dryrun] holds them
+    # against the replayed fake trace of this cell
+    return launches, dict(launches=dict(ops.LAUNCHES),
+                          entries=record.entries,
+                          capture_entries=gstep.graph_step.capture_collectives)
 
 
 def _mesh_small_check() -> dict:
@@ -3759,23 +4054,29 @@ def phase_mesh(train: dict) -> dict:
     over ``dist/spmd.py``) at smollm-360M's published widths and depth,
     bf16, on two meshes whose positions are all ``cuda:0``: (2, 2)
     ``fsdp_tp`` (FFN, vocab and 'embed' sharded, attention replicated)
-    and (1, 5) ``tp`` (3/1 heads, d_ff 512 a position, vocab replicated);
-    then an fp32 2-layer model on (2, 2) against ``make_train_step``.  A
+    and (1, 5) ``tp`` (3/1 heads, d_ff 512 a position, vocab replicated),
+    graphed and eager in turns, bit for bit (``_mesh_case``); then an
+    fp32 2-layer model on (2, 2) against ``make_train_step``.  Returns the
+    launches over the bf16 meshes' steps and the (2, 2) graphed step's
+    profiled replay (its launches and record, for [dryrun]).  A
     main path for the attention and fused-norm kernels, forward and
-    backward.  Returns the launches over the bf16 meshes' steps."""
+    backward."""
     cfg = dataclasses.replace(get_config(ARCH), remat="full")
     dc = data_lib.DataConfig(**TRAIN_DATA)
     ds = data_lib.SyntheticDataset(cfg, dc)
     batches = [ds.batch(500 + i) for i in range(MESH_TIMED + 2)]
     full = model_lib.init(cfg, 0, device="cuda")     # [train]'s weights
     total: dict = {}
+    replays = {}
     for policy, shape in MESH_CASES:
-        _add_counts(total, _mesh_case(policy, shape, full, batches, train))
-        torch.cuda.empty_cache()
+        launches, replays[policy, shape] = _mesh_case(policy, shape, full,
+                                                      batches, train)
+        _add_counts(total, launches)
+        _release()
     del full
     log("[mesh] fp32 2 layers on (2, 2) fsdp_tp vs make_train_step: "
         + json.dumps(_mesh_small_check()))
-    return total
+    return total, replays[("fsdp_tp", (2, 2))]
 
 
 def _dryrun_cell(cfg, mesh):
@@ -3789,7 +4090,7 @@ def _dryrun_cell(cfg, mesh):
     return shapes_mod.build_cell(cfg, shape, mesh)
 
 
-def phase_dryrun() -> tuple:
+def phase_dryrun(mesh_replay: dict) -> tuple:
     """The dry run against the card on [mesh]'s (2, 2) ``fsdp_tp`` cell:
     the fake trace in full and replayed (host seconds; they must be one
     program), the replayed trace's costs on ``cuda:0``, then one real step
@@ -3797,9 +4098,11 @@ def phase_dryrun() -> tuple:
     entry for entry, launches equal to ``FAKE_CALLS``), its peak memory
     beside the fake peak, and a second step's wall and a third's device
     ms (``[profile] dryrun_mesh_step_2x2``: the kernels' time) beside the
-    roofline; then the chunked loss on the mesh (``_dryrun_chunked``).
-    Returns the real steps' launches, the chunked step's and what [audit]
-    reads."""
+    roofline; ``mesh_replay`` (``phase_mesh``'s graphed (2, 2) step's
+    profiled replay) held to the replayed trace the same way
+    (``_dryrun_graphed``); then the chunked loss on the mesh
+    (``_dryrun_chunked``).  Returns the real steps' launches, the chunked
+    step's and what [audit] reads."""
     from repro_torch.dist import placement as pm
     from repro_torch.dist.sharding import param_specs
     from repro_torch.launch import dryrun
@@ -3846,7 +4149,8 @@ def phase_dryrun() -> tuple:
                            mesh)
     state = opt_lib.init_sharded_state(params)
     step = train_lib.jit_train_step(cfg, opt_lib.OptimizerConfig(**TRAIN_OPT),
-                                    mesh, dc.num_microbatches, dc.micro_batch)
+                                    mesh, dc.num_microbatches, dc.micro_batch,
+                                    graphed=False)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -3897,6 +4201,7 @@ def phase_dryrun() -> tuple:
         fake_host_s=trace.host_s)))
     del params, state
     _release()
+    _dryrun_graphed(mesh_replay, trace)
     # the chunked step from the same seed-0 weights, made again
     cfg_c = dataclasses.replace(cfg, logits_chunk=DRYRUN_CHUNK)
     full = model_lib.init(cfg, 0, device="cuda")
@@ -3908,6 +4213,29 @@ def phase_dryrun() -> tuple:
     _release()
     return launches, chunked, dict(cfg=cfg, cell=cell, mesh=mesh,
                                    record=record)
+
+
+def _dryrun_graphed(replay: dict, trace) -> None:
+    """[mesh]'s (2, 2) ``fsdp_tp`` graphed step (``jit_train_step(...,
+    graphed=True)``, the same cell on the same mesh): its profiled
+    replay's collective record must equal the replayed fake trace's
+    entry for entry and its launches the trace's ``FAKE_CALLS``, as must
+    the record its capture kept."""
+    if replay["entries"] != trace.record.entries or \
+            replay["capture_entries"] != trace.record.entries:
+        raise AssertionError(
+            f"[dryrun] a replay's record ({len(replay['entries'])} entries; "
+            f"its capture's {len(replay['capture_entries'])}) is not the "
+            f"replayed fake trace's ({len(trace.record.entries)})")
+    if replay["launches"] != trace.kernel_calls:
+        raise AssertionError(f"[dryrun] a replay's launches "
+                             f"{json.dumps(replay['launches'])} != FAKE_CALLS "
+                             f"{json.dumps(trace.kernel_calls)}")
+    log("[dryrun] [mesh]'s graphed (2, 2) step, a replay vs the replayed "
+        "fake trace: " + json.dumps(dict(
+            records_equal=True, entries=len(replay["entries"]),
+            capture_entries=len(replay["capture_entries"]),
+            launches_equal_fake_calls=True)))
 
 
 def _dryrun_chunked(cfg, mesh, params, batch, ref, unchunked_peak) -> dict:
@@ -3931,7 +4259,8 @@ def _dryrun_chunked(cfg, mesh, params, batch, ref, unchunked_peak) -> dict:
     dc = data_lib.DataConfig(**TRAIN_DATA)
     state = opt_lib.init_sharded_state(params)
     step = train_lib.jit_train_step(cfg, opt_lib.OptimizerConfig(**TRAIN_OPT),
-                                    mesh, dc.num_microbatches, dc.micro_batch)
+                                    mesh, dc.num_microbatches, dc.micro_batch,
+                                    graphed=False)
     _release()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -4199,21 +4528,18 @@ def _family_mesh_train(cfg, shape, full, batches, ref) -> dict:
         cfg, ShapeConfig("mesh_families", "train", dc.seq_len,
                          dc.global_batch, dc.num_microbatches), mesh))
     fake_s = time.perf_counter() - t0
-    step = train_lib.jit_train_step(cfg, opt_lib.OptimizerConfig(
-        **TRAIN_OPT), mesh, dc.num_microbatches, dc.micro_batch)
-    rows, launches, entries = [], [], []
-    for i in range(FAMILY_MESH_STEPS):
-        ops.reset_launches()
-        with (pm.record_collectives() if i == 0
-              else contextlib.nullcontext()) as record:
-            wall, dev, extra, (params, state, m) = _timed_step(
-                lambda i=i: step(params, state, batches[i]))
-        entries = record.entries if i == 0 else entries
-        launches.append(dict(ops.LAUNCHES))
-        rows.append((wall, dev, extra, m["loss"].item(),
-                     m["grad_norm"].item()))
+    del params, state
+    graphed = (cfg.name, shape) in {(get_config(a).name, m)
+                                    for a, m in GRAPHED_FAMILY_MESHES}
+    got = _steps_in_turns(f"[mesh families] {label}", cfg, dc, mesh, full,
+                          batches[:GRAPHED_STEPS if graphed
+                                  else FAMILY_MESH_STEPS], graphed,
+                          record_first=True,
+                          apart=cfg.family in GRAPHED_APART)
+    rows, launches = got["rows"]["eager"], got["per_step"]
+    entries = got["entries"]
     vals = [v for r in rows for v in r[3:]]
-    same = _mesh_replicas_equal(params, state["m"], state["v"])
+    same = got["replicas"]
     stats = dict(
         arch=cfg.name, layers=cfg.n_layers, mesh=dict(mesh.shape),
         policy=cfg.sharding, data=data, losses=[r[3] for r in rows],
@@ -4229,18 +4555,19 @@ def _family_mesh_train(cfg, shape, full, batches, ref) -> dict:
         records_equal=entries == trace.record.entries,
         record_entries=len(entries), fake_trace_host_s=fake_s,
         replicas_bit_identical=same)
+    if graphed:
+        stats.update(_graphed_stats(got, dc.global_batch * dc.seq_len))
     log(f"[mesh families] {label}: " + json.dumps(stats))
     if not (all(np.isfinite(vals)) and same and stats["fake_calls_equal"]
             and stats["records_equal"]):
         raise AssertionError(f"[mesh families] {label}: {stats}; FAKE_CALLS "
                              f"{json.dumps(trace.kernel_calls)}")
-    del params, state
+    total = got["total"]
+    del got
     _release()
-    total: dict = {}
-    for x in launches:
-        _add_counts(total, x)
-    return dict(total=total, wall=stats["step_wall_ms"],
-                losses=stats["losses"])
+    n = FAMILY_MESH_STEPS
+    return dict(total=total, wall=statistics.median(r[0] for r in rows[:n]),
+                losses=stats["losses"][:n])
 
 
 def _family_one_device(cfg, full, batches):
@@ -4309,7 +4636,8 @@ def phase_mesh_families(smi: str) -> dict:
     (``[mesh families]``): the sharded train step
     (``train_step.jit_train_step``) and ``serve_step.make_prefill(cfg,
     mesh)`` / ``make_decode(cfg, mesh)``, every position on ``cuda:0``,
-    eager, bf16 (FAMILY_MESH_CASES).  Each family's train meshes are held
+    eager and, on GRAPHED_FAMILY_MESHES, the train step graphed beside it
+    bit for bit, bf16 (FAMILY_MESH_CASES).  Each family's train meshes are held
     against one device run once (``_grads_reference``; its eager
     step timed after them), its serving meshes as [serve mesh]'s.  A main
     path for the attention and fused-norm kernels, forward and backward
@@ -4328,7 +4656,7 @@ def phase_mesh_families(smi: str) -> dict:
             data = ENCDEC_TRAIN_DATA if arch == ENCDEC_ARCH \
                 else VLM_TRAIN_DATA
             ds = data_lib.SyntheticDataset(base, data_lib.DataConfig(**data))
-            batches = [ds.batch(600 + i) for i in range(FAMILY_MESH_STEPS)]
+            batches = [ds.batch(600 + i) for i in range(GRAPHED_STEPS)]
             full = model_lib.init(base, 0, device="cuda")
             ref = _grads_reference(base, full, batches[0])
             walls, losses = {}, {}
@@ -4341,7 +4669,8 @@ def phase_mesh_families(smi: str) -> dict:
                 _add_counts(total, got["total"])
             del ref
             _release()
-            one, one_losses = _family_one_device(base, full, batches)
+            one, one_losses = _family_one_device(
+                base, full, batches[:FAMILY_MESH_STEPS])
             log(f"[mesh families] {base.name} {base.n_layers} layers train "
                 f"steps, mesh vs one device (eager, same weights and "
                 f"batches): " + json.dumps(dict(
@@ -4446,7 +4775,10 @@ def phase_elastic() -> dict:
         back = tr.reconfigs[1]["resumed_at"]
         replay = [r for r in log_rows if r["step"] == back][-1]["loss"]
         losses = [r["loss"] for r in log_rows]
+        # the graphed step: a capture after the build and after each
+        # reconfiguration (the new step binds the new tensors)
         if (kinds != ["kill-free", "rollback"] or back != 6
+                or not tr.step_fn.graphed or len(tr.captures) != 3
                 or len(log_rows) != ELASTIC_STEPS + 1
                 or not all(c["bit_identical"] for c in checks)
                 or not abs(replay - first[back]) <= TRAIN_LOSS_TOL
@@ -4470,7 +4802,8 @@ def phase_elastic() -> dict:
         nbytes = os.path.getsize(path)
         disk = shutil.disk_usage(workdir)
         log("[elastic] " + json.dumps(dict(
-            reconfigs=tr.reconfigs, checks=checks, losses=losses,
+            reconfigs=_with_captures(tr), captures=tr.captures,
+            checks=checks, losses=losses,
             steps=[r["step"] for r in log_rows],
             replayed_step=back, replayed_loss=replay,
             first_run_loss=first[back], loss_tol=TRAIN_LOSS_TOL,
@@ -4506,6 +4839,15 @@ def phase_elastic() -> dict:
         f"{res.best.t_iter}, losses {lt_losses}; launches over the phase "
         f"({positions} position-steps): {json.dumps(launches)}")
     return launches
+
+
+def _with_captures(tr) -> list:
+    """The trainer's reconfigurations, each with the host seconds of the
+    capture its new (graphed) step made (``capture_s``, beside
+    ``reconfig_s``; None where the step ran eagerly)."""
+    return [dict(r, capture_s=next((c["capture_s"] for c in tr.captures
+                                    if c["step"] >= r["resumed_at"]), None))
+            for r in tr.reconfigs]
 
 
 def _elastic_launch_check(label: str, cfg, dc, rows) -> dict:
@@ -4608,7 +4950,7 @@ def _manager_controller() -> dict:
                 != rollback[-1]["step"] // MANAGER_EVERY * MANAGER_EVERY
                 or not all(np.isfinite(losses))
                 or len(times) != len(rows) or max(times) > ctl.sim_time
-                or not audit_ok
+                or not audit_ok or not tr.step_fn.graphed
                 or any(p.tp != 1 or p.dp not in ELASTIC_DEVICES
                        for p in plans)):
             raise AssertionError(
@@ -4631,12 +4973,13 @@ def _manager_controller() -> dict:
             raise AssertionError(f"[manager] {len(commits)} priced commits "
                                  f"for reconfigs {tr.reconfigs}")
         tm = ctl.transition
-        for p, r in zip(commits, tr.reconfigs):
+        for p, r in zip(commits, _with_captures(tr)):
             row = dict(kind=r["kind"], at_step=r["step"],
                        resumed_at=r["resumed_at"], n_devices=r["n_devices"],
                        priced_s=p["cost_s"],
                        reshard_cost_s=p["details"]["reshard_cost_s"],
-                       measured_reconfig_s=r["reconfig_s"])
+                       measured_reconfig_s=r["reconfig_s"],
+                       capture_s=r["capture_s"])
             if r["kind"] == "rollback":
                 lost = p["details"]["lost_steps"]
                 start = max(i for i, x in enumerate(rows)
@@ -4662,7 +5005,7 @@ def _manager_controller() -> dict:
                 for n, w in walls.items()},
             losses=losses, steps=[r["step"] for r in rows],
             plans=[dataclasses.asdict(p) for p in plans],
-            replanner=ctl.replanner.stats,
+            replanner=ctl.replanner.stats, captures=tr.captures,
             step_time_at=times, sim_time=ctl.sim_time,
             audit_records=len(records))))
         launches = _elastic_launch_check("[manager]", cfg, dc, rows)
@@ -4816,9 +5159,14 @@ def _release() -> int:
     """Free what dropped references held: a graphed server or pipeline
     sits in reference cycles (its graphs and their pools with it) until
     the collector runs, and a model of the MoE phases needs the card's
-    memory back.  Returns the bytes still allocated."""
+    memory back.  cuBLAS keeps a workspace for every stream it ran on
+    (every graphed step's side stream), allocated where a free block
+    was: each pins its segment, so they are freed too (PyTorch frees them
+    at every capture's start; the next call on a stream makes its own
+    again).  Returns the bytes still allocated."""
     gc.collect()
     torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
     return torch.cuda.memory_allocated()
 
@@ -5723,7 +6071,6 @@ def _ssm_mesh_case(cfg, shape, full, batches, ref) -> dict:
     from repro_torch.dist.sharding import param_specs
     data = SSM_TRAIN_DATA if cfg.family == "ssm" else HYBRID_TRAIN_DATA
     dc = data_lib.DataConfig(**data)
-    ocfg = opt_lib.OptimizerConfig(**TRAIN_OPT)
     mesh = _mesh_of(shape)
     label = (f"{cfg.name} {cfg.n_layers} layers {shape[0]}x{shape[1]} "
              f"{cfg.sharding}")
@@ -5737,26 +6084,26 @@ def _ssm_mesh_case(cfg, shape, full, batches, ref) -> dict:
         f"(same weights and batch): " + json.dumps(first))
     toks = torch.as_tensor(batches[0]["tokens"][0], device="cuda")
     forward = _ssm_mesh_forward(label, cfg, mesh, params, toks, ref)
-    step = train_lib.jit_train_step(cfg, ocfg, mesh, dc.num_microbatches,
-                                    dc.micro_batch)
-    ops.reset_launches()
-    rows = []
-    for i in range(SSM_MESH_TIMED):
-        wall, dev, extra, (params, state, m) = _timed_step(
-            lambda i=i: step(params, state, batches[1 + i]))
-        rows.append((wall, dev, extra, m["loss"].item(),
-                     m["grad_norm"].item()))
-    steps = dict(ops.LAUNCHES)
+    del params, state
+    graphed = (cfg.name, shape) in {(get_config(a).name, m)
+                                    for a, m in GRAPHED_FAMILY_MESHES}
+    n = GRAPHED_STEPS if graphed else SSM_MESH_TIMED
+    got = _steps_in_turns(f"[ssm mesh] {label}", cfg, dc, mesh, full,
+                          batches[1:1 + n], graphed)
+    params, state, step = got["eager"]
+    rows = got["rows"]["eager"]
+    steps = got["total"]
+    same = got["replicas"]
     per = (cfg.n_layers // cfg.attn_every if cfg.attn_every else 0) \
         * dc.num_microbatches * mesh.size
+    n_runs = n * len(got["rows"])
     want = {k: 0 for k in steps}
-    want.update(flash_attention=per * SSM_MESH_TIMED,
-                flash_attention_bwd=per * SSM_MESH_TIMED)
+    want.update(flash_attention=per * n_runs,
+                flash_attention_bwd=per * n_runs)
     if steps != want:
         raise AssertionError(f"[ssm mesh] {label}: launches {steps} in "
-                             f"{SSM_MESH_TIMED} steps, expected {want}")
+                             f"{n_runs} steps, expected {want}")
     vals = [v for r in rows for v in r[3:]]
-    same = _mesh_replicas_equal(params, state["m"], state["v"])
     if not (all(np.isfinite(vals)) and same):
         raise AssertionError(f"[ssm mesh] {label}: losses and gradient "
                              f"norms {vals}, replicas equal {same}")
@@ -5770,9 +6117,10 @@ def _ssm_mesh_case(cfg, shape, full, batches, ref) -> dict:
         step_device_ms=statistics.median(r[1] for r in rows),
         working_set_gib=max(r[2] for r in rows) / 2**30,
         tokens_per_s=tokens / (wall / 1e3),
-        launches_per_step={k: v // SSM_MESH_TIMED for k, v in steps.items()
-                           if v},
+        launches_per_step={k: v // n_runs for k, v in steps.items() if v},
         replicas_bit_identical=same)
+    if graphed:
+        stats.update(_graphed_stats(got, tokens))
     log(f"[ssm mesh] {label}: " + json.dumps(stats))
     name = cfg.name.replace("-", "_").replace(".", "_")
     dev_ms = profile_window(f"ssm_mesh_step_{name}_{shape[0]}x{shape[1]}",
@@ -5781,6 +6129,16 @@ def _ssm_mesh_case(cfg, shape, full, batches, ref) -> dict:
     if dev_ms is not None:
         log(f"[ssm mesh] {label}: device ms of an eager step {dev_ms:.3f}, "
             f"busy {dev_ms / wall:.3f}")
+    if graphed:
+        gp, gs, gstep = got["graphed"]
+        gwall = stats["graphed_step_wall_ms"]
+        dev_ms = profile_window(
+            f"ssm_mesh_step_graphed_{name}_{shape[0]}x{shape[1]}",
+            lambda: gstep(gp, gs, batches[-1]), gwall, 1)
+        if dev_ms is not None:
+            log(f"[ssm mesh] {label}: device ms of a graphed step "
+                f"{dev_ms:.3f}, busy {dev_ms / gwall:.3f}")
+    del got
     return dict(forward=forward, steps=steps)
 
 
@@ -5809,8 +6167,8 @@ def _ssm_mesh_small_check(arch: str) -> dict:
     near = {k: g.abs() <= 1e-4 * g.abs().max() for k, g in flat.items()}
     del gg, wg, flat
     params, state, m2 = train_lib.jit_train_step(
-        cfg, ocfg, mesh, dc.num_microbatches, dc.micro_batch)(
-        params, opt_lib.init_sharded_state(params), b)
+        cfg, ocfg, mesh, dc.num_microbatches, dc.micro_batch,
+        graphed=False)(params, opt_lib.init_sharded_state(params), b)
     full, _, m1 = train_lib.make_train_step(cfg, ocfg)(
         full, opt_lib.init_state(full), b)
     got = dict(opt_lib.tree_leaves(pm.unshard_tree(params, "cuda")))
@@ -5849,7 +6207,8 @@ def _ssm_mesh_small_check(arch: str) -> dict:
 def phase_ssm_mesh() -> dict:
     """The state-space families through the sharded (data, model) train
     step (``train_step.jit_train_step`` over ``dist/spmd_ssm.py``), every
-    position on ``cuda:0``, eager, bf16 (``[ssm mesh]``): mamba2-130m on
+    position on ``cuda:0``, eager and, on GRAPHED_FAMILY_MESHES, graphed
+    beside it bit for bit, bf16 (``[ssm mesh]``): mamba2-130m on
     (2, 2) ``fsdp_tp`` and (1, 4) ``tp``, zamba2-2.7b at 12 layers on
     (1, 2) ``tp``, each family's meshes held against one device run once
     (``_ssm_mesh_reference``); then both in fp32 at 2 layers on (2, 2)
@@ -5866,7 +6225,7 @@ def phase_ssm_mesh() -> dict:
         cfg = _ssm_mesh_cfg(arch, meshes[0][0])
         data = SSM_TRAIN_DATA if arch == SSM_ARCH else HYBRID_TRAIN_DATA
         ds = data_lib.SyntheticDataset(cfg, data_lib.DataConfig(**data))
-        batches = [ds.batch(300 + i) for i in range(SSM_MESH_TIMED + 1)]
+        batches = [ds.batch(300 + i) for i in range(GRAPHED_STEPS + 1)]
         full = model_lib.init(cfg, 0, device="cuda")  # [ssm train]'s weights
         ref = _ssm_mesh_reference(cfg, full, batches[0], torch.as_tensor(
             batches[0]["tokens"][0], device="cuda"))
@@ -6424,8 +6783,8 @@ def main() -> int:
     fused_launches = phase_fused()
     train_launches, train = phase_train()
     pipeline_launches, pipe_mesh_launches = phase_pipeline(train)
-    mesh_launches = phase_mesh(train)
-    dryrun_launches, dryrun_chunked_launches, dry = phase_dryrun()
+    mesh_launches, mesh_replay = phase_mesh(train)
+    dryrun_launches, dryrun_chunked_launches, dry = phase_dryrun(mesh_replay)
     phase_audit(dry)
     del dry
     serve_mesh_launches = phase_serve_mesh(smi)

@@ -13,7 +13,8 @@ st.n_devices])``, its devices taken in order as the reference takes them.
   state and gradient buffers as ``placement.Sharded`` trees laid out by
   ``param_specs(stage_decls(cfg, st), policy, mesh)`` and runs the same
   body through ``dist/spmd.py``'s lockstep layer (the unfused seam,
-  ``ln_f``, the head and the vocab-parallel CE), eagerly.  Its block
+  ``ln_f``, the head and the vocab-parallel CE), eagerly or, where its
+  positions share one card, as CUDA graphs.  Its block
   gradients are summed over their replicas after the microbatches
   (``placement.replica_group_sum``) and its update is
   ``optimizer.apply_sharded_updates``, clipped by the stage's own norm.
@@ -42,13 +43,19 @@ single-device step does; the reference adds them in the params' dtype),
 and the per-stage AdamW update runs in place where the params live.
 
 Programs as CUDA graphs (``graphed=``, the servers' convention and the
-counterpart of the reference's per-stage ``jax.jit``): None graphs the
-one-device stages on a CUDA device and runs the others eagerly, True
-graphs every stage (a CPU stage or a mesh stage raises), False runs every
-stage eagerly.  A stage's graphs are ``graphs.GraphedShapes``: one graph
-per (program, input shape), its first call eager, its second captured.
-A graph writes its outputs into the same tensors at every replay, so
-every input a stage keeps is a copy and losses are cloned.
+counterpart of the reference's per-stage ``jax.jit``): None graphs every
+stage whose positions all lie on one CUDA card (a one-device stage, or a
+mesh stage over a device list that repeats a card) and runs the others
+eagerly, True graphs every stage (a CPU stage, or a mesh stage over more
+than one card, raises ``ValueError``: one graph cannot span cards here),
+False runs every stage eagerly.  A stage's graphs are
+``graphs.GraphedShapes``: one graph per (program, input shape), its
+first call eager, its second captured.  A graph writes its outputs into
+the same tensors at every replay, so every input a stage keeps is a copy
+and losses are cloned.  The transfers between stages (``_to_stage``)
+run outside the graphs; a mesh stage's input gradient, summed over its
+'model' group on its own card (``_input_grad``), runs inside its
+backward's graph.
 
 Telemetry (``attach_telemetry``, the reference's sample schema and fault
 injection): each stage program and transfer is timed from an idle card
@@ -320,7 +327,10 @@ def mesh_stage_programs(cfg: ModelConfig, stage: Stage,
     copies the next stage reads), and return the parameter gradients as
     ``Sharded`` trees (one block a position, not yet summed over
     replicas) and the input's gradient (``_input_grad``); ``update`` is
-    ``apply_sharded_updates`` in place.  Eager only."""
+    ``apply_sharded_updates`` in place, which keeps ``o["step"]`` the
+    ``Sharded`` it was (its blocks written in place).  None of them syncs
+    with the host, so each can be captured as a CUDA graph where the
+    mesh's positions share one card."""
     def hidden(x, xs):
         return pm.Sharded((*x.shape[:2], cfg.d_model),
                           P(x.spec[0], None, None), mesh, xs)
@@ -362,7 +372,13 @@ def mesh_stage_programs(cfg: ModelConfig, stage: Stage,
         return grads, _input_grad(xin, gs[len(blocks):])
 
     def update(p, o, g):
-        opt_lib.apply_sharded_updates(p, g, o, opt_cfg)
+        step = o["step"]
+        try:
+            opt_lib.apply_sharded_updates(p, g, o, opt_cfg)
+            for a, b in zip(step.blocks, o["step"].blocks):
+                a.copy_(b)
+        finally:
+            o["step"] = step
 
     bwd = bwd_last if stage.last else functools.partial(
         backward, with_input=not stage.first)
@@ -376,6 +392,22 @@ def _tensors(tree) -> List[Optional[torch.Tensor]]:
     for _, x in pm.tree_items(tree):
         out.extend(x.blocks if isinstance(x, pm.Sharded) else [x])
     return out
+
+
+def _input_key(x) -> tuple:
+    """What a stage program's graph is keyed by for one input: its shape,
+    dtype and, for a ``Sharded`` one, its spec."""
+    if isinstance(x, pm.Sharded):
+        return (tuple(x.shape), x.dtype, tuple(x.spec))
+    return (tuple(x.shape), x.dtype)
+
+
+def _empty_like(x):
+    """A static buffer for a graphed program's input (a block a position
+    for a ``Sharded`` one)."""
+    if isinstance(x, pm.Sharded):
+        return x.with_blocks([torch.empty_like(b) for b in x.blocks])
+    return torch.empty_like(x)
 
 
 def _full(x) -> torch.Tensor:
@@ -477,17 +509,11 @@ class MPMDPipeline:
         self._specs = [param_specs(stage_decls(cfg, st), policy, m)
                        if st.n_devices > 1 else None
                        for st, m in zip(self.stages, self.meshes)]
-        if graphed:
-            for st in self.stages:
-                if st.n_devices > 1:
-                    raise ValueError(
-                        f"MPMDPipeline(graphed=True): stage {st.index} is a "
-                        f"mesh stage (dp={st.dp}, tp={st.tp}), which runs "
-                        f"eagerly; pass graphed=None or False")
-        if graphed and any(d.type != "cuda" for d in self.devices):
-            raise ValueError(f"MPMDPipeline(graphed=True): a CUDA graph "
-                             f"needs every stage on a CUDA device, got "
-                             f"{[str(d) for d in self.devices]}")
+        if graphed:         # every stage on one CUDA card
+            for st, m in zip(self.stages, self.meshes):
+                graphs.one_card(m.device_list, f"MPMDPipeline(graphed=True)"
+                                f": stage {st.index} (dp={st.dp}, "
+                                f"tp={st.tp})")
         self.graphed = graphed
         self.params: Optional[List[Any]] = None
         self.opt_states: Optional[List[Any]] = None
@@ -602,9 +628,8 @@ class MPMDPipeline:
                     (k, zeros(t)) for k, t in graphs.tree_leaves(p)))
         self.graphs, self._static = [], []
         for i, p in enumerate(params):
-            dev = self._device(i)
-            on = (dev.type == "cuda" and not self._on_mesh(i)) \
-                if self.graphed is None else self.graphed
+            on = graphs.wants_graph(self.meshes[i].device_list, self.graphed,
+                                    f"pipeline stage {i}")
             g = None
             if on:
                 g = graphs.GraphedShapes(p, f"pipeline stage {i}")
@@ -663,13 +688,13 @@ class MPMDPipeline:
                 (name,), update, f" at stage {i} update")
         if g is None:
             return prog(self.params[i], *inputs)
-        key = (name,) + tuple((tuple(t.shape), t.dtype) for t in inputs)
+        key = (name,) + tuple(_input_key(t) for t in inputs)
         static = self._static[i].get(key)
         if static is None:
-            static = self._static[i][key] = [torch.empty_like(t)
-                                             for t in inputs]
+            static = self._static[i][key] = [_empty_like(t) for t in inputs]
         for s, t in zip(static, inputs):
-            s.copy_(t)
+            for a, b in zip(_tensors(s), _tensors(t), strict=True):
+                a.copy_(b)
         return g.run(key, lambda: prog(self.params[i], *static),
                      f" at stage {i} {name} {[tuple(t.shape) for t in inputs]}")
 

@@ -217,6 +217,27 @@ def record_collectives() -> Iterator[CollectiveRecord]:
         _RECORDS.remove(rec)
 
 
+@contextlib.contextmanager
+def record_apart() -> Iterator[CollectiveRecord]:
+    """Record the block's collectives in a record of its own, which alone
+    is active inside it: the records active outside get none of its
+    entries (a CUDA graph's capture communicates nothing; its replays add
+    the entries with ``add_to_records``)."""
+    outer = list(_RECORDS)
+    _RECORDS.clear()
+    try:
+        with record_collectives() as rec:
+            yield rec
+    finally:
+        _RECORDS[:] = outer
+
+
+def add_to_records(entries: Sequence[CollectiveEntry]) -> None:
+    """Append ``entries`` to every active record (a replayed graph's)."""
+    for rec in list(_RECORDS):
+        rec.entries.extend(entries)
+
+
 def _record(kind: str, axes: Tuple[str, ...], groups: List[List[int]],
             out: List[torch.Tensor]) -> None:
     first = out[groups[0][0]]

@@ -15,12 +15,22 @@ A graphed step runs its body in three ways:
    caller's stream);
 2. captured on that stream (``GraphedStep.capture``): the kernel launches
    the capture recorded are taken back out of ``ops.LAUNCHES`` (a capture
-   launches nothing) and kept with the graph; a capture that fails raises
+   launches nothing) and kept with the graph, and so are the collectives
+   it recorded (``placement.record_apart``: the records active around a
+   capture get none of them); a capture that fails raises
    with CUDA's error as its cause, and every later call raises too
    (``GraphedStep.check_alive``): PyTorch's allocator may be left recording
    into the graph's pool, and no path runs the body eagerly instead;
 3. replayed (``Captured.replay``), on the caller's current stream, adding
-   the recorded launches to ``ops.LAUNCHES`` (a replay calls no wrapper).
+   the recorded launches to ``ops.LAUNCHES`` and the recorded collectives
+   to every active ``placement.record_collectives()`` (a replay calls no
+   wrapper and runs no host code of the body).
+
+A graph runs on one card.  The tensors it is bound to may be
+``placement.Sharded`` blocks (a mesh whose positions share the card:
+``train_step.jit_train_step``, ``MPMDPipeline``'s mesh stages); positions
+on more than one card raise (``one_card``), since one graph cannot span
+cards here.  ``wants_graph`` is the rule of a ``graphed=`` argument.
 """
 from __future__ import annotations
 
@@ -30,35 +40,70 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.device import device_of
+from repro_torch.dist import placement as pm
 from repro_torch.kernels import ops
 
 
 def tree_leaves(tree: Any, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
     """(path, tensor) leaves of a nested dict in sorted-key order (the
-    order ``jax.tree_util`` flattens a dict in), "/"-joined paths."""
+    order ``jax.tree_util`` flattens a dict in), "/"-joined paths; a
+    ``placement.Sharded`` leaf gives its blocks, ``path[pos]``."""
     if isinstance(tree, torch.Tensor):
         return [(prefix, tree)]
+    if isinstance(tree, pm.Sharded):
+        return [(f"{prefix}[{p}]", b) for p, b in enumerate(tree.blocks)]
     out: List[Tuple[str, torch.Tensor]] = []
     for k in sorted(tree):
         out += tree_leaves(tree[k], f"{prefix}/{k}" if prefix else k)
     return out
 
 
+def one_card(devices, who: str) -> torch.device:
+    """The one CUDA device of ``devices`` (a mesh's positions, a tree's
+    tensors), or ``ValueError`` naming why there is none: a device that is
+    not CUDA, or more than one card (one graph cannot span cards here)."""
+    devs = list(dict.fromkeys(torch.device(d) for d in devices))
+    if not devs or any(d.type != "cuda" for d in devs):
+        raise ValueError(f"{who}: a CUDA graph needs every tensor on a CUDA "
+                         f"device, got {[str(d) for d in devs]}")
+    if len(devs) > 1:
+        raise ValueError(f"{who}: the positions lie on more than one card "
+                         f"({[str(d) for d in devs]}); a CUDA graph runs on "
+                         f"one card, so a mesh over several cards runs "
+                         f"eagerly (graphed=None or False)")
+    return devs[0]
+
+
+def wants_graph(devices, graphed: Optional[bool], who: str) -> bool:
+    """The rule of a ``graphed=`` argument over the devices a program runs
+    on: None graphs where every device is one CUDA card and runs eagerly
+    elsewhere; True graphs, and raises where ``one_card`` does; False runs
+    eagerly."""
+    if graphed is None:
+        devs = {torch.device(d) for d in devices}
+        return len(devs) == 1 and next(iter(devs)).type == "cuda"
+    if graphed:
+        one_card(devices, who)
+    return bool(graphed)
+
+
 @dataclasses.dataclass
 class Captured:
     """One captured body: its graph, the tensors the graph writes its
     results into (the next replay overwrites them), the kernel launches
-    the capture recorded and the capture's host seconds."""
+    and the collectives the capture recorded, and the capture's host
+    seconds."""
     graph: torch.cuda.CUDAGraph
     out: Any
     launches: Dict[str, int]
     seconds: float
+    collectives: List[pm.CollectiveEntry]
 
     def replay(self) -> Any:
         self.graph.replay()
         for name, n in self.launches.items():
             ops.LAUNCHES[name] += n
+        pm.add_to_records(self.collectives)
         return self.out
 
 
@@ -66,14 +111,12 @@ class GraphedStep:
     """The bookkeeping of a graphed step (module docstring).  ``who`` names
     the step in its errors; ``shared_pool`` gives every graph the step
     captures one memory pool (``torch.cuda.graph_pool_handle``), for graphs
-    that never run at the same time.  Raises on params that are not on a
-    CUDA device."""
+    that never run at the same time.  Raises on params (tensors or
+    ``Sharded`` blocks) that are not all on one CUDA device
+    (``one_card``)."""
 
     def __init__(self, params, who: str, shared_pool: bool = False):
-        dev = device_of(params)
-        if dev is None or dev.type != "cuda":
-            raise ValueError(f"{who}: a CUDA graph needs params on a CUDA "
-                             f"device, got {dev}")
+        dev = one_card([t.device for _, t in tree_leaves(params)], who)
         self.who, self.device = who, dev
         self.stream = torch.cuda.Stream(dev)
         self.pool = torch.cuda.graph_pool_handle() if shared_pool else None
@@ -114,7 +157,8 @@ class GraphedStep:
         before = dict(ops.LAUNCHES)
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            with pm.record_apart() as rec, torch.cuda.graph(
+                    graph, pool=self.pool, stream=self.stream):
                 out = body()
             if keep_graph:
                 graph.instantiate()
@@ -126,7 +170,8 @@ class GraphedStep:
         finally:
             launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
             ops.LAUNCHES.update(before)   # the capture launched nothing
-        return Captured(graph, out, launches, time.perf_counter() - t0)
+        return Captured(graph, out, launches, time.perf_counter() - t0,
+                        list(rec.entries))
 
 
 class GraphedShapes(GraphedStep):

@@ -80,7 +80,10 @@ def step_fn_for(cell: shapes_mod.Cell, mesh):
     if cell.kind == "train":
         opt_cfg = opt_lib.OptimizerConfig()
         shape = cell.args[2]["tokens"].shape
-        return ts_lib.jit_train_step(cfg, opt_cfg, mesh, shape[0], shape[1])
+        # a trace on fakes, never a graph (the mesh names cards it does
+        # not run on)
+        return ts_lib.jit_train_step(cfg, opt_cfg, mesh, shape[0], shape[1],
+                                     graphed=False)
 
     if cell.kind == "prefill":
         return serve_step.make_prefill(cfg, mesh)

@@ -14,7 +14,13 @@ prefixes of ``devices`` (``dist/mesh.py``: one process runs every position
 in lockstep; a list may repeat a card, so a (2, 2) plan runs on one
 H100).  The step is ``train_step.jit_train_step`` on that mesh, params
 and moments ``placement.Sharded`` trees laid out by ``param_specs(decls,
-cfg.sharding, mesh)``, the step replicated.
+cfg.sharding, mesh)``, the step replicated.  The step is made with
+``graphed=None`` (as the reference's trainer takes the jitted step): a
+CUDA graph where the mesh's positions share one card, eager elsewhere.
+A graph is bound to the storage of the params and state it first ran
+on, so wherever they are replaced (a kill-free reshard, a rollback,
+``restore_from_checkpoint``) the trainer makes a new step, which captures
+anew; ``captures`` lists each capture's step and seconds.
 
 Straggler mitigation: per-step wall times feed a median detector; a step
 slower than ``factor``x the running median flags the event to the
@@ -126,6 +132,9 @@ class ElasticTrainer:
         self.clock: Optional[Callable[[], float]] = None
         self.log: List[Dict[str, Any]] = []
         self.reconfigs: List[Dict[str, Any]] = []
+        # one row a graph captured: the step it captured at, the devices
+        # and the capture's host seconds
+        self.captures: List[Dict[str, Any]] = []
 
         self.mesh: Optional[Mesh] = None
         self.plan: Optional[RuntimePlan] = None
@@ -174,10 +183,16 @@ class ElasticTrainer:
                               "v": move(self.opt_state["v"]),
                               "step": _reshard(self.opt_state["step"], P(),
                                                mesh)}
-        self.step_fn = ts_lib.jit_train_step(
-            self.cfg, self.opt_cfg, mesh, plan.num_microbatches,
-            self.data_cfg.micro_batch, micro_weights=plan.micro_weights)
         self.mesh, self.plan = mesh, plan
+        self._new_step()
+
+    def _new_step(self) -> None:
+        """The step for the current mesh and plan, made anew: a graphed
+        one binds to the params and state of its first call."""
+        plan = self.plan
+        self.step_fn = ts_lib.jit_train_step(
+            self.cfg, self.opt_cfg, self.mesh, plan.num_microbatches,
+            self.data_cfg.micro_batch, micro_weights=plan.micro_weights)
 
     # --- failure path -------------------------------------------------------------
     def restore_from_checkpoint(self, n_devices: int):
@@ -190,6 +205,7 @@ class ElasticTrainer:
             state, step = self.ckpt.restore(template, shardings=template)
             self.params, self.opt_state = state["params"], state["opt"]
             self.step = step
+            self._new_step()        # new tensors: a graph binds anew
         except FileNotFoundError:
             self.step = 0          # cold start
 
@@ -247,11 +263,16 @@ class ElasticTrainer:
             t_data = time.perf_counter()
             batch = self.data.batch(self.step)
             t_data = time.perf_counter() - t_data      # input-pipeline wait
+            captured = self.step_fn.capture_seconds
             t0 = time.perf_counter()
             self.params, self.opt_state, metrics = self.step_fn(
                 self.params, self.opt_state, batch)
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
+            if captured is None and self.step_fn.capture_seconds is not None:
+                self.captures.append({
+                    "step": self.step, "n_devices": self.plan.n_devices,
+                    "capture_s": self.step_fn.capture_seconds})
             straggler = self.detector.observe(self.step, dt)
             self.log.append({"step": self.step, "time_s": dt, "loss": loss,
                              "n_devices": self.plan.n_devices,

@@ -16,19 +16,21 @@ forward and loss (``dist/spmd.py``) over every position in lockstep;
 autograd gives each block its own path's gradient, and after the
 microbatches each block's fp32 sum is summed over its replicas
 (``placement.replica_group_sum``), which is the reference's gradient
-all-reduce.  The update is ``optimizer.apply_sharded_updates``.  It runs
-eagerly (no graphed form on a mesh).  A ``mesh`` that is not a ``Mesh``
-raises ``TypeError``.
+all-reduce.  The update is ``optimizer.apply_sharded_updates``.
+``jit_train_step`` runs it eagerly or, on a mesh whose positions all lie
+on one card, as a CUDA graph (``GraphedShardedTrainStep``).  A ``mesh``
+that is not a ``Mesh`` raises ``TypeError``.
 
 A step is a host part (``device_inputs``: the batch onto the device) and
-a device body (``train_step_on_device``) that makes no host sync.
+a device body (``train_step_on_device``; on a mesh
+``sharded_train_step_on_device``) that makes no host sync.
 ``make_train_step`` runs both eagerly; ``make_graphed_train_step``, the
 counterpart of ``jax.jit(make_train_step(...))``, captures the body once
 as a CUDA graph and replays it.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -209,10 +211,22 @@ def sharded_loss_and_grads(cfg: ModelConfig, params, batch, mesh,
     position reads gets none); the fp32 sums are then summed over each
     block's replicas.  Returns ``(loss, grads)``: the loss a 0-d tensor on
     the first position's device, the grads a tree of fp32 ``Sharded``
-    laid out as ``params``, every replica of a block bit for bit equal."""
+    laid out as ``params``, every replica of a block bit for bit equal.
+    The host part (``micro_weights`` onto the first position's device)
+    then ``sharded_loss_and_grads_on_device``."""
+    w = _weights(micro_weights, batch["tokens"].shape[0],
+                 mesh.device_list[0])
+    return sharded_loss_and_grads_on_device(cfg, params, batch, mesh, w)
+
+
+def sharded_loss_and_grads_on_device(cfg: ModelConfig, params, batch, mesh,
+                                     w=None):
+    """The device body of ``sharded_loss_and_grads``: ``w`` None or the
+    microbatch weights already on the first position's device.  It makes
+    no host sync, so a CUDA graph can capture it where every position
+    lies on one card."""
     n_micro = batch["tokens"].shape[0]
     devs = mesh.device_list
-    w = _weights(micro_weights, n_micro, devs[0])
     w_on = {d: None if w is None else w.to(d) for d in set(devs)}
     paths, leaves = zip(*[
         (k, x.with_blocks([b.detach().requires_grad_() for b in x.blocks]))
@@ -258,6 +272,19 @@ def sharded_loss_and_grads(cfg: ModelConfig, params, batch, mesh,
     return loss_sum, opt_lib.tree_unflatten(zip(paths, out))
 
 
+def sharded_train_step_on_device(cfg: ModelConfig,
+                                 opt_cfg: opt_lib.OptimizerConfig, mesh,
+                                 params, opt_state, batch, w=None):
+    """One sharded step's device body: ``sharded_loss_and_grads_on_device``
+    (``batch`` ``shard_batch``'s, on the mesh's devices) then the in-place
+    ``apply_sharded_updates``.  Returns ``(params, opt_state, metrics)``."""
+    loss, grads = sharded_loss_and_grads_on_device(cfg, params, batch, mesh,
+                                                   w)
+    params, opt_state, om = opt_lib.apply_sharded_updates(
+        params, grads, opt_state, opt_cfg)
+    return params, opt_state, {"loss": loss, **om}
+
+
 def sharded_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig,
                        mesh, micro_weights=None) -> Callable:
     """train_step(params, opt_state, batch) -> (params, opt_state,
@@ -266,46 +293,169 @@ def sharded_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig,
     ``{"loss", "grad_norm", "lr"}`` as 0-d tensors on the first
     position's device."""
     def train_step(params, opt_state, batch):
-        loss, grads = sharded_loss_and_grads(
-            cfg, params, shard_batch(cfg, batch, mesh), mesh, micro_weights)
-        params, opt_state, om = opt_lib.apply_sharded_updates(
-            params, grads, opt_state, opt_cfg)
-        return params, opt_state, {"loss": loss, **om}
+        batch = shard_batch(cfg, batch, mesh)
+        w = _weights(micro_weights, batch["tokens"].shape[0],
+                     mesh.device_list[0])
+        return sharded_train_step_on_device(cfg, opt_cfg, mesh, params,
+                                            opt_state, batch, w)
 
     return train_step
 
 
-def jit_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig, mesh,
-                   num_micro: int, micro_batch: int, micro_weights=None):
-    """The sharded step for a concrete mesh and batch shape (the
-    reference's jitted, fully-sharded step; here eager).  Params and AdamW
-    ``m``/``v`` go in laid out by ``step.param_specs``, the step
-    replicated, the batch (numpy, tensors or ``Sharded``) by
-    ``step.batch_specs``; a batch of another leading shape raises."""
-    mesh = spmd.check_mesh(mesh)
-    inner = sharded_train_step(cfg, opt_cfg, mesh, micro_weights)
-    specs = param_specs(model_lib.decls(cfg), cfg.sharding, mesh)
-    bspecs = batch_shardings(cfg, mesh, num_micro, micro_batch)
+class JitTrainStep:
+    """``jit_train_step``'s step: ``step(params, opt_state, batch)`` ->
+    ``(params, opt_state, metrics)``, eager (``sharded_train_step``) or,
+    with ``graphed``, through a ``GraphedShardedTrainStep`` made at the
+    first call for the params and state of that call (the graph is bound
+    to their storage: a caller that replaces them makes a new step).
+    ``param_specs`` and ``batch_specs`` are the layouts it takes;
+    ``graph_step`` the graphed step once made, ``capture_seconds`` its
+    capture's host seconds (None before the capture and when eager)."""
 
-    def step(params, opt_state, batch):
+    def __init__(self, cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig,
+                 mesh, num_micro: int, micro_batch: int, micro_weights,
+                 graphed: bool):
+        self.cfg, self.opt_cfg, self.mesh = cfg, opt_cfg, mesh
+        self.shape = (num_micro, micro_batch)
+        self.micro_weights = micro_weights
+        self.graphed = graphed
+        self.param_specs = param_specs(model_lib.decls(cfg), cfg.sharding,
+                                       mesh)
+        self.batch_specs = batch_shardings(cfg, mesh, num_micro, micro_batch)
+        self.graph_step: Optional[GraphedShardedTrainStep] = None
+        self._eager = sharded_train_step(cfg, opt_cfg, mesh, micro_weights)
+
+    @property
+    def capture_seconds(self) -> Optional[float]:
+        return None if self.graph_step is None else \
+            self.graph_step.capture_seconds
+
+    def __call__(self, params, opt_state, batch):
         shape = tuple(batch["tokens"].shape[:2])
-        if shape != (num_micro, micro_batch):
+        if shape != self.shape:
             raise ValueError(f"jit_train_step: batch of {shape} (num_micro, "
                              f"micro_batch); this step was made for "
-                             f"{(num_micro, micro_batch)}")
-        return inner(params, opt_state, batch)
+                             f"{self.shape}")
+        if not self.graphed:
+            return self._eager(params, opt_state, batch)
+        if self.graph_step is None:
+            self.graph_step = GraphedShardedTrainStep(
+                self.cfg, self.opt_cfg, self.mesh, params, opt_state, batch,
+                self.micro_weights)
+        return self.graph_step(params, opt_state, batch)
 
-    step.param_specs, step.batch_specs = specs, bspecs
-    return step
+
+def jit_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig, mesh,
+                   num_micro: int, micro_batch: int, micro_weights=None,
+                   graphed: Optional[bool] = None) -> JitTrainStep:
+    """The sharded step for a concrete mesh and batch shape (the
+    reference's jitted, fully-sharded step).  Params and AdamW ``m``/``v``
+    go in laid out by ``step.param_specs``, the step replicated, the batch
+    (numpy, tensors or ``Sharded``) by ``step.batch_specs``; a batch of
+    another leading shape raises.
+
+    ``graphed`` (the counterpart of ``jax.jit``, a CUDA graph a step,
+    ``GraphedShardedTrainStep``): None graphs where every position of
+    ``mesh`` lies on one CUDA card and runs eagerly elsewhere (the CPU, a
+    mesh over several cards); True graphs, and raises ``ValueError`` on
+    CPU positions and on positions over several cards before anything is
+    made; False runs eagerly."""
+    mesh = spmd.check_mesh(mesh)
+    on = graphs.wants_graph(mesh.device_list, graphed,
+                            "jit_train_step(graphed=True)")
+    return JitTrainStep(cfg, opt_cfg, mesh, num_micro, micro_batch,
+                        micro_weights, on)
 
 
 def _state_leaves(opt_state) -> list:
     return (graphs.tree_leaves(opt_state["m"], "m")
             + graphs.tree_leaves(opt_state["v"], "v")
-            + [("step", opt_state["step"])])
+            + graphs.tree_leaves(opt_state["step"], "step"))
 
 
-class GraphedTrainStep(graphs.GraphedStep):
+class _GraphedTrain(graphs.GraphedStep):
+    """The call of a graphed train step (``GraphedTrainStep``,
+    ``GraphedShardedTrainStep``): the bound params and state checked, the
+    batch loaded (``_load``), then the first call eager on the side
+    stream, the second captured, later ones replayed; metrics cloned.
+    ``_run_body`` is the step's device body; the new step is written into
+    the bound ``opt_state["step"]``, which stays the object it was."""
+
+    def __init__(self, cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig,
+                 params, opt_state, who: str):
+        super().__init__(params, who)
+        self.cfg, self.opt_cfg = cfg, opt_cfg
+        self._params = graphs.tree_leaves(params)
+        self._state = _state_leaves(opt_state)
+        self._step = opt_state["step"]
+        self._copied: Optional[torch.cuda.Event] = None
+        self._captured: Optional[graphs.Captured] = None
+        self.calls = 0
+
+    @property
+    def graph(self) -> Optional[torch.cuda.CUDAGraph]:
+        return self._captured.graph if self._captured else None
+
+    @property
+    def capture_launches(self) -> Optional[Dict[str, int]]:
+        return self._captured.launches if self._captured else None
+
+    @property
+    def capture_seconds(self) -> Optional[float]:
+        return self._captured.seconds if self._captured else None
+
+    @property
+    def capture_collectives(self) -> Optional[list]:
+        return self._captured.collectives if self._captured else None
+
+    def _check_batch(self, name: str, t, shape, dtype) -> None:
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(
+                f"{self.who}: batch[{name!r}] is {tuple(t.shape)} {t.dtype}; "
+                f"the graph was captured for {tuple(shape)} {dtype}")
+
+    def _wait_pinned(self) -> None:
+        """Wait for the pinned buffers' last copy to the card."""
+        if self._copied is not None:
+            self._copied.synchronize()
+
+    def _loaded(self) -> None:
+        self._copied = torch.cuda.Event()
+        self._copied.record()
+
+    def _body(self, params, opt_state) -> Dict[str, torch.Tensor]:
+        try:
+            _, state, metrics = self._run_body(params, opt_state)
+            for (_, a), (_, b) in zip(graphs.tree_leaves(self._step),
+                                      graphs.tree_leaves(state["step"])):
+                a.copy_(b)
+        finally:
+            opt_state["step"] = self._step
+        return metrics
+
+    def _first(self, params, opt_state) -> Dict[str, torch.Tensor]:
+        fused_mod.ticket_counters(self.device, self.stream)
+        fa.bwd_ticket_counters(self.device, self.stream)
+        return self._body(params, opt_state)
+
+    def __call__(self, params, opt_state, batch):
+        self.check_alive()
+        self.check_bound("params", self._params, graphs.tree_leaves(params))
+        self.check_bound("optimizer state", self._state,
+                         _state_leaves(opt_state))
+        self._load(batch)
+        if self.calls == 0:
+            out = self.eager(lambda: self._first(params, opt_state))
+        else:
+            if self._captured is None:
+                self._captured = self.capture(
+                    lambda: self._body(params, opt_state), keep_graph=True)
+            out = self._captured.replay()
+        self.calls += 1
+        return params, opt_state, {k: v.clone() for k, v in out.items()}
+
+
+class GraphedTrainStep(_GraphedTrain):
     """``make_graphed_train_step``'s step.  Every call is one training
     step, as ``make_train_step``'s is:
 
@@ -334,12 +484,9 @@ class GraphedTrainStep(graphs.GraphedStep):
 
     def __init__(self, cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig,
                  params, opt_state, batch, micro_weights=None):
-        super().__init__(params, "graphed train step")
+        super().__init__(cfg, opt_cfg, params, opt_state,
+                         "graphed train step")
         dev = self.device
-        self.cfg, self.opt_cfg = cfg, opt_cfg
-        self._params = graphs.tree_leaves(params)
-        self._state = _state_leaves(opt_state)
-        self._step = opt_state["step"]
         host = {k: torch.as_tensor(v) for k, v in batch.items()}
         self._static = {k: torch.empty(t.shape, dtype=t.dtype, device=dev)
                         for k, t in host.items()}
@@ -347,21 +494,6 @@ class GraphedTrainStep(graphs.GraphedStep):
                                        pin_memory=True)
                         for k, t in host.items()}
         self._w = _weights(micro_weights, host["tokens"].shape[0], dev)
-        self._copied: Optional[torch.cuda.Event] = None
-        self._captured: Optional[graphs.Captured] = None
-        self.calls = 0
-
-    @property
-    def graph(self) -> Optional[torch.cuda.CUDAGraph]:
-        return self._captured.graph if self._captured else None
-
-    @property
-    def capture_launches(self) -> Optional[Dict[str, int]]:
-        return self._captured.launches if self._captured else None
-
-    @property
-    def capture_seconds(self) -> Optional[float]:
-        return self._captured.seconds if self._captured else None
 
     def _load(self, batch) -> None:
         """Copy the batch into the static buffers on the current stream."""
@@ -369,15 +501,9 @@ class GraphedTrainStep(graphs.GraphedStep):
             raise ValueError(f"graphed train step: batch fields "
                              f"{sorted(batch)} != {sorted(self._static)}")
         for k, v in batch.items():
-            t = torch.as_tensor(v)
             dst = self._static[k]
-            if t.shape != dst.shape or t.dtype != dst.dtype:
-                raise ValueError(
-                    f"graphed train step: batch[{k!r}] is "
-                    f"{tuple(t.shape)} {t.dtype}; the graph was captured "
-                    f"for {tuple(dst.shape)} {dst.dtype}")
-        if self._copied is not None:    # the pinned buffers' last copy
-            self._copied.synchronize()
+            self._check_batch(k, torch.as_tensor(v), dst.shape, dst.dtype)
+        self._wait_pinned()
         for k, v in batch.items():
             t = torch.as_tensor(v)
             if t.is_cuda:
@@ -385,39 +511,89 @@ class GraphedTrainStep(graphs.GraphedStep):
             else:
                 self._pinned[k].copy_(t)
                 self._static[k].copy_(self._pinned[k], non_blocking=True)
-        self._copied = torch.cuda.Event()
-        self._copied.record()
+        self._loaded()
 
-    def _body(self, params, opt_state) -> Dict[str, torch.Tensor]:
-        try:
-            _, state, metrics = train_step_on_device(
-                self.cfg, self.opt_cfg, params, opt_state, self._static,
-                self._w)
-            self._step.copy_(state["step"])
-        finally:
-            opt_state["step"] = self._step
-        return metrics
+    def _run_body(self, params, opt_state):
+        return train_step_on_device(self.cfg, self.opt_cfg, params,
+                                    opt_state, self._static, self._w)
 
-    def _first(self, params, opt_state) -> Dict[str, torch.Tensor]:
-        fused_mod.ticket_counters(self.device, self.stream)
-        fa.bwd_ticket_counters(self.device, self.stream)
-        return self._body(params, opt_state)
 
-    def __call__(self, params, opt_state, batch):
-        self.check_alive()
-        self.check_bound("params", self._params, graphs.tree_leaves(params))
-        self.check_bound("optimizer state", self._state,
-                         _state_leaves(opt_state))
-        self._load(batch)
-        if self.calls == 0:
-            out = self.eager(lambda: self._first(params, opt_state))
-        else:
-            if self._captured is None:
-                self._captured = self.capture(
-                    lambda: self._body(params, opt_state), keep_graph=True)
-            out = self._captured.replay()
-        self.calls += 1
-        return params, opt_state, {k: v.clone() for k, v in out.items()}
+class GraphedShardedTrainStep(_GraphedTrain):
+    """``jit_train_step``'s graphed step on a mesh whose positions all lie
+    on one card (params and state trees of ``Sharded`` whose blocks are
+    all on one CUDA device, else ``ValueError``): ``GraphedTrainStep``'s
+    contract (the first call eager on the side stream, the second
+    captured, later ones replayed; params, ``m`` and ``v`` updated in
+    place in the blocks the graph is bound to, ``opt_state["step"]`` the
+    ``Sharded`` it was with its blocks written in place; other tensors or
+    another batch shape raise; metrics cloned) over
+    ``sharded_train_step_on_device``.  The batch (numpy, tensors or
+    ``Sharded`` of ``batch_specs``) is copied into one static block a
+    position, through one pinned host buffer a position.  The microbatch
+    weights are a static tensor made here.  A replay adds the capture's
+    launches to ``ops.LAUNCHES`` and its collectives to every active
+    ``placement.record_collectives()``: an eager step's, entry for
+    entry."""
+
+    def __init__(self, cfg: ModelConfig, opt_cfg: opt_lib.OptimizerConfig,
+                 mesh, params, opt_state, batch, micro_weights=None):
+        super().__init__(cfg, opt_cfg, params, opt_state,
+                         "graphed sharded train step")
+        self.mesh = mesh = spmd.check_mesh(mesh)
+        dev = self.device
+        shape = tuple(batch["tokens"].shape)
+        specs = batch_shardings(cfg, mesh, shape[0], shape[1])
+        self._static: Dict[str, pm.Sharded] = {}
+        self._pinned: Dict[str, List[torch.Tensor]] = {}
+        for k in microbatch_fields(cfg):
+            v = batch[k]
+            full = tuple(v.shape)
+            dtype = v.dtype if isinstance(v, pm.Sharded) else \
+                torch.as_tensor(v).dtype
+            spec = pm.check_spec(full, specs[k], mesh)
+            sizes = [tuple(s.stop - s.start for s in pm.block_slices(
+                full, spec, mesh, p)) for p in range(mesh.size)]
+            self._static[k] = pm.Sharded(full, spec, mesh, [
+                torch.empty(sz, dtype=dtype, device=dev) for sz in sizes])
+            self._pinned[k] = [torch.empty(sz, dtype=dtype, pin_memory=True)
+                               for sz in sizes]
+        self._w = _weights(micro_weights, shape[0], dev)
+
+    def _load(self, batch) -> None:
+        """Copy each position's block of the batch into its static block on
+        the current stream."""
+        mesh = self.mesh
+        fields = {k: batch[k] for k in self._static}
+        for k, v in fields.items():
+            dst = self._static[k]
+            if isinstance(v, pm.Sharded):
+                if v.spec != dst.spec or v.mesh is not mesh:
+                    raise ValueError(f"{self.who}: batch[{k!r}] is laid out "
+                                     f"by {v.spec}; the step takes "
+                                     f"{dst.spec} on its mesh")
+            self._check_batch(k, v if isinstance(v, pm.Sharded)
+                              else torch.as_tensor(v), dst.shape, dst.dtype)
+        self._wait_pinned()
+        for k, v in fields.items():
+            dst = self._static[k]
+            if isinstance(v, pm.Sharded):
+                for a, b in zip(dst.blocks, v.blocks):
+                    a.copy_(b)
+                continue
+            t = torch.as_tensor(v)
+            for p, blk in enumerate(dst.blocks):
+                part = t[pm.block_slices(dst.shape, dst.spec, mesh, p)]
+                if t.is_cuda:
+                    blk.copy_(part)
+                else:
+                    self._pinned[k][p].copy_(part)
+                    blk.copy_(self._pinned[k][p], non_blocking=True)
+        self._loaded()
+
+    def _run_body(self, params, opt_state):
+        return sharded_train_step_on_device(
+            self.cfg, self.opt_cfg, self.mesh, params, opt_state,
+            self._static, self._w)
 
 
 def make_graphed_train_step(cfg: ModelConfig,

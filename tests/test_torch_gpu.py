@@ -1086,6 +1086,251 @@ def test_graphed_train_step_raises_on_a_failed_capture(cuda, monkeypatch):
     assert int(state["step"]) == 1
 
 
+# --- the sharded programs as CUDA graphs (jit_train_step(graphed=)) -------------
+# A mesh whose positions are all ``cuda:0``: the captured sharded step runs
+# the eager step's kernels and collectives in the same order on the same
+# inputs, so it must agree bit for bit.  ``-k graphed_mesh`` runs these.
+
+def _graphed_mesh_setup(policy, shape, lr=1e-3):
+    """``_mesh_setup``'s reduced smollm on ``shape`` (fp32, the kernels),
+    two copies of the same sharded weights, fresh AdamW states, the
+    optimizer config and a batch maker."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.dist.sharding import param_specs
+    cfg, mesh, single, _, _, topt = _mesh_setup(policy, shape)
+    specs = param_specs(tm.decls(cfg), policy, mesh)
+    copies = [pm.shard_tree(single, specs, mesh) for _ in range(2)]
+    states = [topt.init_sharded_state(p) for p in copies]
+
+    def batch(seed):
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        toks = torch.randint(0, cfg.vocab_size, (2, 4, 65), generator=gen)
+        return {"tokens": toks[..., :-1].to(torch.int32),
+                "labels": toks[..., 1:].to(torch.int32)}
+    ocfg = topt.OptimizerConfig(lr=lr, warmup_steps=1)
+    return cfg, mesh, copies, states, ocfg, batch
+
+
+def _assert_blocks_equal(a, b, what):
+    from repro_torch.dist import placement as pm
+    for (k, x), (_, y) in zip(pm.tree_items(a), pm.tree_items(b),
+                              strict=True):
+        assert all(torch.equal(u, v) for u, v in zip(x.blocks, y.blocks,
+                                                     strict=True)), (what, k)
+
+
+@pytest.mark.parametrize("policy,shape", [("fsdp_tp", (2, 2)),
+                                          ("tp", (1, 2))])
+def test_graphed_mesh_step_matches_eager(cuda, policy, shape):
+    """3 steps of ``jit_train_step`` graphed (None on one card) and eager
+    from the same weights on the same batches: loss, grad_norm, lr and
+    every block of params, ``m``, ``v`` and the step bit for bit; the
+    params and state stay the objects they were."""
+    from repro_torch.train import train_step as tts
+    cfg, mesh, (ep, gp), (es, gs), ocfg, batch = _graphed_mesh_setup(
+        policy, shape)
+    eager = tts.jit_train_step(cfg, ocfg, mesh, 2, 4, graphed=False)
+    graphed = tts.jit_train_step(cfg, ocfg, mesh, 2, 4)
+    assert graphed.graphed and not eager.graphed
+    bound = gs["step"]
+    for i in range(3):
+        _, _, em = eager(ep, es, batch(i))
+        gp2, gs2, gm = graphed(gp, gs, batch(i))
+        assert gp2 is gp and gs2 is gs and gs["step"] is bound
+        for key in ("loss", "grad_norm", "lr"):
+            assert torch.equal(gm[key], em[key]), (key, i)
+        _assert_blocks_equal(gp, ep, "params")
+        for key in ("m", "v"):
+            _assert_blocks_equal(gs[key], es[key], key)
+        _assert_blocks_equal({"s": gs["step"]}, {"s": es["step"]}, "step")
+    assert graphed.graph_step.calls == 3
+    assert graphed.graph_step.graph is not None
+    assert graphed.capture_seconds > 0
+    assert all(int(b) == 3 for b in gs["step"].blocks)
+
+
+def test_graphed_mesh_replay_reads_each_batch(cuda):
+    """lr 0 keeps the params: a replay on another batch (given as a
+    ``Sharded`` on the card) gives another loss, and the first batch again
+    gives its loss again, bit for bit."""
+    from repro_torch.train import train_step as tts
+    cfg, mesh, (params, _), (state, _), ocfg, batch = _graphed_mesh_setup(
+        "fsdp_tp", (2, 2), lr=0.0)
+    step = tts.jit_train_step(cfg, ocfg, mesh, 2, 4, graphed=True)
+    a, b = batch(0), tts.shard_batch(cfg, batch(1), mesh)
+    losses = [step(params, state, x)[2]["loss"] for x in (a, a, b, a)]
+    assert step.graph_step.graph is not None
+    assert not torch.equal(losses[2], losses[1])
+    assert torch.equal(losses[3], losses[1])
+
+
+def test_graphed_mesh_step_refuses_other_tensors_and_shapes(cuda):
+    from repro_torch.train import train_step as tts
+    cfg, mesh, (params, other), (state, other_state), ocfg, batch = \
+        _graphed_mesh_setup("tp", (1, 2))
+    step = tts.jit_train_step(cfg, ocfg, mesh, 2, 4)
+    b = batch(0)
+    step(params, state, b)
+    with pytest.raises(ValueError, match="params"):
+        step(other, state, b)
+    with pytest.raises(ValueError, match="optimizer state"):
+        step(params, other_state, b)
+    with pytest.raises(ValueError, match="captured for"):
+        step(params, state, {k: v[:, :, :32] for k, v in b.items()})
+    with pytest.raises(ValueError, match="captured for"):
+        step(params, state, {k: v.long() for k, v in b.items()})
+    with pytest.raises(ValueError, match="made for"):
+        step(params, state, {k: v[:1] for k, v in b.items()})
+    step(params, state, b)         # the graph still captures and replays
+    assert step.graph_step.graph is not None
+    assert all(int(x) == 2 for x in state["step"].blocks)
+
+
+def test_graphed_mesh_step_replays_the_eager_launches_and_record(cuda):
+    """Every call of the graphed step (eager, capture + replay, replay)
+    adds to ``ops.LAUNCHES`` and to an active collective record what an
+    eager step does, entry for entry; the capture records apart."""
+    from repro_torch.dist import placement as pm
+    from repro_torch.train import train_step as tts
+    cfg, mesh, (ep, gp), (es, gs), ocfg, batch = _graphed_mesh_setup(
+        "fsdp_tp", (2, 2))
+    eager = tts.jit_train_step(cfg, ocfg, mesh, 2, 4, graphed=False)
+    ops.reset_launches()
+    with pm.record_collectives() as want:
+        eager(ep, es, batch(0))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    assert launches["flash_attention_bwd"] == cfg.n_layers * 2 * mesh.size
+    assert want.entries
+    step = tts.jit_train_step(cfg, ocfg, mesh, 2, 4)
+    for i in range(3):
+        ops.reset_launches()
+        with pm.record_collectives() as got:
+            step(gp, gs, batch(i))
+        assert ops.LAUNCHES == launches, i
+        assert got.entries == want.entries, i
+    assert step.graph_step.capture_launches == launches
+    assert step.graph_step.capture_collectives == want.entries
+
+
+def test_graphed_mesh_step_raises_on_a_failed_capture(cuda, monkeypatch):
+    """A body that reads a value on the host runs eagerly in the first call
+    and fails the capture in the second: the step raises with CUDA's
+    message, counts no launch for the capture, and raises again on a
+    later call rather than run the eager step."""
+    from repro_torch.train import train_step as tts
+    cfg, mesh, (params, _), (state, _), ocfg, batch = _graphed_mesh_setup(
+        "fsdp_tp", (2, 2))
+    real = tts.sharded_train_step_on_device
+
+    def syncing(*args, **kwargs):
+        out = real(*args, **kwargs)
+        out[2]["loss"].item()
+        return out
+    monkeypatch.setattr(tts, "sharded_train_step_on_device", syncing)
+    step = tts.jit_train_step(cfg, ocfg, mesh, 2, 4, graphed=True)
+    bound = state["step"]
+    step(params, state, batch(0))
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="capture failed") as err:
+        step(params, state, batch(1))
+    assert "captur" in str(err.value.__cause__).lower()
+    assert not any(ops.LAUNCHES.values())
+    assert step.graph_step.graph is None and state["step"] is bound
+    with pytest.raises(RuntimeError, match="failed earlier"):
+        step(params, state, batch(1))
+    torch.cuda.synchronize()
+    assert all(int(x) == 1 for x in state["step"].blocks)
+
+
+def test_graphed_mesh_stage_pipeline_matches_eager(cuda):
+    """``even_stages(cfg, [2, 1])`` on ``[cuda:0] * 3`` (stage 0 a (1, 2)
+    mesh) with ``graphed=True`` against ``graphed=False`` from the same
+    weights, 3 steps: losses, every stage's params and AdamW state bit
+    for bit; every stage graphed, one graph a (program, input shape)."""
+    from repro_torch.dist import pipeline as pl
+    from repro_torch.dist import placement as pm
+    from repro_torch.train import data as tdata
+    from repro_torch.train import optimizer as topt
+    cfg = dataclasses.replace(get_config("smollm_360m").reduced(),
+                              head_dim=64, remat="full", attn_impl="kernel",
+                              tie_embeddings=False)
+    ds = tdata.SyntheticDataset(cfg, tdata.DataConfig(
+        seq_len=64, global_batch=4, num_microbatches=2))
+    ocfg = topt.OptimizerConfig(lr=1e-3, warmup_steps=1)
+    full = tm.init(cfg, 0, device="cuda")
+    stages = pl.even_stages(cfg, [2, 1])
+    pipes = [pl.MPMDPipeline(cfg, stages, ocfg, graphed=g,
+                             devices=["cuda:0"] * 3) for g in (True, False)]
+    for p in pipes:
+        p.full_params_like(full)
+    graphed, eager = pipes
+    assert all(g is not None for g in graphed.graphs)
+    assert eager.graphs == [None, None]
+    for i in range(3):
+        assert graphed.train_step(ds.batch(i)) == eager.train_step(
+            ds.batch(i)), i
+    for a, b in zip(graphed.params + graphed.opt_states,
+                    eager.params + eager.opt_states):
+        for (k, x), (_, y) in zip(pm.tree_items(a), pm.tree_items(b),
+                                  strict=True):
+            xs = x.blocks if isinstance(x, pm.Sharded) else [x]
+            ys = y.blocks if isinstance(y, pm.Sharded) else [y]
+            assert all(torch.equal(u, v) for u, v in zip(xs, ys)), k
+    assert sorted(k[0] for k in graphed.graphs[0].graphs) == [
+        "bwd", "fwd", "update"]
+
+
+def test_graphed_mesh_elastic_trainer_reshard(cuda, tmp_path, monkeypatch):
+    """An ``ElasticTrainer`` on ``[cuda:0] * 4`` on the graphed step:
+    (1, 1) for 3 steps, then a kill-free (2, 2): the whole state after
+    the reshard equals the state before it bit for bit, the new step
+    captures anew, and the losses and final state equal a trainer on the
+    eager step (``jit_train_step(..., graphed=False)``) bit for bit."""
+    import functools
+    from repro_torch.dist import placement as pm
+    from repro_torch.train import data as tdata
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+    from repro_torch.train.elastic import ElasticTrainer, RuntimePlan
+    cfg = dataclasses.replace(get_config("smollm_360m").reduced(),
+                              head_dim=64, sharding="fsdp_tp",
+                              attn_impl="kernel")
+    dc = tdata.DataConfig(seq_len=64, global_batch=4)
+    ocfg = topt.OptimizerConfig(lr=1e-3, warmup_steps=2)
+
+    def whole(t):
+        return {k: pm.unshard(x, "cuda") for k, x in pm.tree_items(
+            {"p": t.params, "o": t.opt_state})}
+
+    def run(name):
+        shapes = iter([(1, 1), (2, 2)])
+        t = ElasticTrainer(cfg, ocfg, dc, str(tmp_path / name),
+                           devices=["cuda:0"] * 4,
+                           plan_fn=lambda n: RuntimePlan(n, *next(shapes)))
+        t.build(1)
+        t.train(3)
+        before = whole(t)
+        t.on_availability_change(4)
+        after = whole(t)
+        assert all(torch.equal(after[k], before[k]) for k in before)
+        t.train(3)
+        return t
+
+    with monkeypatch.context() as mp:
+        mp.setattr(tts, "jit_train_step", functools.partial(
+            tts.jit_train_step, graphed=False))
+        ref = run("eager")
+    assert not ref.step_fn.graphed and ref.captures == []
+    tr = run("graphed")
+    assert tr.step_fn.graphed
+    assert [r["step"] for r in tr.captures] == [1, 4]
+    assert [r["n_devices"] for r in tr.captures] == [1, 4]
+    assert [r["loss"] for r in tr.log] == [r["loss"] for r in ref.log]
+    got, want = whole(tr), whole(ref)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
 # --- the served decode step as CUDA graphs ---------------------------------------
 # Graphed and eager decode run the same kernels in the same order on the
 # same inputs, so they must agree bit for bit: tokens, logits and caches.
@@ -1775,7 +2020,8 @@ def test_mesh_stage_pipeline_on_one_card(cuda):
             devices=["cuda:0"] * sum(s.n_devices for s in stages))
         pipes[tps].full_params_like(full)
     mesh, one = pipes[(2, 1)], pipes[(1, 1)]
-    assert mesh.graphs[0] is None and mesh.graphs[1] is not None
+    # graphed=None graphs both stages: the mesh stage's positions share a card
+    assert mesh.graphs[0] is not None and mesh.graphs[1] is not None
     b = ds.batch(0)
     ops.reset_launches()
     loss, grads = mesh.grad_step(b)

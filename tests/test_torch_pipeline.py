@@ -392,9 +392,16 @@ def test_pipeline_refusals(monkeypatch):
     ocfg = topt.OptimizerConfig()
     st = tpl.even_stages(tcfg, [1, 1])
     cpu2 = ["cpu", "cpu"]
-    with pytest.raises(ValueError, match="graphed=True.*stage 0 is a mesh"):
+    # a mesh stage on CPU positions: the CPU refusal (mesh stages graph)
+    with pytest.raises(ValueError, match="graphed=True.*CUDA device"):
         tpl.MPMDPipeline(tcfg, tpl.even_stages(tcfg, [2, 1]), ocfg,
                          devices=["cpu"] * 3, graphed=True)
+    # a mesh stage over two cards: one graph cannot span cards (checked
+    # before anything is made, so no card is needed)
+    with pytest.raises(ValueError, match="stage 0.*more than one card"):
+        tpl.MPMDPipeline(tcfg, tpl.even_stages(tcfg, [2, 1]), ocfg,
+                         devices=["cuda:0", "cuda:1", "cuda:0"],
+                         graphed=True)
     with pytest.raises(ValueError, match="plan needs 4 devices, have 3"):
         tpl.MPMDPipeline(tcfg, tpl.even_stages(tcfg, [1, 1], dp=2), ocfg,
                          devices=["cpu"] * 3)
