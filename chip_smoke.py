@@ -250,24 +250,29 @@ Phases, each printed as it runs; any failure exits non-zero:
              holds the local shapes (``elastic_*``, ``pipe_*``).
    manager   Sailor's control plane (``manager/``, ``telemetry/``) driving
              the runtime.  (a) ``manager.Controller`` (availability
-             monitor, incremental replanner on smollm-360M at seq 1024 on
-             H100s, transition model, ``hysteresis_s`` 120) over the
-             elastic phase's trainer on ``[cuda:0] * 4``, a step every 60
-             feed seconds, 11 steps, a checkpoint every 3: 4 H100s, 3 at
-             t = 120, 4 at 240, 2 at 480 (a bulk preemption), 4 at 540 and
-             2 at 600 (a blip).  The decisions (without straggler rows)
-             must be the reference controller's on this feed
-             (``MANAGER_OUTCOMES``, pinned on the CPU by
-             ``tests/test_torch_manager.py``), the reconfigurations follow
-             them, the rollback resumes at the last checkpoint's step,
-             every loss is finite, one ``step_time`` a step on the sim
-             clock, the audit file equals the decision log, and every
-             runtime plan is one of phase 3's ``elastic_*`` shapes.
-             Prints each decision (event, action, reason, search ms,
-             cache), each priced transition beside the measured
-             ``reconfig_s`` (a rollback's priced restore, setup and lost
-             work beside its measured replay), ``_state_bytes()`` beside
-             the checkpoint's bytes, and the step wall at each position
+             monitor, incremental replanner, transition model,
+             ``hysteresis_s`` 120) over an ``ElasticTrainer`` as the
+             ``elastic_reconfig`` example builds it at its defaults
+             (``controller`` and ``report``, what its ``main`` runs):
+             smollm-360M at its published widths and depth on
+             ``[cuda:0] * 8``, the example's seeded availability trace
+             over an 8-device zone, a step every 60 trace seconds, 60
+             steps of 8 x 32 tokens, a checkpoint every 8, with an audit
+             file and a telemetry bus.  The decisions (without the rows
+             the wall clock decides: straggler flags and the bus's
+             detector events) and the reconfigurations (kind, devices, step,
+             resumed at) must be the reference controller's on this trace
+             (``MANAGER_OUTCOMES``, ``MANAGER_RECONFIGS``, pinned on the
+             CPU by ``tests/test_torch_examples_run.py``), every loss is
+             finite, one ``step_time`` a step on the sim clock, the audit
+             file equals the decision log, and every runtime plan is one
+             of phase 3's ``examples_elastic_*`` shapes.  Prints the
+             example's report, each decision (event, action, reason,
+             search ms, cache), each priced transition beside the
+             measured ``reconfig_s`` and its new step's capture (a
+             rollback's priced restore, setup and lost work beside its
+             measured replay), ``_state_bytes()`` beside the checkpoint's
+             bytes, and the step wall at each position
              count.  (b) telemetry on the pipeline phase's graphed ``[1,
              1]`` pipeline: with a bus and without, from the same weights,
              4 pairs of steps in turns after warm-up and capture (losses,
@@ -279,6 +284,29 @@ Phases, each printed as it runs; any failure exits non-zero:
              0), the reference's sample counts.  Launches counted over (a)
              and (b) apart (``launches_manager``,
              ``launches_pipeline_telemetry``).
+   examples  the user entry points (``repro_torch.examples``), each
+             through its ``main`` as ``python -m`` runs it, at its
+             defaults on the card: ``geo_cost_planning`` (Sailor against
+             DTFM, the budget sweep, spot replans); ``quickstart`` (the
+             two plans and the simulator's breakdown, then ``opt-350m``
+             at its published widths and depth, untied, bf16, through a
+             2-stage ``MPMDPipeline`` at tps ``[4, 2]`` on ``[cuda:0] *
+             8``, 3 steps on 2 microbatches of 4 x 2048 tokens, graphed;
+             then its ``execute`` eager from the same weights: losses bit
+             for bit and falling, the step walls side by side);
+             ``train_e2e`` (``demo-100m``, 106.5 M fp32 params, 200
+             graphed steps of 8 x 256 tokens through ``ElasticTrainer``,
+             a checkpoint every 50, tok/s, then a fresh trainer resumes
+             at the latest checkpoint and its 3 losses equal the first
+             trainer's bit for bit); ``serve_batched`` (the serving plan,
+             then ``ContinuousBatchingServer`` at its decode batch on
+             qwen1.5-0.5B at published widths, graphed; then its
+             ``serve_locally`` on an eager server: tokens and
+             ``ServerStats`` equal).  ``elastic_reconfig``'s control loop
+             runs once, in [manager] (a).  Each example's figures, host
+             seconds and launches; the launches over the phase against
+             the count their figures give (``launches_examples``); phase
+             3 holds every shape they launch (``examples_*``).
    autotune  the block autotuner (``kernels/autotune.py``): each of its
              four tuners at the calibrate grid's held-out shapes
              (``AUTOTUNE_SHAPES``), bf16 and fp32, from an empty cache and
@@ -443,7 +471,7 @@ Phases, each printed as it runs; any failure exits non-zero:
              the bound and the 16384-row case (``rows16384``).
 
 Each of phases 5-9 (serve continuous, pipeline, its mesh stages, mesh,
-dryrun's real steps, serve mesh, mesh families, elastic, manager's two paths, autotune, the three MoE, the four
+dryrun's real steps, serve mesh, mesh families, elastic, manager's two paths, examples, autotune, the three MoE, the four
 state-space and the four stubbed-frontend phases too) is
 a main path: the launch
 counts are set to 0 just before it and read just after, and each kernel
@@ -683,19 +711,28 @@ ELASTIC_DEVICES = (1, 4, 2)
 ELASTIC_STEPS, ELASTIC_EVERY = 8, 3
 ELASTIC_EVENTS = ((3, 4, False), (7, 2, True))
 ELASTIC_LAUNCH_STEPS = 3    # launch.train --plan on the one card
-# manager phase (a): Sailor's controller over [elastic]'s trainer on
-# [cuda:0] * 4, a step every MANAGER_STEP_S feed seconds; the feed's
-# (time_s, H100s available): a graceful drop to 3 (runs on 2), the 4 back
-# (clears the hysteresis at t = 360), a bulk preemption to 2, and a blip
-# to 4 that reverts before the hysteresis ends.  The outcomes and
-# reconfigurations are the reference Controller's on this feed
-# (tests/test_torch_manager.py pins them on a stub trainer).
-MANAGER_START, MANAGER_STEPS, MANAGER_EVERY = 4, 11, 3
-MANAGER_STEP_S, MANAGER_HYSTERESIS_S = 60.0, 120.0
-MANAGER_FEED = ((120.0, 3), (240.0, 4), (480.0, 2), (540.0, 4), (600.0, 2))
-MANAGER_OUTCOMES = ("start", "reshard", "defer", "reshard", "rollback",
-                    "defer", "defer")
-MANAGER_RECONFIGS = (("kill-free", 2), ("kill-free", 4), ("rollback", 2))
+# manager phase (a): Sailor's controller over an ElasticTrainer as the
+# elastic_reconfig example builds it at its defaults: smollm-360M at its
+# published widths on [cuda:0] * 8, the example's seeded availability
+# trace, 60 steps of 8 x 32 tokens, a checkpoint every 8.  The decisions
+# (without straggler rows) and the reconfigurations (kind, devices, step,
+# resumed at) are the reference Controller's on that trace
+# (tests/test_torch_examples_run.py pins them on a stub trainer).
+MANAGER_OUTCOMES = (
+    "start", "rollback", "defer", "defer", "reshard", "defer", "defer",
+    "defer", "defer", "rollback", "defer", "defer", "rollback", "defer",
+    "defer", "reshard", "defer", "defer", "reshard", "reshard", "defer",
+    "reshard", "rollback", "defer", "defer", "reshard", "defer", "defer",
+    "reshard", "rollback", "defer", "defer", "defer", "defer", "defer",
+    "defer", "defer", "defer")
+MANAGER_RECONFIGS = (
+    ("rollback", 2, 2, 0), ("kill-free", 4, 4, 4), ("rollback", 2, 10, 8),
+    ("rollback", 1, 15, 8), ("kill-free", 2, 11, 11),
+    ("kill-free", 4, 16, 16), ("kill-free", 2, 17, 17),
+    ("kill-free", 4, 21, 21), ("rollback", 1, 23, 16),
+    ("kill-free", 2, 19, 19), ("kill-free", 4, 23, 23),
+    ("rollback", 1, 26, 24))
+MANAGER_DP = (1, 2, 4, 8)   # runtime plans' dp; phase 3's examples_elastic_*
 # manager phase (b): [pipeline]'s graphed [1, 1] pipeline, pairs of steps
 # detached and attached (no fault) in turns; then the bus with the
 # detectors and RCA, a compute delay on stage 1 from step 14 (after the
@@ -703,6 +740,12 @@ MANAGER_RECONFIGS = (("kill-free", 2), ("kill-free", 4), ("rollback", 2))
 TEL_STEPS, TEL_FAULT_STEP, TEL_FAULT_FACTOR = 20, 14, 2.0
 TEL_DETECT_WITHIN = 4       # steps from the fault to its Straggler
 TEL_PAIRS = 4
+
+# [examples]: the five user entry points at their defaults; quickstart's
+# stages at the reference's rule on 8 positions (the plan's pp 2): tp 4, 2
+EXAMPLES_TPS = [4, 2]
+EXAMPLES_KERNELS = ("flash_attention", "fused_add_rmsnorm",
+                    "flash_attention_bwd", "fused_add_rmsnorm_bwd")
 
 
 # [autotune]: each tuner at the [calibrate] grid's held-out shapes (HELD_OUT;
@@ -1750,6 +1793,13 @@ def phase_kernels(main_lens):
             b_, s_, hq, hk, d_ = shape
             attn.append(attention_case(gen, label, b_, s_, s_, hq, hk, d_,
                                        True, dt))
+    # [examples]' (quickstart's stages, train_e2e, the elastic loop's
+    # positions, the served prefills)
+    for kernel, label, shape, dt, _ in examples_shapes():
+        if kernel == "flash_attention":
+            b_, s_, hq, hk, d_ = shape
+            attn.append(attention_case(gen, label, b_, s_, s_, hq, hk, d_,
+                                       True, dt))
     attn += [
         attention_case(gen, "ragged_s509", BATCH, 509, 509, h, kh, d, True,
                        bf16),
@@ -1834,6 +1884,9 @@ def phase_kernels(main_lens):
         if kernel == "fused_add_rmsnorm":
             norm.append(fused_case(gen, label, *shape, dt))
     for kernel, label, shape, dt, _ in mesh_families_shapes():
+        if kernel == "fused_add_rmsnorm":
+            norm.append(fused_case(gen, label, *shape, dt))
+    for kernel, label, shape, dt, _ in examples_shapes():
         if kernel == "fused_add_rmsnorm":
             norm.append(fused_case(gen, label, *shape, dt))
     norm += [fused_case(gen, "ragged_rows4071", 4071, dm, bf16),
@@ -2036,6 +2089,11 @@ def phase_kernels(main_lens):
             b_, s_, hq, hk, d_ = shape
             abwd.append(attention_bwd_case(gen, label, b_, s_, s_, hq, hk,
                                            d_, True, dt))
+    for kernel, label, shape, dt, bwd in examples_shapes():
+        if kernel == "flash_attention" and bwd:
+            b_, s_, hq, hk, d_ = shape
+            abwd.append(attention_bwd_case(gen, label, b_, s_, s_, hq, hk,
+                                           d_, True, dt))
     # [ssm train]'s hybrid microbatch: the shared block at head dim 80
     hcfg = get_config(HYBRID_ARCH)
     hmb = HYBRID_TRAIN_DATA["global_batch"] // \
@@ -2096,6 +2154,9 @@ def phase_kernels(main_lens):
             nbwd.append(fused_bwd_case(gen, f"{label}_rows{b_ * s_}",
                                        b_ * s_, vcfg.d_model, dt))
     for kernel, label, shape, dt, bwd in mesh_families_shapes():
+        if kernel == "fused_add_rmsnorm" and bwd:
+            nbwd.append(fused_bwd_case(gen, label, *shape, dt))
+    for kernel, label, shape, dt, bwd in examples_shapes():
         if kernel == "fused_add_rmsnorm" and bwd:
             nbwd.append(fused_bwd_case(gen, label, *shape, dt))
     nbwd[0]["rows16384"] = {key: nbwd[1][key] for key in (
@@ -4802,7 +4863,7 @@ def phase_elastic() -> dict:
         nbytes = os.path.getsize(path)
         disk = shutil.disk_usage(workdir)
         log("[elastic] " + json.dumps(dict(
-            reconfigs=_with_captures(tr), captures=tr.captures,
+            reconfigs=tr.reconfigs, captures=tr.captures,
             checks=checks, losses=losses,
             steps=[r["step"] for r in log_rows],
             replayed_step=back, replayed_loss=replay,
@@ -4841,15 +4902,6 @@ def phase_elastic() -> dict:
     return launches
 
 
-def _with_captures(tr) -> list:
-    """The trainer's reconfigurations, each with the host seconds of the
-    capture its new (graphed) step made (``capture_s``, beside
-    ``reconfig_s``; None where the step ran eagerly)."""
-    return [dict(r, capture_s=next((c["capture_s"] for c in tr.captures
-                                    if c["step"] >= r["resumed_at"]), None))
-            for r in tr.reconfigs]
-
-
 def _elastic_launch_check(label: str, cfg, dc, rows) -> dict:
     """The launches counted since the last reset, against the trainer's
     log ``rows``: each position-step launches the attention forward and
@@ -4868,49 +4920,50 @@ def _elastic_launch_check(label: str, cfg, dc, rows) -> dict:
     return launches
 
 
+def _rows_from(rows, reconfigs) -> list:
+    """The index in ``rows`` (a trainer's log) of the first step each of
+    ``reconfigs`` ran: the row of its ``resumed_at`` right after the row
+    of the step before its ``step``."""
+    out, at = [], 1
+    for r in reconfigs:
+        at = next(i for i in range(at, len(rows))
+                  if rows[i]["step"] == r["resumed_at"]
+                  and rows[i - 1]["step"] == r["step"] - 1)
+        out.append(at)
+    return out
+
+
 def _manager_controller() -> dict:
     """(a) Sailor's control loop (``manager.Controller``: the availability
-    monitor, the incremental replanner, the transition model) driving
-    [elastic]'s trainer on [cuda:0] * MANAGER_START through MANAGER_FEED:
-    the decisions must be the reference controller's on this feed
-    (MANAGER_OUTCOMES, MANAGER_RECONFIGS), the rollback must resume at
-    the last checkpoint's step, every loss finite, a ``step_time`` sample
-    a step on the controller's sim clock, the audit file equal to the
-    decision log.  Prints each decision, each priced transition beside
-    the trainer's measured ``reconfig_s``, ``_state_bytes()`` beside the
-    checkpoint's bytes and the step wall at each position count."""
+    monitor, the incremental replanner, the transition model) over an
+    ``ElasticTrainer`` as the ``elastic_reconfig`` example runs it at its
+    defaults (``controller`` and ``report``, what its ``main`` runs), with
+    an audit file and a telemetry bus: the decisions must be the
+    reference controller's on the example's trace (MANAGER_OUTCOMES,
+    MANAGER_RECONFIGS), every loss finite, a ``step_time`` sample a step
+    on the controller's sim clock, the audit file equal to the decision
+    log; decisions the wall clock made (straggler flags, detector events)
+    are printed and left out of the comparison, the reconfigurations
+    are not.  Prints the example's report, each decision, each priced
+    transition beside the trainer's measured ``reconfig_s`` and its new
+    step's capture, ``_state_bytes()`` beside the checkpoint's bytes and
+    the step wall at each position count."""
     import shutil
     import tempfile
-    from repro_torch.manager import (AvailabilityMonitor, Controller,
-                                     ControllerConfig, IncrementalReplanner,
-                                     ListFeed, TransitionConfig,
-                                     TransitionModel)
+    from repro_torch.examples import elastic_reconfig as example
+    from repro_torch.examples.common import positions
     from repro_torch.telemetry import TelemetryBus, read_jsonl
-    from repro_torch.train.elastic import ElasticTrainer
-    cfg = dataclasses.replace(get_config(ARCH), remat="full")
-    dc = data_lib.DataConfig(**TRAIN_DATA)
-    ocfg = opt_lib.OptimizerConfig(**TRAIN_OPT)
     workdir = tempfile.mkdtemp(prefix="manager-")
     audit = os.path.join(workdir, "audit.jsonl")
     ops.reset_launches()
     try:
-        tr = ElasticTrainer(cfg, ocfg, dc, os.path.join(workdir, "ckpt"),
-                            checkpoint_every=MANAGER_EVERY,
-                            devices=[torch.device("cuda", 0)] * MANAGER_START)
+        t0 = time.perf_counter()
+        ctl = example.controller(
+            get_config(example.ARCH),
+            positions("cuda", example.ZONE_DEVICES),
+            os.path.join(workdir, "ckpt"), audit_path=audit)
+        tr = ctl.trainer
         tr.ckpt.keep = 1        # the latest is all a rollback reads
-        job = TrainJob(cfg=get_config(ARCH), seq_len=TRAIN_DATA["seq_len"],
-                       global_batch=TRAIN_DATA["global_batch"])
-        feed = ListFeed([(t, single_zone("H100", n))
-                         for t, n in MANAGER_FEED])
-        ctl = Controller(
-            tr, AvailabilityMonitor(single_zone("H100", MANAGER_START),
-                                    [feed]),
-            IncrementalReplanner(job, Objective(MAX_THROUGHPUT)),
-            transition=TransitionModel(TransitionConfig(
-                hysteresis_s=MANAGER_HYSTERESIS_S)),
-            config=ControllerConfig(step_time_s=MANAGER_STEP_S,
-                                    max_devices=MANAGER_START,
-                                    audit_path=audit))
         bus = TelemetryBus()
         ctl.attach_telemetry(bus)
         # what the loop priced (each decide's details) and built (plans)
@@ -4930,36 +4983,40 @@ def _manager_controller() -> dict:
             plans.append(tr.plan)
 
         ctl.transition.decide, tr.build = on_decide, on_build
-        rows = ctl.run(MANAGER_STEPS)
+        rows = ctl.run(example.STEPS)
+        report = example.report(ctl, rows)
+        seconds = time.perf_counter() - t0
         ckpt_step = tr.ckpt.latest_step()
         ckpt_bytes = os.path.getsize(os.path.join(
             workdir, "ckpt", f"step-{ckpt_step}", "state.npz"))
         records = read_jsonl(audit)
-        decisions = [d for d in ctl.decisions if not d.get("straggler")]
+        # rows the wall clock decides (the trainer's straggler flags, the
+        # bus's detector events, which carry a root cause) have no
+        # counterpart in the reference's run; the reconfigurations do
+        decisions = [d for d in ctl.decisions
+                     if not d.get("straggler") and "root_cause" not in d]
         outcomes = [d["action"] for d in decisions]
-        reconfigs = [(r["kind"], r["n_devices"]) for r in tr.reconfigs]
+        reconfigs = [(r["kind"], r["n_devices"], r["step"], r["resumed_at"])
+                     for r in tr.reconfigs]
         losses = [r["loss"] for r in rows]
         times = [s.time_s for s in bus.series("step_time", ())]
-        rollback = [r for r in tr.reconfigs if r["kind"] == "rollback"]
         audit_ok = [{k: v for k, v in r.items()
                      if k not in ("kind", "wall_time_s")} for r in records] \
             == json.loads(json.dumps(ctl.decisions))
         if (outcomes != list(MANAGER_OUTCOMES)
-                or reconfigs != list(MANAGER_RECONFIGS)
-                or not rollback or rollback[-1]["resumed_at"]
-                != rollback[-1]["step"] // MANAGER_EVERY * MANAGER_EVERY
+                or reconfigs != [tuple(r) for r in MANAGER_RECONFIGS]
                 or not all(np.isfinite(losses))
+                or report["positions"] != example.ZONE_DEVICES
                 or len(times) != len(rows) or max(times) > ctl.sim_time
                 or not audit_ok or not tr.step_fn.graphed
-                or any(p.tp != 1 or p.dp not in ELASTIC_DEVICES
-                       for p in plans)):
+                or any(p.tp != 1 or p.dp not in MANAGER_DP for p in plans)):
             raise AssertionError(
                 f"[manager] outcomes {outcomes} (want "
-                f"{list(MANAGER_OUTCOMES)}), reconfigs {tr.reconfigs}, "
-                f"losses {losses}, step_time at {times} (sim clock "
-                f"{ctl.sim_time}), audit equal {audit_ok}, plans {plans} "
-                f"(phase 3 holds dp {ELASTIC_DEVICES} at tp 1)\n"
-                + ctl.summary())
+                f"{list(MANAGER_OUTCOMES)}), reconfigs {reconfigs} (want "
+                f"{list(MANAGER_RECONFIGS)}), losses {losses}, step_time "
+                f"at {times} (sim clock {ctl.sim_time}), audit equal "
+                f"{audit_ok}, plans {plans} (phase 3 holds dp {MANAGER_DP} "
+                f"at tp 1)\n" + ctl.summary())
         for d in ctl.decisions:
             log("[manager] decision " + json.dumps(dict(
                 time_s=d["time_s"], step=d["step"], event=d["event"],
@@ -4973,7 +5030,8 @@ def _manager_controller() -> dict:
             raise AssertionError(f"[manager] {len(commits)} priced commits "
                                  f"for reconfigs {tr.reconfigs}")
         tm = ctl.transition
-        for p, r in zip(commits, _with_captures(tr)):
+        for p, r, start in zip(commits, tr.reconfigs,
+                               _rows_from(rows, tr.reconfigs)):
             row = dict(kind=r["kind"], at_step=r["step"],
                        resumed_at=r["resumed_at"], n_devices=r["n_devices"],
                        priced_s=p["cost_s"],
@@ -4982,8 +5040,6 @@ def _manager_controller() -> dict:
                        capture_s=r["capture_s"])
             if r["kind"] == "rollback":
                 lost = p["details"]["lost_steps"]
-                start = max(i for i, x in enumerate(rows)
-                            if x["step"] == r["resumed_at"])
                 replay = [x["time_s"] for x in rows[start:start + lost]]
                 row.update(
                     rollback_cost_s=p["cost_s"], lost_steps=lost,
@@ -4997,6 +5053,8 @@ def _manager_controller() -> dict:
         for r in rows:
             walls.setdefault(r["n_devices"], []).append(r["time_s"] * 1e3)
         log("[manager] " + json.dumps(dict(
+            model=report["model"], n_layers=report["n_layers"],
+            positions=report["positions"], seconds=seconds,
             state_bytes_priced=ctl._state_bytes(),
             checkpoint_bytes=ckpt_bytes, checkpoint_step=ckpt_step,
             ratio=ckpt_bytes / ctl._state_bytes(),
@@ -5005,10 +5063,12 @@ def _manager_controller() -> dict:
                 for n, w in walls.items()},
             losses=losses, steps=[r["step"] for r in rows],
             plans=[dataclasses.asdict(p) for p in plans],
-            replanner=ctl.replanner.stats, captures=tr.captures,
+            outcomes=report["outcomes"], stragglers=report["stragglers"],
+            replanner=report["replanner"], captures=tr.captures,
             step_time_at=times, sim_time=ctl.sim_time,
             audit_records=len(records))))
-        launches = _elastic_launch_check("[manager]", cfg, dc, rows)
+        launches = _elastic_launch_check("[manager]", tr.cfg, tr.data_cfg,
+                                         rows)
         del tr, ctl
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -5151,6 +5211,203 @@ def phase_manager() -> tuple:
     out = _manager_controller(), _manager_pipeline()
     log(f"[manager] phase seconds {time.perf_counter() - t0:.1f}")
     return out
+
+
+# --- [examples]: the user entry points ---------------------------------------------
+
+def examples_shapes():
+    """(kernel, label, shape, dtype, backward) of what the examples
+    launch: quickstart's pipeline (``opt-350m``, a microbatch of
+    ``FULL_BATCH`` on each stage's positions, heads split over its tp;
+    its stages run the unfused norm, so attention only), train_e2e's
+    step (``demo-100m`` fp32, a microbatch), the elastic loop's positions
+    in [manager] (a) (smollm-360M, its 8 x 32 tokens over dp
+    ``MANAGER_DP``; 15/5 heads divide no 'model' axis past 1, so a
+    position holds them all) and the served prefills (qwen1.5-0.5B,
+    batch 1 at the prompts' pow2 buckets, forward only)."""
+    from repro_torch.examples import (elastic_reconfig, quickstart,
+                                      serve_batched, train_e2e)
+    bf16, f32 = torch.bfloat16, torch.float32
+    q = quickstart.execute_config(False)
+    _, mbs, seq = quickstart.FULL_BATCH
+    for i, tp in enumerate(EXAMPLES_TPS):
+        h, kh = _local_heads(q.n_heads, q.n_kv_heads, tp)
+        yield ("flash_attention", f"examples_quickstart_stage{i}_tp{tp}",
+               (mbs, seq, h, kh, q.hd), bf16, True)
+    t = train_e2e.CFG
+    mb, s_ = train_e2e.GLOBAL_BATCH // train_e2e.NUM_MICRO, train_e2e.SEQ_LEN
+    yield ("flash_attention", "examples_train_e2e",
+           (mb, s_, t.n_heads, t.n_kv_heads, t.hd), f32, True)
+    yield ("fused_add_rmsnorm", f"examples_train_e2e_rows{mb * s_}",
+           (mb * s_, t.d_model), f32, True)
+    e = get_config(elastic_reconfig.ARCH)
+    gb, s_ = (elastic_reconfig.DATA["global_batch"],
+              elastic_reconfig.DATA["seq_len"])
+    for dp in MANAGER_DP:
+        b = gb // dp
+        yield ("flash_attention", f"examples_elastic_dp{dp}",
+               (b, s_, e.n_heads, e.n_kv_heads, e.hd), bf16, True)
+        yield ("fused_add_rmsnorm", f"examples_elastic_dp{dp}_rows{b * s_}",
+               (b * s_, e.d_model), bf16, True)
+    v = get_config(serve_batched.ARCH)
+    buckets = sorted({_next_pow2(len(r.prompt))
+                      for r in serve_batched.requests(v)})
+    for b_ in buckets:
+        yield ("flash_attention", f"examples_serve_s{b_}",
+               (1, b_, v.n_heads, v.n_kv_heads, v.hd), bf16, False)
+        yield ("fused_add_rmsnorm", f"examples_serve_rows{b_}",
+               (b_, v.d_model), bf16, False)
+
+
+def _example(name: str, argv) -> tuple:
+    """``repro_torch.examples.<name>.main(argv)``: its figures, host
+    seconds and the launches it made."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    out = mod.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    log(f"[examples] {name} seconds {seconds:.1f}, launches "
+        f"{json.dumps(launches)}")
+    return out, seconds, launches
+
+
+def _examples_want(q: dict, eager: dict, te: dict, sv: dict,
+                   sv_eager: dict) -> dict:
+    """The launches the examples' figures give: the pipeline's attention
+    forward 3 x layers x positions x microbatches a step (the forward,
+    and the backward's recompute under remat) and its backward once (no
+    fused norm: its stages run the unfused seam); a trainer's step the
+    attention forward and the fused norm 2 x layers x microbatches (the
+    forward and its recompute under full remat) and each backward once;
+    a served prefill each forward kernel once a layer."""
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    ex = q["execute"]
+    steps = len(ex["losses"]) + len(eager["losses"])
+    per = ex["n_layers"] // len(ex["tps"]) * sum(ex["tps"]) * ex["batch"][0]
+    want["flash_attention"] += 3 * per * steps
+    want["flash_attention_bwd"] += per * steps
+    # train_e2e: its steps, the resumed trainer's and the first one's
+    # over the same steps
+    steps = len(te["losses"]) + 2 * len(te["resumed_losses"])
+    per = te["n_layers"] * te["num_microbatches"] * steps
+    for fwd, bwd in (("flash_attention", "flash_attention_bwd"),
+                     ("fused_add_rmsnorm", "fused_add_rmsnorm_bwd")):
+        want[fwd] += 2 * per
+        want[bwd] += per
+    prefills = sv["serve"]["stats"]["prefill_calls"] + \
+        sv_eager["stats"]["prefill_calls"]
+    want["flash_attention"] += sv["serve"]["n_layers"] * prefills
+    want["fused_add_rmsnorm"] += sv["serve"]["n_layers"] * prefills
+    return want
+
+
+def _quickstart_eager(q: dict) -> dict:
+    """quickstart's execute half again, eager, from the same seed-0
+    weights on the same positions and batch."""
+    from repro_torch.examples import quickstart
+    from repro_torch.examples.common import positions
+    cfg = quickstart.execute_config(False)
+    return quickstart.execute(
+        cfg, q["execute"]["tps"], positions("cuda", quickstart.POSITIONS),
+        quickstart.tokens(cfg, quickstart.FULL_BATCH), graphed=False)
+
+
+def _serve_eager(sv: dict) -> dict:
+    """serve_batched's requests again on an eager server of the same
+    seed-0 weights at the planned decode batch."""
+    from repro_torch.examples import serve_batched
+    cfg = get_config(serve_batched.ARCH)
+    params = model_lib.init(cfg, 0, device="cuda")
+    return serve_batched.serve_locally(cfg, params, sv["decode_batch"],
+                                       graphed=False)
+
+
+def phase_examples() -> dict:
+    """The user entry points at their defaults on the card (the module
+    docstring's ``examples``; ``elastic_reconfig``'s loop runs in
+    [manager] (a)), ``_release`` between them; a main path for the
+    attention and fused-norm kernels, forward and backward.  Returns the
+    launches over the four and the eager runs they are held against."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="examples-")
+    ops.reset_launches()
+    try:
+        geo, secs_geo, _ = _example("geo_cost_planning", [])
+        if not (geo["dtfm"] and geo["sailor"]["throughput"]
+                > geo["dtfm"]["throughput"] and len(geo["spot"]) == 3):
+            raise AssertionError(f"[examples] geo_cost_planning {geo}")
+        log("[examples] geo_cost_planning " + json.dumps(
+            dict(geo, seconds=secs_geo)))
+        _release()
+        q, secs_q, _ = _example("quickstart", [])
+        _release()
+        eg = _quickstart_eager(q)
+        ex = q["execute"]
+        if not (ex["tps"] == EXAMPLES_TPS and ex["n_layers"] == 24
+                and ex["positions"] == 8 and all(ex["graphed_stages"])
+                and not any(eg["graphed_stages"])
+                and eg["losses"] == ex["losses"]
+                and ex["losses"][-1] < ex["losses"][0]):
+            raise AssertionError(f"[examples] quickstart {q}, eager {eg}")
+        log("[examples] quickstart plans " + json.dumps(
+            {k: q[k] for k in ("throughput", "min_cost", "simulator")}))
+        log("[examples] quickstart execute " + json.dumps(dict(
+            model=ex["model"], tps=ex["tps"], batch=ex["batch"],
+            losses=ex["losses"], eager_losses=eg["losses"],
+            bit_identical=eg["losses"] == ex["losses"],
+            step_wall_ms=[w * 1e3 for w in ex["step_wall_s"]],
+            eager_step_wall_ms=[w * 1e3 for w in eg["step_wall_s"]],
+            replay_over_eager=ex["step_wall_s"][-1]
+            / statistics.median(eg["step_wall_s"]), seconds=secs_q)))
+        _release()
+        te, secs_te, _ = _example("train_e2e", [
+            "--workdir", os.path.join(workdir, "train_e2e")])
+        if not (te["bit_identical"] and te["resumed_at"]
+                == te["latest_checkpoint"] == te["steps"]
+                and all(np.isfinite(te["losses"]))):
+            raise AssertionError(f"[examples] train_e2e {te}")
+        walls = [w * 1e3 for w in te["step_wall_s"]]
+        log("[examples] train_e2e " + json.dumps(dict(
+            params=te["params"], steps=te["steps"],
+            tokens_per_s=te["tokens_per_s"], seconds_training=te["seconds"],
+            first_loss=te["losses"][0], last_loss=te["losses"][-1],
+            step_wall_ms_median=statistics.median(walls),
+            step_wall_ms_first=walls[:3], captures=te["captures"],
+            resumed_at=te["resumed_at"],
+            resumed_losses=te["resumed_losses"],
+            uninterrupted_losses=te["uninterrupted_losses"],
+            bit_identical=te["bit_identical"], seconds=secs_te)))
+        _release()
+        sv, secs_sv, _ = _example("serve_batched", [])
+        sv_eager = _serve_eager(sv)
+        equal = (sv_eager["outputs"] == sv["serve"]["outputs"]
+                 and sv_eager["stats"] == sv["serve"]["stats"])
+        if not (sv["serve"]["graphed"] and not sv_eager["graphed"]
+                and equal):
+            raise AssertionError(f"[examples] serve_batched {sv}, eager "
+                                 f"{sv_eager}")
+        log("[examples] serve_batched " + json.dumps(dict(
+            plan=sv["plan"], decode_batch=sv["decode_batch"],
+            ttft_p99=sv["ttft_p99"], tpot_p99=sv["tpot_p99"],
+            tokens_per_s_planned=sv["tokens_per_s"],
+            cost_per_token=sv["cost_per_token"],
+            graphed=sv["serve"], eager=sv_eager,
+            tokens_equal=equal, seconds=secs_sv)))
+        launches = _path_launches("examples", EXAMPLES_KERNELS)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    want = _examples_want(q, eg, te, sv, sv_eager)
+    if launches != want:
+        raise AssertionError(f"[examples] launches {json.dumps(launches)}, "
+                             f"expected {json.dumps(want)}")
+    _release()
+    log(f"[examples] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
 
 
 # --- [autotune] and the MoE family ------------------------------------------------
@@ -6791,6 +7048,7 @@ def main() -> int:
     mesh_families_launches = phase_mesh_families(smi)
     elastic_launches = phase_elastic()
     manager_launches, tel_launches = phase_manager()
+    examples_launches = phase_examples()
     autotune_launches = phase_autotune(cal_accuracy)
     moe_serve_launches = phase_moe_serve()
     moe_train_launches = phase_moe_train()
@@ -6829,6 +7087,7 @@ def main() -> int:
             launches_elastic=elastic_launches.get(name, 0),
             launches_manager=manager_launches.get(name, 0),
             launches_pipeline_telemetry=tel_launches.get(name, 0),
+            launches_examples=examples_launches.get(name, 0),
             launches_autotune=autotune_launches.get(name, 0),
             launches_moe_serve=moe_serve_launches.get(name, 0),
             launches_moe_train=moe_train_launches.get(name, 0),

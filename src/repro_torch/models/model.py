@@ -87,6 +87,17 @@ def init(cfg: ModelConfig, seed: int = 0, *, device: DeviceArg = None):
     return shd.init_from_decls(decls(cfg), gen, cfg.param_dtype, dev)
 
 
+def param_count(cfg: ModelConfig) -> int:
+    """Exact parameter count from declarations (validates cfg.total_params)."""
+    total = 0
+    for _, d in shd.iter_decls(decls(cfg)):
+        n = 1
+        for s in d.shape:
+            n *= s
+        total += n
+    return total
+
+
 def cache_decls(cfg: ModelConfig, batch: int, max_len: int):
     mod = get_module(cfg)
     if cfg.family == "ssm":

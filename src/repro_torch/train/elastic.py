@@ -20,7 +20,9 @@ CUDA graph where the mesh's positions share one card, eager elsewhere.
 A graph is bound to the storage of the params and state it first ran
 on, so wherever they are replaced (a kill-free reshard, a rollback,
 ``restore_from_checkpoint``) the trainer makes a new step, which captures
-anew; ``captures`` lists each capture's step and seconds.
+anew; ``captures`` lists each capture's step and seconds, and a
+reconfiguration's row takes the seconds of the capture its own new step
+made (``capture_s``, None until that step captures).
 
 Straggler mitigation: per-step wall times feed a median detector; a step
 slower than ``factor``x the running median flags the event to the
@@ -135,6 +137,8 @@ class ElasticTrainer:
         # one row a graph captured: the step it captured at, the devices
         # and the capture's host seconds
         self.captures: List[Dict[str, Any]] = []
+        # the reconfiguration whose new step is the current one, if any
+        self._step_reconfig: Optional[Dict[str, Any]] = None
 
         self.mesh: Optional[Mesh] = None
         self.plan: Optional[RuntimePlan] = None
@@ -193,6 +197,7 @@ class ElasticTrainer:
         self.step_fn = ts_lib.jit_train_step(
             self.cfg, self.opt_cfg, self.mesh, plan.num_microbatches,
             self.data_cfg.micro_batch, micro_weights=plan.micro_weights)
+        self._step_reconfig = None
 
     # --- failure path -------------------------------------------------------------
     def restore_from_checkpoint(self, n_devices: int):
@@ -225,7 +230,8 @@ class ElasticTrainer:
         self.reconfigs.append({
             "step": step_at_event, "resumed_at": self.step,
             "n_devices": n_devices, "kind": kind,
-            "reconfig_s": time.perf_counter() - t0})
+            "reconfig_s": time.perf_counter() - t0, "capture_s": None})
+        self._step_reconfig = self.reconfigs[-1]
 
     # --- telemetry -------------------------------------------------------------------
     def _emit_telemetry(self, step_s: float, data_s: float) -> None:
@@ -273,6 +279,9 @@ class ElasticTrainer:
                 self.captures.append({
                     "step": self.step, "n_devices": self.plan.n_devices,
                     "capture_s": self.step_fn.capture_seconds})
+                if self._step_reconfig is not None:
+                    self._step_reconfig["capture_s"] = \
+                        self.step_fn.capture_seconds
             straggler = self.detector.observe(self.step, dt)
             self.log.append({"step": self.step, "time_s": dt, "loss": loss,
                              "n_devices": self.plan.n_devices,

@@ -103,6 +103,45 @@ def test_runtime_plan_equals_the_reference():
         RuntimePlan(4, 2, 1).mesh_shape()
 
 
+def test_a_reconfiguration_takes_its_own_steps_capture(tmp_path,
+                                                      monkeypatch):
+    """A reconfiguration's ``capture_s`` is the capture its own new step
+    made: a kill-free reshard at step 3 whose step captures at step 4,
+    then a rollback at step 5 to the step-3 checkpoint whose step
+    captures at step 4 again.  The step is a stand-in that "captures" at
+    its second call, as a graphed one does (CPU positions run eagerly)."""
+    made = []
+    real = tts.jit_train_step
+
+    class Capturing:
+        def __init__(self, *args, **kw):
+            self.inner, self.calls = real(*args, **kw), 0
+            self.capture_seconds = None
+            made.append(self)
+
+        def __call__(self, *args):
+            self.calls += 1
+            if self.calls == 2:
+                self.capture_seconds = float(len(made))
+            return self.inner(*args)
+
+    monkeypatch.setattr(tts, "jit_train_step", Capturing)
+    tr = ElasticTrainer(_cfg(), _opt(), data_lib.DataConfig(
+        seq_len=16, global_batch=4), workdir=str(tmp_path),
+        checkpoint_every=3, devices=["cpu"] * 4)
+    tr.train(3)
+    tr.on_availability_change(2)
+    tr.train(2)
+    tr.on_availability_change(2, failure=True)
+    tr.train(3)
+    assert [c["step"] for c in tr.captures] == [1, 4, 4]
+    assert [(r["kind"], r["step"], r["resumed_at"]) for r in tr.reconfigs] \
+        == [("kill-free", 3, 3), ("rollback", 5, 3)]
+    assert [r["capture_s"] for r in tr.reconfigs] == \
+        [c["capture_s"] for c in tr.captures[1:]]
+    assert len(set(c["capture_s"] for c in tr.captures)) == 3
+
+
 # --- the reference's scenarios, held to their invariants -------------------------------
 
 def test_elastic_resize_and_rollback(tmp_path):

@@ -1283,9 +1283,12 @@ def test_graphed_mesh_stage_pipeline_matches_eager(cuda):
 
 def test_graphed_mesh_elastic_trainer_reshard(cuda, tmp_path, monkeypatch):
     """An ``ElasticTrainer`` on ``[cuda:0] * 4`` on the graphed step:
-    (1, 1) for 3 steps, then a kill-free (2, 2): the whole state after
-    the reshard equals the state before it bit for bit, the new step
-    captures anew, and the losses and final state equal a trainer on the
+    (1, 1) for 3 steps, then a kill-free (2, 2) for 3, then a rollback to
+    the step-4 checkpoint on (2, 2) for 3: the whole state after the
+    reshard equals the state before it bit for bit, each new step
+    captures anew, each reconfiguration's ``capture_s`` is its own new
+    step's capture (the rollback's, not the reshard's at the step it
+    resumes at), and the losses and final state equal a trainer on the
     eager step (``jit_train_step(..., graphed=False)``) bit for bit."""
     import functools
     from repro_torch.dist import placement as pm
@@ -1304,9 +1307,9 @@ def test_graphed_mesh_elastic_trainer_reshard(cuda, tmp_path, monkeypatch):
             {"p": t.params, "o": t.opt_state})}
 
     def run(name):
-        shapes = iter([(1, 1), (2, 2)])
+        shapes = iter([(1, 1), (2, 2), (2, 2)])
         t = ElasticTrainer(cfg, ocfg, dc, str(tmp_path / name),
-                           devices=["cuda:0"] * 4,
+                           checkpoint_every=4, devices=["cuda:0"] * 4,
                            plan_fn=lambda n: RuntimePlan(n, *next(shapes)))
         t.build(1)
         t.train(3)
@@ -1314,6 +1317,8 @@ def test_graphed_mesh_elastic_trainer_reshard(cuda, tmp_path, monkeypatch):
         t.on_availability_change(4)
         after = whole(t)
         assert all(torch.equal(after[k], before[k]) for k in before)
+        t.train(3)
+        t.on_availability_change(4, failure=True)
         t.train(3)
         return t
 
@@ -1324,8 +1329,13 @@ def test_graphed_mesh_elastic_trainer_reshard(cuda, tmp_path, monkeypatch):
     assert not ref.step_fn.graphed and ref.captures == []
     tr = run("graphed")
     assert tr.step_fn.graphed
-    assert [r["step"] for r in tr.captures] == [1, 4]
-    assert [r["n_devices"] for r in tr.captures] == [1, 4]
+    assert [r["step"] for r in tr.captures] == [1, 4, 5]
+    assert [r["n_devices"] for r in tr.captures] == [1, 4, 4]
+    assert [(r["kind"], r["step"], r["resumed_at"]) for r in tr.reconfigs] \
+        == [("kill-free", 3, 3), ("rollback", 6, 4)]
+    assert [r["capture_s"] for r in tr.reconfigs] == \
+        [r["capture_s"] for r in tr.captures[1:]]
+    assert all(r["capture_s"] is None for r in ref.reconfigs)
     assert [r["loss"] for r in tr.log] == [r["loss"] for r in ref.log]
     got, want = whole(tr), whole(ref)
     assert all(torch.equal(got[k], want[k]) for k in want)
@@ -2737,3 +2747,22 @@ def test_stub_families_on_a_mesh_of_one_card(cuda, policy, shape):
             want, _ = serve_step.make_decode(cfg)(single, c1, nxt)
             got, _ = serve_step.make_decode(cfg, mesh)(sharded, cm, nxt)
             assert (pm.unshard(got, "cuda") - want).abs().max() <= 1e-3
+
+
+def test_quickstart_reduced_graphed_equals_eager(cuda):
+    """``repro_torch.examples.quickstart`` with ``--reduced`` on the card:
+    the plan's 2 stages at tp [4, 2] on ``[cuda:0] * 8``, both graphed;
+    the three losses falling and equal, bit for bit, to those of its
+    ``execute`` run eagerly from the same weights."""
+    from repro_torch.examples import quickstart
+    from repro_torch.examples.common import positions
+    out = quickstart.main(["--reduced"])
+    ex = out["execute"]
+    assert ex["tps"] == [4, 2] and ex["graphed_stages"] == [True, True]
+    cfg = quickstart.execute_config(True)
+    eager = quickstart.execute(
+        cfg, ex["tps"], positions("cuda", quickstart.POSITIONS),
+        quickstart.tokens(cfg, quickstart.REDUCED_BATCH), graphed=False)
+    assert eager["graphed_stages"] == [False, False]
+    assert ex["losses"] == eager["losses"]
+    assert ex["losses"][-1] < ex["losses"][0]

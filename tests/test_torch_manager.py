@@ -15,8 +15,7 @@ The reference's own controller runs (``test_controller_end_to_end``,
 this jax (``ROADMAP.md`` §3, R1).  So both controllers drive the same
 stub trainer (``_StubTrainer``: steps, checkpoints and rollbacks
 counted, no model, neither JAX nor torch) and their decision logs must be
-equal; that pins the decisions ``chip_smoke.py``'s ``[manager]`` phase
-holds on the card.  The port's controller then drives its real
+equal.  The port's controller then drives its real
 ``ElasticTrainer`` on CPU positions and must take the same decisions.
 """
 import dataclasses
@@ -415,20 +414,27 @@ class _StubTrainer:
         return self.log
 
 
+# 4 H100s, a step every 60 feed seconds; the feed's (time_s, H100s
+# available): a graceful drop to 3 (runs on 2), the 4 back (clears the
+# hysteresis at t = 360), a bulk preemption to 2, and a blip to 4 that
+# reverts before the hysteresis ends
+MANAGER_FEED = ((120.0, 3), (240.0, 4), (480.0, 2), (540.0, 4), (600.0, 2))
+# the reference Controller's outcomes and reconfigurations on it
+MANAGER_OUTCOMES = ("start", "reshard", "defer", "reshard", "rollback",
+                    "defer", "defer")
+MANAGER_RECONFIGS = (("kill-free", 2), ("kill-free", 4), ("rollback", 2))
+
 _FEEDS = {
-    # [manager]'s feed, on chip_smoke.py's job (smollm-360M, seq 1024)
+    # MANAGER_FEED on chip_smoke.py's train job (smollm-360M, seq 1024)
     "manager": dict(
-        start=chip_smoke.MANAGER_START,
-        feed=[(t, ("H100", n)) for t, n in chip_smoke.MANAGER_FEED],
+        start=4, feed=[(t, ("H100", n)) for t, n in MANAGER_FEED],
         job=dict(seq=chip_smoke.TRAIN_DATA["seq_len"],
                  gbs=chip_smoke.TRAIN_DATA["global_batch"]),
-        nm=chip_smoke.TRAIN_DATA["num_microbatches"],
-        every=chip_smoke.MANAGER_EVERY,
-        hyst=chip_smoke.MANAGER_HYSTERESIS_S,
-        max_devices=chip_smoke.MANAGER_START, steps=chip_smoke.MANAGER_STEPS),
+        nm=chip_smoke.TRAIN_DATA["num_microbatches"], every=3, hyst=120.0,
+        max_devices=4, steps=11),
     # the same feed on the reduced model
     "manager_reduced": dict(
-        start=4, feed=[(t, ("H100", n)) for t, n in chip_smoke.MANAGER_FEED],
+        start=4, feed=[(t, ("H100", n)) for t, n in MANAGER_FEED],
         job=dict(seq=16, gbs=8, reduced=True), nm=1, every=3, hyst=120.0,
         max_devices=4, steps=11),
     # tests/test_manager.py::test_controller_end_to_end's feed
@@ -498,10 +504,9 @@ def test_controller_decisions_equal_on_a_stub_trainer(name):
     got = _both(_stub_run, name)
     kinds = [r["kind"] for r in got["reconfigs"]]
     if name == "manager":
-        # what chip_smoke.py's [manager] holds the card's run to
-        assert got["outcomes"] == list(chip_smoke.MANAGER_OUTCOMES)
+        assert got["outcomes"] == list(MANAGER_OUTCOMES)
         assert [(r["kind"], r["n_devices"]) for r in got["reconfigs"]] == \
-            list(chip_smoke.MANAGER_RECONFIGS)
+            list(MANAGER_RECONFIGS)
         assert got["reconfigs"][-1]["resumed_at"] == 6
     if name == "end_to_end":
         blips = [d for d in got["decisions"] if d.get("blip")]
@@ -519,9 +524,9 @@ def test_controller_decisions_equal_on_a_stub_trainer(name):
 def test_controller_drives_the_elastic_trainer_on_cpu(tmp_path):
     """The port's ``Controller`` over its real ``ElasticTrainer`` on four
     CPU positions (reduced smollm-360M, seq 16, global batch 8 in 2
-    microbatches) on ``[manager]``'s feed, its replanner pricing
-    ``[manager]``'s job (smollm-360M at seq 1024): the stub trainer's
-    decisions (the card's), an audit file equal to them, telemetry on the
+    microbatches) on ``MANAGER_FEED``, its replanner pricing the
+    ``"manager"`` feed's job (smollm-360M at seq 1024): the stub trainer's
+    decisions, an audit file equal to them, telemetry on the
     sim clock, a rollback to the step-6 checkpoint and finite losses.
     The counterpart of the reference's ``test_controller_end_to_end`` and
     ``test_controller_audit_log_jsonl``, which fail on this jax (R1)."""
@@ -547,7 +552,7 @@ def test_controller_drives_the_elastic_trainer_on_cpu(tmp_path):
     assert _decisions(ctl) == stub["decisions"]
     assert [{k: r[k] for k in ("step", "resumed_at", "n_devices", "kind")}
             for r in trainer.reconfigs] == stub["reconfigs"]
-    assert ctl.outcomes() == list(chip_smoke.MANAGER_OUTCOMES)
+    assert ctl.outcomes() == list(MANAGER_OUTCOMES)
     assert trainer.reconfigs[-1]["kind"] == "rollback"
     assert trainer.reconfigs[-1]["resumed_at"] == 6
     assert [r["step"] for r in log] == [s for _, s in stub["plans"]]

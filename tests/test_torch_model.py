@@ -379,7 +379,11 @@ _PLANNER = ["repro_torch.core.cluster"] + [
     ("findings", "collectives", "audit", "sharding_lint", "lint", "demo")
 ] + [
     # serving on a mesh
-    "repro_torch.dist.spmd_serve", "repro_torch.dist.spmd_ssm"]
+    "repro_torch.dist.spmd_serve", "repro_torch.dist.spmd_ssm"] + [
+    # the user entry points
+    f"repro_torch.examples.{m}" for m in
+    ("common", "geo_cost_planning", "quickstart", "train_e2e",
+     "elastic_reconfig", "serve_batched")]
 
 
 def test_port_imports_neither_jax_nor_the_reference():
